@@ -1,0 +1,107 @@
+"""Algorithm plugin registry (port of ``pydcop_tpu/algorithms/__init__.py``).
+
+Batched-engine contract of an algorithm module (the torch form of the
+JAX package's):
+
+- ``algo_params: List[AlgoParameterDef]`` — typed, defaulted parameters
+  (same names and defaults as the JAX package).
+- ``init_state(problem, seed, params) -> state`` — a dict of tensors on
+  the problem's device; must contain ``"values"`` (i32[n_vars]).
+- ``step(problem, state, params) -> state`` — ONE synchronous round for
+  every agent at once.
+- ``messages_per_round(problem, params=None) -> int`` — logical directed
+  messages one round represents (the msgs/s accounting).
+
+Ported algorithms: ``maxsum``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+_ALGO_PACKAGE = "pydcop_tpu_torch.algorithms"
+
+#: algorithms this package implements
+AVAILABLE = ("maxsum",)
+
+
+class AlgorithmDefError(ValueError):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class AlgoParameterDef:
+    """Typed algorithm-parameter declaration.
+
+    type: 'str' | 'int' | 'float' | 'bool'
+    values: allowed values (for enumerated str params), or None
+    """
+
+    name: str
+    type: str = "str"
+    values: Optional[Sequence[Any]] = None
+    default: Any = None
+
+    def check_value(self, value: Any) -> Any:
+        try:
+            if self.type == "int":
+                value = int(value)
+            elif self.type == "float":
+                value = float(value)
+            elif self.type == "bool":
+                if isinstance(value, str):
+                    if value.lower() in ("true", "1", "yes"):
+                        value = True
+                    elif value.lower() in ("false", "0", "no"):
+                        value = False
+                    else:
+                        raise ValueError(value)
+                value = bool(value)
+            else:
+                value = str(value)
+        except (TypeError, ValueError):
+            raise AlgorithmDefError(
+                f"Parameter {self.name}: cannot convert {value!r} to "
+                f"{self.type}"
+            )
+        if self.values is not None and value not in self.values:
+            raise AlgorithmDefError(
+                f"Parameter {self.name}: {value!r} not in allowed values "
+                f"{list(self.values)}"
+            )
+        return value
+
+
+def prepare_algo_params(
+    params: Optional[Mapping[str, Any]],
+    param_defs: List[AlgoParameterDef],
+) -> Dict[str, Any]:
+    """Validate user params against the definitions; fill defaults;
+    reject unknown names."""
+    params = dict(params or {})
+    out: Dict[str, Any] = {}
+    by_name = {p.name: p for p in param_defs}
+    unknown = set(params) - set(by_name)
+    if unknown:
+        raise AlgorithmDefError(
+            f"Unknown algorithm parameter(s) {sorted(unknown)}; "
+            f"accepted: {sorted(by_name)}"
+        )
+    for name, pdef in by_name.items():
+        if name in params:
+            out[name] = pdef.check_value(params[name])
+        else:
+            out[name] = pdef.default
+    return out
+
+
+def load_algorithm_module(name: str):
+    """Import a ported algorithm module by name."""
+    if name not in AVAILABLE:
+        raise AlgorithmDefError(
+            f"Could not load algorithm {name!r}: not ported yet; "
+            f"available: {list(AVAILABLE)}"
+        )
+    return importlib.import_module(f"{_ALGO_PACKAGE}.{name}")

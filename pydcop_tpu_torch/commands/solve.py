@@ -1,0 +1,79 @@
+"""``pydcop_tpu_torch solve`` — the batched-mode subset of
+``pydcop_tpu/commands/solve.py``.
+
+One-shot solve of a DCOP yaml on the batched engine; prints the result
+as JSON in the shape ``python -m pydcop_tpu solve`` prints (the
+``telemetry`` block is not ported yet).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List
+
+
+def parse_algo_params(items: List[str]) -> Dict[str, str]:
+    """Parse repeated ``name:value`` CLI parameters."""
+    out: Dict[str, str] = {}
+    for item in items:
+        if ":" not in item:
+            raise SystemExit(
+                f"--algo_params expects name:value, got {item!r}"
+            )
+        name, value = item.split(":", 1)
+        out[name.strip()] = value.strip()
+    return out
+
+
+def set_parser(subparsers) -> None:
+    p = subparsers.add_parser(
+        "solve", help="solve a static DCOP on the batched engine"
+    )
+    p.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
+    p.add_argument("-a", "--algo", required=True, help="algorithm name")
+    p.add_argument(
+        "-p", "--algo_params", action="append", default=[],
+        metavar="NAME:VALUE", help="algorithm parameter (repeatable)",
+    )
+    p.add_argument("--rounds", type=int, default=200, help="round budget")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--convergence_chunks", type=int, default=0,
+        help="stop after N unchanged chunks (0 = run all rounds)",
+    )
+    p.add_argument(
+        "-t", "--timeout", type=float, default=None,
+        help="wall-clock timeout (seconds)",
+    )
+    p.add_argument(
+        "--device", default=None,
+        help="'cpu' to run on the CPU; default: the CUDA device (the "
+        "command fails when there is none)",
+    )
+    p.add_argument(
+        "--output", type=str, default=None,
+        help="write the result JSON to this file as well as stdout",
+    )
+    p.set_defaults(func=run_cmd)
+
+
+def run_cmd(args) -> int:
+    from pydcop_tpu_torch.api import solve
+
+    result = solve(
+        args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0],
+        args.algo,
+        parse_algo_params(args.algo_params),
+        rounds=args.rounds,
+        timeout=args.timeout,
+        seed=args.seed,
+        convergence_chunks=args.convergence_chunks,
+        device=args.device,
+    )
+    result.pop("cost_trace", None)  # keep the printed JSON compact
+    out = json.dumps(result, indent=2, default=str)
+    print(out)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(out)
+    return 0

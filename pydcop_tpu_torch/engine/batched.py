@@ -1,0 +1,205 @@
+"""The synchronous batched engine (port of ``pydcop_tpu/engine/batched.py``).
+
+One ``step`` is one DCOP round for every agent at once.  Rounds run in
+chunks: inside a chunk a Python loop calls the step (the counterpart of
+the JAX package's ``lax.scan``), samples the anytime cost every
+``cost_every`` rounds and keeps the best-so-far cost and assignment on
+the device; the host synchronises once per chunk, when it reads the
+chunk's cost trace.  Between chunks it checks ``timeout`` and
+``convergence_chunks``.
+
+Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
+``n_restarts > 1``, ``mesh``, checkpoint/resume and chunk callbacks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from pydcop_tpu_torch.ops.compile import CompiledProblem, decode_assignment
+from pydcop_tpu_torch.ops.costs import total_cost
+
+
+@dataclasses.dataclass
+class RunResult:
+    """Outcome of a batched run (costs in the problem's native sign)."""
+
+    assignment: Dict[str, Any]  # final assignment
+    cost: float  # final cost
+    best_assignment: Dict[str, Any]  # best-seen (anytime) assignment
+    best_cost: float
+    cycles: int  # rounds executed
+    messages: int  # logical messages (see algo.messages_per_round)
+    time: float  # wall-clock seconds
+    status: str  # 'finished' | 'timeout' | 'converged'
+    cost_trace: np.ndarray  # per-sample cost (native sign)
+    # the final algorithm state as CPU tensors when return_state=True
+    state: Optional[Dict[str, torch.Tensor]] = None
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet — see ROADMAP.md, '{item}'"
+    )
+
+
+def _run_chunk(problem, algo_module, params, state, n_rounds, cost_every,
+               best_cost, best_values):
+    """``n_rounds`` rounds; the anytime cost is evaluated after every
+    ``cost_every``-th round and after the last one.  Returns the new
+    state, best cost/values (device tensors) and the chunk's cost samples
+    as one device tensor."""
+    costs = []
+    for i in range(1, n_rounds + 1):
+        state = algo_module.step(problem, state, params)
+        if i % cost_every == 0 or i == n_rounds:
+            values = state["values"]
+            cost = total_cost(problem, values)
+            better = cost < best_cost
+            best_cost = torch.where(better, cost, best_cost)
+            best_values = torch.where(better, values, best_values)
+            costs.append(cost)
+    return state, best_cost, best_values, torch.stack(costs)
+
+
+def _initial_state(problem, algo_module, params, seed, initial_state):
+    """Validate a caller-supplied state (as the JAX engine does) and put
+    it on the problem's device."""
+    from pydcop_tpu_torch.interop import as_tensor
+
+    if not isinstance(initial_state, dict) or "values" not in initial_state:
+        raise ValueError(
+            "initial_state must be a state dict with a 'values' leaf "
+            "(RunResult.state of a previous run)"
+        )
+    got = tuple(np.shape(initial_state["values"]))
+    if got != (problem.n_vars,):
+        raise ValueError(
+            f"initial_state 'values' has shape {got}, expected "
+            f"{(problem.n_vars,)} — a state from a different problem?"
+        )
+    expect = set(algo_module.init_state(problem, seed, params))
+    if set(initial_state) != expect:
+        raise ValueError(
+            f"initial_state leaves {sorted(initial_state)} do not match "
+            f"{algo_module.__name__}'s state {sorted(expect)}"
+        )
+    return {
+        k: as_tensor(v, problem.device) for k, v in initial_state.items()
+    }
+
+
+def run_batched(
+    problem: CompiledProblem,
+    algo_module,
+    params: Dict[str, Any],
+    rounds: int = 100,
+    seed: int = 0,
+    timeout: Optional[float] = None,
+    chunk_size: int = 64,
+    convergence_chunks: int = 0,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    resume: bool = False,
+    chunk_callback: Optional[Callable[[int, float], Optional[str]]] = None,
+    cost_every: int = 1,
+    n_restarts: int = 1,
+    initial_state: Optional[Dict[str, Any]] = None,
+    return_state: bool = False,
+) -> RunResult:
+    """Run a batched algorithm for up to ``rounds`` rounds on the
+    problem's device.
+
+    The run proceeds in chunks of ``chunk_size`` rounds; between chunks
+    the host checks ``timeout`` and (optionally) convergence: if
+    ``convergence_chunks > 0`` and neither the best cost improved nor any
+    value changed for that many consecutive chunks, the run stops with
+    status ``converged``.  ``cost_every`` samples the anytime cost every
+    that many rounds (and at each chunk's last round); the cost trace has
+    one entry per sample.  ``initial_state`` seeds the run with a state
+    dict (tensors or numpy arrays) instead of ``init_state``;
+    ``return_state=True`` puts the final state (CPU tensors) on
+    ``RunResult.state``.
+    """
+    if n_restarts != 1:
+        raise _not_ported("n_restarts > 1", "n_restarts")
+    if mesh is not None:
+        raise _not_ported("mesh (sharded runs)", "n_shards > 1")
+    if checkpoint_path is not None or resume:
+        raise _not_ported("checkpoint/resume", "checkpoint/resume")
+    if chunk_callback is not None:
+        raise _not_ported("chunk callbacks", "the supervisor seam")
+    if cost_every < 1 or chunk_size < 1:
+        raise ValueError("cost_every and chunk_size must be >= 1")
+
+    t0 = time.perf_counter()
+    sign = -1.0 if problem.maximize else 1.0
+    if initial_state is not None:
+        state = _initial_state(
+            problem, algo_module, params, seed, initial_state
+        )
+    else:
+        state = algo_module.init_state(problem, seed, params)
+    best_values = state["values"]
+    best_cost = total_cost(problem, best_values)
+
+    traces = []
+    done = 0
+    status = "finished"
+    stall = 0
+    if convergence_chunks:
+        prev_best = float(best_cost)
+        prev_values = best_values.cpu()
+    while done < rounds:
+        this_chunk = min(chunk_size, rounds - done)
+        state, best_cost, best_values, costs = _run_chunk(
+            problem, algo_module, params, state, this_chunk, cost_every,
+            best_cost, best_values,
+        )
+        # the one host sync of the chunk
+        traces.append(costs.float().cpu().numpy())
+        done += this_chunk
+        if timeout is not None and time.perf_counter() - t0 > timeout:
+            status = "timeout"
+            break
+        if convergence_chunks:
+            cur_values = state["values"].cpu()
+            best_now = float(best_cost)
+            if best_now >= prev_best - 1e-9 and torch.equal(
+                cur_values, prev_values
+            ):
+                stall += 1
+                if stall >= convergence_chunks:
+                    status = "converged"
+                    break
+            else:
+                stall = 0
+            prev_best = best_now
+            prev_values = cur_values
+
+    final_values = state["values"]
+    final_cost = float(total_cost(problem, final_values))
+    best_cost_f = float(best_cost)
+    elapsed = time.perf_counter() - t0
+    msgs = algo_module.messages_per_round(problem, params) * done
+    trace = np.concatenate(traces) if traces else np.zeros(0)
+    out_state = (
+        {k: v.cpu() for k, v in state.items()} if return_state else None
+    )
+    return RunResult(
+        assignment=decode_assignment(problem, final_values),
+        cost=sign * final_cost,
+        best_assignment=decode_assignment(problem, best_values),
+        best_cost=sign * best_cost_f,
+        cycles=done,
+        messages=msgs,
+        time=elapsed,
+        status=status,
+        cost_trace=sign * trace,
+        state=out_state,
+    )

@@ -1,0 +1,850 @@
+"""The problem compiler: DCOP model → device tensors.
+
+Port of ``pydcop_tpu/ops/compile.py``.  The whole problem is tabulated
+once, at setup time, into index arrays and dense cost tables; every
+algorithm round then runs as tensor operations (and, on the card, the
+hand-written kernels) over them.  The arrays are built in numpy exactly
+as the JAX compiler builds them and handed to torch at the end, so each
+tensor leaf equals the JAX package's leaf (``tests/test_torch_compile.py``
+pins that).
+
+Representation (see the JAX module for the full story):
+
+- All domains are padded to ``d_max``; invalid values carry ``BIG``
+  unary cost so no argmin ever selects them.
+- **Flat form** (cost evaluation): all tables in one ``tables_flat``,
+  each constraint at ``offset + Σ_j value_j · stride_j``.
+- **Directed edges**, one per (constraint, scope position), laid out
+  POSITION-MAJOR per arity bucket: each bucket position's messages are
+  one contiguous ``[d, m]`` slice of the ``[d, E]`` message arrays.
+- **Arity buckets** ``tables_t [d, ..., d, m]`` drive the Max-Sum factor
+  phase; a bucket whose constraints all share one table keeps it once
+  (``[d, ..., d, 1]``).
+
+Supported here: ``n_shards=1`` and ``pad_policy="none"``.  Sharded
+layouts and shape bucketing are later port items (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pydcop_tpu_torch.dcop.dcop import DCOP
+from pydcop_tpu_torch.dcop.objects import Variable
+from pydcop_tpu_torch.dcop.relations import RelationProtocol
+from pydcop_tpu_torch.device import DeviceLike, resolve_device
+from pydcop_tpu_torch.ops.padding import (
+    BIG,  # noqa: F401 (re-exported, as in the JAX package)
+    as_table_dtype,
+)
+
+# Guard: dense tabulation over padded domains is d_max**arity cells.
+MAX_ARITY = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class ArityBucket:
+    """Dense tables for all constraints of one arity.
+
+    tables: [m, d_max, ..., d_max] (m = 1 for a shared table)
+    tables_t: the same tables as [d_max, ..., d_max, m] — the Max-Sum
+        layout (the constraint index is the fastest-moving axis)
+    scopes: i32[m, k] — variable index per scope position
+    edge_slot: i32[m, k] — global edge index of (constraint, position)
+    """
+
+    tables: torch.Tensor
+    tables_t: torch.Tensor
+    scopes: torch.Tensor
+    edge_slot: torch.Tensor
+
+    @property
+    def n_cons(self) -> int:
+        """Constraints in the bucket (tables may hold 1 shared entry
+        instead of n_cons — consumers must size loops off THIS)."""
+        return self.scopes.shape[0]
+
+    @property
+    def shared_table(self) -> bool:
+        return self.tables.shape[0] == 1 and self.scopes.shape[0] > 1
+
+    def to(self, device: DeviceLike) -> "ArityBucket":
+        dev = torch.device(device)
+        return ArityBucket(
+            *(getattr(self, f.name).to(dev) for f in dataclasses.fields(self))
+        )
+
+
+#: the tensor fields of :class:`CompiledProblem`, in declaration order
+ARRAY_FIELDS = (
+    "domain_sizes", "unary", "init_idx",
+    "tables_flat", "con_offset", "con_scopes", "con_strides",
+    "edge_var", "edge_con", "edge_offset", "edge_stride",
+    "edge_covars", "edge_costrides",
+    "neighbors", "neighbor_mask", "var_edges",
+)
+
+#: the host-side metadata fields of :class:`CompiledProblem`
+META_FIELDS = (
+    "var_names", "domain_labels", "con_names", "maximize", "n_shards",
+    "n_real_edges", "var_slot_counts", "n_pad_vars",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledProblem:
+    """A DCOP compiled to tensors on one device (see module docstring)."""
+
+    # -- per variable ---------------------------------------------------
+    domain_sizes: torch.Tensor  # i32[n_vars]
+    unary: torch.Tensor  # f32[n_vars, d_max]; BIG on padded values
+    init_idx: torch.Tensor  # i32[n_vars]
+    # -- flat constraint form ------------------------------------------
+    tables_flat: torch.Tensor  # f32[total_cells]
+    con_offset: torch.Tensor  # i32[n_con]
+    con_scopes: torch.Tensor  # i32[n_con, k_max] (0-padded)
+    con_strides: torch.Tensor  # i32[n_con, k_max] (0-padded)
+    # -- directed edges (constraint, position) -------------------------
+    edge_var: torch.Tensor  # i32[n_edges]
+    edge_con: torch.Tensor  # i32[n_edges]
+    edge_offset: torch.Tensor  # i32[n_edges]
+    edge_stride: torch.Tensor  # i32[n_edges]
+    edge_covars: torch.Tensor  # i32[n_edges, k_max-1] (0-padded)
+    edge_costrides: torch.Tensor  # i32[n_edges, k_max-1] (0-padded)
+    # -- primal-graph neighbor structure -------------------------------
+    neighbors: torch.Tensor  # i32[n_vars, max_deg] (0-padded)
+    neighbor_mask: torch.Tensor  # bool[n_vars, max_deg]
+    # -- per-variable incoming-edge lists, padded with sentinel n_edges
+    var_edges: torch.Tensor  # i32[n_vars, max_var_deg]
+    # -- arity buckets for message-passing ------------------------------
+    buckets: Dict[int, ArityBucket]
+    # -- host-side metadata ---------------------------------------------
+    var_names: Tuple[str, ...]
+    domain_labels: Tuple[Tuple[Any, ...], ...]
+    con_names: Tuple[str, ...]
+    maximize: bool
+    n_shards: int
+    # directed edges of real constraints — the auditable message count
+    n_real_edges: int
+    # per var_edges slot p: how many variables have a REAL edge there.
+    # Variables are compiled in degree-descending order, so column p's
+    # real entries are the prefix [0, var_slot_counts[p]).
+    var_slot_counts: Tuple[int, ...] = ()
+    n_pad_vars: int = 0
+
+    @property
+    def n_vars(self) -> int:
+        return self.unary.shape[0]
+
+    @property
+    def n_real_vars(self) -> int:
+        return self.n_vars - self.n_pad_vars
+
+    @property
+    def d_max(self) -> int:
+        return self.unary.shape[1]
+
+    @property
+    def n_cons(self) -> int:
+        return self.con_offset.shape[0]
+
+    @property
+    def n_edges(self) -> int:
+        return self.edge_var.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.unary.device
+
+    @functools.cached_property
+    def unary_t(self) -> torch.Tensor:
+        """``unary`` transposed to ``[d_max, n_vars]`` and contiguous
+        (the Max-Sum message layout)."""
+        return self.unary.t().contiguous()
+
+    @functools.cached_property
+    def var_edges_t(self) -> torch.Tensor:
+        """``var_edges`` transposed to ``[max_var_deg, n_vars]`` and
+        contiguous: each degree slot's edge ids as one row, which the
+        belief gather indexes every round."""
+        return self.var_edges.t().contiguous()
+
+    def to(self, device: DeviceLike) -> "CompiledProblem":
+        dev = torch.device(device)
+        moved = {f: getattr(self, f).to(dev) for f in ARRAY_FIELDS}
+        moved["buckets"] = {
+            k: b.to(dev) for k, b in self.buckets.items()
+        }
+        return dataclasses.replace(self, **moved)
+
+
+def _resolve_table_dtype(table_dtype, dtype) -> torch.dtype:
+    """Map the ``table_dtype`` vocabulary onto a torch dtype; ``None``
+    keeps ``dtype``.  int8 packs belong to the contraction stack, which
+    is not ported yet."""
+    if table_dtype is None:
+        return dtype
+    dt = as_table_dtype(table_dtype)
+    if dt == "int8":
+        raise ValueError(
+            "table_dtype='int8' is only supported by the contraction "
+            "stack; the message-passing engines take 'f32' or 'bf16'"
+        )
+    return torch.bfloat16 if dt == "bf16" else torch.float32
+
+
+def _check_supported(n_shards: int, pad_policy, table_format) -> None:
+    if n_shards != 1:
+        raise NotImplementedError(
+            "n_shards > 1 (the sharded layout) is not ported yet — "
+            "see ROADMAP.md, 'n_shards > 1'"
+        )
+    if pad_policy not in (None, "", "none"):
+        raise NotImplementedError(
+            f"pad_policy={pad_policy!r} is not ported yet — see "
+            "ROADMAP.md, 'pad_policy'"
+        )
+    if table_format not in (None, "dense"):
+        raise ValueError(
+            f"table_format={table_format!r}: the message-passing "
+            "engines run on dense tables only"
+        )
+
+
+def compile_dcop(
+    dcop: DCOP,
+    dtype: torch.dtype = torch.float32,
+    n_shards: int = 1,
+    pad_policy="none",
+    table_dtype=None,
+    table_format=None,
+    device: DeviceLike = None,
+) -> CompiledProblem:
+    """Tabulate and pack a DCOP into a :class:`CompiledProblem` on
+    ``device`` (default: the CUDA device; see ``device.py``).
+
+    ``max`` objectives are compiled by negating all costs (solvers
+    always minimize).  Variables are compiled in degree-descending
+    order; assignments in and out are keyed by name.
+    """
+    _check_supported(n_shards, pad_policy, table_format)
+    dev = resolve_device(device)
+    dtype = _resolve_table_dtype(table_dtype, dtype)
+
+    variables: List[Variable] = list(dcop.variables.values())
+    if not variables:
+        raise ValueError("Cannot compile a DCOP with no variables")
+    _ext = set(dcop.external_variables)
+    _deg: Dict[str, int] = {v.name: 0 for v in variables}
+    for c in dcop.constraints.values():
+        scope_live = [n for n in c.scope_names if n not in _ext]
+        if len(scope_live) >= 2:
+            for n in scope_live:
+                if n in _deg:
+                    _deg[n] += 1
+    variables.sort(key=lambda v: -_deg.get(v.name, 0))
+    var_names = tuple(v.name for v in variables)
+    var_idx = {n: i for i, n in enumerate(var_names)}
+    n_vars = len(variables)
+    d_max = max(len(v.domain) for v in variables)
+    sign = -1.0 if dcop.objective == "max" else 1.0
+
+    ext_values: Dict[str, Any] = {
+        name: ev.value for name, ev in dcop.external_variables.items()
+    }
+
+    domain_sizes = np.array(
+        [len(v.domain) for v in variables], dtype=np.int32
+    )
+    domain_labels = tuple(tuple(v.domain.values) for v in variables)
+
+    unary = np.zeros((n_vars, d_max), dtype=np.float32)
+    for i, v in enumerate(variables):
+        dlen = len(v.domain)
+        if v.has_cost:
+            for k in range(dlen):
+                unary[i, k] = sign * v.cost_for_val(v.domain[k])
+        unary[i, dlen:] = BIG
+
+    init_idx = np.zeros(n_vars, dtype=np.int32)
+    for i, v in enumerate(variables):
+        if v.initial_value is not None:
+            init_idx[i] = v.domain.index(v.initial_value)
+
+    # External variables are fixed at their current value (sliced out);
+    # unary results fold into `unary`.
+    multi_cons: List[Tuple[str, List[int], np.ndarray]] = []
+    for c in dcop.constraints.values():
+        scope_ext = [n for n in c.scope_names if n in ext_values]
+        if scope_ext:
+            c = c.slice({n: ext_values[n] for n in scope_ext})
+        scope = [n for n in c.scope_names]
+        if len(scope) == 0:
+            continue  # fully external constraint: constant, ignore
+        if len(scope) > MAX_ARITY:
+            raise ValueError(
+                f"Constraint {c.name} has arity {len(scope)} > "
+                f"MAX_ARITY={MAX_ARITY}; dense tabulation would need "
+                f"{d_max}^{len(scope)} cells"
+            )
+        table = _tabulate_padded(c, d_max) * sign
+        if len(scope) == 1:
+            i = var_idx[scope[0]]
+            dlen = int(domain_sizes[i])
+            unary[i, :dlen] += table[:dlen]
+        else:
+            multi_cons.append(
+                (c.name, [var_idx[n] for n in scope], table)
+            )
+
+    n_real_edges = sum(len(scope) for _, scope, _ in multi_cons)
+
+    # arity-major (stable) order: every arity bucket's constraints — and
+    # so its edges — occupy one contiguous range of the edge array
+    multi_cons = sorted(multi_cons, key=lambda it: len(it[1]))
+    con_names = tuple(name for name, _, _ in multi_cons)
+
+    runs: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    i = 0
+    while i < len(multi_cons):
+        k = len(multi_cons[i][1])
+        j = i
+        while j < len(multi_cons) and len(multi_cons[j][1]) == k:
+            j += 1
+        sc = np.asarray(
+            [multi_cons[ci][1] for ci in range(i, j)], dtype=np.int32
+        ).reshape(j - i, k)
+        tb = np.stack([multi_cons[ci][2] for ci in range(i, j)])
+        runs.append((k, sc, tb))
+        i = j
+
+    packed = _pack_runs(runs, n_vars, d_max, dtype, dev)
+
+    return CompiledProblem(
+        domain_sizes=torch.as_tensor(domain_sizes, device=dev),
+        unary=_float_tensor(unary, dtype, dev),
+        init_idx=torch.as_tensor(init_idx, device=dev),
+        var_names=var_names,
+        domain_labels=domain_labels,
+        con_names=con_names,
+        maximize=dcop.objective == "max",
+        n_shards=1,
+        n_real_edges=n_real_edges,
+        n_pad_vars=0,
+        **packed,
+    )
+
+
+def _float_tensor(
+    a: np.ndarray, dtype: torch.dtype, device: torch.device
+) -> torch.Tensor:
+    """f32 numpy → ``dtype`` on ``device`` (bf16 rounds to nearest
+    even, as ``jnp.asarray(..., dtype=bfloat16)`` does)."""
+    return torch.as_tensor(
+        np.ascontiguousarray(a, dtype=np.float32)
+    ).to(device=device, dtype=dtype)
+
+
+def _pack_runs(
+    runs: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+    n_vars: int,
+    d_max: int,
+    dtype: torch.dtype,
+    device: torch.device,
+) -> Dict[str, Any]:
+    """Vectorized packing of constraint runs into the flat + edge +
+    bucket tensors of :class:`CompiledProblem`.
+
+    ``runs`` is the constraint list in its final (arity-sorted) order,
+    as contiguous same-arity runs ``(k, scopes i32[m, k], tables
+    f32[m, d_max^k])``.  A run whose tables have leading dim 1 while
+    its scopes have m > 1 is a **shared-table run**: all m constraints
+    use the one table, stored once in the flat form (every offset
+    points at it) and kept as ``[1, ...]`` in the bucket.
+    """
+    k_max = max((k for k, _, _ in runs), default=2)
+    k_max = max(k_max, 2)
+    n_cons = sum(sc.shape[0] for _, sc, _ in runs)
+
+    def _is_shared(sc: np.ndarray, tb: np.ndarray) -> bool:
+        return tb.shape[0] == 1 and sc.shape[0] > 1
+
+    total_cells = sum(
+        (1 if _is_shared(sc, tb) else sc.shape[0]) * d_max**k
+        for k, sc, tb in runs
+    )
+    if total_cells > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"problem too large for int32 table offsets: the flat "
+            f"table needs {total_cells} cells "
+            f"(> {np.iinfo(np.int32).max}); reduce domain size, "
+            "arity, or constraint count — or split the problem"
+        )
+
+    # flat form (constraint-major): offsets/scopes/strides per run
+    offsets = np.zeros(n_cons, dtype=np.int32)
+    con_scopes = np.zeros((n_cons, k_max), dtype=np.int32)
+    con_strides = np.zeros((n_cons, k_max), dtype=np.int32)
+    total = 0
+    ci = 0
+    run_con_base = []
+    for k, sc, tb in runs:
+        m = sc.shape[0]
+        size = d_max**k
+        run_con_base.append(ci)
+        if _is_shared(sc, tb):
+            offsets[ci : ci + m] = total  # every constraint → one copy
+            total += size
+        else:
+            offsets[ci : ci + m] = (
+                total + np.arange(m, dtype=np.int64) * size
+            )
+            total += m * size
+        strides = np.array(
+            [d_max ** (k - 1 - q) for q in range(k)], dtype=np.int32
+        )
+        con_scopes[ci : ci + m, :k] = sc
+        con_strides[ci : ci + m, :k] = strides
+        ci += m
+    tables_flat = (
+        np.concatenate([tb.reshape(-1) for _, _, tb in runs])
+        if runs
+        else np.zeros(1, dtype=np.float32)
+    )
+
+    # Edge ids are POSITION-MAJOR within each arity run: all position-0
+    # edges of the run's constraints, then all position-1, …
+    n_edges = sum(sc.shape[0] * k for k, sc, _ in runs)
+    edge_var = np.zeros(max(n_edges, 1), dtype=np.int32)
+    edge_con = np.zeros(max(n_edges, 1), dtype=np.int32)
+    edge_offset = np.zeros(max(n_edges, 1), dtype=np.int32)
+    edge_stride = np.zeros(max(n_edges, 1), dtype=np.int32)
+    edge_covars = np.zeros((max(n_edges, 1), k_max - 1), dtype=np.int32)
+    edge_costrides = np.zeros((max(n_edges, 1), k_max - 1), dtype=np.int32)
+    run_edge_base = []
+    edge_base = 0
+    for ri, (k, sc, _) in enumerate(runs):
+        m = sc.shape[0]
+        i = run_con_base[ri]
+        strides = np.array(
+            [d_max ** (k - 1 - q) for q in range(k)], dtype=np.int32
+        )
+        run_edge_base.append(edge_base)
+        for p in range(k):
+            sl = slice(edge_base + p * m, edge_base + (p + 1) * m)
+            edge_var[sl] = sc[:, p]
+            edge_con[sl] = np.arange(i, i + m, dtype=np.int32)
+            edge_offset[sl] = offsets[i : i + m]
+            edge_stride[sl] = strides[p]
+            other = [q for q in range(k) if q != p]
+            edge_covars[sl, : k - 1] = sc[:, other]
+            edge_costrides[sl, : k - 1] = strides[other]
+        edge_base += m * k
+
+    # per-variable incoming edge lists (sentinel-padded with n_edges):
+    # stable sort by owner variable
+    if n_edges:
+        ev = edge_var[:n_edges]
+        counts = np.bincount(ev, minlength=n_vars)
+        max_var_deg = max(int(counts.max(initial=0)), 1)
+        var_edges = np.full((n_vars, max_var_deg), n_edges, dtype=np.int32)
+        order = np.argsort(ev, kind="stable")
+        ev_sorted = ev[order]
+        starts = np.zeros(n_vars, dtype=np.int64)
+        starts[1:] = np.cumsum(counts)[:-1]
+        rank = np.arange(n_edges, dtype=np.int64) - starts[ev_sorted]
+        var_edges[ev_sorted, rank] = order.astype(np.int32)
+    else:
+        var_edges = np.full((n_vars, 1), n_edges, dtype=np.int32)
+    # prefix invariant: the degree sort must reproduce the ACTUAL
+    # per-variable edge counts (non-increasing over rows), or the
+    # prefix gather would drop real edges
+    _row_deg = (var_edges != n_edges).sum(axis=1)
+    if not np.all(_row_deg[:-1] >= _row_deg[1:]):
+        raise AssertionError(
+            "variable degree sort does not match the edge counts"
+        )
+    var_slot_counts = tuple(
+        int(x) for x in (var_edges != n_edges).sum(axis=0)
+    )
+
+    # primal neighbors (padded): directed in-scope pairs, value-deduped
+    pair_parts = []
+    for k, sc, _ in runs:
+        for a in range(k):
+            for b in range(k):
+                if a != b:
+                    pair_parts.append(
+                        np.stack([sc[:, a], sc[:, b]], axis=1)
+                    )
+    if pair_parts:
+        pairs = np.concatenate(pair_parts)
+        pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+        pairs = np.unique(pairs, axis=0)  # sorted (var, neighbor)
+    else:
+        pairs = np.zeros((0, 2), dtype=np.int32)
+    ncounts = np.bincount(pairs[:, 0], minlength=n_vars)
+    max_deg = max(int(ncounts.max(initial=0)), 1)
+    neighbors = np.zeros((n_vars, max_deg), dtype=np.int32)
+    neighbor_mask = np.zeros((n_vars, max_deg), dtype=bool)
+    if len(pairs):
+        nstarts = np.zeros(n_vars, dtype=np.int64)
+        nstarts[1:] = np.cumsum(ncounts)[:-1]
+        nrank = np.arange(len(pairs), dtype=np.int64) - nstarts[pairs[:, 0]]
+        neighbors[pairs[:, 0], nrank] = pairs[:, 1]
+        neighbor_mask[pairs[:, 0], nrank] = True
+
+    # arity buckets: one run per arity (single segment); edge slots are
+    # pure arithmetic on the run layout
+    buckets: Dict[int, ArityBucket] = {}
+    for ri, (k, sc, tb) in enumerate(runs):
+        m = sc.shape[0]
+        btables = np.asarray(tb, dtype=np.float32)
+        bslots = (
+            run_edge_base[ri]
+            + np.arange(m, dtype=np.int32)[:, None]
+            + np.arange(k, dtype=np.int32)[None, :] * m
+        )
+        buckets[k] = ArityBucket(
+            tables=_float_tensor(btables, dtype, device),
+            tables_t=_float_tensor(
+                np.moveaxis(btables, 0, -1), dtype, device
+            ),
+            scopes=torch.as_tensor(sc, device=device),
+            edge_slot=torch.as_tensor(
+                bslots.astype(np.int32), device=device
+            ),
+        )
+
+    def _i(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=device)
+
+    return dict(
+        tables_flat=_float_tensor(tables_flat, dtype, device),
+        con_offset=_i(offsets),
+        con_scopes=_i(con_scopes),
+        con_strides=_i(con_strides),
+        edge_var=_i(edge_var),
+        edge_con=_i(edge_con),
+        edge_offset=_i(edge_offset),
+        edge_stride=_i(edge_stride),
+        edge_covars=_i(edge_covars),
+        edge_costrides=_i(edge_costrides),
+        neighbors=_i(neighbors),
+        neighbor_mask=_i(neighbor_mask),
+        var_edges=_i(var_edges),
+        buckets=buckets,
+        var_slot_counts=var_slot_counts,
+    )
+
+
+class AutoNames:
+    """Compact, lazily-materialized name sequence for array-built
+    problems: slot ``i`` is named ``f"{prefix}{ids[i]}"`` (``ids`` is
+    the degree-sort permutation — original id order is what callers
+    index by).  O(1) memory instead of a million-string tuple."""
+
+    __slots__ = ("prefix", "ids", "_inv", "_hash")
+
+    def __init__(self, prefix: str, ids: np.ndarray):
+        self.prefix = prefix
+        self.ids = np.asarray(ids)
+        inv = np.empty(len(self.ids), dtype=np.int64)
+        inv[self.ids] = np.arange(len(self.ids))
+        self._inv = inv
+        self._hash = hash((prefix, len(self.ids), self.ids.tobytes()))
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return tuple(
+                f"{self.prefix}{int(j)}" for j in self.ids[i]
+            )
+        return f"{self.prefix}{int(self.ids[i])}"
+
+    def __iter__(self):
+        return (f"{self.prefix}{int(j)}" for j in self.ids)
+
+    def __contains__(self, name) -> bool:
+        try:
+            self.index(name)
+            return True
+        except ValueError:
+            return False
+
+    def index(self, name: str) -> int:
+        if not isinstance(name, str) or not name.startswith(self.prefix):
+            raise ValueError(f"{name!r} is not in names")
+        suffix = name[len(self.prefix):]
+        # strict digits only: int() alone would accept 'v 1', 'v+1',
+        # 'v1_0' and silently resolve a typo to the WRONG variable
+        if not suffix.isdigit() or str(int(suffix)) != suffix:
+            raise ValueError(f"{name!r} is not in names")
+        j = int(suffix)
+        if not 0 <= j < len(self.ids):
+            raise ValueError(f"{name!r} is not in names")
+        return int(self._inv[j])
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, AutoNames):
+            return (
+                self.prefix == other.prefix
+                and np.array_equal(self.ids, other.ids)
+            )
+        if isinstance(other, tuple):
+            return len(other) == len(self) and tuple(self) == other
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __repr__(self) -> str:
+        import hashlib
+
+        digest = hashlib.sha256(self.ids.tobytes()).hexdigest()[:12]
+        return (
+            f"AutoNames({self.prefix!r}, n={len(self.ids)}, ids={digest})"
+        )
+
+
+class UniformLabels:
+    """All ``n`` variables share one label tuple — O(1) stand-in for
+    ``domain_labels`` on uniform-domain array-built problems."""
+
+    __slots__ = ("labels", "n")
+
+    def __init__(self, labels: Tuple[Any, ...], n: int):
+        self.labels = tuple(labels)
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return tuple([self.labels] * len(range(*i.indices(self.n))))
+        if not -self.n <= i < self.n:
+            raise IndexError(i)
+        return self.labels
+
+    def __iter__(self):
+        return iter([self.labels] * self.n)
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, UniformLabels):
+            return self.labels == other.labels and self.n == other.n
+        if isinstance(other, tuple):
+            return len(other) == self.n and all(
+                t == self.labels for t in other
+            )
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash((self.labels, self.n))
+
+    def __repr__(self) -> str:
+        return f"UniformLabels({self.labels!r} x {self.n})"
+
+
+def compile_from_arrays(
+    scopes,
+    tables,
+    n_values: int,
+    *,
+    n_vars: Optional[int] = None,
+    unary: Optional[np.ndarray] = None,
+    init_idx: Optional[np.ndarray] = None,
+    domain_values: Optional[Sequence[Any]] = None,
+    maximize: bool = False,
+    n_shards: int = 1,
+    var_prefix: str = "v",
+    con_prefix: str = "c",
+    dtype: torch.dtype = torch.float32,
+    pad_policy="none",
+    table_dtype=None,
+    table_format=None,
+    device: DeviceLike = None,
+) -> CompiledProblem:
+    """Array-level problem construction — the fast path for big
+    generated instances (same contract as the JAX package's
+    ``compile_from_arrays``).
+
+    ``scopes`` is ``i32[m, k]`` (or a list of such arrays for mixed
+    arities); ``tables`` matches it with ``f32[(d,)*k]`` (one table
+    SHARED by all m constraints) or ``f32[m, (d,)*k]``.  ``unary`` and
+    ``init_idx`` are in ORIGINAL variable-id order; variable ``i`` is
+    named ``f"{var_prefix}{i}"``.
+    """
+    _check_supported(n_shards, pad_policy, table_format)
+    dev = resolve_device(device)
+    dtype = _resolve_table_dtype(table_dtype, dtype)
+    if not isinstance(scopes, (list, tuple)):
+        scopes = [scopes]
+        tables = [tables]
+    if len(scopes) != len(tables):
+        raise ValueError("scopes and tables lists must match")
+    scopes = [np.ascontiguousarray(s, dtype=np.int32) for s in scopes]
+    if any(s.ndim != 2 for s in scopes):
+        raise ValueError("each scopes entry must be [m, k]")
+    for s in scopes:
+        if s.shape[1] > MAX_ARITY:
+            raise ValueError(
+                f"arity {s.shape[1]} > MAX_ARITY={MAX_ARITY}"
+            )
+    d = int(n_values)
+    max_id = max((int(s.max()) for s in scopes if s.size), default=-1)
+    min_id = min((int(s.min()) for s in scopes if s.size), default=0)
+    if min_id < 0:
+        raise ValueError(
+            f"scope references negative variable id {min_id}"
+        )
+    if n_vars is None:
+        n_vars = max_id + 1
+    elif max_id >= n_vars:
+        raise ValueError(
+            f"scope references variable {max_id} >= n_vars={n_vars}"
+        )
+    if domain_values is not None and len(domain_values) != d:
+        raise ValueError(
+            f"domain_values has {len(domain_values)} labels, "
+            f"n_values={d}"
+        )
+    sign = -1.0 if maximize else 1.0
+
+    # shared ``f32[(d,)*k]`` stays ONE copy (leading dim 1);
+    # per-constraint tables keep ``f32[m, (d,)*k]``
+    norm_tables: List[np.ndarray] = []
+    for s, t in zip(scopes, tables):
+        m, k = s.shape
+        t = np.asarray(t, dtype=np.float32) * sign
+        if t.shape == (d,) * k:
+            t = t[None]
+        elif t.shape != (m,) + (d,) * k:
+            raise ValueError(
+                f"table shape {t.shape} matches neither {(d,) * k} "
+                f"nor {(m,) + (d,) * k}"
+            )
+        norm_tables.append(t)
+
+    # degree-descending relabel: slot order is internal; names carry
+    # original ids
+    deg = np.zeros(n_vars, dtype=np.int64)
+    for s in scopes:
+        if s.shape[1] >= 2 and s.size:
+            np.add.at(deg, s.reshape(-1), 1)
+    perm = np.argsort(-deg, kind="stable")  # slot -> original id
+    inv = np.empty(n_vars, dtype=np.int64)
+    inv[perm] = np.arange(n_vars)
+    scopes = [inv[s].astype(np.int32) for s in scopes]
+
+    n_real_edges = sum(s.shape[0] * s.shape[1] for s in scopes)
+
+    # one run per arity: same-arity entries MUST merge — the factor
+    # phase reads each bucket position's q as one contiguous slice
+    by_k: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = {}
+    for s, t in zip(scopes, norm_tables):
+        by_k.setdefault(s.shape[1], ([], []))
+        by_k[s.shape[1]][0].append(s)
+        by_k[s.shape[1]][1].append(t)
+
+    def _merge_arity(ss, ts):
+        """One (scopes, tables) per arity.  Sharedness survives only
+        when the whole group is one shared entry; mixed groups
+        materialize per-constraint tables."""
+        sc = np.concatenate(ss) if len(ss) > 1 else ss[0]
+        if len(ts) == 1 and ts[0].shape[0] == 1 and sc.shape[0] > 1:
+            return sc, ts[0]
+        mats = [
+            np.broadcast_to(t, (s.shape[0],) + t.shape[1:])
+            if t.shape[0] != s.shape[0]
+            else t
+            for s, t in zip(ss, ts)
+        ]
+        return sc, np.concatenate(mats)
+
+    runs = [
+        (k, *_merge_arity(ss, ts)) for k, (ss, ts) in sorted(by_k.items())
+    ]
+    packed = _pack_runs(runs, n_vars, d, dtype, dev)
+
+    if unary is None:
+        unary_np = np.zeros((n_vars, d), dtype=np.float32)
+    else:
+        unary_np = np.asarray(unary, dtype=np.float32) * sign
+        if unary_np.shape != (n_vars, d):
+            raise ValueError(
+                f"unary shape {unary_np.shape} != {(n_vars, d)}"
+            )
+    unary_np = unary_np[perm]
+    if init_idx is None:
+        init_np = np.zeros(n_vars, dtype=np.int32)
+    else:
+        init_np = np.asarray(init_idx, dtype=np.int32)[perm]
+
+    labels = tuple(
+        domain_values if domain_values is not None else range(d)
+    )
+    con_ids = np.arange(sum(s.shape[0] for _, s, _ in runs), dtype=np.int64)
+    return CompiledProblem(
+        domain_sizes=torch.full((n_vars,), d, dtype=torch.int32, device=dev),
+        unary=_float_tensor(unary_np, dtype, dev),
+        init_idx=torch.as_tensor(init_np, device=dev),
+        var_names=AutoNames(var_prefix, perm),
+        domain_labels=UniformLabels(labels, n_vars),
+        con_names=AutoNames(con_prefix, con_ids),
+        maximize=maximize,
+        n_shards=1,
+        n_real_edges=n_real_edges,
+        n_pad_vars=0,
+        **packed,
+    )
+
+
+def _tabulate_padded(c: RelationProtocol, d_max: int) -> np.ndarray:
+    """Dense table of a constraint over the padded domain grid (cells
+    involving padded values are 0 — unreachable behind BIG unary)."""
+    m = c.as_matrix()
+    k = m.arity
+    padded = np.zeros((d_max,) * k, dtype=np.float32)
+    padded[tuple(slice(0, s) for s in m.shape)] = m.matrix
+    return padded
+
+
+def encode_assignment(
+    problem: CompiledProblem, assignment: Mapping[str, Any]
+) -> torch.Tensor:
+    """Assignment dict → i32[n_vars] of domain indices on the
+    problem's device."""
+    idx = np.zeros(problem.n_vars, dtype=np.int32)
+    for i, name in enumerate(problem.var_names[: problem.n_real_vars]):
+        labels = problem.domain_labels[i]
+        val = assignment[name]
+        try:
+            idx[i] = labels.index(val)
+        except ValueError:
+            # tolerate str-typed values (e.g. parsed CLI input)
+            idx[i] = [str(l) for l in labels].index(str(val))
+    return torch.as_tensor(idx, device=problem.device)
+
+
+def decode_assignment(
+    problem: CompiledProblem, values
+) -> Dict[str, Any]:
+    """i32[n_vars] of domain indices (tensor or array) → assignment
+    dict."""
+    if isinstance(values, torch.Tensor):
+        values = values.cpu().numpy()
+    vals = np.asarray(values)
+    return {
+        name: problem.domain_labels[i][int(vals[i])]
+        for i, name in enumerate(
+            problem.var_names[: problem.n_real_vars]
+        )
+    }

@@ -1,0 +1,113 @@
+"""The port stands alone: it imports neither jax nor the JAX package.
+
+``tests/conftest.py`` imports jax into every test process, so the
+runtime check runs in a fresh subprocess; a static AST scan covers every
+module of the port and ``chip_smoke.py``.  Also pinned here: an entry
+point asked for no device raises when there is no CUDA device, instead
+of carrying on on the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "pydcop_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "pydcop_tpu")
+
+_PROBE = r"""
+import sys
+import pydcop_tpu_torch
+from pydcop_tpu_torch.api import solve, solve_compiled
+from pydcop_tpu_torch.ops.compile import compile_from_arrays
+from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+s, t, u = coloring_arrays(200, seed=1)
+p = compile_from_arrays(s, t, 3, unary=u, device="cpu")
+r = solve_compiled(p, "maxsum", {"damping": 0.5}, rounds=16, cost_every=8)
+assert r["cycle"] == 16, r
+# the array path needs no PyYAML (the card's machine may lack it)
+assert "yaml" not in sys.modules
+r = solve(sys.argv[1], "maxsum", rounds=8, device="cpu")
+assert r["cost"] == 0.0, r
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
+    or m == "pydcop_tpu"
+)
+print("LOADED", bad)
+"""
+
+
+def test_import_and_cpu_solve_leave_jax_unloaded():
+    ring = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, ring],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
+def _sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", None) == "import_module"
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = list(_sources())
+    assert len(files) > 20
+    for path in files:
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from pydcop_tpu_torch import api, device
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ring = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
+    with pytest.raises(device.NoCudaDeviceError):
+        api.solve(ring, "maxsum", rounds=2)
+    s, t, u = coloring_arrays(50, seed=1)
+    with pytest.raises(device.NoCudaDeviceError):
+        compile_from_arrays(s, t, 3, unary=u)
+    with pytest.raises(device.NoCudaDeviceError):
+        device.resolve_device("cuda")
+    assert device.resolve_device("cpu") == torch.device("cpu")
+    proc = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", "maxsum",
+         "--rounds", "2", ring],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert "NoCudaDeviceError" in proc.stderr

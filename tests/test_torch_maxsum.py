@@ -1,0 +1,222 @@
+"""The port's batched Max-Sum against the JAX package's, on the CPU.
+
+Both packages get the same numpy-made problem arrays and the same numpy
+state (the packages draw different random numbers, so the noise is made
+here).  Tolerances: the JAX CPU path sums the belief with
+``segment_sum`` while the port adds the incoming messages slot by slot
+(``ops/costs.py``), so after one step belief and q agree to 1e-6 rather
+than bit for bit; the factor phase (min/+) is bit-equal.  End to end the
+JAX engine runs with its TPU belief lowering (the per-slot gather the
+port uses everywhere), so trajectories cannot drift apart: the best
+assignments are equal, and the best costs and cost traces, each an f32
+sum over all constraints taken in another order, agree to 1e-6 and
+1e-5 relative.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from pydcop_tpu.algorithms import load_algorithm_module as jax_algo  # noqa: E402
+from pydcop_tpu.algorithms import prepare_algo_params as jax_params  # noqa: E402
+from pydcop_tpu.engine.batched import run_batched as jax_run  # noqa: E402
+from pydcop_tpu.ops import compile as jcompile  # noqa: E402
+
+from pydcop_tpu_torch import interop  # noqa: E402
+from pydcop_tpu_torch.algorithms import load_algorithm_module  # noqa: E402
+from pydcop_tpu_torch.algorithms import prepare_algo_params  # noqa: E402
+from pydcop_tpu_torch.engine.batched import run_batched  # noqa: E402
+from pydcop_tpu_torch.ops import compile as tcompile  # noqa: E402
+from pydcop_tpu_torch.ops.generate import coloring_arrays  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RING = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
+
+
+def _instance(kind: str, n: int = 500):
+    """(scopes, tables, d, unary) lists for compile_from_arrays."""
+    scopes, table, unary = coloring_arrays(n, seed=1)
+    rng = np.random.default_rng(11)
+    if kind == "shared":
+        return [scopes], [table], 3, unary
+    if kind == "per_table":
+        return (
+            [scopes], [rng.random((len(scopes), 3, 3)).astype(np.float32)],
+            3, unary,
+        )
+    if kind == "ternary":  # binary + ternary buckets: the generic path
+        s3 = np.stack([rng.choice(n, 3, replace=False) for _ in range(n // 2)])
+        t3 = rng.random((len(s3), 3, 3, 3)).astype(np.float32)
+        return [scopes, s3], [table, t3], 3, unary
+    raise ValueError(kind)
+
+
+def _problems(kind: str, n: int = 500):
+    scopes, tables, d, unary = _instance(kind, n)
+    ref = jcompile.compile_from_arrays(scopes, tables, d, unary=unary)
+    port = tcompile.compile_from_arrays(
+        scopes, tables, d, unary=unary, device="cpu"
+    )
+    return ref, port
+
+
+def _state(problem_ref, msg_dtype: str, seed: int = 3, random_q=False):
+    """A numpy Max-Sum state for both packages."""
+    rng = np.random.default_rng(seed)
+    d, e, n = problem_ref.d_max, problem_ref.n_edges, problem_ref.n_vars
+    mdt = jnp.bfloat16 if msg_dtype == "bf16" else np.float32
+    q = rng.random((d, e)).astype(np.float32) if random_q else np.zeros((d, e), np.float32)
+    return {
+        "q": q.astype(mdt),
+        "r": np.zeros((d, e), np.float32).astype(mdt),
+        "values": np.zeros(n, np.int32),
+        "noise": (0.001 * rng.random((d, n))).astype(np.float32),
+    }
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return interop.to_numpy(x)
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
+
+
+@pytest.mark.parametrize("kind", ["shared", "per_table", "ternary"])
+def test_one_step_matches_jax(kind):
+    from pydcop_tpu.algorithms import maxsum as jms
+
+    from pydcop_tpu_torch.algorithms import maxsum as tms
+
+    ref, port = _problems(kind, n=200)
+    st = _state(ref, "f32", random_q=True)
+    params = {"damping": 0.5}
+    jp = jax_params(params, jax_algo("maxsum").algo_params)
+    tp = prepare_algo_params(params, tms.algo_params)
+    out_j = jms.step(
+        ref, {k: jnp.asarray(v) for k, v in st.items()},
+        jax.random.PRNGKey(0), jp,
+    )
+    out_t = tms.step(port, interop.state_from_arrays(st, "cpu"), tp)
+    np.testing.assert_array_equal(_np(out_t["r"]), _np(out_j["r"]))
+    np.testing.assert_allclose(
+        _np(out_t["q"]), _np(out_j["q"]), rtol=1e-6, atol=1e-6
+    )
+    np.testing.assert_array_equal(_np(out_t["values"]), _np(out_j["values"]))
+
+    unary_t = np.asarray(ref.unary).T + st["noise"]
+    b_j = jms.belief_from_r(ref, out_j["r"], jnp.asarray(unary_t))
+    b_t = tms.belief_from_r(
+        port, out_t["r"], torch.from_numpy(np.array(unary_t))
+    )
+    np.testing.assert_allclose(_np(b_t), _np(b_j), rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture
+def jax_gather_lowering(monkeypatch):
+    """Run the JAX engine with its per-slot gather belief (the TPU
+    lowering, which the port uses on every device) instead of the CPU
+    ``segment_sum``: beliefs then agree bit for bit and trajectories
+    cannot drift apart through summation order.  Runner caches are
+    cleared on both sides so no executable traced with the other
+    lowering is reused here, nor this one elsewhere."""
+    from pydcop_tpu.engine import batched
+    from pydcop_tpu.ops import costs
+
+    monkeypatch.setattr(costs, "CPU_SEGMENT_MIN_EDGES", 1 << 62)
+    batched._RUNNER_CACHE.clear()
+    yield
+    batched._RUNNER_CACHE.clear()
+
+
+def _run_both(ref, port, msg_dtype="f32", rounds=64):
+    params = {"damping": 0.5, "msg_dtype": msg_dtype}
+    st = _state(ref, msg_dtype)
+    kw = dict(rounds=rounds, chunk_size=32, cost_every=8, initial_state=st)
+    rj = jax_run(
+        ref, jax_algo("maxsum"),
+        jax_params(params, jax_algo("maxsum").algo_params), **kw,
+    )
+    mod = load_algorithm_module("maxsum")
+    rt = run_batched(
+        port, mod, prepare_algo_params(params, mod.algo_params), **kw
+    )
+    return rj, rt
+
+
+@pytest.mark.parametrize(
+    "kind,msg_dtype",
+    [("shared", "f32"), ("per_table", "f32"), ("ternary", "f32"),
+     ("shared", "bf16")],
+)
+def test_run_batched_matches_jax(kind, msg_dtype, jax_gather_lowering):
+    ref, port = _problems(kind)
+    rj, rt = _run_both(ref, port, msg_dtype)
+    assert rt.cycles == rj.cycles == 64
+    assert rt.messages == rj.messages
+    assert rt.status == rj.status == "finished"
+    # the cost is one f32 sum over all constraints, taken in another
+    # order by each package: equal to rounding, not bit for bit
+    assert rt.best_cost == pytest.approx(rj.best_cost, rel=1e-6)
+    assert rt.best_assignment == rj.best_assignment
+    assert len(rt.cost_trace) == len(rj.cost_trace) == 8
+    np.testing.assert_allclose(rt.cost_trace, rj.cost_trace, rtol=1e-5)
+
+
+def test_run_batched_returns_state_and_rejects_unported_options():
+    ref, port = _problems("shared", n=100)
+    mod = load_algorithm_module("maxsum")
+    params = prepare_algo_params({}, mod.algo_params)
+    r = run_batched(port, mod, params, rounds=10, return_state=True)
+    assert set(r.state) == {"q", "r", "values", "noise"}
+    assert all(t.device.type == "cpu" for t in r.state.values())
+    # continuing from the returned state equals one longer run
+    r2 = run_batched(
+        port, mod, params, rounds=5, initial_state=r.state,
+        return_state=True,
+    )
+    r15 = run_batched(port, mod, params, rounds=15, return_state=True)
+    for k in ("q", "r", "values"):
+        assert torch.equal(r2.state[k], r15.state[k])
+    for kw in ({"n_restarts": 2}, {"checkpoint_path": "x.npz"},
+               {"mesh": object()}, {"chunk_callback": print}):
+        with pytest.raises(NotImplementedError):
+            run_batched(port, mod, params, rounds=1, **kw)
+    with pytest.raises(NotImplementedError, match="blockdiag"):
+        run_batched(
+            port, mod, prepare_algo_params({"belief": "blockdiag"},
+                                           mod.algo_params), rounds=1,
+        )
+
+
+def test_cli_matches_jax_solve():
+    """``python -m pydcop_tpu_torch solve --device cpu`` prints the cost
+    and assignment that ``pydcop_tpu.api.solve`` returns."""
+    from pydcop_tpu.api import solve as jax_solve
+
+    # noise 0: the two packages draw different noise, and on this
+    # symmetric ring the noise decides which optimal coloring is found
+    want = jax_solve(
+        RING, "maxsum", {"damping": 0.5, "noise": 0.0}, rounds=30
+    )
+    proc = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", "maxsum",
+         "-p", "damping:0.5", "-p", "noise:0", "--rounds", "30",
+         "--device", "cpu", RING],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout)
+    assert got["cost"] == want["cost"]
+    assert got["assignment"] == want["assignment"]
+    assert got["cycle"] == want["cycle"] == 30
+    assert got["msg_count"] == want["msg_count"]
+    assert set(got) == set(want) - {"telemetry", "cost_trace"}
