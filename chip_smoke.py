@@ -11,12 +11,15 @@ caught and passed over):
 1. Device and build: the card's name and power limit, then the port's
    CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (f32 and bf16, a ragged width, a NaN input):
-   outputs must be bit-equal (the kernels are built without FMA
-   contraction).  One line per kernel and shape: kernel and plain times
-   (CUDA events around 10 back-to-back calls, median of 25 samples), the
-   bound (bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s,
-   whichever is larger) and the launches made.
+   main path's shapes (f32 and bf16 messages, f32 and bf16 tables, a
+   ragged width, strided row views, a NaN input, domains past 64 for
+   the q update): outputs must be bit-equal (the kernels are built
+   without FMA contraction).  One line per kernel and shape: kernel and
+   plain device times (20 calls captured in one CUDA graph, the replay
+   timed with CUDA events, median of 25 replays, divided by 20: no host
+   launch cost in it), the host launch interval (CUDA events around 10
+   eager calls), the bound (bytes over 3.35 TB/s, or f32 operations over
+   67 TFLOP/s, whichever is larger) and the launches made.
 3. Max-Sum on the 10k-variable 3-colour coloring (the benchmark
    workload: damping 0.5, 1024 rounds, chunk 256, cost sampled every 8
    rounds) through ``api.solve_compiled``: the shared-table factor and
@@ -26,11 +29,13 @@ caught and passed over):
    around the call is printed beside it.  Then 256 rounds on the card
    and on the CPU through the port: q, r and values bit-equal, cost
    traces within 1e-5 relative (``torch.sum`` reduces in another order
-   on each device); the same for 64 rounds with bf16 messages.  A
+   on each device); the same for 64 rounds with bf16 messages, and for
+   64 rounds with bf16 tables (the kernels launched once per round).  A
    torch.profiler pass over 64 rounds gives device time by kernel and
    the device's idle share.
 4. The same with per-factor 5x5 tables at 100k variables (the
-   per-factor factor kernel), with a profiler pass over 32 rounds.
+   per-factor factor kernel; card vs CPU also with bf16 tables), with a
+   profiler pass over 32 rounds.
 5. The 1M-variable coloring: 256 rounds, msgs/s and peak device
    memory; 8 rounds card vs CPU; a profiler pass over 32 rounds.
 6. One ``{"kernels": [...]}`` JSON line, the card line, and last the
@@ -71,24 +76,57 @@ def card_line() -> str:
     return out[0]
 
 
-def timed_ms(torch, fn, batch: int = 10) -> float:
-    """Time of one call: CUDA events around ``batch`` back-to-back
-    calls, divided by ``batch``; the median of REPS such samples, after
-    warm-up.  Where a call's device work is shorter than its host-side
-    launch, this measures the launch interval."""
+def _event_ms(torch, run) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def launch_ms(torch, fn, batch: int = 10) -> float:
+    """Host launch interval of one call: CUDA events around ``batch``
+    eager back-to-back calls, divided by ``batch``; the median of REPS
+    such samples, after warm-up.  Where a call's device work is shorter
+    than its host-side launch, this is the launch cost, not the device
+    time."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+
+    def run():
         for _ in range(batch):
             fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / batch)
-    return statistics.median(times)
+
+    return statistics.median(
+        _event_ms(torch, run) / batch for _ in range(REPS)
+    )
+
+
+def device_ms(torch, fn, batch: int = 20) -> float:
+    """Device time of one call: ``batch`` calls captured in one CUDA
+    graph, the graph's replay timed with CUDA events, divided by
+    ``batch``; the median of REPS replays.  No host launch cost is in
+    it, only the calls' kernels back to back on the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as required
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(batch):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = statistics.median(
+        _event_ms(torch, graph.replay) / batch for _ in range(REPS)
+    )
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def profile_rounds(torch, run_batched, module, params, problem, rounds,
@@ -157,40 +195,46 @@ def bound_ms(nbytes: float, nops: float):
 def check_kernels(torch, mk, dev, m4):
     """Phase 2: every kernel against its plain version on the card."""
     g = torch.Generator(device=dev).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
     rows = []
 
     def rand(*shape, scale=1.0, dtype=torch.float32):
         x = torch.rand(*shape, generator=g, device=dev) * scale
         return x.to(dtype)
 
-    def record(name, d, w, dtype, fn, plain, nbytes, nops, tag=""):
+    def record(name, d, w, dtype, fn, plain, nbytes, nops, tag="",
+               table=""):
         before = mk.launches[name]
         got = fn()
+        launched = mk.launches[name] - before
         want = plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         equal = all(same_bits(torch, x, y) for x, y in zip(got, want))
         err = max(max_abs_err(torch, x, y) for x, y in zip(got, want))
-        ms = timed_ms(torch, fn)
-        plain_ms = timed_ms(torch, plain)
+        if not equal:
+            raise AssertionError(
+                f"{name} d={d} width={w} {tag}: differs from its plain "
+                f"version, max_abs_err={err}"
+            )
         b_ms, b_by = bound_ms(nbytes, nops)
         row = dict(
             kernel=name, d=d, width=w,
             dtype="bf16" if dtype == torch.bfloat16 else "f32",
-            case=tag or "random", ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by,
-            launches=mk.launches[name] - before,
+            table=table, case=tag or "random",
+            ms=device_ms(torch, fn), plain_ms=device_ms(torch, plain),
+            launch_ms=launch_ms(torch, fn),
+            bound_ms=b_ms, bound_by=b_by, launches=launched,
             max_abs_err=err, bit_equal=equal,
         )
         print("kernel-check " + " ".join(f"{k}={v}" for k, v in row.items()))
-        if not equal:
-            raise AssertionError(f"{name} differs from its plain version: {row}")
         rows.append(row)
 
-    def factor(shared, d, m, dtype, nan=False, strided=False):
+    def factor(shared, d, m, dtype, nan=False, strided=False, tab_dtype=f32):
         name = "factor_round_binary_shared" if shared else "factor_round_binary"
-        tab = rand(*((d, d) if shared else (d, d, m)), scale=10.0)
+        tab = rand(*((d, d) if shared else (d, d, m)), scale=10.0,
+                   dtype=tab_dtype)
         if strided:  # q and r as column blocks of [d, E], as step passes them
             q = rand(d, 2 * m + 7, dtype=dtype)
             q0, q1 = q[:, 7 : 7 + m], q[:, 7 + m :]
@@ -205,11 +249,13 @@ def check_kernels(torch, mk, dev, m4):
         plain = (mk.factor_round_binary_shared_plain if shared
                  else mk.factor_round_binary_plain)
         sz = 2 if dtype == torch.bfloat16 else 4
-        nbytes = 4 * d * m * sz + 4 * d * d * (1 if shared else m)
+        tsz = 2 if tab_dtype == torch.bfloat16 else 4
+        nbytes = 4 * d * m * sz + tsz * d * d * (1 if shared else m)
         nops = (4 * d * d + 6 * d) * m
         tag = "nan" if nan else ("strided" if strided else "")
         record(name, d, m, dtype, lambda: wrap(tab, q0, q1, out=out),
-               lambda: plain(tab, q0, q1), nbytes, nops, tag)
+               lambda: plain(tab, q0, q1), nbytes, nops, tag,
+               table="bf16" if tab_dtype == torch.bfloat16 else "f32")
 
     def q_update(d, e, dtype, nan=False, damping=0.5):
         be = rand(d, e, scale=5.0, dtype=dtype)
@@ -223,12 +269,16 @@ def check_kernels(torch, mk, dev, m4):
                4 * d * e * sz, 6 * d * e,
                "nan" if nan else ("" if damping == 0.5 else f"damping{damping}"))
 
-    f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
         for m in (29_987, 2_999_991, 257):
             factor(True, 3, m, dtype)
-    factor(True, 3, 29_987, f32, strided=True)
+    for m in (29_987, 2_999_991):  # as step passes them, f32 and bf16 tables
+        factor(True, 3, m, f32, strided=True)
+        factor(True, 3, m, bf16, strided=True, tab_dtype=bf16)
     factor(True, 3, 257, f32, nan=True)
+    factor(True, 3, 257, f32, tab_dtype=bf16)
+    factor(True, 64, 257, bf16, tab_dtype=bf16)
+    factor(True, 3, 257, bf16, nan=True, tab_dtype=bf16)
     for d in (2, 4, 5, 8, 64):
         factor(True, d, 257, f32)
     for m in (29_987, 2_999_991):  # the coloring shapes, per-factor
@@ -236,7 +286,10 @@ def check_kernels(torch, mk, dev, m4):
     for d in (3, 5, 64):
         factor(False, d, 100_000, f32)
     factor(False, 5, m4, f32, strided=True)
+    factor(False, 5, m4, bf16, strided=True, tab_dtype=bf16)
     factor(False, 5, 100_000, bf16)
+    factor(False, 3, 257, f32, tab_dtype=bf16)
+    factor(False, 64, 257, f32, tab_dtype=bf16)
     for d in (2, 3, 4, 8, 64):
         factor(False, d, 257, f32)
     factor(False, 3, 257, bf16)
@@ -246,28 +299,40 @@ def check_kernels(torch, mk, dev, m4):
             q_update(3, e, dtype)
     q_update(5, 2 * m4, f32)
     q_update(3, 59_974, f32, damping=0.3)
-    for d in (2, 4, 8, 64):
+    for d in (2, 4, 8, 64, 100):  # 100: the generic instance past 64
         q_update(d, 257, f32)
+    q_update(65, 59_974, f32)
+    q_update(70, 257, bf16)
     q_update(3, 257, f32, nan=True)
     return rows
 
 
-def card_vs_cpu(torch, run_batched, module, params, p_dev, p_cpu, rounds,
-                chunk, label):
+def card_vs_cpu(torch, mk, run_batched, module, params, p_dev, p_cpu,
+                rounds, chunk, label, expect=None):
     """The port on the card and on the CPU from the same seed: q, r and
-    values bit-equal, cost traces within 1e-5 relative."""
+    values bit-equal, cost traces within 1e-5 relative.  ``expect``:
+    the launches the card run must count, per kernel."""
     import numpy as np
 
     kw = dict(rounds=rounds, chunk_size=chunk, cost_every=8,
               return_state=True)
+    mk.reset_launches()
     rc = run_batched(p_dev, module, params, **kw)
+    counts = dict(mk.launches)
+    for name, want in (expect or {}).items():
+        if counts[name] != want:
+            raise AssertionError(
+                f"{label}: {name} launched {counts[name]} times, "
+                f"expected {want} ({counts})"
+            )
     rh = run_batched(p_cpu, module, params, **kw)
     for k in ("q", "r", "values"):
         if not same_bits(torch, rc.state[k], rh.state[k]):
             raise AssertionError(f"{label}: card and CPU differ in {k}")
     np.testing.assert_allclose(rc.cost_trace, rh.cost_trace, rtol=1e-5)
     print(f"card-vs-cpu {label}: {rounds} rounds, q/r/values bit-equal, "
-          f"best cost card {rc.best_cost} cpu {rh.best_cost}")
+          f"best cost card {rc.best_cost} cpu {rh.best_cost} "
+          f"launches={counts}")
 
 
 def main_path(torch, mk, solve_compiled, problem, rounds, chunk, expect,
@@ -374,13 +439,20 @@ def main() -> int:
         {"factor_round_binary_shared": 1024, "q_update": 1024,
          "factor_round_binary": 0}, "coloring-10k", card,
     )
-    card_vs_cpu(torch, run_batched, maxsum, params, p3, p3c, 256, 256,
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3, p3c, 256, 256,
                 "coloring-10k")
     params_bf16 = prepare_algo_params(
         {"damping": 0.5, "msg_dtype": "bf16"}, maxsum.algo_params
     )
-    card_vs_cpu(torch, run_batched, maxsum, params_bf16, p3, p3c, 64, 64,
-                "coloring-10k-bf16-messages")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params_bf16, p3, p3c, 64,
+                64, "coloring-10k-bf16-messages")
+    # bf16 tables (and so bf16 unary and messages): the kernels compute
+    # the factor phase in bf16, as the Pallas kernels do
+    p3hc = compile_from_arrays(s, t, 3, unary=u, table_dtype="bf16",
+                               device="cpu")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3hc.to(dev), p3hc,
+                64, 64, "coloring-10k-bf16-tables",
+                {"factor_round_binary_shared": 64, "q_update": 64})
     profile_rounds(torch, run_batched, maxsum, params, p3, 64,
                    "coloring-10k")
 
@@ -392,8 +464,13 @@ def main() -> int:
         {"factor_round_binary": 64, "q_update": 64,
          "factor_round_binary_shared": 0}, "per-factor-100k-d5", card,
     )
-    card_vs_cpu(torch, run_batched, maxsum, params, p4, p4c, 32, 32,
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p4, p4c, 32, 32,
                 "per-factor-100k-d5")
+    p4hc = compile_from_arrays(s4, tabs4, 5, unary=u4, table_dtype="bf16",
+                               device="cpu")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p4hc.to(dev), p4hc,
+                16, 16, "per-factor-100k-d5-bf16-tables",
+                {"factor_round_binary": 16, "q_update": 16})
     profile_rounds(torch, run_batched, maxsum, params, p4, 32,
                    "per-factor-100k-d5")
 
@@ -411,7 +488,7 @@ def main() -> int:
     )
     print(f"coloring-1M max_memory_allocated_bytes="
           f"{torch.cuda.max_memory_allocated()}")
-    card_vs_cpu(torch, run_batched, maxsum, params, p5, p5c, 8, 8,
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 8, 8,
                 "coloring-1M")
     profile_rounds(torch, run_batched, maxsum, params, p5, 32,
                    "coloring-1M")
@@ -432,8 +509,9 @@ def main() -> int:
         d, w, case = main_shape[name]
         row = next(
             r for r in rows
-            if r["kernel"] == name and (r["d"], r["width"], r["case"],
-                                        r["dtype"]) == (d, w, case, "f32")
+            if r["kernel"] == name and r["table"] != "bf16"
+            and (r["d"], r["width"], r["case"], r["dtype"]) == (d, w, case,
+                                                                "f32")
         )
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,

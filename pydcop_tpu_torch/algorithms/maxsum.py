@@ -20,7 +20,7 @@ selection):
    gather sum, ``ops/costs.py``);
 3. broadcast-back gather ``belief[:, edge_var]``;
 4. q update ``q = damp·q + (1−damp)·norm(belief_e − r)`` (the CUDA
-   kernel under the same gate, its plain version otherwise);
+   kernel on the card, for any problem; its plain version on the CPU);
 5. value selection ``values = argmin_d belief``.
 
 Messages are stored in ``msg_dtype`` (f32 or bf16); all arithmetic is
@@ -111,15 +111,13 @@ def init_state(
 
 
 def use_kernels(problem: CompiledProblem) -> bool:
-    """The CUDA-kernel gate (the JAX package's ``use_fused``): tensors on
-    the card, one shard, every bucket binary with an f32 table, and
-    ``d ≤ MAX_D``."""
+    """The factor-kernel gate (the JAX package's ``use_fused``): tensors
+    on the card, one shard, every bucket binary, and ``d ≤ MAX_D``."""
     return (
         problem.device.type == "cuda"
         and problem.n_shards == 1
         and set(problem.buckets) == {2}
         and problem.d_max <= maxsum_kernels.MAX_D
-        and problem.buckets[2].tables_t.dtype == torch.float32
     )
 
 
@@ -180,10 +178,7 @@ def step(
     # the broadcast-back gather runs in the message dtype
     belief_src = belief if belief.dtype == mdt else belief.to(mdt)
     belief_e = belief_src.index_select(1, problem.edge_var)
-    if fused:
-        q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping)
-    else:
-        q_new = maxsum_kernels.q_update_plain(belief_e, r_new, q, damping)
+    q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping)
     values = torch.argmin(belief, dim=0).to(state["values"].dtype)
     return {**state, "q": q_new, "r": r_new, "values": values}
 

@@ -18,8 +18,10 @@ PyTorch operations) for tensors on the CPU, and only for them; for CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
 launches per wrapper, so a run can show that it went through them.
 
-Messages may be f32 or bf16; the arithmetic is f32 either way and the
-outputs are rounded once to the message dtype.  Tables are f32.
+Messages and tables may each be f32 or bf16.  The factor phase computes
+in the table's dtype, as the Pallas kernels do (bf16 tables: every add
+rounded to bf16); the q update computes in f32.  Outputs are rounded to
+the message dtype.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-MAX_D = 64  # largest domain the kernels take (the Pallas kernel's cap)
+MAX_D = 64  # largest domain the factor kernels take (the Pallas cap)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {
@@ -39,7 +41,7 @@ launches = {
 }
 
 _SOURCE = "maxsum_kernels.cu"
-_MSG_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16)  # messages and tables
 
 
 def reset_launches() -> None:
@@ -57,7 +59,7 @@ def build():
     if not hasattr(lib, "_pydcop_bound"):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.pydcop_factor_round_binary.argtypes = [
-            i32, vp, vp, vp, vp, vp, i32, i64, i64, i64, i32, vp,
+            i32, vp, i32, vp, vp, vp, vp, i32, i64, i64, i64, i32, vp,
         ]
         lib.pydcop_factor_round_binary.restype = i32
         lib.pydcop_q_update.argtypes = [
@@ -112,12 +114,14 @@ def q_update_plain(
     """``qn = belief_e − r_new``; ``qn −= min_d qn``;
     ``q_new = damp·q + (1 − damp)·qn`` in f32 (``1 − damp`` rounded in
     f32, as the kernel and the JAX package compute it), rounded to q's
-    dtype."""
+    dtype.  The two factors are 0-d CPU tensors, so no host-to-device
+    copy is made (the call can be captured in a CUDA graph)."""
     f = torch.float32
-    damp = torch.tensor(damping, dtype=f, device=q.device)
+    damp = torch.tensor(damping, dtype=f)
+    omd = 1.0 - damp
     qn = belief_e.to(f) - r_new.to(f)
     qn = qn - qn.amin(dim=0, keepdim=True)
-    return (damp * q.to(f) + (1.0 - damp) * qn).to(q.dtype)
+    return (damp * q.to(f) + omd * qn).to(q.dtype)
 
 
 # -- wrappers --------------------------------------------------------------
@@ -139,7 +143,7 @@ def _check_rows(name: str, x: torch.Tensor, d: int, m: int, dev) -> None:
     stride), message dtype."""
     if x.device != dev:
         raise ValueError(f"{name}: {x.device} is not {dev}")
-    if x.dtype not in _MSG_DTYPES:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} (f32 or bf16)")
     if tuple(x.shape) != (d, m) or (m > 1 and x.stride(1) != 1):
         raise ValueError(
@@ -163,13 +167,13 @@ def _factor_launch(
     want = (d, d) if shared else (d, d, m)
     if (
         tab.device != dev
-        or tab.dtype != torch.float32
+        or tab.dtype not in _DTYPES
         or tuple(tab.shape) != want
         or not tab.is_contiguous()
     ):
         raise ValueError(
-            f"{name}: table must be contiguous f32{list(want)} on {dev}, "
-            f"got {tab.dtype}{list(tab.shape)} on {tab.device}"
+            f"{name}: table must be contiguous f32 or bf16 {list(want)} "
+            f"on {dev}, got {tab.dtype}{list(tab.shape)} on {tab.device}"
         )
     _check_rows(f"{name} q0", q0, d, m, dev)
     _check_rows(f"{name} q1", q1, d, m, dev)
@@ -192,7 +196,8 @@ def _factor_launch(
     lib = build().lib
     with torch.cuda.device(dev):
         rc = lib.pydcop_factor_round_binary(
-            int(shared), tab.data_ptr(), q0.data_ptr(), q1.data_ptr(),
+            int(shared), tab.data_ptr(), int(tab.dtype == torch.bfloat16),
+            q0.data_ptr(), q1.data_ptr(),
             r0.data_ptr(), r1.data_ptr(), d, m, ldq, ldr,
             int(q0.dtype == torch.bfloat16), _stream(dev),
         )
@@ -210,7 +215,7 @@ def _plain_into(out, r0, r1):
 
 
 def factor_round_binary_shared(
-    tab: torch.Tensor,  # f32[d, d] — ONE table shared by all m factors
+    tab: torch.Tensor,  # f32|bf16[d, d] — ONE table shared by all m factors
     q0: torch.Tensor,  # [d, m] — position-0 variable→factor messages
     q1: torch.Tensor,  # [d, m]
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -226,7 +231,7 @@ def factor_round_binary_shared(
 
 
 def factor_round_binary(
-    tab: torch.Tensor,  # f32[d, d, m] — per-factor tables
+    tab: torch.Tensor,  # f32|bf16[d, d, m] — per-factor tables
     q0: torch.Tensor,
     q1: torch.Tensor,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -245,13 +250,13 @@ def q_update(
     damping: float,
 ) -> torch.Tensor:
     """Fused q update: subtract own r, min-normalize, damp → [d, E] in
-    q's dtype."""
+    q's dtype.  Any domain size (no ``MAX_D`` cap)."""
     if q.device.type == "cpu":
         return q_update_plain(belief_e, r_new, q, damping)
     dev = q.device
     d, e = q.shape
-    if not 1 <= d <= MAX_D or e < 1:
-        raise ValueError(f"q_update: d={d}, E={e} (need 1 <= d <= {MAX_D})")
+    if d < 1 or e < 1:
+        raise ValueError(f"q_update: d={d}, E={e} (need d, E >= 1)")
     for nm, x in (("belief_e", belief_e), ("r_new", r_new), ("q", q)):
         _check_rows(f"q_update {nm}", x, d, e, dev)
         if x.dtype != q.dtype or not x.is_contiguous():

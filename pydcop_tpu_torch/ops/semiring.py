@@ -3,8 +3,8 @@
 Port of ``pydcop_tpu/ops/semiring.py:bp_factor_messages`` reduced to the
 one semiring Max-Sum uses (``min_sum``), in plain PyTorch.  It is the
 generic factor path of ``algorithms/maxsum.step`` — for buckets of arity
-other than 2, for domains above the kernels' ``MAX_D``, for bf16 tables,
-and for every bucket on the CPU — the counterpart of the XLA path the
+other than 2, for domains above the kernels' ``MAX_D``, and for every
+bucket on the CPU — the counterpart of the XLA path the
 JAX package takes outside its Pallas kernels.  The rest of the semiring
 core (other semirings, the contraction sweeps) is a later port item.
 """

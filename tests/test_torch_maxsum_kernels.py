@@ -8,8 +8,12 @@ Here each plain version meets its Pallas kernel
 numpy inputs, at the shapes and dtypes of ``tests/test_pallas_maxsum.py``:
 factor outputs bit-equal, ``q_update`` within 1e-6 in f32 (the reference
 test's own tolerance: XLA may contract the damping into an FMA) and
-bit-equal in bf16.  The CUDA kernels themselves are held against the
-plain versions on the card by ``chip_smoke.py``.
+bit-equal in bf16.  With bf16 tables the factor phase computes in bf16:
+bit-equal with bf16 messages; with f32 messages XLA on the CPU keeps
+excess f32 precision across the kernel body's last bf16 roundings, so
+there the two agree to one bf16 rounding step (half an ulp at the
+magnitude of the joint S).  The CUDA kernels themselves are held
+against the plain versions on the card by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ from pydcop_tpu.ops import pallas_maxsum  # noqa: E402
 
 from pydcop_tpu_torch import interop  # noqa: E402
 from pydcop_tpu_torch.ops import maxsum_kernels as mk  # noqa: E402
+from pydcop_tpu_torch.ops import semiring  # noqa: E402
 
 
 def _pair(a: np.ndarray, bf16: bool = False):
@@ -42,7 +47,7 @@ def _np(x):
     return x.astype(np.float32) if x.dtype.name == "bfloat16" else x
 
 
-def _inputs(seed, d, m, per_factor, bf16=False, nan=False):
+def _inputs(seed, d, m, per_factor, bf16=False, nan=False, tab_bf16=False):
     rng = np.random.RandomState(seed)
     shape = (d, d, m) if per_factor else (d, d)
     tab = rng.rand(*shape).astype(np.float32) * 10
@@ -51,14 +56,11 @@ def _inputs(seed, d, m, per_factor, bf16=False, nan=False):
     if nan:
         q0[1, 7] = np.nan
         q1[0, m - 1] = np.nan
-    return _pair(tab), _pair(q0, bf16), _pair(q1, bf16)
+    return _pair(tab, tab_bf16), _pair(q0, bf16), _pair(q1, bf16)
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d,m", [(3, 257), (2, 64), (5, 1000)])
-@pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
-def test_factor_plain_matches_pallas(per_factor, d, m, bf16):
-    (tj, tt), (q0j, q0t), (q1j, q1t) = _inputs(d * m, d, m, per_factor, bf16)
+def _factor_both(per_factor, tj, q0j, q1j, tt, q0t, q1t):
+    """(Pallas interpret, plain version) outputs on the same inputs."""
     if per_factor:
         ref = pallas_maxsum.factor_round_binary(tj, q0j, q1j, interpret=True)
         got = mk.factor_round_binary_plain(tt, q0t, q1t)
@@ -67,6 +69,15 @@ def test_factor_plain_matches_pallas(per_factor, d, m, bf16):
             tj, q0j, q1j, interpret=True
         )
         got = mk.factor_round_binary_shared_plain(tt, q0t, q1t)
+    return ref, got
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,m", [(3, 257), (2, 64), (5, 1000)])
+@pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
+def test_factor_plain_matches_pallas(per_factor, d, m, bf16):
+    (tj, tt), (q0j, q0t), (q1j, q1t) = _inputs(d * m, d, m, per_factor, bf16)
+    ref, got = _factor_both(per_factor, tj, q0j, q1j, tt, q0t, q1t)
     for g, r in zip(got, ref):
         assert g.dtype == q0t.dtype
         np.testing.assert_array_equal(_np(g), _np(r))
@@ -78,17 +89,52 @@ def test_factor_plain_propagates_nan_like_pallas(per_factor):
     (tj, tt), (q0j, q0t), (q1j, q1t) = _inputs(
         1, d, m, per_factor, nan=True
     )
-    if per_factor:
-        ref = pallas_maxsum.factor_round_binary(tj, q0j, q1j, interpret=True)
-        got = mk.factor_round_binary_plain(tt, q0t, q1t)
-    else:
-        ref = pallas_maxsum.factor_round_binary_shared(
-            tj, q0j, q1j, interpret=True
-        )
-        got = mk.factor_round_binary_shared_plain(tt, q0t, q1t)
+    ref, got = _factor_both(per_factor, tj, q0j, q1j, tt, q0t, q1t)
     for g, r in zip(got, ref):
         assert np.isnan(_np(r)).any()
         np.testing.assert_array_equal(_np(g), _np(r))  # NaN where NaN
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,m", [(3, 257), (5, 1000)])
+@pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
+def test_factor_plain_bf16_table_matches_pallas(per_factor, d, m, bf16):
+    (tj, tt), (q0j, q0t), (q1j, q1t) = _inputs(
+        d + m, d, m, per_factor, bf16, tab_bf16=True
+    )
+    ref, got = _factor_both(per_factor, tj, q0j, q1j, tt, q0t, q1t)
+    for g, r in zip(got, ref):
+        assert g.dtype == q0t.dtype
+        if bf16:
+            np.testing.assert_array_equal(_np(g), _np(r))
+        else:  # one bf16 rounding step at |S| < 16: half an ulp, 2**-5
+            np.testing.assert_allclose(_np(g), _np(r), rtol=0, atol=2.0**-5)
+
+
+@pytest.mark.parametrize("tab_bf16", [False, True], ids=["f32_table", "bf16_table"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
+def test_factor_plain_equals_generic_path(per_factor, bf16, tab_bf16):
+    """The factor kernels' plain versions equal ``bp_factor_messages`` (the
+    path a CPU run takes) bit for bit, so a card run through the kernels
+    and a CPU run of the port agree bit for bit."""
+    d, m = 4, 300
+    (_, tab), (_, q0), (_, q1) = _inputs(
+        5, d, m, per_factor, bf16, tab_bf16=tab_bf16
+    )
+    if per_factor:
+        got = mk.factor_round_binary_plain(tab, q0, q1)
+        want = semiring.bp_factor_messages(
+            semiring.MIN_SUM, tab, [q0, q1], q0.dtype
+        )
+    else:
+        got = mk.factor_round_binary_shared_plain(tab, q0, q1)
+        want = semiring.bp_factor_messages(
+            semiring.MIN_SUM, tab[..., None], [q0, q1], q0.dtype
+        )
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == q0.dtype
+        assert torch.equal(g, w)
 
 
 def _q_inputs(seed, d, e, bf16=False, nan=False):
@@ -149,3 +195,12 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
         mk.q_update(be, r, q, 0.5), mk.q_update_plain(be, r, q, 0.5)
     )
     assert mk.launches == {k: 0 for k in mk.launches}
+
+
+def test_q_update_wrapper_takes_any_domain_size():
+    """The q update has no domain cap (its generic CUDA instance keeps no
+    per-lane array): on the CPU, d = 70 gives the plain version."""
+    (_, be), (_, r), (_, q) = _q_inputs(9, 70, 300)
+    got = mk.q_update(be, r, q, 0.3)
+    assert torch.equal(got, mk.q_update_plain(be, r, q, 0.3))
+    assert got.shape == (70, 300)
