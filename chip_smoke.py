@@ -38,7 +38,26 @@ caught and passed over):
    profiler pass over 32 rounds.
 5. The 1M-variable coloring: 256 rounds, msgs/s and peak device
    memory; 8 rounds card vs CPU; a profiler pass over 32 rounds.
-6. One ``{"kernels": [...]}`` JSON line, the card line, and last the
+6. The local-search family and A-Max-Sum.  Full width: each of the eight
+   algorithms through ``api.solve_compiled`` on the 1M coloring (DSA-B
+   and MGM-2 256 rounds, the others 32; chunk 256, cost every 8), launch
+   counts set to 0 just before each run and read just after (A-Max-Sum
+   must launch the shared factor kernel and the q update once per round,
+   the others no kernel), msgs/s under each algorithm's own
+   ``messages_per_round``, engine and wall time, peak device memory, the
+   size of MGM-2's pair accumulator, and a profiler pass over 32 rounds
+   for DSA-B and MGM-2.  Card vs CPU: 32 rounds of each algorithm's
+   ``apply`` on both devices from one state with the same CPU-made draws,
+   on the 10k coloring (and, for MGM-2 and A-Max-Sum, the 100x100 Ising
+   grid): every state leaf bit-equal, A-Max-Sum's kernel launches pinned
+   at one of each per round (the shared-table kernel on the coloring,
+   the per-factor one on the grid).  Then the repo's benchmark
+   configurations 1 and 2 with restarts (``bench_configs.py``): DSA-B on
+   a 50-variable coloring with K=64 and MGM-2 on a 32x32 Ising grid with
+   K=8, 1024 rounds, chunk 256: msgs/s over all restarts' messages, the
+   best cost and the K restart costs, and a profiler pass over 64 rounds
+   each.
+7. One ``{"kernels": [...]}`` JSON line, the card line, and last the
    ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
@@ -130,14 +149,15 @@ def device_ms(torch, fn, batch: int = 20) -> float:
 
 
 def profile_rounds(torch, run_batched, module, params, problem, rounds,
-                   label):
+                   label, n_restarts=1):
     """Device time by kernel over ``rounds`` rounds (torch.profiler,
     CUPTI) and the device's idle share of the profiled wall time (the
     profiler adds host overhead: read the msgs/s of the unprofiled run
     for speed)."""
     from torch.profiler import ProfilerActivity, profile
 
-    kw = dict(rounds=rounds, chunk_size=rounds, cost_every=8)
+    kw = dict(rounds=rounds, chunk_size=rounds, cost_every=8,
+              n_restarts=n_restarts)
     run_batched(problem, module, params, **kw)  # warm
     torch.cuda.synchronize()
     with profile(
@@ -154,7 +174,9 @@ def profile_rounds(torch, run_batched, module, params, problem, rounds,
         print(f"profile {label}: the profiler recorded no device time")
         return
     print(f"profile {label}: rounds={rounds} engine_ms={wall_ms} "
-          f"device_busy_ms={busy_ms} idle_share={1 - busy_ms / wall_ms}")
+          f"device_busy_ms={busy_ms} "
+          f"device_busy_ms_per_round={busy_ms / rounds} "
+          f"idle_share={1 - busy_ms / wall_ms}")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         us = e.self_device_time_total
         print(f"profile {label} kernel: calls={e.count} "
@@ -375,6 +397,203 @@ def main_path(torch, mk, solve_compiled, problem, rounds, chunk, expect,
     return counts
 
 
+# -- phase 6: the local-search family and A-Max-Sum -------------------------
+
+LOCAL_SEARCH = (  # (algorithm, parameters, rounds at 1M)
+    ("dsa", {"variant": "B", "probability": 0.7}, 256),
+    ("mgm2", {}, 256),
+    ("adsa", {}, 32),
+    ("dsatuto", {}, 32),
+    ("mgm", {}, 32),
+    ("dba", {}, 32),
+    ("gdba", {}, 32),
+    ("amaxsum", {}, 32),
+)
+
+
+def kernel_counts(mk, label, algo, rounds, table):
+    """The launches ``algo`` must count over ``rounds`` rounds: A-Max-Sum
+    one factor kernel (``table``) and one q update per round, the
+    local-search family none."""
+    want = dict.fromkeys(mk.launches, 0)
+    if algo == "amaxsum":
+        want[table] = rounds
+        want["q_update"] = rounds
+    got = dict(mk.launches)
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def full_width(torch, mk, solve_compiled, problem, card):
+    """Each algorithm through ``api.solve_compiled`` on the 1M coloring."""
+    import math
+
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.algorithms.mgm2 import pair_cells
+    from pydcop_tpu_torch.engine.batched import round_generator
+
+    cells = pair_cells(problem)
+    print(f"mgm2 pair accumulator coloring-1M: n_vars={problem.n_vars} "
+          f"max_degree={problem.neighbors.shape[1]} d={problem.d_max} "
+          f"cells={cells} f32_bytes={4 * cells}")
+    for algo, user, rounds in LOCAL_SEARCH:
+        label = f"{algo}-coloring-1M"
+        mod = load_algorithm_module(algo)
+        params = prepare_algo_params(user, mod.algo_params)
+        state = mod.init_state(problem, 0, params)  # warm: 2 rounds
+        gen = round_generator(0, problem.device)
+        for _ in range(2):
+            state = mod.step(problem, state, params, gen)
+        del state
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        res = solve_compiled(problem, algo, user, rounds=rounds,
+                             chunk_size=min(rounds, 256), cost_every=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts(mk, label, algo, rounds,
+                               "factor_round_binary_shared")
+        peak = torch.cuda.max_memory_allocated()
+        trace = res["cost_trace"]
+        if res["cycle"] != rounds or len(trace) != math.ceil(rounds / 8):
+            raise AssertionError(f"{label}: bad result shape {res['cycle']}")
+        if not all(math.isfinite(c) for c in trace + [res["cost"]]):
+            raise AssertionError(f"{label}: non-finite cost")
+        if res["cost"] > min(trace):
+            raise AssertionError(f"{label}: best cost above the samples")
+        dt = res["time"]
+        print(f"solve {label}: n_vars={problem.n_vars} rounds={rounds} "
+              f"messages_per_round={mod.messages_per_round(problem, params)} "
+              f"msg_count={res['msg_count']} engine_seconds={dt} "
+              f"msgs_per_s={res['msg_count'] / dt} wall_seconds={wall} "
+              f"msgs_per_s_wall={res['msg_count'] / wall} "
+              f"first_cost={trace[0]} best_cost={res['cost']} "
+              f"peak_memory_bytes={peak} launches={counts} card={card}")
+
+
+def same_leaf(torch, a, b) -> bool:
+    if a.dtype.is_floating_point:
+        return same_bits(torch, a, b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def apply_card_vs_cpu(torch, mk, algo, user, p_dev, p_cpu, rounds, label,
+                      table):
+    """``rounds`` rounds of ``apply`` on the card and on the CPU from one
+    state, fed the same draws made on a CPU generator: every state leaf
+    must stay bit-equal."""
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+
+    mod = load_algorithm_module(algo)
+    params = prepare_algo_params(user, mod.algo_params)
+    st_cpu = mod.init_state(p_cpu, 3, params)
+    st_dev = {k: v.to(p_dev.device) for k, v in st_cpu.items()}
+    first = st_cpu["values"]
+    gen = torch.Generator().manual_seed(11)
+    mk.reset_launches()
+    for _ in range(rounds):
+        drawn = mod.draws(p_cpu, params, gen)
+        st_cpu = mod.apply(p_cpu, st_cpu, params, drawn)
+        st_dev = mod.apply(p_dev, st_dev, params,
+                           {k: v.to(p_dev.device) for k, v in drawn.items()})
+    torch.cuda.synchronize()
+    counts = kernel_counts(mk, f"{algo}-{label}", algo, rounds, table)
+    for k, v in st_cpu.items():
+        if not same_leaf(torch, st_dev[k].cpu(), v):
+            raise AssertionError(f"{algo}-{label}: card and CPU differ in {k}")
+    changed = int((st_cpu["values"] != first).sum())
+    print(f"card-vs-cpu {algo}-{label}: {rounds} rounds of apply on shared "
+          f"CPU draws, {sorted(st_cpu)} bit-equal, values changed from the "
+          f"start={changed} launches={counts}")
+
+
+def restart_config(torch, mk, solve_compiled, run_batched, problem, algo,
+                   user, k, label, card):
+    """One of the repo's benchmark configurations with restarts: 1024
+    rounds, chunk 256, cost every 8, best of ``k``; then a profiler pass
+    over 64 rounds."""
+    import math
+
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+
+    kw = dict(chunk_size=256, cost_every=8, n_restarts=k)
+    solve_compiled(problem, algo, user, rounds=256, **kw)  # warm chunk
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_compiled(problem, algo, user, rounds=1024, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts(mk, label, algo, 1024, None)
+    rc = res["restart_costs"]
+    if len(rc) != k or res["cost"] != min(rc) or res["cycle"] != 1024:
+        raise AssertionError(f"{label}: bad restart result {res['cost']} {rc}")
+    if not all(math.isfinite(c) for c in rc):
+        raise AssertionError(f"{label}: non-finite cost")
+    dt = res["time"]
+    print(f"solve {label}: n_vars={problem.n_vars} "
+          f"n_real_edges={problem.n_real_edges} restarts={k} rounds=1024 "
+          f"msg_count={res['msg_count']} engine_seconds={dt} "
+          f"msgs_per_s={res['msg_count'] / dt} wall_seconds={wall} "
+          f"best_cost={res['cost']} restart_costs={rc} launches={counts} "
+          f"card={card}")
+    mod = load_algorithm_module(algo)
+    profile_rounds(torch, run_batched, mod,
+                   prepare_algo_params(user, mod.algo_params), problem, 64,
+                   label, n_restarts=k)
+
+
+def local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
+                       card):
+    """Phase 6 (see the module docstring)."""
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+    from pydcop_tpu_torch.ops.generate import coloring_arrays, ising_arrays
+
+    full_width(torch, mk, solve_compiled, p5, card)
+    for algo, user, _ in LOCAL_SEARCH[:2]:  # DSA-B and MGM-2
+        mod = load_algorithm_module(algo)
+        profile_rounds(torch, run_batched, mod,
+                       prepare_algo_params(user, mod.algo_params), p5, 32,
+                       f"{algo}-coloring-1M")
+
+    si, ti, ui = ising_arrays(100, 100, seed=1)
+    pic = compile_from_arrays(si, ti, 2, unary=ui, device="cpu")
+    pi = pic.to(p3.device)
+    for algo, user, _ in LOCAL_SEARCH:
+        apply_card_vs_cpu(torch, mk, algo, user, p3, p3c, 32, "coloring-10k",
+                          "factor_round_binary_shared")
+    for algo in ("mgm2", "amaxsum"):
+        apply_card_vs_cpu(torch, mk, algo, {}, pi, pic, 32, "ising-100x100",
+                          "factor_round_binary")
+
+    s1, t1, u1 = coloring_arrays(50, colors=3, degree=3, seed=1)
+    p1 = compile_from_arrays(s1, t1, 3, unary=u1, device=p3.device)
+    restart_config(torch, mk, solve_compiled, run_batched, p1, "dsa",
+                   {"variant": "B", "probability": 0.7}, 64,
+                   "config1-coloring50-dsaB-K64", card)
+    s2, t2, u2 = ising_arrays(32, 32, seed=1)
+    p2 = compile_from_arrays(s2, t2, 2, unary=u2, device=p3.device)
+    restart_config(torch, mk, solve_compiled, run_batched, p2, "mgm2", {}, 8,
+                   "config2-ising32-mgm2-K8", card)
+
+
 def main() -> int:
     import torch
 
@@ -493,7 +712,11 @@ def main() -> int:
     profile_rounds(torch, run_batched, maxsum, params, p5, 32,
                    "coloring-1M")
 
-    # -- 6. summary -------------------------------------------------------
+    # -- 6. the local-search family and A-Max-Sum -------------------------
+    local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
+                       card)
+
+    # -- 7. summary -------------------------------------------------------
     main_shape = {  # the shape each kernel has on its main-path run
         "factor_round_binary_shared": (3, 29_987, "strided"),
         "factor_round_binary": (5, m4, "strided"),

@@ -2,15 +2,18 @@
 
 The JAX package ``pydcop_tpu`` is the reference; this package does the
 same work with PyTorch on an NVIDIA GPU and imports nothing of it (nor
-of jax).  Ported so far: batched synchronous Max-Sum, end to end.
+of jax).  Ported so far: the batched engine end to end, with Max-Sum,
+A-Max-Sum and the local-search family (DSA, DSA-tuto, A-DSA, MGM,
+MGM-2, DBA, GDBA), and parallel restarts for the local-search family.
 
 - ``pydcop_tpu_torch.dcop`` / ``utils`` — the problem model and YAML
   format (copies of the JAX package's jax-free modules).
 - ``pydcop_tpu_torch.ops`` — the problem compiler (DCOP → tensors),
   cost evaluation, the generic factor contraction, and the hand-written
   CUDA Max-Sum kernels (``ops/maxsum_kernels.py`` + ``csrc/``).
-- ``pydcop_tpu_torch.algorithms`` — the registry and ``maxsum``.
-- ``pydcop_tpu_torch.engine`` — the chunked batched round loop.
+- ``pydcop_tpu_torch.algorithms`` — the registry and the algorithms.
+- ``pydcop_tpu_torch.engine`` — the chunked batched round loop (with
+  the restart axis).
 - ``pydcop_tpu_torch.api`` — ``solve`` / ``solve_compiled``.
 - ``pydcop_tpu_torch.interop`` — builds the port's objects from numpy
   leaves (how tests hand the JAX package's state across).

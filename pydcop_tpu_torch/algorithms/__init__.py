@@ -4,15 +4,37 @@ Batched-engine contract of an algorithm module (the torch form of the
 JAX package's):
 
 - ``algo_params: List[AlgoParameterDef]`` — typed, defaulted parameters
-  (same names and defaults as the JAX package).
-- ``init_state(problem, seed, params) -> state`` — a dict of tensors on
-  the problem's device; must contain ``"values"`` (i32[n_vars]).
-- ``step(problem, state, params) -> state`` — ONE synchronous round for
-  every agent at once.
+  (same names, types, allowed values and defaults as the JAX package,
+  host-runtime ones such as ``island_rounds`` included: accepted, unused
+  by the batched engine).
+- ``init_state(problem, seed, params, batch=()) -> state`` — a dict of
+  tensors on the problem's device; must contain ``"values"``
+  (i32[*batch, n_vars]).  Its random draws come from a CPU
+  ``torch.Generator`` seeded with ``seed``, so a card run and a CPU run
+  start from the same state.  ``batch = (K,)`` builds K restarts: every
+  leaf gets a leading ``[K]`` axis except those named in
+  ``STATIC_STATE_KEYS`` (problem-derived index data, shared).
+- ``step(problem, state, params, gen) -> state`` — ONE synchronous round
+  for every agent at once; its per-round random numbers come from the
+  ``torch.Generator`` ``gen`` on the problem's device (deterministic
+  algorithms ignore it).
 - ``messages_per_round(problem, params=None) -> int`` — logical directed
   messages one round represents (the msgs/s accounting).
+- ``RESTARTS`` (optional, default True) — False when the state takes no
+  leading restart axis.
 
-Ported algorithms: ``maxsum``.
+The random seam.  The JAX steps take a key and split it inside; the port
+does not replay jax's stream.  A stochastic module splits its round in
+two: ``draws(problem, params, gen, batch=()) -> dict`` makes every
+random tensor the round needs (f32 uniforms in ``[0, 1)``, or integers
+where the JAX step draws integers; the JAX step's shapes with ``batch``
+in front), and ``apply(problem, state, params, drawn) -> state`` is the
+pure tensor function of the state and those draws; ``step`` is
+``apply`` of ``draws`` (``_common.draw_apply_step``).  Tests rebuild the JAX step's draws from its key and hand
+them to ``apply``; ``chip_smoke.py`` makes draws on the CPU and feeds the
+same ones to ``apply`` on the card and on the CPU.
+
+Ported algorithms: :data:`AVAILABLE`.
 """
 
 from __future__ import annotations
@@ -24,7 +46,10 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 _ALGO_PACKAGE = "pydcop_tpu_torch.algorithms"
 
 #: algorithms this package implements
-AVAILABLE = ("maxsum",)
+AVAILABLE = (
+    "adsa", "amaxsum", "dba", "dsa", "dsatuto", "gdba", "maxsum", "mgm",
+    "mgm2",
+)
 
 
 class AlgorithmDefError(ValueError):

@@ -1,0 +1,95 @@
+"""A-DSA — Asynchronous DSA, run as a batched activation schedule.
+
+Port of ``pydcop_tpu/algorithms/adsa.py`` for the batched engine: each
+round an independent Bernoulli(``activation``) draw decides which
+variables wake up; awake variables apply the DSA variant rule (A/B/C)
+and move with probability ``probability``; asleep variables keep their
+value and send nothing.  ``activation=1.0`` is synchronous DSA.
+
+Draws per round (the JAX step's ``k_wake, k_tie, k_move = split(key,
+3)``): ``wake f32[n]``, ``tie f32[n, d]`` and ``move f32[n]``.
+
+Message accounting: only awake variables send, so the expected count
+per round is ``activation · Σ_v degree(v)``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from pydcop_tpu_torch.algorithms import AlgoParameterDef
+from pydcop_tpu_torch.algorithms._common import (
+    draw_apply_step,
+    dsa_candidate_eligibility,
+    uniform,
+    values_state,
+)
+from pydcop_tpu_torch.ops.compile import CompiledProblem
+from pydcop_tpu_torch.ops.costs import local_cost_sweep
+
+GRAPH_TYPE = "constraints_hypergraph"
+
+algo_params = [
+    AlgoParameterDef("variant", "str", ["A", "B", "C"], "B"),
+    AlgoParameterDef("probability", "float", None, 0.7),
+    # probability that a variable wakes up in a given round — the
+    # asynchrony knob (1.0 == synchronous DSA)
+    AlgoParameterDef("activation", "float", None, 0.5),
+    AlgoParameterDef("initial", "str", ["declared", "random"], "random"),
+    # host-runtime island scheduling (not used by the batched engine)
+    AlgoParameterDef("island_rounds", "int", None, 4),
+    AlgoParameterDef("island_start_rounds", "int", None, 64),
+]
+
+_DEFAULT_ACTIVATION = next(
+    p.default for p in algo_params if p.name == "activation"
+)
+
+
+init_state = values_state
+
+
+def draws(
+    problem: CompiledProblem,
+    params: Dict[str, Any],
+    gen: torch.Generator,
+    batch: Tuple[int, ...] = (),
+) -> Dict[str, torch.Tensor]:
+    n, d = problem.n_vars, problem.d_max
+    return {
+        "wake": uniform(gen, batch + (n,)),
+        "tie": uniform(gen, batch + (n, d)),
+        "move": uniform(gen, batch + (n,)),
+    }
+
+
+def apply(
+    problem: CompiledProblem,
+    state: Dict[str, torch.Tensor],
+    params: Dict[str, Any],
+    drawn: Dict[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    values = state["values"]
+    local = local_cost_sweep(problem, values)  # [..., n, d]
+    awake = drawn["wake"] < params["activation"]
+    candidate, eligible = dsa_candidate_eligibility(
+        local, values, drawn["tie"], params["variant"]
+    )
+    move = awake & eligible & (drawn["move"] < params["probability"])
+    return {"values": torch.where(move, candidate, values)}
+
+
+step = draw_apply_step(draws, apply)
+
+
+def messages_per_round(
+    problem: CompiledProblem, params: Optional[Dict[str, Any]] = None
+) -> int:
+    """Expected directed value messages per round: activation · Σ deg(v)."""
+    total = int(problem.neighbor_mask.sum())
+    activation = float(
+        (params or {}).get("activation", _DEFAULT_ACTIVATION)
+    )
+    return max(1, round(activation * total))

@@ -1,0 +1,93 @@
+"""A-Max-Sum — Asynchronous Max-Sum, run as a batched edge schedule.
+
+Port of ``pydcop_tpu/algorithms/amaxsum.py`` for the batched engine:
+each round every directed edge draws an independent
+Bernoulli(``activation``); activated edges take the message synchronous
+Max-Sum computes this round, the others keep their previous message.
+``activation=1.0`` is synchronous Max-Sum.  The round calls
+:func:`pydcop_tpu_torch.algorithms.maxsum.step`, so on the card it runs
+the CUDA factor kernel and the q-update kernel once each per round.
+
+Draws per round (the JAX step's ``k_sync, k_q, k_r = split(key, 3)``;
+``k_sync`` goes unused): ``fire_q`` and ``fire_r``, ``f32[1, E]``
+uniforms, an edge firing where its uniform is below ``activation``.
+
+Message accounting: only activated edges carry a message, so the
+expected per-round count is ``activation · 2 · n_real_edges``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from pydcop_tpu_torch.algorithms import AlgoParameterDef
+from pydcop_tpu_torch.algorithms import maxsum as _maxsum
+from pydcop_tpu_torch.algorithms._common import draw_apply_step, uniform
+from pydcop_tpu_torch.ops.compile import CompiledProblem
+
+GRAPH_TYPE = "factor_graph"
+
+algo_params = [
+    AlgoParameterDef("damping", "float", None, 0.5),
+    AlgoParameterDef("noise", "float", None, 0.001),
+    # probability that a directed edge fires in a given round — the
+    # asynchrony knob (1.0 == synchronous Max-Sum)
+    AlgoParameterDef("activation", "float", None, 0.5),
+    AlgoParameterDef("initial", "str", ["declared", "random", "zero"], "zero"),
+    # host-runtime island scheduling (not used by the batched engine)
+    AlgoParameterDef("island_rounds", "int", None, 4),
+    AlgoParameterDef("island_start_rounds", "int", None, 64),
+]
+
+# state layout is synchronous Max-Sum's, without a restart axis
+init_state = _maxsum.init_state
+RESTARTS = _maxsum.RESTARTS
+
+_DEFAULT_ACTIVATION = next(
+    p.default for p in algo_params if p.name == "activation"
+)
+
+
+def draws(
+    problem: CompiledProblem,
+    params: Dict[str, Any],
+    gen: torch.Generator,
+    batch: Tuple[int, ...] = (),
+) -> Dict[str, torch.Tensor]:
+    E = problem.n_edges
+    return {
+        "fire_q": uniform(gen, batch + (1, E)),
+        "fire_r": uniform(gen, batch + (1, E)),
+    }
+
+
+def apply(
+    problem: CompiledProblem,
+    state: Dict[str, torch.Tensor],
+    params: Dict[str, Any],
+    drawn: Dict[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    sync = _maxsum.step(problem, state, params)
+    act = params["activation"]
+    q = torch.where(drawn["fire_q"] < act, sync["q"], state["q"])
+    r = torch.where(drawn["fire_r"] < act, sync["r"], state["r"])
+    # re-select values from the messages actually updated
+    unary_t = problem.unary_t + state["noise"]
+    belief = _maxsum.belief_from_r(problem, r, unary_t)
+    values = torch.argmin(belief, dim=0).to(state["values"].dtype)
+    return {"q": q, "r": r, "values": values, "noise": state["noise"]}
+
+
+step = draw_apply_step(draws, apply)
+
+
+def messages_per_round(
+    problem: CompiledProblem, params: Optional[Dict[str, Any]] = None
+) -> int:
+    """Expected directed messages per round: activation · 2 · n_edges."""
+    activation = float(
+        (params or {}).get("activation", _DEFAULT_ACTIVATION)
+    )
+    return max(1, round(activation * 2 * problem.n_real_edges))

@@ -1,0 +1,89 @@
+"""DSA — Distributed Stochastic Algorithm (synchronous variants A/B/C).
+
+Port of ``pydcop_tpu/algorithms/dsa.py`` for the batched engine.  One
+round for every variable at once:
+
+1. ``local_cost_sweep`` gives each variable the cost of each candidate
+   value under its neighbors' current values (the value messages);
+2. delta(v) = local_cost(current) − min_x local_cost(x);
+3. the variant rule decides eligibility (A: delta > 0; B: delta > 0, or
+   delta == 0 while in conflict; C: always);
+4. eligible variables adopt a uniformly random best value with
+   probability ``probability``.
+
+Draws per round (the JAX step's ``k_tie, k_move = split(key)``): ``tie
+f32[n, d]`` and ``move f32[n]``.  A card run and a CPU run of the engine
+draw from different generators, so they are compared through ``apply``
+with shared draws, not bit for bit as whole runs.
+
+Message accounting: one round = each variable sends its value to each
+primal neighbor → ``Σ_v degree(v)`` directed messages.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from pydcop_tpu_torch.algorithms import AlgoParameterDef
+from pydcop_tpu_torch.algorithms._common import (
+    draw_apply_step,
+    dsa_candidate_eligibility,
+    uniform,
+    values_state,
+)
+from pydcop_tpu_torch.ops.compile import CompiledProblem
+from pydcop_tpu_torch.ops.costs import local_cost_sweep
+
+GRAPH_TYPE = "constraints_hypergraph"
+
+algo_params = [
+    AlgoParameterDef("variant", "str", ["A", "B", "C"], "B"),
+    AlgoParameterDef("probability", "float", None, 0.7),
+    AlgoParameterDef("initial", "str", ["declared", "random"], "random"),
+    # host-runtime island scheduling (not used by the batched engine)
+    AlgoParameterDef("island_rounds", "int", None, 4),
+    AlgoParameterDef("island_start_rounds", "int", None, 64),
+]
+
+
+init_state = values_state
+
+
+def draws(
+    problem: CompiledProblem,
+    params: Dict[str, Any],
+    gen: torch.Generator,
+    batch: Tuple[int, ...] = (),
+) -> Dict[str, torch.Tensor]:
+    n, d = problem.n_vars, problem.d_max
+    return {
+        "tie": uniform(gen, batch + (n, d)),
+        "move": uniform(gen, batch + (n,)),
+    }
+
+
+def apply(
+    problem: CompiledProblem,
+    state: Dict[str, torch.Tensor],
+    params: Dict[str, Any],
+    drawn: Dict[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    values = state["values"]
+    local = local_cost_sweep(problem, values)  # [..., n, d]
+    candidate, eligible = dsa_candidate_eligibility(
+        local, values, drawn["tie"], params["variant"]
+    )
+    move = eligible & (drawn["move"] < params["probability"])
+    return {"values": torch.where(move, candidate, values)}
+
+
+step = draw_apply_step(draws, apply)
+
+
+def messages_per_round(
+    problem: CompiledProblem, params: Optional[Dict[str, Any]] = None
+) -> int:
+    """Directed value messages per round = Σ_v degree(v)."""
+    return int(problem.neighbor_mask.sum())

@@ -19,17 +19,24 @@ selection):
 2. belief ``b_v = unary + noise + Σ incoming r`` (the per-slot prefix
    gather sum, ``ops/costs.py``);
 3. broadcast-back gather ``belief[:, edge_var]``;
-4. q update ``q = damp·q + (1−damp)·norm(belief_e − r)`` (the CUDA
-   kernel on the card, for any problem; its plain version on the CPU);
+4. q update ``q = damp·q + (1−damp)·norm(belief_e − r)``: in f32 by
+   the CUDA kernel on the card and its plain version on the CPU, for
+   every problem inside the factor-kernel gate and every problem with an
+   f32 belief; a bf16 belief (bf16 tables) outside the gate takes the
+   JAX package's XLA form instead, rounded to bf16 after every
+   operation (:func:`q_update_generic`);
 5. value selection ``values = argmin_d belief``.
 
-Messages are stored in ``msg_dtype`` (f32 or bf16); all arithmetic is
-f32.  One round = 2·n_real_edges directed messages.
+Messages are stored in ``msg_dtype`` (f32 or bf16); the belief
+accumulates in the unary's dtype.  One round = 2·n_real_edges directed
+messages.  Deterministic: the round's generator is not used.  The state
+takes no restart axis yet (``RESTARTS = False``): the kernels take
+``[d, m]`` column blocks, and a restart axis needs its own layout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -41,6 +48,8 @@ from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.padding import as_table_dtype
 
 GRAPH_TYPE = "factor_graph"
+
+RESTARTS = False
 
 algo_params = [
     AlgoParameterDef("damping", "float", None, 0.5),
@@ -76,7 +85,10 @@ def _check_params(params: Dict[str, Any]) -> None:
 
 
 def init_state(
-    problem: CompiledProblem, seed: int, params: Dict[str, Any]
+    problem: CompiledProblem,
+    seed: int,
+    params: Dict[str, Any],
+    batch: Tuple[int, ...] = (),
 ) -> Dict[str, torch.Tensor]:
     """Zero messages, initial values, and the noise ``[d, n_vars]``.
 
@@ -84,6 +96,7 @@ def init_state(
     ``seed`` and are then moved to the problem's device, so a card run
     and a CPU run start from the same state.  (They are not the JAX
     package's draws: tests hand both packages the same numpy state.)
+    ``batch`` must be ``()`` (``RESTARTS`` is False; the engine checks).
     """
     _check_params(params)
     dev = problem.device
@@ -110,15 +123,38 @@ def init_state(
     }
 
 
-def use_kernels(problem: CompiledProblem) -> bool:
-    """The factor-kernel gate (the JAX package's ``use_fused``): tensors
-    on the card, one shard, every bucket binary, and ``d ≤ MAX_D``."""
+def in_kernel_gate(problem: CompiledProblem) -> bool:
+    """The JAX package's ``use_fused`` gate without its device condition:
+    one shard, every bucket binary, and ``d ≤ MAX_D``."""
     return (
-        problem.device.type == "cuda"
-        and problem.n_shards == 1
+        problem.n_shards == 1
         and set(problem.buckets) == {2}
         and problem.d_max <= maxsum_kernels.MAX_D
     )
+
+
+def use_kernels(problem: CompiledProblem) -> bool:
+    """The factor kernels run: tensors on the card, inside the gate."""
+    return problem.device.type == "cuda" and in_kernel_gate(problem)
+
+
+def q_update_generic(
+    belief_e: torch.Tensor,
+    r_new: torch.Tensor,
+    q: torch.Tensor,
+    damping: float,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """The JAX package's q update outside its Pallas gate, in ``dtype``
+    (the belief's) operation by operation: with a bf16 belief every
+    difference, product and sum is rounded to bf16, and so are ``damp``
+    and ``1 − damp`` (the latter taken in f32 first)."""
+    damp = torch.tensor(damping, dtype=torch.float32)
+    qn = belief_e.to(dtype) - r_new.to(dtype)
+    qn = qn - qn.amin(dim=0, keepdim=True)
+    return (
+        damp.to(dtype) * q.to(dtype) + (1.0 - damp).to(dtype) * qn
+    ).to(q.dtype)
 
 
 def belief_from_r(
@@ -141,6 +177,7 @@ def step(
     problem: CompiledProblem,
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
+    gen: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     q = state["q"]
     mdt = q.dtype
@@ -178,13 +215,12 @@ def step(
     # the broadcast-back gather runs in the message dtype
     belief_src = belief if belief.dtype == mdt else belief.to(mdt)
     belief_e = belief_src.index_select(1, problem.edge_var)
-    q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping)
+    if in_kernel_gate(problem) or belief.dtype == torch.float32:
+        q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping)
+    else:
+        q_new = q_update_generic(belief_e, r_new, q, damping, belief.dtype)
     values = torch.argmin(belief, dim=0).to(state["values"].dtype)
     return {**state, "q": q_new, "r": r_new, "values": values}
-
-
-def values_from_state(state: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return state["values"]
 
 
 def messages_per_round(

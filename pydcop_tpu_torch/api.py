@@ -3,11 +3,13 @@
 ``solve()`` loads and compiles a DCOP, runs the algorithm on the batched
 engine, and returns the result dict with the JAX package's keys:
 ``{assignment, cost, final_assignment, final_cost, cycle, msg_count,
-msg_size, status, time, cost_trace}``.  The run goes to the CUDA device
-unless ``device="cpu"`` is passed; without a CUDA device it raises.
+msg_size, status, time, cost_trace}``, plus ``restart_costs`` when
+``n_restarts > 1``.  The run goes to the CUDA device unless
+``device="cpu"`` is passed; without a CUDA device it raises.
 
-Not ported yet: the other execution modes, restarts, checkpoints, shape
-bucketing and the ``telemetry`` block of the result (ROADMAP.md).
+Not ported yet: the other execution modes, restarts for
+``maxsum``/``amaxsum``, checkpoints, shape bucketing and the
+``telemetry`` block of the result (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -116,4 +118,9 @@ def _result_dict(result) -> Dict[str, Any]:
         "status": result.status,
         "time": result.time,
         "cost_trace": result.cost_trace.tolist(),
+        **(
+            {"restart_costs": result.restart_costs.tolist()}
+            if result.restart_costs is not None
+            else {}
+        ),
     }

@@ -38,6 +38,12 @@ def set_parser(subparsers) -> None:
     p.add_argument("--rounds", type=int, default=200, help="round budget")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
+        "--restarts", type=int, default=1,
+        help="run this many independent solver instances batched in one "
+        "device program and report the best — parallel restarts for the "
+        "local-search algorithms",
+    )
+    p.add_argument(
         "--convergence_chunks", type=int, default=0,
         help="stop after N unchanged chunks (0 = run all rounds)",
     )
@@ -67,6 +73,7 @@ def run_cmd(args) -> int:
         rounds=args.rounds,
         timeout=args.timeout,
         seed=args.seed,
+        n_restarts=args.restarts,
         convergence_chunks=args.convergence_chunks,
         device=args.device,
     )

@@ -8,8 +8,25 @@ the device; the host synchronises once per chunk, when it reads the
 chunk's cost trace.  Between chunks it checks ``timeout`` and
 ``convergence_chunks``.
 
+Random numbers.  ``init_state`` draws on a CPU ``torch.Generator``
+seeded with ``seed``, so a card run and a CPU run start from the same
+state.  The rounds draw from ONE ``torch.Generator`` on the problem's
+device (no host-to-device copy per round), seeded from ``seed`` through
+:func:`round_generator`.  The card's and the CPU's generators give
+different streams, so a card run and a CPU run of a stochastic algorithm
+are not equal as whole runs: they are compared through the algorithm's
+``apply`` fed the same draws (``chip_smoke.py``).
+
+Restarts.  ``n_restarts = K > 1`` runs K independent solver instances
+of the same problem as a leading ``[K]`` axis on every state leaf (the
+PyTorch form of the JAX package's ``vmap``; the leaves an algorithm
+names in ``STATIC_STATE_KEYS`` are shared) and reports the best over
+them.  The per-round draws carry the batch shape ``[K, ...]``: this is
+the JAX program's best-of-K semantics, not its stream.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``n_restarts > 1``, ``mesh``, checkpoint/resume and chunk callbacks.
+restarts for ``maxsum``/``amaxsum``, ``mesh``, checkpoint/resume and
+chunk callbacks.
 """
 
 from __future__ import annotations
@@ -38,6 +55,8 @@ class RunResult:
     time: float  # wall-clock seconds
     status: str  # 'finished' | 'timeout' | 'converged'
     cost_trace: np.ndarray  # per-sample cost (native sign)
+    # per-restart best costs (native sign) when n_restarts > 1
+    restart_costs: Optional[np.ndarray] = None
     # the final algorithm state as CPU tensors when return_state=True
     state: Optional[Dict[str, torch.Tensor]] = None
 
@@ -48,28 +67,39 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _run_chunk(problem, algo_module, params, state, n_rounds, cost_every,
-               best_cost, best_values):
+def round_generator(seed: int, device: torch.device) -> torch.Generator:
+    """The rounds' generator on ``device``: seeded with a word derived
+    from ``seed`` (numpy's ``SeedSequence``), so its stream is not the
+    one ``init_state`` draws from ``seed`` itself."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence(seed).generate_state(1)[0]))
+    return gen
+
+
+def _run_chunk(problem, algo_module, params, state, gen, n_rounds,
+               cost_every, best_cost, best_values):
     """``n_rounds`` rounds; the anytime cost is evaluated after every
     ``cost_every``-th round and after the last one.  Returns the new
-    state, best cost/values (device tensors) and the chunk's cost samples
-    as one device tensor."""
+    state, best cost/values (device tensors, per restart under
+    restarts) and the chunk's cost samples as one device tensor."""
     costs = []
     for i in range(1, n_rounds + 1):
-        state = algo_module.step(problem, state, params)
+        state = algo_module.step(problem, state, params, gen)
         if i % cost_every == 0 or i == n_rounds:
             values = state["values"]
             cost = total_cost(problem, values)
             better = cost < best_cost
             best_cost = torch.where(better, cost, best_cost)
-            best_values = torch.where(better, values, best_values)
+            best_values = torch.where(better[..., None], values, best_values)
             costs.append(cost)
     return state, best_cost, best_values, torch.stack(costs)
 
 
-def _initial_state(problem, algo_module, params, seed, initial_state):
+def _initial_state(problem, algo_module, params, seed, initial_state,
+                   batch):
     """Validate a caller-supplied state (as the JAX engine does) and put
-    it on the problem's device."""
+    it on the problem's device, each leaf in the dtype ``init_state``
+    gives it; static leaves it lacks are rebuilt."""
     from pydcop_tpu_torch.interop import as_tensor
 
     if not isinstance(initial_state, dict) or "values" not in initial_state:
@@ -77,21 +107,28 @@ def _initial_state(problem, algo_module, params, seed, initial_state):
             "initial_state must be a state dict with a 'values' leaf "
             "(RunResult.state of a previous run)"
         )
-    got = tuple(np.shape(initial_state["values"]))
-    if got != (problem.n_vars,):
+    want = batch + (problem.n_vars,)
+    got = tuple(initial_state["values"].shape)
+    if got != want:
         raise ValueError(
-            f"initial_state 'values' has shape {got}, expected "
-            f"{(problem.n_vars,)} — a state from a different problem?"
+            f"initial_state 'values' has shape {got}, expected {want} "
+            f"(n_restarts={batch[0] if batch else 1}) — a state from a "
+            "different problem or restart count?"
         )
-    expect = set(algo_module.init_state(problem, seed, params))
-    if set(initial_state) != expect:
+    static = frozenset(getattr(algo_module, "STATIC_STATE_KEYS", ()))
+    fresh = algo_module.init_state(problem, seed, params, batch)
+    expect = set(fresh) - static
+    have = set(initial_state) - static
+    if have != expect:
         raise ValueError(
-            f"initial_state leaves {sorted(initial_state)} do not match "
+            f"initial_state leaves {sorted(have)} do not match "
             f"{algo_module.__name__}'s state {sorted(expect)}"
         )
-    return {
-        k: as_tensor(v, problem.device) for k, v in initial_state.items()
-    }
+    state = dict(fresh)
+    for k, v in initial_state.items():
+        if k in fresh:
+            state[k] = as_tensor(v, problem.device).to(fresh[k].dtype)
+    return state
 
 
 def run_batched(
@@ -119,15 +156,24 @@ def run_batched(
     the host checks ``timeout`` and (optionally) convergence: if
     ``convergence_chunks > 0`` and neither the best cost improved nor any
     value changed for that many consecutive chunks, the run stops with
-    status ``converged``.  ``cost_every`` samples the anytime cost every
-    that many rounds (and at each chunk's last round); the cost trace has
-    one entry per sample.  ``initial_state`` seeds the run with a state
-    dict (tensors or numpy arrays) instead of ``init_state``;
-    ``return_state=True`` puts the final state (CPU tensors) on
-    ``RunResult.state``.
+    status ``converged`` (under restarts the across-restart best cost
+    alone decides).  ``cost_every`` samples the anytime cost every that
+    many rounds (and at each chunk's last round); the cost trace has one
+    entry per sample (the minimum over restarts).  ``n_restarts > 1``
+    runs that many independent instances and reports the best;
+    ``restart_costs`` holds each one's best cost and ``messages`` counts
+    all of them.  ``initial_state`` seeds the run with a state dict
+    (tensors or numpy arrays; ``values`` ``[K, n]`` under restarts)
+    instead of ``init_state``; ``return_state=True`` puts the final state
+    (CPU tensors) on ``RunResult.state``.
     """
-    if n_restarts != 1:
-        raise _not_ported("n_restarts > 1", "n_restarts")
+    if n_restarts < 1:
+        raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
+    if n_restarts > 1 and not getattr(algo_module, "RESTARTS", True):
+        raise _not_ported(
+            f"n_restarts > 1 for {algo_module.__name__}",
+            "n_restarts for maxsum/amaxsum",
+        )
     if mesh is not None:
         raise _not_ported("mesh (sharded runs)", "n_shards > 1")
     if checkpoint_path is not None or resume:
@@ -139,40 +185,44 @@ def run_batched(
 
     t0 = time.perf_counter()
     sign = -1.0 if problem.maximize else 1.0
+    batch = (n_restarts,) if n_restarts > 1 else ()
     if initial_state is not None:
         state = _initial_state(
-            problem, algo_module, params, seed, initial_state
+            problem, algo_module, params, seed, initial_state, batch
         )
     else:
-        state = algo_module.init_state(problem, seed, params)
+        state = algo_module.init_state(problem, seed, params, batch)
+    gen = round_generator(seed, problem.device)
     best_values = state["values"]
-    best_cost = total_cost(problem, best_values)
+    best_cost = total_cost(problem, best_values)  # [] or [K]
 
     traces = []
     done = 0
     status = "finished"
     stall = 0
     if convergence_chunks:
-        prev_best = float(best_cost)
-        prev_values = best_values.cpu()
+        prev_best = float(best_cost.min())
+        prev_values = None if batch else best_values.cpu()
     while done < rounds:
         this_chunk = min(chunk_size, rounds - done)
         state, best_cost, best_values, costs = _run_chunk(
-            problem, algo_module, params, state, this_chunk, cost_every,
-            best_cost, best_values,
+            problem, algo_module, params, state, gen, this_chunk,
+            cost_every, best_cost, best_values,
         )
         # the one host sync of the chunk
-        traces.append(costs.float().cpu().numpy())
+        costs = costs.float().cpu().numpy()
+        traces.append(costs.min(axis=-1) if batch else costs)
         done += this_chunk
         if timeout is not None and time.perf_counter() - t0 > timeout:
             status = "timeout"
             break
         if convergence_chunks:
-            cur_values = state["values"].cpu()
-            best_now = float(best_cost)
-            if best_now >= prev_best - 1e-9 and torch.equal(
-                cur_values, prev_values
-            ):
+            best_now = float(best_cost.min())
+            # under restarts the [K, n] stack never crosses to the host:
+            # one mover among K would block the early stop anyway
+            cur_values = None if batch else state["values"].cpu()
+            frozen = bool(batch) or torch.equal(cur_values, prev_values)
+            if best_now >= prev_best - 1e-9 and frozen:
                 stall += 1
                 if stall >= convergence_chunks:
                     status = "converged"
@@ -183,10 +233,22 @@ def run_batched(
             prev_values = cur_values
 
     final_values = state["values"]
-    final_cost = float(total_cost(problem, final_values))
+    final_costs = total_cost(problem, final_values)
+    restart_costs = None
+    if batch:
+        # report the best restart: final = lowest final cost, anytime
+        # best = lowest best-seen cost
+        i_fin = int(torch.argmin(final_costs))
+        final_values = final_values[i_fin]
+        final_costs = final_costs[i_fin]
+        i_best = int(torch.argmin(best_cost))
+        restart_costs = sign * best_cost.cpu().numpy()
+        best_values = best_values[i_best]
+        best_cost = best_cost[i_best]
+    final_cost = float(final_costs)
     best_cost_f = float(best_cost)
     elapsed = time.perf_counter() - t0
-    msgs = algo_module.messages_per_round(problem, params) * done
+    msgs = algo_module.messages_per_round(problem, params) * done * n_restarts
     trace = np.concatenate(traces) if traces else np.zeros(0)
     out_state = (
         {k: v.cpu() for k, v in state.items()} if return_state else None
@@ -201,5 +263,6 @@ def run_batched(
         time=elapsed,
         status=status,
         cost_trace=sign * trace,
+        restart_costs=restart_costs,
         state=out_state,
     )

@@ -1,7 +1,7 @@
 """Build the port's objects from numpy arrays.
 
-This is how a compiled problem or a Max-Sum state crosses from the JAX
-package into the port: the caller turns each array field into numpy
+This is how a compiled problem or an algorithm state crosses from the
+JAX package into the port: the caller turns each array field into numpy
 (``np.asarray`` per dataclass field) and hands the leaves here.  The
 module itself imports no jax.
 
@@ -79,8 +79,13 @@ def problem_from_arrays(
 def state_from_arrays(
     state: Mapping[str, np.ndarray], device: DeviceLike = None
 ) -> Dict[str, torch.Tensor]:
-    """An algorithm state dict (e.g. Max-Sum's ``q``, ``r``, ``values``,
-    ``noise``) from numpy arrays, on ``device``."""
+    """An algorithm state dict from numpy arrays, on ``device``, leaf by
+    leaf as given: Max-Sum's ``q``, ``r``, ``values``, ``noise``; the
+    local-search family's ``values`` (i32, ``[K, n]`` under restarts),
+    DBA's ``weights``, GDBA's per-cell ``w{k}``, MGM-2's static pair
+    index ``pe_*`` (i32 in the JAX package: the engine's
+    ``initial_state`` casts each leaf to the dtype the port's
+    ``init_state`` gives it)."""
     dev = resolve_device(device)
     return {k: as_tensor(v, dev) for k, v in state.items()}
 

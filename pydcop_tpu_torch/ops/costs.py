@@ -7,7 +7,13 @@
   row under the current assignment.
 - :func:`total_cost` — solution cost of an assignment, on the device.
 - :func:`neighbor_gather` — gather a per-variable quantity from each
-  primal-graph neighbor.
+  primal-graph neighbor (:func:`at_neighbors` without the padding fill).
+
+The JAX package runs parallel restarts under ``vmap``; here the restart
+axis is written out: ``local_cost_sweep`` and ``total_cost`` take
+``values`` of shape ``[..., n_vars]`` (leading batch axes, e.g.
+``[K, n_vars]`` for K restarts) and keep the batch axes in front of
+their result.
 
 ``segment_sum_edges`` uses one lowering on every device: the per-slot
 PREFIX gather sum over ``var_edges`` that the JAX package takes on the
@@ -24,11 +30,14 @@ from pydcop_tpu_torch.ops.compile import CompiledProblem
 
 
 def gather_sum_slots(
-    problem: CompiledProblem, per_edge: torch.Tensor, acc: torch.Tensor
+    problem: CompiledProblem,
+    per_edge: torch.Tensor,
+    acc: torch.Tensor,
+    dim: int = -1,
 ) -> torch.Tensor:
     """``acc`` plus, per variable, the sum of ``per_edge`` over its
-    incoming edges; the edge axis of ``per_edge`` is its LAST axis and
-    the variable axis of ``acc`` likewise.
+    incoming edges; ``dim`` is the edge axis of ``per_edge`` and the
+    variable axis of ``acc`` (the last axis by default).
 
     Variables are compiled degree-descending, so degree slot ``p``'s
     real entries are the first ``var_slot_counts[p]`` variables: slot
@@ -41,64 +50,84 @@ def gather_sum_slots(
     for p, n_p in enumerate(problem.var_slot_counts):
         if n_p == 0:
             break  # counts are monotone over slots
-        g = per_edge.index_select(-1, ve_t[p, :n_p])
-        acc[..., :n_p] += g.to(acc.dtype)
+        g = per_edge.index_select(dim, ve_t[p, :n_p])
+        acc.narrow(dim, 0, n_p).add_(g.to(acc.dtype))
     return acc
 
 
 def segment_sum_edges(
-    problem: CompiledProblem, per_edge: torch.Tensor
+    problem: CompiledProblem, per_edge: torch.Tensor, dim: int = 0
 ) -> torch.Tensor:
-    """Sum per-edge rows into per-variable rows: [E, ...] → [n_vars, ...]."""
-    moved = per_edge.movedim(0, -1)  # edges last
-    acc = torch.zeros(
-        moved.shape[:-1] + (problem.n_vars,),
-        dtype=per_edge.dtype, device=per_edge.device,
-    )
-    return gather_sum_slots(problem, moved, acc).movedim(-1, 0)
+    """Sum per-edge entries into per-variable entries: the edge axis
+    ``dim`` of ``per_edge`` (length n_edges) becomes a variable axis
+    (length n_vars)."""
+    shape = list(per_edge.shape)
+    shape[dim] = problem.n_vars
+    acc = torch.zeros(shape, dtype=per_edge.dtype, device=per_edge.device)
+    return gather_sum_slots(problem, per_edge, acc, dim)
 
 
 def local_cost_sweep(
     problem: CompiledProblem, values: torch.Tensor
 ) -> torch.Tensor:
-    """[n_vars, d_max]: cost of each candidate value for each variable,
-    holding all other variables at ``values``."""
-    co_vals = values[problem.edge_covars.long()]  # [E, k_max-1]
+    """[..., n_vars, d_max]: cost of each candidate value for each
+    variable, holding all other variables at ``values [..., n_vars]``."""
+    co_vals = values[..., problem.edge_covars.long()]  # [..., E, k_max-1]
     base = problem.edge_offset.long() + (
         co_vals.long() * problem.edge_costrides.long()
-    ).sum(dim=1)
+    ).sum(dim=-1)
     d = problem.d_max
     ar = torch.arange(d, device=values.device)
-    cells = base[:, None] + ar[None, :] * problem.edge_stride.long()[:, None]
-    sweeps = problem.tables_flat[cells]  # [E, d]
-    return segment_sum_edges(problem, sweeps) + problem.unary
+    cells = base[..., None] + ar * problem.edge_stride.long()[:, None]
+    sweeps = problem.tables_flat[cells]  # [..., E, d]
+    return segment_sum_edges(problem, sweeps, dim=-2) + problem.unary
 
 
 def total_cost(
     problem: CompiledProblem, values: torch.Tensor
 ) -> torch.Tensor:
-    """0-dim tensor: cost of a full assignment (compiled sign: always a
-    minimization cost; callers re-negate for max problems)."""
+    """[...]: cost of full assignments ``values [..., n_vars]`` (compiled
+    sign: always a minimization cost; callers re-negate for max
+    problems)."""
     v = values.long()
-    scope_vals = v[problem.con_scopes.long()]  # [C, k_max]
+    scope_vals = v[..., problem.con_scopes.long()]  # [..., C, k_max]
     cell = problem.con_offset.long() + (
         scope_vals * problem.con_strides.long()
-    ).sum(dim=1)
+    ).sum(dim=-1)
     con_cost = (
-        problem.tables_flat[cell].sum()
+        problem.tables_flat[cell].sum(dim=-1)
         if problem.n_cons
-        else torch.zeros((), dtype=problem.unary.dtype, device=v.device)
+        else torch.zeros(
+            v.shape[:-1], dtype=problem.unary.dtype, device=v.device
+        )
     )
-    var_cost = problem.unary.gather(1, v[:, None])[:, 0].sum()
+    unary = problem.unary.expand(v.shape + (problem.d_max,))
+    var_cost = unary.gather(-1, v[..., None])[..., 0].sum(dim=-1)
     return con_cost + var_cost
 
 
-def neighbor_gather(
-    problem: CompiledProblem, quantity: torch.Tensor, fill: float = 0.0
+def at_neighbors(
+    problem: CompiledProblem, quantity: torch.Tensor, dim: int = 0
 ) -> torch.Tensor:
-    """[n_vars, max_deg(, ...)]: ``quantity`` gathered from each primal
-    neighbor, with ``fill`` on padding slots."""
-    g = quantity[problem.neighbors.long()]  # [n, max_deg, ...]
+    """``quantity`` read at every neighbor slot, padding slots included
+    (they read variable 0, as ``quantity[neighbors]`` does in the JAX
+    package): its variable axis ``dim`` (length n_vars) becomes two axes
+    ``[n_vars, max_deg]``."""
+    nbrs = problem.neighbors
+    return quantity.index_select(dim, nbrs.reshape(-1)).unflatten(
+        dim, nbrs.shape
+    )
+
+
+def neighbor_gather(
+    problem: CompiledProblem,
+    quantity: torch.Tensor,
+    fill: float = 0.0,
+    dim: int = 0,
+) -> torch.Tensor:
+    """:func:`at_neighbors` with ``fill`` on the padding slots."""
+    g = at_neighbors(problem, quantity, dim)
     mask = problem.neighbor_mask
-    mask = mask.reshape(mask.shape + (1,) * (g.ndim - 2))
+    trailing = quantity.dim() - dim % quantity.dim() - 1
+    mask = mask.reshape(mask.shape + (1,) * trailing)
     return torch.where(mask, g, torch.full_like(g, fill))

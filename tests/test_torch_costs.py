@@ -72,3 +72,25 @@ def test_neighbor_gather_matches_jax(problems):
     want = np.asarray(jcosts.neighbor_gather(ref, jnp.asarray(values), -1))
     got = tcosts.neighbor_gather(port, torch.from_numpy(values), -1).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_restart_axis_equals_row_by_row(problems):
+    """``[K, n]`` values give the rows each ``[n]`` row gives: the sweep
+    bit for bit, the total cost to rounding (one sum per row)."""
+    _, port, values = problems
+    rng = np.random.default_rng(2)
+    stack = np.stack([values] + [
+        rng.integers(0, 4, size=len(values)).astype(np.int32)
+        for _ in range(2)
+    ])
+    vk = torch.from_numpy(stack)
+    sweep = tcosts.local_cost_sweep(port, vk)
+    cost = tcosts.total_cost(port, vk)
+    nbr = tcosts.neighbor_gather(port, vk, -1, dim=-1)
+    assert sweep.shape == (3, len(values), 4) and cost.shape == (3,)
+    for k in range(3):
+        assert torch.equal(sweep[k], tcosts.local_cost_sweep(port, vk[k]))
+        assert float(cost[k]) == pytest.approx(
+            float(tcosts.total_cost(port, vk[k])), rel=1e-6
+        )
+        assert torch.equal(nbr[k], tcosts.neighbor_gather(port, vk[k], -1))

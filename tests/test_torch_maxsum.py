@@ -220,3 +220,43 @@ def test_cli_matches_jax_solve():
     assert got["cycle"] == want["cycle"] == 30
     assert got["msg_count"] == want["msg_count"]
     assert set(got) == set(want) - {"telemetry", "cost_trace"}
+
+
+def test_bf16_tables_generic_path_matches_jax_round_by_round(
+    jax_gather_lowering,
+):
+    """bf16 tables (so bf16 unary, noise and messages) on a binary +
+    ternary instance, which the factor kernels do not take: 30 rounds per
+    damping, q, r and values bit-equal to the JAX step every round."""
+    from pydcop_tpu.algorithms import maxsum as jms
+
+    from pydcop_tpu_torch.algorithms import maxsum as tms
+
+    scopes, tables, d, unary = _instance("ternary", n=200)
+    ref = jcompile.compile_from_arrays(
+        scopes, tables, d, unary=unary, table_dtype="bf16"
+    )
+    port = tcompile.compile_from_arrays(
+        scopes, tables, d, unary=unary, table_dtype="bf16", device="cpu"
+    )
+    assert port.unary.dtype == torch.bfloat16
+    jp = jax_params({}, jax_algo("maxsum").algo_params)
+    jstep = jax.jit(
+        lambda s, k, damping: jms.step(ref, s, k, {**jp, "damping": damping})
+    )
+    for damping in (0.3, 0.5, 0.7):
+        tp = prepare_algo_params({"damping": damping}, tms.algo_params)
+        ts = tms.init_state(port, 3, tp)
+        js = {
+            k: jnp.asarray(_np(v)).astype(
+                jnp.bfloat16 if v.dtype == torch.bfloat16 else _np(v).dtype
+            )
+            for k, v in ts.items()
+        }
+        for i in range(30):
+            js = jstep(js, jax.random.PRNGKey(i), damping)
+            ts = tms.step(port, ts, tp)
+            for k in ("q", "r", "values"):
+                np.testing.assert_array_equal(
+                    _np(ts[k]), _np(js[k]), err_msg=f"{k} d{damping} r{i}"
+                )
