@@ -13,7 +13,8 @@ caught and passed over):
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes (f32 and bf16 messages, f32 and bf16 tables, a
    ragged width, strided row views, a NaN input, domains past 64 for
-   the q update): outputs must be bit-equal (the kernels are built
+   the q update, the q update with every operation rounded to bf16):
+   outputs must be bit-equal (the kernels are built
    without FMA contraction).  One line per kernel and shape: kernel and
    plain device times (20 calls captured in one CUDA graph, the replay
    timed with CUDA events, median of 25 replays, divided by 20: no host
@@ -30,8 +31,11 @@ caught and passed over):
    and on the CPU through the port: q, r and values bit-equal, cost
    traces within 1e-5 relative (``torch.sum`` reduces in another order
    on each device); the same for 64 rounds with bf16 messages, and for
-   64 rounds with bf16 tables (the kernels launched once per round).  A
-   torch.profiler pass over 64 rounds gives device time by kernel and
+   64 rounds with bf16 tables (the kernels launched once per round), and
+   for 64 rounds with bf16 tables and a ternary bucket added (outside
+   the factor-kernel gate: the q update kernel, launched once per round,
+   rounds every operation to bf16, as the JAX package computes there).
+   A torch.profiler pass over 64 rounds gives device time by kernel and
    the device's idle share.
 4. The same with per-factor 5x5 tables at 100k variables (the
    per-factor factor kernel; card vs CPU also with bf16 tables), with a
@@ -84,6 +88,22 @@ KERNELS = {
     "q_update": f"{PALLAS}:222",
 }
 SOURCE = "pydcop_tpu_torch/csrc/maxsum_kernels.cu"
+# phase 3's binary + ternary instance: the 10k coloring's 29,987 binary
+# constraints and 3,333 ternaries, 2·29,987 + 3·3,333 directed edges
+N_TERNARY = 3_333
+E_TERNARY = 2 * 29_987 + 3 * N_TERNARY
+
+
+def ternary_arrays(n, seed):
+    """3-variable constraints over disjoint random triples of ``n``
+    variables, with integer costs in [0, 8) (exact in bf16, so cost sums
+    do not depend on the order of addition)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scopes = rng.permutation(n)[: 3 * N_TERNARY].reshape(N_TERNARY, 3)
+    tables = rng.integers(0, 8, (N_TERNARY, 3, 3, 3)).astype(np.float32)
+    return scopes, tables
 
 
 def card_line() -> str:
@@ -279,17 +299,19 @@ def check_kernels(torch, mk, dev, m4):
                lambda: plain(tab, q0, q1), nbytes, nops, tag,
                table="bf16" if tab_dtype == torch.bfloat16 else "f32")
 
-    def q_update(d, e, dtype, nan=False, damping=0.5):
+    def q_update(d, e, dtype, nan=False, damping=0.5, per_op=False):
         be = rand(d, e, scale=5.0, dtype=dtype)
         r, q = rand(d, e, dtype=dtype), rand(d, e, dtype=dtype)
         if nan:
             be[d - 1, 11] = float("nan")
         sz = 2 if dtype == torch.bfloat16 else 4
+        tag = "nan" if nan else ("" if damping == 0.5 else f"damping{damping}")
+        if per_op:
+            tag = "per_op" + (f"-{tag}" if tag else "")
         record("q_update", d, e, dtype,
-               lambda: mk.q_update(be, r, q, damping),
-               lambda: mk.q_update_plain(be, r, q, damping),
-               4 * d * e * sz, 6 * d * e,
-               "nan" if nan else ("" if damping == 0.5 else f"damping{damping}"))
+               lambda: mk.q_update(be, r, q, damping, per_op),
+               lambda: mk.q_update_plain(be, r, q, damping, per_op),
+               4 * d * e * sz, 6 * d * e, tag)
 
     for dtype in (f32, bf16):
         for m in (29_987, 2_999_991, 257):
@@ -326,6 +348,12 @@ def check_kernels(torch, mk, dev, m4):
     q_update(65, 59_974, f32)
     q_update(70, 257, bf16)
     q_update(3, 257, f32, nan=True)
+    # bf16 rounding after every operation: a bf16 belief outside the
+    # factor-kernel gate (phase 3's ternary instance, E = E_TERNARY)
+    q_update(3, E_TERNARY, bf16, per_op=True)
+    q_update(3, E_TERNARY, bf16, damping=0.3, per_op=True)
+    q_update(70, 257, bf16, per_op=True)
+    q_update(3, 257, bf16, nan=True, per_op=True)
     return rows
 
 
@@ -672,6 +700,18 @@ def main() -> int:
     card_vs_cpu(torch, mk, run_batched, maxsum, params, p3hc.to(dev), p3hc,
                 64, 64, "coloring-10k-bf16-tables",
                 {"factor_round_binary_shared": 64, "q_update": 64})
+    # bf16 tables with a ternary bucket: outside the factor-kernel gate,
+    # so the factor phase is the generic one and the q update kernel
+    # rounds every operation to bf16, as the JAX package computes it
+    s3, t3 = ternary_arrays(10_000, seed=5)
+    p3tc = compile_from_arrays([s, s3], [t, t3], 3, unary=u,
+                               table_dtype="bf16", device="cpu")
+    if p3tc.n_real_edges != E_TERNARY:
+        raise AssertionError("unexpected ternary instance size")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3tc.to(dev), p3tc,
+                64, 64, "coloring-10k-ternary-bf16-tables",
+                {"factor_round_binary_shared": 0, "factor_round_binary": 0,
+                 "q_update": 64})
     profile_rounds(torch, run_batched, maxsum, params, p3, 64,
                    "coloring-10k")
 

@@ -34,7 +34,12 @@ from pydcop_tpu_torch.algorithms._common import (
     strict_winner,
 )
 from pydcop_tpu_torch.ops.compile import CompiledProblem
-from pydcop_tpu_torch.ops.costs import neighbor_gather, segment_sum_edges
+from pydcop_tpu_torch.ops.costs import (
+    con_cells,
+    local_cost_sweep,
+    neighbor_gather,
+    segment_sum_edges,
+)
 
 GRAPH_TYPE = "constraints_hypergraph"
 
@@ -62,22 +67,6 @@ def init_state(
     }
 
 
-def _weighted_sweep(
-    problem: CompiledProblem, values: torch.Tensor, weights: torch.Tensor
-) -> torch.Tensor:
-    """[..., n_vars, d]: candidate-value costs with per-constraint
-    weights (the weighted twin of ``ops.costs.local_cost_sweep``)."""
-    co_vals = values[..., problem.edge_covars.long()]
-    base = problem.edge_offset.long() + (
-        co_vals.long() * problem.edge_costrides.long()
-    ).sum(dim=-1)
-    ar = torch.arange(problem.d_max, device=values.device)
-    cells = base[..., None] + ar * problem.edge_stride.long()[:, None]
-    edge_w = weights[..., problem.edge_con.long()]  # [..., E]
-    sweeps = problem.tables_flat[cells] * edge_w[..., None]
-    return segment_sum_edges(problem, sweeps, dim=-2) + problem.unary
-
-
 def draws(
     problem: CompiledProblem,
     params: Dict[str, Any],
@@ -94,16 +83,14 @@ def apply(
     drawn: Dict[str, torch.Tensor],
 ) -> Dict[str, torch.Tensor]:
     values, weights = state["values"], state["weights"]
-    local = _weighted_sweep(problem, values, weights)
+    edge_con = problem.index64("edge_con")
+    # candidate-value costs with per-constraint weights
+    local = local_cost_sweep(problem, values, weights[..., edge_con])
     current, best = current_best(local, values)
     candidate = torch.argmin(local, dim=-1).to(values.dtype)
     improve = current - best  # >= 0
     # raw per-constraint violation under the CURRENT assignment
-    v = values.long()
-    cell = problem.con_offset.long() + (
-        v[..., problem.con_scopes.long()] * problem.con_strides.long()
-    ).sum(dim=-1)
-    violated = problem.tables_flat[cell] > EPS  # [..., C]
+    violated = problem.tables_flat[con_cells(problem, values)] > EPS
 
     win = strict_winner(problem, improve, lexic_prio(problem)) & (
         improve > EPS
@@ -112,7 +99,7 @@ def apply(
 
     # quasi-local minimum: a violated incident constraint, and nobody in
     # the closed neighborhood improves
-    edge_viol = violated[..., problem.edge_con.long()].to(problem.unary.dtype)
+    edge_viol = violated[..., edge_con].to(problem.unary.dtype)
     has_violation = segment_sum_edges(problem, edge_viol, dim=-1) > 0.5
     nbr_improve = neighbor_gather(
         problem, improve, fill=-float("inf"), dim=-1
@@ -124,7 +111,9 @@ def apply(
     # (read through con_scopes; stride 0 marks padded scope slots, which
     # point at variable 0 and are masked out)
     scope_mask = problem.con_strides > 0  # [C, k_max]
-    touch_qlm = (qlm[..., problem.con_scopes.long()] & scope_mask).any(dim=-1)
+    touch_qlm = (qlm[..., problem.index64("con_scopes")] & scope_mask).any(
+        dim=-1
+    )
     new_weights = torch.where(
         violated & touch_qlm, weights + params["increase"], weights
     )

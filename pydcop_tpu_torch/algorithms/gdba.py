@@ -117,7 +117,7 @@ def apply(
         base_flat = base_flat.expand(batch + (m, d**k))
         w = state[f"w{k}"]
         eff_flat = base_flat + w if additive else base_flat * w
-        vals = values[..., bucket.scopes.long()].long()  # [..., m, k]
+        vals = values[..., bucket.scopes64].long()  # [..., m, k]
         strides = _bucket_strides(k, d)
         cur_cell = sum(vals[..., q] * strides[q] for q in range(k))
         cc_raw = base_flat.gather(-1, cur_cell[..., None])[..., 0]
@@ -165,7 +165,7 @@ def apply(
         cur_cell, violated, vals = per_bucket[k]
         strides = _bucket_strides(k, d)
         w = state[f"w{k}"]
-        qlm_scope = qlm[..., bucket.scopes.long()]  # [..., m, k]
+        qlm_scope = qlm[..., bucket.scopes64]  # [..., m, k]
         cell_axis = torch.arange(d**k, device=values.device)
         delta = torch.zeros_like(w)
         for p in range(k):

@@ -19,12 +19,11 @@ selection):
 2. belief ``b_v = unary + noise + Σ incoming r`` (the per-slot prefix
    gather sum, ``ops/costs.py``);
 3. broadcast-back gather ``belief[:, edge_var]``;
-4. q update ``q = damp·q + (1−damp)·norm(belief_e − r)``: in f32 by
-   the CUDA kernel on the card and its plain version on the CPU, for
-   every problem inside the factor-kernel gate and every problem with an
-   f32 belief; a bf16 belief (bf16 tables) outside the gate takes the
-   JAX package's XLA form instead, rounded to bf16 after every
-   operation (:func:`q_update_generic`);
+4. q update ``q = damp·q + (1−damp)·norm(belief_e − r)``: the CUDA
+   kernel on the card and its plain version on the CPU, for every
+   problem; in f32, except for a bf16 belief (bf16 tables) outside the
+   factor-kernel gate, which the JAX package computes in XLA in bf16:
+   there the kernel rounds every operation to bf16 (``per_op``);
 5. value selection ``values = argmin_d belief``.
 
 Messages are stored in ``msg_dtype`` (f32 or bf16); the belief
@@ -138,25 +137,6 @@ def use_kernels(problem: CompiledProblem) -> bool:
     return problem.device.type == "cuda" and in_kernel_gate(problem)
 
 
-def q_update_generic(
-    belief_e: torch.Tensor,
-    r_new: torch.Tensor,
-    q: torch.Tensor,
-    damping: float,
-    dtype: torch.dtype,
-) -> torch.Tensor:
-    """The JAX package's q update outside its Pallas gate, in ``dtype``
-    (the belief's) operation by operation: with a bf16 belief every
-    difference, product and sum is rounded to bf16, and so are ``damp``
-    and ``1 − damp`` (the latter taken in f32 first)."""
-    damp = torch.tensor(damping, dtype=torch.float32)
-    qn = belief_e.to(dtype) - r_new.to(dtype)
-    qn = qn - qn.amin(dim=0, keepdim=True)
-    return (
-        damp.to(dtype) * q.to(dtype) + (1.0 - damp).to(dtype) * qn
-    ).to(q.dtype)
-
-
 def belief_from_r(
     problem: CompiledProblem,
     r: torch.Tensor,
@@ -215,10 +195,9 @@ def step(
     # the broadcast-back gather runs in the message dtype
     belief_src = belief if belief.dtype == mdt else belief.to(mdt)
     belief_e = belief_src.index_select(1, problem.edge_var)
-    if in_kernel_gate(problem) or belief.dtype == torch.float32:
-        q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping)
-    else:
-        q_new = q_update_generic(belief_e, r_new, q, damping, belief.dtype)
+    # outside the gate the JAX package computes in the belief's dtype
+    per_op = belief.dtype == torch.bfloat16 and not in_kernel_gate(problem)
+    q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping, per_op)
     values = torch.argmin(belief, dim=0).to(state["values"].dtype)
     return {**state, "q": q_new, "r": r_new, "values": values}
 

@@ -178,16 +178,16 @@ def _pair_shared(
     other scope variables fixed at ``values``."""
     e = state["pe_edge"].long()
     p = state["pe_copos"].long()
-    covars = problem.edge_covars.long()[e]  # [P, k-1]
-    costr = problem.edge_costrides.long()[e]  # [P, k-1]
+    covars = problem.index64("edge_covars")[e]  # [P, k-1]
+    costr = problem.index64("edge_costrides")[e]  # [P, k-1]
     covals = values[..., covars].long()  # [..., P, k-1]
     sel = torch.arange(costr.shape[1], device=e.device) == p[:, None]
-    base = problem.edge_offset.long()[e] + torch.where(
+    base = problem.index64("edge_offset")[e] + torch.where(
         sel, 0, covals * costr
     ).sum(dim=-1)  # [..., P]
     d = problem.d_max
     ar = torch.arange(d, device=e.device)
-    stride_own = problem.edge_stride.long()[e]
+    stride_own = problem.index64("edge_stride")[e]
     stride_nbr = costr.gather(1, p[:, None])[:, 0]
     cells = (
         base[..., None, None]

@@ -37,7 +37,9 @@
 // f32 table every operation is f32; with a bf16 table the q inputs are
 // rounded to bf16 and every add and subtract is rounded to bf16 (an f32
 // operation on bf16 values, then one rounding, as PyTorch and XLA compute
-// bf16 arithmetic).  The q update is f32 whatever the message type.
+// bf16 arithmetic).  The q update is f32 whatever the message type, or,
+// on request (per_op), bf16 operation by operation in the same way: the
+// JAX package's form for a bf16 belief outside the factor-kernel gate.
 // Explicit round-to-nearest intrinsics keep every multiply-add apart (the
 // build also passes --fmad=false): results are bit-equal to the plain
 // PyTorch versions in maxsum_kernels.py.  The association order is the
@@ -173,12 +175,17 @@ __global__ void __launch_bounds__(kThreads) factor_kernel(
   }
 }
 
-template <int D, typename T>
+// F: the compute type.  float is the Pallas body (f32 arithmetic);
+// __nv_bfloat16 is the JAX package's XLA form for a bf16 belief outside
+// the factor-kernel gate: damp and 1 - damp (taken in f32) and every
+// difference, product and sum rounded to bf16.
+template <int D, typename F, typename T>
 __global__ void __launch_bounds__(kThreads) q_update_kernel(
     const T* __restrict__ be, const T* __restrict__ r,
-    const T* __restrict__ q, float damp, T* __restrict__ out, int d,
+    const T* __restrict__ q, float damp_f32, T* __restrict__ out, int d,
     int64_t e) {
-  const float omd = __fsub_rn(1.0f, damp);
+  const float damp = rnd<F>(damp_f32);
+  const float omd = rnd<F>(__fsub_rn(1.0f, damp_f32));
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < e; i += stride) {
@@ -186,23 +193,26 @@ __global__ void __launch_bounds__(kThreads) q_update_kernel(
       float qn[D];
       float mn = CUDART_INF_F;
       for (int a = 0; a < D; ++a) {
-        qn[a] = __fsub_rn(ld(be + a * e + i), ld(r + a * e + i));
+        qn[a] = rnd<F>(__fsub_rn(ld(be + a * e + i), ld(r + a * e + i)));
         mn = nanmin(mn, qn[a]);
       }
       for (int a = 0; a < D; ++a) {
-        const float x = __fsub_rn(qn[a], mn);
+        const float x = rnd<F>(__fsub_rn(qn[a], mn));
         st(out + a * e + i,
-           __fadd_rn(__fmul_rn(damp, ld(q + a * e + i)), __fmul_rn(omd, x)));
+           rnd<F>(__fadd_rn(rnd<F>(__fmul_rn(damp, ld(q + a * e + i))),
+                            rnd<F>(__fmul_rn(omd, x)))));
       }
     } else {  // any d: the min first, then be - r again (same operations)
       float mn = CUDART_INF_F;
       for (int a = 0; a < d; ++a)
-        mn = nanmin(mn, __fsub_rn(ld(be + a * e + i), ld(r + a * e + i)));
+        mn = nanmin(mn, rnd<F>(__fsub_rn(ld(be + a * e + i),
+                                         ld(r + a * e + i))));
       for (int a = 0; a < d; ++a) {
-        const float x =
-            __fsub_rn(__fsub_rn(ld(be + a * e + i), ld(r + a * e + i)), mn);
+        const float x = rnd<F>(__fsub_rn(
+            rnd<F>(__fsub_rn(ld(be + a * e + i), ld(r + a * e + i))), mn));
         st(out + a * e + i,
-           __fadd_rn(__fmul_rn(damp, ld(q + a * e + i)), __fmul_rn(omd, x)));
+           rnd<F>(__fadd_rn(rnd<F>(__fmul_rn(damp, ld(q + a * e + i))),
+                            rnd<F>(__fmul_rn(omd, x)))));
       }
     }
   }
@@ -251,13 +261,13 @@ void launch_factor(bool shared, const void* tab, const void* q0,
 #undef FACTOR
 }
 
-template <typename T>
+template <typename F, typename T>
 void launch_q_update(const void* be, const void* r, const void* q,
                      float damp, void* out, int d, int64_t e,
                      cudaStream_t s) {
   const int grid = blocks_for(e);
 #define Q_UPDATE(D) \
-  q_update_kernel<D, T><<<grid, kThreads, 0, s>>>( \
+  q_update_kernel<D, F, T><<<grid, kThreads, 0, s>>>( \
       static_cast<const T*>(be), static_cast<const T*>(r), \
       static_cast<const T*>(q), damp, static_cast<T*>(out), d, e)
   DISPATCH_D(d, Q_UPDATE)
@@ -297,15 +307,21 @@ int pydcop_factor_round_binary(int shared, const void* tab, int tab_bf16,
 }
 
 // be, r, q, out: [d, e] of float or __nv_bfloat16; damp is the f32
-// damping factor.  d >= 1, e >= 1.
+// damping factor.  per_op (bf16 only): round every operation to bf16
+// instead of computing in f32.  d >= 1, e >= 1.
 int pydcop_q_update(const void* be, const void* r, const void* q, float damp,
-                    void* out, int d, int64_t e, int bf16, void* stream) {
-  if (d < 1 || e < 1) return static_cast<int>(cudaErrorInvalidValue);
+                    void* out, int d, int64_t e, int bf16, int per_op,
+                    void* stream) {
+  if (d < 1 || e < 1 || (per_op && !bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    launch_q_update<__nv_bfloat16>(be, r, q, damp, out, d, e, s);
+  if (per_op) {
+    launch_q_update<__nv_bfloat16, __nv_bfloat16>(be, r, q, damp, out, d, e,
+                                                  s);
+  } else if (bf16) {
+    launch_q_update<float, __nv_bfloat16>(be, r, q, damp, out, d, e, s);
   } else {
-    launch_q_update<float>(be, r, q, damp, out, d, e, s);
+    launch_q_update<float, float>(be, r, q, damp, out, d, e, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

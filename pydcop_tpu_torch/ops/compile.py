@@ -73,6 +73,11 @@ class ArityBucket:
     def shared_table(self) -> bool:
         return self.tables.shape[0] == 1 and self.scopes.shape[0] > 1
 
+    @functools.cached_property
+    def scopes64(self) -> torch.Tensor:
+        """``scopes`` as int64, converted once per bucket."""
+        return self.scopes.long()
+
     def to(self, device: DeviceLike) -> "ArityBucket":
         dev = torch.device(device)
         return ArityBucket(
@@ -173,6 +178,18 @@ class CompiledProblem:
         contiguous: each degree slot's edge ids as one row, which the
         belief gather indexes every round."""
         return self.var_edges.t().contiguous()
+
+    @functools.cached_property
+    def _index64(self) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def index64(self, name: str) -> torch.Tensor:
+        """The i32 index field ``name`` as int64 (what tensor indexing
+        and flat-cell arithmetic take), converted once per problem."""
+        cache = self._index64
+        if name not in cache:
+            cache[name] = getattr(self, name).long()
+        return cache[name]
 
     def to(self, device: DeviceLike) -> "CompiledProblem":
         dev = torch.device(device)

@@ -3,6 +3,8 @@
 
 - :func:`segment_sum_edges` — sum a per-edge quantity into per-variable
   rows.
+- :func:`edge_cells` / :func:`con_cells` — flat table cells of each
+  edge's candidate sweep and of each constraint under an assignment.
 - :func:`local_cost_sweep` — every variable's full candidate-value cost
   row under the current assignment.
 - :func:`total_cost` — solution cost of an assignment, on the device.
@@ -23,6 +25,8 @@ adds in a fixed order, so a card run and a CPU run agree bit for bit.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -67,19 +71,41 @@ def segment_sum_edges(
     return gather_sum_slots(problem, per_edge, acc, dim)
 
 
-def local_cost_sweep(
+def edge_cells(
     problem: CompiledProblem, values: torch.Tensor
 ) -> torch.Tensor:
-    """[..., n_vars, d_max]: cost of each candidate value for each
-    variable, holding all other variables at ``values [..., n_vars]``."""
-    co_vals = values[..., problem.edge_covars.long()]  # [..., E, k_max-1]
-    base = problem.edge_offset.long() + (
-        co_vals.long() * problem.edge_costrides.long()
+    """i64[..., E, d_max]: the flat table cell of each directed edge's
+    constraint with its own variable at each candidate value and the
+    other scope variables at ``values [..., n_vars]``."""
+    co_vals = values[..., problem.index64("edge_covars")].long()
+    base = problem.index64("edge_offset") + (
+        co_vals * problem.index64("edge_costrides")
+    ).sum(dim=-1)  # [..., E]
+    ar = torch.arange(problem.d_max, device=values.device)
+    return base[..., None] + ar * problem.index64("edge_stride")[:, None]
+
+
+def con_cells(problem: CompiledProblem, values: torch.Tensor) -> torch.Tensor:
+    """i64[..., C]: the flat table cell of each constraint under the
+    assignment ``values [..., n_vars]``."""
+    scope_vals = values.long()[..., problem.index64("con_scopes")]
+    return problem.index64("con_offset") + (
+        scope_vals * problem.index64("con_strides")
     ).sum(dim=-1)
-    d = problem.d_max
-    ar = torch.arange(d, device=values.device)
-    cells = base[..., None] + ar * problem.edge_stride.long()[:, None]
-    sweeps = problem.tables_flat[cells]  # [..., E, d]
+
+
+def local_cost_sweep(
+    problem: CompiledProblem,
+    values: torch.Tensor,
+    edge_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[..., n_vars, d_max]: cost of each candidate value for each
+    variable, holding all other variables at ``values [..., n_vars]``.
+    ``edge_weight [..., E]`` scales each edge's constraint cells (DBA's
+    weighted sweep)."""
+    sweeps = problem.tables_flat[edge_cells(problem, values)]  # [..., E, d]
+    if edge_weight is not None:
+        sweeps = sweeps * edge_weight[..., None]
     return segment_sum_edges(problem, sweeps, dim=-2) + problem.unary
 
 
@@ -90,12 +116,8 @@ def total_cost(
     sign: always a minimization cost; callers re-negate for max
     problems)."""
     v = values.long()
-    scope_vals = v[..., problem.con_scopes.long()]  # [..., C, k_max]
-    cell = problem.con_offset.long() + (
-        scope_vals * problem.con_strides.long()
-    ).sum(dim=-1)
     con_cost = (
-        problem.tables_flat[cell].sum(dim=-1)
+        problem.tables_flat[con_cells(problem, v)].sum(dim=-1)
         if problem.n_cons
         else torch.zeros(
             v.shape[:-1], dtype=problem.unary.dtype, device=v.device

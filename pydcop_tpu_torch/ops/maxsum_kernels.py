@@ -20,8 +20,10 @@ launches per wrapper, so a run can show that it went through them.
 
 Messages and tables may each be f32 or bf16.  The factor phase computes
 in the table's dtype, as the Pallas kernels do (bf16 tables: every add
-rounded to bf16); the q update computes in f32.  Outputs are rounded to
-the message dtype.
+rounded to bf16); the q update computes in f32, or with ``per_op`` in
+bf16 operation by operation (the JAX package's XLA form for a bf16
+belief outside the factor-kernel gate).  Outputs are rounded to the
+message dtype.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def build():
         ]
         lib.pydcop_factor_round_binary.restype = i32
         lib.pydcop_q_update.argtypes = [
-            vp, vp, vp, ctypes.c_float, vp, i32, i64, i32, vp,
+            vp, vp, vp, ctypes.c_float, vp, i32, i64, i32, i32, vp,
         ]
         lib.pydcop_q_update.restype = i32
         lib._pydcop_bound = True
@@ -110,15 +112,20 @@ def q_update_plain(
     r_new: torch.Tensor,
     q: torch.Tensor,
     damping: float,
+    per_op: bool = False,
 ) -> torch.Tensor:
     """``qn = belief_e − r_new``; ``qn −= min_d qn``;
     ``q_new = damp·q + (1 − damp)·qn`` in f32 (``1 − damp`` rounded in
     f32, as the kernel and the JAX package compute it), rounded to q's
-    dtype.  The two factors are 0-d CPU tensors, so no host-to-device
-    copy is made (the call can be captured in a CUDA graph)."""
-    f = torch.float32
-    damp = torch.tensor(damping, dtype=f)
-    omd = 1.0 - damp
+    dtype.  ``per_op`` (bf16 messages only) computes in bf16 instead,
+    every difference, product and sum rounded, and ``damp`` and
+    ``1 − damp`` too.  The two factors are 0-d CPU tensors, so no
+    host-to-device copy is made (the call can be captured in a CUDA
+    graph)."""
+    f = torch.bfloat16 if per_op else torch.float32
+    damp = torch.tensor(damping, dtype=torch.float32)
+    omd = (1.0 - damp).to(f)
+    damp = damp.to(f)
     qn = belief_e.to(f) - r_new.to(f)
     qn = qn - qn.amin(dim=0, keepdim=True)
     return (damp * q.to(f) + omd * qn).to(q.dtype)
@@ -248,11 +255,16 @@ def q_update(
     r_new: torch.Tensor,  # [d, E]
     q: torch.Tensor,  # [d, E] — previous q (damping)
     damping: float,
+    per_op: bool = False,
 ) -> torch.Tensor:
     """Fused q update: subtract own r, min-normalize, damp → [d, E] in
-    q's dtype.  Any domain size (no ``MAX_D`` cap)."""
+    q's dtype.  Any domain size (no ``MAX_D`` cap).  ``per_op`` rounds
+    every operation to bf16 (see :func:`q_update_plain`); it needs bf16
+    messages."""
+    if per_op and q.dtype != torch.bfloat16:
+        raise ValueError(f"q_update: per_op needs bf16 messages, not {q.dtype}")
     if q.device.type == "cpu":
-        return q_update_plain(belief_e, r_new, q, damping)
+        return q_update_plain(belief_e, r_new, q, damping, per_op)
     dev = q.device
     d, e = q.shape
     if d < 1 or e < 1:
@@ -270,7 +282,7 @@ def q_update(
         rc = lib.pydcop_q_update(
             belief_e.data_ptr(), r_new.data_ptr(), q.data_ptr(),
             float(damping), out.data_ptr(), d, e,
-            int(q.dtype == torch.bfloat16), _stream(dev),
+            int(q.dtype == torch.bfloat16), int(per_op), _stream(dev),
         )
     _check_rc(rc, "q_update")
     launches["q_update"] += 1

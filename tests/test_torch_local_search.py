@@ -39,7 +39,7 @@ from test_torch_maxsum import jax_gather_lowering  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RING = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
-ROUNDS = 12
+ROUNDS = 16
 
 
 def _mixed(n=200):

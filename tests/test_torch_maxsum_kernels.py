@@ -16,6 +16,8 @@ magnitude of the joint S).  The CUDA kernels themselves are held
 against the plain versions on the card by ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -166,6 +168,37 @@ def test_q_update_plain_matches_pallas_bf16(damping):
     got = mk.q_update_plain(bt, rt, qt, damping)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@functools.partial(jax.jit, static_argnums=3)
+def _jax_q_update_xla(be, r, q, damping):
+    """The JAX Max-Sum step's q update outside its Pallas gate
+    (``pydcop_tpu/algorithms/maxsum.py``), in the belief's dtype, with
+    ``damping`` a Python float as the step's params hold it."""
+    qn = be - r
+    qn = qn - jnp.min(qn, axis=0, keepdims=True)
+    return (damping * q + (1.0 - damping) * qn).astype(q.dtype)
+
+
+@pytest.mark.parametrize("damping", [0.3, 0.5, 0.7])
+@pytest.mark.parametrize("d,e", [(3, 500), (70, 300)])
+def test_q_update_plain_per_op_matches_jax_bf16_form(d, e, damping):
+    """``per_op``: every operation rounded to bf16, as the JAX package's
+    XLA q update computes a bf16 belief outside the kernel gate."""
+    (bj, bt), (rj, rt), (qj, qt) = _q_inputs(d * e, d, e, bf16=True)
+    ref = _jax_q_update_xla(bj, rj, qj, damping)
+    got = mk.q_update_plain(bt, rt, qt, damping, per_op=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got), _np(ref))
+    assert torch.equal(mk.q_update(bt, rt, qt, damping, per_op=True), got)
+    # it is another function than the f32 update the kernel gate takes
+    assert not torch.equal(got, mk.q_update_plain(bt, rt, qt, damping))
+
+
+def test_q_update_per_op_needs_bf16_messages():
+    (_, be), (_, r), (_, q) = _q_inputs(5, 3, 100)
+    with pytest.raises(ValueError, match="per_op"):
+        mk.q_update(be, r, q, 0.5, per_op=True)
 
 
 def test_wrappers_take_the_plain_version_on_cpu_without_counting():
