@@ -9,18 +9,28 @@ Phases (any failure raises and the script exits nonzero; nothing is
 caught and passed over):
 
 1. Device and build: the card's name and power limit, then the port's
-   CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc.
+   CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc, and one
+   ``ptxas`` line per factor-kernel instance (registers, stack frame,
+   spills): any factor instance with a stack frame or a spill fails.
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes (f32 and bf16 messages, f32 and bf16 tables, a
    ragged width, strided row views, a NaN input, domains past 64 for
-   the q update, the q update with every operation rounded to bf16):
+   the q update, the q update with every operation rounded to bf16),
+   and the factor kernels' lane-tile instance (every d outside
+   {2, 3, 4, 5, 8}) at d = 1, 6, 7, 10, 16, 32, 64 and 257 lanes, d = 10
+   at 299,988 lanes and d = 16, 32, 64 at 100,000, each with f32 and
+   bf16 messages and tables as strided row views, and a NaN input:
    outputs must be bit-equal (the kernels are built
-   without FMA contraction).  One line per kernel and shape: kernel and
+   without FMA contraction).  One line per kernel and shape: the
+   instance (unrolled, or the lane tile with its rows per thread, warps
+   and shared memory), kernel and
    plain device times (20 calls captured in one CUDA graph, the replay
    timed with CUDA events, median of 25 replays, divided by 20: no host
    launch cost in it), the host launch interval (CUDA events around 10
    eager calls), the bound (bytes over 3.35 TB/s, or f32 operations over
-   67 TFLOP/s, whichever is larger) and the launches made.
+   67 TFLOP/s, whichever is larger), the share of it reached and the
+   launches made.  At 100,000 lanes and more a ``tile-rows`` line times
+   the lane-tile instance at each rows per thread it is built for.
 3. Max-Sum on the 10k-variable 3-colour coloring (the benchmark
    workload: damping 0.5, 1024 rounds, chunk 256, cost sampled every 8
    rounds) through ``api.solve_compiled``: the shared-table factor and
@@ -40,9 +50,17 @@ caught and passed over):
 4. The same with per-factor 5x5 tables at 100k variables (the
    per-factor factor kernel; card vs CPU also with bf16 tables), with a
    profiler pass over 32 rounds.
-5. The 1M-variable coloring: 256 rounds, msgs/s and peak device
+5. Max-Sum at d = 10, the lane-tile instance on the main path: the
+   100k-variable 10-colour instance (phase 4's scopes) with one random
+   10x10 table per constraint (per-factor-100k-d10) and with the shared
+   identity table (coloring-100k-d10), 64 rounds each through
+   ``api.solve_compiled`` (64 launches of its factor kernel, 64 q
+   updates, none of the other factor kernel), msgs/s and peak device
+   memory; 32 rounds card vs CPU (per-factor also with bf16 tables, 16
+   rounds); a profiler pass over 32 rounds.
+6. The 1M-variable coloring: 256 rounds, msgs/s and peak device
    memory; 8 rounds card vs CPU; a profiler pass over 32 rounds.
-6. The local-search family and A-Max-Sum.  Full width: each of the eight
+7. The local-search family and A-Max-Sum.  Full width: each of the eight
    algorithms through ``api.solve_compiled`` on the 1M coloring (DSA-B
    and MGM-2 256 rounds, the others 32; chunk 256, cost every 8), launch
    counts set to 0 just before each run and read just after (A-Max-Sum
@@ -61,7 +79,9 @@ caught and passed over):
    K=8, 1024 rounds, chunk 256: msgs/s over all restarts' messages, the
    best cost and the K restart costs, and a profiler pass over 64 rounds
    each.
-7. One ``{"kernels": [...]}`` JSON line, the card line, and last the
+8. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+   shape, and each factor kernel's lane-tile instance as
+   ``<kernel>.runtime_d`` at phase 5's), the card line, and last the
    ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
@@ -88,6 +108,14 @@ KERNELS = {
     "q_update": f"{PALLAS}:222",
 }
 SOURCE = "pydcop_tpu_torch/csrc/maxsum_kernels.cu"
+# phase 2's shapes for the factor kernels' lane-tile instance (d outside
+# {2, 3, 4, 5, 8}): a ragged narrow width, phase 5's d = 10 width, and
+# 100,000 lanes at the larger domains
+RUNTIME_D_SHAPES = (
+    [(d, 257) for d in (1, 6, 7, 10, 16, 32, 64)]
+    + [(10, 299_988)]
+    + [(d, 100_000) for d in (16, 32, 64)]
+)
 # phase 3's binary + ternary instance: the 10k coloring's 29,987 binary
 # constraints and 3,333 ternaries, 2·29,987 + 3·3,333 directed edges
 N_TERNARY = 3_333
@@ -210,6 +238,36 @@ def profile_rounds(torch, run_batched, module, params, problem, rounds,
               f"device_us={e.device_time_total} name={e.key!r}")
 
 
+def ptxas_instances(log: str):
+    """(mangled name, registers, stack frame bytes, spill store bytes,
+    spill load bytes) of every kernel in nvcc's ``-Xptxas -v`` output."""
+    out, name, frame = [], None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line and name:
+            frame = [int(x.split()[0]) for x in line.strip().split(",")]
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used ")[1].split()[0])
+            out.append((name, regs, *frame))
+            name = None
+    return out
+
+
+def demangle(names):
+    """Readable kernel names (the toolkit's or binutils' demangler; the
+    mangled names where neither is installed)."""
+    import shutil
+
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return [x.replace("(anonymous namespace)::", "").split("(")[0]
+            for x in out.splitlines()]
+
+
 def same_bits(torch, a, b) -> bool:
     """Equal dtype, shape and bits; NaN where the other has NaN."""
     if a.dtype != b.dtype or a.shape != b.shape:
@@ -238,11 +296,22 @@ def check_kernels(torch, mk, dev, m4):
     """Phase 2: every kernel against its plain version on the card."""
     g = torch.Generator(device=dev).manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
 
     def rand(*shape, scale=1.0, dtype=torch.float32):
         x = torch.rand(*shape, generator=g, device=dev) * scale
         return x.to(dtype)
+
+    def instance(name, d, w):
+        """Which factor-kernel instance runs (d, width): an unrolled one
+        or the lane-tile one with its launch configuration."""
+        if name == "q_update":
+            return "unrolled" if d in mk.UNROLLED_D else "generic"
+        if d in mk.UNROLLED_D:
+            return "unrolled"
+        cfg = mk.tile_config(d, w, name == "factor_round_binary_shared", sms)
+        return f"tile-R{cfg.rows}-W{cfg.warps}-smem{cfg.smem_bytes}"
 
     def record(name, d, w, dtype, fn, plain, nbytes, nops, tag="",
                table=""):
@@ -261,14 +330,15 @@ def check_kernels(torch, mk, dev, m4):
                 f"version, max_abs_err={err}"
             )
         b_ms, b_by = bound_ms(nbytes, nops)
+        ms = device_ms(torch, fn)
         row = dict(
             kernel=name, d=d, width=w,
             dtype="bf16" if dtype == torch.bfloat16 else "f32",
-            table=table, case=tag or "random",
-            ms=device_ms(torch, fn), plain_ms=device_ms(torch, plain),
+            table=table, case=tag or "random", instance=instance(name, d, w),
+            ms=ms, plain_ms=device_ms(torch, plain),
             launch_ms=launch_ms(torch, fn),
-            bound_ms=b_ms, bound_by=b_by, launches=launched,
-            max_abs_err=err, bit_equal=equal,
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+            launches=launched, max_abs_err=err, bit_equal=equal,
         )
         print("kernel-check " + " ".join(f"{k}={v}" for k, v in row.items()))
         rows.append(row)
@@ -285,7 +355,7 @@ def check_kernels(torch, mk, dev, m4):
         else:
             q0, q1, out = rand(d, m, dtype=dtype), rand(d, m, dtype=dtype), None
         if nan:
-            q0[1, 7] = float("nan")
+            q0[min(1, d - 1), 7] = float("nan")
             q1[0, m - 1] = float("nan")
         wrap = mk.factor_round_binary_shared if shared else mk.factor_round_binary
         plain = (mk.factor_round_binary_shared_plain if shared
@@ -298,6 +368,25 @@ def check_kernels(torch, mk, dev, m4):
         record(name, d, m, dtype, lambda: wrap(tab, q0, q1, out=out),
                lambda: plain(tab, q0, q1), nbytes, nops, tag,
                table="bf16" if tab_dtype == torch.bfloat16 else "f32")
+
+    def tile_rows(shared, d, m):
+        """The lane-tile instance's time at each built rows-per-thread
+        (f32, strided), beside the wrapper's choice."""
+        name = "factor_round_binary_shared" if shared else "factor_round_binary"
+        tab = rand(*((d, d) if shared else (d, d, m)), scale=10.0)
+        q = rand(d, 2 * m + 7)
+        r = torch.empty_like(q)
+        args = (tab, q[:, 7 : 7 + m], q[:, 7 + m :],
+                (r[:, 7 : 7 + m], r[:, 7 + m :]))
+        times = {
+            f"R{x}_ms": device_ms(
+                torch, lambda x=x: mk._factor_launch(name, shared, *args,
+                                                     rows=x))
+            for x in mk.TILE_ROWS
+        }
+        print(f"tile-rows kernel={name} d={d} width={m} "
+              f"chosen={instance(name, d, m)} "
+              + " ".join(f"{k}={v}" for k, v in times.items()))
 
     def q_update(d, e, dtype, nan=False, damping=0.5, per_op=False):
         be = rand(d, e, scale=5.0, dtype=dtype)
@@ -338,6 +427,17 @@ def check_kernels(torch, mk, dev, m4):
         factor(False, d, 257, f32)
     factor(False, 3, 257, bf16)
     factor(False, 3, 257, f32, nan=True)
+    # the lane-tile instance (every d outside mk.UNROLLED_D): each shape
+    # with f32 and bf16 messages and tables as step passes them (strided
+    # column blocks of [d, E]), and a NaN input
+    for shared in (True, False):
+        for d, m in RUNTIME_D_SHAPES:
+            for dtype, tab_dtype in ((f32, f32), (bf16, f32), (f32, bf16),
+                                     (bf16, bf16)):
+                factor(shared, d, m, dtype, strided=True, tab_dtype=tab_dtype)
+            factor(shared, d, m, f32, nan=True)
+            if m >= 100_000:
+                tile_rows(shared, d, m)
     for dtype in (f32, bf16):
         for e in (59_974, 5_999_982, 257):
             q_update(3, e, dtype)
@@ -395,12 +495,14 @@ def main_path(torch, mk, solve_compiled, problem, rounds, chunk, expect,
     solve_compiled(problem, "maxsum", params, rounds=min(rounds, chunk),
                    chunk_size=chunk, cost_every=8)  # warm run
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     mk.reset_launches()
     t0 = time.perf_counter()
     res = solve_compiled(problem, "maxsum", params, rounds=rounds,
                          chunk_size=chunk, cost_every=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     dt = res["time"]  # the engine's time: without decoding the dicts
     counts = dict(mk.launches)
     for name, want in expect.items():
@@ -421,11 +523,12 @@ def main_path(torch, mk, solve_compiled, problem, rounds, chunk, expect,
           f"n_real_edges={problem.n_real_edges} rounds={rounds} "
           f"engine_seconds={dt} msgs_per_s={msgs / dt} "
           f"wall_seconds={wall} msgs_per_s_wall={msgs / wall} "
-          f"best_cost={res['cost']} launches={counts} card={card}")
+          f"best_cost={res['cost']} peak_memory_bytes={peak} "
+          f"launches={counts} card={card}")
     return counts
 
 
-# -- phase 6: the local-search family and A-Max-Sum -------------------------
+# -- phase 7: the local-search family and A-Max-Sum -------------------------
 
 LOCAL_SEARCH = (  # (algorithm, parameters, rounds at 1M)
     ("dsa", {"variant": "B", "probability": 0.7}, 256),
@@ -586,7 +689,7 @@ def restart_config(torch, mk, solve_compiled, run_batched, problem, algo,
 
 def local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
                        card):
-    """Phase 6 (see the module docstring)."""
+    """Phase 7 (see the module docstring)."""
     from pydcop_tpu_torch.algorithms import (
         load_algorithm_module,
         prepare_algo_params,
@@ -656,15 +759,24 @@ def main() -> int:
     built = mk.build()
     print(f"build: {built.path.name} nvcc_seconds={built.seconds} "
           f"wall_seconds={time.perf_counter() - t0}")
-    regs = [int(x.split("Used ")[1].split()[0])
-            for x in built.log.splitlines() if "registers" in x]
-    stack = [int(x.split()[0]) for x in (
-        ln.strip() for ln in built.log.splitlines()) if "stack frame" in x]
-    spills = sum(" 0 bytes spill stores" not in x
-                 for x in built.log.splitlines() if "spill stores" in x)
-    print(f"ptxas: instances={len(regs)} max_registers={max(regs, default=0)}"
-          f" max_stack_frame_bytes={max(stack, default=0)} "
-          f"instances_spilling={spills}")
+    instances = ptxas_instances(built.log)
+    if not instances:
+        print("ptxas: the library was reused, no build log to read")
+    print(f"ptxas: instances={len(instances)} "
+          f"max_registers={max((x[1] for x in instances), default=0)} "
+          f"max_stack_frame_bytes={max((x[2] for x in instances), default=0)} "
+          f"instances_spilling={sum(x[3] + x[4] > 0 for x in instances)}")
+    local = []
+    names = demangle([x[0] for x in instances])
+    for (_, regs_, stack_, stores, loads), name in zip(instances, names):
+        if "factor" not in name:
+            continue
+        print(f"ptxas {name}: registers={regs_} stack_frame_bytes={stack_} "
+              f"spill_store_bytes={stores} spill_load_bytes={loads}")
+        if stack_ or stores or loads:
+            local.append(name)
+    if local:
+        raise AssertionError(f"factor instances in local memory: {local}")
 
     # the per-factor instance (phase 4) sets one of phase 2's shapes
     s4, _, u4 = coloring_arrays(100_000, colors=5, degree=3, seed=2)
@@ -733,7 +845,46 @@ def main() -> int:
     profile_rounds(torch, run_batched, maxsum, params, p4, 32,
                    "per-factor-100k-d5")
 
-    # -- 5. 1M coloring ---------------------------------------------------
+    # -- 5. d = 10: the factor kernels' lane-tile instance ---------------
+    s10, t10, u10 = coloring_arrays(100_000, colors=10, degree=3, seed=2)
+    tabs10 = np.random.default_rng(4).random((len(s10), 10, 10),
+                                             dtype=np.float32)
+    p10c = compile_from_arrays(s10, tabs10, 10, unary=u10, device="cpu")
+    p10 = p10c.to(dev)
+    if (p10.n_real_edges, p10.buckets[2].n_cons) != (599_976, 299_988):
+        raise AssertionError("unexpected 100k 10-colour size")
+    per_factor = {"factor_round_binary": 64, "q_update": 64,
+                  "factor_round_binary_shared": 0}
+    counts10 = main_path(torch, mk, solve_compiled, p10, 64, 64, per_factor,
+                         "per-factor-100k-d10", card)
+    half = {k: v // 2 for k, v in per_factor.items()}
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10, p10c, 32, 32,
+                "per-factor-100k-d10", half)
+    p10hc = compile_from_arrays(s10, tabs10, 10, unary=u10,
+                                table_dtype="bf16", device="cpu")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10hc.to(dev), p10hc,
+                16, 16, "per-factor-100k-d10-bf16-tables",
+                {k: v // 4 for k, v in per_factor.items()})
+    del p10hc
+    profile_rounds(torch, run_batched, maxsum, params, p10, 32,
+                   "per-factor-100k-d10")
+    del p10, p10c
+    p10sc = compile_from_arrays(s10, t10, 10, unary=u10, device="cpu")
+    p10s = p10sc.to(dev)
+    if not p10s.buckets[2].shared_table:
+        raise AssertionError("the 10-colour coloring lost its shared table")
+    shared = {"factor_round_binary_shared": 64, "q_update": 64,
+              "factor_round_binary": 0}
+    counts10s = main_path(torch, mk, solve_compiled, p10s, 64, 64, shared,
+                          "coloring-100k-d10", card)
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10s, p10sc, 32, 32,
+                "coloring-100k-d10", {k: v // 2 for k, v in shared.items()})
+    profile_rounds(torch, run_batched, maxsum, params, p10s, 32,
+                   "coloring-100k-d10")
+    del p10s, p10sc
+    torch.cuda.empty_cache()
+
+    # -- 6. 1M coloring ---------------------------------------------------
     s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
     p5c = compile_from_arrays(s5, t5, 3, unary=u5, device="cpu")
     p5 = p5c.to(dev)
@@ -752,24 +903,30 @@ def main() -> int:
     profile_rounds(torch, run_batched, maxsum, params, p5, 32,
                    "coloring-1M")
 
-    # -- 6. the local-search family and A-Max-Sum -------------------------
+    # -- 7. the local-search family and A-Max-Sum -------------------------
     local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
                        card)
 
-    # -- 7. summary -------------------------------------------------------
-    main_shape = {  # the shape each kernel has on its main-path run
-        "factor_round_binary_shared": (3, 29_987, "strided"),
-        "factor_round_binary": (5, m4, "strided"),
-        "q_update": (3, 59_974, "random"),
-    }
-    launches = {
-        "factor_round_binary_shared": counts3["factor_round_binary_shared"],
-        "q_update": counts3["q_update"],
-        "factor_round_binary": counts4["factor_round_binary"],
+    # -- 8. summary -------------------------------------------------------
+    main_shape = {  # entry: (kernel, d, width, case, main-path launches)
+        "factor_round_binary_shared": (
+            "factor_round_binary_shared", 3, 29_987, "strided",
+            counts3["factor_round_binary_shared"]),
+        "factor_round_binary": (
+            "factor_round_binary", 5, m4, "strided",
+            counts4["factor_round_binary"]),
+        "q_update": ("q_update", 3, 59_974, "random", counts3["q_update"]),
+        # the lane-tile instance of each factor kernel, on phase 5's paths
+        "factor_round_binary_shared.runtime_d": (
+            "factor_round_binary_shared", 10, 299_988, "strided",
+            counts10s["factor_round_binary_shared"]),
+        "factor_round_binary.runtime_d": (
+            "factor_round_binary", 10, 299_988, "strided",
+            counts10["factor_round_binary"]),
     }
     kernels = []
-    for name, replaces in KERNELS.items():
-        d, w, case = main_shape[name]
+    for entry, (name, d, w, case, launched) in main_shape.items():
+        tile = entry.endswith(".runtime_d")
         row = next(
             r for r in rows
             if r["kernel"] == name and r["table"] != "bf16"
@@ -777,10 +934,11 @@ def main() -> int:
                                                                 "f32")
         )
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows
-                            if r["kernel"] == name),
+            name=entry, route="cuda", source=SOURCE,
+            replaces=KERNELS[name], launches=launched,
+            max_abs_err=max(
+                r["max_abs_err"] for r in rows if r["kernel"] == name
+                and r["instance"].startswith("tile") == tile),
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None,

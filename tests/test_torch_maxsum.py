@@ -52,6 +52,10 @@ def _instance(kind: str, n: int = 500):
             [scopes], [rng.random((len(scopes), 3, 3)).astype(np.float32)],
             3, unary,
         )
+    if kind == "per_table_d10":  # 10 values: the lane-tile instance's d
+        scopes, _, unary = coloring_arrays(n, colors=10, seed=1)
+        tables = rng.random((len(scopes), 10, 10), dtype=np.float32)
+        return [scopes], [tables], 10, unary
     if kind == "ternary":  # binary + ternary buckets: the generic path
         s3 = np.stack([rng.choice(n, 3, replace=False) for _ in range(n // 2)])
         t3 = rng.random((len(s3), 3, 3, 3)).astype(np.float32)
@@ -168,6 +172,32 @@ def test_run_batched_matches_jax(kind, msg_dtype, jax_gather_lowering):
     assert rt.best_assignment == rj.best_assignment
     assert len(rt.cost_trace) == len(rj.cost_trace) == 8
     np.testing.assert_allclose(rt.cost_trace, rj.cost_trace, rtol=1e-5)
+
+
+def test_run_batched_matches_jax_per_table_d10(jax_gather_lowering):
+    """A per-factor instance with 10 values (random 10x10 tables; on the
+    card the factor kernels' lane-tile instance runs it): 16 rounds from
+    the same numpy state (shared noise) end with the JAX engine's q, r
+    and values, bit for bit, and the same best assignment and cost."""
+    ref, port = _problems("per_table_d10", n=200)
+    assert port.d_max == 10 and not port.buckets[2].shared_table
+    params = {"damping": 0.5}
+    kw = dict(rounds=16, chunk_size=16, cost_every=8,
+              initial_state=_state(ref, "f32"), return_state=True)
+    rj = jax_run(
+        ref, jax_algo("maxsum"),
+        jax_params(params, jax_algo("maxsum").algo_params), **kw,
+    )
+    mod = load_algorithm_module("maxsum")
+    rt = run_batched(
+        port, mod, prepare_algo_params(params, mod.algo_params), **kw
+    )
+    for k in ("q", "r", "values"):  # the gather lowering: bit for bit
+        np.testing.assert_array_equal(
+            _np(rt.state[k]), rj.state[k], err_msg=k
+        )
+    assert rt.best_assignment == rj.best_assignment
+    assert rt.best_cost == pytest.approx(rj.best_cost, rel=1e-6)
 
 
 def test_run_batched_returns_state_and_rejects_unported_options():

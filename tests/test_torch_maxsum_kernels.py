@@ -113,6 +113,61 @@ def test_factor_plain_bf16_table_matches_pallas(per_factor, d, m, bf16):
             np.testing.assert_allclose(_np(g), _np(r), rtol=0, atol=2.0**-5)
 
 
+# the lane-tile instance's domain sizes (any d outside UNROLLED_D): one
+# kernel and message dtype per d, since interpret mode costs seconds at
+# d = 16 (its body unrolls d*d lane-vector adds)
+_RUNTIME_D = [(False, 7, False), (True, 10, True), (False, 16, False)]
+_RUNTIME_D_BF16_TABLE = [(True, 7, False), (False, 10, True), (False, 16, False)]
+
+
+@pytest.mark.parametrize("per_factor,d,bf16", _RUNTIME_D)
+def test_factor_plain_matches_pallas_runtime_d(per_factor, d, bf16):
+    """:func:`test_factor_plain_matches_pallas` at domain sizes the
+    lane-tile instance takes."""
+    test_factor_plain_matches_pallas(per_factor, d, 300, bf16)
+
+
+@pytest.mark.parametrize("per_factor,d,bf16", _RUNTIME_D_BF16_TABLE)
+def test_factor_plain_bf16_table_matches_pallas_runtime_d(per_factor, d, bf16):
+    """:func:`test_factor_plain_bf16_table_matches_pallas` at domain
+    sizes the lane-tile instance takes (|S| < 16 still holds)."""
+    test_factor_plain_bf16_table_matches_pallas(per_factor, d, 300, bf16)
+
+
+@pytest.mark.parametrize("d", [3, 5, 10])
+@pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
+def test_factor_plain_bf16_table_equals_jax_cpu_path(per_factor, d):
+    """bf16 tables with f32 messages: the plain versions equal the JAX
+    package's own CPU computation of the factor phase
+    (``pydcop_tpu.ops.semiring.bp_factor_messages`` at min-sum, run op by
+    op) bit for bit.  The half-ulp gap to the Pallas kernel in interpret
+    mode (:func:`test_factor_plain_bf16_table_matches_pallas`) is XLA
+    keeping excess f32 precision across the bf16 roundings of one fused
+    computation, not a difference between the two packages' functions."""
+    from pydcop_tpu.ops import semiring as jsemiring
+
+    m = 300
+    (tj, tt), (q0j, q0t), (q1j, q1t) = _inputs(
+        11 * d, d, m, per_factor, tab_bf16=True
+    )
+    tab_j = tj if per_factor else tj[..., None]
+    factor = jax.jit(
+        lambda t, a, b: jsemiring.bp_factor_messages(
+            jsemiring.MIN_SUM, t, [a, b], jnp.float32
+        )
+    )
+    if per_factor:
+        got = mk.factor_round_binary_plain(tt, q0t, q1t)
+    else:
+        got = mk.factor_round_binary_shared_plain(tt, q0t, q1t)
+    want = jsemiring.bp_factor_messages(
+        jsemiring.MIN_SUM, tab_j, [q0j, q1j], jnp.float32
+    )
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(_np(g), _np(w))
+
+
 @pytest.mark.parametrize("tab_bf16", [False, True], ids=["f32_table", "bf16_table"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
@@ -137,6 +192,49 @@ def test_factor_plain_equals_generic_path(per_factor, bf16, tab_bf16):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == q0.dtype
         assert torch.equal(g, w)
+
+
+def test_tile_config_covers_every_runtime_d():
+    """The lane-tile instance's launch configuration: for every d the
+    unrolled instances do not take, W warps of R rows cover the d rows
+    exactly (no warp without a row), and the shared memory of the
+    kernel's layout fits one Hopper block (232,448 bytes)."""
+    runtime_d = [d for d in range(1, mk.MAX_D + 1) if d not in mk.UNROLLED_D]
+    assert len(runtime_d) == mk.MAX_D - 5
+    for d in runtime_d:
+        for m in (1, 257, 100_000, 299_988):
+            for shared in (False, True):
+                for rows in (None, *mk.TILE_ROWS):
+                    cfg = mk.tile_config(d, m, shared, rows=rows)
+                    assert cfg.rows in mk.TILE_ROWS
+                    assert rows in (None, cfg.rows)
+                    assert (cfg.warps - 1) * cfg.rows < d <= cfg.warps * cfg.rows
+                    assert cfg.smem_bytes <= 232_448
+    # the largest block: d = 64, R = 4 (16 warps), shared table
+    assert mk.tile_config(64, 257, True) == (4, 16, 167_936)
+    assert mk.tile_config(64, 257, False) == (4, 16, 151_552)
+    # d = 10 at the per-factor-100k-d10 width: 3 warps, 7,168 bytes
+    assert mk.tile_config(10, 299_988, False) == (4, 3, 7_168)
+
+
+def test_tile_config_rows_rule_and_rejections():
+    # R = 8 above d = 32 once the grid gives every SM 16 warps of them
+    assert mk.tile_config(64, 100_000, True).rows == 8
+    assert mk.tile_config(33, 100_000, False).rows == 8
+    assert mk.tile_config(32, 100_000, False).rows == 4
+    assert mk.tile_config(64, 257, False).rows == 4  # narrow m: more warps
+    # the threshold: 16 warps of R = 8 per SM, 8 warps per block at d = 64
+    tiles = 16 * 132 // 8
+    assert mk.tile_config(64, 32 * tiles, True).rows == 8
+    assert mk.tile_config(64, 32 * tiles - 32, True).rows == 4
+    assert mk.tile_config(64, 32 * tiles - 32, True, sms=66).rows == 8
+    for d in mk.UNROLLED_D + (0, 65):
+        with pytest.raises(ValueError, match="no lane-tile instance"):
+            mk.tile_config(d, 100, True)
+    with pytest.raises(ValueError, match="no lane-tile instance"):
+        mk.tile_config(10, 0, True)
+    with pytest.raises(ValueError, match="built for"):
+        mk.tile_config(10, 100, True, rows=16)
 
 
 def _q_inputs(seed, d, e, bf16=False, nan=False):
