@@ -264,8 +264,11 @@ def demangle(names):
         return names
     out = subprocess.run([tool], input="\n".join(names), capture_output=True,
                          text=True, check=True, timeout=60).stdout
-    return [x.replace("(anonymous namespace)::", "").split("(")[0]
-            for x in out.splitlines()]
+    short = []
+    for x in out.splitlines():  # "void ns::kernel<(int)4, float>(args)"
+        x = x.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+        short.append(x[: x.index(">(") + 1] if ">(" in x else x)
+    return short
 
 
 def same_bits(torch, a, b) -> bool:

@@ -44,12 +44,10 @@
 //   min-normalises across warps and stores.  Nothing is indexed at run
 //   time, so nothing lives in local memory.  Every cell is computed once.
 //   Blocks walk the tiles in a grid-stride loop, at most as many as fit on
-//   the card at once (so the shared table is staged once per block), and
-//   hide the latency of device memory in two ways: the next tile's q
-//   columns are loaded into registers while this tile is computed, and the
+//   the card at once (so the shared table is staged once per block).  The
 //   per-factor kernel streams its [d, d, m] table once, coalesced along
-//   i, in groups of 16 cells per thread, the next group in flight while
-//   one is folded.  Shared memory is 4 * (2*32*d + 32*W*d + 64*W
+//   i, in groups of 32 cells per thread kept in the table's type until
+//   used.  Shared memory is 4 * (2*32*d + 32*W*d + 64*W
 //   [+ d*W*R]) bytes, at most 167,936 at d = 64, R = 4: above 48 KB it is
 //   opted in (cudaFuncSetAttribute, once per device and size, so no
 //   attribute call lands in a captured CUDA graph); a refused launch
@@ -103,6 +101,7 @@
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -232,15 +231,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// A streamed table cell, read once: keep it out of the way of the
-// message rows in the caches.
-__device__ __forceinline__ float ld_stream(const float* p) {
-  return __ldcs(p);
-}
-__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldcs(p));
-}
-
 // R consecutive floats from 16-byte-aligned shared memory.
 template <int R>
 __device__ __forceinline__ void load_vec(const float* p, float (&t)[R]) {
@@ -258,7 +248,7 @@ __device__ __forceinline__ void load_vec(const float* p, float (&t)[R]) {
 // Where one block's tile lives and what its thread owns.
 struct Tile {
   int d, dp, lo, nr, w, lane;  // dp: the transposed table's padded row
-  int64_t m, ldq, rowstep;     // rowstep: d * m, one table row a
+  int64_t m, rowstep;          // rowstep: d * m, one table row a
   float* s_tab;  // [d, dp]: s_tab[b * dp + a] = T[a, b] (shared table)
   float* s_q0;   // [d, 32]
   float* s_q1;   // [d, 32]
@@ -266,45 +256,17 @@ struct Tile {
   float* s_mn;   // [2, W, 32]: each warp's run of the two normalisers
 };
 
-// Issue the loads of one tile's q0 and q1 columns (this thread's share,
-// at most R elements each: the block has ceil(d / R) warps) into
-// registers, unconverted, so nothing waits on them until they are
-// written to shared memory at the start of the next tile.
-template <int R, typename T>
-__device__ __forceinline__ void fetch_q(const Tile& k, const T* q0,
-                                        const T* q1, int64_t i0, T (&p0)[R],
-                                        T (&p1)[R]) {
-#pragma unroll
-  for (int u = 0; u < R; ++u) {
-    const int j = threadIdx.x + u * blockDim.x;
-    if (j < k.d * kLanes) {
-      const int64_t ij = i0 + j % kLanes;
-      const int64_t off = (j / kLanes) * k.ldq + (ij < k.m ? ij : k.m - 1);
-      p0[u] = q0[off];
-      p1[u] = q1[off];
-    }
-  }
-}
-
-template <int R, typename F, typename T>
-__device__ __forceinline__ void stage_q(const Tile& k, const T (&p0)[R],
-                                        const T (&p1)[R]) {
-#pragma unroll
-  for (int u = 0; u < R; ++u) {
-    const int j = threadIdx.x + u * blockDim.x;
-    if (j < k.d * kLanes) {
-      k.s_q0[j] = rnd<F>(to_f(p0[u]));
-      k.s_q1[j] = rnd<F>(to_f(p1[u]));
-    }
-  }
-}
-
 // The table cells of this thread's R rows in columns b0 .. b0 + C - 1
-// (0 past the joint's edge, never used).
-template <int C, int R, bool SHARED, typename F>
+// (cells past the joint's edge are left unset and never read).  Cells
+// streamed from device memory stay in the table's type until they are
+// used, so no conversion waits on a load in flight (with bf16 tables a
+// conversion next to each load made the per-factor kernel 3x slower);
+// each is read once, so it is loaded evict-first (__ldcs), out of the
+// message rows' way.
+template <int C, int R, bool SHARED, typename F, typename Cell>
 __device__ __forceinline__ void load_cols(const Tile& k, const F* tab,
                                           int64_t ic, int b0,
-                                          float (&t)[C][R]) {
+                                          Cell (&t)[C][R]) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int b = b0 + c;
@@ -314,17 +276,16 @@ __device__ __forceinline__ void load_cols(const Tile& k, const F* tab,
       const F* const cell = tab + k.lo * k.rowstep + b * k.m + ic;
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        t[c][r] = (b < k.d && r < k.nr) ? ld_stream(cell + r * k.rowstep)
-                                        : 0.0f;
+        if (b < k.d && r < k.nr) t[c][r] = __ldcs(cell + r * k.rowstep);
     }
   }
 }
 
 // This thread's cells of columns b0 .. b0 + C - 1: the row minima in m0,
 // each column's minimum over the thread's rows to the warp's partial.
-template <int C, int R, typename F>
+template <int C, int R, typename F, typename Cell>
 __device__ __forceinline__ void fold_cols(const Tile& k, int b0,
-                                          const float (&t)[C][R],
+                                          const Cell (&t)[C][R],
                                           const float (&a0)[R],
                                           float (&m0)[R]) {
 #pragma unroll
@@ -336,8 +297,8 @@ __device__ __forceinline__ void fold_cols(const Tile& k, int b0,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r < k.nr) {
-          const float s =
-              rnd<F>(__fadd_rn(rnd<F>(__fadd_rn(t[c][r], a0[r])), qb));
+          const float s = rnd<F>(
+              __fadd_rn(rnd<F>(__fadd_rn(to_f(t[c][r]), a0[r])), qb));
           m0[r] = nanmin(m0[r], s);
           cm = nanmin(cm, s);
         }
@@ -356,9 +317,11 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
                        const T* __restrict__ q1, T* __restrict__ r0,
                        T* __restrict__ r1, int d, int64_t m, int64_t ldq,
                        int64_t ldr) {
-  // table columns per load: 16 cells per thread from device memory (two
-  // such loads in flight), one column from shared memory
-  constexpr int C = SHARED ? 1 : 16 / R;
+  // table columns per group: 32 cells per thread in flight from device
+  // memory; one column from shared memory (more pushes instances past
+  // 64 registers, where ptxas spills rather than halve the occupancy)
+  constexpr int C = SHARED ? 1 : 32 / R;
+  using Cell = std::conditional_t<SHARED, float, F>;
   extern __shared__ float4 smem4[];
   const int nw = blockDim.x / kLanes;
   Tile k;
@@ -369,7 +332,6 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
   k.lo = k.w * R;                // this warp's first row (and column)
   k.nr = min(R, d - k.lo);       // its rows: 1 .. R
   k.m = m;
-  k.ldq = ldq;
   k.rowstep = static_cast<int64_t>(d) * m;
   k.s_tab = reinterpret_cast<float*>(smem4);
   k.s_q0 = k.s_tab + (SHARED ? d * k.dp : 0);
@@ -383,17 +345,17 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
     }
   }
   const int64_t tiles = (m + kLanes - 1) / kLanes;
-  T p0[R], p1[R];
-  fetch_q<R>(k, q0, q1, static_cast<int64_t>(blockIdx.x) * kLanes, p0, p1);
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t i = tile * kLanes + k.lane;
+    const int64_t i0 = tile * kLanes;
+    const int64_t i = i0 + k.lane;
     const int64_t ic = i < m ? i : m - 1;  // ragged tail: clamped loads
-    float ta[C][R], tb[C][R];
-    if constexpr (!SHARED) load_cols<C, R, SHARED>(k, tab, ic, 0, ta);
-    stage_q<R, F>(k, p0, p1);
+    for (int j = threadIdx.x; j < d * kLanes; j += blockDim.x) {
+      const int64_t ij = i0 + j % kLanes;
+      const int64_t off = (j / kLanes) * ldq + (ij < m ? ij : m - 1);
+      k.s_q0[j] = rnd<F>(ld(q0 + off));
+      k.s_q1[j] = rnd<F>(ld(q1 + off));
+    }
     __syncthreads();
-    if (tile + gridDim.x < tiles)  // the next tile's q, during this one
-      fetch_q<R>(k, q0, q1, (tile + gridDim.x) * kLanes, p0, p1);
 
     float a0[R], m0[R];
 #pragma unroll
@@ -401,13 +363,10 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
       a0[r] = r < k.nr ? k.s_q0[(k.lo + r) * kLanes + k.lane] : 0.0f;
       m0[r] = CUDART_INF_F;
     }
-    if constexpr (SHARED) load_cols<C, R, SHARED>(k, tab, ic, 0, ta);
-    // two buffers: one column group loads while the other is folded
-    for (int b0 = 0; b0 < d; b0 += 2 * C) {
-      load_cols<C, R, SHARED>(k, tab, ic, b0 + C, tb);
-      fold_cols<C, R, F>(k, b0, ta, a0, m0);
-      load_cols<C, R, SHARED>(k, tab, ic, b0 + 2 * C, ta);
-      fold_cols<C, R, F>(k, b0 + C, tb, a0, m0);
+    for (int b0 = 0; b0 < d; b0 += C) {
+      Cell t[C][R];
+      load_cols<C, R, SHARED>(k, tab, ic, b0, t);
+      fold_cols<C, R, F>(k, b0, t, a0, m0);
     }
     // r0 rows: minus own q, and this warp's run of the normaliser
     float mn = CUDART_INF_F;
@@ -453,9 +412,10 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
         }
       }
     }
-    // the next tile's staging and partials are written after these
-    // reads: every thread has passed the barrier above, and nothing is
-    // read again before the next tile's first barrier
+    // the next tile's staging overwrites only the q columns, last read
+    // before the barrier above; its partials and normalisers are written
+    // after its first barrier, which every thread reaches after these
+    // reads
   }
 }
 
@@ -589,7 +549,6 @@ cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
                           const void* q1, void* r0, void* r1, int d,
                           int64_t m, int64_t ldq, int64_t ldr, int rows,
                           cudaStream_t s) {
-  const int grid = blocks_for(m);
   const F* t = static_cast<const F*>(tab);
   const T* a = static_cast<const T*>(q0);
   const T* b = static_cast<const T*>(q1);
@@ -601,6 +560,7 @@ cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
                   : launch_tile_rows<F, T, false>(rows, t, a, b, o0, o1, d,
                                                   m, ldq, ldr, s);
   }
+  const int grid = blocks_for(m);
 #define FACTOR_SHARED(D) \
   factor_shared_kernel<D, F, T><<<grid, kThreads, 0, s>>>( \
       t, a, b, o0, o1, d, m, ldq, ldr)

@@ -45,7 +45,6 @@ MAX_D = 64  # largest domain the factor kernels take (the Pallas cap)
 UNROLLED_D = (2, 3, 4, 5, 8)
 TILE_LANES = 32  # lanes per tile: one warp's width
 TILE_ROWS = (4, 8)  # rows per thread the lane-tile instance is built for
-CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {
@@ -178,15 +177,16 @@ class TileConfig(NamedTuple):
 
 
 def tile_config(
-    d: int, m: int, shared: bool, sms: int = CARD_SMS,
-    rows: Optional[int] = None,
+    d: int, m: int, shared: bool, sms: int, rows: Optional[int] = None
 ) -> TileConfig:
     """Launch configuration of the lane-tile factor instance (``d`` not in
     ``UNROLLED_D``): a block per 32 lanes, ``ceil(d / R)`` warps, each
-    thread ``R`` rows of the joint.  ``R`` is 4, or 8 above d = 32 (fewer,
-    fuller blocks where W would pass 8) unless the grid would then give
-    the ``sms`` multiprocessors fewer than 16 warps each; ``rows`` sets
-    it instead.  Shared memory follows the kernel's layout
+    thread ``R`` rows of the joint.  ``R`` is 4, the fastest for the
+    per-factor kernel at every d measured; the shared kernel takes 8 from
+    d = 16 on (fewer, fuller blocks for its arithmetic) unless the grid
+    would then give the card's ``sms`` multiprocessors fewer than 16
+    warps each.
+    ``rows`` sets it instead.  Shared memory follows the kernel's layout
     (``csrc/maxsum_kernels.cu``)."""
     if not 1 <= d <= MAX_D or d in UNROLLED_D or m < 1:
         raise ValueError(
@@ -195,7 +195,7 @@ def tile_config(
         )
     if rows is None:
         tiles = -(-m // TILE_LANES)
-        wide = d > 32 and tiles * -(-d // 8) >= 16 * sms
+        wide = shared and d >= 16 and tiles * -(-d // 8) >= 16 * sms
         rows = 8 if wide else 4
     elif rows not in TILE_ROWS:
         raise ValueError(f"rows={rows}: the kernel is built for {TILE_ROWS}")
