@@ -22,15 +22,14 @@ caught and passed over):
    bf16 messages and tables as strided row views, and a NaN input:
    outputs must be bit-equal (the kernels are built
    without FMA contraction).  One line per kernel and shape: the
-   instance (unrolled, or the lane tile with its rows per thread, warps
-   and shared memory), kernel and
+   instance (unrolled, generic, or the lane tile with its warps), kernel
+   and
    plain device times (20 calls captured in one CUDA graph, the replay
    timed with CUDA events, median of 25 replays, divided by 20: no host
    launch cost in it), the host launch interval (CUDA events around 10
    eager calls), the bound (bytes over 3.35 TB/s, or f32 operations over
    67 TFLOP/s, whichever is larger), the share of it reached and the
-   launches made.  At 100,000 lanes and more a ``tile-rows`` line times
-   the lane-tile instance at each rows per thread it is built for.
+   launches made.
 3. Max-Sum on the 10k-variable 3-colour coloring (the benchmark
    workload: damping 0.5, 1024 rounds, chunk 256, cost sampled every 8
    rounds) through ``api.solve_compiled``: the shared-table factor and
@@ -299,22 +298,19 @@ def check_kernels(torch, mk, dev, m4):
     """Phase 2: every kernel against its plain version on the card."""
     g = torch.Generator(device=dev).manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
 
     def rand(*shape, scale=1.0, dtype=torch.float32):
         x = torch.rand(*shape, generator=g, device=dev) * scale
         return x.to(dtype)
 
-    def instance(name, d, w):
-        """Which factor-kernel instance runs (d, width): an unrolled one
-        or the lane-tile one with its launch configuration."""
-        if name == "q_update":
-            return "unrolled" if d in mk.UNROLLED_D else "generic"
+    def instance(name, d):
+        """Which instance runs at domain size d: an unrolled one, the
+        factor kernels' lane tile (with its warps per block, 4 rows
+        each) or the generic q update."""
         if d in mk.UNROLLED_D:
             return "unrolled"
-        cfg = mk.tile_config(d, w, name == "factor_round_binary_shared", sms)
-        return f"tile-R{cfg.rows}-W{cfg.warps}-smem{cfg.smem_bytes}"
+        return "generic" if name == "q_update" else f"tile-W{-(-d // 4)}"
 
     def record(name, d, w, dtype, fn, plain, nbytes, nops, tag="",
                table=""):
@@ -337,7 +333,7 @@ def check_kernels(torch, mk, dev, m4):
         row = dict(
             kernel=name, d=d, width=w,
             dtype="bf16" if dtype == torch.bfloat16 else "f32",
-            table=table, case=tag or "random", instance=instance(name, d, w),
+            table=table, case=tag or "random", instance=instance(name, d),
             ms=ms, plain_ms=device_ms(torch, plain),
             launch_ms=launch_ms(torch, fn),
             bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
@@ -371,25 +367,6 @@ def check_kernels(torch, mk, dev, m4):
         record(name, d, m, dtype, lambda: wrap(tab, q0, q1, out=out),
                lambda: plain(tab, q0, q1), nbytes, nops, tag,
                table="bf16" if tab_dtype == torch.bfloat16 else "f32")
-
-    def tile_rows(shared, d, m):
-        """The lane-tile instance's time at each built rows-per-thread
-        (f32, strided), beside the wrapper's choice."""
-        name = "factor_round_binary_shared" if shared else "factor_round_binary"
-        tab = rand(*((d, d) if shared else (d, d, m)), scale=10.0)
-        q = rand(d, 2 * m + 7)
-        r = torch.empty_like(q)
-        args = (tab, q[:, 7 : 7 + m], q[:, 7 + m :],
-                (r[:, 7 : 7 + m], r[:, 7 + m :]))
-        times = {
-            f"R{x}_ms": device_ms(
-                torch, lambda x=x: mk._factor_launch(name, shared, *args,
-                                                     rows=x))
-            for x in mk.TILE_ROWS
-        }
-        print(f"tile-rows kernel={name} d={d} width={m} "
-              f"chosen={instance(name, d, m)} "
-              + " ".join(f"{k}={v}" for k, v in times.items()))
 
     def q_update(d, e, dtype, nan=False, damping=0.5, per_op=False):
         be = rand(d, e, scale=5.0, dtype=dtype)
@@ -439,8 +416,6 @@ def check_kernels(torch, mk, dev, m4):
                                      (bf16, bf16)):
                 factor(shared, d, m, dtype, strided=True, tab_dtype=tab_dtype)
             factor(shared, d, m, f32, nan=True)
-            if m >= 100_000:
-                tile_rows(shared, d, m)
     for dtype in (f32, bf16):
         for e in (59_974, 5_999_982, 257):
             q_update(3, e, dtype)

@@ -31,9 +31,10 @@
 //   (a 1 KB stack frame), one thread walked all d*d cells, and a narrow m
 //   left most of the card idle.  Here a block takes a tile of 32 lanes
 //   (one warp's width: every load and store along i is coalesced) and
-//   splits the rows a of the joint across its W = ceil(d / R) warps, R
-//   rows per thread (a template constant, 4 or 8, chosen by the wrapper
-//   from d and m so that a narrow m still puts enough warps on the card).
+//   splits the rows a of the joint across its W = ceil(d / R) warps, R = 4
+//   rows per thread (so a narrow m still puts up to 16 warps per tile on
+//   the card; 4 was faster than 8 for both kernels at every d and m
+//   measured, and than 16 where that was tried).
 //   The tile's q0 and q1 columns [d, 32] (and the shared kernel's [d, d]
 //   table, transposed so a thread's R rows of one column b are one
 //   16-byte-aligned vector) are staged in shared memory.  Each thread
@@ -46,8 +47,8 @@
 //   Blocks walk the tiles in a grid-stride loop, at most as many as fit on
 //   the card at once (so the shared table is staged once per block).  The
 //   per-factor kernel streams its [d, d, m] table once, coalesced along
-//   i, in groups of 32 cells per thread kept in the table's type until
-//   used.  Shared memory is 4 * (2*32*d + 32*W*d + 64*W
+//   i, 32 cells per thread in flight, kept in the table's type until used
+//   (an f32 table in two groups, one loading while the other is folded).  Shared memory is 4 * (2*32*d + 32*W*d + 64*W
 //   [+ d*W*R]) bytes, at most 167,936 at d = 64, R = 4: above 48 KB it is
 //   opted in (cudaFuncSetAttribute, once per device and size, so no
 //   attribute call lands in a captured CUDA graph); a refused launch
@@ -225,6 +226,7 @@ __global__ void __launch_bounds__(kThreads) factor_kernel(
 // -- the lane-tile instance (any d <= 64 without its own template) --------
 
 constexpr int kLanes = 32;  // lanes per tile: one warp's width
+constexpr int kRows = 4;    // rows of the joint per thread (R)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -308,19 +310,24 @@ __device__ __forceinline__ void fold_cols(const Tile& k, int b0,
   }
 }
 
-// R: rows of the joint per thread (4 or 8); F: the table's (and compute)
-// type; T: the message type; SHARED: one [d, d] table, else [d, d, m].
-// blockDim.x = 32 * ceil(d / R); dynamic shared memory as in the note.
-template <int R, typename F, typename T, bool SHARED>
-__global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
+// F: the table's (and compute) type; T: the message type; SHARED: one
+// [d, d] table, else [d, d, m].  blockDim.x = 32 * ceil(d / R); dynamic
+// shared memory as in the note.
+template <typename F, typename T, bool SHARED>
+__global__ void __launch_bounds__((kMaxD + kRows - 1) / kRows * kLanes)
     factor_tile_kernel(const F* __restrict__ tab, const T* __restrict__ q0,
                        const T* __restrict__ q1, T* __restrict__ r0,
                        T* __restrict__ r1, int d, int64_t m, int64_t ldq,
                        int64_t ldr) {
-  // table columns per group: 32 cells per thread in flight from device
-  // memory; one column from shared memory (more pushes instances past
-  // 64 registers, where ptxas spills rather than halve the occupancy)
-  constexpr int C = SHARED ? 1 : 32 / R;
+  constexpr int R = kRows;
+  // Table columns per group.  One from shared memory (more pushes
+  // instances past 64 registers, where ptxas spills rather than halve
+  // the occupancy).  From device memory 32 cells per thread in flight:
+  // an f32 table in two groups of 16, one loaded while the other is
+  // folded; a bf16 table in one group of 32 (on the card the two groups
+  // were faster with f32 tables at small d and slower with bf16 tables).
+  constexpr bool kTwo = !SHARED && std::is_same_v<F, float>;
+  constexpr int C = SHARED ? 1 : (kTwo ? 16 : 32) / R;
   using Cell = std::conditional_t<SHARED, float, F>;
   extern __shared__ float4 smem4[];
   const int nw = blockDim.x / kLanes;
@@ -349,6 +356,8 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
     const int64_t i0 = tile * kLanes;
     const int64_t i = i0 + k.lane;
     const int64_t ic = i < m ? i : m - 1;  // ragged tail: clamped loads
+    Cell ta[C][R], tb[C][R];
+    if constexpr (kTwo) load_cols<C, R, SHARED>(k, tab, ic, 0, ta);
     for (int j = threadIdx.x; j < d * kLanes; j += blockDim.x) {
       const int64_t ij = i0 + j % kLanes;
       const int64_t off = (j / kLanes) * ldq + (ij < m ? ij : m - 1);
@@ -363,10 +372,18 @@ __global__ void __launch_bounds__((kMaxD + R - 1) / R * kLanes)
       a0[r] = r < k.nr ? k.s_q0[(k.lo + r) * kLanes + k.lane] : 0.0f;
       m0[r] = CUDART_INF_F;
     }
-    for (int b0 = 0; b0 < d; b0 += C) {
-      Cell t[C][R];
-      load_cols<C, R, SHARED>(k, tab, ic, b0, t);
-      fold_cols<C, R, F>(k, b0, t, a0, m0);
+    if constexpr (kTwo) {
+      for (int b0 = 0; b0 < d; b0 += 2 * C) {
+        load_cols<C, R, SHARED>(k, tab, ic, b0 + C, tb);
+        fold_cols<C, R, F>(k, b0, ta, a0, m0);
+        load_cols<C, R, SHARED>(k, tab, ic, b0 + 2 * C, ta);
+        fold_cols<C, R, F>(k, b0 + C, tb, a0, m0);
+      }
+    } else {
+      for (int b0 = 0; b0 < d; b0 += C) {
+        load_cols<C, R, SHARED>(k, tab, ic, b0, ta);
+        fold_cols<C, R, F>(k, b0, ta, a0, m0);
+      }
     }
     // r0 rows: minus own q, and this warp's run of the normaliser
     float mn = CUDART_INF_F;
@@ -487,19 +504,19 @@ bool unrolled_d(int d) {
 }
 
 // Shared memory of the lane-tile instance, in floats (see the note).
-int64_t tile_smem_floats(int d, int rows, bool shared) {
-  const int nw = (d + rows - 1) / rows;
-  return (shared ? int64_t{d} * nw * rows : 0) + 2 * kLanes * d +
+int64_t tile_smem_floats(int d, bool shared) {
+  const int nw = (d + kRows - 1) / kRows;
+  return (shared ? int64_t{d} * nw * kRows : 0) + 2 * kLanes * d +
          int64_t{kLanes} * nw * d + 2 * kLanes * nw;
 }
 
-template <int R, typename F, typename T, bool SHARED>
+template <typename F, typename T, bool SHARED>
 cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
                         T* r1, int d, int64_t m, int64_t ldq, int64_t ldr,
                         cudaStream_t s) {
-  auto* kernel = factor_tile_kernel<R, F, T, SHARED>;
-  const int threads = (d + R - 1) / R * kLanes;
-  const size_t smem = sizeof(float) * tile_smem_floats(d, R, SHARED);
+  auto* kernel = factor_tile_kernel<F, T, SHARED>;
+  const int threads = (d + kRows - 1) / kRows * kLanes;
+  const size_t smem = sizeof(float) * tile_smem_floats(d, SHARED);
   // opt in above 48 KB once per device and size, so that a launch
   // captured in a CUDA graph makes no attribute call
   static size_t opted[64] = {};
@@ -528,26 +545,10 @@ cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
   return cudaGetLastError();
 }
 
-template <typename F, typename T, bool SHARED>
-cudaError_t launch_tile_rows(int rows, const F* tab, const T* q0,
-                             const T* q1, T* r0, T* r1, int d, int64_t m,
-                             int64_t ldq, int64_t ldr, cudaStream_t s) {
-  switch (rows) {
-    case 4:
-      return launch_tile<4, F, T, SHARED>(tab, q0, q1, r0, r1, d, m, ldq,
-                                          ldr, s);
-    case 8:
-      return launch_tile<8, F, T, SHARED>(tab, q0, q1, r0, r1, d, m, ldq,
-                                          ldr, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 template <typename F, typename T>
 cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
                           const void* q1, void* r0, void* r1, int d,
-                          int64_t m, int64_t ldq, int64_t ldr, int rows,
+                          int64_t m, int64_t ldq, int64_t ldr,
                           cudaStream_t s) {
   const F* t = static_cast<const F*>(tab);
   const T* a = static_cast<const T*>(q0);
@@ -555,10 +556,9 @@ cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
   T* o0 = static_cast<T*>(r0);
   T* o1 = static_cast<T*>(r1);
   if (!unrolled_d(d)) {
-    return shared ? launch_tile_rows<F, T, true>(rows, t, a, b, o0, o1, d, m,
-                                                 ldq, ldr, s)
-                  : launch_tile_rows<F, T, false>(rows, t, a, b, o0, o1, d,
-                                                  m, ldq, ldr, s);
+    return shared ? launch_tile<F, T, true>(t, a, b, o0, o1, d, m, ldq, ldr, s)
+                  : launch_tile<F, T, false>(t, a, b, o0, o1, d, m, ldq, ldr,
+                                             s);
   }
   const int grid = blocks_for(m);
 #define FACTOR_SHARED(D) \
@@ -598,13 +598,11 @@ extern "C" {
 // __nv_bfloat16 (tab_bf16 == 1); q0, q1: [d, m] row views with row stride
 // ldq; r0, r1: [d, m] row views with row stride ldr; messages are float
 // (bf16 == 0) or __nv_bfloat16 (bf16 == 1).  1 <= d <= 64,
-// 1 <= m <= ldq, ldr.  rows: the lane-tile instance's rows per thread
-// (4 or 8) for d outside {2, 3, 4, 5, 8}; ignored for those.
+// 1 <= m <= ldq, ldr.
 int pydcop_factor_round_binary(int shared, const void* tab, int tab_bf16,
                                const void* q0, const void* q1, void* r0,
                                void* r1, int d, int64_t m, int64_t ldq,
-                               int64_t ldr, int bf16, int rows,
-                               void* stream) {
+                               int64_t ldr, int bf16, void* stream) {
   if (d < 1 || d > kMaxD || m < 1 || ldq < m || ldr < m)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -612,16 +610,16 @@ int pydcop_factor_round_binary(int shared, const void* tab, int tab_bf16,
   cudaError_t err;
   if (tab_bf16 && bf16) {
     err = launch_factor<__nv_bfloat16, __nv_bfloat16>(
-        sh, tab, q0, q1, r0, r1, d, m, ldq, ldr, rows, s);
+        sh, tab, q0, q1, r0, r1, d, m, ldq, ldr, s);
   } else if (tab_bf16) {
     err = launch_factor<__nv_bfloat16, float>(sh, tab, q0, q1, r0, r1, d, m,
-                                              ldq, ldr, rows, s);
+                                              ldq, ldr, s);
   } else if (bf16) {
     err = launch_factor<float, __nv_bfloat16>(sh, tab, q0, q1, r0, r1, d, m,
-                                              ldq, ldr, rows, s);
+                                              ldq, ldr, s);
   } else {
     err = launch_factor<float, float>(sh, tab, q0, q1, r0, r1, d, m, ldq,
-                                      ldr, rows, s);
+                                      ldr, s);
   }
   return static_cast<int>(err);
 }

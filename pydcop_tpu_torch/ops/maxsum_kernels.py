@@ -20,8 +20,8 @@ launches per wrapper, so a run can show that it went through them.
 
 The factor kernels have an unrolled instance for each d in
 ``UNROLLED_D`` and one lane-tile instance for every other d up to
-``MAX_D``, whose launch configuration :func:`tile_config` chooses from d
-and m.
+``MAX_D`` (a block per 32 lanes, the joint's rows split across its
+warps; ``csrc/maxsum_kernels.cu`` has the design).
 
 Messages and tables may each be f32 or bf16.  The factor phase computes
 in the table's dtype, as the Pallas kernels do (bf16 tables: every add
@@ -34,7 +34,7 @@ message dtype.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,8 +43,6 @@ MAX_D = 64  # largest domain the factor kernels take (the Pallas cap)
 #: domain sizes with their own unrolled factor-kernel instance; every
 #: other d <= MAX_D takes the lane-tile instance
 UNROLLED_D = (2, 3, 4, 5, 8)
-TILE_LANES = 32  # lanes per tile: one warp's width
-TILE_ROWS = (4, 8)  # rows per thread the lane-tile instance is built for
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {
@@ -72,7 +70,7 @@ def build():
     if not hasattr(lib, "_pydcop_bound"):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.pydcop_factor_round_binary.argtypes = [
-            i32, vp, i32, vp, vp, vp, vp, i32, i64, i64, i64, i32, i32, vp,
+            i32, vp, i32, vp, vp, vp, vp, i32, i64, i64, i64, i32, vp,
         ]
         lib.pydcop_factor_round_binary.restype = i32
         lib.pydcop_q_update.argtypes = [
@@ -170,45 +168,6 @@ def _check_rows(name: str, x: torch.Tensor, d: int, m: int, dev) -> None:
         )
 
 
-class TileConfig(NamedTuple):
-    rows: int  # rows of the joint per thread (R)
-    warps: int  # warps per block: ceil(d / R)
-    smem_bytes: int  # dynamic shared memory per block
-
-
-def tile_config(
-    d: int, m: int, shared: bool, sms: int, rows: Optional[int] = None
-) -> TileConfig:
-    """Launch configuration of the lane-tile factor instance (``d`` not in
-    ``UNROLLED_D``): a block per 32 lanes, ``ceil(d / R)`` warps, each
-    thread ``R`` rows of the joint.  ``R`` is 4, the fastest for the
-    per-factor kernel at every d measured; the shared kernel takes 8 from
-    d = 16 on (fewer, fuller blocks for its arithmetic) unless the grid
-    would then give the card's ``sms`` multiprocessors fewer than 16
-    warps each.
-    ``rows`` sets it instead.  Shared memory follows the kernel's layout
-    (``csrc/maxsum_kernels.cu``)."""
-    if not 1 <= d <= MAX_D or d in UNROLLED_D or m < 1:
-        raise ValueError(
-            f"no lane-tile instance for d={d}, m={m} (d in 1..{MAX_D} "
-            f"outside {UNROLLED_D})"
-        )
-    if rows is None:
-        tiles = -(-m // TILE_LANES)
-        wide = shared and d >= 16 and tiles * -(-d // 8) >= 16 * sms
-        rows = 8 if wide else 4
-    elif rows not in TILE_ROWS:
-        raise ValueError(f"rows={rows}: the kernel is built for {TILE_ROWS}")
-    warps = -(-d // rows)
-    floats = (
-        (d * warps * rows if shared else 0)  # the transposed table
-        + 2 * TILE_LANES * d  # the tile's q0 and q1
-        + TILE_LANES * warps * d  # per-warp column minima
-        + 2 * TILE_LANES * warps  # per-warp normalisers
-    )
-    return TileConfig(rows, warps, 4 * floats)
-
-
 def _factor_launch(
     name: str,
     shared: bool,
@@ -216,11 +175,7 @@ def _factor_launch(
     q0: torch.Tensor,
     q1: torch.Tensor,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]],
-    rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check and launch one factor kernel.  ``rows`` sets the lane-tile
-    instance's rows per thread (for measuring; default
-    :func:`tile_config`'s choice)."""
     dev = q0.device
     d, m = q0.shape
     if not 1 <= d <= MAX_D or m < 1:
@@ -254,17 +209,13 @@ def _factor_launch(
                          "one row stride")
     ldq = q0.stride(0) if d > 1 else m
     ldr = r0.stride(0) if d > 1 else m
-    tile_rows = 0  # the unrolled instances take no configuration
-    if d not in UNROLLED_D:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile_rows = tile_config(d, m, shared, sms, rows).rows
     lib = build().lib
     with torch.cuda.device(dev):
         rc = lib.pydcop_factor_round_binary(
             int(shared), tab.data_ptr(), int(tab.dtype == torch.bfloat16),
             q0.data_ptr(), q1.data_ptr(),
             r0.data_ptr(), r1.data_ptr(), d, m, ldq, ldr,
-            int(q0.dtype == torch.bfloat16), tile_rows, _stream(dev),
+            int(q0.dtype == torch.bfloat16), _stream(dev),
         )
     _check_rc(rc, name)
     launches[name] += 1

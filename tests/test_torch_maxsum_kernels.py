@@ -194,56 +194,6 @@ def test_factor_plain_equals_generic_path(per_factor, bf16, tab_bf16):
         assert torch.equal(g, w)
 
 
-H100_SMS = 132  # streaming multiprocessors of an H100 SXM
-
-
-def test_tile_config_covers_every_runtime_d():
-    """The lane-tile instance's launch configuration: for every d the
-    unrolled instances do not take, W warps of R rows cover the d rows
-    exactly (no warp without a row), and the shared memory of the
-    kernel's layout fits one Hopper block (232,448 bytes)."""
-    runtime_d = [d for d in range(1, mk.MAX_D + 1) if d not in mk.UNROLLED_D]
-    assert len(runtime_d) == mk.MAX_D - 5
-    for d in runtime_d:
-        for m in (1, 257, 100_000, 299_988):
-            for shared in (False, True):
-                for rows in (None, *mk.TILE_ROWS):
-                    cfg = mk.tile_config(d, m, shared, H100_SMS, rows=rows)
-                    assert cfg.rows in mk.TILE_ROWS
-                    assert rows in (None, cfg.rows)
-                    assert (cfg.warps - 1) * cfg.rows < d <= cfg.warps * cfg.rows
-                    assert cfg.smem_bytes <= 232_448
-    # the largest block: d = 64, R = 4 (16 warps), shared table
-    assert mk.tile_config(64, 257, True, H100_SMS) == (4, 16, 167_936)
-    assert mk.tile_config(64, 257, False, H100_SMS) == (4, 16, 151_552)
-    # d = 10 at the per-factor-100k-d10 width: 3 warps, 7,168 bytes
-    assert mk.tile_config(10, 299_988, False, H100_SMS) == (4, 3, 7_168)
-
-
-def test_tile_config_rows_rule_and_rejections():
-    # the per-factor kernel takes R = 4; the shared one R = 8 from d = 16
-    # once the grid gives every SM 16 warps of them
-    for d in (10, 16, 33, 64):
-        assert mk.tile_config(d, 100_000, False, H100_SMS).rows == 4
-    assert mk.tile_config(64, 100_000, True, H100_SMS).rows == 8
-    assert mk.tile_config(16, 100_000, True, H100_SMS).rows == 8
-    assert mk.tile_config(10, 299_988, True, H100_SMS).rows == 4
-    # a narrow m: more warps
-    assert mk.tile_config(64, 257, True, H100_SMS).rows == 4
-    # the threshold: 16 warps of R = 8 per SM, 8 warps per block at d = 64
-    tiles = 16 * 132 // 8
-    assert mk.tile_config(64, 32 * tiles, True, H100_SMS).rows == 8
-    assert mk.tile_config(64, 32 * tiles - 32, True, H100_SMS).rows == 4
-    assert mk.tile_config(64, 32 * tiles - 32, True, 66).rows == 8
-    for d in mk.UNROLLED_D + (0, 65):
-        with pytest.raises(ValueError, match="no lane-tile instance"):
-            mk.tile_config(d, 100, True, H100_SMS)
-    with pytest.raises(ValueError, match="no lane-tile instance"):
-        mk.tile_config(10, 0, True, H100_SMS)
-    with pytest.raises(ValueError, match="built for"):
-        mk.tile_config(10, 100, True, H100_SMS, rows=16)
-
-
 def _q_inputs(seed, d, e, bf16=False, nan=False):
     rng = np.random.RandomState(seed)
     be = rng.rand(d, e).astype(np.float32) * 5
