@@ -10,8 +10,9 @@ caught and passed over):
 
 1. Device and build: the card's name and power limit, then the port's
    CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc, and one
-   ``ptxas`` line per factor-kernel instance (registers, stack frame,
-   spills): any factor instance with a stack frame or a spill fails.
+   ``ptxas`` line per kernel instance, factor kernels and q update
+   (registers, stack frame, spills): any instance with a stack frame or
+   a spill fails.
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes (f32 and bf16 messages, f32 and bf16 tables, a
    ragged width, strided row views, a NaN input, domains past 64 for
@@ -19,17 +20,24 @@ caught and passed over):
    and the factor kernels' lane-tile instance (every d outside
    {2, 3, 4, 5, 8}) at d = 1, 6, 7, 10, 16, 32, 64 and 257 lanes, d = 10
    at 299,988 lanes and d = 16, 32, 64 at 100,000, each with f32 and
-   bf16 messages and tables as strided row views, and a NaN input:
-   outputs must be bit-equal (the kernels are built
-   without FMA contraction).  One line per kernel and shape: the
-   instance (unrolled, generic, or the lane tile with its warps), kernel
-   and
-   plain device times (20 calls captured in one CUDA graph, the replay
-   timed with CUDA events, median of 25 replays, divided by 20: no host
-   launch cost in it), the host launch interval (CUDA events around 10
-   eager calls), the bound (bytes over 3.35 TB/s, or f32 operations over
-   67 TFLOP/s, whichever is larger), the share of it reached and the
-   launches made.
+   bf16 messages and tables as strided row views, and a NaN input.  The
+   q update also in its gathered form (the belief read through the
+   edge index, as ``maxsum.step`` calls it) at coloring-10k, coloring-1M
+   and the d-10 cells' shape, with f32 and bf16 messages, a bf16 belief,
+   ``per_op`` and NaN, and its generic instance at d = 65 to 20,000 (in
+   registers up to 128, staged in shared memory past it).  Outputs must
+   be bit-equal (the kernels are built without FMA contraction).  One
+   line per kernel and shape: the instance (unrolled, or the lane tile
+   with its warps, row groups or lanes), kernel and plain device times
+   (20 calls captured in one CUDA graph, the replay timed with CUDA
+   events, median of 25 replays, divided by 20: no host launch cost in
+   it), the host launch interval (CUDA events around 10 eager calls),
+   the bound (bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s,
+   whichever is larger), the share of it reached and the launches made;
+   a gathered q-update row adds the device time of the separate gather
+   the step made before (``gather_ms``: the cast to the message dtype
+   and ``index_select``) and of that gather followed by the identity
+   form (``two_pass_ms``).
 3. Max-Sum on the 10k-variable 3-colour coloring (the benchmark
    workload: damping 0.5, 1024 rounds, chunk 256, cost sampled every 8
    rounds) through ``api.solve_compiled``: the shared-table factor and
@@ -79,9 +87,9 @@ caught and passed over):
    best cost and the K restart costs, and a profiler pass over 64 rounds
    each.
 8. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
-   shape, and each factor kernel's lane-tile instance as
-   ``<kernel>.runtime_d`` at phase 5's), the card line, and last the
-   ``{"ok": true, ...}`` line.
+   shape, the q update in its gathered form, and each kernel's
+   lane-tile instance as ``<kernel>.runtime_d`` at phase 5's), the card
+   line, and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
 """
@@ -294,8 +302,24 @@ def bound_ms(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(torch, mk, dev, m4):
-    """Phase 2: every kernel against its plain version on the card."""
+def q_instance(mk, d, smem_optin):
+    """The q update's instance at domain size d (as the launcher picks
+    it): unrolled, the lane tile in registers with its row groups and
+    lanes, or the tile staged in shared memory with its lanes."""
+    if d in mk.UNROLLED_D:
+        return "unrolled"
+    if d <= 128:
+        return f"tile-G{-(-d // 4)}-L32"
+    lanes = 32
+    while lanes > 1 and 4 * (64 + d) * lanes > smem_optin:
+        lanes //= 2
+    return f"staged-L{lanes}"
+
+
+def check_kernels(torch, mk, dev, m4, edges):
+    """Phase 2: every kernel against its plain version on the card.
+    ``edges``: each coloring's edge index (i32, on the card) by its
+    number of variables, for the q update's gathered form."""
     g = torch.Generator(device=dev).manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
@@ -304,16 +328,18 @@ def check_kernels(torch, mk, dev, m4):
         x = torch.rand(*shape, generator=g, device=dev) * scale
         return x.to(dtype)
 
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
     def instance(name, d):
         """Which instance runs at domain size d: an unrolled one, the
         factor kernels' lane tile (with its warps per block, 4 rows
-        each) or the generic q update."""
-        if d in mk.UNROLLED_D:
-            return "unrolled"
-        return "generic" if name == "q_update" else f"tile-W{-(-d // 4)}"
+        each) or the q update's (see q_instance)."""
+        if name == "q_update":
+            return q_instance(mk, d, optin)
+        return "unrolled" if d in mk.UNROLLED_D else f"tile-W{-(-d // 4)}"
 
     def record(name, d, w, dtype, fn, plain, nbytes, nops, tag="",
-               table=""):
+               table="", extra=None):
         before = mk.launches[name]
         got = fn()
         launched = mk.launches[name] - before
@@ -339,6 +365,8 @@ def check_kernels(torch, mk, dev, m4):
             bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
             launches=launched, max_abs_err=err, bit_equal=equal,
         )
+        for k, f in (extra or {}).items():  # further timings: name -> fn
+            row[k] = device_ms(torch, f) if callable(f) else f
         print("kernel-check " + " ".join(f"{k}={v}" for k, v in row.items()))
         rows.append(row)
 
@@ -368,19 +396,44 @@ def check_kernels(torch, mk, dev, m4):
                lambda: plain(tab, q0, q1), nbytes, nops, tag,
                table="bf16" if tab_dtype == torch.bfloat16 else "f32")
 
-    def q_update(d, e, dtype, nan=False, damping=0.5, per_op=False):
-        be = rand(d, e, scale=5.0, dtype=dtype)
+    def q_update(d, e, dtype, nan=False, damping=0.5, per_op=False, n=None,
+                 belief_dtype=None):
+        """One q-update row.  ``n`` (a key of ``edges``): the gathered
+        form, a ``[d, n]`` belief (f32 unless ``belief_dtype``) read
+        through that coloring's edge index, E its length; the step's
+        former sequence (cast, ``index_select``, then the identity form)
+        is timed beside it.  Else the identity form, ``be`` ``[d, e]``."""
+        ev = None if n is None else edges[n]
+        if ev is not None:
+            e = ev.shape[0]
+            belief = rand(d, n, scale=5.0, dtype=belief_dtype or f32)
+        else:
+            belief = rand(d, e, scale=5.0, dtype=dtype)
         r, q = rand(d, e, dtype=dtype), rand(d, e, dtype=dtype)
         if nan:
-            be[d - 1, 11] = float("nan")
+            belief[d - 1, 11 if ev is None else int(ev[11])] = float("nan")
         sz = 2 if dtype == torch.bfloat16 else 4
+        bsz = 2 if belief.dtype == torch.bfloat16 else 4
+        nbytes = 3 * d * e * sz + belief.numel() * bsz
         tag = "nan" if nan else ("" if damping == 0.5 else f"damping{damping}")
+        extra = {"belief": "bf16" if bsz == 2 else "f32"}
+        if ev is not None:
+            nbytes += 4 * e
+            tag = "gathered" + (f"-{tag}" if tag else "")
+            extra.update(
+                n=n,
+                gather_ms=lambda: belief.to(dtype).index_select(1, ev),
+                two_pass_ms=lambda: mk.q_update(
+                    belief.to(dtype).index_select(1, ev), None, r, q,
+                    damping, per_op),
+            )
         if per_op:
             tag = "per_op" + (f"-{tag}" if tag else "")
         record("q_update", d, e, dtype,
-               lambda: mk.q_update(be, r, q, damping, per_op),
-               lambda: mk.q_update_plain(be, r, q, damping, per_op),
-               4 * d * e * sz, 6 * d * e, tag)
+               lambda: mk.q_update(belief, ev, r, q, damping, per_op),
+               lambda: mk.q_update_plain(belief, r, q, damping, per_op,
+                                         edge_idx=ev),
+               nbytes, 6 * d * e, tag, extra=extra)
 
     for dtype in (f32, bf16):
         for m in (29_987, 2_999_991, 257):
@@ -432,6 +485,32 @@ def check_kernels(torch, mk, dev, m4):
     q_update(3, E_TERNARY, bf16, damping=0.3, per_op=True)
     q_update(70, 257, bf16, per_op=True)
     q_update(3, 257, bf16, nan=True, per_op=True)
+    # the gathered form (the belief read through the edge index), at the
+    # main path's shapes: coloring-10k and -1M (d 3), the d-10 cells
+    # (100k variables, E 599,976); f32 and bf16 messages with an f32
+    # belief, a bf16 belief (bf16 tables), per_op and NaN
+    for n, d in ((10_000, 3), (1_000_000, 3), (100_000, 10)):
+        q_update(d, 0, f32, n=n)
+        q_update(d, 0, bf16, n=n)
+    q_update(3, 0, bf16, n=10_000, belief_dtype=bf16)
+    q_update(10, 0, bf16, n=100_000, belief_dtype=bf16)
+    q_update(3, 0, f32, n=10_000, damping=0.3)
+    q_update(3, 0, f32, n=10_000, nan=True)
+    q_update(10, 0, f32, n=100_000, nan=True)
+    q_update(3, 0, bf16, n=10_000, belief_dtype=bf16, per_op=True)
+    q_update(10, 0, bf16, n=100_000, belief_dtype=bf16, per_op=True)
+    # the generic instance past 64 (in registers up to 128, then staged
+    # in shared memory, with fewer lanes per tile at the largest d)
+    for d in (65, 100):
+        q_update(d, 0, f32, n=10_000)
+    q_update(70, 0, bf16, n=10_000)
+    q_update(70, 0, bf16, n=10_000, belief_dtype=bf16, per_op=True)
+    q_update(65, 0, f32, n=10_000, nan=True)
+    for d in (129, 300, 1000):
+        q_update(d, 0, f32, n=10_000)
+    q_update(300, 0, bf16, n=10_000, nan=True)
+    q_update(3000, 257, f32)
+    q_update(20_000, 100, f32, nan=True)
     return rows
 
 
@@ -747,26 +826,30 @@ def main() -> int:
     local = []
     names = demangle([x[0] for x in instances])
     for (_, regs_, stack_, stores, loads), name in zip(instances, names):
-        if "factor" not in name:
-            continue
         print(f"ptxas {name}: registers={regs_} stack_frame_bytes={stack_} "
               f"spill_store_bytes={stores} spill_load_bytes={loads}")
         if stack_ or stores or loads:
             local.append(name)
     if local:
-        raise AssertionError(f"factor instances in local memory: {local}")
+        raise AssertionError(f"kernel instances in local memory: {local}")
 
-    # the per-factor instance (phase 4) sets one of phase 2's shapes
+    # phases 3-6's instances set phase 2's shapes: the per-factor width
+    # and each coloring's edge index (position-major, as compiled)
+    s, t, u = coloring_arrays(10_000, colors=3, degree=3, seed=1)
     s4, _, u4 = coloring_arrays(100_000, colors=5, degree=3, seed=2)
     tabs4 = np.random.default_rng(4).random((len(s4), 5, 5), dtype=np.float32)
     m4 = len(s4)
+    s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
+    edges = {  # n_vars: the edges' variables on the card
+        n: torch.from_numpy(np.concatenate([sc[:, 0], sc[:, 1]])).to(dev)
+        for n, sc in ((10_000, s), (100_000, s4), (1_000_000, s5))
+    }
 
     # -- 2. kernels vs plain versions ------------------------------------
-    rows = check_kernels(torch, mk, dev, m4)
+    rows = check_kernels(torch, mk, dev, m4, edges)
     params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
 
     # -- 3. 10k coloring --------------------------------------------------
-    s, t, u = coloring_arrays(10_000, colors=3, degree=3, seed=1)
     p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
     p3 = p3c.to(dev)
     if (p3.n_real_edges, p3.buckets[2].n_cons) != (59_974, 29_987):
@@ -863,7 +946,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. 1M coloring ---------------------------------------------------
-    s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
+    del edges
     p5c = compile_from_arrays(s5, t5, 3, unary=u5, device="cpu")
     p5 = p5c.to(dev)
     if (p5.n_real_edges, p5.buckets[2].n_cons) != (5_999_982, 2_999_991):
@@ -893,7 +976,7 @@ def main() -> int:
         "factor_round_binary": (
             "factor_round_binary", 5, m4, "strided",
             counts4["factor_round_binary"]),
-        "q_update": ("q_update", 3, 59_974, "random", counts3["q_update"]),
+        "q_update": ("q_update", 3, 59_974, "gathered", counts3["q_update"]),
         # the lane-tile instance of each factor kernel, on phase 5's paths
         "factor_round_binary_shared.runtime_d": (
             "factor_round_binary_shared", 10, 299_988, "strided",
@@ -901,6 +984,9 @@ def main() -> int:
         "factor_round_binary.runtime_d": (
             "factor_round_binary", 10, 299_988, "strided",
             counts10["factor_round_binary"]),
+        # the q update's lane-tile instance, on the same paths
+        "q_update.runtime_d": (
+            "q_update", 10, 599_976, "gathered", counts10["q_update"]),
     }
     kernels = []
     for entry, (name, d, w, case, launched) in main_shape.items():
@@ -916,7 +1002,7 @@ def main() -> int:
             replaces=KERNELS[name], launches=launched,
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
-                and r["instance"].startswith("tile") == tile),
+                and (r["instance"] != "unrolled") == tile),
             ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None,

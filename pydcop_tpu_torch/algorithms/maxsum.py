@@ -18,13 +18,14 @@ selection):
    ``ops/semiring.py:bp_factor_messages``.
 2. belief ``b_v = unary + noise + Σ incoming r`` (the per-slot prefix
    gather sum, ``ops/costs.py``);
-3. broadcast-back gather ``belief[:, edge_var]``;
-4. q update ``q = damp·q + (1−damp)·norm(belief_e − r)``: the CUDA
-   kernel on the card and its plain version on the CPU, for every
-   problem; in f32, except for a bf16 belief (bf16 tables) outside the
-   factor-kernel gate, which the JAX package computes in XLA in bf16:
-   there the kernel rounds every operation to bf16 (``per_op``);
-5. value selection ``values = argmin_d belief``.
+3. q update ``q = damp·q + (1−damp)·norm(belief_e − r)``, with the
+   broadcast-back gather ``belief_e = belief[:, edge_var]`` (in the
+   message dtype) read inside it: the CUDA kernel on the card and its
+   plain version on the CPU, for every problem; in f32, except for a
+   bf16 belief (bf16 tables) outside the factor-kernel gate, which the
+   JAX package computes in XLA in bf16: there the kernel rounds every
+   operation to bf16 (``per_op``);
+4. value selection ``values = argmin_d belief``.
 
 Messages are stored in ``msg_dtype`` (f32 or bf16); the belief
 accumulates in the unary's dtype.  One round = 2·n_real_edges directed
@@ -192,12 +193,12 @@ def step(
 
     # -- 2. variable -> factor + value selection ----------------------
     belief = belief_from_r(problem, r_new, unary_t, params.get("belief", "auto"))
-    # the broadcast-back gather runs in the message dtype
-    belief_src = belief if belief.dtype == mdt else belief.to(mdt)
-    belief_e = belief_src.index_select(1, problem.edge_var)
     # outside the gate the JAX package computes in the belief's dtype
     per_op = belief.dtype == torch.bfloat16 and not in_kernel_gate(problem)
-    q_new = maxsum_kernels.q_update(belief_e, r_new, q, damping, per_op)
+    # the q update reads belief[:, edge_var] (in the message dtype) itself
+    q_new = maxsum_kernels.q_update(
+        belief, problem.edge_var, r_new, q, damping, per_op
+    )
     values = torch.argmin(belief, dim=0).to(state["values"].dtype)
     return {**state, "q": q_new, "r": r_new, "values": values}
 

@@ -13,16 +13,19 @@
 // sits at a * ld + i, ld the row stride (the factor kernels read their q
 // rows from, and write their r rows into, column blocks of the [d, E]
 // message arrays in place).  The ragged tail of m is masked; no lane
-// padding is copied.
+// padding is copied.  The q update reads the belief [d, n] itself through
+// the edges' variable index (be[a, i] = belief[a, edge_var[i]], the
+// broadcast-back gather), so no [d, E] copy of it is written and read
+// back; the belief, 12 MB at a million variables with d = 3, stays in the
+// 50 MB L2 cache while the kernel runs.
 //
-// Two designs, chosen by the domain size d:
+// Designs, chosen by the domain size d:
 //
-// * d in {2, 3, 4, 5, 8} (factor kernels) and d in {2, 3, 4, 5, 8} or any
-//   d (q update): one thread owns one lane i and walks the grid in a
-//   grid-stride loop; neighbouring threads read neighbouring i, so every
-//   load and store of a row is coalesced.  d is a template parameter, the
-//   loops unroll and the per-lane minima live in registers.  The generic
-//   q update keeps no array and reads be and r twice, so it takes any d.
+// * d in {2, 3, 4, 5, 8}: one thread owns one lane i and walks the grid
+//   in a grid-stride loop; neighbouring threads read neighbouring i, so
+//   every load and store of a row is coalesced (the belief reads of the
+//   q update follow edge_var).  d is a template parameter, the loops
+//   unroll and the per-lane values live in registers.
 //
 // * Every other d <= 64 (the Pallas kernels' cap) for the factor kernels:
 //   the lane-tile instance (factor_tile_kernel).  A lane's joint has d*d
@@ -54,10 +57,26 @@
 //   attribute call lands in a captured CUDA graph); a refused launch
 //   returns its error.
 //
+// * Every other d for the q update (no cap at 64): the same lane-tile
+//   idea (q_update_tile_kernel).  A block takes a tile of L lanes and
+//   splits the rows across G row groups; each thread computes be - r for
+//   its rows once and keeps it on chip until the output: for d <= 128 in
+//   4 registers per thread (G = ceil(d / 4) groups of L = 32 lanes), past
+//   128 in an [d, L] array in shared memory (32 groups of ceil(d / 32)
+//   rows, the widest L of 32 .. 1 that fits, opted in above 48 KB as the
+//   factor tile is).
+//   The per-group minima fold in group order after one barrier.  So every
+//   input element is read once from device memory (the instance it
+//   replaces walked the rows twice, the second time through L2, one
+//   serial chain of loads per lane).
+//
 // Bound: bytes per call, f32 messages:
 //   shared factor kernel   16*d*m   (read q0, q1; write r0, r1)
 //   per-factor kernel      16*d*m + 4*d*d*m   (plus the table stream)
-//   q_update               16*d*E   (read be, r, q; write q_new)
+//   q_update               12*d*E + 4*E + 4*d*n   (read r, q and the
+//                          i32 edge index; write q_new; read the
+//                          belief [d, n] once: 16*d*E with the
+//                          identity index, be itself [d, E])
 // over the card's 3.35 TB/s; operations per factor call (4*d*d + 6*d)*m
 // (two adds and two minima per cell) over 67 TFLOP/s, a rate that counts
 // a fused multiply-add as two operations.  By these two bounds all three
@@ -436,44 +455,163 @@ __global__ void __launch_bounds__((kMaxD + kRows - 1) / kRows * kLanes)
   }
 }
 
+// -- the q update ---------------------------------------------------------
+
+// r, q, the edge index and the output are touched once: the register
+// instances load and store them evict-first (__ldcs / __stcs), so they
+// do not push the belief, read at random columns, out of L2.  (The staged
+// instance measured slower with them, at d = 300: it loads and stores
+// plainly.)
+__device__ __forceinline__ float ld_once(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float ld_once(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldcs(p));
+}
+__device__ __forceinline__ void st_once(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void st_once(__nv_bfloat16* p, float v) {
+  __stcs(p, __float2bfloat16_rn(v));
+}
+
+// be[a, i]: a belief cell rounded to the message type T (B: the belief's
+// type, T or float), as belief.to(T) rounds it before the gather.
+template <typename T, typename B>
+__device__ __forceinline__ float ld_belief(const B* p) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && std::is_same_v<B, float>)
+    return rnd<__nv_bfloat16>(*p);
+  else
+    return ld(p);
+}
+
+// Lane i's column of the belief: edge_idx[i], or i without an index.
+__device__ __forceinline__ int64_t belief_col(const int32_t* idx, int64_t i) {
+  return idx ? __ldcs(idx + i) : i;
+}
+
+// One output cell: damp * q + (1 - damp) * (qn - mn), each operation in F.
+template <typename F>
+__device__ __forceinline__ float damped(float damp, float omd, float qv,
+                                        float qn, float mn) {
+  const float x = rnd<F>(__fsub_rn(qn, mn));
+  return rnd<F>(__fadd_rn(rnd<F>(__fmul_rn(damp, qv)),
+                          rnd<F>(__fmul_rn(omd, x))));
+}
+
 // F: the compute type.  float is the Pallas body (f32 arithmetic);
 // __nv_bfloat16 is the JAX package's XLA form for a bf16 belief outside
 // the factor-kernel gate: damp and 1 - damp (taken in f32) and every
-// difference, product and sum rounded to bf16.
-template <int D, typename F, typename T>
+// difference, product and sum rounded to bf16.  T: the message type;
+// B: the belief's.  belief is [d, n] with row stride ldb; idx[i] is lane
+// i's column in it (the broadcast-back gather), or null for column i.
+template <int D, typename F, typename T, typename B>
 __global__ void __launch_bounds__(kThreads) q_update_kernel(
-    const T* __restrict__ be, const T* __restrict__ r,
-    const T* __restrict__ q, float damp_f32, T* __restrict__ out, int d,
+    const B* __restrict__ belief, int64_t ldb,
+    const int32_t* __restrict__ idx, const T* __restrict__ r,
+    const T* __restrict__ q, float damp_f32, T* __restrict__ out,
     int64_t e) {
   const float damp = rnd<F>(damp_f32);
   const float omd = rnd<F>(__fsub_rn(1.0f, damp_f32));
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < e; i += stride) {
-    if constexpr (D > 0) {  // qn in registers
-      float qn[D];
-      float mn = CUDART_INF_F;
-      for (int a = 0; a < D; ++a) {
-        qn[a] = rnd<F>(__fsub_rn(ld(be + a * e + i), ld(r + a * e + i)));
-        mn = nanmin(mn, qn[a]);
+    const int64_t col = belief_col(idx, i);
+    float qn[D], qv[D];
+    float mn = CUDART_INF_F;
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      qn[a] = rnd<F>(__fsub_rn(ld_belief<T>(belief + a * ldb + col),
+                               ld_once(r + a * e + i)));
+      qv[a] = ld_once(q + a * e + i);
+      mn = nanmin(mn, qn[a]);
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      st_once(out + a * e + i, damped<F>(damp, omd, qv[a], qn[a], mn));
+  }
+}
+
+// -- the generic q update (any d without its own template) ------------------
+
+constexpr int kQRows = 4;     // rows per thread held in registers (R)
+constexpr int kQGroups = 32;  // row groups of a block at most
+constexpr int kQRegD = kQRows * kQGroups;  // 128: the largest d in registers
+
+// Thread t owns lane t % L of the block's tile of L lanes and the rows
+// lo .. lo + nr - 1 of row group t / L (G groups: contiguous runs of
+// `rows` rows, the last ones shorter or empty).  It computes qn = be - r
+// for its rows once, keeps it on chip (R registers, or with STAGED its
+// cells of an [d, L] array in shared memory), folds their minimum in
+// ascending order, and leaves it in the group's partial; after one
+// barrier every thread folds the G partials in group order (so the
+// minimum is the ascending fold's, NaN and signed zero included) and
+// writes its rows.  The partials alternate between two buffers from tile
+// to tile, so one barrier per tile suffices.  Blocks walk the tiles in a
+// grid-stride loop.
+template <typename F, typename T, typename B, bool STAGED>
+__global__ void __launch_bounds__(1024) q_update_tile_kernel(
+    const B* __restrict__ belief, int64_t ldb,
+    const int32_t* __restrict__ idx, const T* __restrict__ r,
+    const T* __restrict__ q, float damp_f32, T* __restrict__ out, int d,
+    int64_t e, int lanes, int rows) {
+  extern __shared__ float smem[];
+  const int L = lanes;
+  const int G = blockDim.x / L;
+  const int lane = threadIdx.x % L;
+  const int lo = (threadIdx.x / L) * rows;
+  const int nr = max(0, min(rows, d - lo));
+  float* const s_qn = smem + 2 * G * L;  // [d, L] after the partials [2, G, L]
+  const float damp = rnd<F>(damp_f32);
+  const float omd = rnd<F>(__fsub_rn(1.0f, damp_f32));
+  const int64_t tiles = (e + L - 1) / L;
+  int buf = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t i = tile * L + lane;
+    const int64_t ic = i < e ? i : e - 1;  // ragged tail: clamped loads
+    const int64_t col = belief_col(idx, ic);
+    float* const part = smem + buf * G * L;
+    buf ^= 1;
+    float mn = CUDART_INF_F;
+    if constexpr (!STAGED) {
+      constexpr int R = kQRows;
+      float qn[R], qv[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        qn[k] = qv[k] = 0.0f;
+        if (k < nr) {
+          const int64_t a = lo + k;
+          qn[k] = rnd<F>(__fsub_rn(ld_belief<T>(belief + a * ldb + col),
+                                   ld_once(r + a * e + ic)));
+          qv[k] = ld_once(q + a * e + ic);
+          mn = nanmin(mn, qn[k]);
+        }
       }
-      for (int a = 0; a < D; ++a) {
-        const float x = rnd<F>(__fsub_rn(qn[a], mn));
-        st(out + a * e + i,
-           rnd<F>(__fadd_rn(rnd<F>(__fmul_rn(damp, ld(q + a * e + i))),
-                            rnd<F>(__fmul_rn(omd, x)))));
+      part[threadIdx.x] = mn;
+      __syncthreads();
+      mn = CUDART_INF_F;
+      for (int u = 0; u < G; ++u) mn = nanmin(mn, part[u * L + lane]);
+      if (i < e) {
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          if (k < nr)
+            st_once(out + (lo + k) * e + i,
+                    damped<F>(damp, omd, qv[k], qn[k], mn));
       }
-    } else {  // any d: the min first, then be - r again (same operations)
-      float mn = CUDART_INF_F;
-      for (int a = 0; a < d; ++a)
-        mn = nanmin(mn, rnd<F>(__fsub_rn(ld(be + a * e + i),
-                                         ld(r + a * e + i))));
-      for (int a = 0; a < d; ++a) {
-        const float x = rnd<F>(__fsub_rn(
-            rnd<F>(__fsub_rn(ld(be + a * e + i), ld(r + a * e + i))), mn));
-        st(out + a * e + i,
-           rnd<F>(__fadd_rn(rnd<F>(__fmul_rn(damp, ld(q + a * e + i))),
-                            rnd<F>(__fmul_rn(omd, x)))));
+    } else {
+      for (int k = 0; k < nr; ++k) {
+        const int64_t a = lo + k;
+        const float v = rnd<F>(__fsub_rn(ld_belief<T>(belief + a * ldb + col),
+                                         ld(r + a * e + ic)));
+        s_qn[(lo + k) * L + lane] = v;  // read back by this thread only
+        mn = nanmin(mn, v);
+      }
+      part[threadIdx.x] = mn;
+      __syncthreads();
+      mn = CUDART_INF_F;
+      for (int u = 0; u < G; ++u) mn = nanmin(mn, part[u * L + lane]);
+      if (i < e) {
+        for (int k = 0; k < nr; ++k) {
+          const int64_t a = lo + k;
+          st(out + a * e + i, damped<F>(damp, omd, ld(q + a * e + i),
+                                        s_qn[(lo + k) * L + lane], mn));
+        }
       }
     }
   }
@@ -496,30 +634,18 @@ int blocks_for(int64_t n) {
     case 8: CALL(8); break;              \
     default: OTHER; break;               \
   }
-// ... with the generic instance (D = 0) for every other d
-#define DISPATCH_D(d, CALL) DISPATCH_SMALL_D(d, CALL, CALL(0))
 
 bool unrolled_d(int d) {
   return d == 2 || d == 3 || d == 4 || d == 5 || d == 8;
 }
 
-// Shared memory of the lane-tile instance, in floats (see the note).
-int64_t tile_smem_floats(int d, bool shared) {
-  const int nw = (d + kRows - 1) / kRows;
-  return (shared ? int64_t{d} * nw * kRows : 0) + 2 * kLanes * d +
-         int64_t{kLanes} * nw * d + 2 * kLanes * nw;
-}
-
-template <typename F, typename T, bool SHARED>
-cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
-                        T* r1, int d, int64_t m, int64_t ldq, int64_t ldr,
-                        cudaStream_t s) {
-  auto* kernel = factor_tile_kernel<F, T, SHARED>;
-  const int threads = (d + kRows - 1) / kRows * kLanes;
-  const size_t smem = sizeof(float) * tile_smem_floats(d, SHARED);
-  // opt in above 48 KB once per device and size, so that a launch
-  // captured in a CUDA graph makes no attribute call
-  static size_t opted[64] = {};
+// The grid that keeps every block of `kernel` resident at once, at most
+// `tiles` blocks.  Above 48 KB of dynamic shared memory the kernel is
+// opted in first, once per device and size (`opted`: one per kernel), so
+// that a launch captured in a CUDA graph makes no attribute call.
+template <typename Kernel>
+cudaError_t resident_grid(Kernel* kernel, int threads, size_t smem,
+                          int64_t tiles, size_t (&opted)[64], int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev < 0 || dev >= 64))
@@ -537,10 +663,31 @@ cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
                                                         threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // every block resident at once: the shared table is staged per block
-  const int64_t tiles = (m + kLanes - 1) / kLanes;
   const int64_t cap = static_cast<int64_t>(per_sm) * sms;
-  const int grid = static_cast<int>(tiles < cap ? tiles : cap);
+  *grid = static_cast<int>(tiles < cap ? tiles : cap);
+  return cudaSuccess;
+}
+
+// Shared memory of the lane-tile instance, in floats (see the note).
+int64_t tile_smem_floats(int d, bool shared) {
+  const int nw = (d + kRows - 1) / kRows;
+  return (shared ? int64_t{d} * nw * kRows : 0) + 2 * kLanes * d +
+         int64_t{kLanes} * nw * d + 2 * kLanes * nw;
+}
+
+template <typename F, typename T, bool SHARED>
+cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
+                        T* r1, int d, int64_t m, int64_t ldq, int64_t ldr,
+                        cudaStream_t s) {
+  auto* kernel = factor_tile_kernel<F, T, SHARED>;
+  const int threads = (d + kRows - 1) / kRows * kLanes;
+  const size_t smem = sizeof(float) * tile_smem_floats(d, SHARED);
+  static size_t opted[64] = {};
+  // every block resident at once: the shared table is staged per block
+  int grid = 0;
+  const cudaError_t err = resident_grid(
+      kernel, threads, smem, (m + kLanes - 1) / kLanes, opted, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, s>>>(tab, q0, q1, r0, r1, d, m, ldq, ldr);
   return cudaGetLastError();
 }
@@ -577,17 +724,71 @@ cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
   return cudaGetLastError();
 }
 
-template <typename F, typename T>
-void launch_q_update(const void* be, const void* r, const void* q,
-                     float damp, void* out, int d, int64_t e,
-                     cudaStream_t s) {
+// The generic q update's block: G row groups of L lanes (see the note).
+// In registers (d <= 128): G = ceil(d / 4) groups of 32 lanes (fuller
+// blocks for a small d, up to 256 threads, were no faster at d = 10).
+// STAGED (d > 128): 32 groups of ceil(d / 32) rows, and the widest L of
+// 32, 16, .., 1 whose [d, L] array and partials fit the device's shared
+// memory (d up to 58,080 at L = 1 on an H100).
+template <typename F, typename T, typename B, bool STAGED>
+cudaError_t launch_q_tile(const B* belief, int64_t ldb, const int32_t* idx,
+                          const T* r, const T* q, float damp, T* out, int d,
+                          int64_t e, cudaStream_t s) {
+  auto* kernel = q_update_tile_kernel<F, T, B, STAGED>;
+  static size_t opted[64] = {};
+  int groups = (d + kQRows - 1) / kQRows, rows = kQRows;
+  int lanes = kLanes;
+  auto smem_of = [&](int l) {
+    return sizeof(float) * (2 * int64_t{groups} + (STAGED ? d : 0)) * l;
+  };
+  if constexpr (STAGED) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    groups = kQGroups;
+    rows = (d + groups - 1) / groups;
+    while (lanes > 1 && smem_of(lanes) > static_cast<size_t>(optin))
+      lanes /= 2;
+    if (smem_of(lanes) > static_cast<size_t>(optin))
+      return cudaErrorInvalidValue;
+  }
+  const int threads = groups * lanes;
+  const size_t smem = smem_of(lanes);
+  int grid = 0;
+  const cudaError_t err = resident_grid(kernel, threads, smem,
+                                        (e + lanes - 1) / lanes, opted, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(belief, ldb, idx, r, q, damp, out, d, e,
+                                     lanes, rows);
+  return cudaGetLastError();
+}
+
+template <typename F, typename T, typename B>
+cudaError_t launch_q_update(const void* belief, int64_t ldb,
+                            const int32_t* idx, const void* r, const void* q,
+                            float damp, void* out, int d, int64_t e,
+                            cudaStream_t s) {
+  const B* b = static_cast<const B*>(belief);
+  const T* rr = static_cast<const T*>(r);
+  const T* qq = static_cast<const T*>(q);
+  T* o = static_cast<T*>(out);
+  if (!unrolled_d(d)) {
+    return d <= kQRegD
+               ? launch_q_tile<F, T, B, false>(b, ldb, idx, rr, qq, damp, o,
+                                               d, e, s)
+               : launch_q_tile<F, T, B, true>(b, ldb, idx, rr, qq, damp, o, d,
+                                              e, s);
+  }
   const int grid = blocks_for(e);
 #define Q_UPDATE(D) \
-  q_update_kernel<D, F, T><<<grid, kThreads, 0, s>>>( \
-      static_cast<const T*>(be), static_cast<const T*>(r), \
-      static_cast<const T*>(q), damp, static_cast<T*>(out), d, e)
-  DISPATCH_D(d, Q_UPDATE)
+  q_update_kernel<D, F, T, B><<<grid, kThreads, 0, s>>>( \
+      b, ldb, idx, rr, qq, damp, o, e)
+  DISPATCH_SMALL_D(d, Q_UPDATE, )
 #undef Q_UPDATE
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -624,24 +825,37 @@ int pydcop_factor_round_binary(int shared, const void* tab, int tab_bf16,
   return static_cast<int>(err);
 }
 
-// be, r, q, out: [d, e] of float or __nv_bfloat16; damp is the f32
-// damping factor.  per_op (bf16 only): round every operation to bf16
-// instead of computing in f32.  d >= 1, e >= 1.
-int pydcop_q_update(const void* be, const void* r, const void* q, float damp,
-                    void* out, int d, int64_t e, int bf16, int per_op,
-                    void* stream) {
-  if (d < 1 || e < 1 || (per_op && !bf16))
+// belief: [d, n] contiguous, float (belief_bf16 == 0) or __nv_bfloat16
+// (belief_bf16 == 1, only with bf16 messages); edge_idx: int32[e], each
+// entry in [0, n), or null for the identity (n == e); r, q, out: [d, e]
+// contiguous, float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); damp is the
+// f32 damping factor.  be[a, i] = belief[a, edge_idx[i]], rounded to the
+// message type.  per_op (bf16 belief and messages only): round every
+// operation to bf16 instead of computing in f32.  d >= 1, e >= 1, n >= 1.
+int pydcop_q_update(const void* belief, const int32_t* edge_idx,
+                    const void* r, const void* q, float damp, void* out,
+                    int d, int64_t e, int64_t n, int belief_bf16, int bf16,
+                    int per_op, void* stream) {
+  if (d < 1 || e < 1 || n < 1 || (!edge_idx && n != e) ||
+      (per_op && !belief_bf16) || (belief_bf16 && !bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  cudaError_t err;
   if (per_op) {
-    launch_q_update<__nv_bfloat16, __nv_bfloat16>(be, r, q, damp, out, d, e,
-                                                  s);
+    err = launch_q_update<bf, bf, bf>(belief, n, edge_idx, r, q, damp, out,
+                                      d, e, s);
+  } else if (belief_bf16) {
+    err = launch_q_update<float, bf, bf>(belief, n, edge_idx, r, q, damp, out,
+                                         d, e, s);
   } else if (bf16) {
-    launch_q_update<float, __nv_bfloat16>(be, r, q, damp, out, d, e, s);
+    err = launch_q_update<float, bf, float>(belief, n, edge_idx, r, q, damp,
+                                            out, d, e, s);
   } else {
-    launch_q_update<float, float>(be, r, q, damp, out, d, e, s);
+    err = launch_q_update<float, float, float>(belief, n, edge_idx, r, q,
+                                               damp, out, d, e, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

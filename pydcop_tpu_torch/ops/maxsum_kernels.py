@@ -11,17 +11,20 @@ with ``ctypes`` (``ops/_build.py``).
   m factors share one ``[d, d]`` table (the coloring benchmark).
 - :func:`factor_round_binary` — the same with per-factor tables
   ``[d, d, m]``.
-- :func:`q_update` — ``q_new = damp·q + (1 − damp)·norm(belief_e − r)``.
+- :func:`q_update` — ``q_new = damp·q + (1 − damp)·norm(be − r)`` with
+  ``be = belief[:, edge_idx]`` (the broadcast-back gather) read inside
+  the kernel.
 
 Each wrapper takes the plain version (``*_plain``, the same function in
 PyTorch operations) for tensors on the CPU, and only for them; for CUDA
 tensors it launches the kernel or raises.  ``launches`` counts kernel
 launches per wrapper, so a run can show that it went through them.
 
-The factor kernels have an unrolled instance for each d in
-``UNROLLED_D`` and one lane-tile instance for every other d up to
-``MAX_D`` (a block per 32 lanes, the joint's rows split across its
-warps; ``csrc/maxsum_kernels.cu`` has the design).
+The factor kernels and the q update have an unrolled instance for each
+d in ``UNROLLED_D``; every other d takes a lane-tile instance (a block
+per tile of lanes, the rows split across its threads;
+``csrc/maxsum_kernels.cu`` has the design), up to ``MAX_D`` for the
+factor kernels and with no such cap for the q update.
 
 Messages and tables may each be f32 or bf16.  The factor phase computes
 in the table's dtype, as the Pallas kernels do (bf16 tables: every add
@@ -74,7 +77,8 @@ def build():
         ]
         lib.pydcop_factor_round_binary.restype = i32
         lib.pydcop_q_update.argtypes = [
-            vp, vp, vp, ctypes.c_float, vp, i32, i64, i32, i32, vp,
+            vp, vp, vp, vp, ctypes.c_float, vp, i32, i64, i64, i32, i32,
+            i32, vp,
         ]
         lib.pydcop_q_update.restype = i32
         lib._pydcop_bound = True
@@ -117,13 +121,17 @@ def factor_round_binary_plain(
 
 
 def q_update_plain(
-    belief_e: torch.Tensor,
+    belief: torch.Tensor,
     r_new: torch.Tensor,
     q: torch.Tensor,
     damping: float,
     per_op: bool = False,
+    edge_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``qn = belief_e − r_new``; ``qn −= min_d qn``;
+    """``be = belief`` rounded to q's dtype and, with ``edge_idx``,
+    gathered per edge (``be[a, i] = belief[a, edge_idx[i]]``, the
+    broadcast-back gather; without it ``belief`` is already ``[d, E]``);
+    ``qn = be − r_new``; ``qn −= min_d qn``;
     ``q_new = damp·q + (1 − damp)·qn`` in f32 (``1 − damp`` rounded in
     f32, as the kernel and the JAX package compute it), rounded to q's
     dtype.  ``per_op`` (bf16 messages only) computes in bf16 instead,
@@ -131,11 +139,14 @@ def q_update_plain(
     ``1 − damp`` too.  The two factors are 0-d CPU tensors, so no
     host-to-device copy is made (the call can be captured in a CUDA
     graph)."""
+    be = belief.to(q.dtype)
+    if edge_idx is not None:
+        be = be.index_select(1, edge_idx)
     f = torch.bfloat16 if per_op else torch.float32
     damp = torch.tensor(damping, dtype=torch.float32)
     omd = (1.0 - damp).to(f)
     damp = damp.to(f)
-    qn = belief_e.to(f) - r_new.to(f)
+    qn = be.to(f) - r_new.to(f)
     qn = qn - qn.amin(dim=0, keepdim=True)
     return (damp * q.to(f) + omd * qn).to(q.dtype)
 
@@ -259,38 +270,88 @@ def factor_round_binary(
     return _factor_launch("factor_round_binary", False, tab, q0, q1, out)
 
 
+def _check_gather(belief, edge_idx, d: int, e: int, q: torch.Tensor) -> None:
+    """The belief and the edge index of a q update with q ``[d, E]``: a
+    ``[d, n]`` belief in q's dtype or f32 on q's device, and an i32
+    ``[E]`` index on the same device (or none, and then n == E)."""
+    if belief.dtype not in (q.dtype, torch.float32):
+        raise TypeError(
+            f"q_update belief: dtype {belief.dtype} (q's {q.dtype} or f32)"
+        )
+    if belief.device != q.device:
+        raise ValueError(f"q_update belief: {belief.device} is not {q.device}")
+    if belief.dim() != 2 or belief.shape[0] != d:
+        raise ValueError(
+            f"q_update belief: shape {tuple(belief.shape)}, need [{d}, n]"
+        )
+    if edge_idx is None:
+        if belief.shape[1] != e:
+            raise ValueError(
+                f"q_update belief: shape {tuple(belief.shape)} without an "
+                f"edge index, need [{d}, {e}]"
+            )
+        return
+    if edge_idx.dtype != torch.int32:
+        raise TypeError(f"q_update edge_idx: dtype {edge_idx.dtype} (int32)")
+    if tuple(edge_idx.shape) != (e,):
+        raise ValueError(
+            f"q_update edge_idx: shape {tuple(edge_idx.shape)}, need [{e}]"
+        )
+    if edge_idx.device != q.device:
+        raise ValueError(
+            f"q_update edge_idx: {edge_idx.device} is not {q.device}"
+        )
+
+
 def q_update(
-    belief_e: torch.Tensor,  # [d, E] — belief gathered back per edge
+    belief: torch.Tensor,  # [d, n] — the variables' beliefs
+    edge_idx: Optional[torch.Tensor],  # i32[E] — each edge's variable
     r_new: torch.Tensor,  # [d, E]
     q: torch.Tensor,  # [d, E] — previous q (damping)
     damping: float,
     per_op: bool = False,
 ) -> torch.Tensor:
-    """Fused q update: subtract own r, min-normalize, damp → [d, E] in
-    q's dtype.  Any domain size (no ``MAX_D`` cap).  ``per_op`` rounds
-    every operation to bf16 (see :func:`q_update_plain`); it needs bf16
-    messages."""
-    if per_op and q.dtype != torch.bfloat16:
-        raise ValueError(f"q_update: per_op needs bf16 messages, not {q.dtype}")
-    if q.device.type == "cpu":
-        return q_update_plain(belief_e, r_new, q, damping, per_op)
-    dev = q.device
+    """Fused q update with the broadcast-back gather inside: ``be[a, i] =
+    belief[a, edge_idx[i]]`` rounded to q's dtype (``edge_idx`` None:
+    ``belief`` is ``[d, E]`` itself, the Pallas kernel's form), subtract
+    own r, min-normalize, damp → [d, E] in q's dtype.  Any domain size
+    (no ``MAX_D`` cap).  ``belief`` is in q's dtype or f32; the entries
+    of ``edge_idx`` must lie in ``[0, n)`` (the kernel reads them
+    unchecked).  ``per_op`` rounds every operation to bf16 (see
+    :func:`q_update_plain`); it needs bf16 messages and a bf16 belief
+    (``maxsum.step`` asks for it only for a bf16 belief)."""
+    if per_op and torch.float32 in (q.dtype, belief.dtype):
+        raise ValueError(
+            f"q_update: per_op needs bf16 messages and belief, not "
+            f"{q.dtype} and {belief.dtype}"
+        )
+    if q.dim() != 2:
+        raise ValueError(f"q_update q: shape {tuple(q.shape)}, need [d, E]")
     d, e = q.shape
+    _check_gather(belief, edge_idx, d, e, q)
+    if q.device.type == "cpu":
+        return q_update_plain(belief, r_new, q, damping, per_op, edge_idx)
+    dev = q.device
     if d < 1 or e < 1:
         raise ValueError(f"q_update: d={d}, E={e} (need d, E >= 1)")
-    for nm, x in (("belief_e", belief_e), ("r_new", r_new), ("q", q)):
+    for nm, x in (("r_new", r_new), ("q", q)):
         _check_rows(f"q_update {nm}", x, d, e, dev)
         if x.dtype != q.dtype or not x.is_contiguous():
             raise ValueError(
                 f"q_update {nm}: must be contiguous {q.dtype}, got "
                 f"{x.dtype} strides {x.stride()}"
             )
+    for nm, x in (("belief", belief), ("edge_idx", edge_idx)):
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"q_update {nm}: must be contiguous")
     out = torch.empty_like(q)
     lib = build().lib
     with torch.cuda.device(dev):
         rc = lib.pydcop_q_update(
-            belief_e.data_ptr(), r_new.data_ptr(), q.data_ptr(),
-            float(damping), out.data_ptr(), d, e,
+            belief.data_ptr(),
+            None if edge_idx is None else edge_idx.data_ptr(),
+            r_new.data_ptr(), q.data_ptr(), float(damping), out.data_ptr(),
+            d, e, belief.shape[1], int(belief.dtype == torch.bfloat16),
             int(q.dtype == torch.bfloat16), int(per_op), _stream(dev),
         )
     _check_rc(rc, "q_update")

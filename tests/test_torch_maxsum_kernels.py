@@ -245,7 +245,7 @@ def test_q_update_plain_per_op_matches_jax_bf16_form(d, e, damping):
     got = mk.q_update_plain(bt, rt, qt, damping, per_op=True)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(_np(got), _np(ref))
-    assert torch.equal(mk.q_update(bt, rt, qt, damping, per_op=True), got)
+    assert torch.equal(mk.q_update(bt, None, rt, qt, damping, per_op=True), got)
     # it is another function than the f32 update the kernel gate takes
     assert not torch.equal(got, mk.q_update_plain(bt, rt, qt, damping))
 
@@ -253,7 +253,7 @@ def test_q_update_plain_per_op_matches_jax_bf16_form(d, e, damping):
 def test_q_update_per_op_needs_bf16_messages():
     (_, be), (_, r), (_, q) = _q_inputs(5, 3, 100)
     with pytest.raises(ValueError, match="per_op"):
-        mk.q_update(be, r, q, 0.5, per_op=True)
+        mk.q_update(be, None, r, q, 0.5, per_op=True)
 
 
 def test_wrappers_take_the_plain_version_on_cpu_without_counting():
@@ -280,15 +280,91 @@ def test_wrappers_take_the_plain_version_on_cpu_without_counting():
         assert torch.equal(g, w)
     (_, be), (_, r), (_, q) = _q_inputs(4, d, 500)
     assert torch.equal(
-        mk.q_update(be, r, q, 0.5), mk.q_update_plain(be, r, q, 0.5)
+        mk.q_update(be, None, r, q, 0.5), mk.q_update_plain(be, r, q, 0.5)
     )
     assert mk.launches == {k: 0 for k in mk.launches}
 
 
 def test_q_update_wrapper_takes_any_domain_size():
-    """The q update has no domain cap (its generic CUDA instance keeps no
-    per-lane array): on the CPU, d = 70 gives the plain version."""
+    """The q update has no domain cap (its generic CUDA instance keeps a
+    lane's rows in registers up to d = 128 and in shared memory past
+    it): on the CPU, d = 70 gives the plain version."""
     (_, be), (_, r), (_, q) = _q_inputs(9, 70, 300)
-    got = mk.q_update(be, r, q, 0.3)
+    got = mk.q_update(be, None, r, q, 0.3)
     assert torch.equal(got, mk.q_update_plain(be, r, q, 0.3))
     assert got.shape == (70, 300)
+
+
+def _gather_inputs(seed, d, bf16=False, belief_bf16=False):
+    """A [d, n] belief, the position-major edge index of a 100-variable
+    coloring (each variable on several edges; E ragged), and [d, E]
+    r and q, as jax arrays and CPU tensors."""
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    scopes, _, _ = coloring_arrays(100, colors=d, degree=3, seed=seed)
+    ev = np.concatenate([scopes[:, 0], scopes[:, 1]]).astype(np.int32)
+    rng = np.random.RandomState(seed)
+    belief = rng.rand(d, 100).astype(np.float32) * 5
+    r = rng.rand(d, len(ev)).astype(np.float32)
+    q = rng.rand(d, len(ev)).astype(np.float32)
+    return (_pair(belief, belief_bf16), _pair(ev), _pair(r, bf16),
+            _pair(q, bf16))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [3, 10, 65])
+def test_q_update_gathered_matches_pallas(d, bf16):
+    """The gathered form (``edge_idx``: the belief read per edge inside
+    the q update) equals the JAX step's broadcast-back gather
+    ``belief_src[:, edge_var]`` in the message dtype followed by the
+    Pallas ``q_update`` (interpret mode): f32 within 1e-6 (as
+    :func:`test_q_update_plain_matches_pallas_f32`), bf16 messages with
+    an f32 belief bit-equal."""
+    (bj, bt), (ej, et), (rj, rt), (qj, qt) = _gather_inputs(d, d, bf16)
+    ev = _np(et)
+    assert len(np.unique(ev)) < len(ev) and len(ev) % 128  # repeats, ragged
+    be = bj.astype(qj.dtype)[:, ej]
+    ref = pallas_maxsum.q_update(be, rj, qj, jnp.asarray(0.5), interpret=True)
+    got = mk.q_update(bt, et, rt, qt, 0.5)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    if bf16:
+        np.testing.assert_array_equal(_np(got), _np(ref))
+    else:
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-6, atol=1e-6)
+    plain = mk.q_update_plain(bt, rt, qt, 0.5, edge_idx=et)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("d", [3, 65])
+def test_q_update_gathered_per_op_matches_jax_bf16_form(d):
+    """``per_op`` with the gathered form: a bf16 belief read per edge,
+    then every operation rounded to bf16, equals the JAX step's XLA q
+    update on ``belief[:, edge_var]`` bit for bit."""
+    (bj, bt), (ej, et), (rj, rt), (qj, qt) = _gather_inputs(
+        d + 1, d, bf16=True, belief_bf16=True
+    )
+    ref = _jax_q_update_xla(bj[:, ej], rj, qj, 0.3)
+    got = mk.q_update(bt, et, rt, qt, 0.3, per_op=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize(
+    "bad,err",
+    [("dtype", TypeError), ("length", ValueError), ("device", ValueError),
+     ("belief_dtype", TypeError)],
+)
+def test_q_update_rejects_a_wrong_edge_index(bad, err):
+    """The wrapper checks the edge index's dtype (int32), length (E) and
+    device (q's), and the belief's dtype (q's or f32), on every device."""
+    (_, bt), (_, et), (_, rt), (_, qt) = _gather_inputs(5, 3)
+    if bad == "dtype":
+        et = et.long()
+    elif bad == "length":
+        et = et[:-1]
+    elif bad == "device":
+        et = torch.empty(et.shape, dtype=torch.int32, device="meta")
+    else:
+        bt = bt.to(torch.bfloat16)
+    with pytest.raises(err, match="belief" if bad == "belief_dtype" else "edge_idx"):
+        mk.q_update(bt, et, rt, qt, 0.5)
