@@ -86,7 +86,24 @@ caught and passed over):
    K=8, 1024 rounds, chunk 256: msgs/s over all restarts' messages, the
    best cost and the K restart costs, and a profiler pass over 64 rounds
    each.
-8. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+8. Exact DPOP (``api.solve(dcop, "dpop", …)``, the pseudo-tree on the
+   host, the UTIL joins on the card; no hand kernel on this path: the
+   contraction is eager PyTorch, as the JAX package's is XLA).
+   ``dpop-hubtree-d24``: the repo's configuration 6 (3 hubs, 45 leaves,
+   d = 24) at ``util_device: auto``, cold and warm on the card, on the
+   CPU through the port and on the host in f64 (``util_device: never``):
+   equal assignments and costs, equal UTIL counts card and CPU, some
+   joins on the card; each dispatch's joined shape, stack height and
+   host time, util-cells/s, peak device memory and a profiler pass.
+   Then the min-sum contraction on the card against its CPU run, bit for
+   bit, at the hubtree's dispatch shapes (random parts) and on the tie,
+   -0.0, +inf-row, NaN and d = 1 rows of the tests, each with its device
+   time and bound.  ``dpop-secp-768-tiled``: ``bench.py``'s
+   config4_dpop_secp stage (768 lights, zone 8 tiled, seed 7) with
+   ``pad_policy="pow2"`` and ``util_device: always``, level and node
+   dispatches, each against the port's CPU run: equal results,
+   util-cells/s and dispatch counts, a profiler pass.
+9. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, and each kernel's
    lane-tile instance as ``<kernel>.runtime_d`` at phase 5's), the card
    line, and last the ``{"ok": true, ...}`` line.
@@ -782,6 +799,288 @@ def local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
                    "config2-ising32-mgm2-K8", card)
 
 
+# -- phase 8: exact DPOP ----------------------------------------------------
+
+SECP_SPEC = dict(  # bench.py's config4_dpop_secp stage (bench.py:121-133)
+    nb_lights=768, nb_models=768, nb_rules=192, light_levels=6,
+    model_arity=3, zone_size=8, zone_layout="tiled", efficiency_weight=0.1,
+    capacity=100.0, seed=7,
+)
+DPOP_STATS = ("util_cells", "util_device_nodes", "util_host_nodes",
+              "util_dispatches")
+
+
+def hubtree_dcop():
+    """Configuration 6 (``bench_configs.py:65-107``, ``_gen_dpop_large``)
+    rebuilt with the port's model objects: 3 hubs chained, 45 leaves each
+    bound to every hub, d = 24, 137 binary uniform(0, 10) tables from
+    ``RandomState(5)`` drawn in the same order."""
+    import numpy as np
+
+    from pydcop_tpu_torch.dcop import DCOP, Domain, NAryMatrixRelation, Variable
+
+    rnd = np.random.RandomState(5)
+    d, n_hubs, n_leaves = 24, 3, 45
+    dom = Domain("d", "", list(range(d)))
+    dcop = DCOP("hubtree", objective="min")
+    hubs = [Variable(f"h{i}", dom) for i in range(n_hubs)]
+    for h in hubs:
+        dcop.add_variable(h)
+    ci = 0
+    for i in range(1, n_hubs):
+        t = rnd.uniform(0, 10, (d, d))
+        dcop.add_constraint(
+            NAryMatrixRelation([hubs[i - 1], hubs[i]], t, name=f"c{ci}"))
+        ci += 1
+    for i in range(n_leaves):
+        leaf = Variable(f"x{i}", dom)
+        dcop.add_variable(leaf)
+        for h in hubs:
+            t = rnd.uniform(0, 10, (d, d))
+            dcop.add_constraint(
+                NAryMatrixRelation([h, leaf], t, name=f"c{ci}"))
+            ci += 1
+    return dcop
+
+
+def record_dispatches(dpop):
+    """Wrap the sweep's dispatch for one run: each dispatch's part shapes
+    (the stack height leads them in a stacked dispatch) and its host time,
+    transfers included.  Returns the log and the function that unwraps."""
+    log, inner = [], dpop._dispatch
+
+    def wrapped(fn, parts, device):
+        t0 = time.perf_counter()
+        out = inner(fn, parts, device)
+        log.append(([p.shape for p in parts], time.perf_counter() - t0))
+        return out
+
+    dpop._dispatch = wrapped
+    return log, lambda: setattr(dpop, "_dispatch", inner)
+
+
+def profile_solve(torch, solve, dcop, params, pad, label):
+    """Device time by operation over one warm solve on the card
+    (torch.profiler) and the device's idle share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        res = solve(dcop, "dpop", params, pad_policy=pad)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = prof.key_averages()
+    kern = [e for e in ops if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if not kern or busy_ms <= 0:
+        raise AssertionError(f"profile {label}: no device time recorded")
+    print(f"profile {label}: wall_ms={wall_ms} util_time_ms="
+          f"{res['util_time'] * 1e3} device_busy_ms={busy_ms} "
+          f"idle_share={1 - busy_ms / wall_ms} "
+          f"dispatches={res['util_dispatches']} "
+          f"device_busy_ms_per_dispatch={busy_ms / res['util_dispatches']}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        us = e.self_device_time_total
+        print(f"profile {label} kernel: calls={e.count} "
+              f"us_per_call={us / e.count} share={us / 1e3 / busy_ms} "
+              f"name={e.key[:100]!r}")
+
+
+def contraction_cost(shape, part_shapes, lead):
+    """(bytes the contraction must move, its f32 operations, the bytes
+    the eager form moves): each part read once, ``amin`` (int64) and
+    ``margins`` (f32) written once; the eager form writes and re-reads
+    the joined table once per add, then reads it for the minimum and the
+    argmin, reads and writes it for the masked copy and reads that for
+    the second minimum."""
+    import math
+
+    cells = math.prod(lead + tuple(shape))
+    parts = sum(4 * math.prod(lead + tuple(p)) for p in part_shapes)
+    out = 12 * cells // shape[-1]
+    n = len(part_shapes)
+    eager = parts + 4 * cells * (2 * (n - 1) + 5) + out
+    return parts + out, cells * (n + 4), eager
+
+
+def contraction_rows(torch, dev, hub_shapes):
+    """The min-sum contraction on the card against its CPU run, bit for
+    bit (``amin`` as int64, ``margins`` NaN where the other is NaN): random
+    stacks at the hubtree's shapes, then the tie, -0.0, +inf-row, mixed
+    ±inf (NaN) and d = 1 rows of ``tests/test_torch_semiring.py``."""
+    import numpy as np
+
+    from pydcop_tpu_torch.ops.semiring import MIN_SUM, contraction_kernel
+
+    rng = np.random.default_rng(17)
+    f32 = np.float32
+
+    def edge_parts(case, part_shapes, lead):
+        out = []
+        for i, ps in enumerate(part_shapes):
+            full = lead + ps
+            if case == "ties":
+                p = rng.integers(0, 3, full).astype(f32)
+            elif case == "negzero":
+                p = -rng.integers(0, 2, full).astype(f32)
+            elif case == "inf_rows":
+                p = rng.random(full, dtype=f32)
+                if i == 0:
+                    p[(Ellipsis, 0) if p.ndim > 1 else Ellipsis] = np.inf
+            elif case == "mixed_inf":
+                p = rng.random(full, dtype=f32)
+                flat = p.reshape(-1)
+                pick = rng.choice(flat.size, size=max(1, flat.size // 5),
+                                  replace=False)
+                flat[pick] = np.inf if i % 2 == 0 else -np.inf
+            else:
+                p = rng.random(full, dtype=f32) * 10
+            out.append(p)
+        return out
+
+    cases = [(f"hubtree-{name}", "random", shape, ps, lead)
+             for name, shape, ps, lead in hub_shapes]
+    for case in ("ties", "negzero", "inf_rows", "mixed_inf", "random"):
+        for shape, ps in (((4, 3, 5), ((4, 1, 5), (1, 3, 5), (4, 3, 1))),
+                          ((5, 1), ((5, 1), (1, 1)))):
+            for lead in ((), (3,)):
+                cases.append((f"edge-{case}", case, shape, ps, lead))
+    for label, case, shape, ps, lead in cases:
+        parts = edge_parts(case, ps, lead)
+        fn = contraction_kernel(MIN_SUM, shape, ps, batched=bool(lead))
+        a_cpu, m_cpu = fn(*(torch.from_numpy(p) for p in parts))
+        on_card = [torch.from_numpy(p).to(dev) for p in parts]
+        a_dev, m_dev = fn(*on_card)
+        torch.cuda.synchronize()
+        if a_dev.dtype != torch.int64 or not torch.equal(a_dev.cpu(), a_cpu):
+            raise AssertionError(f"contraction {label}: amin differs")
+        if not same_bits(torch, m_dev.cpu(), m_cpu):
+            raise AssertionError(f"contraction {label}: margins differ")
+        nbytes, nops, eager = contraction_cost(shape, ps, lead)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        ms = device_ms(torch, lambda: fn(*on_card))
+        print(f"contraction {label}: shape={shape} stack={lead} "
+              f"parts={len(ps)} bit_equal=True "
+              f"nan_cells={int(torch.isnan(m_cpu).sum())} ms={ms} "
+              f"bound_ms={b_ms} bound_by={b_by} share_of_bound={b_ms / ms} "
+              f"eager_bytes_ms={eager / HBM_BYTES_PER_S * 1e3}")
+        del on_card, a_dev, m_dev
+    torch.cuda.empty_cache()
+
+
+def dpop_card_cpu_oracle(torch, solve, dcop, params, pad, label, card):
+    """The card run (cold, then warm with peak memory), the port's CPU run
+    and, for ``util_device`` other than ``never``, checks: equal
+    assignments and costs, equal counts between card and CPU."""
+    t0 = time.perf_counter()
+    cold = solve(dcop, "dpop", params, pad_policy=pad)
+    torch.cuda.synchronize()
+    cold_wall = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    t0 = time.perf_counter()
+    warm = solve(dcop, "dpop", params, pad_policy=pad)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = solve(dcop, "dpop", params, pad_policy=pad, device="cpu")
+    for r in (cold, warm, cpu):
+        if r["status"] != "finished":
+            raise AssertionError(f"{label}: status {r['status']}")
+    for name, r in (("cold card", cold), ("cpu", cpu)):
+        if (r["assignment"], r["cost"]) != (warm["assignment"], warm["cost"]):
+            raise AssertionError(f"{label}: {name} run differs from the card")
+        for k in DPOP_STATS:
+            if r[k] != warm[k]:
+                raise AssertionError(
+                    f"{label}: {k} {name} {r[k]} card {warm[k]}")
+    if warm["util_device_nodes"] <= 0:
+        raise AssertionError(f"{label}: no join ran on the card")
+    print(f"solve {label}: n_vars={len(dcop.variables)} "
+          f"tree_height={warm['cycle']} cost={warm['cost']} "
+          f"util_cells={warm['util_cells']} "
+          f"util_device_nodes={warm['util_device_nodes']} "
+          f"util_host_nodes={warm['util_host_nodes']} "
+          f"util_dispatches={warm['util_dispatches']} "
+          f"util_time_cold={cold['util_time']} util_time={warm['util_time']} "
+          f"util_cells_per_s={warm['util_cells'] / warm['util_time']} "
+          f"solve_seconds_cold={cold_wall} solve_seconds={wall} "
+          f"time={warm['time']} peak_memory_bytes_above_start={peak} "
+          f"cpu_util_time={cpu['util_time']} card={card}")
+    return warm
+
+
+def dpop_phase(torch, dev, card):
+    """Phase 8 (see the module docstring)."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import dpop
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.commands.generators.secp import generate
+
+    # -- 8a. configuration 6 at full width
+    hub = hubtree_dcop()
+    if (len(hub.variables), len(hub.constraints)) != (48, 137):
+        raise AssertionError("unexpected hubtree size")
+    auto = {"util_device": "auto"}
+    card_r = dpop_card_cpu_oracle(torch, solve, hub, auto, "none",
+                                  "dpop-hubtree-d24", card)
+    oracle = solve(hub, "dpop", {"util_device": "never"}, device="cpu")
+    if ((oracle["assignment"], oracle["cost"])
+            != (card_r["assignment"], card_r["cost"])):
+        raise AssertionError("dpop-hubtree-d24: differs from the host f64 "
+                             "oracle")
+    print(f"oracle dpop-hubtree-d24: host f64 util_time="
+          f"{oracle['util_time']} cost={oracle['cost']} equal=True")
+    log, unwrap = record_dispatches(dpop)
+    try:
+        rec = solve(hub, "dpop", auto)
+    finally:
+        unwrap()
+    if len(log) != rec["util_dispatches"]:
+        raise AssertionError("dpop-hubtree-d24: dispatch log incomplete")
+    hub_shapes = []
+    for i, (shapes, secs) in enumerate(log):
+        joined = np.broadcast_shapes(*shapes)
+        stacked = len(shapes[0]) > 4  # the joins are 4-axis: d^4 cells
+        lead, shape = (joined[:1], joined[1:]) if stacked else ((), joined)
+        cells = int(np.prod(joined))
+        print(f"dispatch dpop-hubtree-d24 {i}: joined={tuple(shape)} "
+              f"stack={lead[0] if lead else 1} parts={len(shapes)} "
+              f"cells={cells} f32_bytes={4 * cells} host_seconds={secs}")
+        hub_shapes.append((
+            f"{'stack' if stacked else 'node'}{i}", tuple(shape),
+            tuple(tuple(s[len(lead):]) for s in shapes), tuple(lead)))
+    profile_solve(torch, solve, hub, auto, "none", "dpop-hubtree-d24")
+
+    # -- the contraction on the card against its CPU run
+    contraction_rows(torch, dev, hub_shapes)
+
+    # -- 8b. the config4_dpop_secp stage, level against node dispatches
+    secp = generate(Namespace(**SECP_SPEC))
+    always = {"util_device": "always"}
+    runs = {}
+    for mode in ("level", "node"):
+        runs[mode] = dpop_card_cpu_oracle(
+            torch, solve, secp, dict(always, util_batch=mode), "pow2",
+            f"dpop-secp-768-tiled-{mode}", card)
+    lv, nd = runs["level"], runs["node"]
+    if (lv["assignment"], lv["cost"]) != (nd["assignment"], nd["cost"]):
+        raise AssertionError("dpop-secp-768-tiled: level and node differ")
+    print(f"compare dpop-secp-768-tiled: level util_cells_per_s="
+          f"{lv['util_cells'] / lv['util_time']} dispatches="
+          f"{lv['util_dispatches']} node util_cells_per_s="
+          f"{nd['util_cells'] / nd['util_time']} dispatches="
+          f"{nd['util_dispatches']} equal=True")
+    profile_solve(torch, solve, secp, dict(always, util_batch="level"),
+                  "pow2", "dpop-secp-768-tiled-level")
+
+
 def main() -> int:
     import torch
 
@@ -968,7 +1267,14 @@ def main() -> int:
     local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
                        card)
 
-    # -- 8. summary -------------------------------------------------------
+    # -- 8. exact DPOP ----------------------------------------------------
+    del p5, p5c
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    dpop_phase(torch, dev, card)
+    print(f"phase 8 seconds={time.perf_counter() - t8}")
+
+    # -- 9. summary -------------------------------------------------------
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
             "factor_round_binary_shared", 3, 29_987, "strided",

@@ -1,0 +1,967 @@
+"""DPOP — exact dynamic programming on a pseudo-tree.
+
+Port of ``pydcop_tpu/algorithms/dpop.py`` (pseudo-tree graph; bottom-up
+UTIL hypercube joins with project-out-own-variable; top-down VALUE
+assignments), rebuilt on arrays: a UTIL table is an n-dim tensor over
+the separator's domains, the join is a broadcast-add over aligned axes,
+and the projection is a ``min`` over the node's own axis.
+
+Execution model: the pseudo-tree walk is host-side (it is sequential in
+tree depth and runs once).  Each join/projection runs
+
+- **on the device (f32)** when the node's joined table has at least
+  ``device_min_cells`` cells (``util_device='auto'``, the default) —
+  table sizes are exponential in separator width, while small tables
+  are dominated by dispatch overhead;
+- **on the host (f64 numpy)** otherwise.
+
+The device is the one ``solve_host`` is given (the CUDA device unless
+the caller asks for the CPU); its contraction is
+``ops/semiring.py:contraction_kernel`` at min-sum, eager PyTorch
+operations, as the JAX package's is jitted XLA.
+
+The UTIL phase is LEVEL-SYNCHRONOUS: wave ``w`` holds the nodes of
+height ``w``, which never depend on each other, so each wave's device
+joins are grouped by *level-pack key* — the ``(joined shape, aligned
+part shapes)`` pair, quantized to the pow-2 lattice of an optional
+``pad_policy`` (``ops/padding.py:util_level_key``) — and run as ONE
+stacked dispatch per bucket: one host→device transfer of the bucket's
+parts, one device→host transfer each of ``amin`` and ``margins``.  With
+a pow-2 policy near-miss shapes share buckets (ghost cells are
+zero-padded and sliced away; a ``+inf`` own-axis mask keeps argmins
+inside the real domain).  ``util_batch='node'`` keeps the same joins
+but dispatches per node.
+
+DPOP is an *exact* algorithm, so the f32 path carries a certificate.
+The device computes only the ARGMIN over the own axis plus each cell's
+decision margin (second best − best); since the join's inputs are exact
+f64 tables rounded once to f32, a margin ≥ 2·(#parts+1)·eps32·Σᵢ
+max|partᵢ| proves the f32 argmin equals the true argmin.  Near-tie
+cells below that bound get their row recomputed exactly on the host.
+The projected ``u`` values are then *evaluated on the host in f64 at
+the certified argmin*, so every stored UTIL table is exact however it
+was computed.  Tie-heavy tables (>10% of cells uncertifiable) are redone
+wholesale on the host in f64, per NODE, and the sweep keeps going.  A
+device out-of-memory error splits a level stack into per-node
+dispatches; a node that still does not fit runs the host f64 join.
+Both are counted (``util_host_nodes``, ``util_dispatches``) as in the
+JAX package.
+
+The VALUE phase only needs each node's argmin over its own axis, so the
+UTIL phase retains just that (int) table per node.  ``max_util_size``
+guards against width blowups with a clear error; ``memory_bound``
+conditions a cut set of variables (one bounded pass per cut
+assignment, best of them).
+
+Each constraint is owned by the deepest variable in its scope; the
+pseudo-tree invariant (every constraint's scope lies on one root-leaf
+branch) guarantees all other scope variables are ancestors.
+
+Message accounting: one UTIL message per non-root node (its table,
+``d^|sep|`` cells) and one VALUE message back down.  ``cycle`` reports
+the tree height.
+
+Not ported (each raises ``NotImplementedError``): ``max_util_bytes > 0``
+and ``table_format='sparse'`` (the planner sweep and sparse packs),
+``table_dtype`` ``bf16``/``int8`` (ROADMAP A10), and ``bnb='on'`` (the
+two-pass branch-and-bound kernel, ROADMAP A5).  ``bnb='auto'`` (the
+default) and ``'off'`` run the unpruned contraction, whose results the
+JAX package documents as bit-identical to the pruned ones.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pydcop_tpu_torch.algorithms import AlgoParameterDef
+from pydcop_tpu_torch.device import DeviceLike, resolve_device
+from pydcop_tpu_torch.graphs import pseudotree as _pt
+from pydcop_tpu_torch.ops import semiring as _semiring
+from pydcop_tpu_torch.ops.padding import (
+    NO_PADDING,
+    PadPolicy,
+    as_pad_policy,
+    as_table_dtype,
+    pad_util_parts,
+    stack_bucket,
+    table_dtype_eps,
+    util_level_key,
+)
+
+GRAPH_TYPE = "pseudotree"
+
+algo_params: list = [
+    # device offload of the UTIL joins (see module docstring)
+    AlgoParameterDef(
+        "util_device", "str", ["auto", "never", "always"], "auto"
+    ),
+    # smallest joined-table size worth a device dispatch
+    AlgoParameterDef("device_min_cells", "int", None, 1 << 14),
+    # 'level' (default): one stacked dispatch per level-pack bucket per
+    # wave; 'node': one dispatch per device node
+    AlgoParameterDef("util_batch", "str", ["level", "node"], "level"),
+    # bounded-memory exact mode: cap every UTIL table at this many
+    # cells by CONDITIONING a cut set of variables (one bounded pass per
+    # cut assignment, best of them).  0 = off
+    AlgoParameterDef("memory_bound", "int", None, 0),
+    # branch-and-bound pruned UTIL joins: 'auto' and 'off' run the
+    # unpruned contraction; 'on' is not ported (ROADMAP A5)
+    AlgoParameterDef("bnb", "str", ["auto", "on", "off"], "auto"),
+    # planner-sweep byte budget (ops/membound.py): not ported, 0 = off
+    AlgoParameterDef("max_util_bytes", "int", None, 0),
+    # storage precision of the device UTIL parts: only f32 is ported
+    AlgoParameterDef(
+        "table_dtype", "str", ["f32", "bf16", "int8"], "f32"
+    ),
+    # storage layout of the UTIL parts: only dense is ported
+    AlgoParameterDef(
+        "table_format", "str", ["dense", "sparse"], "dense"
+    ),
+]
+
+_EPS32 = table_dtype_eps("f32")
+
+
+def _check_ported(params: Dict[str, Any]) -> None:
+    """Raise ``NotImplementedError`` for the options not ported yet."""
+    if int(params.get("max_util_bytes", 0) or 0) > 0:
+        raise NotImplementedError(
+            "dpop max_util_bytes > 0 (the planner sweep, "
+            "ops/membound.py) is not ported yet (ROADMAP A10)"
+        )
+    if params.get("table_format", "dense") == "sparse":
+        raise NotImplementedError(
+            "dpop table_format='sparse' (ops/sparse.py) is not ported "
+            "yet (ROADMAP A10)"
+        )
+    dt = as_table_dtype(params.get("table_dtype"))
+    if dt != "f32":
+        raise NotImplementedError(
+            f"dpop table_dtype={dt!r} (bf16/int8 UTIL packs) is not "
+            "ported yet (ROADMAP A10)"
+        )
+    if _semiring.as_bnb(params.get("bnb"), "auto") == "on":
+        raise NotImplementedError(
+            "dpop bnb='on' (the two-pass branch-and-bound contraction) "
+            "is not ported yet (ROADMAP A5); 'auto' runs the unpruned "
+            "contraction, bit-identical in results"
+        )
+
+
+def _align(table: np.ndarray, dims: Sequence[str], target: Sequence[str]):
+    """Transpose + reshape ``table`` (axes named ``dims``) so it
+    broadcasts over ``target`` (a superset of ``dims``) — the UTIL join
+    primitive: aligned parts simply add."""
+    order = [d for d in target if d in dims]
+    t = np.transpose(table, [list(dims).index(d) for d in order])
+    shape = [t.shape[order.index(d)] if d in dims else 1 for d in target]
+    return t.reshape(shape)
+
+
+def _prepare_instance(dcop):
+    """Host-side problem setup: the pseudo-tree, per-variable domains and
+    depths, and constraint ownership (each constraint owned by the
+    deepest variable of its scope; external variables sliced out)."""
+    sign = -1.0 if dcop.objective == "max" else 1.0
+
+    graph = _pt.build_computation_graph(dcop)
+    ext_values = {n: ev.value for n, ev in dcop.external_variables.items()}
+
+    domains: Dict[str, list] = {
+        v.name: list(v.domain.values) for v in dcop.variables.values()
+    }
+    depth: Dict[str, int] = {}
+    for root in graph.roots:
+        for name in graph.depth_first_order(root):
+            node = graph.node(name)
+            depth[name] = 0 if node.parent is None else depth[node.parent] + 1
+
+    # fold variable value costs; assign each constraint to the deepest
+    # variable of its scope
+    owned: Dict[str, List[Tuple[List[str], np.ndarray]]] = {
+        n: [] for n in domains
+    }
+    for v in dcop.variables.values():
+        if v.has_cost:
+            costs = np.array(
+                [sign * v.cost_for_val(x) for x in v.domain.values],
+                dtype=np.float64,
+            )
+            owned[v.name].append(([v.name], costs))
+    for c in dcop.constraints.values():
+        scope_ext = [n for n in c.scope_names if n in ext_values]
+        if scope_ext:
+            c = c.slice({n: ext_values[n] for n in scope_ext})
+        scope = list(c.scope_names)
+        if not scope:
+            continue
+        m = c.as_matrix()
+        table = sign * np.asarray(m.matrix, dtype=np.float64)
+        owner = max(scope, key=lambda n: depth[n])
+        owned[owner].append((scope, table))
+    return graph, domains, depth, owned
+
+
+def _resolve_device_min_cells(params: Dict[str, Any]) -> Optional[int]:
+    """``util_device``/``device_min_cells`` → the per-instance device
+    threshold: None disables the device path entirely."""
+    use_device = params.get("util_device", "auto")
+    if use_device == "never":
+        return None
+    if use_device == "always":
+        return 0
+    return int(params.get("device_min_cells", 1 << 14))
+
+
+def solve_host(
+    dcop,
+    params: Dict[str, Any],
+    timeout: Optional[float] = None,
+    max_util_size: int = 1 << 26,
+    pad_policy: Any = None,
+    device: DeviceLike = None,
+) -> Dict[str, Any]:
+    """Run DPOP to optimality; returns the JAX package's DPOP result
+    dict.  ``pad_policy`` (str spec or :class:`PadPolicy`) buckets the
+    UTIL level dispatches on the pow-2 lattice — results are
+    bit-identical with or without it.  The device joins run on
+    ``device``: the CUDA device unless ``"cpu"`` is passed."""
+    t0 = time.perf_counter()
+    pad = as_pad_policy(pad_policy)
+    _check_ported(params)
+    dev = resolve_device(device)
+
+    graph, domains, depth, owned = _prepare_instance(dcop)
+
+    # -- bounded-memory planning (memory_bound > 0): pick a cut set
+    # whose conditioning keeps every UTIL table under the bound
+    memory_bound = int(params.get("memory_bound", 0) or 0)
+    cut: List[str] = []
+    if memory_bound > 0:
+        bound = min(memory_bound, max_util_size)
+        cut = _plan_conditioning(graph, domains, depth, owned, bound)
+        max_util_size = bound
+
+    device_min_cells = _resolve_device_min_cells(params)
+    level_sync = params.get("util_batch", "level") != "node"
+
+    def one_pass(domains_p, owned_p):
+        """One full UTIL+VALUE run (device path w/ host fallback).
+        Returns (assignment, stats dict) or None on timeout."""
+        t_util = time.perf_counter()
+        util_stats = _util_phase(
+            graph, domains_p, depth, owned_p, t0, timeout,
+            device_min_cells=device_min_cells, device=dev,
+            max_util_size=max_util_size, pad=pad, level_sync=level_sync,
+        )
+        if util_stats is None:
+            return None
+        (best_choice, util_cells, device_nodes, host_nodes,
+         dispatches) = util_stats
+        assignment = _value_phase(graph, domains_p, best_choice)
+        return assignment, {
+            "util_time": time.perf_counter() - t_util,
+            "util_backend": "host" if device_min_cells is None else "device",
+            "util_cells": util_cells,
+            "util_device_nodes": device_nodes,
+            "util_host_nodes": host_nodes,
+            "util_dispatches": dispatches,
+        }
+
+    if not cut:
+        out = one_pass(domains, owned)
+        if out is None:
+            return _timeout_result(dcop, t0)
+        assignment, stats = out
+        n_passes = 1
+    else:
+        # conditioning search: one bounded pass per cut-set assignment,
+        # keep the best (exact: every pass is optimal given its cut
+        # values, and the enumeration covers the cut's whole space)
+        from itertools import product as _product
+
+        sign = -1.0 if dcop.objective == "max" else 1.0
+        sign_best = float("inf")
+        assignment = None
+        stats = {
+            "util_time": 0.0, "util_backend": "device",
+            "util_cells": 0, "util_device_nodes": 0,
+            "util_host_nodes": 0, "util_dispatches": 0,
+        }
+        n_passes = 0
+        exhausted = True
+        for combo in _product(*(range(len(domains[v])) for v in cut)):
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                exhausted = False
+                break
+            domains_p = dict(domains)
+            for v, i in zip(cut, combo):
+                domains_p[v] = [domains[v][i]]
+            owned_p = {
+                n: [
+                    _condition_part(dims, table, cut, combo, domains)
+                    for dims, table in parts
+                ]
+                for n, parts in owned.items()
+            }
+            out = one_pass(domains_p, owned_p)
+            if out is None:
+                exhausted = False
+                break
+            n_passes += 1
+            a, s = out
+            for key in ("util_time", "util_cells", "util_device_nodes",
+                        "util_host_nodes", "util_dispatches"):
+                stats[key] += s[key]
+            if s["util_backend"] == "host":
+                stats["util_backend"] = "host"
+            c = sign * dcop.solution_cost(a)
+            if c < sign_best:
+                sign_best = c
+                assignment = a
+        if assignment is None:
+            return _timeout_result(dcop, t0)
+        if not exhausted:
+            # partial enumeration is NOT exact — surface it
+            r = _timeout_result(dcop, t0)
+            r["assignment"] = r["final_assignment"] = assignment
+            r["cost"] = r["final_cost"] = dcop.solution_cost(assignment)
+            r["conditioned_vars"] = list(cut)
+            r["conditioning_passes"] = n_passes
+            return r
+
+    result = _assemble_result(
+        dcop, graph, domains, depth, assignment, stats, t0, n_passes
+    )
+    if cut:
+        result["conditioned_vars"] = list(cut)
+        result["conditioning_passes"] = n_passes
+    return result
+
+
+def _value_phase(graph, domains, best_choice) -> Dict[str, Any]:
+    """Top-down VALUE wave (pre-order): condition each node's retained
+    argmin table on the accumulated ancestor assignment."""
+    assignment: Dict[str, Any] = {}
+    idx: Dict[str, int] = {}
+    for root in graph.roots:
+        for name in graph.depth_first_order(root):
+            sep, amin = best_choice[name]
+            best = int(amin[tuple(idx[d] for d in sep)])
+            idx[name] = best
+            assignment[name] = domains[name][best]
+    return assignment
+
+
+def _assemble_result(
+    dcop,
+    graph,
+    domains,
+    depth,
+    assignment: Dict[str, Any],
+    stats: Dict[str, Any],
+    t0: float,
+    n_passes: int,
+) -> Dict[str, Any]:
+    cost = dcop.solution_cost(assignment)
+    n_msgs = sum(
+        1 for n in domains if graph.node(n).parent is not None
+    )
+    height = max(depth.values(), default=0)
+    return {
+        "assignment": assignment,
+        "cost": cost,
+        "final_assignment": assignment,
+        "final_cost": cost,
+        "cycle": height,
+        # per pass: one UTIL + one VALUE message per non-root node
+        "msg_count": 2 * n_msgs * n_passes,
+        "msg_size": stats["util_cells"] + n_msgs * n_passes,
+        "status": "finished",
+        "time": time.perf_counter() - t0,
+        "cost_trace": [cost],
+        "util_time": stats["util_time"],
+        "util_backend": stats["util_backend"],
+        "util_cells": stats["util_cells"],
+        "util_device_nodes": stats["util_device_nodes"],
+        "util_host_nodes": stats["util_host_nodes"],
+        "util_dispatches": stats["util_dispatches"],
+    }
+
+
+def _condition_part(
+    dims: List[str],
+    table: np.ndarray,
+    cut: List[str],
+    combo: Tuple[int, ...],
+    domains: Dict[str, list],
+) -> Tuple[List[str], np.ndarray]:
+    """Slice a part's conditioned axes to the chosen values, KEEPING the
+    axes (length 1) so dims stay aligned with the singleton domains of
+    the conditioned pass."""
+    fixed = {v: i for v, i in zip(cut, combo)}
+    hit = [d for d in dims if d in fixed]
+    if not hit:
+        return dims, table
+    t = np.asarray(table)
+    for d in hit:
+        t = np.take(t, [fixed[d]], axis=dims.index(d))
+    return dims, t
+
+
+def _plan_conditioning(
+    graph,
+    domains: Dict[str, list],
+    depth: Dict[str, int],
+    owned: Dict[str, List[Tuple[List[str], np.ndarray]]],
+    bound: int,
+) -> List[str]:
+    """Choose a cut set whose conditioning keeps every node's UTIL target
+    under ``bound`` cells: a dims-only simulation of the separator
+    propagation, and a greedy pick — from the largest oversized node,
+    the shallowest unconditioned separator variable (the MB-DPOP
+    'highest cycle-cut node' heuristic)."""
+    names = [
+        n for root in graph.roots for n in graph.depth_first_order(root)
+    ]
+    post = sorted(names, key=lambda n: -depth[n])
+
+    def oversized(cut: set):
+        util_dims: Dict[str, set] = {}
+        out = []
+        for name in post:
+            node = graph.node(name)
+            sep: set = set()
+            for dims, _ in owned[name]:
+                sep |= {d for d in dims if d != name}
+            for child in node.children:
+                sep |= util_dims[child] - {name}
+            util_dims[name] = sep
+            size = 1
+            for d in list(sep) + [name]:
+                size *= 1 if d in cut else len(domains[d])
+            if size > bound:
+                out.append((size, name, sep))
+        return out
+
+    cut: List[str] = []
+    while True:
+        ov = oversized(set(cut))
+        if not ov:
+            return cut
+        size, name, sep = max(ov)
+        cands = [
+            d
+            for d in list(sep) + [name]
+            if d not in cut and len(domains[d]) > 1
+        ]
+        # a node with everything conditioned has size 1 <= bound, so an
+        # oversized node always has an unconditioned multi-value dim
+        if not cands:
+            raise RuntimeError(f"no conditioning candidate for {name!r}")
+        cut.append(min(cands, key=lambda d: (depth[d], d)))
+
+
+class _PrecisionFallback(Exception):
+    """Raised when too many f32 decision margins fail their error
+    bound."""
+
+
+class _UtilInstance(NamedTuple):
+    """One instance's UTIL-phase inputs for the merged sweep."""
+
+    graph: Any
+    domains: Dict[str, list]
+    depth: Dict[str, int]
+    owned: Dict[str, List[Tuple[List[str], np.ndarray]]]
+    device_min_cells: Optional[int]  # None = host-only instance
+
+
+def _util_phase(
+    graph,
+    domains: Dict[str, list],
+    depth: Dict[str, int],
+    owned: Dict[str, List[Tuple[List[str], np.ndarray]]],
+    t0: float,
+    timeout: Optional[float],
+    device_min_cells: Optional[int],
+    device: torch.device,
+    max_util_size: int = 1 << 26,
+    pad: PadPolicy = NO_PADDING,
+    level_sync: bool = True,
+):
+    """Single-instance UTIL phase: the K=1 case of
+    :func:`_util_phase_multi`.  Returns ``(best_choice, util_cells,
+    device_nodes, host_nodes, dispatches)`` or None on timeout."""
+    outs = _util_phase_multi(
+        [_UtilInstance(graph, domains, depth, owned, device_min_cells)],
+        t0, timeout, device, max_util_size=max_util_size,
+        pad=pad, level_sync=level_sync,
+    )
+    return None if outs is None else outs[0]
+
+
+def _device_parts(parts: Sequence[np.ndarray], nd: int, lead: tuple):
+    """The dispatch's parts; a node with no part (a variable with no
+    constraint and no child) contracts a single zero part instead, so
+    the kernel always has a tensor to place its work with."""
+    if parts:
+        return list(parts)
+    return [np.zeros(lead + (1,) * nd, dtype=np.float32)]
+
+
+def _dispatch(fn, parts: Sequence[np.ndarray], device: torch.device):
+    """Run one contraction on ``device``: the parts (any float dtype,
+    cast to f32 here) go over in ONE host→device transfer of a packed
+    buffer, and ``(amin, margins)`` come back to host numpy in one
+    transfer each."""
+    sizes = [int(p.size) for p in parts]
+    flat = np.empty(sum(sizes), dtype=np.float32)
+    off = 0
+    for p, n in zip(parts, sizes):
+        flat[off:off + n].reshape(p.shape)[...] = p
+        off += n
+    buf = torch.from_numpy(flat).to(device)
+    tabs = [
+        t.view(p.shape) for t, p in zip(torch.split(buf, sizes), parts)
+    ]
+    amin, margins = fn(*tabs)
+    return amin.cpu().numpy(), margins.cpu().numpy()
+
+
+def _util_phase_multi(
+    insts: Sequence[_UtilInstance],
+    t0: float,
+    timeout: Optional[float],
+    device: torch.device,
+    max_util_size: int = 1 << 26,
+    pad: PadPolicy = NO_PADDING,
+    level_sync: bool = True,
+):
+    """Merged bottom-up UTIL sweep over one or many instances.
+
+    Wave ``w`` holds, for every instance, the nodes of height ``w``
+    (longest path down to a leaf) — a node always lands in a later wave
+    than its children, and nodes of different instances never depend
+    on each other, so each wave's device-eligible joins bucket by
+    level-pack key (:func:`~pydcop_tpu_torch.ops.padding.util_level_key`)
+    ACROSS instances and execute as ONE stacked
+    join+project+argmin+margin dispatch per bucket.  Ghost cells from
+    the padding are zero-filled, kept out of the certificate's error
+    bound, guarded by a ``+inf`` own-axis mask, and sliced away before
+    certification.  ``level_sync=False`` runs the same joins one
+    dispatch per node.
+
+    Per-instance ``device_min_cells=None`` forces that instance's pure
+    host f64 path; otherwise joins of >= that many cells run on
+    ``device`` in f32 under the error certificate (module docstring).
+
+    Returns one stats tuple ``(best_choice, util_cells, device_nodes,
+    host_nodes, dispatches)`` per instance, or None for the whole call
+    on timeout.
+    """
+    K = len(insts)
+    utils: List[Dict[str, Tuple[List[str], np.ndarray, float]]] = [
+        {} for _ in range(K)
+    ]
+    best_choice: List[Dict[str, Tuple[List[str], np.ndarray]]] = [
+        {} for _ in range(K)
+    ]
+    util_cells = [0] * K
+    device_nodes = [0] * K
+    host_nodes = [0] * K
+    dispatches = [0] * K
+    _key_memo: Dict[tuple, tuple] = {}  # per call: pad is fixed here
+
+    def finish(k, name, node, sep, u, amin):
+        # min-normalize the outgoing table (either path): argmin
+        # decisions are shift-invariant, the final cost comes from
+        # solution_cost(assignment), and keeping UTIL values at the
+        # local cost scale keeps the per-node f32 rounding bounds small
+        # up the whole tree.  Its finite abs-max is carried so the
+        # parent's certificate bound needs no re-reduction.
+        best_choice[k][name] = (sep, amin)
+        if node.parent is not None:
+            if u.size:
+                mn = u.min()
+                if np.isfinite(mn):
+                    u = u - mn
+            utils[k][name] = (sep, u, _semiring._finite_amax(u))
+            util_cells[k] += u.size
+
+    # wave plan: wave index = node HEIGHT, not depth — every leaf of
+    # every instance lands in wave 0 whatever its depth
+    waves: List[List[Tuple[int, str]]] = []
+    for k, inst in enumerate(insts):
+        names = [
+            n
+            for root in inst.graph.roots
+            for n in inst.graph.depth_first_order(root)
+        ]
+        height: Dict[str, int] = {}
+        for n in reversed(names):  # children before parents
+            height[n] = 1 + max(
+                (height[c] for c in inst.graph.node(n).children),
+                default=-1,
+            )
+        for n in names:
+            w = height[n]
+            while len(waves) <= w:
+                waves.append([])
+            waves[w].append((k, n))
+
+    for wave in waves:
+        # -- prepare the wave: host joins run immediately, device joins
+        # bucket by level-pack key across instances
+        buckets: Dict[tuple, list] = {}
+        order: List[tuple] = []
+        for k, name in wave:
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                return None
+            inst = insts[k]
+            domains = inst.domains
+            node = inst.graph.node(name)
+            # effective separator: ancestors referenced by own relations
+            # or children's separators.  Owned relations are PRE-SUMMED
+            # into one exact f64 part (the same join, left-associated
+            # order preserved; fewer parts, one rounding of the sum)
+            sep: List[str] = []
+            parts: List[Tuple[List[str], np.ndarray]] = []
+            parts_max = 0.0  # Σ max|part| for the certificate bound
+            own_parts = inst.owned[name]
+            if len(own_parts) > 1:
+                odims: List[str] = []
+                for dims, _ in own_parts:
+                    odims.extend(d for d in dims if d not in odims)
+                o = np.zeros(
+                    [len(domains[d]) for d in odims], dtype=np.float64
+                )
+                for dims, table in own_parts:
+                    o = o + _align(table, dims, odims)
+                own_parts = [(odims, o)]
+            for dims, table in own_parts:
+                parts.append((dims, table))
+                # finite-masked |max|: ±inf hard-constraint entries are
+                # EXACT in f32 and must not void the certificate
+                parts_max += _semiring._finite_amax(table)
+                sep.extend(d for d in dims if d != name)
+            for child in node.children:
+                cdims, ctable, cmax = utils[k][child]
+                parts.append((cdims, ctable))
+                parts_max += cmax
+                sep.extend(d for d in cdims if d != name)
+            sep = sorted(set(sep), key=lambda n: inst.depth[n])
+            target = sep + [name]
+            shape = [len(domains[d]) for d in target]
+            size = 1
+            for s in shape:
+                size *= s
+            if size > max_util_size:
+                raise ValueError(
+                    f"DPOP UTIL table for {name!r} needs {size} cells "
+                    f"(separator {sep}); exceeds max_util_size="
+                    f"{max_util_size}.  The induced width is too large "
+                    f"for exact DPOP — use a local-search or message-"
+                    f"passing algorithm instead."
+                )
+            dmc = inst.device_min_cells
+            if dmc is None or size < dmc:
+                j = np.zeros(shape, dtype=np.float64)
+                for dims, table in parts:
+                    j = j + _align(table, dims, target)
+                u = j.min(axis=-1)
+                amin = np.argmin(j, axis=-1)
+                del j
+                host_nodes[k] += 1
+                finish(k, name, node, sep, u, amin)
+                continue
+            # aligned in exact f64: the stacked path casts the whole
+            # stack to f32 per part position; the per-node path casts
+            # per part just before its dispatch
+            aligned = [_align(t, dims, target) for dims, t in parts]
+            raw = (tuple(shape), tuple(a.shape for a in aligned))
+            key = _key_memo.get(raw)
+            if key is None:  # UTIL trees repeat shapes heavily
+                key = _key_memo[raw] = util_level_key(raw[0], raw[1], pad)
+            if key not in buckets:
+                buckets[key] = []
+                order.append(key)
+            buckets[key].append(
+                ((k, name, node, sep, target, shape, parts, parts_max),
+                 aligned)
+            )
+
+        # -- device joins: one stacked dispatch per level-pack bucket,
+        # with the host glue (stack buffers, certification, exact-u
+        # gather) vectorized per bucket too
+        for key in order:
+            entries = buckets[key]
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                return None
+            pshape, part_shapes = key
+            n_rows = len(entries)
+            shape0 = entries[0][0][5]
+            uniform = all(it[5] == shape0 for it, _ in entries)
+            kshapes = part_shapes or ((1,) * len(pshape),)
+            level_batched = False
+            if level_sync and uniform and n_rows > 1:
+                stack_h = stack_bucket(n_rows) if pad.enabled else n_rows
+                # f64 stack buffers: exact values for the batched
+                # exact-u gather below; the f32 cast happens once per
+                # part position on the way to the device
+                bufs = [
+                    np.zeros((stack_h,) + ps, dtype=np.float64)
+                    for ps in part_shapes
+                ]
+                for r, (item, aligned) in enumerate(entries):
+                    for i, a in enumerate(aligned):
+                        bufs[i][r][
+                            tuple(slice(0, s) for s in a.shape)
+                        ] = a
+                    if pad.enabled:  # own-axis ghost guard (mask)
+                        bufs[-1][r][..., shape0[-1]:] = np.inf
+                fn = _semiring.contraction_kernel(
+                    _semiring.MIN_SUM, pshape, kshapes, batched=True
+                )
+                try:
+                    aminb, margb = _dispatch(
+                        fn, _device_parts(bufs, len(pshape), (stack_h,)),
+                        device,
+                    )
+                    level_batched = True
+                except torch.cuda.OutOfMemoryError:
+                    # OOM degradation ladder: a level stack that does
+                    # not fit splits into one dispatch per node (the
+                    # per-node path below); a node whose single join
+                    # still does not fit runs the exact host f64 join
+                    # there.  Exactness is untouched either way.
+                    pass
+            if level_batched:
+                for k in sorted({item[0] for item, _ in entries}):
+                    dispatches[k] += 1
+                # certification, vectorized over the stack: slice the
+                # real region once, one argwhere against the per-row
+                # error bounds, repairs grouped by row
+                region = (slice(0, n_rows),) + tuple(
+                    slice(0, s) for s in shape0[:-1]
+                )
+                amin_b = np.array(aminb[region])  # writable (repair)
+                marg_b = np.asarray(margb[region], dtype=np.float64)
+                errs = np.array(
+                    [
+                        2.0 * _EPS32 * (len(it[6]) + 1) * it[7]
+                        for it, _ in entries
+                    ]
+                )
+                bad = np.argwhere(
+                    marg_b
+                    < errs.reshape((n_rows,) + (1,) * (marg_b.ndim - 1))
+                )
+                n_bad = np.bincount(bad[:, 0], minlength=n_rows)
+                bad_by_row: Dict[int, list] = {}
+                for cell in bad:
+                    bad_by_row.setdefault(int(cell[0]), []).append(
+                        tuple(int(c) for c in cell[1:])
+                    )
+                sep_cells = int(marg_b.size // n_rows)
+                grids = (
+                    np.indices(shape0[:-1], dtype=np.intp)
+                    if len(shape0) > 1
+                    else None
+                )
+                # tie-heavy rows go to the host redo FIRST; everyone
+                # else's near-tie cells are repaired in amin_b before
+                # the batched exact-u gather reads it
+                redone = set()
+                for r, (item, aligned) in enumerate(entries):
+                    if int(n_bad[r]) * 10 > sep_cells:
+                        _host_redo(host_nodes, finish, item)
+                        redone.add(r)
+                        continue
+                    (_, _, _, _, target, shape, parts, _) = item
+                    amin_r = amin_b[r:r + 1].reshape(tuple(shape[:-1]))
+                    for cell in bad_by_row.get(r, ()):
+                        row = np.zeros(shape[-1], dtype=np.float64)
+                        for dims, table in parts:
+                            row += _cell_slice(table, dims, target, cell)
+                        amin_r[cell] = int(row.argmin())
+                # exact u, vectorized over the whole stack: gather each
+                # f64 part buffer AT the certified argmin; summation
+                # order is the parts order, so values are bit-identical
+                # to the per-node _exact_u_at
+                n_raw = len(entries[0][1])
+                rows_ix = np.arange(n_rows).reshape(
+                    (n_rows,) + (1,) * (len(shape0) - 1)
+                )
+                u_b = np.zeros((n_rows,) + tuple(shape0[:-1]))
+                for i in range(n_raw):
+                    ps = part_shapes[i]
+                    idx = [rows_ix]
+                    for j in range(len(shape0) - 1):
+                        idx.append(grids[j] if ps[j] != 1 else 0)
+                    idx.append(amin_b if ps[-1] != 1 else 0)
+                    u_b += bufs[i][tuple(idx)]
+                for r, (item, aligned) in enumerate(entries):
+                    if r in redone:
+                        continue
+                    k, name, node, sep, target, shape = item[:6]
+                    amin_r = amin_b[r:r + 1].reshape(tuple(shape[:-1]))
+                    device_nodes[k] += 1
+                    finish(k, name, node, sep, u_b[r], amin_r)
+                continue
+
+            # per-node dispatches: util_batch='node', singleton buckets,
+            # mixed real shapes under one padded key, or a level stack
+            # that did not fit on the device
+            fn = _semiring.contraction_kernel(
+                _semiring.MIN_SUM, pshape, kshapes
+            )
+            for item, aligned in entries:
+                (k, name, node, sep, target, shape, parts,
+                 sum_max_abs) = item
+                if timeout is not None and time.perf_counter() - t0 > timeout:
+                    return None
+                if pad.enabled:
+                    aligned = pad_util_parts(aligned, shape, pshape)
+                else:
+                    aligned = [np.asarray(a, dtype=np.float32)
+                               for a in aligned]
+                try:
+                    amin, margins = _dispatch(
+                        fn, _device_parts(aligned, len(pshape), ()), device
+                    )
+                except torch.cuda.OutOfMemoryError:
+                    # bottom of the OOM ladder: this single join does
+                    # not fit on the device even alone — redo it
+                    # wholesale on host f64 (exact) and keep sweeping
+                    _host_redo(host_nodes, finish, item)
+                    continue
+                dispatches[k] += 1
+                # slice the level-pack ghost cells away before
+                # certification: only the real region is decided here
+                region = tuple(slice(0, s) for s in shape[:-1])
+                amin = np.array(amin[region])  # writable (repair)
+                margins = np.asarray(margins[region], dtype=np.float64)
+                try:
+                    _certify_and_repair(
+                        name, parts, target, shape, amin, margins,
+                        sum_max_abs,
+                    )
+                except _PrecisionFallback:
+                    _host_redo(host_nodes, finish, item)
+                    continue
+                u = _exact_u_at(parts, target, shape, amin)
+                device_nodes[k] += 1
+                finish(k, name, node, sep, u, amin)
+    return [
+        (
+            best_choice[k], util_cells[k], device_nodes[k],
+            host_nodes[k], dispatches[k],
+        )
+        for k in range(K)
+    ]
+
+
+def _certify_and_repair(name, parts, target, shape, amin, margins,
+                        sum_max_abs):
+    """f32 argmin certificate + exact host repair of near-ties.
+
+    Inputs to the device join are exact up to one f32 rounding
+    (children's utils are exact f64, see :func:`_exact_u_at`), so
+    |J_f32 − J| ≤ local_err and a margin ≥ 2·local_err proves the device
+    argmin is the true argmin.  The bound scales with Σᵢ max|partᵢ|
+    (NOT max|J|): parts of mixed sign can cancel in J while each carries
+    rounding error at its own magnitude.  Uncertifiable cells get their
+    row recomputed exactly; returns the repaired-cell count.  Raises
+    :class:`_PrecisionFallback` when the table is so tie-heavy that
+    per-cell repair would dominate (>10% of cells).
+    """
+    local_err = _EPS32 * (len(parts) + 1) * sum_max_abs
+    bad = np.argwhere(margins < 2.0 * local_err)
+    if len(bad) * 10 > margins.size:
+        raise _PrecisionFallback(
+            f"{name}: {len(bad)} of {margins.size} cells below the "
+            f"bound {2.0 * local_err}"
+        )
+    for cell in map(tuple, bad):
+        row = np.zeros(shape[-1], dtype=np.float64)
+        for dims, table in parts:
+            row += _cell_slice(table, dims, target, cell)
+        amin[cell] = int(row.argmin())
+    return len(bad)
+
+
+def _host_redo(host_nodes, finish, item):
+    """Redo THIS node wholesale on host f64, the same join the pure host
+    path runs, and keep the sweep going (a tie-heavy table, or a join
+    that does not fit on the device)."""
+    k, name, node, sep, target, shape, parts, _ = item
+    j = np.zeros(shape, dtype=np.float64)
+    for dims, table in parts:
+        j = j + _align(table, dims, target)
+    u = j.min(axis=-1)
+    amin = np.argmin(j, axis=-1)
+    host_nodes[k] += 1
+    finish(k, name, node, sep, u, amin)
+
+
+def _exact_u_at(parts, target, shape, amin):
+    """Exact f64 u: evaluate the join only AT the chosen argmin,
+    ``u[cell] = Σ_parts part[cell, amin[cell]]`` — O(cells·parts)
+    instead of the full O(cells·d·parts) join, and exact because every
+    part (child utils included) is exact f64."""
+    own = target[-1]
+    grids = np.indices(shape[:-1], dtype=np.intp)
+    u = np.zeros(shape[:-1], dtype=np.float64)
+    for dims, table in parts:
+        idx = []
+        for d in dims:
+            if d == own:
+                idx.append(amin)
+            else:
+                idx.append(grids[target.index(d)])
+        u += np.asarray(table, dtype=np.float64)[tuple(idx)]
+    return u
+
+
+def _cell_slice(
+    table: np.ndarray,
+    dims: List[str],
+    target: List[str],
+    cell: tuple,
+) -> np.ndarray:
+    """Exact f64 row of one part at a fixed separator ``cell``: index
+    the part's separator axes, broadcast over the own (last target)
+    axis."""
+    own = target[-1]
+    idx = []
+    for d in dims:
+        if d == own:
+            idx.append(slice(None))
+        else:
+            idx.append(cell[target.index(d)])
+    row = np.asarray(table, dtype=np.float64)[tuple(idx)]
+    if own not in dims:
+        # every axis was scalar-indexed: row is 0-d, broadcast it over
+        # the own axis as a length-1 row
+        return np.full(1, float(row))
+    return row
+
+
+def _timeout_result(dcop, t0: float) -> Dict[str, Any]:
+    return {
+        "assignment": {},
+        "cost": None,
+        "final_assignment": {},
+        "final_cost": None,
+        "cycle": 0,
+        "msg_count": 0,
+        "msg_size": 0,
+        "status": "timeout",
+        "time": time.perf_counter() - t0,
+        "cost_trace": [],
+    }

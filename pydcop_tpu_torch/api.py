@@ -1,15 +1,29 @@
-"""Embedding API (port of ``pydcop_tpu/api.py``'s batched-mode solve).
+"""Embedding API (port of ``pydcop_tpu/api.py``'s ``solve`` in batched
+mode, and its exact host path).
 
-``solve()`` loads and compiles a DCOP, runs the algorithm on the batched
-engine, and returns the result dict with the JAX package's keys:
-``{assignment, cost, final_assignment, final_cost, cycle, msg_count,
-msg_size, status, time, cost_trace}``, plus ``restart_costs`` when
-``n_restarts > 1``.  The run goes to the CUDA device unless
-``device="cpu"`` is passed; without a CUDA device it raises.
+``solve()`` loads a DCOP and takes one of two paths, as the JAX package
+does:
+
+- the batched engine (Max-Sum, A-Max-Sum, the local-search family): it
+  compiles the DCOP, runs the algorithm and returns the result dict with
+  the JAX package's keys ``{assignment, cost, final_assignment,
+  final_cost, cycle, msg_count, msg_size, status, time, cost_trace}``,
+  plus ``restart_costs`` when ``n_restarts > 1``;
+- the exact host path (``dpop``, whose module has ``solve_host``): the
+  pseudo-tree walk on the host, the UTIL joins on the device, and the
+  JAX package's DPOP result dict (the keys above plus ``util_time``,
+  ``util_backend``, ``util_cells``, ``util_device_nodes``,
+  ``util_host_nodes`` and ``util_dispatches``).  ``pad_policy`` buckets
+  its level dispatches; checkpoints and restarts do not apply.
+
+The run goes to the CUDA device unless ``device="cpu"`` is passed;
+without a CUDA device it raises.
 
 Not ported yet: the other execution modes, restarts for
-``maxsum``/``amaxsum``, checkpoints, shape bucketing and the
-``telemetry`` block of the result (ROADMAP.md).
+``maxsum``/``amaxsum``, checkpoints, the batched engine's shape
+bucketing (``pad_policy`` other than ``none`` for the compiler),
+``solve_many``, ``infer`` and the ``telemetry`` block of the result
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -57,6 +71,23 @@ def solve(
     module = load_algorithm_module(algo)
     params = prepare_algo_params(algo_params, module.algo_params)
 
+    if hasattr(module, "solve_host"):
+        # exact host-path algorithms (DPOP)
+        if checkpoint_path is not None or resume:
+            raise ValueError(
+                f"{algo}: checkpoint/resume is only supported on the "
+                "batched engine, not host-path (exact) algorithms"
+            )
+        if n_restarts != 1:
+            raise ValueError(
+                f"{algo} is an exact host-path algorithm — n_restarts "
+                "(best-of-K for stochastic solvers) does not apply"
+            )
+        return module.solve_host(
+            dcop, params, timeout=timeout, pad_policy=pad_policy,
+            device=dev,
+        )
+
     from pydcop_tpu_torch.ops.compile import compile_dcop
 
     problem = compile_dcop(dcop, pad_policy=pad_policy, device=dev)
@@ -88,6 +119,11 @@ def solve_compiled(
     for array-built problems
     (:func:`pydcop_tpu_torch.ops.compile.compile_from_arrays`)."""
     module = load_algorithm_module(algo)
+    if hasattr(module, "solve_host"):
+        raise ValueError(
+            f"{algo} runs on the host path and needs the DCOP model "
+            "objects — use solve() instead of solve_compiled()"
+        )
     params = prepare_algo_params(algo_params, module.algo_params)
     return _run_compiled(
         problem, module, params, rounds=rounds, seed=seed,

@@ -1,9 +1,11 @@
 """``pydcop_tpu_torch solve`` — the batched-mode subset of
-``pydcop_tpu/commands/solve.py``.
+``pydcop_tpu/commands/solve.py``, with DPOP's exact host path.
 
-One-shot solve of a DCOP yaml on the batched engine; prints the result
-as JSON in the shape ``python -m pydcop_tpu solve`` prints (the
-``telemetry`` block is not ported yet).
+One-shot solve of a DCOP yaml on the batched engine, or with ``-a dpop``
+on the exact path (``-p util_device:always``, ``-p util_batch:node``,
+``--pad_policy pow2``, …); prints the result as JSON in the shape
+``python -m pydcop_tpu solve`` prints (the ``telemetry`` block is not
+ported yet).
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ def parse_algo_params(items: List[str]) -> Dict[str, str]:
 
 def set_parser(subparsers) -> None:
     p = subparsers.add_parser(
-        "solve", help="solve a static DCOP on the batched engine"
+        "solve",
+        help="solve a static DCOP on the batched engine, or exactly "
+        "with dpop",
     )
     p.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
     p.add_argument("-a", "--algo", required=True, help="algorithm name")
@@ -50,6 +54,12 @@ def set_parser(subparsers) -> None:
     p.add_argument(
         "-t", "--timeout", type=float, default=None,
         help="wall-clock timeout (seconds)",
+    )
+    p.add_argument(
+        "--pad_policy", default="none", metavar="POLICY",
+        help="for dpop: bucket the UTIL level dispatches on the pow-2 "
+        "lattice ('pow2' or 'pow2:<floor>'; results bit-identical); "
+        "the batched engine takes 'none' only; default: none",
     )
     p.add_argument(
         "--device", default=None,
@@ -75,6 +85,7 @@ def run_cmd(args) -> int:
         seed=args.seed,
         n_restarts=args.restarts,
         convergence_chunks=args.convergence_chunks,
+        pad_policy=args.pad_policy,
         device=args.device,
     )
     result.pop("cost_trace", None)  # keep the printed JSON compact

@@ -1,18 +1,53 @@
-"""The padding constant and the table-dtype vocabulary of the compiler.
+"""Pad policies, the table-dtype vocabulary and DPOP's level-pack helpers.
 
-A reduced copy of ``pydcop_tpu/ops/padding.py``.  The port's compiler
-supports ``pad_policy="none"`` only, so the shape-bucketing machinery
-(``PadPolicy``, ghost variables and constraints) is not copied yet
-(ROADMAP.md, 'pad_policy').
+A reduced copy of ``pydcop_tpu/ops/padding.py``: the padding constant
+and table dtypes the compiler reads, and the pieces DPOP's UTIL sweep
+uses to bucket its level dispatches (``PadPolicy``, ``as_pad_policy``,
+``bucket_util_shape``, ``util_level_key``, ``pad_util_parts``,
+``stack_bucket``, ``table_dtype_eps``).  The compiler's shape bucketing
+(ghost variables and constraints) is not copied yet: ``compile_dcop``
+accepts ``pad_policy="none"`` only (ROADMAP.md, 'pad_policy'), while
+DPOP takes ``"none"``, ``"pow2"``, ``"pow2:<floor>"`` or a
+``PadPolicy``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Union
+
+import numpy as np
 
 # Cost assigned to padded (invalid) domain values; large enough to never
 # be selected, small enough to leave f32 headroom when summed.
 BIG = 1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class PadPolicy:
+    """Bucket quantization: ``kind`` ``"none"`` or ``"pow2"`` (powers
+    of two clamped up to ``floor``).  The JAX package's compile-time
+    fields (``deg_floor``, ``flat_block``) come with the compiler's
+    ghost padding."""
+
+    kind: str = "none"  # "none" | "pow2"
+    floor: int = 16
+
+    @property
+    def enabled(self) -> bool:
+        return self.kind != "none"
+
+    def bucket(self, n: int, floor: int | None = None) -> int:
+        """Smallest power of two >= ``n``, clamped up to the floor."""
+        if not self.enabled or n <= 0:
+            return n
+        b = 1
+        while b < n:
+            b <<= 1
+        return max(b, floor if floor is not None else self.floor)
+
+
+NO_PADDING = PadPolicy()
 
 
 #: canonical table dtype spellings, cheapest storage last
@@ -26,6 +61,15 @@ _TABLE_DTYPE_ALIASES = {
     "bfloat16": "bf16",
     "int8": "int8",
     "i8": "int8",
+}
+
+# unit roundoff of the STORAGE format: bf16 keeps 8 significand bits
+# (eps = 2^-7); int8 codes are exact integers dequantized in f32, so
+# its roundoff is f32's (its quantization error is a separate term).
+_TABLE_DTYPE_EPS = {
+    "f32": float(np.finfo(np.float32).eps),
+    "bf16": 2.0 ** -7,
+    "int8": float(np.finfo(np.float32).eps),
 }
 
 
@@ -63,3 +107,151 @@ def as_table_dtype(
             f"{tuple(allowed)}{suggest})"
         )
     return canon
+
+
+def table_dtype_eps(table_dtype: str) -> float:
+    """Unit roundoff of a canonical table dtype's STORAGE format — what
+    the f32 certificate swaps in for ``eps32`` when tables are packed
+    below f32."""
+    return _TABLE_DTYPE_EPS[as_table_dtype(table_dtype)]
+
+
+# UTIL-table axes are DOMAIN-sized (a handful of values), not
+# problem-sized: bucketing them against ``PadPolicy.floor`` (16) would
+# inflate a d=5 axis 3x per dimension.  Level-pack keys therefore
+# quantize axes against this much smaller floor — the bucket lattice
+# for a d=5 domain is 5 -> 8, a ~1.6x per-axis pad that buys shape
+# sharing across every level of the pseudo-tree instead of one bucket
+# per exact shape.
+UTIL_AXIS_FLOOR = 2
+
+
+def bucket_util_shape(
+    shape: Sequence[int], policy: PadPolicy
+) -> tuple:
+    """Quantize a UTIL joined-table shape axis-wise to the policy's
+    pow-2 lattice (floor :data:`UTIL_AXIS_FLOOR`).  Identity under
+    ``NO_PADDING``.  Size-1 axes STAY 1: they are conditioned or
+    degenerate axes (singleton domains — ``memory_bound`` passes), and
+    raising them to the floor would DOUBLE the table per conditioned
+    axis for pure ghost compute."""
+    if not policy.enabled:
+        return tuple(shape)
+    return tuple(
+        s if s == 1 else policy.bucket(s, UTIL_AXIS_FLOOR)
+        for s in shape
+    )
+
+
+def util_level_key(
+    shape: Sequence[int],
+    part_shapes: Sequence[Sequence[int]],
+    policy: PadPolicy,
+) -> tuple:
+    """Level-pack bucket key for one DPOP UTIL join: the PADDED
+    ``(joined shape, aligned part shapes)`` pair.
+
+    Two nodes of one pseudo-tree wave with equal keys execute as rows
+    of ONE stacked contraction dispatch
+    (``ops/semiring.py:contraction_kernel``).  Under ``NO_PADDING`` the
+    key is the exact shapes; with a pow-2 policy, near-miss shapes land
+    on the same lattice point so a wave needs far fewer dispatches.
+
+    Part axes of size 1 are broadcast axes and stay 1; real axes pad
+    to the joined shape's bucket.  When the policy is enabled the key
+    appends the shape of the ghost-guard MASK part (a row over the own
+    axis: 0 on real values, +inf on padded ones) that
+    :func:`pad_util_parts` adds so no argmin can land in a ghost cell.
+    (The JAX package's structured-cell parts, with a trailing value
+    axis, belong to semirings not ported yet.)
+    """
+    pshape = bucket_util_shape(shape, policy)
+    pparts = tuple(
+        tuple(1 if s == 1 else pshape[i] for i, s in enumerate(ps))
+        for ps in part_shapes
+    )
+    if policy.enabled:
+        mask_shape = (1,) * (len(pshape) - 1) + (pshape[-1],)
+        pparts = pparts + (mask_shape,)
+    return (pshape, pparts)
+
+
+def pad_util_parts(
+    aligned: Sequence[np.ndarray],
+    shape: Sequence[int],
+    pshape: Sequence[int],
+) -> list:
+    """Zero-pad aligned f32 UTIL parts up to the level-pack bucket and
+    append the own-axis ghost mask (0 on real values, ``+inf`` on padded
+    ones).
+
+    Real cells compute BIT-IDENTICALLY to the unpadded join: zero pads
+    only fill cells outside the real region (sliced away by the
+    caller), and adding the mask's exact 0.0 to a finite f32 is exact,
+    so the certificate's error bound is unchanged.  The ``+inf`` guard
+    keeps every min-argmin and second-best inside the real domain."""
+    out = []
+    for a in aligned:
+        target = tuple(
+            1 if s == 1 else pshape[i] for i, s in enumerate(a.shape)
+        )
+        if target == a.shape:
+            # f64 inputs cast here so every returned part is
+            # kernel-ready f32 (callers pass exact f64 aligned parts)
+            out.append(np.asarray(a, dtype=np.float32))
+        else:  # zeros + slice-assign casts f64 -> f32 in the same pass
+            b = np.zeros(target, dtype=np.float32)
+            b[tuple(slice(0, s) for s in a.shape)] = a
+            out.append(b)
+    mask = np.zeros(
+        (1,) * (len(pshape) - 1) + (pshape[-1],), dtype=np.float32
+    )
+    mask[..., shape[-1]:] = np.inf
+    out.append(mask)
+    return out
+
+
+def stack_bucket(n: int) -> int:
+    """Stack-height lattice for stacked level dispatches: pow-2 up to
+    32, multiples of 32 above (the multiple-of-32 tail caps the ghost
+    rows at one row block on large stacks)."""
+    if n <= 32:
+        b = 1
+        while b < n:
+            b <<= 1
+        return b
+    return -(-n // 32) * 32
+
+
+def as_pad_policy(spec: Union[str, PadPolicy, None]) -> PadPolicy:
+    """Normalize a ``pad_policy`` argument: a :class:`PadPolicy` passes
+    through; ``None``/``"none"`` disable; ``"pow2"``/``"pow2:<floor>"``
+    parse.  Raises ``ValueError`` on anything else."""
+    if isinstance(spec, PadPolicy):
+        return spec
+    if spec is None:
+        return NO_PADDING
+    if not isinstance(spec, str):
+        raise ValueError(
+            f"pad_policy must be a string or PadPolicy, got {spec!r}"
+        )
+    s = spec.strip().lower()
+    if s in ("", "none"):
+        return NO_PADDING
+    if s == "pow2":
+        return PadPolicy(kind="pow2")
+    if s.startswith("pow2:"):
+        try:
+            floor = int(s[len("pow2:"):])
+        except ValueError:
+            floor = -1
+        if floor < 1:
+            raise ValueError(
+                f"pad_policy {spec!r}: floor must be a positive "
+                "integer (e.g. 'pow2:64')"
+            )
+        return PadPolicy(kind="pow2", floor=floor)
+    raise ValueError(
+        f"unknown pad_policy {spec!r} (expected 'none', 'pow2' or "
+        "'pow2:<floor>')"
+    )
