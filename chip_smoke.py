@@ -81,9 +81,10 @@ caught and passed over):
    grid): every state leaf bit-equal, A-Max-Sum's kernel launches pinned
    at one of each per round (the shared-table kernel on the coloring,
    the per-factor one on the grid).  Then the repo's benchmark
-   configurations 1 and 2 with restarts (``bench_configs.py``): DSA-B on
-   a 50-variable coloring with K=64 and MGM-2 on a 32x32 Ising grid with
-   K=8, 1024 rounds, chunk 256: msgs/s over all restarts' messages, the
+   configurations 1 and 2 with restarts (``bench_configs.py``, built as
+   the JAX package builds them, with the port's copies of the
+   generators): DSA-B on a 50-variable coloring with K=64 and MGM-2 on
+   the 32x32 Ising torus with K=8, 1024 rounds, chunk 256: msgs/s over all restarts' messages, the
    best cost and the K restart costs, and a profiler pass over 64 rounds
    each.
 8. Exact DPOP (``api.solve(dcop, "dpop", …)``, the pseudo-tree on the
@@ -103,10 +104,43 @@ caught and passed over):
    ``pad_policy="pow2"`` and ``util_device: always``, level and node
    dispatches, each against the port's CPU run: equal results,
    util-cells/s and dispatch counts, a profiler pass.
-9. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
-   shape, the q update in its gathered form, and each kernel's
-   lane-tile instance as ``<kernel>.runtime_d`` at phase 5's), the card
+9. Restarts, instances and the kernels' batch axis (B = instances x
+   restarts in one launch).  9a: each kernel's batched instance on the
+   card against its batched plain version and against B unbatched
+   launches, bit for bit, with its device time, the plain version's, the
+   B launches' and the bound: configuration 3's shapes (d 3, B 8, one
+   per-factor table for all batches; the q update with one edge index),
+   8 coloring-10k instances (stacked shared tables, and at the pow2
+   shape stacked per-factor tables; the q update with per-instance edge
+   indices and damping), per-factor-100k-d10 at B 2 (the lane tiles).
+   9b ``config3-scalefree1k-maxsum-K8``: ``bench_configs.py:41-51``'s
+   scale-free coloring from the port's generator, Max-Sum best of 8,
+   1024 rounds, chunk 256: msgs/s over all restarts, the best and the 8
+   restart costs, one launch of each kernel a round, card = CPU bit for
+   bit over 64 rounds, a profiler pass.  9c
+   ``config5-meeting10k-maxsum``: ``bench_configs.py:109-118``'s PEAV
+   meeting scheduling at full size (10,000 variables, d 8), 512 rounds,
+   chunk 128, the kernel instances it runs, card = CPU, a profiler pass.
+   9d ``many-coloring-dsaB-K{1,8,32}``: ``bench.py:82-94``'s stage (4
+   colorings of 26-32 variables, seeds 100-103, DSA-B p 0.7, 256 rounds,
+   chunk 64, pow2, seeds 0..K-1): instances/s of ``api.solve_many``
+   against sequential solves.  9e ``many-coloring10k-maxsum-I8``: phase
+   3's problem 8 times with seeds 1-8 through ``solve_many`` (pow2,
+   1024 rounds): msgs/s against phase 3's, each instance's final
+   assignment equal to its own solve; and the unpadded group of 8
+   weighted instances (stacked shared tables, damping 0.50-0.85), a
+   profiler pass.  Then per-factor-100k-d10 with 2 restarts (the lane
+   tiles batched) and card = CPU.  9f ``many-secp-dpop-K8``:
+   ``bench.py:121-133``'s 8 SECP instances through ``solve_many``
+   against sequential solves: equal results and ``util_dispatches``.
+10. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+   shape, the q update in its gathered form, each kernel's lane-tile
+   instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
+   batched instances with the launches of phase 9's paths), the card
    line, and last the ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --phase9`` runs the build and phase 9 only (the
+kernels line then lists the batched instances alone).
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
 """
@@ -114,6 +148,7 @@ It imports no jax and nothing of the JAX package, and needs no PyYAML.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -532,14 +567,14 @@ def check_kernels(torch, mk, dev, m4, edges):
 
 
 def card_vs_cpu(torch, mk, run_batched, module, params, p_dev, p_cpu,
-                rounds, chunk, label, expect=None):
+                rounds, chunk, label, expect=None, n_restarts=1):
     """The port on the card and on the CPU from the same seed: q, r and
     values bit-equal, cost traces within 1e-5 relative.  ``expect``:
     the launches the card run must count, per kernel."""
     import numpy as np
 
     kw = dict(rounds=rounds, chunk_size=chunk, cost_every=8,
-              return_state=True)
+              return_state=True, n_restarts=n_restarts)
     mk.reset_launches()
     rc = run_batched(p_dev, module, params, **kw)
     counts = dict(mk.launches)
@@ -557,6 +592,9 @@ def card_vs_cpu(torch, mk, run_batched, module, params, p_dev, p_cpu,
     print(f"card-vs-cpu {label}: {rounds} rounds, q/r/values bit-equal, "
           f"best cost card {rc.best_cost} cpu {rh.best_cost} "
           f"launches={counts}")
+
+
+MAIN_PATH_RATES = {}  # label: msgs/s of the main_path runs
 
 
 def main_path(torch, mk, solve_compiled, problem, rounds, chunk, expect,
@@ -593,6 +631,7 @@ def main_path(torch, mk, solve_compiled, problem, rounds, chunk, expect,
     if res["cost"] > trace[0]:
         raise AssertionError(f"{label}: best cost above the first sample")
     msgs = 2 * problem.n_real_edges * rounds
+    MAIN_PATH_RATES[label] = msgs / dt
     print(f"solve {label}: n_vars={problem.n_vars} "
           f"n_real_edges={problem.n_real_edges} rounds={rounds} "
           f"engine_seconds={dt} msgs_per_s={msgs / dt} "
@@ -769,7 +808,7 @@ def local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
         prepare_algo_params,
     )
     from pydcop_tpu_torch.ops.compile import compile_from_arrays
-    from pydcop_tpu_torch.ops.generate import coloring_arrays, ising_arrays
+    from pydcop_tpu_torch.ops.generate import ising_arrays
 
     full_width(torch, mk, solve_compiled, p5, card)
     for algo, user, _ in LOCAL_SEARCH[:2]:  # DSA-B and MGM-2
@@ -788,13 +827,22 @@ def local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
         apply_card_vs_cpu(torch, mk, algo, {}, pi, pic, 32, "ising-100x100",
                           "factor_round_binary")
 
-    s1, t1, u1 = coloring_arrays(50, colors=3, degree=3, seed=1)
-    p1 = compile_from_arrays(s1, t1, 3, unary=u1, device=p3.device)
+    # configurations 1 and 2 as the JAX package builds them
+    # (bench_configs.py:24-38), with the port's copies of the generators
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.commands.generators import ising
+    from pydcop_tpu_torch.ops.compile import compile_dcop
+
+    p1 = compile_dcop(coloring_dcop(50, colors=3, degree=3, seed=1),
+                      device=p3.device)
     restart_config(torch, mk, solve_compiled, run_batched, p1, "dsa",
                    {"variant": "B", "probability": 0.7}, 64,
                    "config1-coloring50-dsaB-K64", card)
-    s2, t2, u2 = ising_arrays(32, 32, seed=1)
-    p2 = compile_from_arrays(s2, t2, 2, unary=u2, device=p3.device)
+    p2 = compile_dcop(ising.generate(Namespace(
+        row_count=32, col_count=32, bin_range=1.6, un_range=0.05,
+        no_agents=False, capacity=100.0, seed=1,
+    )), device=p3.device)
     restart_config(torch, mk, solve_compiled, run_batched, p2, "mgm2", {}, 8,
                    "config2-ising32-mgm2-K8", card)
 
@@ -1081,6 +1129,484 @@ def dpop_phase(torch, dev, card):
                   "pow2", "dpop-secp-768-tiled-level")
 
 
+# -- phase 9: restarts, instances and the kernels' batch axis ----------------
+
+CONFIG3_SPEC = dict(  # bench_configs.py:41-51, _gen_scalefree_1k
+    variables_count=1000, colors_count=3, graph="scalefree", m_edge=2,
+    p_edge=None, noise=0.02, soft=False, intentional=False,
+    agents_count=None, capacity=100.0, seed=1,
+)
+CONFIG5_SPEC = dict(  # bench_configs.py:109-118, _gen_meeting_10k
+    slots_count=8, events_count=2500, resources_count=500,
+    max_resources_event=4, eq_cost=10.0, noconflict_cost=10.0,
+    value_range=1.0, capacity=1000.0, seed=1,
+)
+MANY_KS = (1, 8, 32)  # bench.py:82-94, the solve_many stage
+
+
+def coloring_dcop(n_vars, colors=3, degree=3, seed=0):
+    """``bench.py``'s many-instance coloring (``__graft_entry__.py:17``,
+    ``_make_coloring_dcop``), built with the port's model objects: ring
+    edges drawn from ``random.Random(seed)``, cost 1 on equal colours,
+    and per-variable noisy value costs."""
+    import random
+
+    import numpy as np
+
+    from pydcop_tpu_torch.dcop.dcop import DCOP
+    from pydcop_tpu_torch.dcop.objects import Domain, VariableNoisyCostFunc
+    from pydcop_tpu_torch.dcop.relations import NAryMatrixRelation
+    from pydcop_tpu_torch.utils.expressionfunction import ExpressionFunction
+
+    rnd = random.Random(seed)
+    d = Domain("colors", "", list(range(colors)))
+    dcop = DCOP(f"coloring_{n_vars}")
+    vs = [
+        VariableNoisyCostFunc(f"v{i}", d, ExpressionFunction(f"v{i} * 0"),
+                              noise_level=0.02)
+        for i in range(n_vars)
+    ]
+    for v in vs:
+        dcop.add_variable(v)
+    eq_penalty = np.eye(colors)
+    seen = set()
+    cid = 0
+    for i in range(n_vars):
+        for _ in range(degree):
+            j = rnd.randrange(n_vars)
+            if i == j or (min(i, j), max(i, j)) in seen:
+                continue
+            seen.add((min(i, j), max(i, j)))
+            dcop.add_constraint(
+                NAryMatrixRelation([vs[i], vs[j]], eq_penalty, name=f"c{cid}")
+            )
+            cid += 1
+    return dcop
+
+
+def batched_rows(torch, mk, dev, m3, e3, n3):
+    """Phase 9a: each batched kernel instance against its batched plain
+    version and against B unbatched launches, bit for bit, with the
+    batched launch's time, the plain version's, the B launches' and the
+    bound.  ``m3``, ``e3``, ``n3``: configuration 3's constraints, edges
+    and variables."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+
+    def rand(*shape, scale=1.0):
+        return torch.rand(*shape, generator=g, device=dev) * scale
+
+    def record(key, name, d, width, B, fn, plain, singles, nbytes, nops,
+               extra=""):
+        got, want, one = fn(), plain(), singles()
+        torch.cuda.synchronize()
+        equal = all(same_bits(torch, x, y) for x, y in zip(got, want))
+        equal_one = all(same_bits(torch, x, y) for x, y in zip(got, one))
+        err = max(max_abs_err(torch, x, y) for x, y in zip(got, want))
+        if not (equal and equal_one):
+            raise AssertionError(
+                f"{key}: batched kernel differs (plain equal={equal}, "
+                f"unbatched equal={equal_one}), max_abs_err={err}"
+            )
+        b_ms, b_by = bound_ms(nbytes, nops)
+        ms = device_ms(torch, fn)
+        tile = d not in mk.UNROLLED_D
+        row = dict(
+            entry=key, kernel=name, d=d, width=width, batch=B, case=extra,
+            instance=("tile" if tile else "unrolled"), ms=ms,
+            plain_ms=device_ms(torch, plain),
+            unbatched_ms=device_ms(torch, singles), bound_ms=b_ms,
+            bound_by=b_by, share_of_bound=b_ms / ms, max_abs_err=err,
+            bit_equal=True,
+        )
+        print("kernel-check-batched " + " ".join(
+            f"{k}={v}" for k, v in row.items()))
+        rows[key] = row
+
+    def factor(key, shared, d, m, B, n_tab):
+        """``n_tab`` tables (0: one table without a batch axis)."""
+        name = "factor_round_binary_shared" if shared else "factor_round_binary"
+        shape = (d, d) if shared else (d, d, m)
+        tab = rand(*(((n_tab,) if n_tab else ()) + shape), scale=10.0)
+        q = rand(B, d, 2 * m)
+        q0, q1 = q[:, :, :m], q[:, :, m:]
+        r, rs = torch.empty_like(q), torch.empty_like(q)
+        out, outs = (r[:, :, :m], r[:, :, m:]), (rs[:, :, :m], rs[:, :, m:])
+        wrap = mk.factor_round_binary_shared if shared else mk.factor_round_binary
+        plain = (mk.factor_round_binary_shared_plain if shared
+                 else mk.factor_round_binary_plain)
+        per = B // max(n_tab, 1)
+
+        def singles():
+            for b in range(B):
+                t = tab[b // per] if n_tab else tab
+                wrap(t, q0[b], q1[b], out=(outs[0][b], outs[1][b]))
+            return outs
+
+        nbytes = 16 * d * m * B + 4 * tab.numel()
+        record(key, name, d, m, B, lambda: wrap(tab, q0, q1, out=out),
+               lambda: plain(tab, q0, q1), singles, nbytes,
+               (4 * d * d + 6 * d) * m * B,
+               f"tables={n_tab or 'one'}")
+
+    def q_update(key, d, e, n, B, n_inst, per_instance_damping):
+        belief = rand(B, d, n, scale=5.0)
+        idx_all = torch.randint(0, n, (max(n_inst, 1), e), generator=g,
+                                device=dev, dtype=torch.int32)
+        idx = idx_all if n_inst else idx_all[0]
+        r, q = rand(B, d, e), rand(B, d, e)
+        dl = [0.5 + 0.05 * i for i in range(max(n_inst, 1))]
+        damp = (torch.tensor(dl, dtype=torch.float32, device=dev)
+                if per_instance_damping else 0.5)
+        per = B // max(n_inst, 1)
+        outs = torch.empty_like(q)
+
+        def singles():
+            for b in range(B):
+                i = b // per
+                outs[b].copy_(mk.q_update(
+                    belief[b], idx[i] if n_inst else idx, r[b], q[b],
+                    dl[i] if per_instance_damping else 0.5,
+                ))
+            return (outs,)
+
+        nbytes = 12 * d * e * B + 4 * belief.numel() + 4 * idx.numel()
+        record(key, "q_update", d, e, B,
+               lambda: (mk.q_update(belief, idx, r, q, damp),),
+               lambda: (mk.q_update_plain(belief, r, q, damp,
+                                          edge_idx=idx),),
+               singles, nbytes, 6 * d * e * B,
+               f"index={'per_instance' if n_inst else 'one'} damping="
+               f"{'per_instance' if per_instance_damping else 'one'}")
+
+    # configuration 3 (9b): 8 restarts, one per-factor table for all
+    factor("factor_round_binary.batched_restarts", False, 3, m3, 8, 0)
+    q_update("q_update.batched_restarts", 3, e3, n3, 8, 0, False)
+    # 8 coloring-10k instances: stacked shared tables and per-instance
+    # damping (9e's unpadded group), stacked per-factor tables (9e, pow2)
+    factor("factor_round_binary_shared.batched_instances", True, 3, 29_987,
+           8, 8)
+    q_update("q_update.batched_instances", 3, 59_974, 10_000, 8, 8, True)
+    factor("factor_round_binary.batched_instances", False, 3, 32_768, 8, 8)
+    q_update("q_update.batched_instances_pow2", 3, 65_536, 16_384, 8, 8,
+             False)
+    # per-factor-100k-d10 at B 2: the lane-tile instances
+    factor("factor_round_binary.runtime_d.batched", False, 10, 299_988, 2, 2)
+    q_update("q_update.runtime_d.batched", 10, 599_976, 100_000, 2, 2, True)
+    return rows
+
+
+def expect_launches(mk, label, want):
+    got = dict(mk.launches)
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{label}: launches {got}, expected {full}")
+    return got
+
+
+def profile_call(torch, label, fn, rounds):
+    """Device time by kernel and the idle share over one call of ``fn``
+    (which runs ``rounds`` rounds and returns its engine seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        secs = fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if not kern or busy_ms <= 0:
+        print(f"profile {label}: the profiler recorded no device time")
+        return
+    print(f"profile {label}: rounds={rounds} engine_ms={secs * 1e3} "
+          f"device_busy_ms={busy_ms} "
+          f"device_busy_ms_per_round={busy_ms / rounds} "
+          f"idle_share={1 - busy_ms / (secs * 1e3)}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        us = e.self_device_time_total
+        print(f"profile {label} kernel: calls={e.count} "
+              f"us_per_call={us / e.count} share={us / 1e3 / busy_ms} "
+              f"name={e.key[:100]!r}")
+
+
+def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
+    """Phase 9 (see the module docstring).  ``arrays``: phase 3's
+    coloring-10k and phase 5's per-factor-100k-d10 arrays;
+    ``single_msgs_per_s``: phase 3's msgs/s.  Returns (batched kernel
+    rows, launches by kernel entry)."""
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.algorithms import load_algorithm_module, maxsum
+    from pydcop_tpu_torch.algorithms import prepare_algo_params
+    from pydcop_tpu_torch.api import solve, solve_compiled, solve_many
+    from pydcop_tpu_torch.commands.generators import graphcoloring
+    from pydcop_tpu_torch.commands.generators import meetingscheduling
+    from pydcop_tpu_torch.commands.generators.secp import generate as secp
+    from pydcop_tpu_torch.engine.batched import run_batched, run_many_batched
+    from pydcop_tpu_torch.ops.compile import (
+        compile_dcop,
+        compile_from_arrays,
+        stack_problems,
+    )
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    counts = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"phase {part} seconds={now - t_lap[0]}")
+        t_lap[0] = now
+
+    # -- 9b. configuration 3: Max-Sum best of 8 on the scale-free 1k
+    t0 = time.perf_counter()
+    c3 = graphcoloring.generate(Namespace(**CONFIG3_SPEC))
+    p3c = compile_dcop(c3, device="cpu")
+    p3 = p3c.to(dev)
+    print(f"build config3: n_vars={p3.n_vars} n_edges={p3.n_edges} "
+          f"host_seconds={time.perf_counter() - t0}")
+    rows = batched_rows(torch, mk, dev, p3.buckets[2].n_cons, p3.n_edges,
+                        p3.n_vars)
+    lap("9a")
+    kw = dict(chunk_size=256, cost_every=8, n_restarts=8)
+    solve_compiled(p3, "maxsum", {"damping": 0.5}, rounds=256, **kw)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    res = solve_compiled(p3, "maxsum", {"damping": 0.5}, rounds=1024, **kw)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "config3-scalefree1k-maxsum-K8",
+                          {"factor_round_binary": 1024, "q_update": 1024})
+    counts["factor_round_binary.batched_restarts"] = got[
+        "factor_round_binary"]
+    counts["q_update.batched_restarts"] = got["q_update"]
+    rc = res["restart_costs"]
+    if len(rc) != 8 or res["cost"] != min(rc) or not all(
+            math.isfinite(c) for c in rc):
+        raise AssertionError(f"config3: bad restart result {rc}")
+    print(f"solve config3-scalefree1k-maxsum-K8: n_vars={p3.n_vars} "
+          f"n_real_edges={p3.n_real_edges} restarts=8 rounds=1024 "
+          f"msg_count={res['msg_count']} engine_seconds={res['time']} "
+          f"msgs_per_s={res['msg_count'] / res['time']} "
+          f"best_cost={res['cost']} restart_costs={rc} launches={got} "
+          f"card={card}")
+    rkw = dict(rounds=64, chunk_size=64, cost_every=8, n_restarts=8,
+               return_state=True)
+    rc_dev = run_batched(p3, maxsum, params, **rkw)
+    rc_cpu = run_batched(p3c, maxsum, params, **rkw)
+    for k in ("q", "r", "values", "noise"):
+        if not same_bits(torch, rc_dev.state[k].float(),
+                         rc_cpu.state[k].float()):
+            raise AssertionError(f"config3: card and CPU differ in {k}")
+    print(f"card-vs-cpu config3-scalefree1k-maxsum-K8: 64 rounds, 8 "
+          f"restarts, q/r/values bit-equal, restart costs card "
+          f"{list(rc_dev.restart_costs)} cpu {list(rc_cpu.restart_costs)}")
+    profile_rounds(torch, run_batched, maxsum, params, p3, 64,
+                   "config3-scalefree1k-maxsum-K8", n_restarts=8)
+    lap("9b")
+
+    # -- 9c. configuration 5: Max-Sum on the PEAV meeting scheduling
+    t0 = time.perf_counter()
+    c5 = meetingscheduling.generate(Namespace(**CONFIG5_SPEC))
+    t1 = time.perf_counter()
+    p5c = compile_dcop(c5, device="cpu")
+    p5 = p5c.to(dev)
+    print(f"build config5: n_vars={p5.n_vars} n_constraints="
+          f"{len(c5.constraints)} binary={p5.buckets[2].n_cons} "
+          f"n_edges={p5.n_edges} d={p5.d_max} generate_seconds={t1 - t0} "
+          f"compile_seconds={time.perf_counter() - t1}")
+    if set(p5.buckets) != {2} or p5.buckets[2].shared_table:
+        raise AssertionError("config5: expected per-factor binary tables")
+    print(f"instance config5-meeting10k-maxsum: factor_round_binary "
+          f"d={p5.d_max} "
+          f"{'unrolled' if p5.d_max in mk.UNROLLED_D else 'tile'}; "
+          f"q_update d={p5.d_max} "
+          f"{q_instance(mk, p5.d_max, 0)}")
+    counts5 = main_path(torch, mk, solve_compiled, p5, 512, 128,
+                        {"factor_round_binary": 512, "q_update": 512,
+                         "factor_round_binary_shared": 0},
+                        "config5-meeting10k-maxsum", card)
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 16, 16,
+                "config5-meeting10k-maxsum",
+                {"factor_round_binary": 16, "q_update": 16})
+    profile_rounds(torch, run_batched, maxsum, params, p5, 64,
+                   "config5-meeting10k-maxsum")
+    counts["config5"] = counts5
+    del p5, p5c, c5
+    lap("9c")
+
+    # -- 9d. bench.py's solve_many stage: DSA-B on small colorings
+    base = [coloring_dcop(32 - 2 * i, degree=3, seed=100 + i)
+            for i in range(4)]
+    dsa = {"variant": "B", "probability": 0.7}
+    dkw = dict(rounds=256, chunk_size=64, pad_policy="pow2")
+    solve(base[0], "dsa", dsa, seed=0, **dkw)  # warm both paths
+    solve_many(base[:1], "dsa", dsa, seed=0, **dkw)
+    for K in MANY_KS:
+        batch = [base[i % 4] for i in range(K)]
+        torch.cuda.synchronize()
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        many = solve_many(batch, "dsa", dsa, seed=list(range(K)), **dkw)
+        torch.cuda.synchronize()
+        dt_many = time.perf_counter() - t0
+        expect_launches(mk, f"many-coloring-dsaB-K{K}", {})
+        t0 = time.perf_counter()
+        seq = [solve(d, "dsa", dsa, seed=i, **dkw)
+               for i, d in enumerate(batch)]
+        torch.cuda.synchronize()
+        dt_seq = time.perf_counter() - t0
+        for r in many + seq:
+            if r["cycle"] != 256 or not math.isfinite(r["cost"]):
+                raise AssertionError(f"many-coloring-dsaB-K{K}: bad result")
+        print(f"solve many-coloring-dsaB-K{K}: instances={K} "
+              f"instances_batched={[r['instances_batched'] for r in many]} "
+              f"instances_per_s_batched={K / dt_many} "
+              f"instances_per_s_sequential={K / dt_seq} "
+              f"speedup={dt_seq / dt_many} "
+              f"mean_cost_batched={sum(r['cost'] for r in many) / K} "
+              f"mean_cost_sequential={sum(r['cost'] for r in seq) / K} "
+              f"card={card}")
+    lap("9d")
+
+    # -- 9e. 8 coloring-10k instances through solve_many (pow2): the
+    # main path's problem with seeds 1-8
+    s, t, u = arrays["coloring-10k"]
+    pe = compile_from_arrays(s, t, 3, unary=u, pad_policy="pow2", device=dev)
+    seeds = list(range(1, 9))
+    mkw = dict(chunk_size=256, seed=seeds)
+    solve_many([pe] * 8, "maxsum", {"damping": 0.5}, rounds=64, **mkw)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    many = solve_many([pe] * 8, "maxsum", {"damping": 0.5}, rounds=1024,
+                      **mkw)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "many-coloring10k-maxsum-I8",
+                          {"factor_round_binary": 1024, "q_update": 1024})
+    counts["factor_round_binary.batched_instances"] = got[
+        "factor_round_binary"]
+    counts["q_update.batched_instances_pow2"] = got["q_update"]
+    secs = sum(r["time"] for r in many)  # the group's engine time
+    msgs = sum(r["msg_count"] for r in many)
+    if {r["instances_batched"] for r in many} != {8}:
+        raise AssertionError("many-coloring10k-maxsum-I8: not one group")
+    ratio = (msgs / secs / single_msgs_per_s if single_msgs_per_s
+             else "not measured")
+    print(f"solve many-coloring10k-maxsum-I8: instances=8 n_vars={pe.n_vars} "
+          f"n_real_edges={pe.n_real_edges} rounds=1024 msg_count={msgs} "
+          f"engine_seconds={secs} msgs_per_s={msgs / secs} "
+          f"single_instance_msgs_per_s={single_msgs_per_s} ratio={ratio} "
+          f"costs={[r['cost'] for r in many]} launches={got} card={card}")
+    short = solve_many([pe] * 8, "maxsum", {"damping": 0.5}, rounds=128,
+                       chunk_size=128, seed=seeds)
+    ties = 0
+    for sd, r in zip(seeds, short):
+        one = solve_compiled(pe, "maxsum", {"damping": 0.5}, rounds=128,
+                             chunk_size=128, seed=sd)
+        if r["final_assignment"] != one["final_assignment"]:
+            raise AssertionError(f"many-coloring10k-maxsum-I8: instance "
+                                 f"{sd} differs from its own solve")
+        if abs(r["cost"] - one["cost"]) > 1e-6 * abs(one["cost"]):
+            raise AssertionError(f"many-coloring10k-maxsum-I8: cost of "
+                                 f"instance {sd} differs")
+        ties += r["assignment"] != one["assignment"]
+    print(f"equal many-coloring10k-maxsum-I8: 128 rounds, 8 instances, final "
+          f"assignments equal to each sequential solve, best costs within "
+          f"1e-6 (f32 sums of another shape), best assignments "
+          f"differing on a cost tie: {ties}")
+
+    # the unpadded group: stacked shared tables (per-instance weights)
+    # and per-instance damping
+    probs = []
+    for sd in seeds:
+        _, _, us = coloring_arrays(len(u), colors=3, degree=3, seed=sd)
+        probs.append(compile_from_arrays(s, t * (1 + 0.1 * (sd - 1)), 3,
+                                         unary=us, device=dev))
+    damp = [{"damping": 0.5 + 0.05 * (sd - 1)} for sd in seeds]
+    solve_many(probs, "maxsum", damp, rounds=64, chunk_size=64, seed=seeds)
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    many = solve_many(probs, "maxsum", damp, rounds=128, chunk_size=128,
+                      seed=seeds)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "many-coloring10k-maxsum-I8-shared",
+                          {"factor_round_binary_shared": 128,
+                           "q_update": 128})
+    counts["factor_round_binary_shared.batched_instances"] = got[
+        "factor_round_binary_shared"]
+    counts["q_update.batched_instances"] = got["q_update"]
+    secs = sum(r["time"] for r in many)
+    msgs = sum(r["msg_count"] for r in many)
+    for sd, p, dp, r in zip(seeds, probs, damp, many):
+        one = solve_compiled(p, "maxsum", dp, rounds=128, chunk_size=128,
+                             seed=sd)
+        if r["final_assignment"] != one["final_assignment"]:
+            raise AssertionError(f"many-coloring10k-maxsum-I8-shared: "
+                                 f"instance {sd} differs from its solve")
+    print(f"solve many-coloring10k-maxsum-I8-shared: instances=8 rounds=128 "
+          f"stacked shared tables, damping 0.50..0.85, msgs_per_s="
+          f"{msgs / secs} final assignments equal to each sequential solve "
+          f"launches={got} card={card}")
+    [grp] = stack_problems([pe] * 8)
+    ms = load_algorithm_module("maxsum")
+    profile_call(torch, "many-coloring10k-maxsum-I8", lambda: run_many_batched(
+        grp, ms, params, rounds=64, chunk_size=64, cost_every=8,
+        seeds=seeds)[0].time, 64)
+    del pe, probs, grp
+    lap("9e")
+
+    # -- per-factor-100k-d10 with 2 restarts: the batched lane tiles
+    s10, tabs10, u10 = arrays["per-factor-100k-d10"]
+    p10c = compile_from_arrays(s10, tabs10, 10, unary=u10, device="cpu")
+    p10 = p10c.to(dev)
+    mk.reset_launches()
+    r10 = run_batched(p10, maxsum, params, rounds=16, chunk_size=16,
+                      cost_every=8, n_restarts=2)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "per-factor-100k-d10-K2",
+                          {"factor_round_binary": 16, "q_update": 16})
+    counts["factor_round_binary.runtime_d.batched"] = got[
+        "factor_round_binary"]
+    counts["q_update.runtime_d.batched"] = got["q_update"]
+    print(f"solve per-factor-100k-d10-K2: rounds=16 restarts=2 engine_seconds="
+          f"{r10.time} restart_costs={list(r10.restart_costs)} "
+          f"launches={got}")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10, p10c, 2, 2,
+                "per-factor-100k-d10-K2", n_restarts=2)
+    del p10, p10c
+    torch.cuda.empty_cache()
+    lap("9-d10")
+
+    # -- 9f. bench.py's 8 SECP instances through solve_many (DPOP)
+    dcops = [secp(Namespace(**SECP_SPEC)) for _ in range(8)]
+    level = {"util_device": "always", "util_batch": "level"}
+    solve_many(dcops, "dpop", level, pad_policy="pow2")  # warm
+    t0 = time.perf_counter()
+    many = solve_many(dcops, "dpop", level, pad_policy="pow2")
+    dt_many = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = [solve(d, "dpop", level, pad_policy="pow2") for d in dcops]
+    dt_seq = time.perf_counter() - t0
+    for a, b in zip(many, seq):
+        for k in ("assignment", "cost", "util_dispatches", "util_cells",
+                  "util_device_nodes", "util_host_nodes"):
+            if a[k] != b[k]:
+                raise AssertionError(f"many-secp-dpop-K8: {k} differs")
+    print(f"solve many-secp-dpop-K8: instances=8 instances_batched="
+          f"{many[0]['instances_batched']} instances_per_s_batched="
+          f"{8 / dt_many} instances_per_s_sequential={8 / dt_seq} "
+          f"speedup={dt_seq / dt_many} util_dispatches={many[0]['util_dispatches']} "
+          f"util_cells={many[0]['util_cells']} cost={many[0]['cost']} "
+          f"equal_to_sequential=True card={card}")
+    lap("9f")
+    return rows, counts
+
+
 def main() -> int:
     import torch
 
@@ -1132,186 +1658,213 @@ def main() -> int:
     if local:
         raise AssertionError(f"kernel instances in local memory: {local}")
 
-    # phases 3-6's instances set phase 2's shapes: the per-factor width
-    # and each coloring's edge index (position-major, as compiled)
+    # the arrays of phases 3, 5 and 9: the 10k coloring and the
+    # 100k-variable 10-colour instance with its per-factor tables
     s, t, u = coloring_arrays(10_000, colors=3, degree=3, seed=1)
-    s4, _, u4 = coloring_arrays(100_000, colors=5, degree=3, seed=2)
-    tabs4 = np.random.default_rng(4).random((len(s4), 5, 5), dtype=np.float32)
-    m4 = len(s4)
-    s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
-    edges = {  # n_vars: the edges' variables on the card
-        n: torch.from_numpy(np.concatenate([sc[:, 0], sc[:, 1]])).to(dev)
-        for n, sc in ((10_000, s), (100_000, s4), (1_000_000, s5))
-    }
-
-    # -- 2. kernels vs plain versions ------------------------------------
-    rows = check_kernels(torch, mk, dev, m4, edges)
-    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
-
-    # -- 3. 10k coloring --------------------------------------------------
-    p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
-    p3 = p3c.to(dev)
-    if (p3.n_real_edges, p3.buckets[2].n_cons) != (59_974, 29_987):
-        raise AssertionError("unexpected 10k coloring size")
-    counts3 = main_path(
-        torch, mk, solve_compiled, p3, 1024, 256,
-        {"factor_round_binary_shared": 1024, "q_update": 1024,
-         "factor_round_binary": 0}, "coloring-10k", card,
-    )
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3, p3c, 256, 256,
-                "coloring-10k")
-    params_bf16 = prepare_algo_params(
-        {"damping": 0.5, "msg_dtype": "bf16"}, maxsum.algo_params
-    )
-    card_vs_cpu(torch, mk, run_batched, maxsum, params_bf16, p3, p3c, 64,
-                64, "coloring-10k-bf16-messages")
-    # bf16 tables (and so bf16 unary and messages): the kernels compute
-    # the factor phase in bf16, as the Pallas kernels do
-    p3hc = compile_from_arrays(s, t, 3, unary=u, table_dtype="bf16",
-                               device="cpu")
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3hc.to(dev), p3hc,
-                64, 64, "coloring-10k-bf16-tables",
-                {"factor_round_binary_shared": 64, "q_update": 64})
-    # bf16 tables with a ternary bucket: outside the factor-kernel gate,
-    # so the factor phase is the generic one and the q update kernel
-    # rounds every operation to bf16, as the JAX package computes it
-    s3, t3 = ternary_arrays(10_000, seed=5)
-    p3tc = compile_from_arrays([s, s3], [t, t3], 3, unary=u,
-                               table_dtype="bf16", device="cpu")
-    if p3tc.n_real_edges != E_TERNARY:
-        raise AssertionError("unexpected ternary instance size")
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3tc.to(dev), p3tc,
-                64, 64, "coloring-10k-ternary-bf16-tables",
-                {"factor_round_binary_shared": 0, "factor_round_binary": 0,
-                 "q_update": 64})
-    profile_rounds(torch, run_batched, maxsum, params, p3, 64,
-                   "coloring-10k")
-
-    # -- 4. per-factor tables, 100k variables ----------------------------
-    p4c = compile_from_arrays(s4, tabs4, 5, unary=u4, device="cpu")
-    p4 = p4c.to(dev)
-    counts4 = main_path(
-        torch, mk, solve_compiled, p4, 64, 64,
-        {"factor_round_binary": 64, "q_update": 64,
-         "factor_round_binary_shared": 0}, "per-factor-100k-d5", card,
-    )
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p4, p4c, 32, 32,
-                "per-factor-100k-d5")
-    p4hc = compile_from_arrays(s4, tabs4, 5, unary=u4, table_dtype="bf16",
-                               device="cpu")
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p4hc.to(dev), p4hc,
-                16, 16, "per-factor-100k-d5-bf16-tables",
-                {"factor_round_binary": 16, "q_update": 16})
-    profile_rounds(torch, run_batched, maxsum, params, p4, 32,
-                   "per-factor-100k-d5")
-
-    # -- 5. d = 10: the factor kernels' lane-tile instance ---------------
     s10, t10, u10 = coloring_arrays(100_000, colors=10, degree=3, seed=2)
     tabs10 = np.random.default_rng(4).random((len(s10), 10, 10),
                                              dtype=np.float32)
-    p10c = compile_from_arrays(s10, tabs10, 10, unary=u10, device="cpu")
-    p10 = p10c.to(dev)
-    if (p10.n_real_edges, p10.buckets[2].n_cons) != (599_976, 299_988):
-        raise AssertionError("unexpected 100k 10-colour size")
-    per_factor = {"factor_round_binary": 64, "q_update": 64,
-                  "factor_round_binary_shared": 0}
-    counts10 = main_path(torch, mk, solve_compiled, p10, 64, 64, per_factor,
-                         "per-factor-100k-d10", card)
-    half = {k: v // 2 for k, v in per_factor.items()}
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10, p10c, 32, 32,
-                "per-factor-100k-d10", half)
-    p10hc = compile_from_arrays(s10, tabs10, 10, unary=u10,
-                                table_dtype="bf16", device="cpu")
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10hc.to(dev), p10hc,
-                16, 16, "per-factor-100k-d10-bf16-tables",
-                {k: v // 4 for k, v in per_factor.items()})
-    del p10hc
-    profile_rounds(torch, run_batched, maxsum, params, p10, 32,
-                   "per-factor-100k-d10")
-    del p10, p10c
-    p10sc = compile_from_arrays(s10, t10, 10, unary=u10, device="cpu")
-    p10s = p10sc.to(dev)
-    if not p10s.buckets[2].shared_table:
-        raise AssertionError("the 10-colour coloring lost its shared table")
-    shared = {"factor_round_binary_shared": 64, "q_update": 64,
-              "factor_round_binary": 0}
-    counts10s = main_path(torch, mk, solve_compiled, p10s, 64, 64, shared,
-                          "coloring-100k-d10", card)
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10s, p10sc, 32, 32,
-                "coloring-100k-d10", {k: v // 2 for k, v in shared.items()})
-    profile_rounds(torch, run_batched, maxsum, params, p10s, 32,
-                   "coloring-100k-d10")
-    del p10s, p10sc
-    torch.cuda.empty_cache()
+    # `--phase9`: the build and phase 9 only (a shorter check while
+    # working on phase 9); with no argument every phase runs
+    full = sys.argv[1:] != ["--phase9"]
+    if full:
+        # phases 3-6's instances set phase 2's shapes: the per-factor width
+        # and each coloring's edge index (position-major, as compiled)
+        s4, _, u4 = coloring_arrays(100_000, colors=5, degree=3, seed=2)
+        tabs4 = np.random.default_rng(4).random((len(s4), 5, 5), dtype=np.float32)
+        m4 = len(s4)
+        s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
+        edges = {  # n_vars: the edges' variables on the card
+            n: torch.from_numpy(np.concatenate([sc[:, 0], sc[:, 1]])).to(dev)
+            for n, sc in ((10_000, s), (100_000, s4), (1_000_000, s5))
+        }
 
-    # -- 6. 1M coloring ---------------------------------------------------
-    del edges
-    p5c = compile_from_arrays(s5, t5, 3, unary=u5, device="cpu")
-    p5 = p5c.to(dev)
-    if (p5.n_real_edges, p5.buckets[2].n_cons) != (5_999_982, 2_999_991):
-        raise AssertionError("unexpected 1M coloring size")
-    torch.cuda.reset_peak_memory_stats()
-    main_path(
-        torch, mk, solve_compiled, p5, 256, 256,
-        {"factor_round_binary_shared": 256, "q_update": 256,
-         "factor_round_binary": 0}, "coloring-1M", card,
-    )
-    print(f"coloring-1M max_memory_allocated_bytes="
-          f"{torch.cuda.max_memory_allocated()}")
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 8, 8,
-                "coloring-1M")
-    profile_rounds(torch, run_batched, maxsum, params, p5, 32,
-                   "coloring-1M")
+        # -- 2. kernels vs plain versions ------------------------------------
+        rows = check_kernels(torch, mk, dev, m4, edges)
+        params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
 
-    # -- 7. the local-search family and A-Max-Sum -------------------------
-    local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
-                       card)
-
-    # -- 8. exact DPOP ----------------------------------------------------
-    del p5, p5c
-    torch.cuda.empty_cache()
-    t8 = time.perf_counter()
-    dpop_phase(torch, dev, card)
-    print(f"phase 8 seconds={time.perf_counter() - t8}")
-
-    # -- 9. summary -------------------------------------------------------
-    main_shape = {  # entry: (kernel, d, width, case, main-path launches)
-        "factor_round_binary_shared": (
-            "factor_round_binary_shared", 3, 29_987, "strided",
-            counts3["factor_round_binary_shared"]),
-        "factor_round_binary": (
-            "factor_round_binary", 5, m4, "strided",
-            counts4["factor_round_binary"]),
-        "q_update": ("q_update", 3, 59_974, "gathered", counts3["q_update"]),
-        # the lane-tile instance of each factor kernel, on phase 5's paths
-        "factor_round_binary_shared.runtime_d": (
-            "factor_round_binary_shared", 10, 299_988, "strided",
-            counts10s["factor_round_binary_shared"]),
-        "factor_round_binary.runtime_d": (
-            "factor_round_binary", 10, 299_988, "strided",
-            counts10["factor_round_binary"]),
-        # the q update's lane-tile instance, on the same paths
-        "q_update.runtime_d": (
-            "q_update", 10, 599_976, "gathered", counts10["q_update"]),
-    }
-    kernels = []
-    for entry, (name, d, w, case, launched) in main_shape.items():
-        tile = entry.endswith(".runtime_d")
-        row = next(
-            r for r in rows
-            if r["kernel"] == name and r["table"] != "bf16"
-            and (r["d"], r["width"], r["case"], r["dtype"]) == (d, w, case,
-                                                                "f32")
+        # -- 3. 10k coloring --------------------------------------------------
+        p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
+        p3 = p3c.to(dev)
+        if (p3.n_real_edges, p3.buckets[2].n_cons) != (59_974, 29_987):
+            raise AssertionError("unexpected 10k coloring size")
+        counts3 = main_path(
+            torch, mk, solve_compiled, p3, 1024, 256,
+            {"factor_round_binary_shared": 1024, "q_update": 1024,
+             "factor_round_binary": 0}, "coloring-10k", card,
         )
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p3, p3c, 256, 256,
+                    "coloring-10k")
+        params_bf16 = prepare_algo_params(
+            {"damping": 0.5, "msg_dtype": "bf16"}, maxsum.algo_params
+        )
+        card_vs_cpu(torch, mk, run_batched, maxsum, params_bf16, p3, p3c, 64,
+                    64, "coloring-10k-bf16-messages")
+        # bf16 tables (and so bf16 unary and messages): the kernels compute
+        # the factor phase in bf16, as the Pallas kernels do
+        p3hc = compile_from_arrays(s, t, 3, unary=u, table_dtype="bf16",
+                                   device="cpu")
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p3hc.to(dev), p3hc,
+                    64, 64, "coloring-10k-bf16-tables",
+                    {"factor_round_binary_shared": 64, "q_update": 64})
+        # bf16 tables with a ternary bucket: outside the factor-kernel gate,
+        # so the factor phase is the generic one and the q update kernel
+        # rounds every operation to bf16, as the JAX package computes it
+        s3, t3 = ternary_arrays(10_000, seed=5)
+        p3tc = compile_from_arrays([s, s3], [t, t3], 3, unary=u,
+                                   table_dtype="bf16", device="cpu")
+        if p3tc.n_real_edges != E_TERNARY:
+            raise AssertionError("unexpected ternary instance size")
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p3tc.to(dev), p3tc,
+                    64, 64, "coloring-10k-ternary-bf16-tables",
+                    {"factor_round_binary_shared": 0, "factor_round_binary": 0,
+                     "q_update": 64})
+        profile_rounds(torch, run_batched, maxsum, params, p3, 64,
+                       "coloring-10k")
+
+        # -- 4. per-factor tables, 100k variables ----------------------------
+        p4c = compile_from_arrays(s4, tabs4, 5, unary=u4, device="cpu")
+        p4 = p4c.to(dev)
+        counts4 = main_path(
+            torch, mk, solve_compiled, p4, 64, 64,
+            {"factor_round_binary": 64, "q_update": 64,
+             "factor_round_binary_shared": 0}, "per-factor-100k-d5", card,
+        )
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p4, p4c, 32, 32,
+                    "per-factor-100k-d5")
+        p4hc = compile_from_arrays(s4, tabs4, 5, unary=u4, table_dtype="bf16",
+                                   device="cpu")
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p4hc.to(dev), p4hc,
+                    16, 16, "per-factor-100k-d5-bf16-tables",
+                    {"factor_round_binary": 16, "q_update": 16})
+        profile_rounds(torch, run_batched, maxsum, params, p4, 32,
+                       "per-factor-100k-d5")
+
+        # -- 5. d = 10: the factor kernels' lane-tile instance ---------------
+        p10c = compile_from_arrays(s10, tabs10, 10, unary=u10, device="cpu")
+        p10 = p10c.to(dev)
+        if (p10.n_real_edges, p10.buckets[2].n_cons) != (599_976, 299_988):
+            raise AssertionError("unexpected 100k 10-colour size")
+        per_factor = {"factor_round_binary": 64, "q_update": 64,
+                      "factor_round_binary_shared": 0}
+        counts10 = main_path(torch, mk, solve_compiled, p10, 64, 64, per_factor,
+                             "per-factor-100k-d10", card)
+        half = {k: v // 2 for k, v in per_factor.items()}
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p10, p10c, 32, 32,
+                    "per-factor-100k-d10", half)
+        p10hc = compile_from_arrays(s10, tabs10, 10, unary=u10,
+                                    table_dtype="bf16", device="cpu")
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p10hc.to(dev), p10hc,
+                    16, 16, "per-factor-100k-d10-bf16-tables",
+                    {k: v // 4 for k, v in per_factor.items()})
+        del p10hc
+        profile_rounds(torch, run_batched, maxsum, params, p10, 32,
+                       "per-factor-100k-d10")
+        del p10, p10c
+        p10sc = compile_from_arrays(s10, t10, 10, unary=u10, device="cpu")
+        p10s = p10sc.to(dev)
+        if not p10s.buckets[2].shared_table:
+            raise AssertionError("the 10-colour coloring lost its shared table")
+        shared = {"factor_round_binary_shared": 64, "q_update": 64,
+                  "factor_round_binary": 0}
+        counts10s = main_path(torch, mk, solve_compiled, p10s, 64, 64, shared,
+                              "coloring-100k-d10", card)
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p10s, p10sc, 32, 32,
+                    "coloring-100k-d10", {k: v // 2 for k, v in shared.items()})
+        profile_rounds(torch, run_batched, maxsum, params, p10s, 32,
+                       "coloring-100k-d10")
+        del p10s, p10sc
+        torch.cuda.empty_cache()
+
+        # -- 6. 1M coloring ---------------------------------------------------
+        del edges
+        p5c = compile_from_arrays(s5, t5, 3, unary=u5, device="cpu")
+        p5 = p5c.to(dev)
+        if (p5.n_real_edges, p5.buckets[2].n_cons) != (5_999_982, 2_999_991):
+            raise AssertionError("unexpected 1M coloring size")
+        torch.cuda.reset_peak_memory_stats()
+        main_path(
+            torch, mk, solve_compiled, p5, 256, 256,
+            {"factor_round_binary_shared": 256, "q_update": 256,
+             "factor_round_binary": 0}, "coloring-1M", card,
+        )
+        print(f"coloring-1M max_memory_allocated_bytes="
+              f"{torch.cuda.max_memory_allocated()}")
+        card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 8, 8,
+                    "coloring-1M")
+        profile_rounds(torch, run_batched, maxsum, params, p5, 32,
+                       "coloring-1M")
+
+        # -- 7. the local-search family and A-Max-Sum -------------------------
+        local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
+                           card)
+
+        # -- 8. exact DPOP ----------------------------------------------------
+        del p5, p5c
+        torch.cuda.empty_cache()
+        t8 = time.perf_counter()
+        dpop_phase(torch, dev, card)
+        print(f"phase 8 seconds={time.perf_counter() - t8}")
+
+
+    # -- 9. restarts, instances and the batch axis ------------------------
+    t9 = time.perf_counter()
+    brows, bcounts = many_phase(
+        torch, mk, dev, card,
+        {"coloring-10k": (s, t, u),
+         "per-factor-100k-d10": (s10, tabs10, u10)},
+        MAIN_PATH_RATES.get("coloring-10k"),
+    )
+    print(f"phase 9 seconds={time.perf_counter() - t9}")
+
+    # -- 10. summary ------------------------------------------------------
+    kernels = []
+    if full:
+        main_shape = {  # entry: (kernel, d, width, case, main-path launches)
+            "factor_round_binary_shared": (
+                "factor_round_binary_shared", 3, 29_987, "strided",
+                counts3["factor_round_binary_shared"]),
+            "factor_round_binary": (
+                "factor_round_binary", 5, m4, "strided",
+                counts4["factor_round_binary"]),
+            "q_update": ("q_update", 3, 59_974, "gathered", counts3["q_update"]),
+            # the lane-tile instance of each factor kernel, on phase 5's paths
+            "factor_round_binary_shared.runtime_d": (
+                "factor_round_binary_shared", 10, 299_988, "strided",
+                counts10s["factor_round_binary_shared"]),
+            "factor_round_binary.runtime_d": (
+                "factor_round_binary", 10, 299_988, "strided",
+                counts10["factor_round_binary"]),
+            # the q update's lane-tile instance, on the same paths
+            "q_update.runtime_d": (
+                "q_update", 10, 599_976, "gathered", counts10["q_update"]),
+        }
+        for entry, (name, d, w, case, launched) in main_shape.items():
+            tile = entry.endswith(".runtime_d")
+            row = next(
+                r for r in rows
+                if r["kernel"] == name and r["table"] != "bf16"
+                and (r["d"], r["width"], r["case"], r["dtype"]) == (d, w, case,
+                                                                    "f32")
+            )
+            kernels.append(dict(
+                name=entry, route="cuda", source=SOURCE,
+                replaces=KERNELS[name], launches=launched,
+                max_abs_err=max(
+                    r["max_abs_err"] for r in rows if r["kernel"] == name
+                    and (r["instance"] != "unrolled") == tile),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None,
+            ))
+    # the batched instances (phase 9a's rows, launches from 9's paths)
+    for entry, row in brows.items():
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
-            replaces=KERNELS[name], launches=launched,
-            max_abs_err=max(
-                r["max_abs_err"] for r in rows if r["kernel"] == name
-                and (r["instance"] != "unrolled") == tile),
-            ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None,
+            replaces=KERNELS[row["kernel"]], launches=bcounts[entry],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
         ))
     print(f"total_seconds={time.perf_counter() - t_start}")
     print(json.dumps({"kernels": kernels}))

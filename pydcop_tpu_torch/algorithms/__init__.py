@@ -20,8 +20,14 @@ JAX package's):
   algorithms ignore it).
 - ``messages_per_round(problem, params=None) -> int`` — logical directed
   messages one round represents (the msgs/s accounting).
-- ``RESTARTS`` (optional, default True) — False when the state takes no
-  leading restart axis.
+- ``INSTANCE_AXIS`` (optional, default False) — True when ``step``
+  takes a stacked problem (``ops/compile.py:StackedProblem``) with the
+  state ``[I, R, ...]``, as Max-Sum and A-Max-Sum do; the other
+  algorithms solve several instances on their disjoint union
+  (``engine/batched.py:run_many_batched``).
+- ``INSTANCE_PARAM_AXES`` (optional) — for a numeric param that may
+  differ per instance on the union, the axis it acts on:
+  ``"variables"`` (the default) or ``"constraints"``.
 
 The random seam.  The JAX steps take a key and split it inside; the port
 does not replay jax's stream.  A stochastic module splits its round in

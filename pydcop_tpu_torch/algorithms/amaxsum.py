@@ -9,8 +9,11 @@ Max-Sum computes this round, the others keep their previous message.
 the CUDA factor kernel and the q-update kernel once each per round.
 
 Draws per round (the JAX step's ``k_sync, k_q, k_r = split(key, 3)``;
-``k_sync`` goes unused): ``fire_q`` and ``fire_r``, ``f32[1, E]``
-uniforms, an edge firing where its uniform is below ``activation``.
+``k_sync`` goes unused): ``fire_q`` and ``fire_r``, ``f32[*batch, 1,
+E]`` uniforms, an edge firing where its uniform is below
+``activation``.  Restarts and instances take Max-Sum's batch axes
+(``[R, ...]``, ``[I, R, ...]`` on a stacked problem); ``activation`` may
+then be an f32 tensor of one value per instance.
 
 Message accounting: only activated edges carry a message, so the
 expected per-round count is ``activation · 2 · n_real_edges``.
@@ -41,9 +44,9 @@ algo_params = [
     AlgoParameterDef("island_start_rounds", "int", None, 64),
 ]
 
-# state layout is synchronous Max-Sum's, without a restart axis
+# state layout (and its batch axes) is synchronous Max-Sum's
 init_state = _maxsum.init_state
-RESTARTS = _maxsum.RESTARTS
+INSTANCE_AXIS = _maxsum.INSTANCE_AXIS
 
 _DEFAULT_ACTIVATION = next(
     p.default for p in algo_params if p.name == "activation"
@@ -71,12 +74,14 @@ def apply(
 ) -> Dict[str, torch.Tensor]:
     sync = _maxsum.step(problem, state, params)
     act = params["activation"]
+    if isinstance(act, torch.Tensor):  # one per instance: [I, 1, .., 1]
+        act = act.reshape((-1,) + (1,) * (drawn["fire_q"].dim() - 1))
     q = torch.where(drawn["fire_q"] < act, sync["q"], state["q"])
     r = torch.where(drawn["fire_r"] < act, sync["r"], state["r"])
     # re-select values from the messages actually updated
     unary_t = problem.unary_t + state["noise"]
     belief = _maxsum.belief_from_r(problem, r, unary_t)
-    values = torch.argmin(belief, dim=0).to(state["values"].dtype)
+    values = torch.argmin(belief, dim=-2).to(state["values"].dtype)
     return {"q": q, "r": r, "values": values, "noise": state["noise"]}
 
 

@@ -43,6 +43,8 @@ from pydcop_tpu_torch.ops.costs import (
 
 GRAPH_TYPE = "constraints_hypergraph"
 
+INSTANCE_PARAM_AXES = {"increase": "constraints"}  # one value per constraint
+
 algo_params = [
     AlgoParameterDef("initial", "str", ["declared", "random"], "random"),
     # weight added to each violated constraint at a quasi-local minimum

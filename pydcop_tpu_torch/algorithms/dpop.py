@@ -343,6 +343,94 @@ def solve_host(
     return result
 
 
+def solve_host_many(
+    dcops: Sequence[Any],
+    params_list: Sequence[Dict[str, Any]],
+    timeout: Optional[float] = None,
+    max_util_size: int = 1 << 26,
+    pad_policy: Any = None,
+    device: DeviceLike = None,
+) -> List[Dict[str, Any]]:
+    """Solve K DPOP instances with their UTIL phases merged into one
+    level-synchronous sweep (:func:`_util_phase_multi`): wave ``w`` holds
+    every instance's nodes of height ``w``, and same-bucket joins of
+    different instances ride one stacked dispatch.
+
+    Each result equals the sequential ``solve_host(dcops[i],
+    params_list[i])``: the sweep runs the same joins in the same part
+    order, the certified argmins are the true unique argmins whatever
+    rides with them, and uncertified cells get the same host repair.
+    Instances with ``memory_bound`` conditioning run alone (their UTIL
+    phase is a dependent pass sequence).  ``util_batch="node"`` on any
+    instance de-batches the whole sweep.  ``timeout`` bounds the whole
+    call; ``util_time`` is the sweep's wall time divided evenly over its
+    instances.
+    """
+    t0 = time.perf_counter()
+    pad = as_pad_policy(pad_policy)
+    dev = resolve_device(device)
+    for p in params_list:
+        _check_ported(p)
+    K = len(dcops)
+    results: List[Optional[Dict[str, Any]]] = [None] * K
+
+    def _remaining():
+        if timeout is None:
+            return None
+        return max(timeout - (time.perf_counter() - t0), 0.01)
+
+    merged = [
+        i for i in range(K)
+        if not int(params_list[i].get("memory_bound", 0) or 0)
+    ]
+    for i in range(K):
+        if i not in merged:
+            results[i] = solve_host(
+                dcops[i], params_list[i], timeout=_remaining(),
+                max_util_size=max_util_size, pad_policy=pad, device=dev,
+            )
+    if not merged:
+        return results  # type: ignore[return-value]
+
+    preps = {i: _prepare_instance(dcops[i]) for i in merged}
+    insts = [
+        _UtilInstance(*preps[i], _resolve_device_min_cells(params_list[i]))
+        for i in merged
+    ]
+    level_sync = all(
+        params_list[i].get("util_batch", "level") != "node" for i in merged
+    )
+    t_util = time.perf_counter()
+    outs = _util_phase_multi(
+        insts, t0, timeout, dev, max_util_size=max_util_size, pad=pad,
+        level_sync=level_sync,
+    )
+    if outs is None:
+        for i in merged:
+            results[i] = _timeout_result(dcops[i], t0)
+        return results  # type: ignore[return-value]
+    util_time = (time.perf_counter() - t_util) / len(merged)
+    for i, inst, out in zip(merged, insts, outs):
+        graph, domains, depth, _ = preps[i]
+        best_choice, cells, dev_nodes, host_nodes, dispatches = out
+        results[i] = _assemble_result(
+            dcops[i], graph, domains, depth,
+            _value_phase(graph, domains, best_choice),
+            {
+                "util_time": util_time,
+                "util_backend": (
+                    "host" if inst.device_min_cells is None else "device"
+                ),
+                "util_cells": cells,
+                "util_device_nodes": dev_nodes,
+                "util_host_nodes": host_nodes,
+                "util_dispatches": dispatches,
+            },
+            t0, 1,
+        )
+    return results  # type: ignore[return-value]
+
+
 def _value_phase(graph, domains, best_choice) -> Dict[str, Any]:
     """Top-down VALUE wave (pre-order): condition each node's retained
     argmin table on the accumulated ancestor assignment."""

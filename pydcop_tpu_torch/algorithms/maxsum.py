@@ -29,9 +29,17 @@ selection):
 
 Messages are stored in ``msg_dtype`` (f32 or bf16); the belief
 accumulates in the unary's dtype.  One round = 2·n_real_edges directed
-messages.  Deterministic: the round's generator is not used.  The state
-takes no restart axis yet (``RESTARTS = False``): the kernels take
-``[d, m]`` column blocks, and a restart axis needs its own layout.
+messages.  Deterministic: the round's generator is not used.
+
+Restarts and instances (the JAX package's ``vmap``).  The state may
+lead with batch axes: ``[R, d, E]`` messages for R restarts of one
+problem, and ``[I, R, d, E]`` on a stacked problem
+(``ops/compile.py:StackedProblem``, ``api.solve_many``).  Every round
+still launches each kernel once: the kernels take the ``B = I·R``
+batches in one launch, with the instance operands (tables, edge index,
+per-instance damping) read at ``b // R``.  The belief gather and the
+value argmin run per batch; batch b computes exactly what a run of its
+restart alone computes.
 """
 
 from __future__ import annotations
@@ -44,12 +52,14 @@ from pydcop_tpu_torch.algorithms import AlgoParameterDef
 from pydcop_tpu_torch.ops import costs as _costs
 from pydcop_tpu_torch.ops import maxsum_kernels
 from pydcop_tpu_torch.ops import semiring as _semiring
-from pydcop_tpu_torch.ops.compile import CompiledProblem
+from pydcop_tpu_torch.ops.compile import CompiledProblem, StackedProblem
 from pydcop_tpu_torch.ops.padding import as_table_dtype
 
 GRAPH_TYPE = "factor_graph"
 
-RESTARTS = False
+#: the engine solves several instances on the stacked problem (state
+#: ``[I, R, ...]``) rather than on their disjoint union
+INSTANCE_AXIS = True
 
 algo_params = [
     AlgoParameterDef("damping", "float", None, 0.5),
@@ -90,42 +100,51 @@ def init_state(
     params: Dict[str, Any],
     batch: Tuple[int, ...] = (),
 ) -> Dict[str, torch.Tensor]:
-    """Zero messages, initial values, and the noise ``[d, n_vars]``.
+    """Zero messages, initial values, and the noise ``[*batch, d,
+    n_vars]`` (``batch``: ``(R,)`` for R restarts, each with its own
+    noise and initial values).
 
     Random draws come from a CPU ``torch.Generator`` seeded with
     ``seed`` and are then moved to the problem's device, so a card run
     and a CPU run start from the same state.  (They are not the JAX
     package's draws: tests hand both packages the same numpy state.)
-    ``batch`` must be ``()`` (``RESTARTS`` is False; the engine checks).
     """
     _check_params(params)
     dev = problem.device
     E, d, n = problem.n_edges, problem.d_max, problem.n_vars
     gen = torch.Generator().manual_seed(int(seed))
     noise = params.get("noise", 0.0) * torch.rand(
-        (d, n), generator=gen, dtype=torch.float32
+        batch + (d, n), generator=gen, dtype=torch.float32
     )
     initial = params.get("initial", "zero")
     if initial == "random":
         sizes = problem.domain_sizes.cpu().to(torch.float64)
-        u = torch.rand(n, generator=gen, dtype=torch.float64)
+        u = torch.rand(batch + (n,), generator=gen, dtype=torch.float64)
         values = torch.floor(u * sizes).to(torch.int32).to(dev)
     elif initial == "declared":
-        values = problem.init_idx.clone()
+        values = problem.init_idx.expand(batch + (n,)).clone()
     else:  # "zero"
-        values = torch.zeros_like(problem.init_idx)
+        values = torch.zeros_like(problem.init_idx).expand(
+            batch + (n,)
+        ).clone()
     mdt = _msg_dtype(problem, params)
     return {
-        "q": torch.zeros((d, E), dtype=mdt, device=dev),
-        "r": torch.zeros((d, E), dtype=mdt, device=dev),
+        "q": torch.zeros(batch + (d, E), dtype=mdt, device=dev),
+        "r": torch.zeros(batch + (d, E), dtype=mdt, device=dev),
         "values": values,
         "noise": noise.to(device=dev, dtype=problem.unary.dtype),
     }
 
 
-def in_kernel_gate(problem: CompiledProblem) -> bool:
+def _template(problem) -> CompiledProblem:
+    """The single-instance problem whose shapes a (stacked) problem has."""
+    return problem.template if isinstance(problem, StackedProblem) else problem
+
+
+def in_kernel_gate(problem) -> bool:
     """The JAX package's ``use_fused`` gate without its device condition:
     one shard, every bucket binary, and ``d ≤ MAX_D``."""
+    problem = _template(problem)
     return (
         problem.n_shards == 1
         and set(problem.buckets) == {2}
@@ -133,19 +152,20 @@ def in_kernel_gate(problem: CompiledProblem) -> bool:
     )
 
 
-def use_kernels(problem: CompiledProblem) -> bool:
+def use_kernels(problem) -> bool:
     """The factor kernels run: tensors on the card, inside the gate."""
     return problem.device.type == "cuda" and in_kernel_gate(problem)
 
 
 def belief_from_r(
-    problem: CompiledProblem,
+    problem,
     r: torch.Tensor,
     unary_t: torch.Tensor,
     mode: str = "auto",
 ) -> torch.Tensor:
-    """[d, n_vars] belief: ``unary_t`` + Σ incoming r per variable,
-    accumulated in ``unary_t``'s dtype (f32) whatever r's dtype.
+    """``[*batch, d, n_vars]`` belief: ``unary_t`` + Σ incoming r per
+    variable, accumulated in ``unary_t``'s dtype (f32) whatever r's
+    dtype.
 
     One lowering on every device: the per-slot prefix gather sum of
     ``ops/costs.py:gather_sum_slots`` (deterministic, so card and CPU
@@ -154,41 +174,64 @@ def belief_from_r(
     return _costs.gather_sum_slots(problem, r, unary_t)
 
 
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """A ``[*batch, d, X]`` tensor as the kernels take it: ``[B, d, X]``
+    with batch axes, ``[d, X]`` without."""
+    return x.flatten(0, -3) if x.dim() > 3 else x
+
+
 def step(
-    problem: CompiledProblem,
+    problem,
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     gen: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
-    q = state["q"]
+    """One round on ``problem`` (a :class:`CompiledProblem`, or a
+    :class:`StackedProblem` with the state ``[I, R, ...]``).  ``damping``
+    is a float or, on a stacked problem, an f32 tensor of one value per
+    instance."""
+    q = state["q"]  # [*batch, d, E]
     mdt = q.dtype
-    damping = float(params["damping"])
-    unary_t = problem.unary_t + state["noise"]  # [d, n]
+    damping = params["damping"]
+    if not isinstance(damping, torch.Tensor):
+        damping = float(damping)
+    tmpl = _template(problem)
+    unary_t = problem.unary_t + state["noise"]  # [*batch, d, n]
     fused = use_kernels(problem)
+    lead = q.dim() - 2  # batch axes
 
     # -- 1. factor -> variable, per arity bucket ----------------------
     r_new = torch.empty_like(q)
+    qk, rk = _flat(q), _flat(r_new)  # the kernels' [(B,) d, E]
     off = 0
     for k, bucket in sorted(problem.buckets.items()):
-        m = bucket.n_cons
-        tab = bucket.tables_t
-        q_pos = [q[:, off + p * m : off + (p + 1) * m] for p in range(k)]
-        r_pos = [r_new[:, off + p * m : off + (p + 1) * m] for p in range(k)]
+        m = tmpl.buckets[k].n_cons
+        tab = bucket.tables_t  # [(I,) d, ..., d, m or 1]
+
+        def cols(x, p):
+            return x[..., off + p * m : off + (p + 1) * m]
+
         if fused:  # k == 2 by the gate; the kernels write into r_new
-            if bucket.shared_table:
+            q_pos = [cols(qk, p) for p in range(k)]
+            r_pos = tuple(cols(rk, p) for p in range(k))
+            if tmpl.buckets[k].shared_table:
                 maxsum_kernels.factor_round_binary_shared(
-                    tab[..., 0], q_pos[0], q_pos[1], out=tuple(r_pos)
+                    tab[..., 0], q_pos[0], q_pos[1], out=r_pos
                 )
             else:
                 maxsum_kernels.factor_round_binary(
-                    tab, q_pos[0], q_pos[1], out=tuple(r_pos)
+                    tab, q_pos[0], q_pos[1], out=r_pos
                 )
         else:
+            if isinstance(problem, StackedProblem):  # [I, 1.., d.., m]
+                tab = tab.reshape(
+                    tab.shape[:1] + (1,) * (lead - 1) + tab.shape[1:]
+                )
             outs = _semiring.bp_factor_messages(
-                _semiring.MIN_SUM, tab, q_pos, mdt
+                _semiring.MIN_SUM, tab, [cols(q, p) for p in range(k)], mdt
             )
-            for dst, src in zip(r_pos, outs):
-                dst.copy_(src)
+            for p, src in enumerate(outs):
+                cols(r_new, p).copy_(src)
         off += m * k
 
     # -- 2. variable -> factor + value selection ----------------------
@@ -197,14 +240,15 @@ def step(
     per_op = belief.dtype == torch.bfloat16 and not in_kernel_gate(problem)
     # the q update reads belief[:, edge_var] (in the message dtype) itself
     q_new = maxsum_kernels.q_update(
-        belief, problem.edge_var, r_new, q, damping, per_op
-    )
-    values = torch.argmin(belief, dim=0).to(state["values"].dtype)
+        _flat(belief), problem.edge_var, rk, qk, damping, per_op
+    ).view(q.shape)
+    values = torch.argmin(belief, dim=-2).to(state["values"].dtype)
     return {**state, "q": q_new, "r": r_new, "values": values}
 
 
 def messages_per_round(
     problem: CompiledProblem, params: Optional[Dict[str, Any]] = None
 ) -> int:
-    """q and r per REAL directed edge per round."""
+    """q and r per REAL directed edge per round (one restart; ghost
+    edges are not counted)."""
     return 2 * problem.n_real_edges

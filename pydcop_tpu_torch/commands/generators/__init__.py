@@ -1,5 +1,16 @@
 """Problem generators (copies of ``pydcop_tpu/commands/generators/``).
 
-Only the SECP generator is copied so far (``secp.generate``), for the
-DPOP configurations; the ``generate`` command is not ported yet.
+Each module exports ``set_parser(subparsers)`` registering one
+``pydcop_tpu_torch generate <kind>`` sub-subcommand whose handler builds
+a :class:`~pydcop_tpu_torch.dcop.dcop.DCOP` and writes it as YAML to
+stdout or ``--output``, and ``generate(args)`` that builds the DCOP.
+The JAX package's ``taskscheduling`` and ``agents`` generators are not
+copied.
 """
+
+GENERATORS = [
+    "graphcoloring",
+    "ising",
+    "meetingscheduling",
+    "secp",
+]

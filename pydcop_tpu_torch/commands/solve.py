@@ -5,7 +5,9 @@ One-shot solve of a DCOP yaml on the batched engine, or with ``-a dpop``
 on the exact path (``-p util_device:always``, ``-p util_batch:node``,
 ``--pad_policy pow2``, …); prints the result as JSON in the shape
 ``python -m pydcop_tpu solve`` prints (the ``telemetry`` block is not
-ported yet).
+ported yet).  ``--restarts K`` runs K restarts and reports the best;
+``--many`` solves each file as its own instance through
+``api.solve_many`` and prints a JSON array.
 """
 
 from __future__ import annotations
@@ -44,8 +46,15 @@ def set_parser(subparsers) -> None:
     p.add_argument(
         "--restarts", type=int, default=1,
         help="run this many independent solver instances batched in one "
-        "device program and report the best — parallel restarts for the "
-        "local-search algorithms",
+        "device program and report the best — parallel restarts",
+    )
+    p.add_argument(
+        "--many", action="store_true",
+        help="treat each DCOP file as a separate instance and solve them "
+        "together (api.solve_many): same-shaped instances run as one "
+        "group, dpop instances as one merged UTIL sweep; pass "
+        "--pad_policy pow2 so similarly-sized files share a shape.  "
+        "Prints a JSON array of per-instance results",
     )
     p.add_argument(
         "--convergence_chunks", type=int, default=0,
@@ -57,9 +66,10 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--pad_policy", default="none", metavar="POLICY",
-        help="for dpop: bucket the UTIL level dispatches on the pow-2 "
-        "lattice ('pow2' or 'pow2:<floor>'; results bit-identical); "
-        "the batched engine takes 'none' only; default: none",
+        help="bucket the compiled problem's shapes on the pow-2 lattice "
+        "('pow2' or 'pow2:<floor>'), so similarly-sized problems share "
+        "one shape; for dpop it buckets the UTIL level dispatches "
+        "instead (results bit-identical); default: none",
     )
     p.add_argument(
         "--device", default=None,
@@ -74,8 +84,24 @@ def set_parser(subparsers) -> None:
 
 
 def run_cmd(args) -> int:
-    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.api import solve, solve_many
 
+    if args.many:
+        results = solve_many(
+            list(args.dcop_files),
+            args.algo,
+            parse_algo_params(args.algo_params),
+            rounds=args.rounds,
+            timeout=args.timeout,
+            seed=args.seed,
+            convergence_chunks=args.convergence_chunks,
+            n_restarts=args.restarts,
+            pad_policy=args.pad_policy,
+            device=args.device,
+        )
+        for r in results:
+            r.pop("cost_trace", None)  # keep the printed JSON compact
+        return _write(args, results)
     result = solve(
         args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0],
         args.algo,
@@ -89,6 +115,10 @@ def run_cmd(args) -> int:
         device=args.device,
     )
     result.pop("cost_trace", None)  # keep the printed JSON compact
+    return _write(args, result)
+
+
+def _write(args, result) -> int:
     out = json.dumps(result, indent=2, default=str)
     print(out)
     if args.output:

@@ -112,6 +112,22 @@
 // ascending fold (nanmin keeps the first NaN and the last of equal
 // values), so even the sign of a zero matches the unrolled instances.
 //
+// The batch axis (several restarts and instances in one launch).  Each
+// entry point takes B batches of the same shapes, B = I * R (instances
+// times restarts), in ONE launch: batch b reads its q and r (and the q
+// update's belief and output) at b times their batch strides, and the
+// operands that belong to an instance (the factor tables, the q update's
+// edge index and damping) at (b / R) times theirs, a stride of 0 meaning
+// one operand shared by every batch.  The unrolled instances take the
+// batch on gridDim.y (each block walks batches b = blockIdx.y, + gridDim.y,
+// ... and lanes in a grid-stride loop along x); the lane-tile instances
+// walk the flattened (batch, tile) range in their grid-stride loop, so the
+// resident grid is sized as before, now over B times the tiles.  A block
+// of the shared-table kernels stages a batch's table when it differs from
+// the one it holds.  Per lane, batch b computes exactly what an unbatched
+// launch on batch b's operands computes, in the same order: B = 1 with
+// every stride 0 is the unbatched call.
+//
 // Each entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() so the wrapper can raise
 // on a refused launch.
@@ -128,6 +144,22 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxD = 64;
 constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks per SM
+
+// Batch strides of a factor launch (see the note): batch b reads its table
+// at (b / per) * tab, its q rows at b * q and writes its r rows at b * r.
+struct FactorBatch {
+  int n, per;
+  int64_t tab, q, r;
+};
+
+// Batch strides of a q-update launch: the belief at b * belief, the edge
+// index at (b / per) * idx, r, q and the output at b * msg; damping
+// damp[b / per] when damp is set, else the launch's scalar.
+struct QBatch {
+  int n, per;
+  int64_t belief, idx, msg;
+  const float* damp;
+};
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -217,15 +249,27 @@ template <int D, typename F, typename T>
 __global__ void __launch_bounds__(kThreads) factor_shared_kernel(
     const F* __restrict__ tab, const T* __restrict__ q0,
     const T* __restrict__ q1, T* __restrict__ r0, T* __restrict__ r1,
-    int d, int64_t m, int64_t ldq, int64_t ldr) {
+    int d, int64_t m, int64_t ldq, int64_t ldr, FactorBatch bt) {
   __shared__ float s_tab[(D > 0 ? D : kMaxD) * (D > 0 ? D : kMaxD)];
-  for (int j = threadIdx.x; j < d * d; j += blockDim.x) s_tab[j] = ld(tab + j);
-  __syncthreads();
   const SharedTab t{s_tab, d};
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < m; i += stride) {
-    factor_lane<D, F>(d, ldq, ldr, i, t, q0, q1, r0, r1);
+  int64_t staged = -1;  // the table offset s_tab holds
+  for (int b = blockIdx.y; b < bt.n; b += gridDim.y) {
+    const int64_t toff = (b / bt.per) * bt.tab;
+    if (toff != staged) {  // uniform over the block
+      __syncthreads();     // the previous table's last reads
+      for (int j = threadIdx.x; j < d * d; j += blockDim.x)
+        s_tab[j] = ld(tab + toff + j);
+      __syncthreads();
+      staged = toff;
+    }
+    const int64_t qo = b * bt.q, ro = b * bt.r;
+    for (int64_t i =
+             static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < m; i += stride) {
+      factor_lane<D, F>(d, ldq, ldr, i, t, q0 + qo, q1 + qo, r0 + ro,
+                        r1 + ro);
+    }
   }
 }
 
@@ -233,12 +277,18 @@ template <int D, typename F, typename T>
 __global__ void __launch_bounds__(kThreads) factor_kernel(
     const F* __restrict__ tab, const T* __restrict__ q0,
     const T* __restrict__ q1, T* __restrict__ r0, T* __restrict__ r1,
-    int d, int64_t m, int64_t ldq, int64_t ldr) {
+    int d, int64_t m, int64_t ldq, int64_t ldr, FactorBatch bt) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < m; i += stride) {
-    const StreamedTab<F> t{tab, d, m, i};
-    factor_lane<D, F>(d, ldq, ldr, i, t, q0, q1, r0, r1);
+  for (int b = blockIdx.y; b < bt.n; b += gridDim.y) {
+    const F* const tb = tab + (b / bt.per) * bt.tab;
+    const int64_t qo = b * bt.q, ro = b * bt.r;
+    for (int64_t i =
+             static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < m; i += stride) {
+      const StreamedTab<F> t{tb, d, m, i};
+      factor_lane<D, F>(d, ldq, ldr, i, t, q0 + qo, q1 + qo, r0 + ro,
+                        r1 + ro);
+    }
   }
 }
 
@@ -334,10 +384,11 @@ __device__ __forceinline__ void fold_cols(const Tile& k, int b0,
 // shared memory as in the note.
 template <typename F, typename T, bool SHARED>
 __global__ void __launch_bounds__((kMaxD + kRows - 1) / kRows * kLanes)
-    factor_tile_kernel(const F* __restrict__ tab, const T* __restrict__ q0,
-                       const T* __restrict__ q1, T* __restrict__ r0,
-                       T* __restrict__ r1, int d, int64_t m, int64_t ldq,
-                       int64_t ldr) {
+    factor_tile_kernel(const F* __restrict__ tab_all,
+                       const T* __restrict__ q0_all,
+                       const T* __restrict__ q1_all, T* __restrict__ r0_all,
+                       T* __restrict__ r1_all, int d, int64_t m, int64_t ldq,
+                       int64_t ldr, FactorBatch bt) {
   constexpr int R = kRows;
   // Table columns per group.  One from shared memory (more pushes
   // instances past 64 registers, where ptxas spills rather than halve
@@ -364,14 +415,30 @@ __global__ void __launch_bounds__((kMaxD + kRows - 1) / kRows * kLanes)
   k.s_q1 = k.s_q0 + d * kLanes;
   k.s_col = k.s_q1 + d * kLanes;
   k.s_mn = k.s_col + nw * d * kLanes;
-  if constexpr (SHARED) {
-    for (int j = threadIdx.x; j < d * k.dp; j += blockDim.x) {
-      const int b = j / k.dp, a = j % k.dp;
-      k.s_tab[j] = a < d ? ld(tab + a * d + b) : 0.0f;
-    }
-  }
   const int64_t tiles = (m + kLanes - 1) / kLanes;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  int64_t staged = -1;  // the table offset s_tab holds
+  for (int64_t bt_tile = blockIdx.x; bt_tile < tiles * bt.n;
+       bt_tile += gridDim.x) {
+    // batch bb's tile: its operands at their batch offsets
+    const int64_t bb = bt_tile / tiles, tile = bt_tile - bb * tiles;
+    const int64_t toff = (bb / bt.per) * bt.tab;
+    const F* const tab = tab_all + toff;
+    const T* const q0 = q0_all + bb * bt.q;
+    const T* const q1 = q1_all + bb * bt.q;
+    T* const r0 = r0_all + bb * bt.r;
+    T* const r1 = r1_all + bb * bt.r;
+    if constexpr (SHARED) {
+      // every thread passed the previous tile's last barrier, after its
+      // last table read; the barrier after the q staging below publishes
+      // the new table
+      if (toff != staged) {
+        for (int j = threadIdx.x; j < d * k.dp; j += blockDim.x) {
+          const int b = j / k.dp, a = j % k.dp;
+          k.s_tab[j] = a < d ? ld(tab + a * d + b) : 0.0f;
+        }
+        staged = toff;
+      }
+    }
     const int64_t i0 = tile * kLanes;
     const int64_t i = i0 + k.lane;
     const int64_t ic = i < m ? i : m - 1;  // ragged tail: clamped loads
@@ -503,28 +570,38 @@ __device__ __forceinline__ float damped(float damp, float omd, float qv,
 // i's column in it (the broadcast-back gather), or null for column i.
 template <int D, typename F, typename T, typename B>
 __global__ void __launch_bounds__(kThreads) q_update_kernel(
-    const B* __restrict__ belief, int64_t ldb,
-    const int32_t* __restrict__ idx, const T* __restrict__ r,
-    const T* __restrict__ q, float damp_f32, T* __restrict__ out,
-    int64_t e) {
-  const float damp = rnd<F>(damp_f32);
-  const float omd = rnd<F>(__fsub_rn(1.0f, damp_f32));
+    const B* __restrict__ belief_all, int64_t ldb,
+    const int32_t* __restrict__ idx_all, const T* __restrict__ r_all,
+    const T* __restrict__ q_all, float damp_f32, T* __restrict__ out_all,
+    int64_t e, QBatch bt) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < e; i += stride) {
-    const int64_t col = belief_col(idx, i);
-    float qn[D], qv[D];
-    float mn = CUDART_INF_F;
+  for (int bb = blockIdx.y; bb < bt.n; bb += gridDim.y) {
+    const float dmp = bt.damp ? bt.damp[bb / bt.per] : damp_f32;
+    const float damp = rnd<F>(dmp);
+    const float omd = rnd<F>(__fsub_rn(1.0f, dmp));
+    const B* const belief = belief_all + bb * bt.belief;
+    const int32_t* const idx =
+        idx_all ? idx_all + (bb / bt.per) * bt.idx : nullptr;
+    const T* const r = r_all + bb * bt.msg;
+    const T* const q = q_all + bb * bt.msg;
+    T* const out = out_all + bb * bt.msg;
+    for (int64_t i =
+             static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < e; i += stride) {
+      const int64_t col = belief_col(idx, i);
+      float qn[D], qv[D];
+      float mn = CUDART_INF_F;
 #pragma unroll
-    for (int a = 0; a < D; ++a) {
-      qn[a] = rnd<F>(__fsub_rn(ld_belief<T>(belief + a * ldb + col),
-                               ld_once(r + a * e + i)));
-      qv[a] = ld_once(q + a * e + i);
-      mn = nanmin(mn, qn[a]);
+      for (int a = 0; a < D; ++a) {
+        qn[a] = rnd<F>(__fsub_rn(ld_belief<T>(belief + a * ldb + col),
+                                 ld_once(r + a * e + i)));
+        qv[a] = ld_once(q + a * e + i);
+        mn = nanmin(mn, qn[a]);
+      }
+#pragma unroll
+      for (int a = 0; a < D; ++a)
+        st_once(out + a * e + i, damped<F>(damp, omd, qv[a], qn[a], mn));
     }
-#pragma unroll
-    for (int a = 0; a < D; ++a)
-      st_once(out + a * e + i, damped<F>(damp, omd, qv[a], qn[a], mn));
   }
 }
 
@@ -547,10 +624,10 @@ constexpr int kQRegD = kQRows * kQGroups;  // 128: the largest d in registers
 // grid-stride loop.
 template <typename F, typename T, typename B, bool STAGED>
 __global__ void __launch_bounds__(1024) q_update_tile_kernel(
-    const B* __restrict__ belief, int64_t ldb,
-    const int32_t* __restrict__ idx, const T* __restrict__ r,
-    const T* __restrict__ q, float damp_f32, T* __restrict__ out, int d,
-    int64_t e, int lanes, int rows) {
+    const B* __restrict__ belief_all, int64_t ldb,
+    const int32_t* __restrict__ idx_all, const T* __restrict__ r_all,
+    const T* __restrict__ q_all, float damp_f32, T* __restrict__ out_all,
+    int d, int64_t e, int lanes, int rows, QBatch bt) {
   extern __shared__ float smem[];
   const int L = lanes;
   const int G = blockDim.x / L;
@@ -558,11 +635,21 @@ __global__ void __launch_bounds__(1024) q_update_tile_kernel(
   const int lo = (threadIdx.x / L) * rows;
   const int nr = max(0, min(rows, d - lo));
   float* const s_qn = smem + 2 * G * L;  // [d, L] after the partials [2, G, L]
-  const float damp = rnd<F>(damp_f32);
-  const float omd = rnd<F>(__fsub_rn(1.0f, damp_f32));
   const int64_t tiles = (e + L - 1) / L;
   int buf = 0;
-  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int64_t bt_tile = blockIdx.x; bt_tile < tiles * bt.n;
+       bt_tile += gridDim.x) {
+    // batch bb's tile: its operands at their batch offsets
+    const int64_t bb = bt_tile / tiles, tile = bt_tile - bb * tiles;
+    const float dmp = bt.damp ? bt.damp[bb / bt.per] : damp_f32;
+    const float damp = rnd<F>(dmp);
+    const float omd = rnd<F>(__fsub_rn(1.0f, dmp));
+    const B* const belief = belief_all + bb * bt.belief;
+    const int32_t* const idx =
+        idx_all ? idx_all + (bb / bt.per) * bt.idx : nullptr;
+    const T* const r = r_all + bb * bt.msg;
+    const T* const q = q_all + bb * bt.msg;
+    T* const out = out_all + bb * bt.msg;
     const int64_t i = tile * L + lane;
     const int64_t ic = i < e ? i : e - 1;  // ragged tail: clamped loads
     const int64_t col = belief_col(idx, ic);
@@ -617,10 +704,16 @@ __global__ void __launch_bounds__(1024) q_update_tile_kernel(
   }
 }
 
-int blocks_for(int64_t n) {
+// The unrolled instances' grid: batches on y (at most kMaxBlocks of
+// them), lanes on x, at most kMaxBlocks blocks in all; B = 1 gives the
+// unbatched grid.
+dim3 blocks_for(int64_t n, int batch) {
+  const int gy = batch < kMaxBlocks ? batch : kMaxBlocks;
+  const int64_t cap = kMaxBlocks / gy > 1 ? kMaxBlocks / gy : 1;
   int64_t b = (n + kThreads - 1) / kThreads;
   if (b < 1) b = 1;
-  return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
+  return dim3(static_cast<unsigned>(b < cap ? b : cap),
+              static_cast<unsigned>(gy));
 }
 
 // Dispatch on d: template instances for the small domains, OTHER (a
@@ -678,7 +771,7 @@ int64_t tile_smem_floats(int d, bool shared) {
 template <typename F, typename T, bool SHARED>
 cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
                         T* r1, int d, int64_t m, int64_t ldq, int64_t ldr,
-                        cudaStream_t s) {
+                        const FactorBatch& bt, cudaStream_t s) {
   auto* kernel = factor_tile_kernel<F, T, SHARED>;
   const int threads = (d + kRows - 1) / kRows * kLanes;
   const size_t smem = sizeof(float) * tile_smem_floats(d, SHARED);
@@ -686,9 +779,10 @@ cudaError_t launch_tile(const F* tab, const T* q0, const T* q1, T* r0,
   // every block resident at once: the shared table is staged per block
   int grid = 0;
   const cudaError_t err = resident_grid(
-      kernel, threads, smem, (m + kLanes - 1) / kLanes, opted, &grid);
+      kernel, threads, smem, (m + kLanes - 1) / kLanes * bt.n, opted, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(tab, q0, q1, r0, r1, d, m, ldq, ldr);
+  kernel<<<grid, threads, smem, s>>>(tab, q0, q1, r0, r1, d, m, ldq, ldr,
+                                     bt);
   return cudaGetLastError();
 }
 
@@ -696,24 +790,25 @@ template <typename F, typename T>
 cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
                           const void* q1, void* r0, void* r1, int d,
                           int64_t m, int64_t ldq, int64_t ldr,
-                          cudaStream_t s) {
+                          const FactorBatch& bt, cudaStream_t s) {
   const F* t = static_cast<const F*>(tab);
   const T* a = static_cast<const T*>(q0);
   const T* b = static_cast<const T*>(q1);
   T* o0 = static_cast<T*>(r0);
   T* o1 = static_cast<T*>(r1);
   if (!unrolled_d(d)) {
-    return shared ? launch_tile<F, T, true>(t, a, b, o0, o1, d, m, ldq, ldr, s)
+    return shared ? launch_tile<F, T, true>(t, a, b, o0, o1, d, m, ldq, ldr,
+                                            bt, s)
                   : launch_tile<F, T, false>(t, a, b, o0, o1, d, m, ldq, ldr,
-                                             s);
+                                             bt, s);
   }
-  const int grid = blocks_for(m);
+  const dim3 grid = blocks_for(m, bt.n);
 #define FACTOR_SHARED(D) \
   factor_shared_kernel<D, F, T><<<grid, kThreads, 0, s>>>( \
-      t, a, b, o0, o1, d, m, ldq, ldr)
+      t, a, b, o0, o1, d, m, ldq, ldr, bt)
 #define FACTOR(D) \
   factor_kernel<D, F, T><<<grid, kThreads, 0, s>>>( \
-      t, a, b, o0, o1, d, m, ldq, ldr)
+      t, a, b, o0, o1, d, m, ldq, ldr, bt)
   if (shared) {
     DISPATCH_SMALL_D(d, FACTOR_SHARED, )
   } else {
@@ -733,7 +828,7 @@ cudaError_t launch_factor(bool shared, const void* tab, const void* q0,
 template <typename F, typename T, typename B, bool STAGED>
 cudaError_t launch_q_tile(const B* belief, int64_t ldb, const int32_t* idx,
                           const T* r, const T* q, float damp, T* out, int d,
-                          int64_t e, cudaStream_t s) {
+                          int64_t e, const QBatch& bt, cudaStream_t s) {
   auto* kernel = q_update_tile_kernel<F, T, B, STAGED>;
   static size_t opted[64] = {};
   int groups = (d + kQRows - 1) / kQRows, rows = kQRows;
@@ -758,11 +853,11 @@ cudaError_t launch_q_tile(const B* belief, int64_t ldb, const int32_t* idx,
   const int threads = groups * lanes;
   const size_t smem = smem_of(lanes);
   int grid = 0;
-  const cudaError_t err = resident_grid(kernel, threads, smem,
-                                        (e + lanes - 1) / lanes, opted, &grid);
+  const cudaError_t err = resident_grid(
+      kernel, threads, smem, (e + lanes - 1) / lanes * bt.n, opted, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, s>>>(belief, ldb, idx, r, q, damp, out, d, e,
-                                     lanes, rows);
+                                     lanes, rows, bt);
   return cudaGetLastError();
 }
 
@@ -770,7 +865,7 @@ template <typename F, typename T, typename B>
 cudaError_t launch_q_update(const void* belief, int64_t ldb,
                             const int32_t* idx, const void* r, const void* q,
                             float damp, void* out, int d, int64_t e,
-                            cudaStream_t s) {
+                            const QBatch& bt, cudaStream_t s) {
   const B* b = static_cast<const B*>(belief);
   const T* rr = static_cast<const T*>(r);
   const T* qq = static_cast<const T*>(q);
@@ -778,14 +873,14 @@ cudaError_t launch_q_update(const void* belief, int64_t ldb,
   if (!unrolled_d(d)) {
     return d <= kQRegD
                ? launch_q_tile<F, T, B, false>(b, ldb, idx, rr, qq, damp, o,
-                                               d, e, s)
+                                               d, e, bt, s)
                : launch_q_tile<F, T, B, true>(b, ldb, idx, rr, qq, damp, o, d,
-                                              e, s);
+                                              e, bt, s);
   }
-  const int grid = blocks_for(e);
+  const dim3 grid = blocks_for(e, bt.n);
 #define Q_UPDATE(D) \
   q_update_kernel<D, F, T, B><<<grid, kThreads, 0, s>>>( \
-      b, ldb, idx, rr, qq, damp, o, e)
+      b, ldb, idx, rr, qq, damp, o, e, bt)
   DISPATCH_SMALL_D(d, Q_UPDATE, )
 #undef Q_UPDATE
   return cudaGetLastError();
@@ -799,28 +894,34 @@ extern "C" {
 // __nv_bfloat16 (tab_bf16 == 1); q0, q1: [d, m] row views with row stride
 // ldq; r0, r1: [d, m] row views with row stride ldr; messages are float
 // (bf16 == 0) or __nv_bfloat16 (bf16 == 1).  1 <= d <= 64,
-// 1 <= m <= ldq, ldr.
+// 1 <= m <= ldq, ldr.  batch >= 1 batches (see the note): batch b's table
+// at (b / per) * tab_bstride elements, its q rows at b * q_bstride, its r
+// rows at b * r_bstride; batch 1 with every stride 0 is one unbatched call.
 int pydcop_factor_round_binary(int shared, const void* tab, int tab_bf16,
                                const void* q0, const void* q1, void* r0,
                                void* r1, int d, int64_t m, int64_t ldq,
-                               int64_t ldr, int bf16, void* stream) {
-  if (d < 1 || d > kMaxD || m < 1 || ldq < m || ldr < m)
+                               int64_t ldr, int bf16, int batch, int per,
+                               int64_t tab_bstride, int64_t q_bstride,
+                               int64_t r_bstride, void* stream) {
+  if (d < 1 || d > kMaxD || m < 1 || ldq < m || ldr < m || batch < 1 ||
+      per < 1 || tab_bstride < 0 || q_bstride < 0 || r_bstride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool sh = shared != 0;
+  const FactorBatch bt{batch, per, tab_bstride, q_bstride, r_bstride};
   cudaError_t err;
   if (tab_bf16 && bf16) {
     err = launch_factor<__nv_bfloat16, __nv_bfloat16>(
-        sh, tab, q0, q1, r0, r1, d, m, ldq, ldr, s);
+        sh, tab, q0, q1, r0, r1, d, m, ldq, ldr, bt, s);
   } else if (tab_bf16) {
     err = launch_factor<__nv_bfloat16, float>(sh, tab, q0, q1, r0, r1, d, m,
-                                              ldq, ldr, s);
+                                              ldq, ldr, bt, s);
   } else if (bf16) {
     err = launch_factor<float, __nv_bfloat16>(sh, tab, q0, q1, r0, r1, d, m,
-                                              ldq, ldr, s);
+                                              ldq, ldr, bt, s);
   } else {
     err = launch_factor<float, float>(sh, tab, q0, q1, r0, r1, d, m, ldq,
-                                      ldr, s);
+                                      ldr, bt, s);
   }
   return static_cast<int>(err);
 }
@@ -832,28 +933,37 @@ int pydcop_factor_round_binary(int shared, const void* tab, int tab_bf16,
 // f32 damping factor.  be[a, i] = belief[a, edge_idx[i]], rounded to the
 // message type.  per_op (bf16 belief and messages only): round every
 // operation to bf16 instead of computing in f32.  d >= 1, e >= 1, n >= 1.
+// batch >= 1 batches (see the note): batch b's belief at
+// b * belief_bstride elements, its edge index at (b / per) * idx_bstride,
+// its r, q and output at b * msg_bstride, its damping damp_arr[b / per]
+// (f32 on the device) or, with damp_arr null, damp.
 int pydcop_q_update(const void* belief, const int32_t* edge_idx,
-                    const void* r, const void* q, float damp, void* out,
-                    int d, int64_t e, int64_t n, int belief_bf16, int bf16,
-                    int per_op, void* stream) {
+                    const void* r, const void* q, float damp,
+                    const float* damp_arr, void* out, int d, int64_t e,
+                    int64_t n, int belief_bf16, int bf16, int per_op,
+                    int batch, int per, int64_t belief_bstride,
+                    int64_t idx_bstride, int64_t msg_bstride, void* stream) {
   if (d < 1 || e < 1 || n < 1 || (!edge_idx && n != e) ||
-      (per_op && !belief_bf16) || (belief_bf16 && !bf16))
+      (per_op && !belief_bf16) || (belief_bf16 && !bf16) || batch < 1 ||
+      per < 1 || belief_bstride < 0 || idx_bstride < 0 || msg_bstride < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
+  const QBatch bt{batch, per, belief_bstride, idx_bstride, msg_bstride,
+                  damp_arr};
   cudaError_t err;
   if (per_op) {
     err = launch_q_update<bf, bf, bf>(belief, n, edge_idx, r, q, damp, out,
-                                      d, e, s);
+                                      d, e, bt, s);
   } else if (belief_bf16) {
     err = launch_q_update<float, bf, bf>(belief, n, edge_idx, r, q, damp, out,
-                                         d, e, s);
+                                         d, e, bt, s);
   } else if (bf16) {
     err = launch_q_update<float, bf, float>(belief, n, edge_idx, r, q, damp,
-                                            out, d, e, s);
+                                            out, d, e, bt, s);
   } else {
     err = launch_q_update<float, float, float>(belief, n, edge_idx, r, q,
-                                               damp, out, d, e, s);
+                                               damp, out, d, e, bt, s);
   }
   return static_cast<int>(err);
 }

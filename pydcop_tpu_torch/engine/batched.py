@@ -22,24 +22,39 @@ of the same problem as a leading ``[K]`` axis on every state leaf (the
 PyTorch form of the JAX package's ``vmap``; the leaves an algorithm
 names in ``STATIC_STATE_KEYS`` are shared) and reports the best over
 them.  The per-round draws carry the batch shape ``[K, ...]``: this is
-the JAX program's best-of-K semantics, not its stream.
+the JAX program's best-of-K semantics, not its stream.  Max-Sum and
+A-Max-Sum take the restart axis into their kernels (one launch of each
+per round for all K).
+
+Instances.  :func:`run_many_batched` solves I same-shape problems (a
+``StackedProblem``) in one chunk loop, with one host sync per chunk for
+the whole group.  Max-Sum and A-Max-Sum (``INSTANCE_AXIS``) run on the
+stacked problem, state ``[I, R, ...]``; the local-search family runs on
+the group's disjoint union (``ops/compile.py:union_problem``), state
+``[R, n·I]``.  Either way a round makes no per-instance Python loop and
+the anytime costs are split per instance.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-restarts for ``maxsum``/``amaxsum``, ``mesh``, checkpoint/resume and
-chunk callbacks.
+``mesh``, checkpoint/resume and chunk callbacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Union
 
 import numpy as np
 import torch
 
-from pydcop_tpu_torch.ops.compile import CompiledProblem, decode_assignment
-from pydcop_tpu_torch.ops.costs import total_cost
+from pydcop_tpu_torch.ops.compile import (
+    CompiledProblem,
+    StackedProblem,
+    decode_assignment,
+    union_problem,
+)
+from pydcop_tpu_torch.ops.costs import instance_costs, total_cost
 
 
 @dataclasses.dataclass
@@ -77,17 +92,18 @@ def round_generator(seed: int, device: torch.device) -> torch.Generator:
 
 
 def _run_chunk(problem, algo_module, params, state, gen, n_rounds,
-               cost_every, best_cost, best_values):
+               cost_every, best_cost, best_values, observe):
     """``n_rounds`` rounds; the anytime cost is evaluated after every
     ``cost_every``-th round and after the last one.  Returns the new
     state, best cost/values (device tensors, per restart under
-    restarts) and the chunk's cost samples as one device tensor."""
+    restarts) and the chunk's cost samples as one device tensor.
+    ``observe(values)`` gives ``(costs, values)`` in the layout the best
+    is tracked in."""
     costs = []
     for i in range(1, n_rounds + 1):
         state = algo_module.step(problem, state, params, gen)
         if i % cost_every == 0 or i == n_rounds:
-            values = state["values"]
-            cost = total_cost(problem, values)
+            cost, values = observe(state["values"])
             better = cost < best_cost
             best_cost = torch.where(better, cost, best_cost)
             best_values = torch.where(better[..., None], values, best_values)
@@ -169,11 +185,6 @@ def run_batched(
     """
     if n_restarts < 1:
         raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
-    if n_restarts > 1 and not getattr(algo_module, "RESTARTS", True):
-        raise _not_ported(
-            f"n_restarts > 1 for {algo_module.__name__}",
-            "n_restarts for maxsum/amaxsum",
-        )
     if mesh is not None:
         raise _not_ported("mesh (sharded runs)", "n_shards > 1")
     if checkpoint_path is not None or resume:
@@ -208,6 +219,7 @@ def run_batched(
         state, best_cost, best_values, costs = _run_chunk(
             problem, algo_module, params, state, gen, this_chunk,
             cost_every, best_cost, best_values,
+            lambda v: (total_cost(problem, v), v),
         )
         # the one host sync of the chunk
         costs = costs.float().cpu().numpy()
@@ -266,3 +278,201 @@ def run_batched(
         restart_costs=restart_costs,
         state=out_state,
     )
+
+
+def _split_params(p: Mapping[str, Any]):
+    """(statics, numeric) of one params mapping: str/bool values are
+    statics, the other non-None ones numeric."""
+    statics = {k: v for k, v in p.items() if isinstance(v, (str, bool))}
+    dyn = {
+        k: v for k, v in p.items()
+        if not isinstance(v, (str, bool)) and v is not None
+    }
+    return statics, dyn
+
+
+def _group_params(algo_module, params_list, run_problem, n_inst: int,
+                  instance_axis: bool) -> Dict[str, Any]:
+    """The params one round of the group takes: shared values as they
+    are; a numeric param whose value differs between instances as an f32
+    tensor on the device, one value per instance on a stacked problem,
+    else one per element of the union along the axis the algorithm names
+    in ``INSTANCE_PARAM_AXES`` (``"variables"`` by default, or
+    ``"constraints"``)."""
+    statics, dyn0 = _split_params(params_list[0])
+    for i, p in enumerate(params_list[1:], 1):
+        s, d = _split_params(p)
+        if s != statics or sorted(d) != sorted(dyn0):
+            raise ValueError(
+                f"run_many_batched: instance {i} differs from instance 0 "
+                "in static (str/bool) params or param structure — group "
+                "instances by them upstream"
+            )
+    out = dict(params_list[0])
+    axes = getattr(algo_module, "INSTANCE_PARAM_AXES", {})
+    for k in dyn0:
+        vals = [float(p[k]) for p in params_list]
+        if all(v == vals[0] for v in vals):
+            continue
+        t = torch.tensor(vals, dtype=torch.float32)
+        if not instance_axis:  # interleaved union: element x·I + i
+            size = (run_problem.n_cons if axes.get(k) == "constraints"
+                    else run_problem.n_vars) // n_inst
+            t = t.repeat(size)
+        out[k] = t.to(run_problem.device)
+    return out
+
+
+def run_many_batched(
+    stacked: StackedProblem,
+    algo_module,
+    params: Union[Mapping[str, Any], Sequence[Mapping[str, Any]]],
+    *,
+    rounds: int = 100,
+    seeds: Union[int, Sequence[int]] = 0,
+    timeout: Optional[float] = None,
+    chunk_size: int = 64,
+    convergence_chunks: int = 0,
+    cost_every: int = 1,
+    n_restarts: int = 1,
+    mesh=None,
+) -> List[RunResult]:
+    """Solve the I instances of ``stacked`` (``ops/compile.py:
+    stack_problems``) together: one chunk loop for the group, one host
+    sync a chunk, each round one pass of the algorithm over all
+    instances (and ``n_restarts`` restarts of each).
+
+    ``params`` is one mapping or one per instance: str/bool params must
+    agree (they select code paths), numeric ones may differ per instance.
+    ``seeds`` (an int or one per instance) seed each instance's initial
+    state as ``run_batched(host_problems[i], seed=seeds[i])`` would, so
+    a deterministic algorithm (Max-Sum, MGM, DBA, GDBA) returns for each
+    instance what its own run returns, bit for bit.  The rounds' draws
+    come from one device generator seeded from ``seeds[0]``, in the
+    group's layout: a stochastic algorithm's instance keeps its
+    semantics, not the stream of a run of its own.
+
+    ``timeout`` and ``convergence_chunks`` act on the whole group at
+    chunk boundaries, as in the JAX package: converged when no
+    instance's best improved (and, without restarts, no instance's
+    values changed) for that many chunks.  Returns one
+    :class:`RunResult` per instance in stack order (``stacked.indices``
+    maps back to the caller's order); each ``time`` is the group's wall
+    time.
+    """
+    t0 = time.perf_counter()
+    I = stacked.n_instances
+    R = n_restarts
+    if R < 1:
+        raise ValueError(f"n_restarts must be >= 1, got {R}")
+    if mesh is not None:
+        raise _not_ported("mesh (sharded runs)", "n_shards > 1")
+    if cost_every < 1 or chunk_size < 1:
+        raise ValueError("cost_every and chunk_size must be >= 1")
+    if isinstance(params, Mapping):
+        params_list = [dict(params)] * I
+    else:
+        params_list = [dict(p) for p in params]
+    if len(params_list) != I:
+        raise ValueError(f"params: got {len(params_list)} for {I} instances")
+    seeds = [int(seeds)] * I if isinstance(seeds, (int, np.integer)) else [
+        int(x) for x in seeds
+    ]
+    if len(seeds) != I:
+        raise ValueError(f"seeds: got {len(seeds)} for {I} instances")
+
+    sign = -1.0 if stacked.maximize else 1.0
+    n = stacked.n_vars
+    hosts = stacked.host_problems
+    instance_axis = getattr(algo_module, "INSTANCE_AXIS", False)
+    inits = [
+        algo_module.init_state(hp, seed, p, (R,))
+        for hp, seed, p in zip(hosts, seeds, params_list)
+    ]
+    if instance_axis:  # the stacked problem itself, state [I, R, ...]
+        problem = stacked
+        state = {k: torch.stack([s[k] for s in inits]) for k in inits[0]}
+
+        def to_inst(values):
+            return values
+    else:  # the disjoint union, state [R, n·I], interleaved
+        problem = union_problem(stacked)
+        state = algo_module.init_state(problem, seeds[0], params_list[0],
+                                       (R,))
+        state["values"] = torch.stack(
+            [s["values"] for s in inits], dim=-1
+        ).reshape(R, n * I)
+
+        def to_inst(values):  # [R, n·I] -> [I, R, n]
+            return values.view(R, n, I).permute(2, 0, 1)
+    run_params = _group_params(algo_module, params_list, problem, I,
+                               instance_axis)
+
+    def observe(values):
+        v = to_inst(values)
+        return instance_costs(stacked, v), v
+
+    gen = round_generator(seeds[0], stacked.device)
+    best_cost, best_values = observe(state["values"])  # [I, R], [I, R, n]
+    best_values = best_values.clone()
+
+    traces = []
+    done = 0
+    status = "finished"
+    stall = 0
+    prev_best = best_cost.amin(dim=1).cpu().numpy()
+    prev_values = None if R > 1 else to_inst(state["values"]).cpu()
+    while done < rounds:
+        this_chunk = min(chunk_size, rounds - done)
+        state, best_cost, best_values, costs = _run_chunk(
+            problem, algo_module, run_params, state, gen, this_chunk,
+            cost_every, best_cost, best_values, observe,
+        )
+        # the one host sync of the chunk: [samples, I, R] -> [I, samples]
+        traces.append(costs.float().amin(dim=-1).t().cpu().numpy())
+        done += this_chunk
+        if timeout is not None and time.perf_counter() - t0 > timeout:
+            status = "timeout"
+            break
+        if convergence_chunks:
+            best_now = best_cost.amin(dim=1).cpu().numpy()
+            cur_values = None if R > 1 else to_inst(state["values"]).cpu()
+            frozen = R > 1 or torch.equal(cur_values, prev_values)
+            if np.all(best_now >= prev_best - 1e-9) and frozen:
+                stall += 1
+                if stall >= convergence_chunks:
+                    status = "converged"
+                    break
+            else:
+                stall = 0
+            prev_best = best_now
+            prev_values = cur_values
+
+    final_costs, final_values = observe(state["values"])  # [I, R]
+    rows = torch.arange(I, device=final_costs.device)
+    i_fin = final_costs.argmin(dim=1)
+    i_best = best_cost.argmin(dim=1)
+    fv = final_values[rows, i_fin].cpu().numpy()
+    fc = final_costs[rows, i_fin].double().cpu().numpy()
+    bv = best_values[rows, i_best].cpu().numpy()
+    bc = best_cost[rows, i_best].double().cpu().numpy()
+    restart_costs = sign * best_cost.cpu().numpy() if R > 1 else None
+    elapsed = time.perf_counter() - t0
+    trace = np.concatenate(traces, axis=1) if traces else np.zeros((I, 0))
+    return [
+        RunResult(
+            assignment=decode_assignment(hp, fv[i]),
+            cost=sign * float(fc[i]),
+            best_assignment=decode_assignment(hp, bv[i]),
+            best_cost=sign * float(bc[i]),
+            cycles=done,
+            messages=algo_module.messages_per_round(hp, params_list[i])
+            * done * R,
+            time=elapsed,
+            status=status,
+            cost_trace=sign * trace[i],
+            restart_costs=None if restart_costs is None
+            else restart_costs[i],
+        )
+        for i, hp in enumerate(hosts)
+    ]

@@ -21,8 +21,15 @@ Representation (see the JAX module for the full story):
   phase; a bucket whose constraints all share one table keeps it once
   (``[d, ..., d, 1]``).
 
-Supported here: ``n_shards=1`` and ``pad_policy="none"``.  Sharded
-layouts and shape bucketing are later port items (ROADMAP.md).
+Shape bucketing (``pad_policy``, ``ops/padding.py``) pads the variable
+count, each arity bucket's constraint count, the adjacency widths and
+the flat-table length onto the pow-2 lattice with ghost variables and
+zero-table ghost constraints, as the JAX compiler does, so that
+similarly-sized problems share one shape (:func:`problem_group_key`)
+and can be stacked (:func:`stack_problems`) for ``api.solve_many``.
+
+Supported here: ``n_shards=1``.  Sharded layouts are a later port item
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,7 +47,12 @@ from pydcop_tpu_torch.dcop.relations import RelationProtocol
 from pydcop_tpu_torch.device import DeviceLike, resolve_device
 from pydcop_tpu_torch.ops.padding import (
     BIG,  # noqa: F401 (re-exported, as in the JAX package)
+    NO_PADDING,
+    PadPolicy,
+    as_pad_policy,
     as_table_dtype,
+    ghost_scopes,
+    ghost_unary,
 )
 
 # Guard: dense tabulation over padded domains is d_max**arity cells.
@@ -180,6 +192,18 @@ class CompiledProblem:
         return self.var_edges.t().contiguous()
 
     @functools.cached_property
+    def slot_sentinels(self) -> bool:
+        """Whether a degree slot's prefix holds the sentinel ``n_edges``
+        (a pad policy over-approximates ``var_slot_counts``): the belief
+        and sweep gathers then read a zero row appended to the edges."""
+        ve_t = self.var_edges_t
+        return any(
+            bool((ve_t[p, :n_p] == self.n_edges).any())
+            for p, n_p in enumerate(self.var_slot_counts)
+            if n_p
+        )
+
+    @functools.cached_property
     def _index64(self) -> Dict[str, torch.Tensor]:
         return {}
 
@@ -215,22 +239,19 @@ def _resolve_table_dtype(table_dtype, dtype) -> torch.dtype:
     return torch.bfloat16 if dt == "bf16" else torch.float32
 
 
-def _check_supported(n_shards: int, pad_policy, table_format) -> None:
+def _check_supported(n_shards: int, pad_policy, table_format) -> PadPolicy:
+    """Refuse what this compiler does not take; return the pad policy."""
     if n_shards != 1:
         raise NotImplementedError(
             "n_shards > 1 (the sharded layout) is not ported yet — "
             "see ROADMAP.md, 'n_shards > 1'"
-        )
-    if pad_policy not in (None, "", "none"):
-        raise NotImplementedError(
-            f"pad_policy={pad_policy!r} is not ported yet — see "
-            "ROADMAP.md, 'pad_policy'"
         )
     if table_format not in (None, "dense"):
         raise ValueError(
             f"table_format={table_format!r}: the message-passing "
             "engines run on dense tables only"
         )
+    return as_pad_policy(pad_policy)
 
 
 def compile_dcop(
@@ -247,9 +268,12 @@ def compile_dcop(
 
     ``max`` objectives are compiled by negating all costs (solvers
     always minimize).  Variables are compiled in degree-descending
-    order; assignments in and out are keyed by name.
+    order; assignments in and out are keyed by name.  ``pad_policy``
+    (``"none"``, ``"pow2"``, ``"pow2:<floor>"`` or a ``PadPolicy``)
+    buckets every array dimension with ghost variables and constraints
+    (``ops/padding.py``).
     """
-    _check_supported(n_shards, pad_policy, table_format)
+    pol = _check_supported(n_shards, pad_policy, table_format)
     dev = resolve_device(device)
     dtype = _resolve_table_dtype(table_dtype, dtype)
 
@@ -321,12 +345,38 @@ def compile_dcop(
 
     n_real_edges = sum(len(scope) for _, scope, _ in multi_cons)
 
+    # shape bucketing: ghost variables first (pinned to value 0 at zero
+    # cost); the ghost constraints below scope them, so the real
+    # variables' adjacency is untouched
+    n_pad_vars = 0
+    ghost_vars: List[int] = []
+    if pol.enabled:
+        n_pad_vars = pol.bucket(n_vars) - n_vars
+        if n_pad_vars:
+            ghost_vars = list(range(n_vars, n_vars + n_pad_vars))
+            domain_sizes = np.concatenate(
+                [domain_sizes, np.ones(n_pad_vars, dtype=np.int32)]
+            )
+            unary = np.concatenate([unary, ghost_unary(n_pad_vars, d_max)])
+            init_idx = np.concatenate(
+                [init_idx, np.zeros(n_pad_vars, dtype=np.int32)]
+            )
+            var_names = var_names + tuple(
+                f"__pad_v{i}" for i in range(n_pad_vars)
+            )
+            domain_labels = domain_labels + ((0,),) * n_pad_vars
+            n_vars += n_pad_vars
+
     # arity-major (stable) order: every arity bucket's constraints — and
     # so its edges — occupy one contiguous range of the edge array
     multi_cons = sorted(multi_cons, key=lambda it: len(it[1]))
+    if pol.enabled:
+        multi_cons = _pad_arity_groups(multi_cons, pol, d_max, ghost_vars)
     con_names = tuple(name for name, _, _ in multi_cons)
 
-    runs: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    # one run per arity; the ghost constraints padded onto a run's tail
+    # are counted so packing keeps their edges out of var_edges
+    runs: List[Tuple[int, np.ndarray, np.ndarray, int]] = []
     i = 0
     while i < len(multi_cons):
         k = len(multi_cons[i][1])
@@ -337,10 +387,15 @@ def compile_dcop(
             [multi_cons[ci][1] for ci in range(i, j)], dtype=np.int32
         ).reshape(j - i, k)
         tb = np.stack([multi_cons[ci][2] for ci in range(i, j)])
-        runs.append((k, sc, tb))
+        tail = 0
+        while tail < j - i and multi_cons[j - 1 - tail][0].startswith(
+            "__pad_c"
+        ):
+            tail += 1
+        runs.append((k, sc, tb, tail))
         i = j
 
-    packed = _pack_runs(runs, n_vars, d_max, dtype, dev)
+    packed = _pack_runs(runs, n_vars, d_max, dtype, dev, pol)
 
     return CompiledProblem(
         domain_sizes=torch.as_tensor(domain_sizes, device=dev),
@@ -352,9 +407,43 @@ def compile_dcop(
         maximize=dcop.objective == "max",
         n_shards=1,
         n_real_edges=n_real_edges,
-        n_pad_vars=0,
+        n_pad_vars=n_pad_vars,
         **packed,
     )
+
+
+def _pad_arity_groups(
+    multi_cons: List[Tuple[str, List[int], np.ndarray]],
+    policy: PadPolicy,
+    d_max: int,
+    ghost_vars: Sequence[int],
+) -> List[Tuple[str, List[int], np.ndarray]]:
+    """Pad each arity group of an arity-sorted constraint list up to the
+    policy's bucket with zero-table ghost constraints scoped on the
+    ghost variables (cycled; variable 0 when the variable count already
+    sat on a bucket boundary — the tables are all zero and the edges
+    never enter ``var_edges``)."""
+    out: List[Tuple[str, List[int], np.ndarray]] = []
+    i = 0
+    gi = 0
+    while i < len(multi_cons):
+        k = len(multi_cons[i][1])
+        j = i
+        while j < len(multi_cons) and len(multi_cons[j][1]) == k:
+            j += 1
+        group = multi_cons[i:j]
+        need = policy.bucket(len(group)) - len(group)
+        scopes = ghost_scopes(ghost_vars, need, k, start=gi)
+        gi += need
+        for t in range(need):
+            group.append((
+                f"__pad_c{k}_{t}",
+                list(scopes[t]),
+                np.zeros((d_max,) * k, dtype=np.float32),
+            ))
+        out.extend(group)
+        i = j
+    return out
 
 
 def _float_tensor(
@@ -368,32 +457,39 @@ def _float_tensor(
 
 
 def _pack_runs(
-    runs: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+    runs: Sequence[Tuple[int, np.ndarray, np.ndarray, int]],
     n_vars: int,
     d_max: int,
     dtype: torch.dtype,
     device: torch.device,
+    policy: PadPolicy = NO_PADDING,
 ) -> Dict[str, Any]:
     """Vectorized packing of constraint runs into the flat + edge +
     bucket tensors of :class:`CompiledProblem`.
 
     ``runs`` is the constraint list in its final (arity-sorted) order,
     as contiguous same-arity runs ``(k, scopes i32[m, k], tables
-    f32[m, d_max^k])``.  A run whose tables have leading dim 1 while
-    its scopes have m > 1 is a **shared-table run**: all m constraints
-    use the one table, stored once in the flat form (every offset
-    points at it) and kept as ``[1, ...]`` in the bucket.
+    f32[m, d_max^k], ghost_tail)``; ``ghost_tail`` counts the zero-table
+    ghost constraints a pad policy appended to the run.  A run whose
+    tables have leading dim 1 while its scopes have m > 1 is a
+    **shared-table run**: all m constraints use the one table, stored
+    once in the flat form (every offset points at it) and kept as
+    ``[1, ...]`` in the bucket.
+
+    With an enabled ``policy``, ghost edges stay out of ``var_edges``,
+    and the flat-table length, the adjacency widths and the
+    ``var_slot_counts`` prefixes are quantized (``ops/padding.py``).
     """
-    k_max = max((k for k, _, _ in runs), default=2)
+    k_max = max((k for k, _, _, _ in runs), default=2)
     k_max = max(k_max, 2)
-    n_cons = sum(sc.shape[0] for _, sc, _ in runs)
+    n_cons = sum(sc.shape[0] for _, sc, _, _ in runs)
 
     def _is_shared(sc: np.ndarray, tb: np.ndarray) -> bool:
         return tb.shape[0] == 1 and sc.shape[0] > 1
 
     total_cells = sum(
         (1 if _is_shared(sc, tb) else sc.shape[0]) * d_max**k
-        for k, sc, tb in runs
+        for k, sc, tb, _ in runs
     )
     if total_cells > np.iinfo(np.int32).max:
         raise ValueError(
@@ -410,7 +506,7 @@ def _pack_runs(
     total = 0
     ci = 0
     run_con_base = []
-    for k, sc, tb in runs:
+    for k, sc, tb, _ in runs:
         m = sc.shape[0]
         size = d_max**k
         run_con_base.append(ci)
@@ -429,23 +525,33 @@ def _pack_runs(
         con_strides[ci : ci + m, :k] = strides
         ci += m
     tables_flat = (
-        np.concatenate([tb.reshape(-1) for _, _, tb in runs])
+        np.concatenate([tb.reshape(-1) for _, _, tb, _ in runs])
         if runs
         else np.zeros(1, dtype=np.float32)
     )
+    if policy.enabled:
+        # the flat pool's length in block multiples (no offset points
+        # at the padding)
+        tgt_cells = policy.bucket_cells(tables_flat.size)
+        if tgt_cells > tables_flat.size:
+            tables_flat = np.concatenate([
+                tables_flat,
+                np.zeros(tgt_cells - tables_flat.size, dtype=np.float32),
+            ])
 
     # Edge ids are POSITION-MAJOR within each arity run: all position-0
     # edges of the run's constraints, then all position-1, …
-    n_edges = sum(sc.shape[0] * k for k, sc, _ in runs)
+    n_edges = sum(sc.shape[0] * k for k, sc, _, _ in runs)
     edge_var = np.zeros(max(n_edges, 1), dtype=np.int32)
     edge_con = np.zeros(max(n_edges, 1), dtype=np.int32)
     edge_offset = np.zeros(max(n_edges, 1), dtype=np.int32)
     edge_stride = np.zeros(max(n_edges, 1), dtype=np.int32)
     edge_covars = np.zeros((max(n_edges, 1), k_max - 1), dtype=np.int32)
     edge_costrides = np.zeros((max(n_edges, 1), k_max - 1), dtype=np.int32)
+    edge_ghost = np.zeros(max(n_edges, 1), dtype=bool)
     run_edge_base = []
     edge_base = 0
-    for ri, (k, sc, _) in enumerate(runs):
+    for ri, (k, sc, _, gtail) in enumerate(runs):
         m = sc.shape[0]
         i = run_con_base[ri]
         strides = np.array(
@@ -461,12 +567,19 @@ def _pack_runs(
             other = [q for q in range(k) if q != p]
             edge_covars[sl, : k - 1] = sc[:, other]
             edge_costrides[sl, : k - 1] = strides[other]
+            if gtail:
+                edge_ghost[
+                    edge_base + p * m + (m - gtail) : edge_base + (p + 1) * m
+                ] = True
         edge_base += m * k
 
     # per-variable incoming edge lists (sentinel-padded with n_edges):
-    # stable sort by owner variable
-    if n_edges:
-        ev = edge_var[:n_edges]
+    # stable sort by owner variable; ghost edges stay out of them
+    sel = np.arange(n_edges, dtype=np.int64)
+    if policy.enabled and n_edges:
+        sel = sel[~edge_ghost[:n_edges]]
+    if sel.size:
+        ev = edge_var[sel]
         counts = np.bincount(ev, minlength=n_vars)
         max_var_deg = max(int(counts.max(initial=0)), 1)
         var_edges = np.full((n_vars, max_var_deg), n_edges, dtype=np.int32)
@@ -474,8 +587,8 @@ def _pack_runs(
         ev_sorted = ev[order]
         starts = np.zeros(n_vars, dtype=np.int64)
         starts[1:] = np.cumsum(counts)[:-1]
-        rank = np.arange(n_edges, dtype=np.int64) - starts[ev_sorted]
-        var_edges[ev_sorted, rank] = order.astype(np.int32)
+        rank = np.arange(sel.size, dtype=np.int64) - starts[ev_sorted]
+        var_edges[ev_sorted, rank] = sel[order].astype(np.int32)
     else:
         var_edges = np.full((n_vars, 1), n_edges, dtype=np.int32)
     # prefix invariant: the degree sort must reproduce the ACTUAL
@@ -489,10 +602,26 @@ def _pack_runs(
     var_slot_counts = tuple(
         int(x) for x in (var_edges != n_edges).sum(axis=0)
     )
+    if policy.enabled:
+        # quantized adjacency width and prefix counts: problems of one
+        # bucket agree on them exactly (the extra prefix rows gather the
+        # sentinel, a zero row)
+        w = policy.bucket_dim(var_edges.shape[1])
+        if w > var_edges.shape[1]:
+            var_edges = np.concatenate([
+                var_edges,
+                np.full((n_vars, w - var_edges.shape[1]), n_edges,
+                        dtype=np.int32),
+            ], axis=1)
+        var_slot_counts = var_slot_counts + (0,) * (w - len(var_slot_counts))
+        var_slot_counts = tuple(
+            0 if c == 0 else min(policy.bucket(c), n_vars)
+            for c in var_slot_counts
+        )
 
     # primal neighbors (padded): directed in-scope pairs, value-deduped
     pair_parts = []
-    for k, sc, _ in runs:
+    for k, sc, _, _ in runs:
         for a in range(k):
             for b in range(k):
                 if a != b:
@@ -507,6 +636,8 @@ def _pack_runs(
         pairs = np.zeros((0, 2), dtype=np.int32)
     ncounts = np.bincount(pairs[:, 0], minlength=n_vars)
     max_deg = max(int(ncounts.max(initial=0)), 1)
+    if policy.enabled:
+        max_deg = policy.bucket_dim(max_deg)
     neighbors = np.zeros((n_vars, max_deg), dtype=np.int32)
     neighbor_mask = np.zeros((n_vars, max_deg), dtype=bool)
     if len(pairs):
@@ -519,7 +650,7 @@ def _pack_runs(
     # arity buckets: one run per arity (single segment); edge slots are
     # pure arithmetic on the run layout
     buckets: Dict[int, ArityBucket] = {}
-    for ri, (k, sc, tb) in enumerate(runs):
+    for ri, (k, sc, tb, _) in enumerate(runs):
         m = sc.shape[0]
         btables = np.asarray(tb, dtype=np.float32)
         bslots = (
@@ -697,9 +828,13 @@ def compile_from_arrays(
     arities); ``tables`` matches it with ``f32[(d,)*k]`` (one table
     SHARED by all m constraints) or ``f32[m, (d,)*k]``.  ``unary`` and
     ``init_idx`` are in ORIGINAL variable-id order; variable ``i`` is
-    named ``f"{var_prefix}{i}"``.
+    named ``f"{var_prefix}{i}"``.  An enabled ``pad_policy`` appends
+    ghost variables (the tail of the slot order) and zero-table ghost
+    constraints; a shared-table group that needs ghosts is materialized
+    per constraint (a group already on a bucket boundary keeps its one
+    table), as in the JAX package.
     """
-    _check_supported(n_shards, pad_policy, table_format)
+    pol = _check_supported(n_shards, pad_policy, table_format)
     dev = resolve_device(device)
     dtype = _resolve_table_dtype(table_dtype, dtype)
     if not isinstance(scopes, (list, tuple)):
@@ -734,6 +869,10 @@ def compile_from_arrays(
             f"n_values={d}"
         )
     sign = -1.0 if maximize else 1.0
+
+    n_real_vars = n_vars
+    n_pad_vars = pol.bucket(n_vars) - n_vars if pol.enabled else 0
+    n_vars += n_pad_vars
 
     # shared ``f32[(d,)*k]`` stays ONE copy (leading dim 1);
     # per-constraint tables keep ``f32[m, (d,)*k]``
@@ -773,10 +912,15 @@ def compile_from_arrays(
 
     def _merge_arity(ss, ts):
         """One (scopes, tables) per arity.  Sharedness survives only
-        when the whole group is one shared entry; mixed groups
-        materialize per-constraint tables."""
+        when the whole group is one shared entry that needs no ghost
+        rows; other groups materialize per-constraint tables."""
         sc = np.concatenate(ss) if len(ss) > 1 else ss[0]
-        if len(ts) == 1 and ts[0].shape[0] == 1 and sc.shape[0] > 1:
+        if (
+            len(ts) == 1
+            and ts[0].shape[0] == 1
+            and sc.shape[0] > 1
+            and pol.bucket(sc.shape[0]) == sc.shape[0]
+        ):
             return sc, ts[0]
         mats = [
             np.broadcast_to(t, (s.shape[0],) + t.shape[1:])
@@ -786,31 +930,51 @@ def compile_from_arrays(
         ]
         return sc, np.concatenate(mats)
 
-    runs = [
-        (k, *_merge_arity(ss, ts)) for k, (ss, ts) in sorted(by_k.items())
-    ]
-    packed = _pack_runs(runs, n_vars, d, dtype, dev)
+    # ghost constraints scope the ghost variable slots (the tail of the
+    # slot order: ghosts have degree 0), with zero tables
+    ghost_slots = list(range(n_real_vars, n_vars))
+    runs: List[Tuple[int, np.ndarray, np.ndarray, int]] = []
+    for k, (ss, ts) in sorted(by_k.items()):
+        sc, tb = _merge_arity(ss, ts)
+        gtail = pol.bucket(sc.shape[0]) - sc.shape[0] if pol.enabled else 0
+        if gtail:
+            sc = np.concatenate([sc, ghost_scopes(ghost_slots, gtail, k)])
+            tb = np.concatenate(
+                [tb, np.zeros((gtail,) + (d,) * k, dtype=np.float32)]
+            )
+        runs.append((k, sc, tb, gtail))
+    packed = _pack_runs(runs, n_vars, d, dtype, dev, pol)
 
     if unary is None:
-        unary_np = np.zeros((n_vars, d), dtype=np.float32)
+        unary_np = np.zeros((n_real_vars, d), dtype=np.float32)
     else:
         unary_np = np.asarray(unary, dtype=np.float32) * sign
-        if unary_np.shape != (n_vars, d):
+        if unary_np.shape != (n_real_vars, d):
             raise ValueError(
-                f"unary shape {unary_np.shape} != {(n_vars, d)}"
+                f"unary shape {unary_np.shape} != {(n_real_vars, d)}"
             )
+    if n_pad_vars:
+        unary_np = np.concatenate([unary_np, ghost_unary(n_pad_vars, d)])
     unary_np = unary_np[perm]
     if init_idx is None:
         init_np = np.zeros(n_vars, dtype=np.int32)
     else:
-        init_np = np.asarray(init_idx, dtype=np.int32)[perm]
+        init_np = np.asarray(init_idx, dtype=np.int32)
+        if n_pad_vars:
+            init_np = np.concatenate(
+                [init_np, np.zeros(n_pad_vars, dtype=np.int32)]
+            )
+        init_np = init_np[perm]
+    domain_sizes = np.full(n_vars, d, dtype=np.int32)
+    domain_sizes[n_real_vars:] = 1  # ghost slots: the tail
 
     labels = tuple(
         domain_values if domain_values is not None else range(d)
     )
-    con_ids = np.arange(sum(s.shape[0] for _, s, _ in runs), dtype=np.int64)
+    con_ids = np.arange(sum(s.shape[0] for _, s, _, _ in runs),
+                        dtype=np.int64)
     return CompiledProblem(
-        domain_sizes=torch.full((n_vars,), d, dtype=torch.int32, device=dev),
+        domain_sizes=torch.as_tensor(domain_sizes, device=dev),
         unary=_float_tensor(unary_np, dtype, dev),
         init_idx=torch.as_tensor(init_np, device=dev),
         var_names=AutoNames(var_prefix, perm),
@@ -819,7 +983,7 @@ def compile_from_arrays(
         maximize=maximize,
         n_shards=1,
         n_real_edges=n_real_edges,
-        n_pad_vars=0,
+        n_pad_vars=n_pad_vars,
         **packed,
     )
 
@@ -865,3 +1029,219 @@ def decode_assignment(
             problem.var_names[: problem.n_real_vars]
         )
     }
+
+
+# -- several instances: grouping, stacking, the disjoint union ------------
+
+
+def canonical_execution_problem(problem: CompiledProblem) -> CompiledProblem:
+    """A copy of ``problem`` whose host-only metadata (names, labels,
+    accounting counts) is replaced by shape-derived placeholders, as the
+    JAX package's ``canonical_execution_problem`` does: two problems that
+    agree on shapes, dtypes and the round loop's statics
+    (``var_slot_counts``, ``maximize``, bucket arities) then have equal
+    canonical forms.  Tensor leaves are shared, not copied."""
+    n = problem.n_vars
+    return dataclasses.replace(
+        problem,
+        var_names=("__anon_vars__", n),
+        domain_labels=("__anon_labels__", n, problem.d_max),
+        con_names=("__anon_cons__", problem.n_cons),
+        n_real_edges=problem.n_edges,
+        n_pad_vars=0,
+    )
+
+
+def _leaves(problem: CompiledProblem) -> List[Tuple[str, torch.Tensor]]:
+    """Every tensor leaf with its name, buckets in arity order."""
+    out = [(f, getattr(problem, f)) for f in ARRAY_FIELDS]
+    for k, b in sorted(problem.buckets.items()):
+        out += [
+            (f"buckets.{k}.{f.name}", getattr(b, f.name))
+            for f in dataclasses.fields(b)
+        ]
+    return out
+
+
+def problem_group_key(problem: CompiledProblem):
+    """Hashable batching key: equal keys mean equal leaf shapes and
+    dtypes and equal statics (``maximize``, ``n_shards``,
+    ``var_slot_counts``, bucket arities), so the problems stack into one
+    :class:`StackedProblem` (the grouping predicate of
+    :func:`stack_problems`, as in the JAX package).  Names never split a
+    group; a ``pad_policy`` steers similarly-sized problems onto one
+    key."""
+    return (
+        problem.maximize,
+        problem.n_shards,
+        tuple(problem.var_slot_counts),
+        tuple(sorted(problem.buckets)),
+        tuple(
+            (name, tuple(t.shape), str(t.dtype), t.device.type)
+            for name, t in _leaves(problem)
+        ),
+    )
+
+
+@dataclasses.dataclass
+class StackedProblem:
+    """I same-key problems stacked along a leading instance axis.
+
+    ``problem`` is a :class:`CompiledProblem` whose tensor leaves carry
+    the extra leading ``[I, ...]`` axis and whose metadata is the shared
+    canonical form: it is not a valid single-instance problem (its
+    ``n_vars`` would read the instance count).  ``template`` is the
+    canonical single-instance member, ``host_problems`` the original
+    (named) problems in stack order, for decoding and message
+    accounting, and ``indices`` maps stack position to input position.
+
+    The message-passing algorithms run on the stacked form directly
+    (state ``[I, R, d, E]``); the properties below give them the
+    template's sizes and the stacked tensors in the shapes they read.
+    The local search runs on :func:`union_problem` instead.
+    """
+
+    problem: CompiledProblem  # stacked leaves [I, ...]
+    template: CompiledProblem  # canonical single-instance member
+    host_problems: List[CompiledProblem]  # originals, stack order
+    indices: List[int]  # stack position -> input position
+
+    @property
+    def n_instances(self) -> int:
+        return len(self.host_problems)
+
+    n_vars = property(lambda self: self.template.n_vars)
+    n_edges = property(lambda self: self.template.n_edges)
+    n_cons = property(lambda self: self.template.n_cons)
+    d_max = property(lambda self: self.template.d_max)
+    n_shards = property(lambda self: self.template.n_shards)
+    device = property(lambda self: self.template.device)
+    maximize = property(lambda self: self.template.maximize)
+    var_slot_counts = property(lambda self: self.template.var_slot_counts)
+    buckets = property(lambda self: self.problem.buckets)  # stacked
+    edge_var = property(lambda self: self.problem.edge_var)  # [I, E]
+
+    @functools.cached_property
+    def unary_t(self) -> torch.Tensor:
+        """``[I, 1, d, n]``: each instance's ``unary_t``, with a restart
+        axis to broadcast over."""
+        return self.problem.unary.transpose(1, 2).contiguous()[:, None]
+
+    @functools.cached_property
+    def var_edges_t(self) -> torch.Tensor:
+        """``[I, max_var_deg, n]`` int64: each instance's degree-slot
+        rows (the batched belief gather's index)."""
+        return self.problem.var_edges.transpose(1, 2).contiguous().long()
+
+    @functools.cached_property
+    def slot_sentinels(self) -> bool:
+        return any(p.slot_sentinels for p in self.host_problems)
+
+
+def stack_problems(
+    problems: Sequence[CompiledProblem],
+) -> List[StackedProblem]:
+    """Group problems by :func:`problem_group_key` (in order of first
+    appearance) and stack each group's tensor leaves along a new leading
+    instance axis (a group of one still stacks, with ``I = 1``)."""
+    groups: Dict[Any, List[int]] = {}
+    for i, p in enumerate(problems):
+        groups.setdefault(problem_group_key(p), []).append(i)
+    out: List[StackedProblem] = []
+    for idxs in groups.values():
+        canon = [canonical_execution_problem(problems[i]) for i in idxs]
+        first = canon[0]
+        stacked = {
+            f: torch.stack([getattr(c, f) for c in canon])
+            for f in ARRAY_FIELDS
+        }
+        stacked["buckets"] = {
+            k: ArityBucket(*(
+                torch.stack([getattr(c.buckets[k], f.name) for c in canon])
+                for f in dataclasses.fields(b)
+            ))
+            for k, b in first.buckets.items()
+        }
+        out.append(StackedProblem(
+            problem=dataclasses.replace(first, **stacked),
+            template=first,
+            host_problems=[problems[i] for i in idxs],
+            indices=list(idxs),
+        ))
+    return out
+
+
+def union_problem(stacked: StackedProblem) -> CompiledProblem:
+    """The I stacked instances as ONE problem, their disjoint union,
+    interleaved: local variable, constraint or edge ``x`` of instance
+    ``i`` becomes ``x·I + i``; each instance's flat tables follow the
+    previous instance's.  The order within every instance is kept, so
+    the union keeps each instance's arity buckets position-major, its
+    degree-sorted prefixes (``var_slot_counts`` times I) and its
+    neighbor order, and a deterministic algorithm computes on each
+    instance exactly what it computes on the instance alone.  This is
+    the local search's lowering of the instance axis
+    (``engine/batched.py:run_many_batched``)."""
+    sp = stacked.problem
+    I = stacked.n_instances
+    n, E, T = stacked.n_vars, stacked.n_edges, sp.tables_flat.shape[1]
+    if I * T > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"{I} instances of {T} table cells overflow the int32 "
+            "offsets of one union problem — solve fewer at once"
+        )
+
+    def inst(x: torch.Tensor) -> torch.Tensor:  # i, shaped to x's rank
+        return torch.arange(I, dtype=x.dtype, device=x.device).view(
+            (I,) + (1,) * (x.dim() - 1)
+        )
+
+    def weave(x: torch.Tensor) -> torch.Tensor:  # [I, L, ...] -> [L*I, ...]
+        return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:]))
+
+    def ids(x: torch.Tensor) -> torch.Tensor:  # local ids -> union ids
+        return weave(x * I + inst(x))
+
+    def cells(x: torch.Tensor) -> torch.Tensor:  # flat-table offsets
+        return weave(x + inst(x) * T)
+
+    ve = sp.var_edges
+    var_edges = weave(torch.where(ve == E, E * I, ve * I + inst(ve)))
+    buckets = {}
+    for k, b in sp.buckets.items():
+        m = b.scopes.shape[1]
+        tables = b.tables.expand((I, m) + tuple(b.tables.shape[2:]))
+        tables = weave(tables)
+        buckets[k] = ArityBucket(
+            tables=tables,
+            tables_t=tables.movedim(0, -1).contiguous(),
+            scopes=ids(b.scopes),
+            edge_slot=ids(b.edge_slot),
+        )
+    return CompiledProblem(
+        domain_sizes=weave(sp.domain_sizes),
+        unary=weave(sp.unary),
+        init_idx=weave(sp.init_idx),
+        tables_flat=sp.tables_flat.reshape(-1),
+        con_offset=cells(sp.con_offset),
+        con_scopes=ids(sp.con_scopes),
+        con_strides=weave(sp.con_strides),
+        edge_var=ids(sp.edge_var),
+        edge_con=ids(sp.edge_con),
+        edge_offset=cells(sp.edge_offset),
+        edge_stride=weave(sp.edge_stride),
+        edge_covars=ids(sp.edge_covars),
+        edge_costrides=weave(sp.edge_costrides),
+        neighbors=ids(sp.neighbors),
+        neighbor_mask=weave(sp.neighbor_mask),
+        var_edges=var_edges,
+        buckets=buckets,
+        var_names=("__union_vars__", n * I),
+        domain_labels=("__union_labels__", n * I, stacked.d_max),
+        con_names=("__union_cons__", stacked.n_cons * I),
+        maximize=stacked.maximize,
+        n_shards=1,
+        n_real_edges=sum(p.n_real_edges for p in stacked.host_problems),
+        var_slot_counts=tuple(c * I for c in stacked.var_slot_counts),
+        n_pad_vars=0,
+    )

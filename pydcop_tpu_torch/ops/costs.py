@@ -7,7 +7,8 @@
   edge's candidate sweep and of each constraint under an assignment.
 - :func:`local_cost_sweep` — every variable's full candidate-value cost
   row under the current assignment.
-- :func:`total_cost` — solution cost of an assignment, on the device.
+- :func:`total_cost` — solution cost of an assignment, on the device;
+  :func:`instance_costs` the same per instance of a stacked problem.
 - :func:`neighbor_gather` — gather a per-variable quantity from each
   primal-graph neighbor (:func:`at_neighbors` without the padding fill).
 
@@ -30,11 +31,11 @@ from typing import Optional
 
 import torch
 
-from pydcop_tpu_torch.ops.compile import CompiledProblem
+from pydcop_tpu_torch.ops.compile import CompiledProblem, StackedProblem
 
 
 def gather_sum_slots(
-    problem: CompiledProblem,
+    problem,
     per_edge: torch.Tensor,
     acc: torch.Tensor,
     dim: int = -1,
@@ -47,14 +48,32 @@ def gather_sum_slots(
     real entries are the first ``var_slot_counts[p]`` variables: slot
     by slot, that prefix is gathered and added in place (the slots are
     added in ascending order, one rounding per add — the order the JAX
-    TPU lowering uses).  ``acc`` is not modified; the sum is returned.
+    TPU lowering uses).  Where a pad policy over-approximated a prefix,
+    its sentinel entries read a zero row appended to ``per_edge``, as in
+    the JAX package.  ``acc`` is not modified; the sum is returned.
+
+    ``problem`` may be a :class:`StackedProblem`: ``per_edge`` and
+    ``acc`` then lead with the instance axis, the edge and variable
+    axes are the last ones, and instance i gathers through its own
+    index (one ``gather`` per slot for all instances).
     """
-    ve_t = problem.var_edges_t  # [max_var_deg, n_vars]
+    ve_t = problem.var_edges_t  # [(I,) max_var_deg, n_vars]
+    if problem.slot_sentinels:
+        shape = list(per_edge.shape)
+        shape[dim] = 1
+        per_edge = torch.cat([per_edge, per_edge.new_zeros(shape)], dim)
+    stacked = isinstance(problem, StackedProblem)
     acc = acc.clone()
     for p, n_p in enumerate(problem.var_slot_counts):
         if n_p == 0:
             break  # counts are monotone over slots
-        g = per_edge.index_select(dim, ve_t[p, :n_p])
+        if stacked:
+            idx = ve_t[:, p, :n_p].reshape(
+                (ve_t.shape[0],) + (1,) * (per_edge.dim() - 2) + (n_p,)
+            )
+            g = per_edge.gather(-1, idx.expand(per_edge.shape[:-1] + (n_p,)))
+        else:
+            g = per_edge.index_select(dim, ve_t[p, :n_p])
         acc.narrow(dim, 0, n_p).add_(g.to(acc.dtype))
     return acc
 
@@ -126,6 +145,35 @@ def total_cost(
     unary = problem.unary.expand(v.shape + (problem.d_max,))
     var_cost = unary.gather(-1, v[..., None])[..., 0].sum(dim=-1)
     return con_cost + var_cost
+
+
+def instance_costs(
+    stacked: StackedProblem, values: torch.Tensor
+) -> torch.Tensor:
+    """``[I, ...]``: :func:`total_cost` of each instance of a stacked
+    problem under ``values [I, ..., n_vars]`` (instance i's assignments
+    against instance i's tables), the same cells summed in the same
+    order as each instance's own ``total_cost``."""
+    sp = stacked.problem
+    I, n = values.shape[0], values.shape[-1]
+    v = values.long().reshape(I, -1, n)  # [I, B, n]
+    B = v.shape[1]
+    scopes = sp.con_scopes.long()  # [I, C, K]
+    C, K = scopes.shape[1:]
+    if stacked.n_cons:
+        sv = v.gather(-1, scopes.reshape(I, 1, C * K).expand(I, B, C * K))
+        cells = sp.con_offset.long()[:, None] + (
+            sv.view(I, B, C, K) * sp.con_strides.long()[:, None]
+        ).sum(dim=-1)  # [I, B, C]
+        con_cost = sp.tables_flat.gather(-1, cells.view(I, B * C)).view(
+            I, B, C
+        ).sum(dim=-1)
+    else:
+        con_cost = torch.zeros((I, B), dtype=sp.unary.dtype,
+                               device=v.device)
+    unary = sp.unary[:, None].expand(I, B, n, stacked.d_max)
+    var_cost = unary.gather(-1, v[..., None])[..., 0].sum(dim=-1)
+    return (con_cost + var_cost).reshape(values.shape[:-1])
 
 
 def at_neighbors(

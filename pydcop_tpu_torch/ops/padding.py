@@ -1,14 +1,19 @@
-"""Pad policies, the table-dtype vocabulary and DPOP's level-pack helpers.
+"""Pad policies, ghost padding, the table-dtype vocabulary and DPOP's
+level-pack helpers (a copy of ``pydcop_tpu/ops/padding.py``).
 
-A reduced copy of ``pydcop_tpu/ops/padding.py``: the padding constant
-and table dtypes the compiler reads, and the pieces DPOP's UTIL sweep
-uses to bucket its level dispatches (``PadPolicy``, ``as_pad_policy``,
-``bucket_util_shape``, ``util_level_key``, ``pad_util_parts``,
-``stack_bucket``, ``table_dtype_eps``).  The compiler's shape bucketing
-(ghost variables and constraints) is not copied yet: ``compile_dcop``
-accepts ``pad_policy="none"`` only (ROADMAP.md, 'pad_policy'), while
-DPOP takes ``"none"``, ``"pow2"``, ``"pow2:<floor>"`` or a
-``PadPolicy``.
+A :class:`PadPolicy` quantizes every shape-bearing dimension of a
+compiled problem (variable count, per-arity constraint count, adjacency
+widths, flat-table length) up to powers of two above a floor, so that
+similarly-sized problems compile to arrays of one shape and can be
+stacked and solved together (``api.solve_many``).  Padding is invisible
+in costs: ghost variables get a 1-value domain (``BIG`` unary cost on
+every other value, built by :func:`ghost_unary`) and ghost constraints
+carry all-zero tables scoped on ghost variables (:func:`ghost_scopes`).
+The same policy buckets DPOP's UTIL level dispatches
+(``bucket_util_shape``, ``util_level_key``, ``pad_util_parts``,
+``stack_bucket``).
+
+Spec strings: ``"none"``, ``"pow2"`` (floor 16) or ``"pow2:<floor>"``.
 """
 
 from __future__ import annotations
@@ -26,12 +31,14 @@ BIG = 1e9
 @dataclasses.dataclass(frozen=True)
 class PadPolicy:
     """Bucket quantization: ``kind`` ``"none"`` or ``"pow2"`` (powers
-    of two clamped up to ``floor``).  The JAX package's compile-time
-    fields (``deg_floor``, ``flat_block``) come with the compiler's
-    ghost padding."""
+    of two clamped up to ``floor``).  ``deg_floor`` bounds the adjacency
+    width buckets (``var_edges`` / ``neighbors`` columns) from below;
+    ``flat_block`` is the cell multiple ``tables_flat`` is padded to."""
 
     kind: str = "none"  # "none" | "pow2"
     floor: int = 16
+    deg_floor: int = 4
+    flat_block: int = 1024
 
     @property
     def enabled(self) -> bool:
@@ -46,8 +53,40 @@ class PadPolicy:
             b <<= 1
         return max(b, floor if floor is not None else self.floor)
 
+    def bucket_dim(self, n: int) -> int:
+        """Bucket for adjacency widths (per-variable degree columns)."""
+        return self.bucket(n, self.deg_floor)
+
+    def bucket_cells(self, n: int) -> int:
+        """Flat-table length rounded up to a ``flat_block`` multiple."""
+        if not self.enabled or n <= 0:
+            return n
+        blk = self.flat_block
+        return ((n + blk - 1) // blk) * blk
+
 
 NO_PADDING = PadPolicy()
+
+
+def ghost_unary(n_pad: int, d_max: int) -> np.ndarray:
+    """f32[n_pad, d_max] unary rows of ghost variables: value 0 at zero
+    cost, ``BIG`` on every other value."""
+    rows = np.full((n_pad, d_max), BIG, dtype=np.float32)
+    rows[:, 0] = 0.0
+    return rows
+
+
+def ghost_scopes(
+    targets: Sequence[int], count: int, k: int, start: int = 0
+) -> np.ndarray:
+    """i32[count, k] ghost-constraint scopes: row q repeats
+    ``targets[(start + q) % len(targets)]`` k times (self-scoped, so the
+    neighbor pass's a != b test drops the pairs)."""
+    tg = list(targets) or [0]
+    return np.asarray(
+        [[tg[(start + q) % len(tg)]] * k for q in range(count)],
+        dtype=np.int32,
+    ).reshape(count, k)
 
 
 #: canonical table dtype spellings, cheapest storage last

@@ -188,8 +188,9 @@ def bp_factor_messages(
 
     ``tab`` is the bucket's ``[d, ..., d, m]`` table stack (or
     ``[d, ..., d, 1]`` for a shared table), ``q_pos`` the ``k``
-    per-position ``[d, m]`` messages; returns the ``k`` outgoing
-    ``[d, m]`` messages in ``mdt``.
+    per-position ``[..., d, m]`` messages (leading batch axes, e.g.
+    restarts and instances, with ``tab`` broadcastable over them);
+    returns the ``k`` outgoing messages in ``mdt``.
 
     ``bnb`` is accepted for parameter parity.  The JAX package's
     branch-and-bound pruning returns messages bit-identical to the
@@ -200,15 +201,16 @@ def bp_factor_messages(
     get_semiring(sr)
     del bnb  # bit-identical messages either way (see docstring)
     k = len(q_pos)
-    d, m = q_pos[0].shape
+    lead = tuple(q_pos[0].shape[:-2])
+    d, m = q_pos[0].shape[-2:]
     s = tab
     for p in range(k):
-        shape = (1,) * p + (d,) + (1,) * (k - 1 - p) + (m,)
+        shape = lead + (1,) * p + (d,) + (1,) * (k - 1 - p) + (m,)
         s = s + q_pos[p].to(tab.dtype).reshape(shape)
     outs = []
-    for p in range(k):
-        axes = tuple(a for a in range(k) if a != p)
+    for p in range(k):  # position a's axis is a - k - 1
+        axes = tuple(a - k - 1 for a in range(k) if a != p)
         rp = s.amin(dim=axes) - q_pos[p].to(tab.dtype)
-        rp = rp - rp.amin(dim=0, keepdim=True)
+        rp = rp - rp.amin(dim=-2, keepdim=True)
         outs.append(rp.to(mdt))
     return outs

@@ -153,15 +153,21 @@ def test_interop_round_trip():
 
 
 def test_unported_layouts_raise():
+    """The sharded layout still raises; ``pad_policy`` (ported) compiles
+    the JAX package's padded problem, leaf for leaf."""
     scopes, table, unary = _coloring(shared=True, n=50)
     with pytest.raises(NotImplementedError, match="n_shards"):
         tcompile.compile_from_arrays(
             scopes, table, 3, n_shards=2, device="cpu"
         )
-    with pytest.raises(NotImplementedError, match="pad_policy"):
+    assert_same_problem(
         tcompile.compile_from_arrays(
-            scopes, table, 3, pad_policy="pow2", device="cpu"
-        )
+            scopes, table, 3, unary=unary, pad_policy="pow2", device="cpu"
+        ),
+        jcompile.compile_from_arrays(
+            scopes, table, 3, unary=unary, pad_policy="pow2"
+        ),
+    )
 
 
 def test_encode_decode_assignment_round_trip():

@@ -312,9 +312,14 @@ def test_entry_point_checks():
         port_solve(RING, "dpop", resume=True, device="cpu")
     with pytest.raises(ValueError, match="solve_compiled"):
         solve_compiled(SimpleNamespace(), "dpop")
-    # the batched engine's compile still takes pad_policy 'none' only
-    with pytest.raises(NotImplementedError, match="pad_policy"):
-        port_solve(RING, "maxsum", rounds=2, pad_policy="pow2", device="cpu")
+    # the batched engine's compile takes pad_policy too: a padded
+    # Max-Sum solve returns the JAX package's assignment and cost
+    ms = {"noise": 0.0}
+    want = jax_solve(RING, "maxsum", ms, rounds=8, pad_policy="pow2")
+    got = port_solve(RING, "maxsum", ms, rounds=8, pad_policy="pow2",
+                     device="cpu")
+    assert got["assignment"] == want["assignment"]
+    assert got["cost"] == pytest.approx(want["cost"], rel=1e-6)
     if not torch.cuda.is_available():
         with pytest.raises(NoCudaDeviceError):
             port_solve(RING, "dpop")

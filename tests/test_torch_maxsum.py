@@ -215,10 +215,15 @@ def test_run_batched_returns_state_and_rejects_unported_options():
     r15 = run_batched(port, mod, params, rounds=15, return_state=True)
     for k in ("q", "r", "values"):
         assert torch.equal(r2.state[k], r15.state[k])
-    for kw in ({"n_restarts": 2}, {"checkpoint_path": "x.npz"},
+    for kw in ({"checkpoint_path": "x.npz"},
                {"mesh": object()}, {"chunk_callback": print}):
         with pytest.raises(NotImplementedError):
             run_batched(port, mod, params, rounds=1, **kw)
+    # restarts are ported: the state takes the [K] axis
+    rk = run_batched(port, mod, params, rounds=2, n_restarts=2,
+                     return_state=True)
+    assert len(rk.restart_costs) == 2
+    assert rk.state["q"].shape == (2,) + r.state["q"].shape
     with pytest.raises(NotImplementedError, match="blockdiag"):
         run_batched(
             port, mod, prepare_algo_params({"belief": "blockdiag"},

@@ -368,3 +368,82 @@ def test_q_update_rejects_a_wrong_edge_index(bad, err):
         bt = bt.to(torch.bfloat16)
     with pytest.raises(err, match="belief" if bad == "belief_dtype" else "edge_idx"):
         mk.q_update(bt, et, rt, qt, 0.5)
+
+
+# -- the batch axis: the plain versions against the vmapped Pallas kernels
+
+
+@pytest.mark.parametrize("tables", ["one", "stacked"])
+@pytest.mark.parametrize("d", [3, 10])
+@pytest.mark.parametrize("per_factor", [False, True], ids=["shared", "per_factor"])
+def test_batched_factor_plain_matches_vmapped_pallas(per_factor, d, tables):
+    """B = 3 batches in one call: with one table for every batch (an
+    operand without the batch axis: ``vmap`` ``in_axes=None``) or one
+    table per instance (``[I, ...]``, I = 3), against the Pallas kernel
+    under ``jax.vmap`` in interpret mode (the batching rule adds a grid
+    axis): bit-equal, and each batch bit-equal to an unbatched call."""
+    B, m = 3, 130
+    rng = np.random.RandomState(d + m)
+    shape = (d, d, m) if per_factor else (d, d)
+    lead = (B,) if tables == "stacked" else ()
+    (tj, tt) = _pair(rng.rand(*lead, *shape).astype(np.float32) * 10)
+    (q0j, q0t) = _pair(rng.rand(B, d, m).astype(np.float32))
+    (q1j, q1t) = _pair(rng.rand(B, d, m).astype(np.float32))
+    kernel = (pallas_maxsum.factor_round_binary if per_factor
+              else pallas_maxsum.factor_round_binary_shared)
+    ref = jax.vmap(
+        functools.partial(kernel, interpret=True),
+        in_axes=(0 if tables == "stacked" else None, 0, 0),
+    )(tj, q0j, q1j)
+    plain = (mk.factor_round_binary_plain if per_factor
+             else mk.factor_round_binary_shared_plain)
+    got = plain(tt, q0t, q1t)
+    for g, r in zip(got, ref):
+        assert g.shape == (B, d, m)
+        np.testing.assert_array_equal(_np(g), _np(r))
+    for b in range(B):
+        one = plain(tt[b] if tables == "stacked" else tt, q0t[b], q1t[b])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+
+
+@pytest.mark.parametrize("index", ["shared", "per_instance"])
+@pytest.mark.parametrize("d", [3, 10])
+def test_batched_q_update_plain_matches_vmapped_pallas(d, index):
+    """The gathered q update with B = 3 batches, per-instance damping
+    (0.3, 0.5, 0.8) and the edge index shared or one row per instance,
+    against the Pallas ``q_update`` under ``jax.vmap`` (interpret mode)
+    on the gathered beliefs: within 1e-6 (the Pallas kernel's own f32
+    tolerance), and each batch bit-equal to an unbatched call."""
+    B, n, e = 3, 40, 150
+    rng = np.random.RandomState(d)
+    belief = rng.rand(B, d, n).astype(np.float32) * 5
+    idx = rng.randint(0, n, (B, e)).astype(np.int32)
+    if index == "shared":
+        idx[:] = idx[0]
+    r = rng.rand(B, d, e).astype(np.float32)
+    q = rng.rand(B, d, e).astype(np.float32)
+    damp = np.array([0.3, 0.5, 0.8], np.float32)
+    be = np.stack([belief[b][:, idx[b]] for b in range(B)])
+    ref = jax.vmap(
+        functools.partial(pallas_maxsum.q_update, interpret=True)
+    )(jnp.asarray(be), jnp.asarray(r), jnp.asarray(q), jnp.asarray(damp))
+    idx_t = torch.from_numpy(idx if index == "per_instance" else idx[0])
+    got = mk.q_update(torch.from_numpy(belief), idx_t, torch.from_numpy(r),
+                      torch.from_numpy(q), torch.from_numpy(damp))
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-6, atol=1e-6)
+    for b in range(B):
+        one = mk.q_update(
+            torch.from_numpy(belief[b]), torch.from_numpy(idx[b]),
+            torch.from_numpy(r[b]), torch.from_numpy(q[b]), float(damp[b]),
+        )
+        assert torch.equal(got[b], one)
+
+
+def test_batched_wrappers_reject_bad_instance_axes():
+    q = torch.zeros(4, 3, 10)
+    with pytest.raises(ValueError, match="instance"):
+        mk.q_update(torch.zeros(4, 3, 5), torch.zeros(3, 10, dtype=torch.int32),
+                    q, q, 0.5)
+    with pytest.raises(ValueError, match="batch"):
+        mk.q_update(torch.zeros(3, 10), None, q[0], q[0], torch.ones(2))

@@ -114,11 +114,88 @@ def test_restart_state_carries_and_is_validated():
 
 @pytest.mark.parametrize("algo", ["maxsum", "amaxsum"])
 def test_message_passing_restarts_not_ported(algo, coloring):
+    """Max-Sum and A-Max-Sum restarts (ported: the kernels take the
+    restart axis): K restarts equal K single-restart runs of ``apply``
+    on the slices of the stacked initial state and of the engine's
+    draws, bit for bit, and the result reports the best of them."""
+    port = coloring
     mod = load_algorithm_module(algo)
-    params = prepare_algo_params({}, mod.algo_params)
-    with pytest.raises(NotImplementedError, match="n_restarts"):
-        run_batched(coloring, mod, params, rounds=1, n_restarts=2)
-    with pytest.raises(NotImplementedError):
-        solve_compiled(coloring, algo, rounds=1, n_restarts=2)
-    r = run_batched(coloring, mod, params, rounds=2)
-    assert r.restart_costs is None
+    params = prepare_algo_params({"noise": 0.01}, mod.algo_params)
+    r = run_batched(port, mod, params, rounds=8, seed=4, n_restarts=K,
+                    cost_every=4, return_state=True)
+    stacked = mod.init_state(port, 4, params, (K,))
+    gen = round_generator(4, port.device)
+    singles = [{k: v[i] for k, v in stacked.items()} for i in range(K)]
+    for _ in range(8):
+        if algo == "amaxsum":
+            drawn = mod.draws(port, params, gen, (K,))
+            singles = [
+                mod.apply(port, s, params, {n: v[i] for n, v in drawn.items()})
+                for i, s in enumerate(singles)
+            ]
+        else:
+            singles = [mod.step(port, s, params) for s in singles]
+    for key in ("q", "r", "values"):
+        assert torch.equal(
+            r.state[key], torch.stack([s[key] for s in singles])
+        ), key
+    assert len(r.restart_costs) == K
+    assert r.best_cost == min(r.restart_costs)
+    res = solve_compiled(coloring, algo, {"noise": 0.01}, rounds=4,
+                         n_restarts=2, seed=1)
+    assert len(res["restart_costs"]) == 2
+    assert res["msg_count"] == 2 * 4 * mod.messages_per_round(
+        coloring, params
+    )
+
+
+def test_maxsum_restarts_equal_jax_run_batched():
+    """Max-Sum with 3 restarts from one shared numpy state (per-restart
+    noise) equals the JAX engine's ``run_batched(n_restarts=3)``: q, r
+    and values bit for bit after 16 rounds, the same best assignment,
+    restart costs within 1e-6 (an f32 sum taken in another order).  The
+    JAX engine runs with its per-slot gather belief (ROADMAP queue C,
+    'Belief summation')."""
+    import numpy as np
+    from pydcop_tpu.algorithms import load_algorithm_module as jalgo
+    from pydcop_tpu.algorithms import prepare_algo_params as jparams
+    from pydcop_tpu.engine import batched as jbatched
+    from pydcop_tpu.ops import compile as jcompile
+    from pydcop_tpu.ops import costs as jcosts
+
+    s, t, u = coloring_arrays(120, seed=5)
+    ref = jcompile.compile_from_arrays(s, t, 3, unary=u)
+    port = tcompile.compile_from_arrays(s, t, 3, unary=u, device="cpu")
+    rng = np.random.default_rng(2)
+    d, e, n = ref.d_max, ref.n_edges, ref.n_vars
+    st = {
+        "q": rng.random((3, d, e), dtype=np.float32),
+        "r": np.zeros((3, d, e), np.float32),
+        "values": np.zeros((3, n), np.int32),
+        "noise": (0.01 * rng.random((3, d, n))).astype(np.float32),
+    }
+    kw = dict(rounds=16, chunk_size=8, cost_every=4, n_restarts=3,
+              initial_state=st, return_state=True)
+    saved = jcosts.CPU_SEGMENT_MIN_EDGES
+    jcosts.CPU_SEGMENT_MIN_EDGES = 1 << 62
+    jbatched._RUNNER_CACHE.clear()
+    try:
+        rj = jbatched.run_batched(
+            ref, jalgo("maxsum"),
+            jparams({"damping": 0.5}, jalgo("maxsum").algo_params), **kw,
+        )
+    finally:
+        jcosts.CPU_SEGMENT_MIN_EDGES = saved
+        jbatched._RUNNER_CACHE.clear()
+    mod = load_algorithm_module("maxsum")
+    rt = run_batched(
+        port, mod, prepare_algo_params({"damping": 0.5}, mod.algo_params),
+        **kw,
+    )
+    for key in ("q", "r", "values"):
+        np.testing.assert_array_equal(
+            rt.state[key].numpy(), np.asarray(rj.state[key]), err_msg=key
+        )
+    assert rt.best_assignment == rj.best_assignment
+    np.testing.assert_allclose(rt.restart_costs, rj.restart_costs,
+                               rtol=1e-6)
