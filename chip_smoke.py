@@ -45,15 +45,17 @@ caught and passed over):
    2·n_real_edges·rounds over the engine's time (``result["time"]``,
    which leaves out turning the assignments into dicts); the wall time
    around the call is printed beside it.  Then 256 rounds on the card
-   and on the CPU through the port: q, r and values bit-equal, cost
-   traces within 1e-5 relative (``torch.sum`` reduces in another order
-   on each device); the same for 64 rounds with bf16 messages, and for
+   and on the CPU through the port: q, r, values and cost traces
+   bit-equal (``ops/costs.py`` sums in one order on every device); the
+   same for 64 rounds with bf16 messages, and for
    64 rounds with bf16 tables (the kernels launched once per round), and
    for 64 rounds with bf16 tables and a ternary bucket added (outside
    the factor-kernel gate: the q update kernel, launched once per round,
    rounds every operation to bf16, as the JAX package computes there).
    A torch.profiler pass over 64 rounds gives device time by kernel and
-   the device's idle share.
+   the device's idle share; a ``cost-sum`` line times one cost
+   evaluation (``total_cost``'s fixed-order sum) against ``torch.sum``
+   of the same cells.
 4. The same with per-factor 5x5 tables at 100k variables (the
    per-factor factor kernel; card vs CPU also with bf16 tables), with a
    profiler pass over 32 rounds.
@@ -66,7 +68,8 @@ caught and passed over):
    memory; 32 rounds card vs CPU (per-factor also with bf16 tables, 16
    rounds); a profiler pass over 32 rounds.
 6. The 1M-variable coloring: 256 rounds, msgs/s and peak device
-   memory; 8 rounds card vs CPU; a profiler pass over 32 rounds.
+   memory; 8 rounds card vs CPU; a profiler pass over 32 rounds; a
+   ``cost-sum`` line as in phase 3.
 7. The local-search family and A-Max-Sum.  Full width: each of the eight
    algorithms through ``api.solve_compiled`` on the 1M coloring (DSA-B
    and MGM-2 256 rounds, the others 32; chunk 256, cost every 8), launch
@@ -108,29 +111,39 @@ caught and passed over):
    restarts in one launch).  9a: each kernel's batched instance on the
    card against its batched plain version and against B unbatched
    launches, bit for bit, with its device time, the plain version's, the
-   B launches' and the bound: configuration 3's shapes (d 3, B 8, one
-   per-factor table for all batches; the q update with one edge index),
-   8 coloring-10k instances (stacked shared tables, and at the pow2
-   shape stacked per-factor tables; the q update with per-instance edge
-   indices and damping), per-factor-100k-d10 at B 2 (the lane tiles).
+   B launches' and the bound, each timed cold: the inputs rotate through
+   copies that together exceed 256 MiB, five times the L2, so a time is
+   held against HBM's rate (a row faster than its bound fails).  The
+   shapes: configuration 3's (d 3, B 8, one per-factor table for all
+   batches; the q update with one edge index), 8 coloring-10k instances
+   (stacked shared tables, and at the pow2 shape stacked per-factor
+   tables; the q update with per-instance edge indices and damping),
+   per-factor-100k-d10 at B 2 (the lane tiles).
    9b ``config3-scalefree1k-maxsum-K8``: ``bench_configs.py:41-51``'s
    scale-free coloring from the port's generator, Max-Sum best of 8,
    1024 rounds, chunk 256: msgs/s over all restarts, the best and the 8
    restart costs, one launch of each kernel a round, card = CPU bit for
-   bit over 64 rounds, a profiler pass.  9c
+   bit over 256 rounds, a profiler pass.  9c
    ``config5-meeting10k-maxsum``: ``bench_configs.py:109-118``'s PEAV
    meeting scheduling at full size (10,000 variables, d 8), 512 rounds,
-   chunk 128, the kernel instances it runs, card = CPU, a profiler pass.
-   9d ``many-coloring-dsaB-K{1,8,32}``: ``bench.py:82-94``'s stage (4
-   colorings of 26-32 variables, seeds 100-103, DSA-B p 0.7, 256 rounds,
-   chunk 64, pow2, seeds 0..K-1): instances/s of ``api.solve_many``
-   against sequential solves.  9e ``many-coloring10k-maxsum-I8``: phase
-   3's problem 8 times with seeds 1-8 through ``solve_many`` (pow2,
-   1024 rounds): msgs/s against phase 3's, each instance's final
-   assignment equal to its own solve; and the unpadded group of 8
-   weighted instances (stacked shared tables, damping 0.50-0.85), a
-   profiler pass.  Then per-factor-100k-d10 with 2 restarts (the lane
-   tiles batched) and card = CPU.  9f ``many-secp-dpop-K8``:
+   chunk 128, the kernel instances it runs, card = CPU over 64 rounds, a
+   profiler pass.  9d ``many-coloring-dsaB-K{1,8,32}``:
+   ``bench.py:82-94``'s stage (4 colorings of 26-32 variables, seeds
+   100-103, DSA-B p 0.7, 256 rounds, chunk 64, pow2, seeds 0..K-1):
+   instances/s of ``api.solve_many`` against sequential solves.  9e
+   ``many-coloring10k-maxsum-I8``: 8 different coloring-10k graphs in
+   one group: phase 3's and seven rewirings of it by degree-preserving
+   edge swaps (seeds 2-8, so every variable keeps its degree and the
+   group key), each with its own noisy unary costs, through
+   ``solve_many`` (pow2, 1024 rounds, the cost sampled every round as
+   ``solve_many`` does): msgs/s against phase 3's; over 128 rounds
+   every result key of each instance (assignments, costs,
+   cost trace) equal to its sequential solve; the same for the unpadded
+   group (stacked shared tables with per-instance weights, damping
+   0.50-0.85); 32 rounds of DSA-B's ``apply`` on the group's disjoint
+   union with per-instance probabilities, card against CPU on shared
+   draws; a profiler pass.  Then per-factor-100k-d10 with 2 restarts
+   (the lane tiles batched) and card = CPU.  9f ``many-secp-dpop-K8``:
    ``bench.py:121-133``'s 8 SECP instances through ``solve_many``
    against sequential solves: equal results and ``util_dispatches``.
 10. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
@@ -138,9 +151,6 @@ caught and passed over):
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths), the card
    line, and last the ``{"ok": true, ...}`` line.
-
-``python3 chip_smoke.py --phase9`` runs the build and phase 9 only (the
-kernels line then lists the batched instances alone).
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
 """
@@ -159,6 +169,7 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
 REPS = 25
+COLD_BYTES = 1 << 28  # a working set five times the H100's 50 MB L2
 
 PALLAS = "pydcop_tpu/ops/pallas_maxsum.py"
 KERNELS = {
@@ -569,7 +580,8 @@ def check_kernels(torch, mk, dev, m4, edges):
 def card_vs_cpu(torch, mk, run_batched, module, params, p_dev, p_cpu,
                 rounds, chunk, label, expect=None, n_restarts=1):
     """The port on the card and on the CPU from the same seed: q, r and
-    values bit-equal, cost traces within 1e-5 relative.  ``expect``:
+    values bit-equal, and the cost traces (``ops/costs.py`` sums in one
+    order on every device).  ``expect``:
     the launches the card run must count, per kernel."""
     import numpy as np
 
@@ -588,10 +600,37 @@ def card_vs_cpu(torch, mk, run_batched, module, params, p_dev, p_cpu,
     for k in ("q", "r", "values"):
         if not same_bits(torch, rc.state[k], rh.state[k]):
             raise AssertionError(f"{label}: card and CPU differ in {k}")
-    np.testing.assert_allclose(rc.cost_trace, rh.cost_trace, rtol=1e-5)
+    np.testing.assert_array_equal(rc.cost_trace, rh.cost_trace)
     print(f"card-vs-cpu {label}: {rounds} rounds, q/r/values bit-equal, "
           f"best cost card {rc.best_cost} cpu {rh.best_cost} "
           f"launches={counts}")
+
+
+def cost_sum_row(torch, problem, label):
+    """One cost evaluation at ``problem``'s size (``ops/costs.py:
+    total_cost``, its fixed-order sum) against the same cells summed by
+    ``torch.sum``: device time (graph), host launch interval, and the
+    two results."""
+    from pydcop_tpu_torch.ops import costs
+
+    g = torch.Generator(device=problem.device).manual_seed(5)
+    v = torch.randint(0, problem.d_max, (problem.n_vars,), generator=g,
+                      device=problem.device, dtype=torch.int32)
+
+    def summed():
+        vv = v.long()
+        con = problem.tables_flat[costs.con_cells(problem, vv)].sum(-1)
+        return con + problem.unary.gather(-1, vv[:, None])[:, 0].sum(-1)
+
+    def fixed():
+        return costs.total_cost(problem, v)
+
+    print(f"cost-sum {label}: cells={problem.n_cons + problem.n_vars} "
+          f"fixed_order_ms={device_ms(torch, fixed)} "
+          f"torch_sum_ms={device_ms(torch, summed)} "
+          f"fixed_order_launch_ms={launch_ms(torch, fixed)} "
+          f"torch_sum_launch_ms={launch_ms(torch, summed)} "
+          f"fixed_order={float(fixed())} torch_sum={float(summed())}")
 
 
 MAIN_PATH_RATES = {}  # label: msgs/s of the main_path runs
@@ -1184,20 +1223,54 @@ def coloring_dcop(n_vars, colors=3, degree=3, seed=0):
     return dcop
 
 
+def cold_ms(torch, calls, reps: int = 10) -> float:
+    """Device time of one call when its inputs are not in L2: ``calls``
+    run the same function on copies of its inputs that together exceed
+    COLD_BYTES; one pass over them (repeated to at least 20 calls) is
+    captured in a CUDA graph and its replay timed as in
+    :func:`device_ms` (median of ``reps``), so each call's inputs were
+    last touched a whole working set before."""
+    passes = max(1, math.ceil(20 / len(calls)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as required
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(passes):
+            for c in calls:
+                c()
+    graph.replay()
+    torch.cuda.synchronize()
+    n = passes * len(calls)
+    ms = statistics.median(
+        _event_ms(torch, graph.replay) / n for _ in range(reps)
+    )
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def batched_rows(torch, mk, dev, m3, e3, n3):
     """Phase 9a: each batched kernel instance against its batched plain
     version and against B unbatched launches, bit for bit, with the
     batched launch's time, the plain version's, the B launches' and the
-    bound.  ``m3``, ``e3``, ``n3``: configuration 3's constraints, edges
-    and variables."""
+    bound, each timed cold (:func:`cold_ms`: the inputs rotate through
+    copies larger than L2, so the time is held against HBM's rate).
+    ``m3``, ``e3``, ``n3``: configuration 3's constraints, edges and
+    variables."""
     g = torch.Generator(device=dev).manual_seed(9)
     rows = {}
 
     def rand(*shape, scale=1.0):
         return torch.rand(*shape, generator=g, device=dev) * scale
 
-    def record(key, name, d, width, B, fn, plain, singles, nbytes, nops,
-               extra=""):
+    def record(key, name, d, width, B, make, nbytes, nops, extra=""):
+        """``make()`` builds one copy of the inputs and returns the
+        (batched launch, plain version, B unbatched launches) on it."""
+        fn, plain, singles = make()
         got, want, one = fn(), plain(), singles()
         torch.cuda.synchronize()
         equal = all(same_bits(torch, x, y) for x, y in zip(got, want))
@@ -1209,16 +1282,23 @@ def batched_rows(torch, mk, dev, m3, e3, n3):
                 f"unbatched equal={equal_one}), max_abs_err={err}"
             )
         b_ms, b_by = bound_ms(nbytes, nops)
-        ms = device_ms(torch, fn)
+        copies = [(fn, plain, singles)] + [
+            make() for _ in range(math.ceil(COLD_BYTES / nbytes) - 1)
+        ]
+        ms = cold_ms(torch, [c[0] for c in copies])
         tile = d not in mk.UNROLLED_D
         row = dict(
             entry=key, kernel=name, d=d, width=width, batch=B, case=extra,
             instance=("tile" if tile else "unrolled"), ms=ms,
-            plain_ms=device_ms(torch, plain),
-            unbatched_ms=device_ms(torch, singles), bound_ms=b_ms,
-            bound_by=b_by, share_of_bound=b_ms / ms, max_abs_err=err,
-            bit_equal=True,
+            plain_ms=cold_ms(torch, [c[1] for c in copies]),
+            unbatched_ms=cold_ms(torch, [c[2] for c in copies]),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+            max_abs_err=err, bit_equal=True, input_copies=len(copies),
         )
+        del copies
+        torch.cuda.empty_cache()
+        if row["share_of_bound"] > 1:
+            raise AssertionError(f"{key}: faster than its bound: {row}")
         print("kernel-check-batched " + " ".join(
             f"{k}={v}" for k, v in row.items()))
         rows[key] = row
@@ -1227,55 +1307,63 @@ def batched_rows(torch, mk, dev, m3, e3, n3):
         """``n_tab`` tables (0: one table without a batch axis)."""
         name = "factor_round_binary_shared" if shared else "factor_round_binary"
         shape = (d, d) if shared else (d, d, m)
-        tab = rand(*(((n_tab,) if n_tab else ()) + shape), scale=10.0)
-        q = rand(B, d, 2 * m)
-        q0, q1 = q[:, :, :m], q[:, :, m:]
-        r, rs = torch.empty_like(q), torch.empty_like(q)
-        out, outs = (r[:, :, :m], r[:, :, m:]), (rs[:, :, :m], rs[:, :, m:])
         wrap = mk.factor_round_binary_shared if shared else mk.factor_round_binary
         plain = (mk.factor_round_binary_shared_plain if shared
                  else mk.factor_round_binary_plain)
         per = B // max(n_tab, 1)
 
-        def singles():
-            for b in range(B):
-                t = tab[b // per] if n_tab else tab
-                wrap(t, q0[b], q1[b], out=(outs[0][b], outs[1][b]))
-            return outs
+        def make():
+            tab = rand(*(((n_tab,) if n_tab else ()) + shape), scale=10.0)
+            q = rand(B, d, 2 * m)
+            q0, q1 = q[:, :, :m], q[:, :, m:]
+            r, rs = torch.empty_like(q), torch.empty_like(q)
+            out = (r[:, :, :m], r[:, :, m:])
+            outs = (rs[:, :, :m], rs[:, :, m:])
 
-        nbytes = 16 * d * m * B + 4 * tab.numel()
-        record(key, name, d, m, B, lambda: wrap(tab, q0, q1, out=out),
-               lambda: plain(tab, q0, q1), singles, nbytes,
-               (4 * d * d + 6 * d) * m * B,
+            def singles():
+                for b in range(B):
+                    t = tab[b // per] if n_tab else tab
+                    wrap(t, q0[b], q1[b], out=(outs[0][b], outs[1][b]))
+                return outs
+
+            return (lambda: wrap(tab, q0, q1, out=out),
+                    lambda: plain(tab, q0, q1), singles)
+
+        nbytes = 16 * d * m * B + 4 * d * d * (m if not shared else 1) * max(
+            n_tab, 1)
+        record(key, name, d, m, B, make, nbytes, (4 * d * d + 6 * d) * m * B,
                f"tables={n_tab or 'one'}")
 
     def q_update(key, d, e, n, B, n_inst, per_instance_damping):
-        belief = rand(B, d, n, scale=5.0)
-        idx_all = torch.randint(0, n, (max(n_inst, 1), e), generator=g,
-                                device=dev, dtype=torch.int32)
-        idx = idx_all if n_inst else idx_all[0]
-        r, q = rand(B, d, e), rand(B, d, e)
         dl = [0.5 + 0.05 * i for i in range(max(n_inst, 1))]
-        damp = (torch.tensor(dl, dtype=torch.float32, device=dev)
-                if per_instance_damping else 0.5)
         per = B // max(n_inst, 1)
-        outs = torch.empty_like(q)
 
-        def singles():
-            for b in range(B):
-                i = b // per
-                outs[b].copy_(mk.q_update(
-                    belief[b], idx[i] if n_inst else idx, r[b], q[b],
-                    dl[i] if per_instance_damping else 0.5,
-                ))
-            return (outs,)
+        def make():
+            belief = rand(B, d, n, scale=5.0)
+            idx_all = torch.randint(0, n, (max(n_inst, 1), e), generator=g,
+                                    device=dev, dtype=torch.int32)
+            idx = idx_all if n_inst else idx_all[0]
+            r, q = rand(B, d, e), rand(B, d, e)
+            damp = (torch.tensor(dl, dtype=torch.float32, device=dev)
+                    if per_instance_damping else 0.5)
+            outs = torch.empty_like(q)
 
-        nbytes = 12 * d * e * B + 4 * belief.numel() + 4 * idx.numel()
-        record(key, "q_update", d, e, B,
-               lambda: (mk.q_update(belief, idx, r, q, damp),),
-               lambda: (mk.q_update_plain(belief, r, q, damp,
-                                          edge_idx=idx),),
-               singles, nbytes, 6 * d * e * B,
+            def singles():
+                for b in range(B):
+                    i = b // per
+                    outs[b].copy_(mk.q_update(
+                        belief[b], idx[i] if n_inst else idx, r[b], q[b],
+                        dl[i] if per_instance_damping else 0.5,
+                    ))
+                return (outs,)
+
+            return (lambda: (mk.q_update(belief, idx, r, q, damp),),
+                    lambda: (mk.q_update_plain(belief, r, q, damp,
+                                               edge_idx=idx),),
+                    singles)
+
+        nbytes = 12 * d * e * B + 4 * B * d * n + 4 * max(n_inst, 1) * e
+        record(key, "q_update", d, e, B, make, nbytes, 6 * d * e * B,
                f"index={'per_instance' if n_inst else 'one'} damping="
                f"{'per_instance' if per_instance_damping else 'one'}")
 
@@ -1294,6 +1382,91 @@ def batched_rows(torch, mk, dev, m3, e3, n3):
     factor("factor_round_binary.runtime_d.batched", False, 10, 299_988, 2, 2)
     q_update("q_update.runtime_d.batched", 10, 599_976, 100_000, 2, 2, True)
     return rows
+
+
+def rewired(scopes, seed):
+    """``scopes`` (binary, as ``coloring_arrays`` makes them) rewired by
+    one degree-preserving double edge swap per edge drawn from
+    ``random.Random(seed)``: (a, b), (c, d) become (a, d), (c, b) where
+    that makes no self-loop and no duplicate edge.  Every variable keeps
+    its degree, so the compiled problems share one group key while their
+    graphs differ."""
+    import random
+
+    import numpy as np
+
+    rnd = random.Random(seed)
+    edges = [tuple(e) for e in scopes.tolist()]
+    have = set(edges)
+    m = len(edges)
+    for _ in range(m):
+        i, j = rnd.randrange(m), rnd.randrange(m)
+        (a, b), (c, d) = edges[i], edges[j]
+        if rnd.random() < 0.5:
+            c, d = d, c
+        e1, e2 = (min(a, d), max(a, d)), (min(c, b), max(c, b))
+        if a == d or c == b or e1 in have or e2 in have or e1 == e2:
+            continue
+        have -= {edges[i], edges[j]}
+        have |= {e1, e2}
+        edges[i], edges[j] = e1, e2
+    return np.unique(np.asarray(edges, dtype=np.int32), axis=0)
+
+
+def union_apply_card_vs_cpu(torch, mk, dev, problems, rounds, label):
+    """DSA-B on a group's disjoint union (the local search's lowering of
+    ``solve_many``), one probability per instance (0.30, 0.35, ...):
+    ``rounds`` rounds of ``apply`` on the card and on the CPU from one
+    state, fed the same CPU-made draws; the values must stay bit-equal
+    and no kernel is launched."""
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.engine.batched import _group_params
+    from pydcop_tpu_torch.ops.compile import stack_problems, union_problem
+
+    mod = load_algorithm_module("dsa")
+    plist = [
+        prepare_algo_params({"variant": "B", "probability": 0.3 + 0.05 * i},
+                            mod.algo_params)
+        for i in range(len(problems))
+    ]
+    [grp] = stack_problems(problems)
+    if grp.n_instances != len(problems):
+        raise AssertionError(f"{label}: not one group")
+    u_cpu = union_problem(grp)
+    u_dev = u_cpu.to(dev)
+    gp_cpu = _group_params(mod, plist, u_cpu, len(problems), False)
+    gp_dev = _group_params(mod, plist, u_dev, len(problems), False)
+    st_cpu = mod.init_state(u_cpu, 3, gp_cpu)
+    st_dev = {k: v.to(dev) for k, v in st_cpu.items()}
+    first = st_cpu["values"]
+    gen = torch.Generator().manual_seed(11)
+    mk.reset_launches()
+    for _ in range(rounds):
+        drawn = mod.draws(u_cpu, gp_cpu, gen)
+        st_cpu = mod.apply(u_cpu, st_cpu, gp_cpu, drawn)
+        st_dev = mod.apply(u_dev, st_dev, gp_dev,
+                           {k: v.to(dev) for k, v in drawn.items()})
+    torch.cuda.synchronize()
+    counts = kernel_counts(mk, label, "dsa", rounds, None)
+    for k, v in st_cpu.items():
+        if not same_leaf(torch, st_dev[k].cpu(), v):
+            raise AssertionError(f"{label}: card and CPU differ in {k}")
+    print(f"card-vs-cpu {label}: {rounds} rounds of apply on the union of "
+          f"{len(problems)} instances (n_vars={u_cpu.n_vars}), per-instance "
+          f"probabilities, shared CPU draws, {sorted(st_cpu)} bit-equal, "
+          f"values changed from the start="
+          f"{int((st_cpu['values'] != first).sum())} launches={counts}")
+
+
+def same_result(label, got, want):
+    """A ``solve_many`` result equal to a sequential solve's, key for key
+    (times and the group size aside)."""
+    for k in set(want) - {"time", "instances_batched"}:
+        if got[k] != want[k]:
+            raise AssertionError(f"{label}: {k} differs from its own solve")
 
 
 def expect_launches(mk, label, want):
@@ -1375,7 +1548,7 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
                         p3.n_vars)
     lap("9a")
     kw = dict(chunk_size=256, cost_every=8, n_restarts=8)
-    solve_compiled(p3, "maxsum", {"damping": 0.5}, rounds=256, **kw)
+    solve_compiled(p3, "maxsum", {"damping": 0.5}, rounds=8, **kw)  # warm
     torch.cuda.synchronize()
     mk.reset_launches()
     res = solve_compiled(p3, "maxsum", {"damping": 0.5}, rounds=1024, **kw)
@@ -1395,7 +1568,7 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
           f"msgs_per_s={res['msg_count'] / res['time']} "
           f"best_cost={res['cost']} restart_costs={rc} launches={got} "
           f"card={card}")
-    rkw = dict(rounds=64, chunk_size=64, cost_every=8, n_restarts=8,
+    rkw = dict(rounds=256, chunk_size=256, cost_every=8, n_restarts=8,
                return_state=True)
     rc_dev = run_batched(p3, maxsum, params, **rkw)
     rc_cpu = run_batched(p3c, maxsum, params, **rkw)
@@ -1403,10 +1576,10 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
         if not same_bits(torch, rc_dev.state[k].float(),
                          rc_cpu.state[k].float()):
             raise AssertionError(f"config3: card and CPU differ in {k}")
-    print(f"card-vs-cpu config3-scalefree1k-maxsum-K8: 64 rounds, 8 "
+    print(f"card-vs-cpu config3-scalefree1k-maxsum-K8: 256 rounds, 8 "
           f"restarts, q/r/values bit-equal, restart costs card "
           f"{list(rc_dev.restart_costs)} cpu {list(rc_cpu.restart_costs)}")
-    profile_rounds(torch, run_batched, maxsum, params, p3, 64,
+    profile_rounds(torch, run_batched, maxsum, params, p3, 32,
                    "config3-scalefree1k-maxsum-K8", n_restarts=8)
     lap("9b")
 
@@ -1431,10 +1604,10 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
                         {"factor_round_binary": 512, "q_update": 512,
                          "factor_round_binary_shared": 0},
                         "config5-meeting10k-maxsum", card)
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 16, 16,
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 64, 64,
                 "config5-meeting10k-maxsum",
-                {"factor_round_binary": 16, "q_update": 16})
-    profile_rounds(torch, run_batched, maxsum, params, p5, 64,
+                {"factor_round_binary": 64, "q_update": 64})
+    profile_rounds(torch, run_batched, maxsum, params, p5, 32,
                    "config5-meeting10k-maxsum")
     counts["config5"] = counts5
     del p5, p5c, c5
@@ -1445,8 +1618,9 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
             for i in range(4)]
     dsa = {"variant": "B", "probability": 0.7}
     dkw = dict(rounds=256, chunk_size=64, pad_policy="pow2")
-    solve(base[0], "dsa", dsa, seed=0, **dkw)  # warm both paths
-    solve_many(base[:1], "dsa", dsa, seed=0, **dkw)
+    warm = dict(dkw, rounds=8)
+    solve(base[0], "dsa", dsa, seed=0, **warm)  # warm both paths
+    solve_many(base[:1], "dsa", dsa, seed=0, **warm)
     for K in MANY_KS:
         batch = [base[i % 4] for i in range(K)]
         torch.cuda.synchronize()
@@ -1474,61 +1648,58 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
               f"card={card}")
     lap("9d")
 
-    # -- 9e. 8 coloring-10k instances through solve_many (pow2): the
-    # main path's problem with seeds 1-8
+    # -- 9e. 8 coloring-10k instances through solve_many (pow2): phase
+    # 3's graph and seven rewirings of it, each with its own noise
     s, t, u = arrays["coloring-10k"]
-    pe = compile_from_arrays(s, t, 3, unary=u, pad_policy="pow2", device=dev)
     seeds = list(range(1, 9))
+    graphs = [(s, u)] + [
+        (rewired(s, sd), coloring_arrays(len(u), colors=3, degree=3,
+                                         seed=sd)[2])
+        for sd in seeds[1:]
+    ]
+    pes = [compile_from_arrays(sk, t, 3, unary=uk, pad_policy="pow2",
+                               device=dev) for sk, uk in graphs]
     mkw = dict(chunk_size=256, seed=seeds)
-    solve_many([pe] * 8, "maxsum", {"damping": 0.5}, rounds=64, **mkw)
+    solve_many(pes, "maxsum", {"damping": 0.5}, rounds=8, **mkw)  # warm
     torch.cuda.synchronize()
     mk.reset_launches()
-    many = solve_many([pe] * 8, "maxsum", {"damping": 0.5}, rounds=1024,
-                      **mkw)
+    many = solve_many(pes, "maxsum", {"damping": 0.5}, rounds=1024, **mkw)
     torch.cuda.synchronize()
     got = expect_launches(mk, "many-coloring10k-maxsum-I8",
                           {"factor_round_binary": 1024, "q_update": 1024})
     counts["factor_round_binary.batched_instances"] = got[
         "factor_round_binary"]
     counts["q_update.batched_instances_pow2"] = got["q_update"]
-    secs = sum(r["time"] for r in many)  # the group's engine time
+    secs = many[0]["time"] * len(many)  # the group's engine time
     msgs = sum(r["msg_count"] for r in many)
     if {r["instances_batched"] for r in many} != {8}:
         raise AssertionError("many-coloring10k-maxsum-I8: not one group")
     ratio = (msgs / secs / single_msgs_per_s if single_msgs_per_s
              else "not measured")
-    print(f"solve many-coloring10k-maxsum-I8: instances=8 n_vars={pe.n_vars} "
-          f"n_real_edges={pe.n_real_edges} rounds=1024 msg_count={msgs} "
-          f"engine_seconds={secs} msgs_per_s={msgs / secs} "
+    print(f"solve many-coloring10k-maxsum-I8: instances=8 (phase 3's graph "
+          f"and 7 degree-preserving rewirings) n_vars={pes[0].n_vars} "
+          f"n_real_edges={pes[0].n_real_edges} distinct_graphs="
+          f"{len({sk.tobytes() for sk, _ in graphs})} rounds=1024 "
+          f"msg_count={msgs} engine_seconds={secs} msgs_per_s={msgs / secs} "
           f"single_instance_msgs_per_s={single_msgs_per_s} ratio={ratio} "
           f"costs={[r['cost'] for r in many]} launches={got} card={card}")
-    short = solve_many([pe] * 8, "maxsum", {"damping": 0.5}, rounds=128,
+    short = solve_many(pes, "maxsum", {"damping": 0.5}, rounds=128,
                        chunk_size=128, seed=seeds)
-    ties = 0
-    for sd, r in zip(seeds, short):
-        one = solve_compiled(pe, "maxsum", {"damping": 0.5}, rounds=128,
+    for sd, p, r in zip(seeds, pes, short):
+        one = solve_compiled(p, "maxsum", {"damping": 0.5}, rounds=128,
                              chunk_size=128, seed=sd)
-        if r["final_assignment"] != one["final_assignment"]:
-            raise AssertionError(f"many-coloring10k-maxsum-I8: instance "
-                                 f"{sd} differs from its own solve")
-        if abs(r["cost"] - one["cost"]) > 1e-6 * abs(one["cost"]):
-            raise AssertionError(f"many-coloring10k-maxsum-I8: cost of "
-                                 f"instance {sd} differs")
-        ties += r["assignment"] != one["assignment"]
-    print(f"equal many-coloring10k-maxsum-I8: 128 rounds, 8 instances, final "
-          f"assignments equal to each sequential solve, best costs within "
-          f"1e-6 (f32 sums of another shape), best assignments "
-          f"differing on a cost tie: {ties}")
+        same_result(f"many-coloring10k-maxsum-I8 instance {sd}", r, one)
+    print("equal many-coloring10k-maxsum-I8: 128 rounds, 8 instances, "
+          "every result key (assignments, costs, cost trace) equal to each "
+          "sequential solve")
 
-    # the unpadded group: stacked shared tables (per-instance weights)
-    # and per-instance damping
-    probs = []
-    for sd in seeds:
-        _, _, us = coloring_arrays(len(u), colors=3, degree=3, seed=sd)
-        probs.append(compile_from_arrays(s, t * (1 + 0.1 * (sd - 1)), 3,
-                                         unary=us, device=dev))
+    # the unpadded group on the same graphs: stacked shared tables
+    # (per-instance weights) and per-instance damping
+    probs = [compile_from_arrays(sk, t * (1 + 0.1 * (sd - 1)), 3, unary=uk,
+                                 device=dev)
+             for sd, (sk, uk) in zip(seeds, graphs)]
     damp = [{"damping": 0.5 + 0.05 * (sd - 1)} for sd in seeds]
-    solve_many(probs, "maxsum", damp, rounds=64, chunk_size=64, seed=seeds)
+    solve_many(probs, "maxsum", damp, rounds=8, chunk_size=128, seed=seeds)
     torch.cuda.synchronize()
     mk.reset_launches()
     many = solve_many(probs, "maxsum", damp, rounds=128, chunk_size=128,
@@ -1540,24 +1711,31 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
     counts["factor_round_binary_shared.batched_instances"] = got[
         "factor_round_binary_shared"]
     counts["q_update.batched_instances"] = got["q_update"]
-    secs = sum(r["time"] for r in many)
+    if {r["instances_batched"] for r in many} != {8}:
+        raise AssertionError("many-coloring10k-maxsum-I8-shared: not one "
+                             "group")
+    secs = many[0]["time"] * len(many)
     msgs = sum(r["msg_count"] for r in many)
     for sd, p, dp, r in zip(seeds, probs, damp, many):
         one = solve_compiled(p, "maxsum", dp, rounds=128, chunk_size=128,
                              seed=sd)
-        if r["final_assignment"] != one["final_assignment"]:
-            raise AssertionError(f"many-coloring10k-maxsum-I8-shared: "
-                                 f"instance {sd} differs from its solve")
+        same_result(f"many-coloring10k-maxsum-I8-shared instance {sd}", r,
+                    one)
     print(f"solve many-coloring10k-maxsum-I8-shared: instances=8 rounds=128 "
           f"stacked shared tables, damping 0.50..0.85, msgs_per_s="
-          f"{msgs / secs} final assignments equal to each sequential solve "
+          f"{msgs / secs} every result key equal to each sequential solve "
           f"launches={got} card={card}")
-    [grp] = stack_problems([pe] * 8)
+    union_apply_card_vs_cpu(
+        torch, mk, dev,
+        [compile_from_arrays(sk, t, 3, unary=uk, pad_policy="pow2",
+                             device="cpu") for sk, uk in graphs],
+        32, "many-coloring10k-dsaB-union")
+    [grp] = stack_problems(pes)
     ms = load_algorithm_module("maxsum")
     profile_call(torch, "many-coloring10k-maxsum-I8", lambda: run_many_batched(
         grp, ms, params, rounds=64, chunk_size=64, cost_every=8,
         seeds=seeds)[0].time, 64)
-    del pe, probs, grp
+    del pes, probs, grp
     lap("9e")
 
     # -- per-factor-100k-d10 with 2 restarts: the batched lane tiles
@@ -1664,148 +1842,145 @@ def main() -> int:
     s10, t10, u10 = coloring_arrays(100_000, colors=10, degree=3, seed=2)
     tabs10 = np.random.default_rng(4).random((len(s10), 10, 10),
                                              dtype=np.float32)
-    # `--phase9`: the build and phase 9 only (a shorter check while
-    # working on phase 9); with no argument every phase runs
-    full = sys.argv[1:] != ["--phase9"]
-    if full:
-        # phases 3-6's instances set phase 2's shapes: the per-factor width
-        # and each coloring's edge index (position-major, as compiled)
-        s4, _, u4 = coloring_arrays(100_000, colors=5, degree=3, seed=2)
-        tabs4 = np.random.default_rng(4).random((len(s4), 5, 5), dtype=np.float32)
-        m4 = len(s4)
-        s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
-        edges = {  # n_vars: the edges' variables on the card
-            n: torch.from_numpy(np.concatenate([sc[:, 0], sc[:, 1]])).to(dev)
-            for n, sc in ((10_000, s), (100_000, s4), (1_000_000, s5))
-        }
+    # phases 3-6's instances set phase 2's shapes: the per-factor width
+    # and each coloring's edge index (position-major, as compiled)
+    s4, _, u4 = coloring_arrays(100_000, colors=5, degree=3, seed=2)
+    tabs4 = np.random.default_rng(4).random((len(s4), 5, 5), dtype=np.float32)
+    m4 = len(s4)
+    s5, t5, u5 = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
+    edges = {  # n_vars: the edges' variables on the card
+        n: torch.from_numpy(np.concatenate([sc[:, 0], sc[:, 1]])).to(dev)
+        for n, sc in ((10_000, s), (100_000, s4), (1_000_000, s5))
+    }
 
-        # -- 2. kernels vs plain versions ------------------------------------
-        rows = check_kernels(torch, mk, dev, m4, edges)
-        params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    # -- 2. kernels vs plain versions ------------------------------------
+    rows = check_kernels(torch, mk, dev, m4, edges)
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
 
-        # -- 3. 10k coloring --------------------------------------------------
-        p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
-        p3 = p3c.to(dev)
-        if (p3.n_real_edges, p3.buckets[2].n_cons) != (59_974, 29_987):
-            raise AssertionError("unexpected 10k coloring size")
-        counts3 = main_path(
-            torch, mk, solve_compiled, p3, 1024, 256,
-            {"factor_round_binary_shared": 1024, "q_update": 1024,
-             "factor_round_binary": 0}, "coloring-10k", card,
-        )
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p3, p3c, 256, 256,
-                    "coloring-10k")
-        params_bf16 = prepare_algo_params(
-            {"damping": 0.5, "msg_dtype": "bf16"}, maxsum.algo_params
-        )
-        card_vs_cpu(torch, mk, run_batched, maxsum, params_bf16, p3, p3c, 64,
-                    64, "coloring-10k-bf16-messages")
-        # bf16 tables (and so bf16 unary and messages): the kernels compute
-        # the factor phase in bf16, as the Pallas kernels do
-        p3hc = compile_from_arrays(s, t, 3, unary=u, table_dtype="bf16",
-                                   device="cpu")
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p3hc.to(dev), p3hc,
-                    64, 64, "coloring-10k-bf16-tables",
-                    {"factor_round_binary_shared": 64, "q_update": 64})
-        # bf16 tables with a ternary bucket: outside the factor-kernel gate,
-        # so the factor phase is the generic one and the q update kernel
-        # rounds every operation to bf16, as the JAX package computes it
-        s3, t3 = ternary_arrays(10_000, seed=5)
-        p3tc = compile_from_arrays([s, s3], [t, t3], 3, unary=u,
-                                   table_dtype="bf16", device="cpu")
-        if p3tc.n_real_edges != E_TERNARY:
-            raise AssertionError("unexpected ternary instance size")
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p3tc.to(dev), p3tc,
-                    64, 64, "coloring-10k-ternary-bf16-tables",
-                    {"factor_round_binary_shared": 0, "factor_round_binary": 0,
-                     "q_update": 64})
-        profile_rounds(torch, run_batched, maxsum, params, p3, 64,
-                       "coloring-10k")
+    # -- 3. 10k coloring --------------------------------------------------
+    p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
+    p3 = p3c.to(dev)
+    if (p3.n_real_edges, p3.buckets[2].n_cons) != (59_974, 29_987):
+        raise AssertionError("unexpected 10k coloring size")
+    counts3 = main_path(
+        torch, mk, solve_compiled, p3, 1024, 256,
+        {"factor_round_binary_shared": 1024, "q_update": 1024,
+         "factor_round_binary": 0}, "coloring-10k", card,
+    )
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3, p3c, 256, 256,
+                "coloring-10k")
+    params_bf16 = prepare_algo_params(
+        {"damping": 0.5, "msg_dtype": "bf16"}, maxsum.algo_params
+    )
+    card_vs_cpu(torch, mk, run_batched, maxsum, params_bf16, p3, p3c, 64,
+                64, "coloring-10k-bf16-messages")
+    # bf16 tables (and so bf16 unary and messages): the kernels compute
+    # the factor phase in bf16, as the Pallas kernels do
+    p3hc = compile_from_arrays(s, t, 3, unary=u, table_dtype="bf16",
+                               device="cpu")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3hc.to(dev), p3hc,
+                64, 64, "coloring-10k-bf16-tables",
+                {"factor_round_binary_shared": 64, "q_update": 64})
+    # bf16 tables with a ternary bucket: outside the factor-kernel gate,
+    # so the factor phase is the generic one and the q update kernel
+    # rounds every operation to bf16, as the JAX package computes it
+    s3, t3 = ternary_arrays(10_000, seed=5)
+    p3tc = compile_from_arrays([s, s3], [t, t3], 3, unary=u,
+                               table_dtype="bf16", device="cpu")
+    if p3tc.n_real_edges != E_TERNARY:
+        raise AssertionError("unexpected ternary instance size")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p3tc.to(dev), p3tc,
+                64, 64, "coloring-10k-ternary-bf16-tables",
+                {"factor_round_binary_shared": 0, "factor_round_binary": 0,
+                 "q_update": 64})
+    profile_rounds(torch, run_batched, maxsum, params, p3, 64,
+                   "coloring-10k")
+    cost_sum_row(torch, p3, "coloring-10k")
 
-        # -- 4. per-factor tables, 100k variables ----------------------------
-        p4c = compile_from_arrays(s4, tabs4, 5, unary=u4, device="cpu")
-        p4 = p4c.to(dev)
-        counts4 = main_path(
-            torch, mk, solve_compiled, p4, 64, 64,
-            {"factor_round_binary": 64, "q_update": 64,
-             "factor_round_binary_shared": 0}, "per-factor-100k-d5", card,
-        )
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p4, p4c, 32, 32,
-                    "per-factor-100k-d5")
-        p4hc = compile_from_arrays(s4, tabs4, 5, unary=u4, table_dtype="bf16",
-                                   device="cpu")
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p4hc.to(dev), p4hc,
-                    16, 16, "per-factor-100k-d5-bf16-tables",
-                    {"factor_round_binary": 16, "q_update": 16})
-        profile_rounds(torch, run_batched, maxsum, params, p4, 32,
-                       "per-factor-100k-d5")
+    # -- 4. per-factor tables, 100k variables ----------------------------
+    p4c = compile_from_arrays(s4, tabs4, 5, unary=u4, device="cpu")
+    p4 = p4c.to(dev)
+    counts4 = main_path(
+        torch, mk, solve_compiled, p4, 64, 64,
+        {"factor_round_binary": 64, "q_update": 64,
+         "factor_round_binary_shared": 0}, "per-factor-100k-d5", card,
+    )
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p4, p4c, 32, 32,
+                "per-factor-100k-d5")
+    p4hc = compile_from_arrays(s4, tabs4, 5, unary=u4, table_dtype="bf16",
+                               device="cpu")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p4hc.to(dev), p4hc,
+                16, 16, "per-factor-100k-d5-bf16-tables",
+                {"factor_round_binary": 16, "q_update": 16})
+    profile_rounds(torch, run_batched, maxsum, params, p4, 32,
+                   "per-factor-100k-d5")
 
-        # -- 5. d = 10: the factor kernels' lane-tile instance ---------------
-        p10c = compile_from_arrays(s10, tabs10, 10, unary=u10, device="cpu")
-        p10 = p10c.to(dev)
-        if (p10.n_real_edges, p10.buckets[2].n_cons) != (599_976, 299_988):
-            raise AssertionError("unexpected 100k 10-colour size")
-        per_factor = {"factor_round_binary": 64, "q_update": 64,
-                      "factor_round_binary_shared": 0}
-        counts10 = main_path(torch, mk, solve_compiled, p10, 64, 64, per_factor,
-                             "per-factor-100k-d10", card)
-        half = {k: v // 2 for k, v in per_factor.items()}
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p10, p10c, 32, 32,
-                    "per-factor-100k-d10", half)
-        p10hc = compile_from_arrays(s10, tabs10, 10, unary=u10,
-                                    table_dtype="bf16", device="cpu")
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p10hc.to(dev), p10hc,
-                    16, 16, "per-factor-100k-d10-bf16-tables",
-                    {k: v // 4 for k, v in per_factor.items()})
-        del p10hc
-        profile_rounds(torch, run_batched, maxsum, params, p10, 32,
-                       "per-factor-100k-d10")
-        del p10, p10c
-        p10sc = compile_from_arrays(s10, t10, 10, unary=u10, device="cpu")
-        p10s = p10sc.to(dev)
-        if not p10s.buckets[2].shared_table:
-            raise AssertionError("the 10-colour coloring lost its shared table")
-        shared = {"factor_round_binary_shared": 64, "q_update": 64,
-                  "factor_round_binary": 0}
-        counts10s = main_path(torch, mk, solve_compiled, p10s, 64, 64, shared,
-                              "coloring-100k-d10", card)
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p10s, p10sc, 32, 32,
-                    "coloring-100k-d10", {k: v // 2 for k, v in shared.items()})
-        profile_rounds(torch, run_batched, maxsum, params, p10s, 32,
-                       "coloring-100k-d10")
-        del p10s, p10sc
-        torch.cuda.empty_cache()
+    # -- 5. d = 10: the factor kernels' lane-tile instance ---------------
+    p10c = compile_from_arrays(s10, tabs10, 10, unary=u10, device="cpu")
+    p10 = p10c.to(dev)
+    if (p10.n_real_edges, p10.buckets[2].n_cons) != (599_976, 299_988):
+        raise AssertionError("unexpected 100k 10-colour size")
+    per_factor = {"factor_round_binary": 64, "q_update": 64,
+                  "factor_round_binary_shared": 0}
+    counts10 = main_path(torch, mk, solve_compiled, p10, 64, 64, per_factor,
+                         "per-factor-100k-d10", card)
+    half = {k: v // 2 for k, v in per_factor.items()}
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10, p10c, 32, 32,
+                "per-factor-100k-d10", half)
+    p10hc = compile_from_arrays(s10, tabs10, 10, unary=u10,
+                                table_dtype="bf16", device="cpu")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10hc.to(dev), p10hc,
+                16, 16, "per-factor-100k-d10-bf16-tables",
+                {k: v // 4 for k, v in per_factor.items()})
+    del p10hc
+    profile_rounds(torch, run_batched, maxsum, params, p10, 32,
+                   "per-factor-100k-d10")
+    del p10, p10c
+    p10sc = compile_from_arrays(s10, t10, 10, unary=u10, device="cpu")
+    p10s = p10sc.to(dev)
+    if not p10s.buckets[2].shared_table:
+        raise AssertionError("the 10-colour coloring lost its shared table")
+    shared = {"factor_round_binary_shared": 64, "q_update": 64,
+              "factor_round_binary": 0}
+    counts10s = main_path(torch, mk, solve_compiled, p10s, 64, 64, shared,
+                          "coloring-100k-d10", card)
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p10s, p10sc, 32, 32,
+                "coloring-100k-d10", {k: v // 2 for k, v in shared.items()})
+    profile_rounds(torch, run_batched, maxsum, params, p10s, 32,
+                   "coloring-100k-d10")
+    del p10s, p10sc
+    torch.cuda.empty_cache()
 
-        # -- 6. 1M coloring ---------------------------------------------------
-        del edges
-        p5c = compile_from_arrays(s5, t5, 3, unary=u5, device="cpu")
-        p5 = p5c.to(dev)
-        if (p5.n_real_edges, p5.buckets[2].n_cons) != (5_999_982, 2_999_991):
-            raise AssertionError("unexpected 1M coloring size")
-        torch.cuda.reset_peak_memory_stats()
-        main_path(
-            torch, mk, solve_compiled, p5, 256, 256,
-            {"factor_round_binary_shared": 256, "q_update": 256,
-             "factor_round_binary": 0}, "coloring-1M", card,
-        )
-        print(f"coloring-1M max_memory_allocated_bytes="
-              f"{torch.cuda.max_memory_allocated()}")
-        card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 8, 8,
-                    "coloring-1M")
-        profile_rounds(torch, run_batched, maxsum, params, p5, 32,
-                       "coloring-1M")
+    # -- 6. 1M coloring ---------------------------------------------------
+    del edges
+    p5c = compile_from_arrays(s5, t5, 3, unary=u5, device="cpu")
+    p5 = p5c.to(dev)
+    if (p5.n_real_edges, p5.buckets[2].n_cons) != (5_999_982, 2_999_991):
+        raise AssertionError("unexpected 1M coloring size")
+    torch.cuda.reset_peak_memory_stats()
+    main_path(
+        torch, mk, solve_compiled, p5, 256, 256,
+        {"factor_round_binary_shared": 256, "q_update": 256,
+         "factor_round_binary": 0}, "coloring-1M", card,
+    )
+    print(f"coloring-1M max_memory_allocated_bytes="
+          f"{torch.cuda.max_memory_allocated()}")
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 8, 8,
+                "coloring-1M")
+    profile_rounds(torch, run_batched, maxsum, params, p5, 32,
+                   "coloring-1M")
+    cost_sum_row(torch, p5, "coloring-1M")
 
-        # -- 7. the local-search family and A-Max-Sum -------------------------
-        local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
-                           card)
+    # -- 7. the local-search family and A-Max-Sum -------------------------
+    local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
+                       card)
 
-        # -- 8. exact DPOP ----------------------------------------------------
-        del p5, p5c
-        torch.cuda.empty_cache()
-        t8 = time.perf_counter()
-        dpop_phase(torch, dev, card)
-        print(f"phase 8 seconds={time.perf_counter() - t8}")
-
+    # -- 8. exact DPOP ----------------------------------------------------
+    del p5, p5c
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    dpop_phase(torch, dev, card)
+    print(f"phase 8 seconds={time.perf_counter() - t8}")
 
     # -- 9. restarts, instances and the batch axis ------------------------
     t9 = time.perf_counter()
@@ -1819,44 +1994,43 @@ def main() -> int:
 
     # -- 10. summary ------------------------------------------------------
     kernels = []
-    if full:
-        main_shape = {  # entry: (kernel, d, width, case, main-path launches)
-            "factor_round_binary_shared": (
-                "factor_round_binary_shared", 3, 29_987, "strided",
-                counts3["factor_round_binary_shared"]),
-            "factor_round_binary": (
-                "factor_round_binary", 5, m4, "strided",
-                counts4["factor_round_binary"]),
-            "q_update": ("q_update", 3, 59_974, "gathered", counts3["q_update"]),
-            # the lane-tile instance of each factor kernel, on phase 5's paths
-            "factor_round_binary_shared.runtime_d": (
-                "factor_round_binary_shared", 10, 299_988, "strided",
-                counts10s["factor_round_binary_shared"]),
-            "factor_round_binary.runtime_d": (
-                "factor_round_binary", 10, 299_988, "strided",
-                counts10["factor_round_binary"]),
-            # the q update's lane-tile instance, on the same paths
-            "q_update.runtime_d": (
-                "q_update", 10, 599_976, "gathered", counts10["q_update"]),
-        }
-        for entry, (name, d, w, case, launched) in main_shape.items():
-            tile = entry.endswith(".runtime_d")
-            row = next(
-                r for r in rows
-                if r["kernel"] == name and r["table"] != "bf16"
-                and (r["d"], r["width"], r["case"], r["dtype"]) == (d, w, case,
-                                                                    "f32")
-            )
-            kernels.append(dict(
-                name=entry, route="cuda", source=SOURCE,
-                replaces=KERNELS[name], launches=launched,
-                max_abs_err=max(
-                    r["max_abs_err"] for r in rows if r["kernel"] == name
-                    and (r["instance"] != "unrolled") == tile),
-                ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=None,
-            ))
+    main_shape = {  # entry: (kernel, d, width, case, main-path launches)
+        "factor_round_binary_shared": (
+            "factor_round_binary_shared", 3, 29_987, "strided",
+            counts3["factor_round_binary_shared"]),
+        "factor_round_binary": (
+            "factor_round_binary", 5, m4, "strided",
+            counts4["factor_round_binary"]),
+        "q_update": ("q_update", 3, 59_974, "gathered", counts3["q_update"]),
+        # the lane-tile instance of each factor kernel, on phase 5's paths
+        "factor_round_binary_shared.runtime_d": (
+            "factor_round_binary_shared", 10, 299_988, "strided",
+            counts10s["factor_round_binary_shared"]),
+        "factor_round_binary.runtime_d": (
+            "factor_round_binary", 10, 299_988, "strided",
+            counts10["factor_round_binary"]),
+        # the q update's lane-tile instance, on the same paths
+        "q_update.runtime_d": (
+            "q_update", 10, 599_976, "gathered", counts10["q_update"]),
+    }
+    for entry, (name, d, w, case, launched) in main_shape.items():
+        tile = entry.endswith(".runtime_d")
+        row = next(
+            r for r in rows
+            if r["kernel"] == name and r["table"] != "bf16"
+            and (r["d"], r["width"], r["case"], r["dtype"]) == (d, w, case,
+                                                                "f32")
+        )
+        kernels.append(dict(
+            name=entry, route="cuda", source=SOURCE,
+            replaces=KERNELS[name], launches=launched,
+            max_abs_err=max(
+                r["max_abs_err"] for r in rows if r["kernel"] == name
+                and (r["instance"] != "unrolled") == tile),
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None,
+        ))
     # the batched instances (phase 9a's rows, launches from 9's paths)
     for entry, row in brows.items():
         kernels.append(dict(

@@ -8,7 +8,9 @@
 - :func:`local_cost_sweep` — every variable's full candidate-value cost
   row under the current assignment.
 - :func:`total_cost` — solution cost of an assignment, on the device;
-  :func:`instance_costs` the same per instance of a stacked problem.
+  :func:`instance_costs` the same per instance of a stacked problem,
+  both summed by :func:`fixed_order_sum` (the same bits for a row
+  alone, inside a batch, on the card or on the CPU).
 - :func:`neighbor_gather` — gather a per-variable quantity from each
   primal-graph neighbor (:func:`at_neighbors` without the padding fill).
 
@@ -128,23 +130,48 @@ def local_cost_sweep(
     return segment_sum_edges(problem, sweeps, dim=-2) + problem.unary
 
 
+def fixed_order_sum(*parts: torch.Tensor) -> torch.Tensor:
+    """``parts`` concatenated along their last axis and summed over it,
+    in one order that depends only on that axis's length: zero-padded
+    to a power of two P, then halved (``x[..., :h] + x[..., h:]``) until
+    one entry is left.
+
+    ``torch.sum`` picks its reduction order from the whole shape and the
+    device (how many rows, how long each, which kernel), so the same row
+    summed alone and inside a batch can differ in the last bits.  These
+    element-wise adds give every row the same bits whatever the leading
+    axes and on every device: a lone solve and each instance of a group
+    compute equal costs, and a card run equals a CPU run.  Types
+    narrower than f32 (bf16 tables) add in f32 and round once at the
+    end, as ``torch.sum`` accumulates them."""
+    n = sum(p.shape[-1] for p in parts)
+    size = 1 << max(n - 1, 0).bit_length()
+    dtype = parts[0].dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    pad = parts[0].new_zeros(parts[0].shape[:-1] + (size - n,), dtype=acc)
+    buf = torch.cat([p.to(acc) for p in parts] + [pad], dim=-1)
+    while size > 1:
+        size //= 2
+        buf = buf[..., :size] + buf[..., size:]
+    return buf[..., 0].to(dtype)
+
+
 def total_cost(
     problem: CompiledProblem, values: torch.Tensor
 ) -> torch.Tensor:
     """[...]: cost of full assignments ``values [..., n_vars]`` (compiled
     sign: always a minimization cost; callers re-negate for max
-    problems)."""
+    problems): the constraints' costs, then the variables', summed by
+    :func:`fixed_order_sum`."""
     v = values.long()
     con_cost = (
-        problem.tables_flat[con_cells(problem, v)].sum(dim=-1)
+        problem.tables_flat[con_cells(problem, v)]
         if problem.n_cons
-        else torch.zeros(
-            v.shape[:-1], dtype=problem.unary.dtype, device=v.device
-        )
+        else problem.unary.new_zeros(v.shape[:-1] + (0,))
     )
     unary = problem.unary.expand(v.shape + (problem.d_max,))
-    var_cost = unary.gather(-1, v[..., None])[..., 0].sum(dim=-1)
-    return con_cost + var_cost
+    var_cost = unary.gather(-1, v[..., None])[..., 0]
+    return fixed_order_sum(con_cost, var_cost)
 
 
 def instance_costs(
@@ -152,8 +179,9 @@ def instance_costs(
 ) -> torch.Tensor:
     """``[I, ...]``: :func:`total_cost` of each instance of a stacked
     problem under ``values [I, ..., n_vars]`` (instance i's assignments
-    against instance i's tables), the same cells summed in the same
-    order as each instance's own ``total_cost``."""
+    against instance i's tables): the same cells summed by the same
+    :func:`fixed_order_sum`, so each equals the instance's own
+    ``total_cost`` bit for bit."""
     sp = stacked.problem
     I, n = values.shape[0], values.shape[-1]
     v = values.long().reshape(I, -1, n)  # [I, B, n]
@@ -167,13 +195,12 @@ def instance_costs(
         ).sum(dim=-1)  # [I, B, C]
         con_cost = sp.tables_flat.gather(-1, cells.view(I, B * C)).view(
             I, B, C
-        ).sum(dim=-1)
+        )
     else:
-        con_cost = torch.zeros((I, B), dtype=sp.unary.dtype,
-                               device=v.device)
+        con_cost = sp.unary.new_zeros((I, B, 0))
     unary = sp.unary[:, None].expand(I, B, n, stacked.d_max)
-    var_cost = unary.gather(-1, v[..., None])[..., 0].sum(dim=-1)
-    return (con_cost + var_cost).reshape(values.shape[:-1])
+    var_cost = unary.gather(-1, v[..., None])[..., 0]
+    return fixed_order_sum(con_cost, var_cost).reshape(values.shape[:-1])
 
 
 def at_neighbors(

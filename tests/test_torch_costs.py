@@ -75,8 +75,9 @@ def test_neighbor_gather_matches_jax(problems):
 
 
 def test_restart_axis_equals_row_by_row(problems):
-    """``[K, n]`` values give the rows each ``[n]`` row gives: the sweep
-    bit for bit, the total cost to rounding (one sum per row)."""
+    """``[K, n]`` values give the rows each ``[n]`` row gives, bit for
+    bit: the sweep, and the total cost (its sum order depends only on
+    the row's length)."""
     _, port, values = problems
     rng = np.random.default_rng(2)
     stack = np.stack([values] + [
@@ -90,7 +91,50 @@ def test_restart_axis_equals_row_by_row(problems):
     assert sweep.shape == (3, len(values), 4) and cost.shape == (3,)
     for k in range(3):
         assert torch.equal(sweep[k], tcosts.local_cost_sweep(port, vk[k]))
-        assert float(cost[k]) == pytest.approx(
-            float(tcosts.total_cost(port, vk[k])), rel=1e-6
-        )
+        assert torch.equal(cost[k], tcosts.total_cost(port, vk[k]))
         assert torch.equal(nbr[k], tcosts.neighbor_gather(port, vk[k], -1))
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 37, 1000])
+def test_fixed_order_sum_is_pairwise_halving(n):
+    """The documented order, checked against numpy f32 adds, and each row
+    of a batch summed to the bits it gets alone."""
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((3, 4, n)) * 10.0 ** rng.integers(
+        -6, 6, (3, 4, n))).astype(np.float32)
+    size = 1 << max(n - 1, 0).bit_length()
+    want = np.zeros((3, 4, size), np.float32)
+    want[..., :n] = x
+    while want.shape[-1] > 1:
+        h = want.shape[-1] // 2
+        want = want[..., :h] + want[..., h:]
+    got = tcosts.fixed_order_sum(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want[..., 0])
+    for i in range(3):
+        for j in range(4):
+            assert torch.equal(
+                got[i, j], tcosts.fixed_order_sum(torch.from_numpy(x[i, j]))
+            )
+
+
+def test_instance_costs_equal_each_total_cost():
+    """A stacked group of three rings (one pow2 bucket) gives each
+    instance's own ``total_cost`` (restart axis included), bit for bit,
+    on float tables whose sum depends on the order."""
+    rng = np.random.default_rng(4)
+    probs, vals = [], []
+    for n in (11, 13, 16):
+        s2 = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
+        t2 = (rng.random((n, 3, 3)) * 1e3).astype(np.float32)
+        u = rng.random((n, 3)).astype(np.float32) * 1e-3
+        probs.append(tcompile.compile_from_arrays(
+            [s2], [t2], 3, n_vars=n, unary=u, pad_policy="pow2:16",
+            device="cpu"))
+    [stacked] = tcompile.stack_problems(probs)
+    for p in probs:
+        vals.append(rng.integers(0, 3, (2, p.n_vars)).astype(np.int32))
+    v = torch.from_numpy(np.stack(vals))
+    got = tcosts.instance_costs(stacked, v)
+    assert got.shape == (3, 2)
+    for i, p in enumerate(probs):
+        assert torch.equal(got[i], tcosts.total_cost(p, v[i]))
