@@ -146,7 +146,39 @@ caught and passed over):
    (the lane tiles batched) and card = CPU.  9f ``many-secp-dpop-K8``:
    ``bench.py:121-133``'s 8 SECP instances through ``solve_many``
    against sequential solves: equal results and ``util_dispatches``.
-10. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+10. Exact inference (``api.infer``/``infer_many``: the plan and the
+   certificates on the host, the stacked contractions on the card, eager
+   PyTorch as the JAX package's are XLA).  Each query runs three times on
+   the card (median seconds, cells/s, dispatches, device nodes, peak
+   device memory, the telemetry counters), once with the port on the CPU
+   (skipped where the card run dispatched nothing: the same host
+   computation) and once in host f64 (``device="never"``).  Gates: map
+   and kbest assignments, costs and lists equal on all three; log_z,
+   every marginal and ``e_cost`` within the card's ``error_bound``
+   (+1e-9) of host f64; the counts (``cells``,
+   ``dispatches``, ``device_nodes``, ``host_nodes``, ``width``) and
+   counters equal card and CPU.  ``infer-tree10k``: ``bench.py:946-969``'s
+   10,000-variable coloring tree, log_z, marginals, map, kbest:5 and
+   expectation at ``device="auto"``, log_z at ``"always"``; map cost =
+   the port's DPOP cost, the kbest list ascending, distinct and led by
+   map, expectation's log_z = log_z's.  ``infer-secp192-tiled``: the
+   semiring_infer stage's SECP (``bench.py:1046-1056``) at ``"always"``,
+   ``device_min_cells=256``, pow2: log_z (``tol=inf``), map, and kbest:5
+   and expectation (the tree's tables are too small for the card).
+   ``infer-hubtree-d24``: phase 8's instance, map at ``"auto"``, log_z
+   and marginals at ``"always"``, ``tol=inf`` (the logsumexp stack at 44 x
+   24^4 cells), and a profiler pass: the contraction's device time
+   against the bound of the run's dispatches, and the eager kernel
+   launches behind those dispatches.  ``infer-many-secp192-I4``:
+   the SECP at seeds 7-10 through ``infer_many``: each instance equal to
+   its sequential ``infer`` in every key but time, ``instances_batched``
+   and ``telemetry``, fewer dispatches than the sequential runs, counts
+   and telemetry counters equal to the CPU's.  Then one ``contraction-<semiring>`` row per
+   semiring run on the card: its largest dispatch shape of the phase on
+   random parts, card against CPU, its time (CUDA events around eager
+   calls) beside the bound and the dispatches (not kernel launches) of
+   the phase's card runs.
+11. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths), the card
@@ -1785,6 +1817,412 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
     return rows, counts
 
 
+# -- phase 10: exact inference ----------------------------------------------
+
+SEM_SECP_SPEC = dict(  # bench.py:1046-1056, the semiring_infer stage's SECP
+    nb_lights=192, nb_models=192, nb_rules=48, light_levels=5,
+    model_arity=3, zone_size=8, zone_layout="tiled", efficiency_weight=0.1,
+    capacity=100.0, seed=7,
+)
+INFER_COUNTS = ("cells", "dispatches", "device_nodes", "host_nodes", "width")
+INFER_REPS = 3
+INFER_DISPATCHES = {}  # semiring: dispatches of one warm card run per query
+
+
+def coloring_tree_dcop(n_vars=10_000, colors=3):
+    """``bench.py:946-969`` ``_build_coloring_tree`` rebuilt with the
+    port's model objects: variable i joins a uniformly drawn earlier one
+    (``random.Random(1)``) with the colours' identity table."""
+    import random
+
+    import numpy as np
+
+    from pydcop_tpu_torch.dcop import (
+        DCOP, AgentDef, Domain, NAryMatrixRelation, Variable,
+    )
+
+    rnd = random.Random(1)
+    dom = Domain("colors", "", list(range(colors)))
+    tree = DCOP(f"tree_coloring_{n_vars}")
+    vs = [Variable(f"v{i}", dom) for i in range(n_vars)]
+    for v in vs:
+        tree.add_variable(v)
+    eq = np.eye(colors)
+    for i in range(1, n_vars):
+        j = rnd.randrange(i)
+        tree.add_constraint(NAryMatrixRelation([vs[j], vs[i]], eq,
+                                               name=f"c{i}"))
+    tree.add_agents([AgentDef("a0")])
+    return tree
+
+
+def record_contractions(sr_mod):
+    """Wrap the sweep's ``contraction_kernel`` for one run: each dispatch's
+    semiring, joined shape, part shapes and stack height.  Returns the log
+    and the function that unwraps."""
+    log, inner = [], sr_mod.contraction_kernel
+
+    def wrapped(sr, shape, part_shapes, batched=False, **kw):
+        fn = inner(sr, shape, part_shapes, batched=batched, **kw)
+        name = sr_mod.get_semiring(sr).name
+
+        def run(*tabs):
+            lead = tuple(tabs[0].shape[:1]) if batched else ()
+            log.append((name, tuple(shape), tuple(part_shapes), lead))
+            return fn(*tabs)
+
+        return run
+
+    sr_mod.contraction_kernel = wrapped
+    return log, lambda: setattr(sr_mod, "contraction_kernel", inner)
+
+
+def contraction_bytes(sr_name, shape, part_shapes, lead, kk=1):
+    """(bytes the contraction must move, its f32 operations): each part
+    read once and each output written once; a join add per part and cell,
+    plus the projection's compare/exp/add per cell (kbest: its sorts'
+    compares, d·k·log2(d·k) per row cell)."""
+    cells = math.prod(lead + tuple(shape))
+    rows = cells // shape[-1]
+    parts = sum(4 * math.prod(lead + tuple(p)) for p in part_shapes)
+    n = len(part_shapes)
+    if sr_name.startswith("kbest"):
+        out = rows * kk * (4 + 4 + 8 * (1 + max(n - 2, 0)))
+        cand = shape[-1] * kk
+        ops = cells * kk * n + rows * cand * max(1, cand.bit_length())
+    elif sr_name == "expectation":
+        out, ops = 8 * rows, cells * (2 * n + 6)
+    elif sr_name in ("min_sum", "max_sum"):
+        out, ops = 12 * rows, cells * (n + 4)
+    else:
+        out, ops = 4 * rows, cells * (n + 4)
+    return parts + out, ops
+
+
+def eager_ms(torch, fn, calls: int = 5) -> float:
+    """Time of one call as the sweep makes it (eager operations, host
+    launches included): CUDA events around ``calls`` calls, the median of
+    5 such samples after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    return statistics.median(_event_ms(torch, run) / calls for _ in range(5))
+
+
+def contraction_row(torch, dev, sr_mod, name, shape, part_shapes, lead,
+                    dispatches, seed):
+    """One semiring's contraction on the card at a dispatch shape of the
+    phase (random parts; kbest cells sorted ascending), its time beside the
+    bound, and the card against the CPU on the same parts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sr = sr_mod.get_semiring(name)
+    parts = []
+    for ps in part_shapes:
+        p = (rng.random(lead + tuple(ps), dtype=np.float32) * 10)
+        if sr.kind == "kbest" and len(ps) == len(shape) + 1:
+            p = np.sort(p, axis=-1)
+        parts.append(p.astype(np.float32))
+    fn = sr_mod.contraction_kernel(sr, shape, part_shapes,
+                                   batched=bool(lead))
+    on_card = [torch.from_numpy(p).to(dev) for p in parts]
+    got = [o.cpu() for o in fn(*on_card)]
+    want = fn(*(torch.from_numpy(p) for p in parts))
+    if sr.idempotent or sr.kind == "kbest":
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"contraction {name}: card differs from "
+                                 "the CPU")
+        err = 0.0
+    else:
+        err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        if not all(torch.allclose(g, w, rtol=1e-5, atol=1e-5)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"contraction {name}: card far from CPU")
+    ms = eager_ms(torch, lambda: fn(*on_card))
+    nbytes, nops = contraction_bytes(name, shape, part_shapes, lead,
+                                     sr.cell_width)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    print(f"contraction-{name}: joined={shape} "
+          f"stack={lead[0] if lead else 1} parts={len(part_shapes)} "
+          f"dispatches={dispatches} ms={ms} bound_ms={b_ms} bound_by={b_by} "
+          f"share_of_bound={b_ms / ms} card_vs_cpu_max_abs_err={err} "
+          "library_ms=None")
+    del on_card
+    torch.cuda.empty_cache()
+
+
+def check_infer_pair(label, query, card_r, cpu_r, host_r):
+    """The gates between a card run, the port's CPU run and the host f64
+    run (``device="never"``) of one query."""
+    for name, r in (("card", card_r), ("cpu", cpu_r), ("never", host_r)):
+        if r["status"] != "finished":
+            raise AssertionError(f"{label} {query}: {name} {r['status']}")
+    for k in INFER_COUNTS:
+        if card_r[k] != cpu_r[k]:
+            raise AssertionError(
+                f"{label} {query}: {k} card {card_r[k]} cpu {cpu_r[k]}")
+    if card_r["telemetry"]["counters"] != cpu_r["telemetry"]["counters"]:
+        raise AssertionError(f"{label} {query}: telemetry counters differ "
+                             "between card and CPU")
+    kind = query.split(":")[0]
+    if kind in ("map", "kbest", "marginal_map"):
+        keys = ("assignment", "cost") + (
+            ("costs", "solutions") if kind == "kbest" else ())
+        for name, r in (("cpu", cpu_r), ("never", host_r)):
+            for k in keys:
+                if r.get(k) != card_r.get(k):
+                    raise AssertionError(
+                        f"{label} {query}: {k} card differs from {name}")
+        return 0.0
+    err = card_r["error_bound"]
+    dev = abs(card_r["log_z"] - host_r["log_z"])
+    if dev > err + 1e-9:
+        raise AssertionError(f"{label} {query}: |log_z card - never| {dev} "
+                             f"> error_bound {err}")
+    if kind == "marginals":
+        # each belief cell is off by at most err in the log domain, so a
+        # normalised probability moves by at most tanh(err / 2) < err
+        for v, p in card_r["marginals"].items():
+            q = host_r["marginals"][v]
+            dp = max(abs(a - b) for a, b in zip(p, q))
+            if dp > err + 1e-9:
+                raise AssertionError(f"{label} marginals {v}: {dp} > "
+                                     f"error_bound {err}")
+            dev = max(dev, dp)
+    if kind == "expectation":
+        de = abs(card_r["e_cost"] - host_r["e_cost"])
+        if de > err + 1e-9:
+            raise AssertionError(f"{label} expectation: |e_cost card - "
+                                 f"never| {de} > error_bound {err}")
+        dev = max(dev, de)
+    return dev
+
+
+def infer_cell(torch, infer, label, dcop, query, card, **kw):
+    """One query of one cell: INFER_REPS card runs (the median time; the
+    first is the cold one), peak device memory, the port's CPU run and
+    the host f64 run (``device="never"``), checked against each other;
+    one line of numbers.  A card run that dispatched nothing ran on the
+    host only, the same computation as the CPU run, which is then not
+    repeated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    secs, outs = [], []
+    for _ in range(INFER_REPS):
+        t0 = time.perf_counter()
+        outs.append(infer(dcop, query, **kw))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    r = outs[-1]
+    for k in INFER_COUNTS:
+        if outs[0][k] != r[k]:
+            raise AssertionError(f"{label} {query}: cold and warm {k} differ")
+    cpu_r = (infer(dcop, query, torch_device="cpu", **kw)
+             if r["dispatches"] else r)
+    host_r = infer(dcop, query, torch_device="cpu",
+                   **dict(kw, device="never"))
+    dev = check_infer_pair(label, query, r, cpu_r, host_r)
+    INFER_DISPATCHES[r["semiring"]] = (
+        INFER_DISPATCHES.get(r["semiring"], 0) + r["dispatches"])
+    sec = statistics.median(secs)
+    value = {k: r[k] for k in ("log_z", "cost", "e_cost") if k in r}
+    print(f"infer {label} {query}: device={kw.get('device', 'auto')} "
+          f"seconds={sec} cold_seconds={secs[0]} cells={r['cells']} "
+          f"cells_per_s={r['cells'] / sec} "
+          f"dispatches={r['dispatches']} device_nodes={r['device_nodes']} "
+          f"host_nodes={r['host_nodes']} width={r['width']} "
+          f"error_bound={r['error_bound']} card_vs_never={dev} "
+          f"value={value} peak_memory_bytes_above_start={peak} "
+          f"cpu_seconds={cpu_r['time'] if r['dispatches'] else None} "
+          f"never_seconds={host_r['time']} "
+          f"counters={r['telemetry']['counters']} card={card}")
+    return r, host_r
+
+
+def profile_infer(torch, infer, dcop, query, label, kw, dispatch_log):
+    """Device time of one warm card run by kind (torch.profiler): the
+    contraction's kernels against the bound of the run's dispatches (each
+    part read once, each output written once), the copies apart, and the
+    eager kernel launches the run's dispatches made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = len(dispatch_log)
+    torch.cuda.synchronize()
+    with profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        infer(dcop, query, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    copy = sum(e.self_device_time_total for e in kern
+               if "memcpy" in e.key.lower()) / 1e3
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    n_copies = sum(e.count for e in kern if "memcpy" in e.key.lower())
+    n_kernels = sum(e.count for e in kern) - n_copies
+    if not kern or busy <= 0:
+        raise AssertionError(f"profile {label}: no device time recorded")
+    nbytes = nops = 0
+    for name, shape, ps, lead in dispatch_log[start:]:
+        b, o = contraction_bytes(name, shape, ps, lead)
+        nbytes, nops = nbytes + b, nops + o
+    b_ms, b_by = bound_ms(nbytes, nops)
+    contraction = busy - copy
+    n_disp = len(dispatch_log) - start
+    print(f"profile {label}: wall_ms={wall_ms} device_busy_ms={busy} "
+          f"idle_share={1 - busy / wall_ms} copy_ms={copy} "
+          f"contraction_device_ms={contraction} dispatches={n_disp} "
+          f"kernel_launches={n_kernels} copies={n_copies} "
+          f"kernel_launches_per_dispatch={n_kernels / max(n_disp, 1)} "
+          f"bound_ms={b_ms} "
+          f"bound_by={b_by} share_of_bound={b_ms / contraction}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        us = e.self_device_time_total
+        print(f"profile {label} kernel: calls={e.count} "
+              f"us_per_call={us / e.count} share={us / 1e3 / busy} "
+              f"name={e.key[:100]!r}")
+
+
+def infer_phase(torch, dev, card):
+    """Phase 10 (see the module docstring)."""
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.api import infer, infer_many, solve
+    from pydcop_tpu_torch.commands.generators.secp import generate
+    from pydcop_tpu_torch.ops import semiring as sr_mod
+
+    log, unwrap = record_contractions(sr_mod)
+    try:
+        # -- 10a. the semiring stages' 10k coloring tree
+        tree = coloring_tree_dcop()
+        runs = {}
+        for query in ("log_z", "marginals", "map", "kbest:5",
+                      "expectation"):
+            runs[query] = infer_cell(torch, infer, "infer-tree10k", tree,
+                                     query, card)
+        dpop_r = solve(tree, "dpop", {"util_device": "auto"})
+        if dpop_r["cost"] != runs["map"][0]["cost"]:
+            raise AssertionError("infer-tree10k: map cost differs from DPOP")
+        kb = runs["kbest:5"][0]
+        costs = kb["costs"]
+        sols = [tuple(sorted(s["assignment"].items()))
+                for s in kb["solutions"]]
+        if (costs != sorted(costs) or len(set(sols)) != len(sols)
+                or costs[0] != runs["map"][0]["cost"]):
+            raise AssertionError("infer-tree10k: kbest list not ascending, "
+                                 "not distinct or not led by map")
+        if abs(runs["expectation"][0]["log_z"]
+               - runs["log_z"][0]["log_z"]) > 1e-9:
+            raise AssertionError("infer-tree10k: expectation log_z differs")
+        print(f"check infer-tree10k: map_cost={runs['map'][0]['cost']} "
+              f"dpop_cost={dpop_r['cost']} kbest_costs={costs} "
+              f"log_z={runs['log_z'][0]['log_z']} "
+              f"expectation_log_z={runs['expectation'][0]['log_z']} "
+              f"e_cost={runs['expectation'][0]['e_cost']} equal=True")
+        r, _ = infer_cell(torch, infer, "infer-tree10k", tree, "log_z",
+                          card, device="always")
+        if r["device_nodes"] <= 0:
+            raise AssertionError("infer-tree10k log_z: no device node")
+
+        # -- 10b. the semiring_infer stage's tiled SECP on the card
+        secp_kw = dict(device="always", device_min_cells=256,
+                       pad_policy="pow2")
+        secps = [generate(Namespace(**dict(SEM_SECP_SPEC, seed=s)))
+                 for s in (7, 8, 9, 10)]
+        # kbest and expectation run on the card here only: the tree's
+        # tables are too small for device="auto"
+        for query, extra in (("log_z", {"tol": float("inf")}), ("map", {}),
+                             ("kbest:5", {}),
+                             ("expectation", {"tol": float("inf")})):
+            r, _ = infer_cell(torch, infer, "infer-secp192-tiled", secps[0],
+                              query, card, **secp_kw, **extra)
+            if r["device_nodes"] <= 0:
+                raise AssertionError(f"infer-secp192-tiled {query}: no "
+                                     "device node")
+
+        # -- 10c. configuration 6's hub tree: the stacks at a real size
+        hub = hubtree_dcop()
+        infer_cell(torch, infer, "infer-hubtree-d24", hub, "map", card)
+        hub_kw = dict(device="always", tol=float("inf"))
+        for query in ("log_z", "marginals"):
+            r, _ = infer_cell(torch, infer, "infer-hubtree-d24", hub, query,
+                              card, **hub_kw)
+            if r["device_nodes"] <= 0:
+                raise AssertionError(f"infer-hubtree-d24 {query}: no device "
+                                     "node")
+        profile_infer(torch, infer, hub, "log_z", "infer-hubtree-d24-log_z",
+                      hub_kw, log)
+
+        # -- 10d. four SECP instances in one merged sweep
+        for query, extra in (("log_z", {"tol": float("inf")}), ("map", {})):
+            kw = dict(secp_kw, **extra)
+            infer_many(secps, query, **kw)  # cold
+            t0 = time.perf_counter()
+            many = infer_many(secps, query, **kw)
+            torch.cuda.synchronize()
+            t_many = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            seq = [infer(d, query, **kw) for d in secps]
+            torch.cuda.synchronize()
+            t_seq = time.perf_counter() - t0
+            cpu = infer_many(secps, query, torch_device="cpu", **kw)
+            for i, (m_, s_, c_) in enumerate(zip(many, seq, cpu)):
+                for k in set(s_) - {"time", "instances_batched",
+                                    "telemetry"}:
+                    if m_[k] != s_[k]:
+                        raise AssertionError(
+                            f"infer-many-secp192-I4 {query} #{i}: {k} "
+                            "differs from its sequential infer")
+                for k in INFER_COUNTS:
+                    if m_[k] != c_[k]:
+                        raise AssertionError(
+                            f"infer-many-secp192-I4 {query} #{i}: {k} card "
+                            "differs from the CPU")
+                if (m_["telemetry"]["counters"]
+                        != c_["telemetry"]["counters"]):
+                    raise AssertionError(
+                        f"infer-many-secp192-I4 {query} #{i}: telemetry "
+                        "counters differ between card and CPU")
+                if m_["device_nodes"] <= 0:
+                    raise AssertionError("infer-many-secp192-I4: no device "
+                                         "node")
+            merged = many[0]["telemetry"]["counters"]["semiring.dispatches"]
+            single = sum(s_["dispatches"] for s_ in seq)
+            if merged >= single:
+                raise AssertionError("infer-many-secp192-I4: merging saved "
+                                     "no dispatch")
+            print(f"infer infer-many-secp192-I4 {query}: instances=4 "
+                  f"seconds={t_many} sequential_seconds={t_seq} "
+                  f"instances_per_s={4 / t_many} "
+                  f"sequential_instances_per_s={4 / t_seq} "
+                  f"dispatches={merged} sequential_dispatches={single} "
+                  f"cells={sum(m_['cells'] for m_ in many)} "
+                  f"counters={many[0]['telemetry']['counters']} "
+                  f"equal_to_sequential=True card={card}")
+    finally:
+        unwrap()
+
+    # -- 10e. each semiring's contraction at its largest dispatch here
+    largest = {}
+    for name, shape, ps, lead in log:
+        cells = math.prod(lead + shape)
+        if cells > largest.get(name, (0,))[0]:
+            largest[name] = (cells, shape, ps, lead)
+    for i, name in enumerate(sorted(largest)):
+        _, shape, ps, lead = largest[name]
+        contraction_row(torch, dev, sr_mod, name, shape, ps, lead,
+                        INFER_DISPATCHES.get(name, 0), seed=30 + i)
+
+
 def main() -> int:
     import torch
 
@@ -1992,7 +2430,12 @@ def main() -> int:
     )
     print(f"phase 9 seconds={time.perf_counter() - t9}")
 
-    # -- 10. summary ------------------------------------------------------
+    # -- 10. exact inference ----------------------------------------------
+    t10 = time.perf_counter()
+    infer_phase(torch, dev, card)
+    print(f"phase 10 seconds={time.perf_counter() - t10}")
+
+    # -- 11. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (

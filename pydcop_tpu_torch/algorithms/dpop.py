@@ -62,8 +62,8 @@ Message accounting: one UTIL message per non-root node (its table,
 the tree height.
 
 Not ported (each raises ``NotImplementedError``): ``max_util_bytes > 0``
-and ``table_format='sparse'`` (the planner sweep and sparse packs),
-``table_dtype`` ``bf16``/``int8`` (ROADMAP A10), and ``bnb='on'`` (the
+(the planner sweep, ROADMAP A10.5), ``table_format='sparse'`` (A10.4),
+``table_dtype`` ``bf16``/``int8`` (A10.3), and ``bnb='on'`` (the
 two-pass branch-and-bound kernel, ROADMAP A5).  ``bnb='auto'`` (the
 default) and ``'off'`` run the unpruned contraction, whose results the
 JAX package documents as bit-identical to the pruned ones.
@@ -91,6 +91,7 @@ from pydcop_tpu_torch.ops.padding import (
     table_dtype_eps,
     util_level_key,
 )
+from pydcop_tpu_torch.telemetry import get_metrics, get_tracer
 
 GRAPH_TYPE = "pseudotree"
 
@@ -131,18 +132,18 @@ def _check_ported(params: Dict[str, Any]) -> None:
     if int(params.get("max_util_bytes", 0) or 0) > 0:
         raise NotImplementedError(
             "dpop max_util_bytes > 0 (the planner sweep, "
-            "ops/membound.py) is not ported yet (ROADMAP A10)"
+            "ops/membound.py) is not ported yet (ROADMAP A10.5)"
         )
     if params.get("table_format", "dense") == "sparse":
         raise NotImplementedError(
             "dpop table_format='sparse' (ops/sparse.py) is not ported "
-            "yet (ROADMAP A10)"
+            "yet (ROADMAP A10.4)"
         )
     dt = as_table_dtype(params.get("table_dtype"))
     if dt != "f32":
         raise NotImplementedError(
             f"dpop table_dtype={dt!r} (bf16/int8 UTIL packs) is not "
-            "ported yet (ROADMAP A10)"
+            "ported yet (ROADMAP A10.3)"
         )
     if _semiring.as_bnb(params.get("bnb"), "auto") == "on":
         raise NotImplementedError(
@@ -249,10 +250,13 @@ def solve_host(
     device_min_cells = _resolve_device_min_cells(params)
     level_sync = params.get("util_batch", "level") != "node"
 
+    tracer = get_tracer()
+
     def one_pass(domains_p, owned_p):
         """One full UTIL+VALUE run (device path w/ host fallback).
         Returns (assignment, stats dict) or None on timeout."""
         t_util = time.perf_counter()
+        util_backend = "host" if device_min_cells is None else "device"
         util_stats = _util_phase(
             graph, domains_p, depth, owned_p, t0, timeout,
             device_min_cells=device_min_cells, device=dev,
@@ -262,10 +266,19 @@ def solve_host(
             return None
         (best_choice, util_cells, device_nodes, host_nodes,
          dispatches) = util_stats
+        t_value = time.perf_counter()
+        tracer.add_span(
+            "util-phase", "phase", t_util, t_value - t_util,
+            algo="dpop", backend=util_backend, cells=util_cells,
+        )
         assignment = _value_phase(graph, domains_p, best_choice)
+        tracer.add_span(
+            "value-phase", "phase", t_value,
+            time.perf_counter() - t_value, algo="dpop",
+        )
         return assignment, {
             "util_time": time.perf_counter() - t_util,
-            "util_backend": "host" if device_min_cells is None else "device",
+            "util_backend": util_backend,
             "util_cells": util_cells,
             "util_device_nodes": device_nodes,
             "util_host_nodes": host_nodes,
@@ -392,6 +405,10 @@ def solve_host_many(
     if not merged:
         return results  # type: ignore[return-value]
 
+    tracer = get_tracer()
+    met = get_metrics()
+    if met.enabled:
+        met.inc("dpop.instances_batched", len(merged))
     preps = {i: _prepare_instance(dcops[i]) for i in merged}
     insts = [
         _UtilInstance(*preps[i], _resolve_device_min_cells(params_list[i]))
@@ -409,6 +426,10 @@ def solve_host_many(
         for i in merged:
             results[i] = _timeout_result(dcops[i], t0)
         return results  # type: ignore[return-value]
+    tracer.add_span(
+        "util-phase", "phase", t_util, time.perf_counter() - t_util,
+        algo="dpop", backend="merged", instances=len(merged),
+    )
     util_time = (time.perf_counter() - t_util) / len(merged)
     for i, inst, out in zip(merged, insts, outs):
         graph, domains, depth, _ = preps[i]
@@ -653,6 +674,7 @@ def _util_phase_multi(
     on timeout.
     """
     K = len(insts)
+    met = get_metrics()
     utils: List[Dict[str, Tuple[List[str], np.ndarray, float]]] = [
         {} for _ in range(K)
     ]
@@ -827,8 +849,11 @@ def _util_phase_multi(
                     # per-node path below); a node whose single join
                     # still does not fit runs the exact host f64 join
                     # there.  Exactness is untouched either way.
-                    pass
+                    if met.enabled:
+                        met.inc("engine.oom_splits")
             if level_batched:
+                if met.enabled:
+                    met.inc("dpop.level_dispatches")
                 for k in sorted({item[0] for item, _ in entries}):
                     dispatches[k] += 1
                 # certification, vectorized over the stack: slice the
@@ -867,7 +892,7 @@ def _util_phase_multi(
                 redone = set()
                 for r, (item, aligned) in enumerate(entries):
                     if int(n_bad[r]) * 10 > sep_cells:
-                        _host_redo(host_nodes, finish, item)
+                        _host_redo(met, host_nodes, finish, item)
                         redone.add(r)
                         continue
                     (_, _, _, _, target, shape, parts, _) = item
@@ -926,8 +951,10 @@ def _util_phase_multi(
                     # bottom of the OOM ladder: this single join does
                     # not fit on the device even alone — redo it
                     # wholesale on host f64 (exact) and keep sweeping
-                    _host_redo(host_nodes, finish, item)
+                    _host_redo(met, host_nodes, finish, item)
                     continue
+                if met.enabled:  # per executed dispatch, as in the JAX
+                    met.inc("dpop.level_dispatches")  # package
                 dispatches[k] += 1
                 # slice the level-pack ghost cells away before
                 # certification: only the real region is decided here
@@ -940,7 +967,7 @@ def _util_phase_multi(
                         sum_max_abs,
                     )
                 except _PrecisionFallback:
-                    _host_redo(host_nodes, finish, item)
+                    _host_redo(met, host_nodes, finish, item)
                     continue
                 u = _exact_u_at(parts, target, shape, amin)
                 device_nodes[k] += 1
@@ -983,11 +1010,14 @@ def _certify_and_repair(name, parts, target, shape, amin, margins,
     return len(bad)
 
 
-def _host_redo(host_nodes, finish, item):
+def _host_redo(met, host_nodes, finish, item):
     """Redo THIS node wholesale on host f64, the same join the pure host
     path runs, and keep the sweep going (a tie-heavy table, or a join
-    that does not fit on the device)."""
+    that does not fit on the device); counted as
+    ``dpop.cert_fallbacks``, as in the JAX package."""
     k, name, node, sep, target, shape, parts, _ = item
+    if met.enabled:
+        met.inc("dpop.cert_fallbacks")
     j = np.zeros(shape, dtype=np.float64)
     for dims, table in parts:
         j = j + _align(table, dims, target)

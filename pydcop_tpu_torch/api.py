@@ -25,11 +25,25 @@ one launch of each kernel per round for the whole group
 (``engine/batched.py:run_many_batched``), and DPOP instances merge their
 UTIL phases into one sweep (``engine/host_batch.py``).
 
-The run goes to the CUDA device unless ``device="cpu"`` is passed;
-without a CUDA device it raises.
+``infer()`` and ``infer_many()`` answer exact probabilistic queries over
+a DCOP's cost model (``map``, ``log_z``, ``marginals``, ``kbest:<k>``,
+``marginal_map``, ``expectation``) with the semiring contraction sweep
+(``ops/semiring.py``), returning the JAX package's result dicts.
 
-Not ported yet: the other execution modes, checkpoints, ``infer`` and
-the ``telemetry`` block of the result (ROADMAP.md).
+Every ``solve``, ``solve_many``, ``infer`` and ``infer_many`` call runs
+inside a telemetry session (``pydcop_tpu_torch.telemetry``) and attaches
+its summary as ``result["telemetry"]``; ``trace=`` also writes the
+span/event timeline to a file (``trace_format`` ``"jsonl"`` or
+``"chrome"``).
+
+The run goes to the CUDA device unless ``device="cpu"`` is passed
+(``torch_device="cpu"`` for ``infer``, whose ``device`` keyword keeps the
+JAX package's meaning, the offload policy); without a CUDA device it
+raises.
+
+Not ported yet: the other execution modes, checkpoints, the supervisor
+knobs, the memory-bounded, pruned, reduced-precision and sparse
+contractions (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -58,13 +72,37 @@ def solve(
     n_restarts: int = 1,
     pad_policy: str = "none",
     device: DeviceLike = None,
+    trace: Optional[str] = None,
+    trace_format: str = "jsonl",
 ) -> Dict[str, Any]:
-    """Solve a DCOP (object or yaml path) and return the result dict.
+    """Solve a DCOP (object or yaml path) and return the result dict,
+    with the run's ``telemetry`` block; ``trace`` also writes the
+    span/event timeline to that file (``trace_format`` ``"jsonl"`` or
+    ``"chrome"``).
 
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
     >>> result["assignment"], result["cost"]
     """
+    from pydcop_tpu_torch.telemetry import session
+
+    with session(trace, trace_format) as tel:
+        result = _solve(
+            dcop, algo, algo_params, rounds=rounds, timeout=timeout,
+            seed=seed, convergence_chunks=convergence_chunks,
+            chunk_size=chunk_size, checkpoint_path=checkpoint_path,
+            resume=resume, mode=mode, n_restarts=n_restarts,
+            pad_policy=pad_policy, device=device,
+        )
+        result["telemetry"] = tel.summary()
+    return result
+
+
+def _solve(
+    dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
+    chunk_size, checkpoint_path, resume, mode, n_restarts, pad_policy,
+    device,
+) -> Dict[str, Any]:
     if mode != "batched":
         raise NotImplementedError(
             f"mode={mode!r}: only the batched engine is ported"
@@ -153,26 +191,56 @@ def solve_many(
     ``timeout`` bounds the whole call.  Returns one result dict per
     input, in input order, with :func:`solve`'s keys plus
     ``instances_batched`` (the size of the instance's group); ``time``
-    is the group's wall time divided by its size.
+    is the group's wall time divided by its size.  Every result carries
+    the call's one ``telemetry`` block (``trace`` as in :func:`solve`).
 
-    Not ported yet (each raises ``NotImplementedError``): ``trace`` and
-    ``compile_cache`` (ROADMAP A4), ``chaos`` and the supervisor knobs
+    ``compile_cache`` (the JAX package's persistent XLA cache) has no
+    counterpart and takes only None.  Not ported yet (each raises
+    ``NotImplementedError``): ``chaos`` and the supervisor knobs
     ``retry_budget``, ``chunk_floor``, ``on_numeric_fault`` (A3).
     """
-    import time as _time
+    from pydcop_tpu_torch.telemetry import session
 
-    for value, name, item in (
-        (trace, "trace", "A4"), (compile_cache, "compile_cache", "A4"),
-        (chaos, "chaos", "A3"), (retry_budget, "retry_budget", "A3"),
-        (chunk_floor, "chunk_floor", "A3"),
-        (on_numeric_fault, "on_numeric_fault", "A3"),
+    _no_compile_cache(compile_cache)
+    for value, name in (
+        (chaos, "chaos"), (retry_budget, "retry_budget"),
+        (chunk_floor, "chunk_floor"),
+        (on_numeric_fault, "on_numeric_fault"),
     ):
         if value is not None:
             raise NotImplementedError(
                 f"solve_many {name}= is not ported yet — see ROADMAP.md, "
-                f"{item}"
+                "A3"
             )
-    del trace_format, chaos_seed  # only read with trace= / chaos=
+    del chaos_seed  # only read with chaos=
+    with session(trace, trace_format) as tel:
+        results = _solve_many(
+            dcops, algo, algo_params, rounds=rounds, timeout=timeout,
+            seed=seed, chunk_size=chunk_size,
+            convergence_chunks=convergence_chunks, n_restarts=n_restarts,
+            pad_policy=pad_policy, device=device,
+        )
+        summary = tel.summary()
+    for r in results:
+        r["telemetry"] = summary
+    return results
+
+
+def _no_compile_cache(compile_cache) -> None:
+    if compile_cache is not None:
+        raise NotImplementedError(
+            "compile_cache= (the JAX package's persistent XLA compilation "
+            "cache) has no counterpart in the port, which compiles no "
+            "XLA programs; pass None"
+        )
+
+
+def _solve_many(
+    dcops, algo, algo_params, *, rounds, timeout, seed, chunk_size,
+    convergence_chunks, n_restarts, pad_policy, device,
+) -> list:
+    import time as _time
+
     from pydcop_tpu_torch.ops.padding import as_pad_policy
 
     dcops = list(dcops)
@@ -333,3 +401,151 @@ def _result_dict(result) -> Dict[str, Any]:
             else {}
         ),
     }
+
+
+def infer(
+    dcop,
+    query: str = "marginals",
+    *,
+    order: str = "pseudo_tree",
+    beta: float = 1.0,
+    tol: float = 1e-6,
+    device: str = "auto",
+    device_min_cells: int = 1 << 14,
+    timeout: Optional[float] = None,
+    pad_policy: str = "none",
+    max_table_size: int = 1 << 26,
+    trace: Optional[str] = None,
+    trace_format: str = "jsonl",
+    compile_cache: Optional[str] = None,
+    retry_budget: Optional[int] = None,
+    max_util_bytes: Optional[int] = None,
+    map_vars: Optional[Sequence[str]] = None,
+    external_dists: Optional[Mapping[str, Mapping[Any, float]]] = None,
+    bnb: str = "auto",
+    table_dtype: str = "f32",
+    table_format: str = "dense",
+    torch_device: DeviceLike = None,
+) -> Dict[str, Any]:
+    """Exact probabilistic inference over a DCOP's cost model (port of
+    ``pydcop_tpu/api.py:infer``, same keywords and defaults).
+
+    The DCOP's total cost is an energy ``E(x)`` defining the Gibbs
+    distribution ``p(x) ∝ exp(-beta·E(x))``; ``query`` picks the
+    semiring the contraction sweep (``ops/semiring.py``) runs:
+    ``"marginals"`` (per-variable distributions plus ``log_z``),
+    ``"log_z"``, ``"map"`` (the exact MAP assignment), ``"kbest:<k>"``
+    (the k best assignments in cost order: ``solutions``, ``costs``),
+    ``"marginal_map"`` (``max`` over ``map_vars`` of the summed weight
+    of the rest: ``assignment``, ``value``) and ``"expectation"``
+    (``e_cost`` and ``log_z``; ``external_dists={external: {value:
+    prob}}`` sums those externals over their distribution).  ``order``
+    is ``"pseudo_tree"`` or ``"min_fill"``.
+
+    ``device`` is the JAX package's offload policy: ``"auto"``
+    (contractions of at least ``device_min_cells`` cells go to the
+    device), ``"never"`` (pure host f64) or ``"always"``.  ``map`` and
+    ``kbest`` stay exact on the device (f32 certificate, host f64
+    repair); ``log_z``/``marginals``/``expectation`` carry an
+    ``error_bound``, and a contraction whose bound would pass ``tol``
+    runs on the host instead.  The device contractions run on
+    ``torch_device``: the CUDA device unless ``"cpu"`` is passed
+    (without a CUDA device the call raises).
+
+    ``compile_cache`` has no counterpart (None only); ``retry_budget``
+    (ROADMAP A3), ``max_util_bytes`` (A10.5), ``bnb="on"`` (A5),
+    ``table_dtype`` bf16/int8 (A10.3) and ``table_format="sparse"``
+    (A10.4) raise ``NotImplementedError``; ``bnb="auto"`` runs the
+    unpruned contraction.
+
+    Returns the result dict: ``query``, ``semiring``, ``order``,
+    ``status``, ``cells``, ``dispatches``, ``device_nodes``,
+    ``host_nodes``, ``width``, ``error_bound``, ``instances_batched``,
+    ``time``, ``telemetry`` and the query's payload.
+    """
+    return infer_many(
+        [dcop], query, order=order, beta=beta, tol=tol, device=device,
+        device_min_cells=device_min_cells, timeout=timeout,
+        pad_policy=pad_policy, max_table_size=max_table_size, trace=trace,
+        trace_format=trace_format, compile_cache=compile_cache,
+        retry_budget=retry_budget, max_util_bytes=max_util_bytes,
+        map_vars=map_vars, external_dists=external_dists, bnb=bnb,
+        table_dtype=table_dtype, table_format=table_format,
+        torch_device=torch_device,
+    )[0]
+
+
+def infer_many(
+    dcops: Sequence[Any],
+    query: str = "marginals",
+    *,
+    order: str = "pseudo_tree",
+    beta: float = 1.0,
+    tol: float = 1e-6,
+    device: str = "auto",
+    device_min_cells: int = 1 << 14,
+    timeout: Optional[float] = None,
+    pad_policy: str = "pow2",
+    max_table_size: int = 1 << 26,
+    trace: Optional[str] = None,
+    trace_format: str = "jsonl",
+    compile_cache: Optional[str] = None,
+    retry_budget: Optional[int] = None,
+    max_util_bytes: Optional[int] = None,
+    map_vars: Optional[Sequence[str]] = None,
+    external_dists: Optional[Mapping[str, Mapping[Any, float]]] = None,
+    bnb: str = "auto",
+    table_dtype: str = "f32",
+    table_format: str = "dense",
+    torch_device: DeviceLike = None,
+) -> list:
+    """Run one inference ``query`` over MANY instances (DCOP objects or
+    yaml paths) with their contraction sweeps MERGED: same-bucket
+    contractions from different instances ride one stacked device
+    dispatch (``pad_policy`` defaults to ``"pow2"`` here so
+    similarly-sized instances share buckets), and each result equals
+    its sequential :func:`infer` but for ``time``,
+    ``instances_batched`` and ``telemetry``.  ``timeout`` bounds the
+    whole call, yaml loads included.  Returns one result dict per input,
+    in input order; every result carries the call's one ``telemetry``
+    block.  Keywords as in :func:`infer`."""
+    import time as _time
+
+    from pydcop_tpu_torch.ops.semiring import run_infer_many
+    from pydcop_tpu_torch.telemetry import session
+
+    dcops = list(dcops)
+    if not dcops:
+        return []
+    _no_compile_cache(compile_cache)
+    if retry_budget is not None:
+        raise NotImplementedError(
+            "infer retry_budget= (the supervised dispatch) is not ported "
+            "yet — see ROADMAP.md, A3"
+        )
+    dev = resolve_device(torch_device)
+    deadline = None if timeout is None else _time.perf_counter() + timeout
+    loaded = []
+    for d in dcops:
+        if isinstance(d, (str, list, tuple)):
+            from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+
+            d = load_dcop_from_file(d)
+        loaded.append(d)
+    with session(trace, trace_format) as tel:
+        results = run_infer_many(
+            loaded, query, order=order, beta=beta, tol=tol, device=device,
+            device_min_cells=device_min_cells, pad_policy=pad_policy,
+            max_table_size=max_table_size, max_util_bytes=max_util_bytes,
+            map_vars=map_vars, external_dists=external_dists, bnb=bnb,
+            table_dtype=table_dtype, table_format=table_format,
+            timeout=(
+                None if deadline is None
+                else max(deadline - _time.perf_counter(), 0.01)
+            ),
+            torch_device=dev,
+        )
+        summary = tel.summary()
+    for r in results:
+        r["telemetry"] = summary
+    return results

@@ -4,16 +4,21 @@
 One-shot solve of a DCOP yaml on the batched engine, or with ``-a dpop``
 on the exact path (``-p util_device:always``, ``-p util_batch:node``,
 ``--pad_policy pow2``, …); prints the result as JSON in the shape
-``python -m pydcop_tpu solve`` prints (the ``telemetry`` block is not
-ported yet).  ``--restarts K`` runs K restarts and reports the best;
-``--many`` solves each file as its own instance through
-``api.solve_many`` and prints a JSON array.
+``python -m pydcop_tpu solve`` prints, ``telemetry`` block included;
+``--trace FILE`` writes the run's trace.  ``--restarts K`` runs K
+restarts and reports the best; ``--many`` solves each file as its own
+instance through ``api.solve_many`` and prints a JSON array (without
+the ``telemetry`` blocks, as the JAX package prints it).
 """
 
 from __future__ import annotations
 
-import json
 from typing import Dict, List
+
+from pydcop_tpu_torch.commands._common import (
+    add_trace_arguments,
+    write_result,
+)
 
 
 def parse_algo_params(items: List[str]) -> Dict[str, str]:
@@ -80,6 +85,7 @@ def set_parser(subparsers) -> None:
         "--output", type=str, default=None,
         help="write the result JSON to this file as well as stdout",
     )
+    add_trace_arguments(p)
     p.set_defaults(func=run_cmd)
 
 
@@ -98,10 +104,13 @@ def run_cmd(args) -> int:
             n_restarts=args.restarts,
             pad_policy=args.pad_policy,
             device=args.device,
+            trace=args.trace,
+            trace_format=args.trace_format,
         )
         for r in results:
             r.pop("cost_trace", None)  # keep the printed JSON compact
-        return _write(args, results)
+            r.pop("telemetry", None)
+        return write_result(args, results)
     result = solve(
         args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0],
         args.algo,
@@ -113,15 +122,8 @@ def run_cmd(args) -> int:
         convergence_chunks=args.convergence_chunks,
         pad_policy=args.pad_policy,
         device=args.device,
+        trace=args.trace,
+        trace_format=args.trace_format,
     )
     result.pop("cost_trace", None)  # keep the printed JSON compact
-    return _write(args, result)
-
-
-def _write(args, result) -> int:
-    out = json.dumps(result, indent=2, default=str)
-    print(out)
-    if args.output:
-        with open(args.output, "w") as f:
-            f.write(out)
-    return 0
+    return write_result(args, result)

@@ -55,6 +55,7 @@ from pydcop_tpu_torch.ops.compile import (
     union_problem,
 )
 from pydcop_tpu_torch.ops.costs import instance_costs, total_cost
+from pydcop_tpu_torch.telemetry import get_metrics, get_tracer
 
 
 @dataclasses.dataclass
@@ -214,15 +215,21 @@ def run_batched(
     if convergence_chunks:
         prev_best = float(best_cost.min())
         prev_values = None if batch else best_values.cpu()
+    tr, met = get_tracer(), get_metrics()
     while done < rounds:
         this_chunk = min(chunk_size, rounds - done)
-        state, best_cost, best_values, costs = _run_chunk(
-            problem, algo_module, params, state, gen, this_chunk,
-            cost_every, best_cost, best_values,
-            lambda v: (total_cost(problem, v), v),
-        )
-        # the one host sync of the chunk
-        costs = costs.float().cpu().numpy()
+        # the cycle span covers the chunk's dispatch AND its one host
+        # sync (on the cost trace): what a chunk of rounds costs
+        with tr.span("cycle", cat="cycle", first=done, rounds=this_chunk):
+            state, best_cost, best_values, costs = _run_chunk(
+                problem, algo_module, params, state, gen, this_chunk,
+                cost_every, best_cost, best_values,
+                lambda v: (total_cost(problem, v), v),
+            )
+            costs = costs.float().cpu().numpy()
+        if met.enabled:
+            met.inc("engine.chunks")
+            met.inc("engine.rounds", this_chunk)
         traces.append(costs.min(axis=-1) if batch else costs)
         done += this_chunk
         if timeout is not None and time.perf_counter() - t0 > timeout:
@@ -422,14 +429,25 @@ def run_many_batched(
     stall = 0
     prev_best = best_cost.amin(dim=1).cpu().numpy()
     prev_values = None if R > 1 else to_inst(state["values"]).cpu()
+    tr, met = get_tracer(), get_metrics()
     while done < rounds:
         this_chunk = min(chunk_size, rounds - done)
-        state, best_cost, best_values, costs = _run_chunk(
-            problem, algo_module, run_params, state, gen, this_chunk,
-            cost_every, best_cost, best_values, observe,
-        )
-        # the one host sync of the chunk: [samples, I, R] -> [I, samples]
-        traces.append(costs.float().amin(dim=-1).t().cpu().numpy())
+        with tr.span(
+            "cycle", cat="cycle", first=done, rounds=this_chunk,
+            instances=I,
+        ):
+            state, best_cost, best_values, costs = _run_chunk(
+                problem, algo_module, run_params, state, gen, this_chunk,
+                cost_every, best_cost, best_values, observe,
+            )
+            # the one host sync of the chunk: [samples, I, R] -> [I, samples]
+            traces.append(costs.float().amin(dim=-1).t().cpu().numpy())
+        if met.enabled:
+            if done == 0:
+                met.inc("engine.batch_groups")
+                met.inc("engine.instances_batched", I)
+            met.inc("engine.chunks")
+            met.inc("engine.rounds", this_chunk)
         done += this_chunk
         if timeout is not None and time.perf_counter() - t0 > timeout:
             status = "timeout"

@@ -14,6 +14,7 @@ import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from pydcop_tpu_torch.device import DeviceLike
+from pydcop_tpu_torch.telemetry import get_metrics
 
 
 def statics_signature(params: Mapping[str, Any]) -> Tuple:
@@ -57,6 +58,7 @@ def run_many_host(
     partitions: Dict[Tuple, List[int]] = {}
     for i, p in enumerate(params_list):
         partitions.setdefault(statics_signature(p), []).append(i)
+    met = get_metrics()
     for group in partitions.values():
         t_group = time.perf_counter()
         remaining = (
@@ -71,6 +73,8 @@ def run_many_host(
             device=device,
         )
         share = (time.perf_counter() - t_group) / len(group)
+        if met.enabled:
+            met.inc("engine.batch_groups")
         for i, res in zip(group, group_results):
             res["instances_batched"] = len(group)
             res["time"] = share

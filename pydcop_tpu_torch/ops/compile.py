@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -271,8 +272,32 @@ def compile_dcop(
     order; assignments in and out are keyed by name.  ``pad_policy``
     (``"none"``, ``"pow2"``, ``"pow2:<floor>"`` or a ``PadPolicy``)
     buckets every array dimension with ghost variables and constraints
-    (``ops/padding.py``).
+    (``ops/padding.py``).  Under an active telemetry session the call
+    records a ``compile-problem`` span.
     """
+    from pydcop_tpu_torch.telemetry import get_tracer
+
+    tr = get_tracer()
+    if not tr.enabled:
+        return _compile_dcop(
+            dcop, dtype, n_shards, pad_policy, table_dtype, table_format,
+            device,
+        )
+    t0 = time.perf_counter()
+    problem = _compile_dcop(
+        dcop, dtype, n_shards, pad_policy, table_dtype, table_format, device,
+    )
+    tr.add_span(
+        "compile-problem", "compile", t0, time.perf_counter() - t0,
+        n_vars=int(problem.n_vars), n_edges=int(problem.n_edges),
+        n_shards=n_shards,
+    )
+    return problem
+
+
+def _compile_dcop(
+    dcop, dtype, n_shards, pad_policy, table_dtype, table_format, device,
+) -> CompiledProblem:
     pol = _check_supported(n_shards, pad_policy, table_format)
     dev = resolve_device(device)
     dtype = _resolve_table_dtype(table_dtype, dtype)

@@ -187,11 +187,12 @@ def util_level_key(
     part_shapes: Sequence[Sequence[int]],
     policy: PadPolicy,
 ) -> tuple:
-    """Level-pack bucket key for one DPOP UTIL join: the PADDED
-    ``(joined shape, aligned part shapes)`` pair.
+    """Level-pack bucket key for one contraction (a DPOP UTIL join or a
+    semiring sweep node): the PADDED ``(joined shape, aligned part
+    shapes)`` pair.
 
-    Two nodes of one pseudo-tree wave with equal keys execute as rows
-    of ONE stacked contraction dispatch
+    Two nodes of one wave with equal keys execute as rows of ONE
+    stacked contraction dispatch
     (``ops/semiring.py:contraction_kernel``).  Under ``NO_PADDING`` the
     key is the exact shapes; with a pow-2 policy, near-miss shapes land
     on the same lattice point so a wave needs far fewer dispatches.
@@ -199,14 +200,27 @@ def util_level_key(
     Part axes of size 1 are broadcast axes and stay 1; real axes pad
     to the joined shape's bucket.  When the policy is enabled the key
     appends the shape of the ghost-guard MASK part (a row over the own
-    axis: 0 on real values, +inf on padded ones) that
-    :func:`pad_util_parts` adds so no argmin can land in a ghost cell.
-    (The JAX package's structured-cell parts, with a trailing value
-    axis, belong to semirings not ported yet.)
+    axis: 0 on real values, the semiring's ⊕-identity on padded ones)
+    that :func:`pad_util_parts` adds so no arg-reduce can land in a
+    ghost cell.
+
+    A part with ONE MORE axis than the joined shape carries a
+    structured-cell value axis (the kbest and expectation cells of
+    ``ops/semiring.py``): its named axes bucket as usual and the
+    trailing value axis is kept verbatim, never padded (the cell width
+    belongs to the semiring, not to the problem size).
     """
     pshape = bucket_util_shape(shape, policy)
+    nd = len(pshape)
     pparts = tuple(
-        tuple(1 if s == 1 else pshape[i] for i, s in enumerate(ps))
+        tuple(
+            (
+                s
+                if (len(ps) == nd + 1 and i == len(ps) - 1)
+                else (1 if s == 1 else pshape[i])
+            )
+            for i, s in enumerate(ps)
+        )
         for ps in part_shapes
     )
     if policy.enabled:
@@ -219,21 +233,36 @@ def pad_util_parts(
     aligned: Sequence[np.ndarray],
     shape: Sequence[int],
     pshape: Sequence[int],
+    guard: float = np.inf,
+    with_mask: bool = True,
 ) -> list:
-    """Zero-pad aligned f32 UTIL parts up to the level-pack bucket and
-    append the own-axis ghost mask (0 on real values, ``+inf`` on padded
-    ones).
+    """Zero-pad aligned f32 parts up to the level-pack bucket and
+    append the own-axis ghost mask (0 on real values, ``guard`` on
+    padded ones).
 
     Real cells compute BIT-IDENTICALLY to the unpadded join: zero pads
     only fill cells outside the real region (sliced away by the
     caller), and adding the mask's exact 0.0 to a finite f32 is exact,
-    so the certificate's error bound is unchanged.  The ``+inf`` guard
-    keeps every min-argmin and second-best inside the real domain."""
+    so the certificate's error bound is unchanged.  The guard defaults
+    to ``+inf``, which keeps every min-argmin and second-best inside the
+    real domain (DPOP); the semiring sweep passes ``-inf`` for max and
+    logsumexp ⊕, where it is absorbing for ``max`` and contributes
+    ``exp(-inf) = 0`` to a logsumexp.  ``with_mask=False`` skips the
+    mask (a ``NO_PADDING`` bucket, whose key has no mask slot).  Parts
+    carrying a trailing structured-cell value axis (one more axis than
+    ``pshape``) pad their named axes only, as in
+    :func:`util_level_key`."""
     out = []
     for a in aligned:
-        target = tuple(
-            1 if s == 1 else pshape[i] for i, s in enumerate(a.shape)
-        )
+        if a.ndim == len(pshape) + 1:
+            target = tuple(
+                1 if s == 1 else pshape[i]
+                for i, s in enumerate(a.shape[:-1])
+            ) + (a.shape[-1],)
+        else:
+            target = tuple(
+                1 if s == 1 else pshape[i] for i, s in enumerate(a.shape)
+            )
         if target == a.shape:
             # f64 inputs cast here so every returned part is
             # kernel-ready f32 (callers pass exact f64 aligned parts)
@@ -242,11 +271,12 @@ def pad_util_parts(
             b = np.zeros(target, dtype=np.float32)
             b[tuple(slice(0, s) for s in a.shape)] = a
             out.append(b)
-    mask = np.zeros(
-        (1,) * (len(pshape) - 1) + (pshape[-1],), dtype=np.float32
-    )
-    mask[..., shape[-1]:] = np.inf
-    out.append(mask)
+    if with_mask:
+        mask = np.zeros(
+            (1,) * (len(pshape) - 1) + (pshape[-1],), dtype=np.float32
+        )
+        mask[..., shape[-1]:] = guard
+        out.append(mask)
     return out
 
 

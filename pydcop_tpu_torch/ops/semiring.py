@@ -1,72 +1,490 @@
-"""The semiring contraction core at min-sum (part of
-``pydcop_tpu/ops/semiring.py``).
+"""The semiring contraction core (port of ``pydcop_tpu/ops/semiring.py``).
 
-Two min-sum operations of the JAX module, in plain PyTorch:
+DPOP's join+project+argmin, Max-Sum's factor marginalization and exact
+probabilistic inference are instances of one aggregate query: a semiring
+contraction over an elimination order.  This module holds, as the JAX
+module does:
 
-- :func:`bp_factor_messages` — factor→variable belief-propagation
-  messages, the generic factor path of ``algorithms/maxsum.step`` (for
-  buckets of arity other than 2, for domains above the kernels'
-  ``MAX_D``, and for every bucket on the CPU), the counterpart of the XLA
-  path the JAX package takes outside its Pallas kernels;
-- :func:`contraction_kernel` — DPOP's UTIL join + projection + argmin +
-  decision margin for one level-pack bucket
-  (``algorithms/dpop.py``), the counterpart of the jitted XLA
-  contraction the JAX package dispatches per bucket.
+- the :class:`Semiring` registry in log-domain representation (``⊗`` is
+  ``+``): ``min_sum`` (exact optimization, DPOP's UTIL join),
+  ``max_sum`` (MAP), ``log_sum_exp`` (the partition function
+  ``log Z``), ``marginals`` (normalized ``+/×``), ``expectation``
+  (first-order expectation pairs ``(log w, E[cost])``) and the
+  parametric top-K semirings ``kbest:<k>``, with their host-f64 algebra;
+- :func:`contraction_kernel` — the device contraction for one ``(joined
+  shape, aligned part shapes)`` bucket per semiring, in eager PyTorch
+  operations on the device the parts are on (the JAX package's is jitted
+  XLA, with no Pallas kernel);
+- :func:`bp_factor_messages` — Max-Sum's factor phase as a contraction;
+- the elimination-order planners :func:`min_fill_order` and
+  :func:`build_plan` (``pseudo_tree`` and ``min_fill`` orders, the
+  two-block order of ``marginal_map``, ``external_dists`` for
+  ``expectation``);
+- :func:`contract_sweep` and :func:`run_infer_many` — the merged
+  multi-instance sweep behind ``api.infer``/``api.infer_many``: waves by
+  node height, device contractions bucketed across instances by
+  level-pack key (``ops/padding.py:util_level_key``) and run as one
+  stacked dispatch per bucket, with one packed host-to-device copy.
 
-Only ``min_sum`` is ported: the other semirings (``max_sum``,
-``log_sum_exp``, ``marginals``, ``expectation``, ``kbest:<k>``) and the
-``contract_sweep``/``infer`` machinery raise ``NotImplementedError``
-(ROADMAP.md, item 10).
+Precision contract, per ``⊕``, as in the JAX package:
+
+- **Idempotent ⊕ (min, max) and kbest** — the f32 exactness
+  certificate: the device returns the arg-reduce and each cell's
+  decision margin; a margin ≥ 2·(#parts+1)·eps32·Σmax|part| proves the
+  f32 arg equals the true arg, near-ties are repaired on the host, and
+  the projected values are re-evaluated on the host in exact f64 at the
+  certified arg.
+- **logsumexp ⊕** — error-bound accounting: each contraction carries an
+  accumulated log-domain bound; a contraction whose bound would exceed
+  ``tol`` runs on host f64 (``semiring.logsumexp_repairs``) and the
+  result reports the final ``error_bound``.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP
+item): the branch-and-bound kernels (``bnb='on'``, A5; ``'auto'`` runs
+the unpruned contraction), bf16/int8 table packs (A10.3), sparse tables
+(A10.4) and the memory-bounded sweep ``max_util_bytes`` (A10.5).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence, Tuple
+import difflib
+import time
+from typing import (
+    Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
 
+from pydcop_tpu_torch.ops.costs import fixed_order_sum
+from pydcop_tpu_torch.ops.padding import (
+    NO_PADDING,
+    PadPolicy,
+    as_pad_policy,
+    as_table_dtype,
+    pad_util_parts,
+    stack_bucket,
+    util_level_key,
+)
 
-@dataclasses.dataclass(frozen=True)
-class Semiring:
-    """One ``(⊕, ⊗)`` pair in log-domain representation (``⊗ = +``),
-    known by its name; the JAX package's algebra fields come with the
-    semirings that read them."""
-
-    name: str
-
-
-#: exact optimization over costs — DPOP's UTIL join and Max-Sum's
-#: factor phase
-MIN_SUM = Semiring("min_sum")
-
-#: the JAX package's other registered semirings (not ported)
-_NOT_PORTED = ("max_sum", "log_sum_exp", "marginals", "expectation")
+_EPS32 = float(np.finfo(np.float32).eps)
+_EPS64 = float(np.finfo(np.float64).eps)
 
 
-def get_semiring(name) -> Semiring:
-    """``"min_sum"`` (or :data:`MIN_SUM`) → :data:`MIN_SUM`; the JAX
-    package's other semirings raise ``NotImplementedError``."""
-    if isinstance(name, Semiring):
-        if name != MIN_SUM:
-            raise NotImplementedError(_not_ported(name.name))
-        return name
-    if name == MIN_SUM.name:
-        return MIN_SUM
-    if name in _NOT_PORTED or (
-        isinstance(name, str) and name.startswith("kbest:")
-    ):
-        raise NotImplementedError(_not_ported(name))
-    raise ValueError(
-        f"unknown semiring {name!r} (ported: ['min_sum'])"
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (see ROADMAP {item})"
     )
 
 
-def _not_ported(name) -> str:
-    return (
-        f"semiring {name!r} is not ported yet: only min_sum runs in the "
-        "port (see ROADMAP A10)"
+# -- the semiring registry ---------------------------------------------
+
+
+def _np_logsumexp(a: np.ndarray, axis=None, keepdims: bool = False):
+    """Stable host-f64 logsumexp: max-shifted, and an all-``-inf``
+    slice reduces to ``-inf`` (no ``nan`` from ``-inf - -inf``)."""
+    a = np.asarray(a, dtype=np.float64)
+    m = np.max(a, axis=axis, keepdims=True)
+    m = np.where(np.isfinite(m), m, 0.0)
+    with np.errstate(divide="ignore"):  # log(0) = -inf is the reduce
+        # of an all--inf slice
+        out = np.log(
+            np.sum(np.exp(a - m), axis=axis, keepdims=True)
+        ) + m
+    if not keepdims:
+        out = np.squeeze(
+            out, axis=tuple(range(a.ndim)) if axis is None else axis
+        )
+    return out
+
+
+def _norm_cell_axes(axis, n_dims: int) -> Tuple[int, ...]:
+    """Normalize a reduce ``axis`` spec against the DIM axes of a
+    cell-carrying array (the trailing cell axis is never reduced;
+    negative indices count from the last dim axis).  Out-of-range axes
+    raise, as numpy does on a scalar-cell array."""
+    if axis is None:
+        return tuple(range(n_dims))
+    if isinstance(axis, int):
+        axis = (axis,)
+    for a in axis:
+        if not -n_dims <= a < n_dims:
+            raise np.exceptions.AxisError(a, n_dims)
+    return tuple(sorted(a % n_dims for a in axis))
+
+
+def _kbest_sorted(a: np.ndarray, k: int) -> np.ndarray:
+    """The k smallest of the candidate axis, sorted ascending (the
+    top-K ⊕ primitive: stable, +inf-padded when candidates run out)."""
+    out = np.sort(a, axis=-1, kind="stable")[..., :k]
+    if out.shape[-1] < k:
+        pad = np.full(
+            out.shape[:-1] + (k - out.shape[-1],), np.inf
+        )
+        out = np.concatenate([out, pad], axis=-1)
+    return out
+
+
+def _exp_pair_reduce(a: np.ndarray, axes: Tuple[int, ...]):
+    """⊕-reduce of expectation pairs ``(log w, r)`` over dim ``axes``:
+    ``log w`` reduces by stable logsumexp, ``r`` by the matching
+    softmax-weighted combine (the normalized ``(log W, Σwr/W)`` form)."""
+    lw = np.asarray(a[..., 0], dtype=np.float64)
+    r = np.asarray(a[..., 1], dtype=np.float64)
+    m = np.max(lw, axis=axes, keepdims=True)
+    safe_m = np.where(np.isfinite(m), m, 0.0)
+    w = np.exp(lw - safe_m)
+    s = np.sum(w, axis=axes, keepdims=True)
+    with np.errstate(divide="ignore"):
+        lw_out = np.where(np.isfinite(m), safe_m + np.log(s), m)
+    # a zero-weight cell contributes nothing whatever its r plane holds:
+    # hard-constraint pairs are (-inf, +inf), and 0·inf would be NaN
+    with np.errstate(invalid="ignore"):
+        wr = np.where(w > 0, w * r, 0.0)
+    r_out = np.where(
+        s > 0, np.sum(wr, axis=axes, keepdims=True)
+        / np.where(s > 0, s, 1.0), 0.0,
+    )
+    lw_out = np.squeeze(lw_out, axis=axes)
+    r_out = np.squeeze(r_out, axis=axes)
+    return np.stack([lw_out, r_out], axis=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Semiring:
+    """One ``(⊕, ⊗)`` pair in LOG-DOMAIN representation (``⊗ = +``).
+
+    ``idempotent`` ⊕ (min/max) supports an arg-reduce and the f32
+    exactness certificate; non-idempotent ⊕ (logsumexp) uses error-bound
+    accounting.  ``normalize`` marks the marginal-inference variant.
+    ``kind``/``cell_width`` extend the algebra to STRUCTURED cells, a
+    trailing static value axis of width ``cell_width`` on every cell:
+    ``"scalar"`` (one float), ``"kbest"`` (the k best partial costs,
+    ascending, +inf-padded; ⊕ merges, ⊗ cross-sums and truncates) and
+    ``"expectation"`` (the pair ``(log w, r)`` with ``r = Σw·cost/w``).
+    """
+
+    name: str
+    idempotent: bool
+    maximize: bool = False  # direction of an idempotent ⊕
+    normalize: bool = False
+    doc: str = ""
+    kind: str = "scalar"  # "scalar" | "kbest" | "expectation"
+    cell_width: int = 1  # trailing static value axis per cell
+
+    # -- algebra (log domain) ------------------------------------------
+
+    @property
+    def plus_identity(self) -> float:
+        """Identity of ``⊕`` (the annihilator of ``⊗``); for structured
+        cells the scalar every component of the identity cell holds
+        (kbest: +inf) or that annihilates the weight plane
+        (expectation: -inf) — what the ghost-guard mask adds."""
+        if self.kind == "kbest":
+            return float(np.inf)
+        if self.idempotent and not self.maximize:
+            return float(np.inf)
+        return float(-np.inf)
+
+    @property
+    def times_identity(self) -> float:
+        """Identity of ``⊗`` (log-domain ``+``)."""
+        return 0.0
+
+    @property
+    def error_bounded(self) -> bool:
+        """Whether this ⊕ runs under error-BOUND accounting (the ``tol``
+        device gate) rather than an exactness certificate; kbest is
+        certified per component."""
+        return not self.idempotent and self.kind != "kbest"
+
+    def identity_cell(self) -> np.ndarray:
+        """The ⊕-identity as one cell (length ``cell_width``)."""
+        if self.kind == "expectation":
+            return np.array([-np.inf, 0.0])
+        return np.full(self.cell_width, self.plus_identity)
+
+    def times_identity_cell(self) -> np.ndarray:
+        """The ⊗-identity as one cell (length ``cell_width``)."""
+        cell = np.zeros(self.cell_width)
+        if self.kind == "kbest" and self.cell_width > 1:
+            cell[1:] = np.inf
+        return cell
+
+    def add(self, a, b):
+        """Elementwise ``⊕`` (host f64).  Structured kinds take
+        cell-carrying arrays (trailing axis ``cell_width``)."""
+        if self.kind == "kbest":
+            return _kbest_sorted(
+                np.concatenate(
+                    [
+                        np.asarray(a, dtype=np.float64),
+                        np.asarray(b, dtype=np.float64),
+                    ],
+                    axis=-1,
+                ),
+                self.cell_width,
+            )
+        if self.kind == "expectation":
+            return _exp_pair_reduce(
+                np.stack(
+                    [
+                        np.asarray(a, dtype=np.float64),
+                        np.asarray(b, dtype=np.float64),
+                    ]
+                ),
+                (0,),
+            )
+        if self.idempotent:
+            return (np.maximum if self.maximize else np.minimum)(a, b)
+        return _np_logsumexp(np.stack([a, b]), axis=0)
+
+    def combine(self, a, b):
+        """Elementwise ``⊗`` (host f64): ``+`` in the log domain;
+        cross-sum-truncate for kbest cells, per-plane ``+`` for
+        expectation pairs."""
+        if self.kind == "kbest":
+            a = np.asarray(a, dtype=np.float64)
+            b = np.asarray(b, dtype=np.float64)
+            sums = a[..., :, None] + b[..., None, :]
+            return _kbest_sorted(
+                sums.reshape(sums.shape[:-2] + (-1,)), self.cell_width
+            )
+        if self.kind == "expectation":
+            a = np.asarray(a, dtype=np.float64)
+            b = np.asarray(b, dtype=np.float64)
+            return a + b  # both planes add: log w multiplies, r sums
+        return np.asarray(a, dtype=np.float64) + np.asarray(
+            b, dtype=np.float64
+        )
+
+    def reduce(self, a, axis=None, keepdims: bool = False):
+        """``⊕``-projection over ``axis`` (host f64).  For structured
+        kinds ``axis`` names DIM axes (the trailing cell axis is carried,
+        never reduced); ``keepdims`` applies to the dim axes."""
+        if self.kind == "kbest":
+            a = np.asarray(a, dtype=np.float64)
+            axes = _norm_cell_axes(axis, a.ndim - 1)
+            if not axes:
+                return a
+            dst = tuple(range(a.ndim - 1 - len(axes), a.ndim - 1))
+            moved = np.moveaxis(a, axes, dst)
+            flat = moved.reshape(moved.shape[: dst[0]] + (-1,))
+            out = _kbest_sorted(flat, self.cell_width)
+            if keepdims:
+                for ax in axes:
+                    out = np.expand_dims(out, axis=ax)
+            return out
+        if self.kind == "expectation":
+            a = np.asarray(a, dtype=np.float64)
+            axes = _norm_cell_axes(axis, a.ndim - 1)
+            if not axes:
+                return a
+            out = _exp_pair_reduce(a, axes)
+            if keepdims:
+                for ax in axes:
+                    out = np.expand_dims(out, axis=ax)
+            return out
+        if self.idempotent:
+            fn = np.max if self.maximize else np.min
+            return fn(a, axis=axis, keepdims=keepdims)
+        return _np_logsumexp(a, axis=axis, keepdims=keepdims)
+
+    def arg_reduce(self, a, axis: int = -1):
+        """Argmin/argmax over ``axis`` — idempotent ⊕ only."""
+        if not self.idempotent:
+            raise ValueError(
+                f"semiring {self.name!r}: ⊕ is not idempotent — there "
+                "is no arg to reduce to"
+            )
+        return (np.argmax if self.maximize else np.argmin)(a, axis=axis)
+
+    def shift_of(self, a: np.ndarray) -> float:
+        """Message-normalization offset: min for ``min/+``, max
+        otherwise (also the logsumexp stability shift); structured cells
+        shift on their leading component, ignoring non-finite entries."""
+        if a.size == 0:
+            return 0.0
+        if self.kind in ("kbest", "expectation"):
+            lead = np.asarray(a[..., 0], dtype=np.float64)
+            lead = lead[np.isfinite(lead)]
+            if lead.size == 0:
+                return 0.0
+            return float(
+                lead.min() if self.kind == "kbest" else lead.max()
+            )
+        if self.idempotent and not self.maximize:
+            return float(a.min())
+        return float(a.max())
+
+    def apply_shift(self, a: np.ndarray, shift: float) -> np.ndarray:
+        """⊗-divide a message by the scalar ``shift``: scalar and kbest
+        cells subtract it from every component, the expectation pair
+        from its log-weight plane only."""
+        if self.kind == "expectation":
+            out = np.array(a, dtype=np.float64)
+            out[..., 0] -= shift
+            return out
+        return a - shift
+
+    def torch_reduce(self, a: torch.Tensor, axis, keepdims: bool = False):
+        """``⊕``-projection of a scalar-cell tensor (the factor phase)."""
+        if self.idempotent:
+            fn = torch.amax if self.maximize else torch.amin
+            return fn(a, dim=axis, keepdim=keepdims)
+        m = torch.amax(a, dim=axis, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        out = torch.log(torch.exp(a - m).sum(dim=axis, keepdim=True)) + m
+        if keepdims:
+            return out
+        axes = (axis,) if isinstance(axis, int) else tuple(axis)
+        return out.squeeze(axes)
+
+
+SEMIRINGS: Dict[str, Semiring] = {}
+
+
+def register_semiring(sr: Semiring) -> Semiring:
+    """Add a semiring to the registry (``get_semiring`` name lookup)."""
+    SEMIRINGS[sr.name] = sr
+    return sr
+
+
+def _did_you_mean(name: str, candidates: Sequence[str]) -> str:
+    """One nearest-name hint for unknown-name errors."""
+    close = difflib.get_close_matches(
+        str(name), list(candidates), n=1, cutoff=0.55
+    )
+    return f" — did you mean {close[0]!r}?" if close else ""
+
+
+def get_semiring(name) -> Semiring:
+    """A registered semiring by name (or the :class:`Semiring` itself);
+    ``"kbest:<k>"`` registers its width on first use."""
+    if isinstance(name, Semiring):
+        return name
+    got = SEMIRINGS.get(name)
+    if got is not None:
+        return got
+    if isinstance(name, str) and name.startswith("kbest:"):
+        try:
+            k = int(name.split(":", 1)[1])
+        except ValueError:
+            raise ValueError(
+                f"malformed kbest semiring {name!r} — the width is "
+                "an integer, e.g. 'kbest:5'"
+            )
+        return kbest_semiring(k)
+    raise ValueError(
+        f"unknown semiring {name!r} (registered: "
+        f"{sorted(SEMIRINGS)}, plus parametric 'kbest:<k>')"
+        + _did_you_mean(name, sorted(SEMIRINGS) + ["kbest:5"])
+    )
+
+
+MIN_SUM = register_semiring(
+    Semiring(
+        "min_sum", idempotent=True, maximize=False,
+        doc="exact optimization over costs — DPOP's UTIL join",
+    )
+)
+MAX_SUM = register_semiring(
+    Semiring(
+        "max_sum", idempotent=True, maximize=True,
+        doc="MAP over log-weights (max/x in log space)",
+    )
+)
+LOG_SUM_EXP = register_semiring(
+    Semiring(
+        "log_sum_exp", idempotent=False,
+        doc="weighted counting: partition function log Z (+/x via "
+        "stable logsumexp)",
+    )
+)
+MARGINALS = register_semiring(
+    Semiring(
+        "marginals", idempotent=False, normalize=True,
+        doc="+/x with message normalization — marginal inference",
+    )
+)
+EXPECTATION = register_semiring(
+    Semiring(
+        "expectation", idempotent=False, kind="expectation",
+        cell_width=2,
+        doc="first-order expectation pairs (log w, E[cost]) — E[cost] "
+        "under the Gibbs distribution and optional stochastic "
+        "externals",
+    )
+)
+
+#: widest registered top-K cell
+KBEST_MAX = 64
+
+
+def kbest_semiring(k: int) -> Semiring:
+    """The top-K semiring for width ``k`` (registered on first use)."""
+    k = int(k)
+    if not 2 <= k <= KBEST_MAX:
+        raise ValueError(
+            f"kbest wants 2 <= k <= {KBEST_MAX}, got {k} (k=1 is "
+            "query='map')"
+        )
+    name = f"kbest:{k}"
+    got = SEMIRINGS.get(name)
+    if got is None:
+        got = register_semiring(
+            Semiring(
+                name, idempotent=False, kind="kbest", cell_width=k,
+                doc="top-K cost tuples: ⊕ merge-sorts k-vectors, ⊗ "
+                "cross-sums and truncates — the K best assignments",
+            )
+        )
+    return got
+
+
+# query name (api.infer) -> the semiring its sweep runs on
+QUERY_SEMIRINGS = {
+    "map": "max_sum",
+    "log_z": "log_sum_exp",
+    "marginals": "marginals",
+    "expectation": "expectation",
+}
+
+#: every query ``api.infer`` understands (``kbest:<k>`` is parametric;
+#: ``marginal_map`` rides max/+ with a two-block order)
+KNOWN_QUERIES = (
+    "map", "log_z", "marginals", "marginal_map", "expectation",
+    "kbest:<k>",
+)
+
+
+def parse_query(query: str) -> Tuple[str, Semiring]:
+    """Resolve an ``api.infer`` query string to ``(kind, semiring)``
+    (``kind`` is ``"kbest"`` for any ``kbest:<k>``).  Unknown queries
+    fail with the nearest known name suggested."""
+    if query in QUERY_SEMIRINGS:
+        return query, get_semiring(QUERY_SEMIRINGS[query])
+    if query == "marginal_map":
+        return "marginal_map", get_semiring("max_sum")
+    if isinstance(query, str) and (
+        query == "kbest" or query.startswith("kbest:")
+    ):
+        if query == "kbest":
+            k = 5  # the documented default width
+        else:
+            try:
+                k = int(query.split(":", 1)[1])
+            except ValueError:
+                raise ValueError(
+                    f"malformed query {query!r} — the kbest width is "
+                    "an integer, e.g. 'kbest:5'"
+                )
+        return "kbest", kbest_semiring(k)
+    known = [q for q in KNOWN_QUERIES if "<" not in q] + ["kbest:5"]
+    raise ValueError(
+        f"unknown query {query!r} (expected one of "
+        f"{sorted(KNOWN_QUERIES)})" + _did_you_mean(query, known)
     )
 
 
@@ -91,17 +509,7 @@ def as_bnb(value, default: str = "auto") -> str:
     return v
 
 
-def _finite_amax(a) -> float:
-    """max |finite entries| of a numpy table (±inf entries are hard
-    constraints and guards, structure rather than a rounding scale)."""
-    a = np.asarray(a)
-    if a.size == 0:
-        return 0.0
-    m = np.abs(a[np.isfinite(a)])
-    return float(m.max()) if m.size else 0.0
-
-
-# -- the min-sum contraction --------------------------------------------
+# -- device kernels -----------------------------------------------------
 
 
 def contraction_kernel(
@@ -109,33 +517,62 @@ def contraction_kernel(
     shape: Tuple[int, ...],
     part_shapes: Tuple[Tuple[int, ...], ...],
     batched: bool = False,
-) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    bnb: bool = False,
+    table_dtype: str = "f32",
+) -> Callable[..., Tuple[torch.Tensor, ...]]:
     """The contraction for one ``(joined shape, aligned part shapes)``
-    bucket: a callable on f32 tensors, one per part, returning
-    ``(amin, margins)``.
+    bucket: a callable on f32 tensors, one per part, that joins the
+    aligned parts by broadcast-add (in part order, starting from the
+    first part: XLA folds the JAX source's ``zeros + t0``, so a ``-0.0``
+    cell keeps its sign) and projects the own (last) axis by ``⊕``.
+    ``batched=True`` takes a leading stack axis on every part (the JAX
+    package's ``vmap``).  The work runs on the device the parts are on.
 
-    - ``j = zeros(shape) + t0 + t1 + …`` in part order, each part
-      broadcast over its size-1 (aligned) axes.  XLA folds the JAX
-      source's ``zeros + t0`` into ``t0`` (a ``-0.0`` cell stays
-      ``-0.0``), so the port starts from ``t0`` broadcast, which gives
-      the same bits;
-    - ``amin = argmin(j, -1)`` (int64; the first index wins ties, and a
-      NaN cell wins as NumPy's argmin does), ``u = min(j, -1)``;
-    - ``margins = min(where(one_hot(amin), +inf, j), -1) − u``, the gap
-      to the second best; all ``+inf`` when the own axis has one value.
+    Returns, per semiring:
 
-    The projected values ``u`` are not returned: DPOP re-evaluates them
-    exactly on the host at the certified argmin.  ``batched=True`` takes
-    a leading stack axis on every part (the JAX package's ``vmap``).
-    The work runs on the device the parts are on, in eager PyTorch
-    operations — the JAX package's is jitted XLA, with no Pallas kernel.
+    - ``min_sum``/``max_sum``: ``(arg, margins)``, the certificate's
+      inputs — the int64 arg-reduce (first index on ties; a NaN cell
+      wins, as NumPy's does) and the gap to the second best (all
+      ``+inf`` when the own axis has one value); the projected values
+      are not returned, the caller re-evaluates them on the host;
+    - ``log_sum_exp``/``marginals``: ``(values,)``, a max-shifted f32
+      logsumexp (its sum in one fixed order); an all-``-inf`` row stays
+      ``-inf``;
+    - ``kbest:<k>``: parts of ``len(shape)`` axes are scalar, parts with
+      one more (the trailing K axis) are child k-cells; returns
+      ``(values [..., k], margins [..., k], own [..., k], *slots)``: the
+      k best candidates, each one's margin to the next candidate, the
+      selected own-value index and one selected child slot per vector
+      part (stable argsorts, so ties break by candidate index as
+      ``jnp.argsort`` does);
+    - ``expectation``: ``(pairs [..., 2],)``, the reduced ``(log w,
+      r)`` pairs.
+
+    ``bnb=True`` (the two-pass branch-and-bound kernel, ROADMAP A5) and
+    a ``table_dtype`` other than f32 (ROADMAP A10.3) raise.
     """
     sr = get_semiring(sr)
+    if bnb:
+        raise _not_ported(
+            "the branch-and-bound contraction (bnb=True)", "A5"
+        )
+    dt = as_table_dtype(table_dtype)
+    if dt != "f32":
+        raise _not_ported(f"contraction table_dtype={dt!r}", "A10.3")
     shape = tuple(shape)
     part_shapes = tuple(tuple(p) for p in part_shapes)
     if not part_shapes:
         raise ValueError("a contraction needs at least one part")
     d = shape[-1]
+    body = {
+        "kbest": _kbest_body,
+        "expectation": _expectation_body,
+    }.get(sr.kind)
+    if body is None:
+        if sr.idempotent:
+            body = _max_body if sr.maximize else _min_body
+        else:
+            body = _lse_body
 
     def contract(*tabs: torch.Tensor):
         if len(tabs) != len(part_shapes):
@@ -149,26 +586,150 @@ def contraction_kernel(
                     f"part {tuple(t.shape)} {t.dtype}: expected "
                     f"{lead + ps} float32"
                 )
-        dev = tabs[0].device
-        j = tabs[0].expand(lead + shape)
-        for t in tabs[1:]:
-            j = j + t  # aligned: broadcast over missing axes
-        u = j.amin(dim=-1)
-        amin = j.argmin(dim=-1)
-        if d == 1:
-            margins = torch.full(
-                lead + shape[:-1], float("inf"), dtype=torch.float32,
-                device=dev,
-            )
-        else:
-            one_hot = (
-                torch.arange(d, device=dev) == amin.unsqueeze(-1)
-            )
-            second = torch.where(one_hot, float("inf"), j).amin(dim=-1)
-            margins = second - u
-        return amin, margins
+        return body(sr, tabs, lead + shape, d)
 
     return contract
+
+
+def _join(tabs, full):
+    j = tabs[0].expand(full)
+    for t in tabs[1:]:
+        j = j + t  # aligned: broadcast over missing axes
+    return j
+
+
+def _min_body(sr, tabs, full, d):
+    j = _join(tabs, full)
+    u = j.amin(dim=-1)
+    amin = j.argmin(dim=-1)
+    if d == 1:
+        margins = torch.full(
+            full[:-1], float("inf"), dtype=torch.float32, device=j.device
+        )
+    else:
+        # second best via masking the arg cell (exact; no sort)
+        one_hot = torch.arange(d, device=j.device) == amin.unsqueeze(-1)
+        second = torch.where(one_hot, float("inf"), j).amin(dim=-1)
+        margins = second - u
+    return amin, margins
+
+
+def _max_body(sr, tabs, full, d):
+    j = _join(tabs, full)
+    u = j.amax(dim=-1)
+    arg = j.argmax(dim=-1)
+    if d == 1:
+        margins = torch.full(
+            full[:-1], float("inf"), dtype=torch.float32, device=j.device
+        )
+    else:
+        one_hot = torch.arange(d, device=j.device) == arg.unsqueeze(-1)
+        second = torch.where(one_hot, float("-inf"), j).amax(dim=-1)
+        margins = u - second
+    return arg, margins
+
+
+# The mass kernels sum the own axis with ``ops/costs.py:fixed_order_sum``
+# (zero-pad to a power of two, halve), whose order depends only on the
+# axis length: a row gives the same bits alone or inside a stack of any
+# height, so an ``infer_many`` instance equals its own ``infer`` on the
+# card as on the CPU (``torch.sum`` picks its order from the whole shape).
+
+
+def _lse_body(sr, tabs, full, d):
+    j = _join(tabs, full)
+    m = j.amax(dim=-1)
+    fin = torch.isfinite(m)
+    safe = torch.where(fin, m, torch.zeros_like(m))
+    s = fixed_order_sum(torch.exp(j - safe.unsqueeze(-1)))
+    # an all--inf row (impossible configuration, or a padded ghost row)
+    # stays -inf instead of going nan
+    return (torch.where(fin, safe + torch.log(s), m),)
+
+
+def _expectation_body(sr, tabs, full, d):
+    nd = len(full)
+    lw = torch.zeros(full, dtype=torch.float32, device=tabs[0].device)
+    r = torch.zeros(full, dtype=torch.float32, device=tabs[0].device)
+    for t in tabs:
+        if t.dim() == nd + 1:
+            lw = lw + t[..., 0]
+            r = r + t[..., 1]
+        else:
+            lw = lw + t  # scalar parts weight only (the mask)
+    m = lw.amax(dim=-1)
+    fin = torch.isfinite(m)
+    safe = torch.where(fin, m, torch.zeros_like(m))
+    w = torch.exp(lw - safe.unsqueeze(-1))
+    s = fixed_order_sum(w)
+    lw_out = torch.where(fin, safe + torch.log(s), m)
+    # zero-weight cells contribute nothing: mask before the product, or
+    # a hard-constraint (-inf, +inf) pair's 0·inf poisons the row
+    wr = torch.where(w > 0, w * r, torch.zeros_like(r))
+    pos = s > 0
+    r_out = torch.where(
+        pos, fixed_order_sum(wr) / torch.where(pos, s, torch.ones_like(s)),
+        torch.zeros_like(s),
+    )
+    return (torch.stack([lw_out, r_out], dim=-1),)
+
+
+def _kbest_body(sr, tabs, full, d):
+    kk = sr.cell_width
+    nd = len(full)
+    dev = tabs[0].device
+    scal = [t for t in tabs if t.dim() == nd]
+    vecs = [t for t in tabs if t.dim() == nd + 1]
+    j = (
+        _join(scal, full) if scal
+        else torch.zeros(full, dtype=torch.float32, device=dev)
+    )
+    if vecs:
+        cell = (
+            j.unsqueeze(-1) + vecs[0] if scal
+            else vecs[0].expand(full + (kk,))
+        )
+        provs = [
+            torch.arange(kk, device=dev).expand(cell.shape)
+        ]
+        for t in vecs[1:]:
+            # cross-sum-truncate: exact for top-K because sums are
+            # monotone in each argument
+            sums = cell.unsqueeze(-1) + t.unsqueeze(-2)
+            flat = sums.reshape(sums.shape[:-2] + (kk * kk,))
+            idx = torch.argsort(flat, dim=-1, stable=True)[..., :kk]
+            cell = torch.gather(flat, -1, idx)
+            a_i = idx // kk
+            provs = [
+                torch.gather(p.expand(cell.shape), -1, a_i)
+                for p in provs
+            ] + [idx % kk]
+    else:
+        lift = torch.full((kk,), float("inf"), device=dev)
+        lift[0] = 0.0
+        cell = j.unsqueeze(-1) + lift
+        provs = []
+    flat = cell.reshape(cell.shape[:-2] + (d * kk,))
+    # one +inf pad column so the (K+1)-th candidate — the margin
+    # reference — always exists, even at d*kk == kk
+    flat = torch.cat(
+        [flat, torch.full(flat.shape[:-1] + (1,), float("inf"),
+                          device=dev)],
+        dim=-1,
+    )
+    idx = torch.argsort(flat, dim=-1, stable=True)[..., : kk + 1]
+    vals_all = torch.gather(flat, -1, idx)
+    vals = vals_all[..., :kk]
+    margins = torch.where(
+        torch.isfinite(vals), vals_all[..., 1:] - vals,
+        torch.full_like(vals, float("inf")),
+    )
+    sel = torch.clamp(idx[..., :kk], max=d * kk - 1)
+    outs = [vals, margins, sel // kk]
+    for p in provs:
+        pf = p.expand(cell.shape).reshape(cell.shape[:-2] + (d * kk,))
+        outs.append(torch.gather(pf, -1, sel))
+    return tuple(outs)
 
 
 # -- Max-Sum's factor phase ---------------------------------------------
@@ -183,8 +744,10 @@ def bp_factor_messages(
 ) -> List[torch.Tensor]:
     """The standard sum-then-subtract marginalization for one arity
     bucket: ``S = table + Σ_p q_p`` (broadcast over the bucket's axes,
-    added in the order ``((tab + q0) + q1) + …``), ``M_p = min`` over all
-    axes but ``p``, ``r_p = M_p − q_p``, then min-normalized per edge.
+    added in the order ``((tab + q0) + q1) + …``), ``M_p = ⊕`` over all
+    axes but ``p``, ``r_p = M_p − q_p``, then shift-normalized per edge
+    (by the min for ``min/+``, Max-Sum's normalization, by the max for
+    the maximizing and summing semirings).
 
     ``tab`` is the bucket's ``[d, ..., d, m]`` table stack (or
     ``[d, ..., d, 1]`` for a shared table), ``q_pos`` the ``k``
@@ -198,7 +761,7 @@ def bp_factor_messages(
     output's optimum), so this port computes the unpruned form for
     either value; the pruned kernel is a later port item.
     """
-    get_semiring(sr)
+    sr = get_semiring(sr)
     del bnb  # bit-identical messages either way (see docstring)
     k = len(q_pos)
     lead = tuple(q_pos[0].shape[:-2])
@@ -207,10 +770,1316 @@ def bp_factor_messages(
     for p in range(k):
         shape = lead + (1,) * p + (d,) + (1,) * (k - 1 - p) + (m,)
         s = s + q_pos[p].to(tab.dtype).reshape(shape)
+    low = sr.idempotent and not sr.maximize
     outs = []
     for p in range(k):  # position a's axis is a - k - 1
         axes = tuple(a - k - 1 for a in range(k) if a != p)
-        rp = s.amin(dim=axes) - q_pos[p].to(tab.dtype)
-        rp = rp - rp.amin(dim=-2, keepdim=True)
+        mp = s.amin(dim=axes) if low else sr.torch_reduce(s, axes)
+        rp = mp - q_pos[p].to(tab.dtype)
+        if low:
+            rp = rp - rp.amin(dim=-2, keepdim=True)
+        else:
+            rp = rp - rp.amax(dim=-2, keepdim=True)
         outs.append(rp.to(mdt))
     return outs
+
+
+# -- elimination orders and contraction plans ---------------------------
+
+
+ELIMINATION_ORDERS = ("pseudo_tree", "min_fill")
+
+
+def min_fill_order(
+    domains: Dict[str, Sequence],
+    scopes: Sequence[Sequence[str]],
+    deadline: Optional[float] = None,
+    last_block: Optional[set] = None,
+) -> List[str]:
+    """Greedy min-fill elimination order over the primal graph: at each
+    step eliminate the variable whose removal adds the fewest fill edges
+    among its remaining neighbors (ties: smallest neighborhood, then
+    name).  Fill counts are cached and invalidated incrementally (the
+    eliminated variable's neighbors and the common neighbors of each
+    added fill edge).  ``deadline`` (a ``perf_counter`` timestamp)
+    raises ``TimeoutError`` between steps.  ``last_block`` makes a
+    two-block order: its variables are eligible only once every other
+    variable is eliminated (marginal MAP: sum first, max last)."""
+    adj: Dict[str, set] = {v: set() for v in domains}
+    for scope in scopes:
+        sc = [v for v in scope if v in adj]
+        for a in sc:
+            for b in sc:
+                if a != b:
+                    adj[a].add(b)
+    remaining = {v: set(ns) for v, ns in adj.items()}
+    order: List[str] = []
+    cache: Dict[str, int] = {}
+
+    def fill_count(v: str) -> int:
+        ns = list(remaining[v])
+        cnt = 0
+        for i in range(len(ns)):
+            ri = remaining[ns[i]]
+            for j in range(i + 1, len(ns)):
+                if ns[j] not in ri:
+                    cnt += 1
+        return cnt
+
+    while remaining:
+        if deadline is not None and time.perf_counter() > deadline:
+            raise TimeoutError(
+                f"min_fill elimination order timed out with "
+                f"{len(remaining)} of {len(adj)} variables left"
+            )
+        if last_block:
+            pool = [x for x in remaining if x not in last_block]
+            if not pool:  # only the last block is left
+                pool = list(remaining)
+        else:
+            pool = remaining
+        best_key = None
+        best = None
+        for x in pool:
+            c = cache.get(x)
+            if c is None:
+                c = cache[x] = fill_count(x)
+            key = (c, len(remaining[x]), x)
+            if best_key is None or key < best_key:
+                best_key, best = key, x
+        v = best
+        order.append(v)
+        ns = list(remaining[v])
+        dirty = set(ns)
+        for i in range(len(ns)):
+            for j in range(i + 1, len(ns)):
+                a, b = ns[i], ns[j]
+                if b not in remaining[a]:
+                    remaining[a].add(b)
+                    remaining[b].add(a)
+                    dirty |= remaining[a] & remaining[b]
+        for n in ns:
+            remaining[n].discard(v)
+        del remaining[v]
+        cache.pop(v, None)
+        for x in dirty:
+            cache.pop(x, None)
+    return order
+
+
+class ContractionPlan:
+    """One instance's bucket tree: the elimination order, per-variable
+    buckets of owned ENERGY tables (f64, minimization convention; the
+    semiring transforms apply at sweep time, so one plan serves every
+    query), and the parent/children structure of a dims-only simulation
+    of the elimination.  ``const_energy`` accumulates fully-external
+    parts.  ``wbuckets`` holds LOG-WEIGHT parts (the stochastic
+    externals of an expectation query); ``node_semiring`` (marginal MAP)
+    sets the ⊕ per node."""
+
+    __slots__ = (
+        "domains", "order", "pos", "buckets", "parent", "children",
+        "roots", "height", "const_energy", "order_name", "wbuckets",
+        "node_semiring", "max_vars",
+    )
+
+    def __init__(
+        self, domains, order, buckets, const_energy, order_name,
+        wbuckets=None, node_semiring=None, max_vars=None,
+    ):
+        self.domains = domains
+        self.order = order
+        self.pos = {v: i for i, v in enumerate(order)}
+        self.buckets = buckets
+        self.wbuckets = (
+            {v: [] for v in order} if wbuckets is None else wbuckets
+        )
+        self.node_semiring = node_semiring
+        self.max_vars = max_vars
+        self.const_energy = const_energy
+        self.order_name = order_name
+        # the message scope of v is the union of its bucket dims and its
+        # children's message dims, minus v; its parent is the
+        # earliest-ELIMINATED variable of that scope
+        self.parent: Dict[str, Optional[str]] = {}
+        self.children: Dict[str, List[str]] = {v: [] for v in order}
+        self.roots: List[str] = []
+        msg_dims: Dict[str, set] = {}
+        for v in order:
+            dims: set = set()
+            for scope, _ in buckets[v]:
+                dims.update(scope)
+            for scope, _ in self.wbuckets[v]:
+                dims.update(scope)
+            for c in self.children[v]:
+                dims.update(msg_dims[c])
+            dims.discard(v)
+            msg_dims[v] = dims
+            if dims:
+                p = min(dims, key=self.pos.__getitem__)
+                self.parent[v] = p
+                self.children[p].append(v)
+            else:
+                self.parent[v] = None
+                self.roots.append(v)
+        # wave index = node HEIGHT: every leaf lands in wave 0
+        self.height: Dict[str, int] = {}
+        for v in order:  # children precede parents in elim order
+            self.height[v] = 1 + max(
+                (self.height[c] for c in self.children[v]), default=-1
+            )
+
+    def sep_of(self, name: str, child_seps: Dict[str, List[str]]):
+        """Separator of ``name``: dims of its own parts plus its
+        children's separators, minus itself, sorted root-most first
+        (descending elimination position)."""
+        dims: set = set()
+        for scope, _ in self.buckets[name]:
+            dims.update(scope)
+        for scope, _ in self.wbuckets[name]:
+            dims.update(scope)
+        for c in self.children[name]:
+            dims.update(child_seps[c])
+        dims.discard(name)
+        return sorted(dims, key=lambda v: -self.pos[v])
+
+
+def build_plan(
+    dcop,
+    order: str = "pseudo_tree",
+    deadline: Optional[float] = None,
+    max_vars: Optional[Sequence[str]] = None,
+    external_dists: Optional[Mapping[str, Mapping[Any, float]]] = None,
+) -> ContractionPlan:
+    """Build the contraction plan for one DCOP under an elimination
+    order heuristic.  Tables are extracted once as f64 energies
+    (sign-folded for ``objective: max``, external variables sliced out,
+    variable value-costs folded in as unary parts, as DPOP prepares
+    them); each part is owned by its earliest-eliminated scope variable.
+    ``deadline`` bounds the ``min_fill`` search (``TimeoutError``).
+    ``max_vars`` (marginal MAP) constrains both heuristics to a two-block
+    order and sets ``node_semiring``; ``external_dists`` (expectation)
+    maps external names to ``{value: prob}``: those externals join the
+    plan as summed variables with a log-probability part."""
+    if order not in ELIMINATION_ORDERS:
+        raise ValueError(
+            f"unknown elimination order {order!r} (expected one of "
+            f"{ELIMINATION_ORDERS})"
+        )
+    sign = -1.0 if dcop.objective == "max" else 1.0
+    dists = dict(external_dists) if external_dists else {}
+    unknown_ext = set(dists) - set(dcop.external_variables)
+    if unknown_ext:
+        raise ValueError(
+            f"external_dists names {sorted(unknown_ext)} — not "
+            "external variables of this dcop (externals: "
+            f"{sorted(dcop.external_variables)})"
+        )
+    ext_values = {
+        n: ev.value
+        for n, ev in dcop.external_variables.items()
+        if n not in dists
+    }
+    domains: Dict[str, list] = {
+        v.name: list(v.domain.values) for v in dcop.variables.values()
+    }
+    wparts: List[Tuple[List[str], np.ndarray]] = []
+    for n, dist in dists.items():
+        ev = dcop.external_variables[n]
+        dom = list(ev.domain.values)
+        # a JSON-shipped dist (the CLI) carries string keys — match
+        # domain values with a str() fallback
+        dom_keys = set(dom) | {str(x) for x in dom}
+        bad = sorted(str(x) for x in set(dist) - dom_keys)
+        if bad:
+            raise ValueError(
+                f"external_dists[{n!r}] names values {bad} outside "
+                f"the external's domain {dom}"
+            )
+        probs = np.array(
+            [float(dist.get(x, dist.get(str(x), 0.0))) for x in dom],
+            dtype=np.float64,
+        )
+        if (probs < 0).any() or probs.sum() <= 0:
+            raise ValueError(
+                f"external_dists[{n!r}] must be non-negative with "
+                "positive total mass"
+            )
+        probs = probs / probs.sum()
+        with np.errstate(divide="ignore"):  # p=0 -> log -inf: the
+            # value carries zero weight
+            wparts.append(([n], np.log(probs)))
+        domains[n] = dom
+
+    if max_vars is not None:
+        mv = set(max_vars)
+        unknown_mv = mv - set(domains)
+        if unknown_mv:
+            raise ValueError(
+                f"map_vars names {sorted(unknown_mv)} — not "
+                "variables of this dcop"
+            )
+        if not mv:
+            raise ValueError(
+                "map_vars is empty — with nothing maximized the "
+                "query is 'log_z'"
+            )
+    else:
+        mv = None
+
+    parts: List[Tuple[List[str], np.ndarray]] = []
+    const_energy = 0.0
+    for v in dcop.variables.values():
+        if v.has_cost:
+            costs = np.array(
+                [sign * v.cost_for_val(x) for x in v.domain.values],
+                dtype=np.float64,
+            )
+            parts.append(([v.name], costs))
+    for c in dcop.constraints.values():
+        scope_ext = [n for n in c.scope_names if n in ext_values]
+        if scope_ext:
+            c = c.slice({n: ext_values[n] for n in scope_ext})
+        scope = list(c.scope_names)
+        m = c.as_matrix()
+        table = sign * np.asarray(m.matrix, dtype=np.float64)
+        if not scope:
+            const_energy += float(table)
+            continue
+        parts.append((scope, table))
+
+    if order == "min_fill":
+        elim = min_fill_order(
+            domains,
+            [s for s, _ in parts] + [s for s, _ in wparts],
+            deadline=deadline,
+            last_block=mv,
+        )
+    else:
+        from pydcop_tpu_torch.graphs import pseudotree as _pt
+
+        graph = _pt.build_computation_graph(dcop)
+        names = [
+            n for root in graph.roots for n in graph.depth_first_order(root)
+        ]
+        # reverse DFS pre-order: children strictly before parents (the
+        # bucket tree IS the pseudo-tree); distribution-carrying
+        # externals are summed leaves, eliminated first
+        elim = sorted(dists) + list(reversed(names))
+        if mv is not None:
+            elim = [v for v in elim if v not in mv] + [
+                v for v in elim if v in mv
+            ]
+
+    node_semiring = None
+    if mv is not None:
+        node_semiring = {
+            v: ("max_sum" if v in mv else "log_sum_exp") for v in elim
+        }
+
+    pos = {v: i for i, v in enumerate(elim)}
+    buckets: Dict[str, List[Tuple[List[str], np.ndarray]]] = {
+        v: [] for v in elim
+    }
+    wbuckets: Dict[str, List[Tuple[List[str], np.ndarray]]] = {
+        v: [] for v in elim
+    }
+    for scope, table in parts:
+        buckets[min(scope, key=pos.__getitem__)].append((scope, table))
+    for scope, table in wparts:
+        wbuckets[min(scope, key=pos.__getitem__)].append((scope, table))
+    return ContractionPlan(
+        domains, elim, buckets, const_energy, order,
+        wbuckets=wbuckets, node_semiring=node_semiring,
+        max_vars=(sorted(mv) if mv is not None else None),
+    )
+
+
+# -- the merged contraction sweep ---------------------------------------
+
+
+def _align(table, dims, target):
+    """Transpose + reshape ``table`` (axes named ``dims``) so it
+    broadcasts over ``target`` (a superset of ``dims``).  A part with
+    one more axis than named ``dims`` is a STRUCTURED-cell part: the
+    named axes align as usual and the trailing cell axis rides along."""
+    table = np.asarray(table)
+    order = [d for d in target if d in dims]
+    cell = table.ndim == len(dims) + 1
+    t = np.transpose(
+        table,
+        [list(dims).index(d) for d in order] + ([len(dims)] if cell else []),
+    )
+    shape = [t.shape[order.index(d)] if d in dims else 1 for d in target]
+    return t.reshape(shape + ([table.shape[-1]] if cell else []))
+
+
+def _finite_amax(a) -> float:
+    """max |finite entries| of a numpy table (±inf entries are hard
+    constraints and guards, structure rather than a rounding scale)."""
+    a = np.asarray(a)
+    if a.size == 0:
+        return 0.0
+    m = np.abs(a[np.isfinite(a)])
+    return float(m.max()) if m.size else 0.0
+
+
+def _dispatch(fn, parts: Sequence[np.ndarray], device: torch.device):
+    """Run one contraction on ``device``: the parts (any float dtype,
+    cast to f32 here) go over in ONE host→device copy of a packed
+    buffer, and each output comes back to host numpy."""
+    sizes = [int(p.size) for p in parts]
+    flat = np.empty(sum(sizes), dtype=np.float32)
+    off = 0
+    for p, n in zip(parts, sizes):
+        flat[off:off + n].reshape(p.shape)[...] = p
+        off += n
+    buf = torch.from_numpy(flat).to(device)
+    tabs = [
+        t.view(p.shape) for t, p in zip(torch.split(buf, sizes), parts)
+    ]
+    return tuple(o.cpu().numpy() for o in fn(*tabs))
+
+
+class _Sweep:
+    """Per-call state of one merged upward sweep (K instances)."""
+
+    __slots__ = (
+        "msgs", "args", "root_total", "total_shift", "cells",
+        "device_nodes", "host_nodes", "dispatches", "err", "seps",
+        "root_cells",
+    )
+
+    def __init__(self, K: int):
+        # msgs[k][name] = (sep, message f64, max|message|)
+        self.msgs: List[Dict[str, tuple]] = [{} for _ in range(K)]
+        self.args: List[Dict[str, tuple]] = [{} for _ in range(K)]
+        self.seps: List[Dict[str, List[str]]] = [{} for _ in range(K)]
+        self.root_total = [0.0] * K
+        # structured kinds keep per-root CELLS (kbest re-merges them
+        # with provenance; expectation pairs ⊗-combine at assembly)
+        self.root_cells: List[Dict[str, np.ndarray]] = [
+            {} for _ in range(K)
+        ]
+        self.total_shift = [0.0] * K
+        self.cells = [0] * K
+        self.device_nodes = [0] * K
+        self.host_nodes = [0] * K
+        self.dispatches = [0] * K
+        # name -> accumulated log-domain error bound
+        self.err: List[Dict[str, float]] = [{} for _ in range(K)]
+
+
+def contract_sweep(
+    plans: Sequence[ContractionPlan],
+    sr: Semiring,
+    *,
+    beta: float = 1.0,
+    device_min_cells: Optional[int] = 1 << 14,
+    pad: PadPolicy = NO_PADDING,
+    tol: float = 1e-6,
+    max_table_size: int = 1 << 26,
+    want_args: bool = False,
+    t0: Optional[float] = None,
+    timeout: Optional[float] = None,
+    torch_device: Optional[torch.device] = None,
+) -> Optional[_Sweep]:
+    """Merged bottom-up contraction sweep over K instances.
+
+    Wave ``w`` holds every instance's height-``w`` nodes; device
+    contractions (``device_min_cells`` cells or more; ``None`` keeps the
+    whole sweep on the host in f64) bucket by level-pack key ACROSS
+    instances and run as ONE stacked :func:`contraction_kernel` dispatch
+    per bucket on ``torch_device``.  Tables enter the sweep in KERNEL
+    domain: energies for ``min_sum`` and kbest, log-weights ``-beta·E``
+    otherwise.  Idempotent and kbest contractions are certified and
+    host-repaired (exact; ``want_args`` keeps the arg tables for a value
+    phase); logsumexp contractions carry accumulated error bounds and
+    run on host f64 when a device pass would push the bound past ``tol``
+    (``semiring.logsumexp_repairs``).  Returns the sweep state, or None
+    on timeout.
+
+    A stacked dispatch that runs out of device memory degrades to one
+    dispatch per node (``engine.oom_splits``); a node that still does
+    not fit is redone on host f64.  Counters: ``semiring.contractions`` per node,
+    ``semiring.kbest_merges`` per kbest node, ``semiring.dispatches``
+    per device dispatch, ``semiring.cert_fallbacks`` per node redone on
+    the host, ``semiring.mixed_blocks``; the sweep records a
+    ``semiring.contract`` span.
+    """
+    from pydcop_tpu_torch.telemetry import get_metrics, get_tracer
+
+    met = get_metrics()
+    tracer = get_tracer()
+    t0 = time.perf_counter() if t0 is None else t0
+    K = len(plans)
+    sw = _Sweep(K)
+    _key_memo: Dict[tuple, tuple] = {}
+    if device_min_cells is not None and torch_device is None:
+        raise ValueError("a device sweep needs torch_device")
+
+    def table_in(tbl: np.ndarray) -> np.ndarray:
+        if sr.kind == "kbest" or (sr.idempotent and not sr.maximize):
+            return tbl  # cost-ordered kinds: raw energies
+        return (-beta) * tbl
+
+    def finish(sr_n, k, name, plan, sep, u, arg):
+        if met.enabled:
+            met.inc("semiring.contractions")
+            if sr_n.kind == "kbest":
+                met.inc("semiring.kbest_merges")
+        if want_args and arg is not None:
+            sw.args[k][name] = (sep, arg)
+        if plan.parent[name] is None:
+            if sr_n.cell_width > 1:
+                sw.root_cells[k][name] = np.asarray(u, dtype=np.float64)
+            else:
+                # root: the reduce is a scalar — fold it into the
+                # instance aggregate
+                sw.root_total[k] += float(u)
+        else:
+            shift = sr_n.shift_of(u)
+            if not np.isfinite(shift):
+                shift = 0.0  # an all--inf message normalizes to itself
+            u = sr_n.apply_shift(u, shift)
+            sw.total_shift[k] += shift
+            sw.msgs[k][name] = (sep, u, _finite_amax(u))
+            sw.cells[k] += u.size
+
+    def host_contract(sr_n, k, name, plan, sep, target, shape, parts,
+                      err_in):
+        if sr_n.kind == "kbest":
+            u, own, provs = _kbest_host(
+                parts, target, shape, sr_n.cell_width
+            )
+            sw.host_nodes[k] += 1
+            arg = (own, dict(zip(plan.children[name], provs)))
+            finish(sr_n, k, name, plan, sep, u, arg)
+            return
+        if sr_n.kind == "expectation":
+            u = _expect_host(parts, target, shape)
+            sw.host_nodes[k] += 1
+            scale = max(sum(_finite_amax(t) for _, t in parts), 1.0)
+            sw.err[k][name] = err_in + _EPS64 * (
+                (len(parts) + 1) * scale + shape[-1] + 2
+            )
+            finish(sr_n, k, name, plan, sep, u, None)
+            return
+        j = np.zeros(shape, dtype=np.float64)
+        for dims, table in parts:
+            j = j + _align(table, dims, target)
+        arg = (
+            sr_n.arg_reduce(j, axis=-1)
+            if want_args and sr_n.idempotent
+            else None
+        )
+        u = sr_n.reduce(j, axis=-1)
+        sw.host_nodes[k] += 1
+        if not sr_n.idempotent:
+            # f64 rounding of the same computation: negligible, but
+            # accounted so the reported bound is never an understatement
+            scale = max(
+                sum(
+                    float(np.max(np.abs(t), initial=0.0))
+                    for _, t in parts
+                ),
+                1.0,
+            )
+            sw.err[k][name] = err_in + _EPS64 * (
+                (len(parts) + 1) * scale + shape[-1] + 2
+            )
+        elif err_in:
+            # a mixed sweep's max node: the sum block's bounds flow
+            # through to the root unchanged
+            sw.err[k][name] = err_in
+        finish(sr_n, k, name, plan, sep, u, arg)
+
+    waves: List[List[Tuple[int, str]]] = []
+    for k, plan in enumerate(plans):
+        for n in plan.order:
+            w = plan.height[n]
+            while len(waves) <= w:
+                waves.append([])
+            waves[w].append((k, n))
+
+    mixed = any(p.node_semiring for p in plans)
+    t_sweep = time.perf_counter()
+    for wave in waves:
+        buckets: Dict[tuple, list] = {}
+        order: List[tuple] = []
+        wave_srs: set = set()
+        for k, name in wave:
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                return None
+            plan = plans[k]
+            domains = plan.domains
+            sr_n = (
+                get_semiring(plan.node_semiring[name])
+                if plan.node_semiring is not None
+                else sr
+            )
+            if mixed:
+                wave_srs.add(sr_n.name)
+            cw = sr_n.cell_width
+            sep = plan.sep_of(name, sw.seps[k])
+            sw.seps[k][name] = sep
+            target = sep + [name]
+            shape = [len(domains[d]) for d in target]
+            size = 1
+            for s in shape:
+                size *= s
+            if size * cw > max_table_size:
+                raise ValueError(
+                    f"contraction table for {name!r} needs "
+                    f"{size * cw} cells (separator {sep}, cell width "
+                    f"{cw}); exceeds max_table_size={max_table_size}.  "
+                    f"The induced width under order={plan.order_name!r} "
+                    "is too large — try order='min_fill', or an "
+                    "approximate (message-passing) algorithm."
+                )
+            # own parts PRE-SUMMED into one exact f64 part (the DPOP
+            # trick), then the children's messages
+            own_parts = plan.buckets[name]
+            own_w = plan.wbuckets[name]
+            parts: List[Tuple[List[str], np.ndarray]] = []
+            parts_max = 0.0
+            err_in = 0.0
+            if own_w and sr_n.kind != "expectation":
+                raise ValueError(
+                    "external distributions weight assignments — "
+                    f"the {sr_n.name!r} ⊕ cannot carry them (use "
+                    "query='expectation')"
+                )
+            if sr_n.kind == "expectation":
+                if own_parts or own_w:
+                    odims: List[str] = []
+                    for dims, _ in own_parts:
+                        odims.extend(d for d in dims if d not in odims)
+                    for dims, _ in own_w:
+                        odims.extend(d for d in dims if d not in odims)
+                    e = np.zeros(
+                        [len(domains[d]) for d in odims], dtype=np.float64
+                    )
+                    for dims, table in own_parts:
+                        e = e + _align(table, dims, odims)
+                    lw = (-beta) * e
+                    for dims, table in own_w:
+                        lw = lw + _align(table, dims, odims)
+                    o = np.stack([lw, e], axis=-1)
+                    parts.append((odims, o))
+                    parts_max += _finite_amax(o)
+            elif own_parts:
+                odims = []
+                for dims, _ in own_parts:
+                    odims.extend(d for d in dims if d not in odims)
+                if len(own_parts) > 1:
+                    o = np.zeros(
+                        [len(domains[d]) for d in odims], dtype=np.float64
+                    )
+                    for dims, table in own_parts:
+                        o = o + _align(table_in(table), dims, odims)
+                else:
+                    o = np.asarray(
+                        table_in(own_parts[0][1]), dtype=np.float64
+                    )
+                    odims = list(own_parts[0][0])
+                parts.append((odims, o))
+                # finite-masked: ±inf hard-constraint entries are EXACT
+                # in f32 and must not void the certificate
+                parts_max += _finite_amax(o)
+            for c in plan.children[name]:
+                cdims, ctable, cmax = sw.msgs[k][c]
+                parts.append((cdims, ctable))
+                parts_max += cmax
+                err_in += sw.err[k].get(c, 0.0)
+            if not parts:
+                # an isolated, cost-free variable: the reduce of a
+                # ⊗-identity table over its own domain
+                if sr_n.kind == "expectation":
+                    parts.append(([name], np.zeros((shape[-1], 2))))
+                else:
+                    parts.append(([name], np.zeros(shape[-1])))
+
+            dmc = device_min_cells
+            use_device = dmc is not None and size * cw >= dmc
+            if use_device and sr_n.error_bounded:
+                # error-budget gate: a device pass whose accumulated
+                # bound would exceed tol runs on host f64 instead
+                local = _EPS32 * (
+                    (len(parts) + 1) * max(parts_max, 1.0) + shape[-1] + 2
+                )
+                if err_in + local > tol:
+                    use_device = False
+                    if met.enabled:
+                        met.inc("semiring.logsumexp_repairs")
+            if not use_device:
+                host_contract(
+                    sr_n, k, name, plan, sep, target, shape, parts,
+                    err_in,
+                )
+                continue
+            aligned = [_align(t, dims, target) for dims, t in parts]
+            raw = (sr_n.name, tuple(shape), tuple(a.shape for a in aligned))
+            key = _key_memo.get(raw)
+            if key is None:
+                # the level-pack key is shape-only; the ⊕ joins the
+                # BUCKET key so a mixed wave never mixes kernels
+                key = _key_memo[raw] = (
+                    sr_n.name, util_level_key(raw[1], raw[2], pad),
+                )
+            if key not in buckets:
+                buckets[key] = []
+                order.append(key)
+            buckets[key].append(
+                ((k, name, sep, target, shape, parts, parts_max, err_in),
+                 aligned)
+            )
+
+        if mixed and len(wave_srs) > 1 and met.enabled:
+            met.inc("semiring.mixed_blocks")
+
+        for key in order:
+            entries = buckets[key]
+            if timeout is not None and time.perf_counter() - t0 > timeout:
+                return None
+            sr_b = get_semiring(key[0])
+            # ghost guard over padded own-axis cells is the ⊕-identity
+            guard = sr_b.plus_identity
+            pshape, part_shapes = key[1]
+            n_rows = len(entries)
+            shape0 = entries[0][0][4]
+            uniform = all(it[4] == shape0 for it, _ in entries)
+            if uniform and n_rows > 1:
+                if _dispatch_stacked(
+                    sw, sr_b, entries, pshape, part_shapes, shape0, pad,
+                    guard, tol, want_args, finish, met, plans,
+                    torch_device,
+                ):
+                    continue
+                # OOM on the stacked dispatch: degrade to the per-node
+                # path below
+                if met.enabled:
+                    met.inc("engine.oom_splits")
+            fn = contraction_kernel(sr_b, pshape, part_shapes)
+            for item, aligned in entries:
+                (k, name, sep, target, shape, parts, parts_max,
+                 err_in) = item
+                if timeout is not None and time.perf_counter() - t0 > timeout:
+                    return None
+                padded = pad_util_parts(
+                    aligned, shape, pshape, guard=guard,
+                    with_mask=pad.enabled,
+                )
+                try:
+                    outs = _dispatch(fn, padded, torch_device)
+                except torch.cuda.OutOfMemoryError:
+                    host_contract(
+                        sr_b, k, name, plans[k], sep, target, shape,
+                        parts, err_in,
+                    )
+                    continue
+                if met.enabled:
+                    met.inc("semiring.dispatches")
+                sw.dispatches[k] += 1
+                region = tuple(slice(0, s) for s in shape[:-1])
+                _finish_device_row(
+                    sw, sr_b, plans[k], item, outs, region, want_args,
+                    finish, met,
+                )
+    if tracer.enabled:
+        tracer.add_span(
+            "semiring.contract", "phase", t_sweep,
+            time.perf_counter() - t_sweep, semiring=sr.name,
+            instances=K, cells=sum(sw.cells),
+        )
+    return sw
+
+
+def _dispatch_stacked(
+    sw, sr, entries, pshape, part_shapes, shape0, pad, guard, tol,
+    want_args, finish, met, plans, torch_device,
+) -> bool:
+    """One stacked dispatch for a uniform level-pack bucket: f64 stack
+    buffers (ghost rows all zero, the mask row at the guard), cast to
+    f32 in one packed host-to-device copy.  Returns False on device OOM
+    (the caller degrades to per-node dispatches)."""
+    n_rows = len(entries)
+    stack_h = stack_bucket(n_rows) if pad.enabled else n_rows
+    has_mask = len(part_shapes) == len(entries[0][1]) + 1
+    bufs = [
+        np.zeros((stack_h,) + tuple(ps), dtype=np.float64)
+        for ps in part_shapes
+    ]
+    for r, (item, aligned) in enumerate(entries):
+        for i, a in enumerate(aligned):
+            bufs[i][r][tuple(slice(0, s) for s in a.shape)] = a
+        if has_mask:
+            bufs[-1][r][..., shape0[-1]:] = guard
+    fn = contraction_kernel(sr, pshape, part_shapes, batched=True)
+    try:
+        outs = _dispatch(fn, bufs, torch_device)
+    except torch.cuda.OutOfMemoryError:
+        return False
+    if met.enabled:
+        met.inc("semiring.dispatches")
+    for k in sorted({item[0] for item, _ in entries}):
+        sw.dispatches[k] += 1
+    region_rows = tuple(slice(0, s) for s in shape0[:-1])
+    for r, (item, _) in enumerate(entries):
+        _finish_device_row(
+            sw, sr, plans[item[0]], item, tuple(o[r] for o in outs),
+            region_rows, want_args, finish, met,
+        )
+    return True
+
+
+def _finish_device_row(
+    sw, sr, plan, item, outs, region, want_args, finish, met,
+):
+    """Certify / account one device contraction and finish the node.
+
+    Idempotent ⊕: certify the f32 arg against the decision-margin bound,
+    repair near-ties on the host, and re-evaluate the projected values
+    in exact f64 at the certified arg (tie-heavy tables, more than 10%
+    of cells uncertifiable, are redone wholesale on the host).  kbest:
+    the per-component certificate, then host-f64 values at the
+    certified backpointers (or the whole node on the host).  logsumexp
+    ⊕ and expectation: accept the f32 values and extend the accumulated
+    error bound (the ``tol`` gate already ran before dispatch)."""
+    (k, name, sep, target, shape, parts, parts_max, err_in) = item
+    if sr.kind == "kbest":
+        vals, margins, own_idx, *slots = outs
+        margins = np.asarray(margins[region], dtype=np.float64)
+        local_err = _EPS32 * (len(parts) + 1) * parts_max
+        # per-COMPONENT certificate: every selected slot must beat the
+        # next candidate by the rounding bound, or the whole node is
+        # redone on host f64 (still exact)
+        if np.any(margins < 2.0 * (local_err + err_in)):
+            if met.enabled:
+                met.inc("semiring.cert_fallbacks")
+            u, own, provs = _kbest_host(parts, target, shape, sr.cell_width)
+            sw.host_nodes[k] += 1
+            finish(
+                sr, k, name, plan, sep, u,
+                (own, dict(zip(plan.children[name], provs))),
+            )
+            return
+        own = np.asarray(own_idx[region], dtype=np.intp)
+        slot_arrs = [np.asarray(s[region], dtype=np.intp) for s in slots]
+        u = _kbest_reeval(parts, target, shape, own, slot_arrs)
+        # slots past the candidate count are +inf in the kernel's
+        # values; their backpointers are clamped padding
+        u = np.where(np.isfinite(np.asarray(vals[region])), u, np.inf)
+        sw.device_nodes[k] += 1
+        finish(
+            sr, k, name, plan, sep, u,
+            (own, dict(zip(plan.children[name], slot_arrs))),
+        )
+    elif sr.idempotent:
+        arg, margins = outs
+        arg = np.array(arg[region])  # writable (repair)
+        margins = np.asarray(margins[region], dtype=np.float64)
+        local_err = _EPS32 * (len(parts) + 1) * parts_max
+        bad = np.argwhere(margins < 2.0 * (local_err + err_in))
+        if len(bad) * 10 > margins.size:
+            # tie-heavy: redo the whole contraction on host f64
+            if met.enabled:
+                met.inc("semiring.cert_fallbacks")
+            j = np.zeros(shape, dtype=np.float64)
+            for dims, table in parts:
+                j = j + _align(table, dims, target)
+            u = sr.reduce(j, axis=-1)
+            arg = sr.arg_reduce(j, axis=-1) if want_args else None
+            sw.host_nodes[k] += 1
+            if err_in:
+                sw.err[k][name] = err_in
+            finish(sr, k, name, plan, sep, u, arg)
+            return
+        for cell in map(tuple, bad):
+            row = np.zeros(shape[-1], dtype=np.float64)
+            for dims, table in parts:
+                row += _cell_row(table, dims, target, cell)
+            arg[cell] = int(sr.arg_reduce(row, axis=-1))
+        # exact f64 values AT the certified arg: children contribute
+        # zero error to their parents, whatever the tree depth
+        own = target[-1]
+        grids = (
+            np.indices(tuple(shape[:-1]), dtype=np.intp)
+            if len(shape) > 1
+            else None
+        )
+        u = np.zeros(tuple(shape[:-1]), dtype=np.float64)
+        for dims, table in parts:
+            idx = [
+                arg if d == own else grids[target.index(d)] for d in dims
+            ]
+            u += _part_gather(table, tuple(idx))
+        sw.device_nodes[k] += 1
+        if err_in:
+            sw.err[k][name] = err_in
+        finish(sr, k, name, plan, sep, u, arg)
+    else:  # logsumexp and expectation: the values are the answer
+        (vals,) = outs
+        u = np.asarray(vals[region], dtype=np.float64)
+        sw.err[k][name] = err_in + _EPS32 * (
+            (len(parts) + 1) * max(parts_max, 1.0) + shape[-1] + 2
+        )
+        sw.device_nodes[k] += 1
+        finish(sr, k, name, plan, sep, u, None)
+
+
+def _part_gather(table, idx):
+    """Exact f64 advanced-indexing gather of one part."""
+    return np.asarray(table, dtype=np.float64)[idx]
+
+
+def _cell_row(table, dims, target, cell):
+    """Exact f64 row of one part at a fixed separator cell (broadcast
+    over the own axis when the part does not carry it)."""
+    own = target[-1]
+    idx = [
+        slice(None) if d == own else cell[target.index(d)] for d in dims
+    ]
+    row = np.asarray(table, dtype=np.float64)[tuple(idx)]
+    if own not in dims:
+        return np.full(1, float(row))
+    return row
+
+
+# -- structured-cell host contractions ----------------------------------
+
+
+def _kbest_host(parts, target, shape, kk):
+    """Exact host-f64 top-K contraction of one node with provenance:
+    scalar parts broadcast-add into the base ``j``, child k-cells
+    cross-sum-truncate one at a time, then the own-axis projection
+    merge-sorts the ``d·k`` candidates.  Returns ``(values [sep..,k],
+    own-value index [sep..,k], per-child slot arrays)``; ties select by
+    candidate index (stable argsort), as the device kernel does."""
+    j = np.zeros(shape, dtype=np.float64)
+    vecs = []
+    for dims, t in parts:
+        t = np.asarray(t, dtype=np.float64)
+        if t.ndim == len(dims) + 1:
+            vecs.append(_align(t, dims, target))
+        else:
+            j = j + _align(t, dims, target)
+    if vecs:
+        with np.errstate(invalid="ignore"):
+            cell = j[..., None] + np.broadcast_to(vecs[0], shape + [kk])
+        provs = [
+            np.broadcast_to(np.arange(kk, dtype=np.intp), cell.shape)
+        ]
+        for t in vecs[1:]:
+            with np.errstate(invalid="ignore"):
+                sums = cell[..., :, None] + np.broadcast_to(
+                    t, shape + [kk]
+                )[..., None, :]
+            flat = sums.reshape(sums.shape[:-2] + (kk * kk,))
+            idx = np.argsort(flat, axis=-1, kind="stable")[..., :kk]
+            cell = np.take_along_axis(flat, idx, axis=-1)
+            provs = [
+                np.take_along_axis(p, idx // kk, axis=-1) for p in provs
+            ]
+            provs.append(idx % kk)
+    else:
+        lift = np.full(kk, np.inf)
+        lift[0] = 0.0
+        cell = j[..., None] + lift
+        provs = []
+    d = shape[-1]
+    flat = cell.reshape(cell.shape[:-2] + (d * kk,))
+    idx = np.argsort(flat, axis=-1, kind="stable")[..., :kk]
+    vals = np.take_along_axis(flat, idx, axis=-1)
+    own = idx // kk
+    provs = [
+        np.take_along_axis(
+            np.ascontiguousarray(p).reshape(p.shape[:-2] + (d * kk,)),
+            idx,
+            axis=-1,
+        )
+        for p in provs
+    ]
+    if vals.shape[-1] < kk:
+        pad = kk - vals.shape[-1]
+        vals = np.concatenate(
+            [vals, np.full(vals.shape[:-1] + (pad,), np.inf)], -1
+        )
+        own = np.concatenate(
+            [own, np.zeros(own.shape[:-1] + (pad,), np.intp)], -1
+        )
+        provs = [
+            np.concatenate(
+                [p, np.zeros(p.shape[:-1] + (pad,), np.intp)], -1
+            )
+            for p in provs
+        ]
+    return vals, own, provs
+
+
+def _kbest_reeval(parts, target, shape, own, slot_arrs):
+    """Exact f64 top-K values AT certified device backpointers: the
+    same part-order accumulation as :func:`_kbest_host`, gathered at the
+    selected (own value, child slot) per separator cell and slot."""
+    kk = own.shape[-1]
+    grids = np.indices(tuple(shape[:-1]) + (kk,), dtype=np.intp)
+    u = np.zeros(tuple(shape[:-1]) + (kk,), dtype=np.float64)
+    sep_idx = [grids[target.index(d)] for d in target[:-1]]
+    vec_i = 0
+    for dims, t in parts:
+        t64 = np.asarray(t, dtype=np.float64)
+        if t64.ndim == len(dims) + 1:
+            a = np.broadcast_to(
+                _align(t64, dims, target), tuple(shape) + (kk,)
+            )
+            u = u + a[tuple(sep_idx) + (own, slot_arrs[vec_i])]
+            vec_i += 1
+        else:
+            a = np.broadcast_to(_align(t64, dims, target), tuple(shape))
+            u = u + a[tuple(sep_idx) + (own,)]
+    return u
+
+
+def _expect_host(parts, target, shape):
+    """Host-f64 expectation contraction of one node: pair parts add per
+    plane (scalar parts weight only), then the own-axis ⊕."""
+    lw = np.zeros(shape, dtype=np.float64)
+    r = np.zeros(shape, dtype=np.float64)
+    for dims, t in parts:
+        t = np.asarray(t, dtype=np.float64)
+        if t.ndim == len(dims) + 1:
+            a = _align(t, dims, target)
+            lw = lw + a[..., 0]
+            r = r + a[..., 1]
+        else:
+            lw = lw + _align(t, dims, target)
+    return _exp_pair_reduce(np.stack([lw, r], axis=-1), (len(shape) - 1,))
+
+
+# -- queries ------------------------------------------------------------
+
+
+def _value_phase(
+    plan: ContractionPlan, args, only: Optional[set] = None
+) -> Dict[str, Any]:
+    """Top-down MAP value wave: condition each node's retained arg
+    table on the accumulated ancestor assignment.  ``only`` restricts
+    the walk to the maximized block of a marginal-MAP plan."""
+    assignment: Dict[str, Any] = {}
+    idx: Dict[str, int] = {}
+    for name in reversed(plan.order):
+        if only is not None and name not in only:
+            continue
+        sep, arg = args[name]
+        best = int(arg[tuple(idx[d] for d in sep)])
+        idx[name] = best
+        assignment[name] = plan.domains[name][best]
+    return assignment
+
+
+def _kbest_solutions(plan: ContractionPlan, root_cells, args, kk):
+    """The K best full assignments of one instance, in cost order:
+    cross-sum the per-root K-best cells (roots are independent), then
+    walk each slot's backpointers top-down.  Returns ``[(energy value —
+    shifts excluded, {var: value-index})]``."""
+    combos: List[Tuple[float, tuple]] = [(0.0, ())]
+    for rt in plan.roots:
+        cell = root_cells[rt]
+        nxt = []
+        for base, slots in combos:
+            for s in range(cell.shape[-1]):
+                v = float(cell[s])
+                if np.isfinite(v):
+                    nxt.append((base + v, slots + (s,)))
+        nxt.sort(key=lambda t: (t[0], t[1]))
+        combos = nxt[:kk]
+    out = []
+    for val, slots in combos:
+        idx: Dict[str, int] = {}
+        stack = list(zip(plan.roots, slots))
+        while stack:
+            v, s = stack.pop()
+            sep, (own, cslots) = args[v]
+            cell_i = tuple(idx[d] for d in sep)
+            idx[v] = int(own[cell_i + (s,)])
+            for c in plan.children[v]:
+                stack.append((c, int(cslots[c][cell_i + (s,)])))
+        out.append((val, idx))
+    return out
+
+
+def _downward_marginals(
+    plan: ContractionPlan,
+    sw: _Sweep,
+    k: int,
+    sr: Semiring,
+    beta: float,
+    t0: float,
+    timeout: Optional[float],
+) -> Optional[Dict[str, np.ndarray]]:
+    """Host-f64 downward pass: outside-messages root→leaves, then each
+    variable's normalized marginal.  Prefix/suffix child combines (no
+    log-domain subtraction, so ``-inf`` entries stay well-defined)."""
+    down: Dict[str, Tuple[List[str], np.ndarray]] = {}
+    marginals: Dict[str, np.ndarray] = {}
+
+    for name in reversed(plan.order):  # parents before children
+        if timeout is not None and time.perf_counter() - t0 > timeout:
+            return None
+        sep = sw.seps[k][name]
+        target = sep + [name]
+        shape = [len(plan.domains[d]) for d in target]
+        base = np.zeros(shape, dtype=np.float64)
+        for dims, table in plan.buckets[name]:
+            base = base + _align((-beta) * table, dims, target)
+        if name in down:
+            ddims, dtable = down[name]
+            base = base + _align(dtable, ddims, target)
+        cs = plan.children[name]
+        aligned_c = [
+            _align(sw.msgs[k][c][1], sw.msgs[k][c][0], target) for c in cs
+        ]
+        prefix = [np.zeros(shape, dtype=np.float64)]
+        for a in aligned_c:
+            prefix.append(prefix[-1] + a)
+        suffix = [np.zeros(shape, dtype=np.float64)]
+        for a in reversed(aligned_c):
+            suffix.append(suffix[-1] + a)
+        suffix.reverse()
+        joint = base + prefix[-1]
+        b = sr.reduce(joint, axis=tuple(range(len(sep)))) if sep else joint
+        m = float(np.max(b)) if np.isfinite(np.max(b)) else 0.0
+        p = np.exp(b - m)
+        total = float(p.sum())
+        marginals[name] = (
+            p / total if total > 0 else np.full_like(p, 1.0 / p.size)
+        )
+        for i, c in enumerate(cs):
+            excl = base + prefix[i] + suffix[i + 1]
+            sep_c = sw.msgs[k][c][0]
+            keep = set(sep_c)
+            axes = tuple(
+                ax for ax, d in enumerate(target) if d not in keep
+            )
+            d_c = sr.reduce(excl, axis=axes) if axes else excl
+            shift = float(np.max(d_c))
+            if np.isfinite(shift):
+                d_c = d_c - shift
+            down[c] = ([d for d in target if d in keep], d_c)
+    return marginals
+
+
+def run_infer_many(
+    dcops: Sequence[Any],
+    query: str,
+    *,
+    order: str = "pseudo_tree",
+    beta: float = 1.0,
+    tol: float = 1e-6,
+    device: str = "auto",
+    device_min_cells: int = 1 << 14,
+    pad_policy: Any = None,
+    max_table_size: int = 1 << 26,
+    timeout: Optional[float] = None,
+    max_util_bytes: Optional[int] = None,
+    map_vars: Optional[Sequence[str]] = None,
+    external_dists: Optional[Mapping[str, Mapping[Any, float]]] = None,
+    bnb: str = "auto",
+    table_dtype: str = "f32",
+    table_format: str = "dense",
+    torch_device: Optional[torch.device] = None,
+) -> List[Dict[str, Any]]:
+    """Run one inference query over K instances with their contraction
+    sweeps MERGED (same-bucket contractions from different instances
+    share one stacked dispatch; per-instance results equal sequential
+    calls) — the engine behind ``api.infer``/``api.infer_many``, whose
+    callers own the telemetry session.
+
+    Queries: ``"map"`` (max/+, certified exact), ``"log_z"`` (``log
+    Σ_x exp(-beta·E(x))``), ``"marginals"`` (per-variable distributions
+    plus ``log_z``), ``"kbest:<k>"`` (the k best assignments, exact),
+    ``"marginal_map"`` (``map_vars`` maximized over the logsumexp of the
+    rest) and ``"expectation"`` (``E[cost]``, with ``external_dists``
+    for stochastic externals).
+
+    ``device`` is the offload policy (``"auto"``: tables of at least
+    ``device_min_cells`` cells; ``"never"``: pure host f64;
+    ``"always"``); the device contractions run on ``torch_device``.
+    ``bnb="on"`` (A5), a ``table_dtype`` other than f32 (A10.3),
+    ``table_format="sparse"`` (A10.4) and ``max_util_bytes`` (A10.5)
+    raise ``NotImplementedError``; ``bnb="auto"`` runs the unpruned
+    contraction.
+    """
+    t0 = time.perf_counter()
+    qkind, sr = parse_query(query)
+    if as_bnb(bnb, "auto") == "on":
+        raise _not_ported("infer bnb='on' (the pruned contraction)", "A5")
+    dt = as_table_dtype(table_dtype)
+    if dt != "f32":
+        raise _not_ported(f"infer table_dtype={dt!r}", "A10.3")
+    fmt = str(table_format or "dense").strip().lower()
+    if fmt == "sparse":
+        raise _not_ported("infer table_format='sparse'", "A10.4")
+    if fmt != "dense":
+        raise ValueError(
+            f"unknown table format {table_format!r} (expected 'dense' or "
+            "'sparse')" + _did_you_mean(fmt, ["dense", "sparse"])
+        )
+    if max_util_bytes is not None:
+        raise _not_ported(
+            "infer max_util_bytes (the memory-bounded sweep)", "A10.5"
+        )
+    if device not in ("auto", "never", "always"):
+        raise ValueError(
+            f"device must be 'auto'|'never'|'always', got {device!r}"
+        )
+    if beta <= 0:
+        raise ValueError(f"beta must be > 0, got {beta}")
+    if qkind == "marginal_map":
+        if not map_vars:
+            raise ValueError(
+                "marginal_map needs map_vars=[...] — the variables "
+                "maximized over (every other variable is summed out; "
+                "with none maximized the query is 'log_z')"
+            )
+    elif map_vars:
+        raise ValueError(
+            f"map_vars applies to query='marginal_map' only, not "
+            f"{query!r}"
+        )
+    if external_dists and qkind != "expectation":
+        raise ValueError(
+            "external_dists weight assignments by external-variable "
+            f"probabilities — query {query!r} has no expectation to "
+            "weight (use query='expectation')"
+        )
+    pad = as_pad_policy(pad_policy)
+    dmc: Optional[int]
+    if device == "never":
+        dmc = None
+    elif device == "always":
+        dmc = 0
+    else:
+        dmc = int(device_min_cells)
+
+    from pydcop_tpu_torch.telemetry import get_tracer
+
+    tracer = get_tracer()
+    K = len(dcops)
+    deadline = None if timeout is None else t0 + timeout
+    try:
+        plans = [
+            build_plan(
+                d, order=order, deadline=deadline,
+                max_vars=(map_vars if qkind == "marginal_map" else None),
+                external_dists=(
+                    external_dists if qkind == "expectation" else None
+                ),
+            )
+            for d in dcops
+        ]
+    except TimeoutError:
+        # plan construction (the min_fill search) ate the budget
+        return [_timeout_result(query, t0) for _ in range(K)]
+    want_args = qkind in ("map", "marginal_map", "kbest")
+
+    sw = contract_sweep(
+        plans, sr, beta=beta, device_min_cells=dmc, pad=pad, tol=tol,
+        max_table_size=max_table_size, want_args=want_args, t0=t0,
+        timeout=timeout, torch_device=torch_device,
+    )
+    if sw is None:
+        return [_timeout_result(query, t0) for _ in range(K)]
+
+    results: List[Dict[str, Any]] = []
+    for k, (dcop, plan) in enumerate(zip(dcops, plans)):
+        agg = sw.root_total[k] + sw.total_shift[k] - beta * plan.const_energy
+        # the instance bound is the sum over ROOT accumulations only:
+        # each node's entry already chains its whole subtree
+        err = sum(sw.err[k].get(r, 0.0) for r in plan.roots)
+        out: Dict[str, Any] = {
+            "query": query,
+            "semiring": sr.name,
+            "order": plan.order_name,
+            "status": "finished",
+            "cells": sw.cells[k],
+            "dispatches": sw.dispatches[k],
+            "device_nodes": sw.device_nodes[k],
+            "host_nodes": sw.host_nodes[k],
+            "width": max((len(s) for s in sw.seps[k].values()), default=0),
+            "error_bound": err,
+            "instances_batched": K,
+        }
+        if qkind == "map":
+            assignment = _value_phase(plan, sw.args[k])
+            out["assignment"] = assignment
+            out["cost"] = dcop.solution_cost(assignment)
+            out["log_weight"] = agg
+        elif qkind == "marginal_map":
+            out["assignment"] = _value_phase(
+                plan, sw.args[k], only=set(plan.max_vars)
+            )
+            out["map_vars"] = list(plan.max_vars)
+            out["value"] = agg  # max_{x_M} log Σ_{x_S} e^{-βE}
+        elif qkind == "kbest":
+            out.update(_kbest_result(plan, sw, k, sr.cell_width, dcop))
+        elif qkind == "expectation":
+            cells = [sw.root_cells[k][rt] for rt in plan.roots]
+            lw = sum(float(c[0]) for c in cells)
+            rr = sum(float(c[1]) for c in cells)
+            out["log_z"] = lw + sw.total_shift[k] - beta * plan.const_energy
+            out["e_cost"] = rr + plan.const_energy
+        elif qkind == "log_z":
+            out["log_z"] = agg
+        else:  # marginals
+            t_down = time.perf_counter()
+            margs = _downward_marginals(plan, sw, k, sr, beta, t0, timeout)
+            if margs is None:
+                results.append(_timeout_result(query, t0))
+                continue
+            if tracer.enabled:
+                tracer.add_span(
+                    "semiring.downward", "phase", t_down,
+                    time.perf_counter() - t_down, semiring=sr.name,
+                )
+            out["marginals"] = {
+                v: [float(x) for x in p] for v, p in margs.items()
+            }
+            out["log_z"] = agg
+        out["time"] = (time.perf_counter() - t0) / K
+        results.append(out)
+    return results
+
+
+def _kbest_result(plan, sw, k, kk, dcop) -> Dict[str, Any]:
+    """The kbest result block for one instance: walk the backpointers,
+    fold the shifts back into the energy values, and report each
+    solution with its dcop-convention cost — K distinct assignments,
+    best first."""
+    solutions = []
+    for val, idx in _kbest_solutions(plan, sw.root_cells[k], sw.args[k], kk):
+        assignment = {v: plan.domains[v][i] for v, i in idx.items()}
+        solutions.append(
+            {
+                "assignment": assignment,
+                "cost": dcop.solution_cost(assignment),
+                "energy": val + sw.total_shift[k] + plan.const_energy,
+            }
+        )
+    out: Dict[str, Any] = {
+        "k": kk,
+        "solutions": solutions,
+        "costs": [s["cost"] for s in solutions],
+    }
+    if solutions:
+        out["assignment"] = solutions[0]["assignment"]
+        out["cost"] = solutions[0]["cost"]
+    return out
+
+
+def _timeout_result(query: str, t0: float) -> Dict[str, Any]:
+    return {
+        "query": query,
+        "status": "timeout",
+        "time": time.perf_counter() - t0,
+    }

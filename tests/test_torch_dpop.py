@@ -176,7 +176,7 @@ def _both(build, *args, **kw):
 def assert_same_result(want, got):
     for k in STATS:
         assert got[k] == want[k], (k, want[k], got[k])
-    assert set(got) == set(want) - {"telemetry"}
+    assert set(got) == set(want)
 
 
 def run_both(jd, td, params, pad="none", **kw):
@@ -328,7 +328,7 @@ def test_entry_point_checks():
 def test_cli_matches_jax_solve():
     """``python -m pydcop_tpu_torch solve -a dpop --device cpu`` prints
     what ``pydcop_tpu.api.solve`` returns, minus the time fields' values
-    and the JAX package's ``telemetry`` and ``cost_trace``."""
+    and the JAX package's ``cost_trace``."""
     want = jax_solve(RING, "dpop", {"util_device": "always", "bnb": "off"},
                      pad_policy="pow2")
     proc = subprocess.run(
@@ -342,4 +342,4 @@ def test_cli_matches_jax_solve():
     got = json.loads(proc.stdout)
     for k in STATS:
         assert got[k] == want[k], k
-    assert set(got) == set(want) - {"telemetry", "cost_trace"}
+    assert set(got) == set(want) - {"cost_trace"}

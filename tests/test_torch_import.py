@@ -2,7 +2,8 @@
 
 ``tests/conftest.py`` imports jax into every test process, so the
 runtime check (an array-built maxsum solve and CPU maxsum and dsa solves
-of a YAML file) runs in a fresh subprocess; a static AST scan covers every
+of a YAML file, and an inference query on the device path) runs in a
+fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
 of carrying on on the CPU.
@@ -38,6 +39,9 @@ r = solve(sys.argv[1], "maxsum", rounds=8, device="cpu")
 assert r["cost"] == 0.0, r
 r = solve(sys.argv[1], "dsa", rounds=16, device="cpu", n_restarts=2)
 assert r["cost"] == 0.0 and len(r["restart_costs"]) == 2, r
+from pydcop_tpu_torch.api import infer
+r = infer(sys.argv[1], "kbest:3", device="always", torch_device="cpu")
+assert r["costs"] == [0.0, 0.0, 0.0] and r["telemetry"]["counters"], r
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")

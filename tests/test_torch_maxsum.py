@@ -254,7 +254,7 @@ def test_cli_matches_jax_solve():
     assert got["assignment"] == want["assignment"]
     assert got["cycle"] == want["cycle"] == 30
     assert got["msg_count"] == want["msg_count"]
-    assert set(got) == set(want) - {"telemetry", "cost_trace"}
+    assert set(got) == set(want) - {"cost_trace"}
 
 
 def test_bf16_tables_generic_path_matches_jax_round_by_round(

@@ -95,12 +95,20 @@ def test_contraction_kernel_equals_jax(shape, part_shapes, case, batched):
 
 
 def test_contraction_kernel_rejects_other_semirings_and_bad_parts():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tsr.contraction_kernel("max_sum", (3,), ((3,),))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tsr.get_semiring("kbest:4")
+    """Unknown and malformed semirings raise with the JAX package's
+    messages; the pruned kernel (ROADMAP A5) and reduced-precision packs
+    (ROADMAP A10.3) are not ported; parts must be f32 of the bucket's
+    shapes."""
+    with pytest.raises(ValueError, match="did you mean 'max_sum'"):
+        tsr.get_semiring("max_summ")
+    with pytest.raises(ValueError, match="2 <= k"):
+        tsr.get_semiring("kbest:1")
     with pytest.raises(ValueError):
         tsr.get_semiring("min_plus")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        tsr.contraction_kernel("max_sum", (3,), ((3,),), bnb=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
+        tsr.contraction_kernel("min_sum", (3,), ((3,),), table_dtype="bf16")
     fn = tsr.contraction_kernel("min_sum", (3, 2), ((3, 2),))
     with pytest.raises(ValueError):
         fn(torch.zeros(3, 2, dtype=torch.float64))
