@@ -178,7 +178,57 @@ caught and passed over):
    random parts, card against CPU, its time (CUDA events around eager
    calls) beside the bound and the dispatches (not kernel launches) of
    the phase's card runs.
-11. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+11. The rest of the semiring core: the bf16/int8 UTIL packs, the
+   memory-bounded sweep (``max_util_bytes``), sparse COO tables and
+   SyncBB (eager PyTorch on the card, as the JAX package's joins are XLA;
+   no hand kernel).  Each line carries its numbers; every gate below
+   fails the script.  11a ``packs``: ``bench.py``'s precision-stage SECP
+   (384 lights, zone 8 tiled, seed 7) through DPOP at ``always``,
+   ``level``, pow2, at f32, bf16 and int8: cost and assignment equal
+   across the dtypes and to host f64, the card equal to the port's CPU
+   run in the UTIL counts, ``semiring.precision_repairs`` and
+   ``semiring.int8_requant``, util-cells/s per dtype; log_z of the
+   semiring_infer SECP at bf16 (``always``, ``device_min_cells`` 256,
+   ``tol`` inf) within its ``error_bound`` + 1e-9 of host f64 and map at
+   bf16 equal to f32, every SECP cell keeping device joins; phase 8's
+   hub tree at each dtype (its uniform tables send every bf16/int8 leaf
+   join to the host, printed as ``all_host_fallback``), the planted hub
+   tree (one planted value per leaf, margins the bf16 certificate
+   passes) at each dtype equal to host f64 and to the CPU run in its
+   counts, with at least the 44-leaf stack's device joins kept; in a child
+   process of its own (the profiler loses events late in a long
+   process) the host-to-device copies of one warm run at each dtype
+   (profiler events) beside the 44 x 24^4 leaf stack's part bytes and a
+   CUDA-event timing of one pageable copy of those bytes.  11b ``bounded``: the membound
+   stage's overlap SECP (96 lights, zone 8, overlap 5, arity 5, 4
+   levels) at ``max_util_bytes`` 16,384: equal to the bounded host-f64
+   run, the unbounded card run and the CPU run (counts and counters);
+   log_z under the same budget within its bound; the control instance
+   (64 models, zone 7, overlap 3, arity 4) budgeted at 2,048 against
+   unbounded; the hub tree at 4·24^3 bytes (a d-24 variable cut, at
+   least 24 lanes on the card) equal to its unbounded run.  11c ``oom``
+   (in the same child process, so the cap is set above a fresh
+   allocator): a d-64 hub tree planned at 128 MiB (no cut) under a
+   caching allocator capped (``set_per_process_memory_fraction``) 40
+   MiB above what the process holds, below one 67 MB leaf join:
+   ``membound.replans`` >= 1 and the result equal to the uncapped run;
+   the cap is restored after.  11d ``sparse``: the sparse
+   stage's task scheduling (26 tasks, 10 slots, window 6, stride 5,
+   density 0.2, seed 11) at ``table_format`` sparse and dense against
+   host f64, the card equal to the CPU in every ``semiring.sparse_*``
+   counter, the window tables' +inf fraction, the peak device memory
+   of one sparse and one dense run (``max_memory_allocated``); the bnb stage's
+   hard-capped overlap SECP sparse against dense; log_z at sparse within
+   its bound.  11e ``syncbb``: configuration 4's SECP at 10 lights,
+   equal to DPOP's optimum and the CPU run.  11f (in the child process,
+   before 11c): the min-sum contraction at bf16 and int8 at the hub
+   tree's leaf stack and the sparse min-sum and logsumexp joins at
+   their largest dispatch of the task scheduling's DPOP and log_z,
+   card against CPU, CUDA events around 5 eager calls, the bound (bytes
+   read and written once over 3.35 TB/s; for sparse, the rows' real
+   candidates, segments and packed values) and the eager kernel launches
+   of one call (torch.profiler).
+12. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths), the card
@@ -929,11 +979,18 @@ DPOP_STATS = ("util_cells", "util_device_nodes", "util_host_nodes",
               "util_dispatches")
 
 
-def hubtree_dcop():
+def hubtree_dcop(planted=False):
     """Configuration 6 (``bench_configs.py:65-107``, ``_gen_dpop_large``)
     rebuilt with the port's model objects: 3 hubs chained, 45 leaves each
     bound to every hub, d = 24, 137 binary uniform(0, 10) tables from
-    ``RandomState(5)`` drawn in the same order."""
+    ``RandomState(5)`` drawn in the same order.
+
+    ``planted``: the same graph and draws with one planted value per leaf
+    (``x_i = i mod 24``): its hub-leaf tables are rescaled to [5, 10) and
+    the planted column to [0, 1), so each leaf's best value leads the
+    next by at least 12 against a bf16 certificate bound of about 1.9
+    (uniform tables leave margins below the bound, and every leaf join
+    falls back to the host at bf16 and int8)."""
     import numpy as np
 
     from pydcop_tpu_torch.dcop import DCOP, Domain, NAryMatrixRelation, Variable
@@ -956,17 +1013,21 @@ def hubtree_dcop():
         dcop.add_variable(leaf)
         for h in hubs:
             t = rnd.uniform(0, 10, (d, d))
+            if planted:
+                t = 5 + t / 2
+                t[:, i % d] = (t[:, i % d] - 5) / 5
             dcop.add_constraint(
                 NAryMatrixRelation([h, leaf], t, name=f"c{ci}"))
             ci += 1
     return dcop
 
 
-def record_dispatches(dpop):
-    """Wrap the sweep's dispatch for one run: each dispatch's part shapes
-    (the stack height leads them in a stacked dispatch) and its host time,
+def record_dispatches(sr_mod):
+    """Wrap the sweep's dispatch (``ops/semiring.py:_dispatch``, which
+    DPOP's UTIL sweep calls) for one run: each dispatch's part shapes (the
+    stack height leads them in a stacked dispatch) and its host time,
     transfers included.  Returns the log and the function that unwraps."""
-    log, inner = [], dpop._dispatch
+    log, inner = [], sr_mod._dispatch
 
     def wrapped(fn, parts, device):
         t0 = time.perf_counter()
@@ -974,8 +1035,8 @@ def record_dispatches(dpop):
         log.append(([p.shape for p in parts], time.perf_counter() - t0))
         return out
 
-    dpop._dispatch = wrapped
-    return log, lambda: setattr(dpop, "_dispatch", inner)
+    sr_mod._dispatch = wrapped
+    return log, lambda: setattr(sr_mod, "_dispatch", inner)
 
 
 def profile_solve(torch, solve, dcop, params, pad, label):
@@ -1138,9 +1199,9 @@ def dpop_phase(torch, dev, card):
 
     import numpy as np
 
-    from pydcop_tpu_torch.algorithms import dpop
     from pydcop_tpu_torch.api import solve
     from pydcop_tpu_torch.commands.generators.secp import generate
+    from pydcop_tpu_torch.ops import semiring as sr_mod
 
     # -- 8a. configuration 6 at full width
     hub = hubtree_dcop()
@@ -1156,7 +1217,7 @@ def dpop_phase(torch, dev, card):
                              "oracle")
     print(f"oracle dpop-hubtree-d24: host f64 util_time="
           f"{oracle['util_time']} cost={oracle['cost']} equal=True")
-    log, unwrap = record_dispatches(dpop)
+    log, unwrap = record_dispatches(sr_mod)
     try:
         rec = solve(hub, "dpop", auto)
     finally:
@@ -2223,6 +2284,745 @@ def infer_phase(torch, dev, card):
                         INFER_DISPATCHES.get(name, 0), seed=30 + i)
 
 
+# -- phase 11: the rest of the semiring core ---------------------------------
+
+PREC_SPEC = dict(  # bench.py:236-243, the precision stage's tiled SECP
+    nb_lights=384, nb_models=384, nb_rules=96, light_levels=6,
+    model_arity=3, zone_size=8, zone_layout="tiled", efficiency_weight=0.1,
+    capacity=100.0, seed=7,
+)
+MB_SPEC = dict(  # bench.py:206-212, the membound stage's overlap SECP
+    nb_lights=96, nb_models=96, nb_rules=0, light_levels=4, model_arity=5,
+    zone_size=8, zone_layout="overlap", zone_overlap=5,
+    efficiency_weight=0.1, capacity=100.0, seed=7,
+)
+MB_BUDGET = 16_384  # bytes; the naive peak is 262,144
+MB_CTL_SPEC = dict(MB_SPEC, nb_models=64, zone_size=7, zone_overlap=3,
+                   model_arity=4)  # bench.py:213-217
+MB_CTL_BUDGET = 2_048
+TASKS_SPEC = dict(  # bench.py:287-292, the sparse stage's workload
+    nb_tasks=26, nb_slots=10, window=6, stride=5, forbid_density=0.2,
+    lateness_weight=1.0, capacity=100.0, seed=11,
+)
+GUARD_SPEC = dict(  # bench.py:258-267, the bnb stage's hard-capped SECP
+    nb_lights=28, nb_models=18, nb_rules=8, light_levels=10,
+    model_arity=5, zone_size=8, zone_layout="overlap", zone_overlap=5,
+    efficiency_weight=0.1, capacity=100.0, seed=11, hard_cap=1.02,
+)
+SYNCBB_SPEC = dict(  # bench_configs.py:53-62 (configuration 4's SECP) at
+    # 10 of its 40 lights: SyncBB's search is exponential in them
+    nb_lights=10, nb_models=8, nb_rules=5, light_levels=8, model_arity=3,
+    efficiency_weight=0.1, capacity=1000.0, seed=1,
+)
+HUB_CUT_BUDGET = 4 * 24 ** 3  # the hub tree's leaf tables one axis down
+OOM_HEADROOM = 40 << 20  # the capped allocator's room above its start,
+# below the 67 MB one leaf join of the d-64 hub tree needs
+STORAGE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+CARD = {"card": None}  # the card's name and power limit, set by core_phase
+
+
+def emit(phase, cell, **fields):
+    """One phase-11 cell as one JSON line, with the card it ran on."""
+    print(json.dumps({"phase": phase, "cell": cell, **fields,
+                      "card": CARD["card"]}))
+
+
+def oom_hub_dcop():
+    """Phase 8's hub tree with d = 64 and 4 leaves (``RandomState(6)``):
+    each leaf's join is a 64^4 table (67 MB at f32), the size a capped
+    allocator refuses, while a hub cut leaves 64^3 tables per lane."""
+    import numpy as np
+
+    from pydcop_tpu_torch.dcop import DCOP, Domain, NAryMatrixRelation, Variable
+
+    rnd = np.random.RandomState(6)
+    d, n_hubs, n_leaves = 64, 3, 4
+    dom = Domain("d", "", list(range(d)))
+    dcop = DCOP("hubtree-d64", objective="min")
+    hubs = [Variable(f"h{i}", dom) for i in range(n_hubs)]
+    for h in hubs:
+        dcop.add_variable(h)
+    ci = 0
+    for i in range(1, n_hubs):
+        dcop.add_constraint(NAryMatrixRelation(
+            [hubs[i - 1], hubs[i]], rnd.uniform(0, 10, (d, d)),
+            name=f"c{ci}"))
+        ci += 1
+    for i in range(n_leaves):
+        leaf = Variable(f"x{i}", dom)
+        dcop.add_variable(leaf)
+        for h in hubs:
+            dcop.add_constraint(NAryMatrixRelation(
+                [h, leaf], rnd.uniform(0, 10, (d, d)), name=f"c{ci}"))
+            ci += 1
+    return dcop
+
+
+def core_counters(r, prefix=("semiring.", "membound.", "dpop.")):
+    return {k: v for k, v in r["telemetry"]["counters"].items()
+            if k.startswith(prefix)}
+
+
+def record_core_dispatches(sr_mod):
+    """Wrap the dense and the sparse contraction builders for a stretch
+    of runs: each dispatch's semiring, storage dtype, shapes, stack height
+    and (for the largest of each kind) its arguments, copied to the
+    host.  Returns the log and the function that unwraps."""
+    log = {"dense": [], "sparse": {}}
+    dense, sparse = sr_mod.contraction_kernel, sr_mod.sparse_contraction_kernel
+    dispatch_sparse = sr_mod._dispatch_sparse
+    real = {"rows": None}  # the sparse dispatch in flight: its real sizes
+
+    def wrap_dispatch_sparse(sw, sr, entries, *args, **kw):
+        real["rows"] = [(sp.n_cand, sp.n_seg,
+                         sum(f.size for f in sp.part_flats))
+                        for _, sp in entries]
+        return dispatch_sparse(sw, sr, entries, *args, **kw)
+
+    def wrap_dense(sr, shape, part_shapes, batched=False, table_dtype="f32",
+                   **kw):
+        fn = dense(sr, shape, part_shapes, batched=batched,
+                   table_dtype=table_dtype, **kw)
+        name = sr_mod.get_semiring(sr).name
+
+        def run(*args):
+            lead = tuple(args[-1].shape[:1]) if batched else ()
+            log["dense"].append((name, table_dtype, tuple(shape),
+                                 tuple(part_shapes), lead))
+            return fn(*args)
+
+        return run
+
+    def wrap_sparse(sr, n_cand_b, n_seg_b, part_lens_b, table_dtype="f32",
+                    **kw):
+        fn = sparse(sr, n_cand_b, n_seg_b, part_lens_b,
+                    table_dtype=table_dtype, **kw)
+        name = sr_mod.get_semiring(sr).name
+
+        def run(*args):
+            rows = int(args[-1].shape[0])
+            size = rows * n_cand_b
+            best = log["sparse"].get((name, table_dtype))
+            if best is None or size > best[0]:
+                log["sparse"][(name, table_dtype)] = (
+                    size, (n_cand_b, n_seg_b, tuple(part_lens_b)),
+                    [a.cpu() for a in args], real["rows"])
+            return fn(*args)
+
+        return run
+
+    sr_mod.contraction_kernel = wrap_dense
+    sr_mod.sparse_contraction_kernel = wrap_sparse
+    sr_mod._dispatch_sparse = wrap_dispatch_sparse
+
+    def unwrap():
+        sr_mod.contraction_kernel = dense
+        sr_mod.sparse_contraction_kernel = sparse
+        sr_mod._dispatch_sparse = dispatch_sparse
+
+    return log, unwrap
+
+
+def h2d_profile(torch, fn):
+    """Host-to-device copy time and count of one call (torch.profiler's
+    device events whose name says HtoD), beside the call's device busy
+    time and its eager kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    h2d = [e for e in kern if "htod" in e.key.lower()]
+    h2d_each = [e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "htod" in e.name.lower()]
+    copies = [e for e in kern if "memcpy" in e.key.lower()
+              or "memset" in e.key.lower()]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if not kern or busy <= 0:
+        raise AssertionError("profile: no device time recorded")
+    return out, {
+        "h2d_ms": sum(e.self_device_time_total for e in h2d) / 1e3,
+        "h2d_largest_ms": max(h2d_each, default=0.0) / 1e3,
+        "h2d_copies": sum(e.count for e in h2d),
+        "device_busy_ms": busy,
+        "kernel_launches": sum(e.count for e in kern)
+        - sum(e.count for e in copies),
+    }
+
+
+def peak_device_bytes(torch, fn):
+    """One call and the most device memory the caching allocator held
+    during it above what it held before (``max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def same_solution(label, a, b):
+    if (a["assignment"], a["cost"]) != (b["assignment"], b["cost"]):
+        raise AssertionError(f"{label}: cost/assignment differ "
+                             f"({a['cost']} against {b['cost']})")
+
+
+def packs_phase(torch, solve, infer, generate, hub):
+    """11a: the bf16/int8 UTIL packs."""
+    from argparse import Namespace
+
+    prec = generate(Namespace(**PREC_SPEC))
+    oracle = solve(prec, "dpop", {"util_device": "never"}, device="cpu")
+    base = {"util_device": "always", "util_batch": "level"}
+    runs = {}
+    for dt in ("f32", "bf16", "int8"):
+        p = dict(base, table_dtype=dt)
+        solve(prec, "dpop", p, pad_policy="pow2")  # cold
+        r = solve(prec, "dpop", p, pad_policy="pow2")
+        c = solve(prec, "dpop", p, pad_policy="pow2", device="cpu")
+        same_solution(f"packs dpop-secp-384-{dt} card/host", r, oracle)
+        same_solution(f"packs dpop-secp-384-{dt} card/cpu", r, c)
+        if r["util_device_nodes"] <= 0:
+            raise AssertionError(f"packs dpop-secp-384-{dt}: no node "
+                                 "kept its device join")
+        for k in DPOP_STATS:
+            if r[k] != c[k]:
+                raise AssertionError(f"packs dpop-secp-384-{dt}: {k} card "
+                                     f"{r[k]} cpu {c[k]}")
+        for k in ("semiring.precision_repairs", "semiring.int8_requant",
+                  "dpop.level_dispatches"):
+            if core_counters(r).get(k, 0) != core_counters(c).get(k, 0):
+                raise AssertionError(f"packs dpop-secp-384-{dt}: {k} card "
+                                     "differs from the CPU")
+        runs[dt] = r
+        emit("11a", f"dpop-secp-384-{dt}", cost=r["cost"],
+             util_cells=r["util_cells"], util_time=r["util_time"],
+             util_cells_per_s=r["util_cells"] / r["util_time"],
+             util_dispatches=r["util_dispatches"],
+             util_device_nodes=r["util_device_nodes"],
+             util_host_nodes=r["util_host_nodes"],
+             cpu_util_time=c["util_time"], counters=core_counters(r),
+             equal_to_host_f64=True, equal_to_cpu=True)
+    for dt in ("bf16", "int8"):
+        same_solution(f"packs dpop-secp-384-{dt}/f32", runs[dt], runs["f32"])
+
+    # inference on the semiring_infer stage's SECP at bf16
+    secp = generate(Namespace(**SEM_SECP_SPEC))
+    kw = dict(device="always", device_min_cells=256, pad_policy="pow2")
+    z = infer(secp, "log_z", table_dtype="bf16", tol=float("inf"), **kw)
+    zh = infer(secp, "log_z", device="never", torch_device="cpu")
+    dz = abs(z["log_z"] - zh["log_z"])
+    if dz > z["error_bound"] + 1e-9 or z["device_nodes"] <= 0:
+        raise AssertionError(f"packs infer-secp192 log_z bf16: |card - "
+                             f"never| {dz} > {z['error_bound']}")
+    m16 = infer(secp, "map", table_dtype="bf16", **kw)
+    m32 = infer(secp, "map", **kw)
+    same_solution("packs infer-secp192 map bf16/f32", m16, m32)
+    emit("11a", "infer-secp192-bf16", log_z=z["log_z"],
+         error_bound=z["error_bound"], card_vs_never=dz,
+         dispatches=z["dispatches"], device_nodes=z["device_nodes"],
+         seconds=z["time"], map_cost=m16["cost"], map_equal_f32=True,
+         map_counters=core_counters(m16))
+
+    # the hub tree's 44 x 24^4 leaf stack at each storage dtype (the
+    # copies' profile runs in a fresh process: hub_copy_rows).  On its
+    # uniform tables every bf16/int8 leaf join misses its certificate and
+    # is redone on host f64 (printed, not gated); the planted hub tree
+    # has margins the certificate passes, and there the leaf stack must
+    # keep its device joins.
+    hub_runs = {}
+    planted = hubtree_dcop(planted=True)
+    planted_oracle = solve(planted, "dpop", {"util_device": "never"},
+                           device="cpu")
+    for dt in ("f32", "bf16", "int8"):
+        p = {"util_device": "auto", "table_dtype": dt}
+        solve(hub, "dpop", p)  # cold
+        r = solve(hub, "dpop", p)
+        hub_runs[dt] = r
+        emit("11a", f"dpop-hubtree-d24-{dt}", cost=r["cost"],
+             util_time=r["util_time"],
+             util_cells_per_s=r["util_cells"] / r["util_time"],
+             util_dispatches=r["util_dispatches"],
+             util_device_nodes=r["util_device_nodes"],
+             all_host_fallback=r["util_device_nodes"] == 0,
+             counters=core_counters(r))
+        r = solve(planted, "dpop", p)
+        c = solve(planted, "dpop", p, device="cpu")
+        label = f"packs dpop-hubtree-d24-planted-{dt}"
+        same_solution(f"{label} card/host", r, planted_oracle)
+        for k in ("util_device_nodes", "util_host_nodes", "util_dispatches"):
+            if r[k] != c[k]:
+                raise AssertionError(f"{label}: {k} card {r[k]} cpu {c[k]}")
+        if core_counters(r) != core_counters(c):
+            raise AssertionError(f"{label}: counters differ card and CPU")
+        if r["util_device_nodes"] < 44:
+            raise AssertionError(f"{label}: {r['util_device_nodes']} device "
+                                 "nodes, the 44-leaf stack left the device")
+        emit("11a", f"dpop-hubtree-d24-planted-{dt}", cost=r["cost"],
+             util_time=r["util_time"],
+             util_cells_per_s=r["util_cells"] / r["util_time"],
+             util_dispatches=r["util_dispatches"],
+             util_device_nodes=r["util_device_nodes"],
+             util_host_nodes=r["util_host_nodes"],
+             counters=core_counters(r), equal_to_host_f64=True,
+             equal_to_cpu=True)
+    for dt in ("bf16", "int8"):
+        same_solution(f"packs dpop-hubtree-d24-{dt}/f32", hub_runs[dt],
+                      hub_runs["f32"])
+    return hub_runs["f32"]
+
+
+def hub_copy_rows(torch, solve, log):
+    """11a's copy rows: the hub tree's host-to-device copies at each
+    storage dtype from torch.profiler's events over one warm run, beside
+    the leaf stack's packed bytes and a CUDA-event timing of one
+    pageable copy of that many bytes."""
+    import numpy as np
+
+    hub = hubtree_dcop()
+    for dt in ("f32", "bf16", "int8"):
+        p = {"util_device": "auto", "table_dtype": dt}
+        solve(hub, "dpop", p)  # warm
+        start = len(log["dense"])
+        r, prof = h2d_profile(torch, lambda: solve(hub, "dpop", p))
+        stacks = [e for e in log["dense"][start:] if e[4]]
+        _, _, shape, ps, lead = max(
+            stacks, key=lambda e: math.prod(e[4] + e[2]))
+        part_bytes = sum(math.prod(lead + p_) for p_ in ps) * (
+            STORAGE_BYTES[dt])
+        if prof["h2d_copies"] <= 0:
+            raise AssertionError(f"copies dpop-hubtree-d24-{dt}: the "
+                                 "profiler saw no host-to-device copy")
+        host = torch.from_numpy(np.ones(part_bytes, dtype=np.uint8))
+        copy_ms = statistics.median(
+            _event_ms(torch, lambda: host.to(torch.device("cuda")))
+            for _ in range(5))
+        emit("11a", f"copies-dpop-hubtree-d24-{dt}", cost=r["cost"],
+             leaf_stack=[lead[0], *shape], stack_part_bytes=part_bytes,
+             stack_copy_event_ms=copy_ms, **prof)
+
+
+def bounded_phase(torch, solve, infer, generate, hub, hub_free):
+    """11b: the memory-bounded sweep."""
+    from argparse import Namespace
+
+    mb = generate(Namespace(**MB_SPEC))
+    always = {"util_device": "always"}
+    kw = dict(max_util_bytes=MB_BUDGET, pad_policy="pow2")
+    solve(mb, "dpop", always, **kw)  # cold
+    r = solve(mb, "dpop", always, **kw)
+    c = solve(mb, "dpop", always, device="cpu", **kw)
+    host = solve(mb, "dpop", {"util_device": "never"},
+                 max_util_bytes=MB_BUDGET, device="cpu")
+    free = solve(mb, "dpop", always, pad_policy="pow2")
+    for other, name in ((host, "bounded host f64"), (free, "unbounded"),
+                        (c, "cpu")):
+        same_solution(f"bounded membound-secp96 card/{name}", r, other)
+    if core_counters(r) != core_counters(c) or any(
+            r[k] != c[k] for k in DPOP_STATS):
+        raise AssertionError("bounded membound-secp96: card counts differ "
+                             "from the CPU")
+    mbk = r["membound"]
+    if mbk["cut_width"] <= 0 or not mbk["on_device"]:
+        raise AssertionError("bounded membound-secp96: no cut on the card")
+    emit("11b", "membound-secp96", cost=r["cost"],
+         max_util_bytes=MB_BUDGET,
+         naive_peak_table_bytes=mbk["naive_peak_table_bytes"],
+         peak_table_bytes=mbk["peak_table_bytes"],
+         cut_width=mbk["cut_width"], cut_lanes=mbk["cut_lanes"],
+         pruned_cells=mbk["pruned_cells"], replans=mbk["replans"],
+         util_cells=r["util_cells"], util_time=r["util_time"],
+         util_cells_per_s=r["util_cells"] / r["util_time"],
+         util_dispatches=r["util_dispatches"],
+         unbounded_util_time=free["util_time"],
+         unbounded_util_cells_per_s=free["util_cells"] / free["util_time"],
+         host_util_time=host["util_time"], counters=core_counters(r),
+         equal=True)
+    z = infer(mb, "log_z", device="always", pad_policy="pow2",
+              tol=float("inf"), max_util_bytes=MB_BUDGET)
+    zh = infer(mb, "log_z", device="never", max_util_bytes=MB_BUDGET,
+               torch_device="cpu")
+    dz = abs(z["log_z"] - zh["log_z"])
+    if dz > z["error_bound"] + 1e-9 or z["device_nodes"] <= 0:
+        raise AssertionError(f"bounded membound-secp96 log_z: |card - "
+                             f"never| {dz} > {z['error_bound']}")
+    emit("11b", "membound-secp96-log_z", log_z=z["log_z"],
+         error_bound=z["error_bound"], card_vs_never=dz, seconds=z["time"],
+         dispatches=z["dispatches"], cut_lanes=z["membound"]["cut_lanes"])
+
+    ctl = generate(Namespace(**MB_CTL_SPEC))
+    solve(ctl, "dpop", always, pad_policy="pow2")
+    solve(ctl, "dpop", always, max_util_bytes=MB_CTL_BUDGET,
+          pad_policy="pow2")
+    u = solve(ctl, "dpop", always, pad_policy="pow2")
+    b = solve(ctl, "dpop", always, max_util_bytes=MB_CTL_BUDGET,
+              pad_policy="pow2")
+    same_solution("bounded membound-control", b, u)
+    emit("11b", "membound-control", cost=b["cost"],
+         max_util_bytes=MB_CTL_BUDGET,
+         budgeted_util_cells_per_s=b["util_cells"] / b["util_time"],
+         unbounded_util_cells_per_s=u["util_cells"] / u["util_time"],
+         budgeted_util_time=b["util_time"],
+         unbounded_util_time=u["util_time"],
+         cut_width=b["membound"]["cut_width"],
+         cut_lanes=b["membound"]["cut_lanes"],
+         budgeted_dispatches=b["util_dispatches"],
+         unbounded_dispatches=u["util_dispatches"], equal=True)
+
+    # at device size: the hub tree with a d-24 variable cut
+    solve(hub, "dpop", always, max_util_bytes=HUB_CUT_BUDGET)  # cold
+    h = solve(hub, "dpop", always, max_util_bytes=HUB_CUT_BUDGET)
+    same_solution("bounded dpop-hubtree-d24 cut/unbounded", h, hub_free)
+    hk = h["membound"]
+    if hk["cut_lanes"] < 24 or not hk["on_device"]:
+        raise AssertionError("bounded dpop-hubtree-d24: fewer than 24 lanes "
+                             "on the card")
+    emit("11b", "dpop-hubtree-d24-cut", cost=h["cost"],
+         max_util_bytes=HUB_CUT_BUDGET, cut=hk["cut"],
+         cut_lanes=hk["cut_lanes"], peak_table_bytes=hk["peak_table_bytes"],
+         naive_peak_table_bytes=hk["naive_peak_table_bytes"],
+         util_time=h["util_time"],
+         util_cells_per_s=h["util_cells"] / h["util_time"],
+         util_dispatches=h["util_dispatches"],
+         unbounded_util_time=hub_free["util_time"], equal=True)
+
+
+def oom_phase(torch, solve):
+    """11c: a real device OOM and the re-plan it triggers."""
+    dcop = oom_hub_dcop()
+    always = {"util_device": "always"}
+    budget = 128 << 20  # the first plan: no cut (the naive peak is 67 MB)
+    free = solve(dcop, "dpop", always, max_util_bytes=budget)
+    if free["membound"]["cut_width"] or free["membound"]["replans"]:
+        raise AssertionError("oom: the uncapped run was cut or re-planned")
+    leaf_bytes = 4 * 64 ** 4
+    stack_bytes = 4 * leaf_bytes  # the 4 leaves' stacked parts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    # the cap leaves OOM_HEADROOM above what this process holds, less
+    # than one leaf join needs
+    cap = torch.cuda.memory_reserved() + OOM_HEADROOM
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        capped = solve(dcop, "dpop", always, max_util_bytes=budget)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    mbk = capped["membound"]
+    if mbk["replans"] < 1:
+        raise AssertionError("oom: no OOM re-plan happened under the cap")
+    same_solution("oom hubtree-d64 capped/uncapped", capped, free)
+    emit("11c", "oom-hubtree-d64", cap_bytes=cap,
+         first_plan_stack_bytes=stack_bytes,
+         first_plan_node_bytes=leaf_bytes, replans=mbk["replans"],
+         budget_bytes=mbk["budget_bytes"], cut=mbk["cut"],
+         cut_lanes=mbk["cut_lanes"],
+         oom_splits=capped["telemetry"]["counters"].get(
+             "engine.oom_splits", 0),
+         util_dispatches=capped["util_dispatches"],
+         util_time=capped["util_time"], uncapped_util_time=free["util_time"],
+         equal=True)
+
+
+def sparse_phase(torch, solve, infer, generate):
+    """11d: sparse COO tables."""
+    from argparse import Namespace
+
+    import numpy as np
+
+    from pydcop_tpu_torch.commands.generators.taskscheduling import (
+        generate as gen_tasks,
+    )
+
+    ts = gen_tasks(Namespace(**TASKS_SPEC))
+    inf_frac = [
+        float(np.isposinf(np.asarray(c.as_matrix().matrix)).mean())
+        for n, c in ts.constraints.items() if n.startswith("win")
+    ]
+    always = {"util_device": "always"}
+    sp = dict(always, table_format="sparse")
+    solve(ts, "dpop", sp, pad_policy="pow2")  # cold
+    solve(ts, "dpop", always, pad_policy="pow2")
+    s, s_peak = peak_device_bytes(
+        torch, lambda: solve(ts, "dpop", sp, pad_policy="pow2"))
+    d, d_peak = peak_device_bytes(
+        torch, lambda: solve(ts, "dpop", always, pad_policy="pow2"))
+    c = solve(ts, "dpop", sp, pad_policy="pow2", device="cpu")
+    host = solve(ts, "dpop", {"util_device": "never"}, device="cpu")
+    for other, name in ((d, "dense"), (host, "host f64"), (c, "cpu")):
+        same_solution(f"sparse tasks26 sparse/{name}", s, other)
+    sc = core_counters(s, ("semiring.sparse",))
+    if sc != core_counters(c, ("semiring.sparse",)):
+        raise AssertionError("sparse tasks26: sparse counters differ card "
+                             "and CPU")
+    if sc.get("semiring.sparse_packs", 0) <= 0:
+        raise AssertionError("sparse tasks26: nothing packed")
+    emit("11d", "tasks26", cost=s["cost"], window_inf_fraction=inf_frac,
+         sparse_util_time=s["util_time"], dense_util_time=d["util_time"],
+         util_cells=s["util_cells"],
+         sparse_util_cells_per_s=s["util_cells"] / s["util_time"],
+         dense_util_cells_per_s=d["util_cells"] / d["util_time"],
+         sparse_dispatches=s["util_dispatches"],
+         dense_dispatches=d["util_dispatches"],
+         peak_table_bytes=s["membound"]["peak_table_bytes"],
+         sparse_peak_device_bytes=s_peak, dense_peak_device_bytes=d_peak,
+         counters=sc, equal=True)
+
+    guard = generate(Namespace(**GUARD_SPEC))
+    gs = solve(guard, "dpop", sp, pad_policy="pow2")
+    gd = solve(guard, "dpop", always, pad_policy="pow2")
+    same_solution("sparse guard-secp28 sparse/dense", gs, gd)
+    emit("11d", "guard-secp28", cost=gs["cost"],
+         sparse_util_time=gs["util_time"], dense_util_time=gd["util_time"],
+         counters=core_counters(gs, ("semiring.sparse",)), equal=True)
+
+    kw = dict(device="always", pad_policy="pow2", table_format="sparse",
+              tol=float("inf"))
+    z = infer(ts, "log_z", **kw)
+    zc = infer(ts, "log_z", torch_device="cpu", **kw)
+    zh = infer(ts, "log_z", device="never", torch_device="cpu")
+    dz = abs(z["log_z"] - zh["log_z"])
+    if dz > z["error_bound"] + 1e-9 or z["device_nodes"] <= 0:
+        raise AssertionError(f"sparse tasks26 log_z: |card - never| {dz} > "
+                             f"{z['error_bound']}")
+    if (core_counters(z, ("semiring.sparse",))
+            != core_counters(zc, ("semiring.sparse",))):
+        raise AssertionError("sparse tasks26 log_z: sparse counters differ "
+                             "card and CPU")
+    emit("11d", "tasks26-log_z", log_z=z["log_z"],
+         error_bound=z["error_bound"], card_vs_never=dz, seconds=z["time"],
+         dispatches=z["dispatches"], device_nodes=z["device_nodes"],
+         counters=core_counters(z, ("semiring.sparse",)))
+
+
+def syncbb_phase(solve, generate):
+    """11e: SyncBB (host-only: the entry point works)."""
+    from argparse import Namespace
+
+    d = generate(Namespace(**SYNCBB_SPEC))
+    r = solve(d, "syncbb", timeout=120)
+    c = solve(d, "syncbb", device="cpu", timeout=120)
+    opt = solve(d, "dpop", {"util_device": "never"}, device="cpu")
+    if r["status"] != "finished" or r["cost"] != opt["cost"]:
+        raise AssertionError(f"syncbb secp10: {r['status']} cost {r['cost']} "
+                             f"against DPOP's {opt['cost']}")
+    for k in ("assignment", "cost", "msg_count", "cycle"):
+        if r[k] != c[k]:
+            raise AssertionError(f"syncbb secp10: {k} differs from the CPU")
+    emit("11e", "syncbb-secp10", cost=r["cost"], dpop_cost=opt["cost"],
+         msg_count=r["msg_count"], seconds=r["time"], equal=True)
+
+
+def dense_pack_row(torch, dev, sr_mod, name, dt, shape, ps, lead, seed):
+    """One dense contraction at a storage dtype on the card: random parts
+    packed as the sweep packs them, card against CPU, time and bound."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    parts = [(rng.random(lead + tuple(p), dtype=np.float32) * 10)
+             for p in ps]
+    if dt == "int8":
+        packed = sr_mod._quantize_rows(
+            [p.astype(np.float64) for p in parts], lead[0],
+            _null_metrics())
+    else:
+        packed = sr_mod._pack_parts(parts, dt)
+    fn = sr_mod.contraction_kernel(name, shape, ps, batched=bool(lead),
+                                   table_dtype=dt)
+    host = [p if isinstance(p, torch.Tensor) else torch.from_numpy(p)
+            for p in packed]
+    on_card = [t.to(dev) for t in host]
+    got = [o.cpu() for o in fn(*on_card)]
+    want = fn(*host)
+    if not all(same_out(torch, g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"contraction {name}-{dt}: card differs from "
+                             "the CPU")
+    ms = eager_ms(torch, lambda: fn(*on_card))
+    _, prof = h2d_profile(torch, lambda: fn(*on_card))
+    cells = math.prod(lead + tuple(shape))
+    rows = cells // shape[-1]
+    nbytes = (STORAGE_BYTES[dt] * sum(math.prod(lead + tuple(p)) for p in ps)
+              + 12 * rows + (8 * lead[0] * len(ps) if dt == "int8" else 0))
+    nops = cells * (len(ps) + 4) + (
+        2 * sum(math.prod(lead + tuple(p)) for p in ps) if dt != "f32" else 0)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    emit("11f", f"contraction-{name}-{dt}", joined=list(shape),
+         stack=lead[0] if lead else 1, parts=len(ps), ms=ms, bound_ms=b_ms,
+         bound_by=b_by, share_of_bound=b_ms / ms,
+         eager_launches=prof["kernel_launches"], bit_equal=True,
+         library_ms=None)
+    del on_card
+
+
+def same_out(torch, a, b) -> bool:
+    """Equal outputs: integer tensors value for value, float tensors bit
+    for bit with NaN where the other has NaN."""
+    if a.is_floating_point():
+        return same_bits(torch, a, b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _null_metrics():
+    from pydcop_tpu_torch.telemetry import get_metrics
+
+    return get_metrics()
+
+
+def sparse_row(torch, dev, sp_mod, key, entry):
+    """The largest sparse dispatch of a semiring on the card: its recorded
+    arguments replayed, card against CPU, time and bound.  The bound
+    counts the rows' real candidates, segments and packed values, summed
+    over the stack (the padded sizes are printed beside them), and ``fold_levels`` is
+    how many in-place passes each segment fold makes over the candidate
+    list (``ops/sparse.py:_segment_fold``), which the bound leaves out."""
+    name, dt = key
+    _, (n_cand_b, n_seg_b, lens), args, real_rows = entry
+    fn = sp_mod.sparse_contraction_kernel(name, n_cand_b, n_seg_b, lens,
+                                          table_dtype=dt)
+    on_card = [a.to(dev) for a in args]
+    got = [o.cpu() for o in fn(*on_card)]
+    want = fn(*args)
+    rows = int(args[-1].shape[0])
+    if name == "log_sum_exp":
+        g, w = got[0], want[0]
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        err = float((g - w).abs()[fin].max()) if bool(fin.any()) else 0.0
+        if not (torch.equal(g[~fin].nan_to_num(), w[~fin].nan_to_num())
+                and torch.allclose(g[fin], w[fin], rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"contraction sparse-{name}: card far from "
+                                 "the CPU")
+    else:
+        err = 0.0
+        if not all(same_out(torch, g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"contraction sparse-{name}: card differs "
+                                 "from the CPU")
+    ms = eager_ms(torch, lambda: fn(*on_card))
+    _, prof = h2d_profile(torch, lambda: fn(*on_card))
+    P = len(lens)
+    n_cand = sum(r[0] for r in real_rows)
+    n_seg = sum(r[1] for r in real_rows)
+    n_vals = sum(r[2] for r in real_rows)
+    # outputs per segment: an i32 arg and an f32 margin, or one f32 value
+    out_bytes = (8 if name != "log_sum_exp" else 4) * n_seg
+    nbytes = (n_cand * (8 + 4 * P) + STORAGE_BYTES[dt] * n_vals + out_bytes
+              + (8 * rows * P if dt == "int8" else 0))
+    nops = n_cand * (P + 4)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    sep = args[2 if dt == "int8" else 0].long()
+    rank = torch.arange(sep.shape[1]) - torch.searchsorted(sep, sep)
+    longest = int(torch.where(sep < n_seg_b, rank, 0).max()) + 1
+    emit("11f", f"contraction-sparse-{name}-{dt}", candidates=n_cand,
+         segments=n_seg, packed_values=n_vals,
+         padded_candidates=rows * n_cand_b,
+         padded_segments=rows * (n_seg_b + 1), stack=rows, parts=P,
+         fold_levels=(longest - 1).bit_length(), ms=ms, bound_ms=b_ms,
+         bound_by=b_by, share_of_bound=b_ms / ms,
+         eager_launches=prof["kernel_launches"],
+         card_vs_cpu_max_abs_err=err, library_ms=None)
+    del on_card
+
+
+def fresh_phase(card):
+    """The part of phase 11 that needs a process of its own: the profiled
+    copies and 11f's launch counts (torch.profiler loses events late in a
+    long process) and the capped allocator of 11c (the cap is set above
+    what this process holds).  Run by :func:`core_phase` in a child
+    process."""
+    from argparse import Namespace
+
+    import torch
+
+    from pydcop_tpu_torch.api import infer, solve
+    from pydcop_tpu_torch.commands.generators.taskscheduling import (
+        generate as gen_tasks,
+    )
+    from pydcop_tpu_torch.ops import semiring as sr_mod
+
+    CARD["card"] = card
+    log, unwrap = record_core_dispatches(sr_mod)
+    try:
+        hub_copy_rows(torch, solve, log)
+        ts = gen_tasks(Namespace(**TASKS_SPEC))
+        solve(ts, "dpop", {"util_device": "always",
+                           "table_format": "sparse"}, pad_policy="pow2")
+        infer(ts, "log_z", device="always", pad_policy="pow2",
+              table_format="sparse", tol=float("inf"))
+    finally:
+        unwrap()
+    contraction_rows_11f(torch, torch.device("cuda"), log)
+    oom_phase(torch, solve)
+
+
+def run_fresh_phase(card):
+    """:func:`fresh_phase` in a child process on the same card: its JSON
+    lines are printed here; its failure fails the phase."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.fresh_phase(sys.argv[2])")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(HERE), card], cwd=HERE,
+        capture_output=True, text=True, timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError("phase 11 (its own process) failed:\n"
+                             + proc.stderr[-4000:])
+
+
+def contraction_rows_11f(torch, dev, log):
+    """11f: the new contractions at their largest dispatch of the
+    process's runs (the hub tree at bf16 and int8, the sparse task
+    scheduling's DPOP and log_z)."""
+    from pydcop_tpu_torch.ops import semiring as sr_mod
+    from pydcop_tpu_torch.ops import sparse as sp_mod
+
+    for i, dt in enumerate(("bf16", "int8")):
+        stacks = [e for e in log["dense"]
+                  if e[0] == "min_sum" and e[1] == dt and e[4]]
+        _, _, shape, ps, lead = max(
+            stacks, key=lambda e: math.prod(e[4] + e[2]))
+        dense_pack_row(torch, dev, sr_mod, "min_sum", dt, shape, ps, lead,
+                       seed=40 + i)
+    for key in sorted(log["sparse"]):
+        if key[0] in ("min_sum", "log_sum_exp"):
+            sparse_row(torch, dev, sp_mod, key, log["sparse"][key])
+    if not {"min_sum", "log_sum_exp"} <= {k[0] for k in log["sparse"]}:
+        raise AssertionError("phase 11: a sparse join did not run on the "
+                             "card")
+    torch.cuda.empty_cache()
+
+
+def core_phase(torch, dev, card):
+    """Phase 11 (see the module docstring)."""
+    from pydcop_tpu_torch.api import infer, solve
+    from pydcop_tpu_torch.commands.generators.secp import generate
+
+    CARD["card"] = card
+    t_lap = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"phase {part} seconds={now - t_lap[0]}")
+        t_lap[0] = now
+
+    hub = hubtree_dcop()
+    hub_free = packs_phase(torch, solve, infer, generate, hub)
+    lap("11a")
+    bounded_phase(torch, solve, infer, generate, hub, hub_free)
+    lap("11b")
+    sparse_phase(torch, solve, infer, generate)
+    lap("11d")
+    syncbb_phase(solve, generate)
+    lap("11e")
+    run_fresh_phase(card)
+    lap("11a copies, 11f, 11c")
+
+
 def main() -> int:
     import torch
 
@@ -2435,7 +3235,12 @@ def main() -> int:
     infer_phase(torch, dev, card)
     print(f"phase 10 seconds={time.perf_counter() - t10}")
 
-    # -- 11. summary ------------------------------------------------------
+    # -- 11. the rest of the semiring core --------------------------------
+    t11 = time.perf_counter()
+    core_phase(torch, dev, card)
+    print(f"phase 11 seconds={time.perf_counter() - t11}")
+
+    # -- 12. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (

@@ -40,10 +40,11 @@ pure tensor function of the state and those draws; ``step`` is
 them to ``apply``; ``chip_smoke.py`` makes draws on the CPU and feeds the
 same ones to ``apply`` on the card and on the CPU.
 
-Host-path contract (exact algorithms, ``dpop``): the module has no
-``init_state``/``step``; it exposes ``solve_host(dcop, params,
-timeout=None, max_util_size=..., pad_policy=None, device=None) ->
-result dict``, which ``api.solve`` calls instead of the batched engine.
+Host-path contract (exact algorithms, ``dpop`` and ``syncbb``): the
+module has no ``init_state``/``step``; it exposes ``solve_host(dcop,
+params, timeout=None, max_util_size=..., pad_policy=None, device=None)
+-> result dict``, which ``api.solve`` calls instead of the batched
+engine.
 
 Ported algorithms: :data:`AVAILABLE`.
 """
@@ -59,7 +60,7 @@ _ALGO_PACKAGE = "pydcop_tpu_torch.algorithms"
 #: algorithms this package implements
 AVAILABLE = (
     "adsa", "amaxsum", "dba", "dpop", "dsa", "dsatuto", "gdba", "maxsum",
-    "mgm", "mgm2",
+    "mgm", "mgm2", "syncbb",
 )
 
 

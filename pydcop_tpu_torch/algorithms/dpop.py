@@ -61,12 +61,21 @@ Message accounting: one UTIL message per non-root node (its table,
 ``d^|sep|`` cells) and one VALUE message back down.  ``cycle`` reports
 the tree height.
 
-Not ported (each raises ``NotImplementedError``): ``max_util_bytes > 0``
-(the planner sweep, ROADMAP A10.5), ``table_format='sparse'`` (A10.4),
-``table_dtype`` ``bf16``/``int8`` (A10.3), and ``bnb='on'`` (the
-two-pass branch-and-bound kernel, ROADMAP A5).  ``bnb='auto'`` (the
-default) and ``'off'`` run the unpruned contraction, whose results the
-JAX package documents as bit-identical to the pruned ones.
+``table_dtype`` (``f32``/``bf16``/``int8``) is the STORAGE precision of
+the device parts: bf16 halves and int8 quarters the bytes each part
+ships (int8 packs carry per-part scale/offset dequant params; reserved
+codes keep ±inf exact).  The join stays f32 and the certificate widens
+to the storage dtype's eps (plus the int8 quantization bound), so
+results stay bit-identical to f32; low precision only widens the repair
+set (``semiring.precision_repairs``).  ``max_util_bytes > 0`` and
+``table_format='sparse'`` run the planner sweep instead
+(``ops/membound.py:solve_dpop_bounded``; sparse with an effectively
+unlimited budget), the same result dict plus a ``membound`` block.
+
+Not ported: ``bnb='on'`` (the two-pass branch-and-bound kernel, ROADMAP
+A5) raises ``NotImplementedError``.  ``bnb='auto'`` (the default) and
+``'off'`` run the unpruned contraction, whose results the JAX package
+documents as bit-identical to the pruned ones.
 """
 
 from __future__ import annotations
@@ -88,9 +97,9 @@ from pydcop_tpu_torch.ops.padding import (
     as_table_dtype,
     pad_util_parts,
     stack_bucket,
-    table_dtype_eps,
     util_level_key,
 )
+from pydcop_tpu_torch.ops.sparse import as_table_format
 from pydcop_tpu_torch.telemetry import get_metrics, get_tracer
 
 GRAPH_TYPE = "pseudotree"
@@ -112,39 +121,28 @@ algo_params: list = [
     # branch-and-bound pruned UTIL joins: 'auto' and 'off' run the
     # unpruned contraction; 'on' is not ported (ROADMAP A5)
     AlgoParameterDef("bnb", "str", ["auto", "on", "off"], "auto"),
-    # planner-sweep byte budget (ops/membound.py): not ported, 0 = off
+    # byte-budgeted exact mode (ops/membound.py): cap every UTIL table
+    # at this many device bytes by conditioning a cut set whose
+    # assignments ride the level-pack stack as extra lanes; a device OOM
+    # re-plans at half the budget.  0 = off; excludes memory_bound
     AlgoParameterDef("max_util_bytes", "int", None, 0),
-    # storage precision of the device UTIL parts: only f32 is ported
+    # storage precision of the device UTIL parts (f32 join, certificate
+    # widened to the storage eps: results bit-identical to f32)
     AlgoParameterDef(
         "table_dtype", "str", ["f32", "bf16", "int8"], "f32"
     ),
-    # storage layout of the UTIL parts: only dense is ported
+    # storage layout of the UTIL parts: 'sparse' COO-packs feasible
+    # tuples and joins them by gather/segment reduce, through the
+    # planner sweep (results bit-identical to dense)
     AlgoParameterDef(
         "table_format", "str", ["dense", "sparse"], "dense"
     ),
 ]
 
-_EPS32 = table_dtype_eps("f32")
 
 
 def _check_ported(params: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` for the options not ported yet."""
-    if int(params.get("max_util_bytes", 0) or 0) > 0:
-        raise NotImplementedError(
-            "dpop max_util_bytes > 0 (the planner sweep, "
-            "ops/membound.py) is not ported yet (ROADMAP A10.5)"
-        )
-    if params.get("table_format", "dense") == "sparse":
-        raise NotImplementedError(
-            "dpop table_format='sparse' (ops/sparse.py) is not ported "
-            "yet (ROADMAP A10.4)"
-        )
-    dt = as_table_dtype(params.get("table_dtype"))
-    if dt != "f32":
-        raise NotImplementedError(
-            f"dpop table_dtype={dt!r} (bf16/int8 UTIL packs) is not "
-            "ported yet (ROADMAP A10.3)"
-        )
     if _semiring.as_bnb(params.get("bnb"), "auto") == "on":
         raise NotImplementedError(
             "dpop bnb='on' (the two-pass branch-and-bound contraction) "
@@ -236,6 +234,40 @@ def solve_host(
     _check_ported(params)
     dev = resolve_device(device)
 
+    # -- byte-budgeted exact mode (max_util_bytes > 0): the planner
+    # sweep (ops/membound.py) — consistency-pruned domains, a cut set
+    # chosen on the bucket-tree plan, cut lanes merged into one
+    # level-pack-batched sweep, OOM re-planning — same result dict plus
+    # a "membound" block
+    max_util_bytes = int(params.get("max_util_bytes", 0) or 0)
+    table_format = as_table_format(params.get("table_format"))
+    if table_format == "sparse" and max_util_bytes <= 0:
+        if int(params.get("memory_bound", 0) or 0):
+            raise ValueError(
+                "table_format='sparse' runs the planner sweep "
+                "(ops/membound.py) and is incompatible with "
+                "memory_bound's sequential conditioning passes — "
+                "use max_util_bytes for bounded sparse runs"
+            )
+        # sparse storage lives in the plan-based sweep: run it with an
+        # effectively unlimited byte budget (the cut stays empty)
+        params = dict(params)
+        params["max_util_bytes"] = 1 << 60
+        max_util_bytes = 1 << 60
+    if max_util_bytes > 0:
+        if int(params.get("memory_bound", 0) or 0):
+            raise ValueError(
+                "memory_bound (sequential conditioning passes, "
+                "cells) and max_util_bytes (planner cut lanes, "
+                "bytes) are two bounded-memory modes — set one"
+            )
+        from pydcop_tpu_torch.ops.membound import solve_dpop_bounded
+
+        return solve_dpop_bounded(
+            dcop, params, timeout=timeout, pad_policy=pad,
+            max_table_size=max_util_size, device=dev,
+        )
+
     graph, domains, depth, owned = _prepare_instance(dcop)
 
     # -- bounded-memory planning (memory_bound > 0): pick a cut set
@@ -249,6 +281,7 @@ def solve_host(
 
     device_min_cells = _resolve_device_min_cells(params)
     level_sync = params.get("util_batch", "level") != "node"
+    table_dtype = as_table_dtype(params.get("table_dtype"))
 
     tracer = get_tracer()
 
@@ -261,6 +294,7 @@ def solve_host(
             graph, domains_p, depth, owned_p, t0, timeout,
             device_min_cells=device_min_cells, device=dev,
             max_util_size=max_util_size, pad=pad, level_sync=level_sync,
+            table_dtype=table_dtype,
         )
         if util_stats is None:
             return None
@@ -374,7 +408,9 @@ def solve_host_many(
     order, the certified argmins are the true unique argmins whatever
     rides with them, and uncertified cells get the same host repair.
     Instances with ``memory_bound`` conditioning run alone (their UTIL
-    phase is a dependent pass sequence).  ``util_batch="node"`` on any
+    phase is a dependent pass sequence), and so do budgeted and sparse
+    instances (their planner sweep fills the stack axis with its own
+    lanes).  ``util_batch="node"`` on any
     instance de-batches the whole sweep.  ``timeout`` bounds the whole
     call; ``util_time`` is the sweep's wall time divided evenly over its
     instances.
@@ -395,6 +431,8 @@ def solve_host_many(
     merged = [
         i for i in range(K)
         if not int(params_list[i].get("memory_bound", 0) or 0)
+        and not int(params_list[i].get("max_util_bytes", 0) or 0)
+        and params_list[i].get("table_format", "dense") != "sparse"
     ]
     for i in range(K):
         if i not in merged:
@@ -411,7 +449,10 @@ def solve_host_many(
         met.inc("dpop.instances_batched", len(merged))
     preps = {i: _prepare_instance(dcops[i]) for i in merged}
     insts = [
-        _UtilInstance(*preps[i], _resolve_device_min_cells(params_list[i]))
+        _UtilInstance(
+            *preps[i], _resolve_device_min_cells(params_list[i]),
+            as_table_dtype(params_list[i].get("table_dtype")),
+        )
         for i in merged
     ]
     level_sync = all(
@@ -588,6 +629,10 @@ class _UtilInstance(NamedTuple):
     depth: Dict[str, int]
     owned: Dict[str, List[Tuple[List[str], np.ndarray]]]
     device_min_cells: Optional[int]  # None = host-only instance
+    # device storage precision of the UTIL parts (algo param
+    # table_dtype); joins the level-pack bucket key so merged sweeps
+    # never mix dtypes inside one dispatch
+    table_dtype: str = "f32"
 
 
 def _util_phase(
@@ -602,12 +647,18 @@ def _util_phase(
     max_util_size: int = 1 << 26,
     pad: PadPolicy = NO_PADDING,
     level_sync: bool = True,
+    table_dtype: str = "f32",
 ):
     """Single-instance UTIL phase: the K=1 case of
     :func:`_util_phase_multi`.  Returns ``(best_choice, util_cells,
     device_nodes, host_nodes, dispatches)`` or None on timeout."""
     outs = _util_phase_multi(
-        [_UtilInstance(graph, domains, depth, owned, device_min_cells)],
+        [
+            _UtilInstance(
+                graph, domains, depth, owned, device_min_cells,
+                table_dtype,
+            )
+        ],
         t0, timeout, device, max_util_size=max_util_size,
         pad=pad, level_sync=level_sync,
     )
@@ -621,25 +672,6 @@ def _device_parts(parts: Sequence[np.ndarray], nd: int, lead: tuple):
     if parts:
         return list(parts)
     return [np.zeros(lead + (1,) * nd, dtype=np.float32)]
-
-
-def _dispatch(fn, parts: Sequence[np.ndarray], device: torch.device):
-    """Run one contraction on ``device``: the parts (any float dtype,
-    cast to f32 here) go over in ONE host→device transfer of a packed
-    buffer, and ``(amin, margins)`` come back to host numpy in one
-    transfer each."""
-    sizes = [int(p.size) for p in parts]
-    flat = np.empty(sum(sizes), dtype=np.float32)
-    off = 0
-    for p, n in zip(parts, sizes):
-        flat[off:off + n].reshape(p.shape)[...] = p
-        off += n
-    buf = torch.from_numpy(flat).to(device)
-    tabs = [
-        t.view(p.shape) for t, p in zip(torch.split(buf, sizes), parts)
-    ]
-    amin, margins = fn(*tabs)
-    return amin.cpu().numpy(), margins.cpu().numpy()
 
 
 def _util_phase_multi(
@@ -667,7 +699,9 @@ def _util_phase_multi(
 
     Per-instance ``device_min_cells=None`` forces that instance's pure
     host f64 path; otherwise joins of >= that many cells run on
-    ``device`` in f32 under the error certificate (module docstring).
+    ``device`` with an f32 join under the error certificate, their
+    parts stored at the instance's ``table_dtype`` (module docstring;
+    the dtype joins the bucket key).
 
     Returns one stats tuple ``(best_choice, util_cells, device_nodes,
     host_nodes, dispatches)`` per instance, or None for the whole call
@@ -793,10 +827,16 @@ def _util_phase_multi(
             # stack to f32 per part position; the per-node path casts
             # per part just before its dispatch
             aligned = [_align(t, dims, target) for dims, t in parts]
-            raw = (tuple(shape), tuple(a.shape for a in aligned))
+            raw = (
+                tuple(shape), tuple(a.shape for a in aligned),
+                inst.table_dtype,
+            )
             key = _key_memo.get(raw)
-            if key is None:  # UTIL trees repeat shapes heavily
-                key = _key_memo[raw] = util_level_key(raw[0], raw[1], pad)
+            if key is None:  # UTIL trees repeat shapes heavily; an int8
+                # kernel's dequant operands never stack with f32 rows
+                key = _key_memo[raw] = util_level_key(
+                    raw[0], raw[1], pad
+                ) + (raw[2],)
             if key not in buckets:
                 buckets[key] = []
                 order.append(key)
@@ -812,7 +852,7 @@ def _util_phase_multi(
             entries = buckets[key]
             if timeout is not None and time.perf_counter() - t0 > timeout:
                 return None
-            pshape, part_shapes = key
+            pshape, part_shapes, bucket_dt = key
             n_rows = len(entries)
             shape0 = entries[0][0][5]
             uniform = all(it[5] == shape0 for it, _ in entries)
@@ -835,13 +875,16 @@ def _util_phase_multi(
                     if pad.enabled:  # own-axis ghost guard (mask)
                         bufs[-1][r][..., shape0[-1]:] = np.inf
                 fn = _semiring.contraction_kernel(
-                    _semiring.MIN_SUM, pshape, kshapes, batched=True
+                    _semiring.MIN_SUM, pshape, kshapes, batched=True,
+                    table_dtype=bucket_dt,
                 )
+                dequant, packed = _semiring.pack_rows(
+                    _device_parts(bufs, len(pshape), (stack_h,)),
+                    bucket_dt, n_rows, met,
+                )
+                casts = dequant + packed
                 try:
-                    aminb, margb = _dispatch(
-                        fn, _device_parts(bufs, len(pshape), (stack_h,)),
-                        device,
-                    )
+                    aminb, margb = _semiring._dispatch(fn, casts, device)
                     level_batched = True
                 except torch.cuda.OutOfMemoryError:
                     # OOM degradation ladder: a level stack that does
@@ -864,9 +907,13 @@ def _util_phase_multi(
                 )
                 amin_b = np.array(aminb[region])  # writable (repair)
                 marg_b = np.asarray(margb[region], dtype=np.float64)
+                # certificate bound at the STORAGE precision: each part
+                # arrived rounded to bucket_dt
                 errs = np.array(
                     [
-                        2.0 * _EPS32 * (len(it[6]) + 1) * it[7]
+                        2.0 * _semiring.storage_error(
+                            bucket_dt, len(it[6]), it[7]
+                        )
                         for it, _ in entries
                     ]
                 )
@@ -875,6 +922,7 @@ def _util_phase_multi(
                     < errs.reshape((n_rows,) + (1,) * (marg_b.ndim - 1))
                 )
                 n_bad = np.bincount(bad[:, 0], minlength=n_rows)
+                _semiring.note_precision_repairs(met, bucket_dt, len(bad))
                 bad_by_row: Dict[int, list] = {}
                 for cell in bad:
                     bad_by_row.setdefault(int(cell[0]), []).append(
@@ -931,7 +979,7 @@ def _util_phase_multi(
             # mixed real shapes under one padded key, or a level stack
             # that did not fit on the device
             fn = _semiring.contraction_kernel(
-                _semiring.MIN_SUM, pshape, kshapes
+                _semiring.MIN_SUM, pshape, kshapes, table_dtype=bucket_dt
             )
             for item, aligned in entries:
                 (k, name, node, sep, target, shape, parts,
@@ -943,10 +991,11 @@ def _util_phase_multi(
                 else:
                     aligned = [np.asarray(a, dtype=np.float32)
                                for a in aligned]
+                packed = _semiring._pack_parts(
+                    _device_parts(aligned, len(pshape), ()), bucket_dt, met
+                )
                 try:
-                    amin, margins = _dispatch(
-                        fn, _device_parts(aligned, len(pshape), ()), device
-                    )
+                    amin, margins = _semiring._dispatch(fn, packed, device)
                 except torch.cuda.OutOfMemoryError:
                     # bottom of the OOM ladder: this single join does
                     # not fit on the device even alone — redo it
@@ -962,13 +1011,14 @@ def _util_phase_multi(
                 amin = np.array(amin[region])  # writable (repair)
                 margins = np.asarray(margins[region], dtype=np.float64)
                 try:
-                    _certify_and_repair(
+                    n_bad = _certify_and_repair(
                         name, parts, target, shape, amin, margins,
-                        sum_max_abs,
+                        sum_max_abs, table_dtype=bucket_dt,
                     )
                 except _PrecisionFallback:
                     _host_redo(met, host_nodes, finish, item)
                     continue
+                _semiring.note_precision_repairs(met, bucket_dt, n_bad)
                 u = _exact_u_at(parts, target, shape, amin)
                 device_nodes[k] += 1
                 finish(k, name, node, sep, u, amin)
@@ -982,20 +1032,25 @@ def _util_phase_multi(
 
 
 def _certify_and_repair(name, parts, target, shape, amin, margins,
-                        sum_max_abs):
-    """f32 argmin certificate + exact host repair of near-ties.
+                        sum_max_abs, table_dtype="f32"):
+    """Storage-precision argmin certificate + exact host repair of
+    near-ties.
 
-    Inputs to the device join are exact up to one f32 rounding
-    (children's utils are exact f64, see :func:`_exact_u_at`), so
-    |J_f32 − J| ≤ local_err and a margin ≥ 2·local_err proves the device
-    argmin is the true argmin.  The bound scales with Σᵢ max|partᵢ|
-    (NOT max|J|): parts of mixed sign can cancel in J while each carries
-    rounding error at its own magnitude.  Uncertifiable cells get their
-    row recomputed exactly; returns the repaired-cell count.  Raises
-    :class:`_PrecisionFallback` when the table is so tie-heavy that
-    per-cell repair would dominate (>10% of cells).
+    Inputs to the device join are exact up to one rounding at the
+    storage dtype (children's utils are exact f64, see
+    :func:`_exact_u_at`), so |J_dt − J| ≤ local_err and a margin ≥
+    2·local_err proves the device argmin is the true argmin.  The bound
+    scales with Σᵢ max|partᵢ| (NOT max|J|): parts of mixed sign can
+    cancel in J while each carries rounding error at its own magnitude.
+    ``table_dtype`` is the storage dtype the join ran at
+    (``ops/semiring.py:storage_error``: bf16 widens the roundoff, int8
+    adds its quantization bound).
+    Uncertifiable cells get their row recomputed exactly; returns the
+    repaired-cell count.  Raises :class:`_PrecisionFallback` when the
+    table is so tie-heavy that per-cell repair would dominate (>10% of
+    cells).
     """
-    local_err = _EPS32 * (len(parts) + 1) * sum_max_abs
+    local_err = _semiring.storage_error(table_dtype, len(parts), sum_max_abs)
     bad = np.argwhere(margins < 2.0 * local_err)
     if len(bad) * 10 > margins.size:
         raise _PrecisionFallback(

@@ -9,12 +9,15 @@ does:
   the JAX package's keys ``{assignment, cost, final_assignment,
   final_cost, cycle, msg_count, msg_size, status, time, cost_trace}``,
   plus ``restart_costs`` when ``n_restarts > 1``;
-- the exact host path (``dpop``, whose module has ``solve_host``): the
-  pseudo-tree walk on the host, the UTIL joins on the device, and the
-  JAX package's DPOP result dict (the keys above plus ``util_time``,
-  ``util_backend``, ``util_cells``, ``util_device_nodes``,
-  ``util_host_nodes`` and ``util_dispatches``).  ``pad_policy`` buckets
-  its level dispatches; checkpoints and restarts do not apply.
+- the exact host path (``dpop`` and ``syncbb``, whose modules have
+  ``solve_host``): DPOP walks its pseudo-tree on the host with the UTIL
+  joins on the device and returns the JAX package's DPOP result dict
+  (the keys above plus ``util_time``, ``util_backend``, ``util_cells``,
+  ``util_device_nodes``, ``util_host_nodes`` and ``util_dispatches``;
+  ``max_util_bytes``, ``table_dtype`` and ``table_format`` pick the
+  memory-bounded sweep and the storage of its device tables);
+  SyncBB's token walk runs on the host alone.  ``pad_policy`` buckets
+  DPOP's level dispatches; checkpoints and restarts do not apply.
 
 On the batched engine ``pad_policy`` buckets the compiled problem's
 shapes (``ops/padding.py``).
@@ -42,8 +45,7 @@ JAX package's meaning, the offload policy); without a CUDA device it
 raises.
 
 Not ported yet: the other execution modes, checkpoints, the supervisor
-knobs, the memory-bounded, pruned, reduced-precision and sparse
-contractions (ROADMAP.md).
+knobs and the branch-and-bound pruned contraction (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,11 +76,25 @@ def solve(
     device: DeviceLike = None,
     trace: Optional[str] = None,
     trace_format: str = "jsonl",
+    max_util_bytes: Optional[int] = None,
+    bnb: Optional[str] = None,
+    table_dtype: Optional[str] = None,
+    table_format: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Solve a DCOP (object or yaml path) and return the result dict,
     with the run's ``telemetry`` block; ``trace`` also writes the
     span/event timeline to that file (``trace_format`` ``"jsonl"`` or
     ``"chrome"``).
+
+    ``max_util_bytes``, ``bnb``, ``table_dtype`` and ``table_format``
+    are the discoverable spellings of the algorithm parameters of the
+    same names, checked as the JAX package checks them (an algorithm
+    without the parameter raises ``ValueError``).  ``max_util_bytes``
+    (DPOP) caps every UTIL table at that many device bytes through the
+    memory-bounded planner (``ops/membound.py``): results stay exact,
+    a device OOM re-plans at half the budget, and the result carries a
+    ``membound`` block.  ``bnb="on"`` raises ``NotImplementedError``
+    (ROADMAP A5).
 
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
@@ -93,15 +109,74 @@ def solve(
             chunk_size=chunk_size, checkpoint_path=checkpoint_path,
             resume=resume, mode=mode, n_restarts=n_restarts,
             pad_policy=pad_policy, device=device,
+            max_util_bytes=max_util_bytes, bnb=bnb,
+            table_dtype=table_dtype, table_format=table_format,
         )
         result["telemetry"] = tel.summary()
     return result
 
 
+def _contraction_knobs(
+    algo, module, params_in, max_util_bytes, bnb, table_dtype,
+    table_format,
+):
+    """Fold ``solve``'s contraction keywords into the algorithm params,
+    with the JAX package's checks (``pydcop_tpu/api.py``)."""
+    from pydcop_tpu_torch.ops.padding import as_table_dtype
+    from pydcop_tpu_torch.ops.sparse import as_table_format
+
+    names = {p.name for p in module.algo_params}
+    params_in = dict(params_in or {})
+    if max_util_bytes is not None:
+        if "max_util_bytes" not in names:
+            raise ValueError(
+                "max_util_bytes bounds the exact contraction engine's "
+                "largest UTIL/message table — supported by algorithms "
+                "with a bounded-memory plan (dpop) and by api.infer; "
+                f"{algo!r} has no such table to bound"
+            )
+        if int(max_util_bytes) <= 0:
+            # the algo-param route's 0 means "off", but an EXPLICIT
+            # budget of <= 0 is a sizing bug
+            raise ValueError(
+                f"max_util_bytes must be > 0, got {max_util_bytes}"
+            )
+        params_in["max_util_bytes"] = int(max_util_bytes)
+    if bnb is not None:
+        if "bnb" not in names:
+            raise ValueError(
+                "bnb selects the branch-and-bound pruned contraction "
+                "kernels — supported by algorithms with a device "
+                f"contraction phase (dpop, maxsum); {algo!r} has none"
+            )
+        params_in["bnb"] = str(bnb)
+    if table_dtype is not None:
+        if "table_dtype" not in names:
+            raise ValueError(
+                "table_dtype selects the storage precision of the "
+                "device contraction tables — supported by algorithms "
+                f"with a device contraction phase (dpop) and by "
+                f"api.infer; {algo!r} has none (maxsum's message-plane "
+                "sibling is msg_dtype)"
+            )
+        params_in["table_dtype"] = as_table_dtype(table_dtype)
+    if table_format is not None:
+        if "table_format" not in names:
+            raise ValueError(
+                "table_format selects the storage layout of the device "
+                "contraction tables — supported by algorithms with a "
+                f"device contraction phase (dpop) and by api.infer; "
+                f"{algo!r} has none"
+            )
+        params_in["table_format"] = as_table_format(table_format)
+    return params_in
+
+
 def _solve(
     dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
     chunk_size, checkpoint_path, resume, mode, n_restarts, pad_policy,
-    device,
+    device, max_util_bytes=None, bnb=None, table_dtype=None,
+    table_format=None,
 ) -> Dict[str, Any]:
     if mode != "batched":
         raise NotImplementedError(
@@ -113,10 +188,16 @@ def _solve(
 
         dcop = load_dcop_from_file(dcop)
     module = load_algorithm_module(algo)
-    params = prepare_algo_params(algo_params, module.algo_params)
+    params = prepare_algo_params(
+        _contraction_knobs(
+            algo, module, algo_params, max_util_bytes, bnb, table_dtype,
+            table_format,
+        ),
+        module.algo_params,
+    )
 
     if hasattr(module, "solve_host"):
-        # exact host-path algorithms (DPOP)
+        # exact host-path algorithms (DPOP, SyncBB)
         if checkpoint_path is not None or resume:
             raise ValueError(
                 f"{algo}: checkpoint/resume is only supported on the "
@@ -452,11 +533,13 @@ def infer(
     ``torch_device``: the CUDA device unless ``"cpu"`` is passed
     (without a CUDA device the call raises).
 
+    ``table_dtype`` (``f32``/``bf16``/``int8``) and ``table_format``
+    (``dense``/``sparse``) pick the storage of the device tables;
+    ``max_util_bytes`` runs the sweep memory-bounded
+    (``ops/membound.py``; the result carries a ``membound`` block).
     ``compile_cache`` has no counterpart (None only); ``retry_budget``
-    (ROADMAP A3), ``max_util_bytes`` (A10.5), ``bnb="on"`` (A5),
-    ``table_dtype`` bf16/int8 (A10.3) and ``table_format="sparse"``
-    (A10.4) raise ``NotImplementedError``; ``bnb="auto"`` runs the
-    unpruned contraction.
+    (ROADMAP A3) and ``bnb="on"`` (A5) raise ``NotImplementedError``;
+    ``bnb="auto"`` runs the unpruned contraction.
 
     Returns the result dict: ``query``, ``semiring``, ``order``,
     ``status``, ``cells``, ``dispatches``, ``device_nodes``,

@@ -2,7 +2,8 @@
 ``pydcop_tpu/commands/generate.py``).
 
 Benchmark-problem generators, one sub-subcommand per family:
-``graph_coloring``, ``ising``, ``meeting_scheduling`` and ``secp``.
+``graph_coloring``, ``ising``, ``meeting_scheduling``, ``secp`` and
+``task_scheduling``.
 Each writes a DCOP YAML to stdout or ``--output``; the text equals what
 ``python -m pydcop_tpu generate`` writes for the same arguments.
 """

@@ -5,7 +5,9 @@ One file prints one result JSON; several files are MANY instances whose
 contraction sweeps merge (``api.infer_many``) and print a JSON array.
 ``--device`` keeps the JAX command's meaning (the offload policy);
 ``--torch_device cpu`` runs the contractions on the CPU instead of the
-CUDA device.
+CUDA device.  ``--table_dtype``, ``--table_format`` and
+``--max_util_bytes`` pick the storage of the device tables and the
+memory-bounded sweep.
 """
 
 from __future__ import annotations
@@ -93,6 +95,33 @@ def set_parser(subparsers) -> None:
         help="wall-clock timeout (seconds)",
     )
     p.add_argument(
+        "--max_util_bytes", type=int, default=None, metavar="N",
+        help="run the sweep memory-bounded (ops/membound.py): every "
+        "contraction table stays under N device bytes by conditioning "
+        "a cut set whose assignments ride the level-pack stack as "
+        "extra lanes — exact per the query's ⊕ contract; the result "
+        "carries a 'membound' block",
+    )
+    p.add_argument(
+        "--bnb", choices=["auto", "on", "off"], default="auto",
+        help="branch-and-bound pruned contraction: 'auto' and 'off' run "
+        "the unpruned contraction; 'on' is not ported yet",
+    )
+    p.add_argument(
+        "--table_dtype", choices=["f32", "bf16", "int8"], default="f32",
+        help="storage precision of the device tables: 'bf16' halves and "
+        "'int8' quarters the bytes while the join stays f32 — map/kbest "
+        "stay bit-identical through the certificate, log_z/marginals "
+        "carry a widened error_bound",
+    )
+    p.add_argument(
+        "--table_format", choices=["dense", "sparse"], default="dense",
+        help="storage layout of the device tables: 'sparse' COO-packs "
+        "the feasible tuples of hard-constraint-dominated tables — "
+        "map/kbest bit-identical to dense, mass queries within "
+        "error_bound",
+    )
+    p.add_argument(
         "--output", type=str, default=None,
         help="write the result JSON to this file as well as stdout",
     )
@@ -133,6 +162,10 @@ def run_cmd(args) -> int:
             else None
         ),
         external_dists=external_dists,
+        max_util_bytes=args.max_util_bytes,
+        bnb=args.bnb,
+        table_dtype=args.table_dtype,
+        table_format=args.table_format,
         torch_device=args.torch_device,
     )
     try:

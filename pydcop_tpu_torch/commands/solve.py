@@ -3,7 +3,9 @@
 
 One-shot solve of a DCOP yaml on the batched engine, or with ``-a dpop``
 on the exact path (``-p util_device:always``, ``-p util_batch:node``,
-``--pad_policy pow2``, …); prints the result as JSON in the shape
+``--pad_policy pow2``, ``--table_dtype bf16``, ``--table_format sparse``,
+``--max_util_bytes N``, …) and with ``-a syncbb`` on the host; prints the
+result as JSON in the shape
 ``python -m pydcop_tpu solve`` prints, ``telemetry`` block included;
 ``--trace FILE`` writes the run's trace.  ``--restarts K`` runs K
 restarts and reports the best; ``--many`` solves each file as its own
@@ -38,7 +40,7 @@ def set_parser(subparsers) -> None:
     p = subparsers.add_parser(
         "solve",
         help="solve a static DCOP on the batched engine, or exactly "
-        "with dpop",
+        "with dpop or syncbb",
     )
     p.add_argument("dcop_files", nargs="+", help="dcop yaml file(s)")
     p.add_argument("-a", "--algo", required=True, help="algorithm name")
@@ -82,6 +84,34 @@ def set_parser(subparsers) -> None:
         "command fails when there is none)",
     )
     p.add_argument(
+        "--max_util_bytes", type=int, default=None, metavar="N",
+        help="(dpop) cap every UTIL table at N device bytes: the "
+        "memory-bounded planner (ops/membound.py) conditions a cut set "
+        "whose assignments ride the level-pack stack as extra lanes — "
+        "exact results, a device OOM re-plans at half the budget, and "
+        "the result carries a 'membound' block",
+    )
+    p.add_argument(
+        "--bnb", choices=["auto", "on", "off"], default=None,
+        help="branch-and-bound pruned contraction (dpop, maxsum): "
+        "'auto' and 'off' run the unpruned contraction; 'on' is not "
+        "ported yet",
+    )
+    p.add_argument(
+        "--table_dtype", choices=["f32", "bf16", "int8"], default=None,
+        help="(dpop) storage precision of the device UTIL parts: 'bf16' "
+        "halves and 'int8' quarters the bytes shipped while the join "
+        "stays f32 and the certificate repairs uncertain cells on the "
+        "host — results bit-identical to f32",
+    )
+    p.add_argument(
+        "--table_format", choices=["dense", "sparse"], default=None,
+        help="(dpop) storage layout of the device UTIL parts: 'sparse' "
+        "COO-packs the feasible tuples of hard-constraint-dominated "
+        "tables and joins them by gather/segment reduce — results "
+        "bit-identical to dense",
+    )
+    p.add_argument(
         "--output", type=str, default=None,
         help="write the result JSON to this file as well as stdout",
     )
@@ -92,11 +122,23 @@ def set_parser(subparsers) -> None:
 def run_cmd(args) -> int:
     from pydcop_tpu_torch.api import solve, solve_many
 
+    params = parse_algo_params(args.algo_params)
+    if args.bnb is not None:
+        # algo params (dpop declares them): the flags are the
+        # discoverable spellings
+        params = {**params, "bnb": args.bnb}
+    if args.table_dtype is not None:
+        params = {**params, "table_dtype": args.table_dtype}
+    if args.table_format is not None:
+        params = {**params, "table_format": args.table_format}
     if args.many:
+        if args.max_util_bytes is not None:
+            # solve_many takes it through the per-algorithm params
+            params = {**params, "max_util_bytes": args.max_util_bytes}
         results = solve_many(
             list(args.dcop_files),
             args.algo,
-            parse_algo_params(args.algo_params),
+            params,
             rounds=args.rounds,
             timeout=args.timeout,
             seed=args.seed,
@@ -114,7 +156,7 @@ def run_cmd(args) -> int:
     result = solve(
         args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0],
         args.algo,
-        parse_algo_params(args.algo_params),
+        params,
         rounds=args.rounds,
         timeout=args.timeout,
         seed=args.seed,
@@ -124,6 +166,7 @@ def run_cmd(args) -> int:
         device=args.device,
         trace=args.trace,
         trace_format=args.trace_format,
+        max_util_bytes=args.max_util_bytes,
     )
     result.pop("cost_trace", None)  # keep the printed JSON compact
     return write_result(args, result)

@@ -1,11 +1,12 @@
 """Several instances of an exact host-path algorithm (port of
 ``pydcop_tpu/engine/host_batch.py``).
 
-``api.solve_many`` sends DPOP here: instances partition by
-:func:`statics_signature` and each partition runs ONE merged
-level-synchronous UTIL sweep (``algorithms/dpop.py:solve_host_many``).
-An algorithm without ``solve_host_many`` raises: the port does not fall
-back to sequential solves.
+``api.solve_many`` sends the exact host-path algorithms here.  DPOP's
+instances partition by :func:`statics_signature` and each partition
+runs ONE merged level-synchronous UTIL sweep
+(``algorithms/dpop.py:solve_host_many``).  An algorithm without
+``solve_host_many`` (SyncBB, a single token walk) solves its instances
+one after the other, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -48,13 +49,21 @@ def run_many_host(
     the whole call; each result carries ``instances_batched`` (its
     sweep's size) and ``time``, an even share of its sweep's wall
     time."""
-    if not hasattr(algo_module, "solve_host_many"):
-        raise NotImplementedError(
-            f"solve_many for {algo_module.__name__} (no merged sweep) is "
-            "not ported yet — see ROADMAP.md, A10"
-        )
     t0 = time.perf_counter()
     results: List[Optional[Dict[str, Any]]] = [None] * len(dcops)
+    if not hasattr(algo_module, "solve_host_many"):
+        for i, d in enumerate(dcops):
+            remaining = (
+                None if timeout is None
+                else max(timeout - (time.perf_counter() - t0), 0.01)
+            )
+            res = algo_module.solve_host(
+                d, params_list[i], timeout=remaining,
+                pad_policy=pad_policy, device=device,
+            )
+            res["instances_batched"] = 1
+            results[i] = res
+        return results  # type: ignore[return-value]
     partitions: Dict[Tuple, List[int]] = {}
     for i, p in enumerate(params_list):
         partitions.setdefault(statics_signature(p), []).append(i)

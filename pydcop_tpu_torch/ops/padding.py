@@ -102,6 +102,9 @@ _TABLE_DTYPE_ALIASES = {
     "i8": "int8",
 }
 
+#: bytes per packed cell, per canonical dtype
+_TABLE_DTYPE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+
 # unit roundoff of the STORAGE format: bf16 keeps 8 significand bits
 # (eps = 2^-7); int8 codes are exact integers dequantized in f32, so
 # its roundoff is f32's (its quantization error is a separate term).
@@ -153,6 +156,90 @@ def table_dtype_eps(table_dtype: str) -> float:
     the f32 certificate swaps in for ``eps32`` when tables are packed
     below f32."""
     return _TABLE_DTYPE_EPS[as_table_dtype(table_dtype)]
+
+
+def table_dtype_bytes(table_dtype: str) -> int:
+    """Per-cell byte width of a canonical table dtype — the number
+    the memory-bounded sweep's byte budget (``ops/membound.py``) sizes
+    with."""
+    return _TABLE_DTYPE_BYTES[as_table_dtype(table_dtype)]
+
+
+# -- int8 table packs ---------------------------------------------------
+#
+# Affine 8-bit quantization with RESERVED infinity codes: hard-cap
+# semantics (+/-inf guards, bnb noprune sentinels, pad-policy ghost
+# masks) must survive packing EXACTLY, so the top/bottom codes encode
+# the infinities and finite values clip to [-126, 126].  scale/offset
+# ride alongside the codes (one pair per packed part) and the device
+# kernel dequantizes into its f32 accumulator
+# (``ops/semiring.py:contraction_kernel``).
+
+INT8_POS_INF = 127  #: reserved code for +inf
+INT8_NEG_INF = -128  #: reserved code for -inf
+INT8_FINITE_MAX = 126  #: finite codes live in [-126, 126]
+INT8_LEVELS = 2 * INT8_FINITE_MAX  #: finite quantization levels (252)
+
+
+def quantize_table_int8(a: np.ndarray):
+    """Pack a float table as ``(int8 codes, f32 scale, f32 offset)``.
+
+    Finite values map affinely onto [-126, 126] —
+    ``scale = (hi - lo) / 252`` (1.0 when the finite range is
+    degenerate, where every finite cell dequantizes exactly to the
+    offset) and ``offset = (hi + lo) / 2`` — and +/-inf take the
+    reserved codes, so guards and hard caps round-trip bit-exactly.
+    The quantization error of any finite cell is <= scale / 2
+    <= max|finite| / 252 (:func:`int8_quant_bound`)."""
+    a = np.asarray(a, dtype=np.float64)
+    finite = np.isfinite(a)
+    if finite.any():
+        lo = float(a[finite].min())
+        hi = float(a[finite].max())
+    else:
+        lo = hi = 0.0
+    scale = (hi - lo) / INT8_LEVELS
+    if not (scale > 0.0):
+        scale = 1.0
+    offset = (hi + lo) / 2.0
+    with np.errstate(invalid="ignore"):
+        q = np.clip(
+            np.rint((a - offset) / scale),
+            -INT8_FINITE_MAX,
+            INT8_FINITE_MAX,
+        )
+    q = np.where(a == np.inf, INT8_POS_INF, q)
+    q = np.where(a == -np.inf, INT8_NEG_INF, q)
+    return (
+        q.astype(np.int8),
+        np.float32(scale),
+        np.float32(offset),
+    )
+
+
+def dequantize_table_int8(
+    q: np.ndarray, scale: float, offset: float
+) -> np.ndarray:
+    """Host-side (numpy) inverse of :func:`quantize_table_int8` — the
+    reference the device kernel's in-trace dequant mirrors, shared by
+    tests and host fallbacks."""
+    q = np.asarray(q)
+    f = q.astype(np.float32) * np.float32(scale) + np.float32(offset)
+    f = np.where(q == INT8_POS_INF, np.float32(np.inf), f)
+    f = np.where(q == INT8_NEG_INF, np.float32(-np.inf), f)
+    return f.astype(np.float32)
+
+
+def int8_quant_bound(parts_max: float) -> float:
+    """Conservative per-joined-cell int8 quantization error bound.
+
+    Each part's finite error is <= its ``scale/2 <= amax_p / 252``;
+    a joined cell sums one value per part, and ``parts_max`` is the
+    sweep's running sum of per-part finite amax values, so
+    ``parts_max / 252`` bounds the total — pre-computable before any
+    dispatch, which is what lets the tolerance gate and the bnb slack
+    widen without touching device results."""
+    return max(float(parts_max), 0.0) / INT8_LEVELS
 
 
 # UTIL-table axes are DOMAIN-sized (a handful of values), not

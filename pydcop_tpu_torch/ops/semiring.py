@@ -39,10 +39,16 @@ Precision contract, per ``⊕``, as in the JAX package:
   ``tol`` runs on host f64 (``semiring.logsumexp_repairs``) and the
   result reports the final ``error_bound``.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-item): the branch-and-bound kernels (``bnb='on'``, A5; ``'auto'`` runs
-the unpruned contraction), bf16/int8 table packs (A10.3), sparse tables
-(A10.4) and the memory-bounded sweep ``max_util_bytes`` (A10.5).
+Storage of the device parts (``table_dtype``, ``table_format``): bf16
+and int8 packs with an f32 join and certificates widened to the storage
+precision, and sparse COO tables joined over candidate lists
+(``ops/sparse.py``); the memory-bounded sweep ``max_util_bytes`` lives
+in ``ops/membound.py`` and runs :func:`contract_sweep` with
+``on_oom="raise"``.
+
+Not ported: the branch-and-bound kernels (``bnb='on'`` raises
+``NotImplementedError`` naming ROADMAP A5; ``'auto'`` runs the unpruned
+contraction).
 """
 
 from __future__ import annotations
@@ -59,13 +65,26 @@ import torch
 
 from pydcop_tpu_torch.ops.costs import fixed_order_sum
 from pydcop_tpu_torch.ops.padding import (
+    INT8_NEG_INF,
+    INT8_POS_INF,
     NO_PADDING,
     PadPolicy,
     as_pad_policy,
     as_table_dtype,
+    int8_quant_bound,
     pad_util_parts,
+    quantize_table_int8,
     stack_bucket,
+    table_dtype_eps,
     util_level_key,
+)
+from pydcop_tpu_torch.ops.sparse import (
+    SparseTable,
+    as_table_format,
+    pack_table,
+    sparse_contraction_kernel,
+    sparse_node_prep,
+    storage_dtype,
 )
 
 _EPS32 = float(np.finfo(np.float32).eps)
@@ -548,8 +567,17 @@ def contraction_kernel(
     - ``expectation``: ``(pairs [..., 2],)``, the reduced ``(log w,
       r)`` pairs.
 
-    ``bnb=True`` (the two-pass branch-and-bound kernel, ROADMAP A5) and
-    a ``table_dtype`` other than f32 (ROADMAP A10.3) raise.
+    ``table_dtype`` is the STORAGE precision of the parts: bf16 parts
+    are cast to f32 before the first add (the JAX kernel joins onto an
+    f32 accumulator; an eager ``bf16 + bf16`` would round in bf16);
+    int8 parts arrive as codes with per-part ``scales``/``offsets`` f32
+    vectors PREPENDED to the arguments (``[B, P]`` when ``batched``) and
+    dequantize as ``q.float() * scale + offset`` (a separate multiply
+    and add, as XLA computes it, never a fused multiply-add), the
+    reserved codes restoring ``±inf`` exactly.
+
+    ``bnb=True`` (the two-pass branch-and-bound kernel, ROADMAP A5)
+    raises.
     """
     sr = get_semiring(sr)
     if bnb:
@@ -557,8 +585,7 @@ def contraction_kernel(
             "the branch-and-bound contraction (bnb=True)", "A5"
         )
     dt = as_table_dtype(table_dtype)
-    if dt != "f32":
-        raise _not_ported(f"contraction table_dtype={dt!r}", "A10.3")
+    store = storage_dtype(dt)
     shape = tuple(shape)
     part_shapes = tuple(tuple(p) for p in part_shapes)
     if not part_shapes:
@@ -574,21 +601,50 @@ def contraction_kernel(
         else:
             body = _lse_body
 
-    def contract(*tabs: torch.Tensor):
+    def contract(*args: torch.Tensor):
+        if dt == "int8":
+            scales, offsets, *tabs = args
+        else:
+            tabs = list(args)
         if len(tabs) != len(part_shapes):
             raise ValueError(
                 f"expected {len(part_shapes)} parts, got {len(tabs)}"
             )
         lead = tuple(tabs[0].shape[:1]) if batched else ()
         for t, ps in zip(tabs, part_shapes):
-            if tuple(t.shape) != lead + ps or t.dtype != torch.float32:
+            if tuple(t.shape) != lead + ps or t.dtype != store:
                 raise ValueError(
                     f"part {tuple(t.shape)} {t.dtype}: expected "
-                    f"{lead + ps} float32"
+                    f"{lead + ps} {store}"
                 )
+        if dt == "int8":
+            tabs = [
+                dequantize_int8(q, scales[..., i], offsets[..., i])
+                for i, q in enumerate(tabs)
+            ]
+        elif dt == "bf16":
+            tabs = [t.float() for t in tabs]
         return body(sr, tabs, lead + shape, d)
 
     return contract
+
+
+def dequantize_int8(
+    q: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor
+) -> torch.Tensor:
+    """The device form of ``ops/padding.py:dequantize_table_int8``:
+    ``q.float() * scale + offset`` in two separate operations (no fused
+    multiply-add, so the bits equal the JAX kernel's), the reserved
+    codes restoring ``±inf``.  ``scale``/``offset`` are 0-d, or ``[B]``
+    for a part stacked ``[B, ...]`` (one pair per row)."""
+    if scale.dim():
+        view = (-1,) + (1,) * (q.dim() - 1)
+        scale = scale.reshape(view)
+        offset = offset.reshape(view)
+    f = q.float() * scale
+    f = f + offset
+    f = torch.where(q == INT8_POS_INF, float("inf"), f)
+    return torch.where(q == INT8_NEG_INF, float("-inf"), f)
 
 
 def _join(tabs, full):
@@ -1115,8 +1171,12 @@ def _align(table, dims, target):
 
 
 def _finite_amax(a) -> float:
-    """max |finite entries| of a numpy table (±inf entries are hard
-    constraints and guards, structure rather than a rounding scale)."""
+    """max |finite entries| of a table (±inf entries are hard
+    constraints and guards, structure rather than a rounding scale); a
+    packed table answers from its values (absent cells are the exact
+    ⊕-identity)."""
+    if isinstance(a, SparseTable):
+        return a.finite_amax()
     a = np.asarray(a)
     if a.size == 0:
         return 0.0
@@ -1124,21 +1184,103 @@ def _finite_amax(a) -> float:
     return float(m.max()) if m.size else 0.0
 
 
-def _dispatch(fn, parts: Sequence[np.ndarray], device: torch.device):
-    """Run one contraction on ``device``: the parts (any float dtype,
-    cast to f32 here) go over in ONE host→device copy of a packed
-    buffer, and each output comes back to host numpy."""
-    sizes = [int(p.size) for p in parts]
-    flat = np.empty(sum(sizes), dtype=np.float32)
-    off = 0
-    for p, n in zip(parts, sizes):
-        flat[off:off + n].reshape(p.shape)[...] = p
-        off += n
-    buf = torch.from_numpy(flat).to(device)
-    tabs = [
-        t.view(p.shape) for t, p in zip(torch.split(buf, sizes), parts)
-    ]
-    return tuple(o.cpu().numpy() for o in fn(*tabs))
+def _upload(parts, device):
+    """Send a dispatch's arguments to ``device`` in ONE host→device copy
+    per storage type: numpy float parts are cast to f32 as they are
+    written into one flat host buffer (the f32 pack), int8 codes and
+    i32 indices keep their type, bf16 packs are torch CPU tensors
+    (:func:`_pack_parts`).  Returns per-part views of the device
+    buffers, in argument order."""
+    groups: Dict[Any, List[int]] = {}
+    for i, p in enumerate(parts):
+        if isinstance(p, torch.Tensor):
+            key = p.dtype
+        else:
+            dt = np.asarray(p).dtype
+            key = np.dtype(np.float32) if dt.kind == "f" else dt
+        groups.setdefault(key, []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for key, idx in groups.items():
+        sizes = [int(np.prod(np.shape(parts[i]))) for i in idx]
+        if isinstance(key, torch.dtype):
+            flat = torch.cat([parts[i].reshape(-1) for i in idx])
+        else:
+            host = np.empty(sum(sizes), dtype=key)
+            off = 0
+            for i, n in zip(idx, sizes):
+                host[off:off + n].reshape(np.shape(parts[i]))[...] = parts[i]
+                off += n
+            flat = torch.from_numpy(host)
+        buf = flat.to(device)
+        for i, piece in zip(idx, torch.split(buf, sizes)):
+            out[i] = piece.view(tuple(np.shape(parts[i])))
+    return out
+
+
+def _dispatch(fn, parts, device: torch.device):
+    """Run one contraction on ``device``: the packed parts go over in
+    one host→device copy per storage type (:func:`_upload`), and each
+    output comes back to host numpy."""
+    return tuple(o.cpu().numpy() for o in fn(*_upload(parts, device)))
+
+
+def _pack_parts(parts, table_dtype, met=None):
+    """One dispatch row's aligned+padded float parts at the storage
+    dtype: f32 passes through; bf16 casts on the host (f64 → f32 →
+    bf16, one rounding more, covered by the widened certificates) to
+    torch bf16 tensors; int8 quantizes each part and PREPENDS the
+    per-part scale/offset f32 vectors the kernel's dequant consumes
+    (``semiring.int8_requant`` counts the part packs)."""
+    if table_dtype == "f32":
+        return list(parts)
+    if table_dtype == "bf16":
+        return [
+            torch.from_numpy(np.asarray(p, dtype=np.float32)).to(
+                torch.bfloat16
+            )
+            for p in parts
+        ]
+    scales = np.zeros(len(parts), dtype=np.float32)
+    offsets = np.zeros(len(parts), dtype=np.float32)
+    qs = []
+    for i, p in enumerate(parts):
+        q, s, o = quantize_table_int8(p)
+        qs.append(q)
+        scales[i] = s
+        offsets[i] = o
+    if met is not None and met.enabled:
+        met.inc("semiring.int8_requant", len(parts))
+    return [scales, offsets] + qs
+
+
+def pack_rows(bufs, table_dtype, n_rows, met):
+    """Stacked dispatch buffers ``[stack, ...]`` at the storage dtype, as
+    ``(dequant, parts)``: int8 quantizes per (row, part)
+    (:func:`_quantize_rows`) and ``dequant`` is its ``[scales, offsets]``
+    pair; f32 and bf16 pack as :func:`_pack_parts` does, with no
+    ``dequant``."""
+    if table_dtype == "int8":
+        packed = _quantize_rows(bufs, n_rows, met)
+        return packed[:2], packed[2:]
+    return [], _pack_parts(bufs, table_dtype)
+
+
+def storage_error(table_dtype, n_parts, parts_max):
+    """The rounding bound of one device join at a storage dtype: the
+    dtype's unit roundoff times ``(n_parts + 1)`` times the parts' summed
+    largest magnitude, plus int8's quantization bound.  An arg whose
+    margin is at least twice this (plus the error already carried in) is
+    certified."""
+    quant = int8_quant_bound(parts_max) if table_dtype == "int8" else 0.0
+    return table_dtype_eps(table_dtype) * (n_parts + 1) * parts_max + quant
+
+
+def note_precision_repairs(met, table_dtype, n_bad):
+    """Count ``semiring.precision_repairs`` once for a low-precision join
+    whose certificate sent cells to the host (it would not have paid
+    them at f32)."""
+    if table_dtype != "f32" and n_bad and met.enabled:
+        met.inc("semiring.precision_repairs")
 
 
 class _Sweep:
@@ -1182,6 +1324,9 @@ def contract_sweep(
     want_args: bool = False,
     t0: Optional[float] = None,
     timeout: Optional[float] = None,
+    on_oom: str = "host",
+    table_dtype: str = "f32",
+    table_format: str = "dense",
     torch_device: Optional[torch.device] = None,
 ) -> Optional[_Sweep]:
     """Merged bottom-up contraction sweep over K instances.
@@ -1200,8 +1345,35 @@ def contract_sweep(
     on timeout.
 
     A stacked dispatch that runs out of device memory degrades to one
-    dispatch per node (``engine.oom_splits``); a node that still does
-    not fit is redone on host f64.  Counters: ``semiring.contractions`` per node,
+    dispatch per node (``engine.oom_splits``); ``on_oom`` picks the
+    bottom rung: a node that still does not fit is redone on host f64
+    (``"host"``, the default) or the ``torch.cuda.OutOfMemoryError``
+    propagates (``"raise"``: the budgeted sweeps of ``ops/membound.py``
+    answer it by re-planning at a tighter ``max_util_bytes``).
+
+    ``table_dtype`` packs every device part at the requested storage
+    precision with the join kept f32.  Correctness rides the same
+    machinery re-scaled per precision: idempotent/kbest certificates
+    widen to the storage roundoff (plus the int8 quantization bound)
+    and repair exactly as at f32, so results stay bit-identical to the
+    f32 sweep; mass ⊕ nodes whose widened bound would blow ``tol``
+    DEMOTE to an f32 dispatch first (``semiring.precision_repairs``)
+    and only then fall back to host f64.  The dtype joins the bucket
+    key, and ``semiring.int8_requant`` counts int8 part packs.
+
+    ``table_format="sparse"`` COO-packs qualifying tables
+    (``ops/sparse.py``): scalar-⊕ own parts and outgoing messages whose
+    non-identity fraction clears the density threshold pack as sorted
+    feasible-tuple indices + values (``semiring.sparse_packs``), and a
+    node holding packed parts contracts through the gather/segment
+    kernel over its candidate list (``semiring.sparse_nodes``; an
+    intersection too dense to pay falls back to the dense kernels,
+    ``semiring.sparse_fallbacks``).  The format joins the bucket key.
+    Exactness is unchanged: absent tuples are the ⊕-identity, so
+    idempotent results stay bit-identical, and mass queries fold any
+    truncated-mass term into the error ledger.
+
+    Counters: ``semiring.contractions`` per node,
     ``semiring.kbest_merges`` per kbest node, ``semiring.dispatches``
     per device dispatch, ``semiring.cert_fallbacks`` per node redone on
     the host, ``semiring.mixed_blocks``; the sweep records a
@@ -1217,6 +1389,15 @@ def contract_sweep(
     _key_memo: Dict[tuple, tuple] = {}
     if device_min_cells is not None and torch_device is None:
         raise ValueError("a device sweep needs torch_device")
+    if on_oom not in ("host", "raise"):
+        raise ValueError(f"on_oom must be 'host' or 'raise', got {on_oom!r}")
+    call_dt = as_table_dtype(table_dtype)
+    # packing pays only where the device kernels run: an all-host sweep
+    # joins in exact f64 and would just densify the packs back
+    fmt_sparse = (
+        as_table_format(table_format) == "sparse"
+        and device_min_cells is not None
+    )
 
     def table_in(tbl: np.ndarray) -> np.ndarray:
         if sr.kind == "kbest" or (sr.idempotent and not sr.maximize):
@@ -1243,7 +1424,20 @@ def contract_sweep(
                 shift = 0.0  # an all--inf message normalizes to itself
             u = sr_n.apply_shift(u, shift)
             sw.total_shift[k] += shift
-            sw.msgs[k][name] = (sep, u, _finite_amax(u))
+            mag = _finite_amax(u)
+            if (
+                fmt_sparse
+                and sr_n.cell_width == 1
+                and isinstance(u, np.ndarray)
+            ):
+                # a mostly-identity message re-packs before it feeds the
+                # parent (``.size`` keeps the dense cell count)
+                ps = pack_table(u, sr_n.plus_identity)
+                if ps is not None:
+                    u = ps
+                    if met.enabled:
+                        met.inc("semiring.sparse_packs")
+            sw.msgs[k][name] = (sep, u, mag)
             sw.cells[k] += u.size
 
     def host_contract(sr_n, k, name, plan, sep, target, shape, parts,
@@ -1383,6 +1577,18 @@ def contract_sweep(
                         table_in(own_parts[0][1]), dtype=np.float64
                     )
                     odims = list(own_parts[0][0])
+                if (
+                    fmt_sparse
+                    and sr_n.cell_width == 1
+                    and size * cw >= device_min_cells
+                ):
+                    # COO-pack a qualifying own part: the node can then
+                    # contract over the candidate list
+                    ps = pack_table(o, sr_n.plus_identity)
+                    if ps is not None:
+                        o = ps
+                        if met.enabled:
+                            met.inc("semiring.sparse_packs")
                 parts.append((odims, o))
                 # finite-masked: ±inf hard-constraint entries are EXACT
                 # in f32 and must not void the certificate
@@ -1402,12 +1608,25 @@ def contract_sweep(
 
             dmc = device_min_cells
             use_device = dmc is not None and size * cw >= dmc
+            node_dt = call_dt
             if use_device and sr_n.error_bounded:
                 # error-budget gate: a device pass whose accumulated
-                # bound would exceed tol runs on host f64 instead
-                local = _EPS32 * (
-                    (len(parts) + 1) * max(parts_max, 1.0) + shape[-1] + 2
-                )
+                # bound would exceed tol first DEMOTES to f32 storage,
+                # then runs on host f64
+                scale = max(parts_max, 1.0)
+
+                def _local_err(dt):
+                    q = int8_quant_bound(parts_max) if dt == "int8" else 0.0
+                    return table_dtype_eps(dt) * (
+                        (len(parts) + 1) * scale + shape[-1] + 2
+                    ) + q
+
+                local = _local_err(node_dt)
+                if err_in + local > tol and node_dt != "f32":
+                    node_dt = "f32"
+                    local = _local_err(node_dt)
+                    if met.enabled:
+                        met.inc("semiring.precision_repairs")
                 if err_in + local > tol:
                     use_device = False
                     if met.enabled:
@@ -1418,21 +1637,50 @@ def contract_sweep(
                     err_in,
                 )
                 continue
+            if fmt_sparse and sr_n.kind == "scalar":
+                sprep = sparse_node_prep(
+                    parts, target, shape, sr_n.plus_identity
+                )
+                if sprep is not None:
+                    # candidate-list join: bucket by the pow-2 candidate
+                    # geometry, never mixed with the dense buckets
+                    if met.enabled:
+                        met.inc("semiring.sparse_nodes")
+                    key = ("sparse", sr_n.name, node_dt, sprep.key)
+                    if key not in buckets:
+                        buckets[key] = []
+                        order.append(key)
+                    buckets[key].append(
+                        ((k, name, sep, target, shape, parts, parts_max,
+                          err_in + sprep.trunc, node_dt), sprep)
+                    )
+                    continue
+                if met.enabled and any(
+                    isinstance(t, SparseTable) for _, t in parts
+                ):
+                    # packed parts present but the intersection would
+                    # not pay: the dense path densifies them back
+                    met.inc("semiring.sparse_fallbacks")
             aligned = [_align(t, dims, target) for dims, t in parts]
-            raw = (sr_n.name, tuple(shape), tuple(a.shape for a in aligned))
+            raw = (
+                sr_n.name, node_dt, tuple(shape),
+                tuple(a.shape for a in aligned),
+            )
             key = _key_memo.get(raw)
             if key is None:
-                # the level-pack key is shape-only; the ⊕ joins the
-                # BUCKET key so a mixed wave never mixes kernels
+                # the level-pack key is shape-only; the ⊕ and the
+                # storage dtype join the BUCKET key so a wave never
+                # mixes kernels (a tol-demoted node lands in f32)
                 key = _key_memo[raw] = (
-                    sr_n.name, util_level_key(raw[1], raw[2], pad),
+                    sr_n.name, node_dt,
+                    util_level_key(raw[2], raw[3], pad),
                 )
             if key not in buckets:
                 buckets[key] = []
                 order.append(key)
             buckets[key].append(
-                ((k, name, sep, target, shape, parts, parts_max, err_in),
-                 aligned)
+                ((k, name, sep, target, shape, parts, parts_max, err_in,
+                  node_dt), aligned)
             )
 
         if mixed and len(wave_srs) > 1 and met.enabled:
@@ -1442,37 +1690,59 @@ def contract_sweep(
             entries = buckets[key]
             if timeout is not None and time.perf_counter() - t0 > timeout:
                 return None
+            if key[0] == "sparse":
+                sr_b = get_semiring(key[1])
+                if not _dispatch_sparse(
+                    sw, sr_b, entries, pad, want_args, finish, met,
+                    plans, torch_device, key[2], on_oom,
+                ):
+                    # device OOM on the candidate dispatch: redo the
+                    # bucket's nodes on host f64 (``_align`` densifies
+                    # the packs back)
+                    if met.enabled:
+                        met.inc("engine.oom_splits")
+                    for item, _sp in entries:
+                        host_contract(
+                            sr_b, item[0], item[1], plans[item[0]],
+                            item[2], item[3], item[4], item[5], item[7],
+                        )
+                continue
             sr_b = get_semiring(key[0])
             # ghost guard over padded own-axis cells is the ⊕-identity
             guard = sr_b.plus_identity
-            pshape, part_shapes = key[1]
+            bucket_dt = key[1]
+            pshape, part_shapes = key[2]
             n_rows = len(entries)
             shape0 = entries[0][0][4]
             uniform = all(it[4] == shape0 for it, _ in entries)
             if uniform and n_rows > 1:
                 if _dispatch_stacked(
                     sw, sr_b, entries, pshape, part_shapes, shape0, pad,
-                    guard, tol, want_args, finish, met, plans,
-                    torch_device,
+                    guard, want_args, finish, met, plans, torch_device,
+                    bucket_dt,
                 ):
                     continue
                 # OOM on the stacked dispatch: degrade to the per-node
                 # path below
                 if met.enabled:
                     met.inc("engine.oom_splits")
-            fn = contraction_kernel(sr_b, pshape, part_shapes)
+            fn = contraction_kernel(
+                sr_b, pshape, part_shapes, table_dtype=bucket_dt
+            )
             for item, aligned in entries:
-                (k, name, sep, target, shape, parts, parts_max,
-                 err_in) = item
+                k, name, sep, target, shape, parts, _pm, err_in = item[:8]
                 if timeout is not None and time.perf_counter() - t0 > timeout:
                     return None
                 padded = pad_util_parts(
                     aligned, shape, pshape, guard=guard,
                     with_mask=pad.enabled,
                 )
+                packed = _pack_parts(padded, bucket_dt, met)
                 try:
-                    outs = _dispatch(fn, padded, torch_device)
+                    outs = _dispatch(fn, packed, torch_device)
                 except torch.cuda.OutOfMemoryError:
+                    if on_oom == "raise":
+                        raise
                     host_contract(
                         sr_b, k, name, plans[k], sep, target, shape,
                         parts, err_in,
@@ -1496,16 +1766,19 @@ def contract_sweep(
 
 
 def _dispatch_stacked(
-    sw, sr, entries, pshape, part_shapes, shape0, pad, guard, tol,
-    want_args, finish, met, plans, torch_device,
+    sw, sr, entries, pshape, part_shapes, shape0, pad, guard, want_args,
+    finish, met, plans, torch_device, table_dtype,
 ) -> bool:
     """One stacked dispatch for a uniform level-pack bucket: f64 stack
-    buffers (ghost rows all zero, the mask row at the guard), cast to
-    f32 in one packed host-to-device copy.  Returns False on device OOM
-    (the caller degrades to per-node dispatches)."""
+    buffers (ghost rows all zero, the mask row at the guard), packed at
+    the bucket's storage dtype — int8 quantizes per (row, part), so
+    every row carries its own scale/offset pair — in one host-to-device
+    copy per storage type.  Returns False on device OOM (the caller
+    degrades to per-node dispatches)."""
     n_rows = len(entries)
     stack_h = stack_bucket(n_rows) if pad.enabled else n_rows
-    has_mask = len(part_shapes) == len(entries[0][1]) + 1
+    n_parts = len(part_shapes)
+    has_mask = n_parts == len(entries[0][1]) + 1
     bufs = [
         np.zeros((stack_h,) + tuple(ps), dtype=np.float64)
         for ps in part_shapes
@@ -1515,9 +1788,12 @@ def _dispatch_stacked(
             bufs[i][r][tuple(slice(0, s) for s in a.shape)] = a
         if has_mask:
             bufs[-1][r][..., shape0[-1]:] = guard
-    fn = contraction_kernel(sr, pshape, part_shapes, batched=True)
+    fn = contraction_kernel(
+        sr, pshape, part_shapes, batched=True, table_dtype=table_dtype
+    )
+    dequant, packed = pack_rows(bufs, table_dtype, n_rows, met)
     try:
-        outs = _dispatch(fn, bufs, torch_device)
+        outs = _dispatch(fn, dequant + packed, torch_device)
     except torch.cuda.OutOfMemoryError:
         return False
     if met.enabled:
@@ -1533,30 +1809,120 @@ def _dispatch_stacked(
     return True
 
 
+def _quantize_rows(bufs, n_rows, met):
+    """int8 packs of stacked buffers, per (row, part): ``[scales,
+    offsets] + codes`` with ``[stack, P]`` scale/offset arrays; ghost
+    rows stay all-zero codes under the identity (scale 1, offset 0)
+    dequant.  Counts ``semiring.int8_requant``."""
+    stack_h = bufs[0].shape[0] if bufs else 0
+    scales = np.ones((stack_h, len(bufs)), dtype=np.float32)
+    offsets = np.zeros((stack_h, len(bufs)), dtype=np.float32)
+    qbufs = [np.zeros(b.shape, dtype=np.int8) for b in bufs]
+    for r in range(n_rows):
+        for i, b in enumerate(bufs):
+            q, s, o = quantize_table_int8(b[r])
+            qbufs[i][r] = q
+            scales[r, i] = s
+            offsets[r, i] = o
+    if met.enabled:
+        met.inc("semiring.int8_requant", n_rows * len(bufs))
+    return [scales, offsets] + qbufs
+
+
+def _dispatch_sparse(
+    sw, sr, entries, pad, want_args, finish, met, plans, torch_device,
+    table_dtype, on_oom,
+) -> bool:
+    """One stacked candidate-list dispatch for a sparse bucket
+    (``ops/sparse.py``): every entry shares the pow-2 candidate
+    geometry, so the rows stack under one
+    :func:`~pydcop_tpu_torch.ops.sparse.sparse_contraction_kernel` as
+    the dense level packs do.  Ghost candidates land in the ghost
+    segment.  The i32 index buffers go over in one copy, the packed
+    values in one more (int8: its scales/offsets too).  Returns False
+    on device OOM (the caller redoes the bucket on host f64) unless
+    ``on_oom="raise"``."""
+    sp0 = entries[0][1]
+    n_cand_b, n_seg_b, part_lens_b = sp0.key
+    n_rows = len(entries)
+    stack_h = stack_bucket(n_rows) if pad.enabled else n_rows
+    P = len(part_lens_b)
+    sep_b = np.full((stack_h, n_cand_b), n_seg_b, dtype=np.int32)
+    own_b = np.zeros((stack_h, n_cand_b), dtype=np.int32)
+    val_bufs = [np.zeros((stack_h, L), dtype=np.float64) for L in part_lens_b]
+    gid_bufs = [
+        np.zeros((stack_h, n_cand_b), dtype=np.int32) for _ in part_lens_b
+    ]
+    for r, (_item, sp) in enumerate(entries):
+        nc = sp.n_cand
+        sep_b[r, :nc] = sp.sep_ids
+        own_b[r, :nc] = sp.own_ids
+        for i in range(P):
+            val_bufs[i][r, : sp.part_flats[i].size] = sp.part_flats[i]
+            gid_bufs[i][r, :nc] = sp.gidx[i]
+    fn = sparse_contraction_kernel(
+        sr, n_cand_b, n_seg_b, part_lens_b, table_dtype=table_dtype
+    )
+    dequant, packed = pack_rows(val_bufs, table_dtype, n_rows, met)
+    args = dequant + [sep_b, own_b] + packed + gid_bufs
+    try:
+        outs = _dispatch(fn, args, torch_device)
+    except torch.cuda.OutOfMemoryError:
+        if on_oom == "raise":
+            raise
+        return False
+    if met.enabled:
+        met.inc("semiring.dispatches")
+    for k in sorted({item[0] for item, _ in entries}):
+        sw.dispatches[k] += 1
+    for r, (item, _sp) in enumerate(entries):
+        shape = item[4]
+        sshape = tuple(shape[:-1])
+        n_seg = 1
+        for s in sshape:
+            n_seg *= s
+        row_outs = tuple(o[r][:n_seg].reshape(sshape) for o in outs)
+        region = tuple(slice(0, s) for s in sshape)
+        _finish_device_row(
+            sw, sr, plans[item[0]], item, row_outs, region, want_args,
+            finish, met,
+        )
+    return True
+
+
 def _finish_device_row(
     sw, sr, plan, item, outs, region, want_args, finish, met,
 ):
     """Certify / account one device contraction and finish the node.
 
-    Idempotent ⊕: certify the f32 arg against the decision-margin bound,
-    repair near-ties on the host, and re-evaluate the projected values
-    in exact f64 at the certified arg (tie-heavy tables, more than 10%
-    of cells uncertifiable, are redone wholesale on the host).  kbest:
-    the per-component certificate, then host-f64 values at the
-    certified backpointers (or the whole node on the host).  logsumexp
-    ⊕ and expectation: accept the f32 values and extend the accumulated
-    error bound (the ``tol`` gate already ran before dispatch)."""
-    (k, name, sep, target, shape, parts, parts_max, err_in) = item
+    The certificates and ledgers re-scale to the STORAGE dtype the
+    dispatch ran at: its unit roundoff replaces eps32, and int8 adds
+    the quantization bound.  Idempotent ⊕: certify the arg against the
+    decision-margin bound, repair near-ties on the host, and re-evaluate
+    the projected values in exact f64 at the certified arg (tie-heavy
+    tables, more than 10% of cells uncertifiable, are redone wholesale
+    on the host).  kbest: the per-component certificate, then host-f64
+    values at the certified backpointers (or the whole node on the
+    host).  logsumexp ⊕ and expectation: accept the f32 values and
+    extend the accumulated error bound (the ``tol`` gate already ran
+    before dispatch).  A low-precision node whose certificate sent
+    cells to the host counts ``semiring.precision_repairs``."""
+    (k, name, sep, target, shape, parts, parts_max, err_in,
+     node_dt) = item
+    eps_dt = table_dtype_eps(node_dt)
+    quant = int8_quant_bound(parts_max) if node_dt == "int8" else 0.0
     if sr.kind == "kbest":
         vals, margins, own_idx, *slots = outs
         margins = np.asarray(margins[region], dtype=np.float64)
-        local_err = _EPS32 * (len(parts) + 1) * parts_max
+        local_err = storage_error(node_dt, len(parts), parts_max)
         # per-COMPONENT certificate: every selected slot must beat the
         # next candidate by the rounding bound, or the whole node is
         # redone on host f64 (still exact)
         if np.any(margins < 2.0 * (local_err + err_in)):
             if met.enabled:
                 met.inc("semiring.cert_fallbacks")
+                if node_dt != "f32":
+                    met.inc("semiring.precision_repairs")
             u, own, provs = _kbest_host(parts, target, shape, sr.cell_width)
             sw.host_nodes[k] += 1
             finish(
@@ -1579,8 +1945,9 @@ def _finish_device_row(
         arg, margins = outs
         arg = np.array(arg[region])  # writable (repair)
         margins = np.asarray(margins[region], dtype=np.float64)
-        local_err = _EPS32 * (len(parts) + 1) * parts_max
+        local_err = storage_error(node_dt, len(parts), parts_max)
         bad = np.argwhere(margins < 2.0 * (local_err + err_in))
+        note_precision_repairs(met, node_dt, len(bad))
         if len(bad) * 10 > margins.size:
             # tie-heavy: redo the whole contraction on host f64
             if met.enabled:
@@ -1621,15 +1988,18 @@ def _finish_device_row(
     else:  # logsumexp and expectation: the values are the answer
         (vals,) = outs
         u = np.asarray(vals[region], dtype=np.float64)
-        sw.err[k][name] = err_in + _EPS32 * (
+        sw.err[k][name] = err_in + eps_dt * (
             (len(parts) + 1) * max(parts_max, 1.0) + shape[-1] + 2
-        )
+        ) + quant
         sw.device_nodes[k] += 1
         finish(sr, k, name, plan, sep, u, None)
 
 
 def _part_gather(table, idx):
-    """Exact f64 advanced-indexing gather of one part."""
+    """Exact f64 advanced-indexing gather of one part; a packed part
+    looks its values up by flat index (misses return the fill)."""
+    if isinstance(table, SparseTable):
+        return table.gather(idx)
     return np.asarray(table, dtype=np.float64)[idx]
 
 
@@ -1637,6 +2007,19 @@ def _cell_row(table, dims, target, cell):
     """Exact f64 row of one part at a fixed separator cell (broadcast
     over the own axis when the part does not carry it)."""
     own = target[-1]
+    if isinstance(table, SparseTable):
+        if own not in dims:
+            fix = tuple(cell[target.index(d)] for d in dims)
+            return np.full(1, float(table.gather(fix)))
+        ax = list(dims).index(own)
+        return table.gather(
+            tuple(
+                np.arange(table.shape[ax])
+                if d == own
+                else cell[target.index(d)]
+                for d in dims
+            )
+        )
     idx = [
         slice(None) if d == own else cell[target.index(d)] for d in dims
     ]
@@ -1905,30 +2288,24 @@ def run_infer_many(
     ``device`` is the offload policy (``"auto"``: tables of at least
     ``device_min_cells`` cells; ``"never"``: pure host f64;
     ``"always"``); the device contractions run on ``torch_device``.
-    ``bnb="on"`` (A5), a ``table_dtype`` other than f32 (A10.3),
-    ``table_format="sparse"`` (A10.4) and ``max_util_bytes`` (A10.5)
-    raise ``NotImplementedError``; ``bnb="auto"`` runs the unpruned
-    contraction.
+    ``table_dtype`` (``f32``/``bf16``/``int8``) and ``table_format``
+    (``dense``/``sparse``) pick the storage of the device parts
+    (:func:`contract_sweep`).  ``max_util_bytes`` runs the sweep
+    MEMORY-BOUNDED (``ops/membound.py``): domains are
+    consistency-pruned, every contraction table is kept under the
+    budget by conditioning a cut set of variables whose assignments ride
+    the level-pack stack as extra lanes, and the result carries a
+    ``membound`` block; an unplannable budget raises
+    :class:`~pydcop_tpu_torch.ops.membound.MemboundError`.
+    ``bnb="on"`` (ROADMAP A5) raises ``NotImplementedError``;
+    ``bnb="auto"`` runs the unpruned contraction.
     """
     t0 = time.perf_counter()
     qkind, sr = parse_query(query)
     if as_bnb(bnb, "auto") == "on":
         raise _not_ported("infer bnb='on' (the pruned contraction)", "A5")
-    dt = as_table_dtype(table_dtype)
-    if dt != "f32":
-        raise _not_ported(f"infer table_dtype={dt!r}", "A10.3")
-    fmt = str(table_format or "dense").strip().lower()
-    if fmt == "sparse":
-        raise _not_ported("infer table_format='sparse'", "A10.4")
-    if fmt != "dense":
-        raise ValueError(
-            f"unknown table format {table_format!r} (expected 'dense' or "
-            "'sparse')" + _did_you_mean(fmt, ["dense", "sparse"])
-        )
-    if max_util_bytes is not None:
-        raise _not_ported(
-            "infer max_util_bytes (the memory-bounded sweep)", "A10.5"
-        )
+    table_dtype = as_table_dtype(table_dtype)
+    table_format = as_table_format(table_format)
     if device not in ("auto", "never", "always"):
         raise ValueError(
             f"device must be 'auto'|'never'|'always', got {device!r}"
@@ -1983,10 +2360,29 @@ def run_infer_many(
         return [_timeout_result(query, t0) for _ in range(K)]
     want_args = qkind in ("map", "marginal_map", "kbest")
 
+    if max_util_bytes is not None:
+        if qkind == "marginal_map":
+            raise ValueError(
+                "marginal_map cannot run memory-bounded: "
+                "conditioning a summed variable would hoist the max "
+                "outside its sum (lanes ⊕-combine per lane, and "
+                "max_{M} Σ_{S} ≠ Σ_{S cut} max_{M}) — raise the "
+                "budget or narrow the order instead"
+            )
+        return _run_bounded_infer(
+            dcops, plans, qkind, sr,
+            max_util_bytes=int(max_util_bytes), beta=beta, dmc=dmc,
+            pad=pad, tol=tol, max_table_size=max_table_size,
+            want_args=want_args, t0=t0, timeout=timeout, K=K,
+            query=query, table_dtype=table_dtype,
+            table_format=table_format, torch_device=torch_device,
+        )
+
     sw = contract_sweep(
         plans, sr, beta=beta, device_min_cells=dmc, pad=pad, tol=tol,
         max_table_size=max_table_size, want_args=want_args, t0=t0,
-        timeout=timeout, torch_device=torch_device,
+        timeout=timeout, table_dtype=table_dtype,
+        table_format=table_format, torch_device=torch_device,
     )
     if sw is None:
         return [_timeout_result(query, t0) for _ in range(K)]
@@ -2083,3 +2479,150 @@ def _timeout_result(query: str, t0: float) -> Dict[str, Any]:
         "status": "timeout",
         "time": time.perf_counter() - t0,
     }
+
+
+def _run_bounded_infer(
+    dcops, plans, qkind, sr, *, max_util_bytes, beta, dmc, pad,
+    tol, max_table_size, want_args, t0, timeout, K,
+    query: Optional[str] = None,
+    table_dtype: str = "f32", table_format: str = "dense",
+    torch_device: Optional[torch.device] = None,
+) -> List[Dict[str, Any]]:
+    """Memory-bounded assembly behind :func:`run_infer_many`
+    (``max_util_bytes`` set): the budgeted lane sweep
+    (``ops/membound.py``) plus the per-⊕ cross-lane combines —
+    idempotent ⊕ picks the best lane (exact), logsumexp ⊕-combines
+    the lane values under the worst-lane error bound, marginals mix
+    lane marginals by lane weight and scatter over the original
+    (pre-pruning) domains, kbest merge-sorts the lanes' solution
+    lists (lanes partition the assignment space, so the truncated
+    merge is the exact instance list), and expectation ⊕-combines
+    the lanes' (log w, r) pairs."""
+    from pydcop_tpu_torch.ops import membound as _mb
+    from pydcop_tpu_torch.telemetry import get_tracer
+
+    query = qkind if query is None else query
+    tracer = get_tracer()
+    bs = _mb.run_bounded(
+        plans, sr, max_util_bytes=max_util_bytes, beta=beta,
+        device_min_cells=dmc, pad=pad, tol=tol,
+        max_table_size=max_table_size, want_args=want_args,
+        t0=t0, timeout=timeout, table_dtype=table_dtype,
+        table_format=table_format, torch_device=torch_device,
+    )
+    if bs is None:
+        return [_timeout_result(query, t0) for _ in range(K)]
+    results: List[Dict[str, Any]] = []
+    for k, (dcop, plan) in enumerate(zip(dcops, bs.plans)):
+        const = beta * plan.const_energy
+        out: Dict[str, Any] = {
+            "query": query,
+            "semiring": sr.name,
+            "order": plan.order_name,
+            "status": "finished",
+            **bs.stats(k),
+            "width": bs.width(k),
+            "instances_batched": K,
+            "membound": bs.meta(k),
+        }
+        if qkind == "map":
+            winner = bs.best_lane(k, maximize=True)
+            assignment = _value_phase(
+                bs.lanes[winner], bs.sw.args[winner]
+            )
+            out["assignment"] = assignment
+            out["cost"] = dcop.solution_cost(assignment)
+            out["log_weight"] = (
+                bs.lane_values(k)[winner - bs.ranges[k][0]] - const
+            )
+            out["error_bound"] = 0.0  # certified per lane, exact
+        elif qkind == "kbest":
+            kk = sr.cell_width
+            lo, hi = bs.ranges[k]
+            all_sols: List[Tuple[float, Dict[str, Any]]] = []
+            for l in range(lo, hi):
+                lane = bs.lanes[l]
+                for val, idx in _kbest_solutions(
+                    lane, bs.sw.root_cells[l], bs.sw.args[l], kk
+                ):
+                    a = {
+                        v: lane.domains[v][i]
+                        for v, i in idx.items()
+                    }
+                    all_sols.append(
+                        (
+                            val + bs.sw.total_shift[l]
+                            + plan.const_energy,
+                            a,
+                        )
+                    )
+            all_sols.sort(
+                key=lambda t: (t[0], sorted(t[1].items()).__repr__())
+            )
+            solutions = [
+                {
+                    "assignment": a,
+                    "cost": dcop.solution_cost(a),
+                    "energy": val,
+                }
+                for val, a in all_sols[:kk]
+            ]
+            out["k"] = kk
+            out["solutions"] = solutions
+            out["costs"] = [s["cost"] for s in solutions]
+            if solutions:
+                out["assignment"] = solutions[0]["assignment"]
+                out["cost"] = solutions[0]["cost"]
+            out["error_bound"] = 0.0  # certified per lane, exact
+        elif qkind == "expectation":
+            lo, hi = bs.ranges[k]
+            lws, rs = [], []
+            for l in range(lo, hi):
+                cells = [
+                    bs.sw.root_cells[l][rt]
+                    for rt in bs.lanes[l].roots
+                ]
+                lws.append(
+                    sum(float(c[0]) for c in cells)
+                    + bs.sw.total_shift[l]
+                )
+                rs.append(sum(float(c[1]) for c in cells))
+            pair = _exp_pair_reduce(
+                np.stack(
+                    [np.asarray(lws), np.asarray(rs)], axis=-1
+                ),
+                (0,),
+            )
+            out["log_z"] = float(pair[0]) - const
+            out["e_cost"] = float(pair[1]) + plan.const_energy
+            errs = bs.lane_errs(k)
+            out["error_bound"] = (
+                max(errs, default=0.0)
+                + _EPS64 * (len(errs) + 2)
+            )
+        elif qkind == "log_z":
+            v, err = bs.logsumexp_lanes(k)
+            out["log_z"] = v - const
+            out["error_bound"] = err
+        else:  # marginals
+            t_down = time.perf_counter()
+            margs = _mb.combine_marginals(
+                bs, k, sr, beta, t0, timeout
+            )
+            if margs is None:
+                results.append(_timeout_result(query, t0))
+                continue
+            if tracer.enabled:
+                tracer.add_span(
+                    "semiring.downward", "phase", t_down,
+                    time.perf_counter() - t_down, semiring=sr.name,
+                )
+            out["marginals"] = {
+                v: [float(x) for x in p] for v, p in margs.items()
+            }
+            z, err = bs.logsumexp_lanes(k)
+            out["log_z"] = z - const
+            out["error_bound"] = err
+        out["time"] = (time.perf_counter() - t0) / K
+        results.append(out)
+    return results

@@ -8,8 +8,8 @@ assignment, the cost and every non-time statistic must be equal: DPOP is
 exact and the device path is certificate-guarded, so level batching,
 pow-2 padding and the device (the port's contraction in eager PyTorch,
 the JAX package's in XLA) change no decided value.  Also here: the
-port's pseudo-tree against the JAX one, the options the port does not
-run, and the CLI.
+port's pseudo-tree against the JAX one, the options (only ``bnb='on'``
+still raises) and the CLI.
 """
 
 import json
@@ -283,23 +283,33 @@ def test_pseudotree_equals_jax(build):
         assert tg.separator(jn.name) == jg.separator(jn.name)
 
 
-# -- options the port does not run --------------------------------------
+# -- options: the A10 knobs run and equal the JAX package; bnb='on' ----
 
 
 @pytest.mark.parametrize(
     "params,item",
     [
-        ({"max_util_bytes": 1 << 20}, "ROADMAP A10"),
-        ({"table_format": "sparse"}, "ROADMAP A10"),
-        ({"table_dtype": "bf16"}, "ROADMAP A10"),
-        ({"table_dtype": "int8"}, "ROADMAP A10"),
+        ({"max_util_bytes": 1 << 20}, None),
+        ({"table_format": "sparse"}, None),
+        ({"table_dtype": "bf16"}, None),
+        ({"table_dtype": "int8"}, None),
         ({"bnb": "on"}, "ROADMAP A5"),
     ],
 )
 def test_unported_options_raise(params, item):
+    """Only the pruned contraction (ROADMAP A5) still raises; the
+    memory-bounded sweep, sparse tables and the bf16/int8 packs
+    (ROADMAP A10, ported) run and equal the JAX package's result."""
     td = tdcop.load_dcop_from_file(RING)
-    with pytest.raises(NotImplementedError, match=item):
-        port_solve(td, "dpop", params, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            port_solve(td, "dpop", params, device="cpu")
+        return
+    jd = jdcop.load_dcop_from_file(RING)
+    got = run_both(jd, td, dict(params, util_device="always"))
+    assert got["cost"] == 0.0
+    assert ("membound" in got) == (
+        "max_util_bytes" in params or "table_format" in params)
 
 
 def test_entry_point_checks():

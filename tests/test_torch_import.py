@@ -2,7 +2,8 @@
 
 ``tests/conftest.py`` imports jax into every test process, so the
 runtime check (an array-built maxsum solve and CPU maxsum and dsa solves
-of a YAML file, and an inference query on the device path) runs in a
+of a YAML file, an inference query on the device path, a budgeted
+sparse int8 DPOP solve and a SyncBB solve) runs in a
 fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
@@ -42,6 +43,11 @@ assert r["cost"] == 0.0 and len(r["restart_costs"]) == 2, r
 from pydcop_tpu_torch.api import infer
 r = infer(sys.argv[1], "kbest:3", device="always", torch_device="cpu")
 assert r["costs"] == [0.0, 0.0, 0.0] and r["telemetry"]["counters"], r
+r = solve(sys.argv[1], "dpop", {"util_device": "always"}, device="cpu",
+          table_dtype="int8", table_format="sparse", max_util_bytes=16)
+assert r["cost"] == 0.0 and r["membound"]["cut_width"] > 0, r
+r = solve(sys.argv[1], "syncbb", device="cpu")
+assert r["cost"] == 0.0, r
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
@@ -90,6 +96,11 @@ def _imported_roots(path):
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = list(_sources())
     assert len(files) > 20
+    scanned = {os.path.relpath(f, PORT) for f in files}
+    for module in ("ops/sparse.py", "ops/membound.py",
+                   "algorithms/syncbb.py", "graphs/ordered_graph.py",
+                   "commands/generators/taskscheduling.py"):
+        assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
         assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"

@@ -96,9 +96,9 @@ def test_contraction_kernel_equals_jax(shape, part_shapes, case, batched):
 
 def test_contraction_kernel_rejects_other_semirings_and_bad_parts():
     """Unknown and malformed semirings raise with the JAX package's
-    messages; the pruned kernel (ROADMAP A5) and reduced-precision packs
-    (ROADMAP A10.3) are not ported; parts must be f32 of the bucket's
-    shapes."""
+    messages; the pruned kernel (ROADMAP A5) is not ported; parts must
+    be of the bucket's shapes and storage type (a bf16 pack takes bf16
+    parts, ``tests/test_torch_precision.py`` holds it against JAX)."""
     with pytest.raises(ValueError, match="did you mean 'max_sum'"):
         tsr.get_semiring("max_summ")
     with pytest.raises(ValueError, match="2 <= k"):
@@ -107,8 +107,11 @@ def test_contraction_kernel_rejects_other_semirings_and_bad_parts():
         tsr.get_semiring("min_plus")
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         tsr.contraction_kernel("max_sum", (3,), ((3,),), bnb=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.3"):
-        tsr.contraction_kernel("min_sum", (3,), ((3,),), table_dtype="bf16")
+    bf16 = tsr.contraction_kernel("min_sum", (3,), ((3,),),
+                                  table_dtype="bf16")
+    with pytest.raises(ValueError):
+        bf16(torch.zeros(3))  # an f32 part at a bf16 bucket
+    assert bf16(torch.tensor([2.0, 1.0, 3.0]).bfloat16())[0].item() == 1
     fn = tsr.contraction_kernel("min_sum", (3, 2), ((3, 2),))
     with pytest.raises(ValueError):
         fn(torch.zeros(3, 2, dtype=torch.float64))

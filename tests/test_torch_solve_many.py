@@ -226,7 +226,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A3"):
         solve_many(dcops, "mgm", chaos="device_oom=1", device="cpu")
     with pytest.raises(ValueError, match="syncbb"):
-        solve_many(dcops, "syncbb", device="cpu")
+        solve_many(dcops, "syncbb", n_restarts=2, device="cpu")
+    # SyncBB has no merged sweep: its instances solve one by one
+    one = solve_many(dcops, "syncbb", device="cpu")[0]
+    assert one["instances_batched"] == 1 and one["status"] == "finished"
     with pytest.raises(ValueError, match="n_restarts"):
         solve_many(dcops, "dpop", n_restarts=2, device="cpu")
     assert solve_many([], "mgm", device="cpu") == []

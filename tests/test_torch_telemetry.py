@@ -164,9 +164,10 @@ RAISING = {
         [RING, RING], "mgm", rounds=4, compile_cache=object(),
         device="cpu"),
     "infer-max_util_bytes": lambda: tapi.infer(
-        RING, "map", max_util_bytes=1 << 20, torch_device="cpu"),
+        RING, "marginal_map", map_vars=["v1"], max_util_bytes=1 << 20,
+        torch_device="cpu"),
     "infer-sparse": lambda: tapi.infer(
-        RING, "log_z", table_format="sparse", torch_device="cpu"),
+        RING, "log_z", table_format="sprase", torch_device="cpu"),
     "infer_many-typo": lambda: tapi.infer_many(
         [RING, RING], "kbset:3", torch_device="cpu"),
 }
