@@ -228,7 +228,41 @@ caught and passed over):
    read and written once over 3.35 TB/s; for sparse, the rows' real
    candidates, segments and packed values) and the eager kernel launches
    of one call (torch.profiler).
-12. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+12. Branch-and-bound pruning (``bnb``) and checkpoint/resume, one JSON
+   line a cell; any gate below fails the script.  12a: the bnb stage's
+   hard-capped overlap SECP (``bench.py:245-268``: 28 lights, 18
+   models, 8 rules, 10 levels, zone 8, overlap 5, arity 5, cap 1.02,
+   seed 11; pow2, ``always``) through DPOP at bnb on, auto and off: each
+   equal to host f64, the card equal to the CPU in its counts and every
+   ``semiring.*``/``dpop.*`` counter, some cells pruned and some buckets
+   through the compact host pass 2 at on; the pruned fraction and
+   util-cells/s on against off (interleaved, median of 3).  12b: phase
+   8's hub tree at f32, bf16 and int8 (``auto``: the default, which now
+   prunes its leaf stack) against ``off`` once as the control, and cut
+   at 4·24^3 bytes, each equal to host f64 (f32 auto also to the CPU in
+   its counters, the cut's plan unchanged by pruning); map at auto and
+   off equal to host f64; log_z and marginals at bnb on and off within
+   ``error_bound`` + 1e-9 of host f64, card equal to CPU in counts and
+   counters; then the pruned
+   min-sum and logsumexp contractions at the hub's largest dispatch on
+   random parts (a budget per stack row near its median bound): card
+   against CPU, CUDA events around eager calls beside the unpruned
+   kernel on the same inputs, and the bound.  12c: the sparse stage's
+   task scheduling at bnb on, sparse and dense, each equal to host f64
+   and to the CPU's counters.  12d: the membound SECP at 16,384 bytes
+   with bnb on equal to its unbounded run, the plan unchanged.  12e:
+   Max-Sum on phase 3's binary + ternary instance (outside the
+   factor-kernel gate) with bnb on, bit-equal to off over 64 rounds,
+   the q update launched once a round.  12f: checkpoint/resume: the
+   coloring-10k Max-Sum (1024 rounds, chunk 256) saved at 512 and
+   resumed, on the card and on the CPU, config5-meeting10k-maxsum (512
+   rounds, chunk 128) saved at 256, and DSA-B with 8 restarts on the
+   coloring-10k (256 rounds, chunk 64) saved at 128: q, r, values,
+   best cost, restart costs and cost trace bit-equal to the
+   uninterrupted run, each kernel launched once a round in each half
+   (counts set to 0 just before each half); one save and one load of
+   the coloring-1M Max-Sum state, its bytes and seconds.
+13. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths), the card
@@ -1226,6 +1260,9 @@ def dpop_phase(torch, dev, card):
         raise AssertionError("dpop-hubtree-d24: dispatch log incomplete")
     hub_shapes = []
     for i, (shapes, secs) in enumerate(log):
+        # the joins' parts (4 axes, and the stack's): a pruned dispatch
+        # (bnb "auto") also passes its budget, 0-d or [stack]
+        shapes = [s for s in shapes if len(s) >= 4]
         joined = np.broadcast_shapes(*shapes)
         stacked = len(shapes[0]) > 4  # the joins are 4-axis: d^4 cells
         lead, shape = (joined[:1], joined[1:]) if stacked else ((), joined)
@@ -2322,7 +2359,8 @@ CARD = {"card": None}  # the card's name and power limit, set by core_phase
 
 
 def emit(phase, cell, **fields):
-    """One phase-11 cell as one JSON line, with the card it ran on."""
+    """One phase-11 or phase-12 cell as one JSON line, with the card it
+    ran on."""
     print(json.dumps({"phase": phase, "cell": cell, **fields,
                       "card": CARD["card"]}))
 
@@ -2394,9 +2432,9 @@ def record_core_dispatches(sr_mod):
         return run
 
     def wrap_sparse(sr, n_cand_b, n_seg_b, part_lens_b, table_dtype="f32",
-                    **kw):
+                    bnb=False, **kw):
         fn = sparse(sr, n_cand_b, n_seg_b, part_lens_b,
-                    table_dtype=table_dtype, **kw)
+                    table_dtype=table_dtype, bnb=bnb, **kw)
         name = sr_mod.get_semiring(sr).name
 
         def run(*args):
@@ -2406,7 +2444,7 @@ def record_core_dispatches(sr_mod):
             if best is None or size > best[0]:
                 log["sparse"][(name, table_dtype)] = (
                     size, (n_cand_b, n_seg_b, tuple(part_lens_b)),
-                    [a.cpu() for a in args], real["rows"])
+                    [a.cpu() for a in args], real["rows"], bnb)
             return fn(*args)
 
         return run
@@ -2882,9 +2920,9 @@ def sparse_row(torch, dev, sp_mod, key, entry):
     how many in-place passes each segment fold makes over the candidate
     list (``ops/sparse.py:_segment_fold``), which the bound leaves out."""
     name, dt = key
-    _, (n_cand_b, n_seg_b, lens), args, real_rows = entry
+    _, (n_cand_b, n_seg_b, lens), args, real_rows, bnb = entry
     fn = sp_mod.sparse_contraction_kernel(name, n_cand_b, n_seg_b, lens,
-                                          table_dtype=dt)
+                                          table_dtype=dt, bnb=bnb)
     on_card = [a.to(dev) for a in args]
     got = [o.cpu() for o in fn(*on_card)]
     want = fn(*args)
@@ -2914,10 +2952,11 @@ def sparse_row(torch, dev, sp_mod, key, entry):
               + (8 * rows * P if dt == "int8" else 0))
     nops = n_cand * (P + 4)
     b_ms, b_by = bound_ms(nbytes, nops)
-    sep = args[2 if dt == "int8" else 0].long()
+    sep = args[(2 if dt == "int8" else 0) + bool(bnb)].long()
     rank = torch.arange(sep.shape[1]) - torch.searchsorted(sep, sep)
     longest = int(torch.where(sep < n_seg_b, rank, 0).max()) + 1
-    emit("11f", f"contraction-sparse-{name}-{dt}", candidates=n_cand,
+    emit("11f", f"contraction-sparse-{name}-{dt}", bnb=bool(bnb),
+         candidates=n_cand,
          segments=n_seg, packed_values=n_vals,
          padded_candidates=rows * n_cand_b,
          padded_segments=rows * (n_seg_b + 1), stack=rows, parts=P,
@@ -3021,6 +3060,463 @@ def core_phase(torch, dev, card):
     lap("11e")
     run_fresh_phase(card)
     lap("11a copies, 11f, 11c")
+
+
+# -- phase 12: branch-and-bound pruning and checkpoint/resume ---------------
+
+
+def bnb_secp_cell(torch, solve, generate):
+    """12a: the bnb stage's hard-capped overlap SECP through DPOP at bnb
+    on, auto and off: each equal to host f64, the card equal to the CPU in
+    its counts and every counter; the pruned fraction, the compact host
+    pass-2 buckets, and util-cells/s on against off (interleaved)."""
+    from argparse import Namespace
+
+    secp = generate(Namespace(**GUARD_SPEC))
+    oracle = solve(secp, "dpop", {"util_device": "never"}, device="cpu")
+    runs = {}
+    for mode in ("on", "auto", "off"):
+        p = {"util_device": "always", "bnb": mode}
+        solve(secp, "dpop", p, pad_policy="pow2")  # cold
+        r = solve(secp, "dpop", p, pad_policy="pow2")
+        c = solve(secp, "dpop", p, pad_policy="pow2", device="cpu")
+        same_solution(f"bnb-secp28 {mode} card/host f64", r, oracle)
+        same_solution(f"bnb-secp28 {mode} card/cpu", r, c)
+        if core_counters(r) != core_counters(c) or any(
+                r[k] != c[k] for k in DPOP_STATS):
+            raise AssertionError(f"bnb-secp28 {mode}: card counts differ "
+                                 "from the CPU")
+        if r["util_device_nodes"] <= 0:
+            raise AssertionError(f"bnb-secp28 {mode}: no join on the card")
+        runs[mode] = r
+    c_on = core_counters(runs["on"])
+    pruned = c_on.get("semiring.bnb_pruned_cells", 0)
+    host_pass2 = (c_on.get("semiring.bnb_passes", 0)
+                  - c_on.get("dpop.level_dispatches", 0))
+    if pruned <= 0 or host_pass2 <= 0:
+        raise AssertionError("bnb-secp28 on: nothing pruned, or no bucket "
+                             "took the host pass 2")
+    times = {"on": [], "off": []}
+    for _ in range(3):  # interleaved
+        for mode in ("off", "on"):
+            r = solve(secp, "dpop", {"util_device": "always", "bnb": mode},
+                      pad_policy="pow2")
+            times[mode].append(r["util_time"])
+    cells = runs["on"]["util_cells"]
+    med = {m: statistics.median(v) for m, v in times.items()}
+    emit("12a", "bnb-secp28", cost=runs["on"]["cost"], util_cells=cells,
+         join_cells=cells * GUARD_SPEC["light_levels"],
+         pruned_cells=pruned,
+         pruned_fraction=pruned / (cells * GUARD_SPEC["light_levels"]),
+         host_pass2_buckets=host_pass2,
+         util_time_on=med["on"], util_time_off=med["off"],
+         util_cells_per_s_on=cells / med["on"],
+         util_cells_per_s_off=cells / med["off"],
+         on_over_off=med["off"] / med["on"],
+         util_time_auto=runs["auto"]["util_time"],
+         counters={m: core_counters(r) for m, r in runs.items()},
+         host_f64_util_time=oracle["util_time"], equal=True)
+
+
+def bnb_hub_cells(torch, solve, infer, sr_mod):
+    """12b: the hub tree's DPOP at each storage dtype and cut at 4·24^3
+    bytes with bnb at auto (the default, now pruning) against off (the
+    control, once: phases 8 and 11 warmed these shapes), equal to host
+    f64 (f32 auto also to the CPU in its counters: phase 11a compares
+    the packs'); map at auto and off equal to host f64; log_z and
+    marginals at on and off within ``error_bound`` + 1e-9 of host f64.
+    Returns the run's pruned dispatches as ``record_contractions`` logs
+    them."""
+    hub = hubtree_dcop()
+    oracle = solve(hub, "dpop", {"util_device": "never"}, device="cpu")
+    log, unwrap = record_contractions(sr_mod)
+    try:
+        for dt in ("f32", "bf16", "int8"):
+            out = {}
+            for mode in ("auto", "off"):
+                p = {"util_device": "auto", "bnb": mode, "table_dtype": dt}
+                out[mode] = solve(hub, "dpop", p)
+                same_solution(f"bnb dpop-hubtree-d24-{dt} {mode}/host f64",
+                              out[mode], oracle)
+            a = out["auto"]
+            if dt == "f32":
+                c = solve(hub, "dpop", dict(p, bnb="auto"), device="cpu")
+                if core_counters(a) != core_counters(c) or any(
+                        a[k] != c[k] for k in DPOP_STATS):
+                    raise AssertionError(f"bnb dpop-hubtree-d24-{dt}: card "
+                                         "counts differ from the CPU")
+            emit("12b", f"bnb-dpop-hubtree-d24-{dt}", cost=a["cost"],
+                 util_time_auto=a["util_time"], util_time_off=out["off"][
+                     "util_time"],
+                 util_cells_per_s_auto=a["util_cells"] / a["util_time"],
+                 util_cells_per_s_off=a["util_cells"]
+                 / out["off"]["util_time"],
+                 device_nodes_auto=a["util_device_nodes"],
+                 device_nodes_off=out["off"]["util_device_nodes"],
+                 counters_auto=core_counters(a),
+                 counters_off=core_counters(out["off"]), equal=True)
+        cut = {}
+        for mode in ("auto", "off"):
+            p = {"util_device": "always", "bnb": mode}
+            cut[mode] = solve(hub, "dpop", p, max_util_bytes=HUB_CUT_BUDGET)
+            same_solution(f"bnb dpop-hubtree-d24-cut {mode}/host f64",
+                          cut[mode], oracle)
+        if cut["auto"]["membound"] != cut["off"]["membound"]:
+            raise AssertionError("bnb dpop-hubtree-d24-cut: pruning moved "
+                                 "the plan")
+        emit("12b", "bnb-dpop-hubtree-d24-cut",
+             util_time_auto=cut["auto"]["util_time"],
+             util_time_off=cut["off"]["util_time"],
+             cut_lanes=cut["auto"]["membound"]["cut_lanes"],
+             counters_auto=core_counters(cut["auto"]), equal=True)
+        host = infer(hub, "map", device="never", torch_device="cpu")
+        maps = {m: infer(hub, "map", bnb=m) for m in ("auto", "off")}
+        for m, r in maps.items():
+            if (r["assignment"], r["cost"]) != (host["assignment"],
+                                                host["cost"]):
+                raise AssertionError(f"bnb infer-hubtree-d24 map {m}: "
+                                     "differs from host f64")
+        emit("12b", "bnb-infer-hubtree-d24-map", cost=host["cost"],
+             seconds_auto=maps["auto"]["time"],
+             seconds_off=maps["off"]["time"],
+             counters_auto=core_counters(maps["auto"]), equal=True)
+        kw = dict(device="always", tol=float("inf"))
+        for query in ("log_z", "marginals"):
+            host = infer(hub, query, device="never", torch_device="cpu")
+            got = {}
+            for mode in ("on", "off"):
+                got[mode] = r = infer(hub, query, bnb=mode, **kw)
+                err = r["error_bound"] + 1e-9
+                dz = abs(r["log_z"] - host["log_z"])
+                dm = max((max(abs(x - y) for x, y in zip(
+                    r["marginals"][v], host["marginals"][v]))
+                    for v in host.get("marginals", {})), default=0.0)
+                if dz > err or dm > err or r["device_nodes"] <= 0:
+                    raise AssertionError(
+                        f"bnb infer-hubtree-d24 {query} {mode}: |card - "
+                        f"never| {max(dz, dm)} > {err}")
+            c = infer(hub, query, bnb="on", torch_device="cpu", **kw)
+            if (core_counters(c) != core_counters(got["on"]) or any(
+                    c[k] != got["on"][k] for k in INFER_COUNTS)):
+                raise AssertionError(f"bnb infer-hubtree-d24 {query}: card "
+                                     "counts differ from the CPU")
+            emit("12b", f"bnb-infer-hubtree-d24-{query}",
+                 log_z_on=got["on"]["log_z"], log_z_off=got["off"]["log_z"],
+                 error_bound_on=got["on"]["error_bound"],
+                 error_bound_off=got["off"]["error_bound"],
+                 seconds_on=got["on"]["time"], seconds_off=got["off"]["time"],
+                 counters_on=core_counters(got["on"]), within_bound=True)
+    finally:
+        unwrap()
+    return log
+
+
+def bnb_row(torch, dev, sr_mod, name, shape, ps, lead, seed):
+    """One pruned contraction (``contraction_kernel(bnb=True)``) at a hub
+    dispatch's shape on random parts, a budget per stack row at a gap in
+    its row bounds near their median (about half the rows pruned): card
+    against CPU (keep masks equal; min-sum bit for bit, logsumexp to rtol
+    1e-5), CUDA events around eager calls for it and for the unpruned
+    kernel on the same inputs, and the bound (parts and budgets read
+    once, outputs written once)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sign = -1.0 if name != "min_sum" else 1.0  # log-weights for the mass
+    parts = [(sign * rng.random(lead + tuple(p), dtype=np.float32) * 10
+              ).astype(np.float32) for p in ps]
+    batched = bool(lead)
+    plain = sr_mod.contraction_kernel(name, shape, ps, batched=batched)
+    pruned = sr_mod.contraction_kernel(name, shape, ps, batched=batched,
+                                       bnb=True)
+    host = [torch.from_numpy(p) for p in parts]
+    if name == "min_sum":
+        j = parts[0]
+        for p in parts[1:]:
+            j = j + p
+        bounds = j.min(axis=-1)
+    else:
+        bounds = plain(*host)[0].numpy()
+    rows = bounds.reshape((lead[0] if lead else 1), -1)
+    budgets = []
+    for r in rows:
+        f = np.sort(r[np.isfinite(r)])
+        mid = len(f) // 2
+        w = f[max(mid - 500, 0):mid + 500]
+        g = int(np.argmax(np.diff(w)))
+        budgets.append((w[g] + w[g + 1]) / 2)
+    budget = torch.tensor(budgets if lead else budgets[0],
+                          dtype=torch.float32)
+    want = pruned(budget, *host)
+    on_card = [t.to(dev) for t in host]
+    b_dev = budget.to(dev)
+    got = [o.cpu() for o in pruned(b_dev, *on_card)]
+    keep_at = 2 if name == "min_sum" else 1
+    if not torch.equal(got[keep_at], want[keep_at]):
+        raise AssertionError(f"bnb contraction {name}: keep masks differ")
+    if name == "min_sum":
+        if not all(same_out(torch, g, w) for g, w in zip(got, want)):
+            raise AssertionError("bnb contraction min_sum: card differs "
+                                 "from the CPU")
+        err = 0.0
+    else:
+        g, w = got[0], want[0]
+        fin = torch.isfinite(w)
+        if not (torch.equal(g[~fin], w[~fin])
+                and torch.allclose(g[fin], w[fin], rtol=1e-5, atol=0)):
+            raise AssertionError("bnb contraction log_sum_exp: card far "
+                                 "from the CPU")
+        err = float((g[fin] - w[fin]).abs().max())
+    kept = float(want[keep_at].float().mean())
+    ms = eager_ms(torch, lambda: pruned(b_dev, *on_card))
+    plain_ms = eager_ms(torch, lambda: plain(*on_card))
+    cells = math.prod(lead + tuple(shape))
+    n_rows = cells // shape[-1]
+    stack = lead[0] if lead else 1
+    out = (8 + 4 + 1) * n_rows if name == "min_sum" else (
+        (4 + 1) * n_rows + 4 * stack)
+    nbytes = sum(4 * math.prod(lead + tuple(p)) for p in ps) + 4 * stack + out
+    nops = cells * (len(ps) + 4) + 2 * n_rows
+    b_ms, b_by = bound_ms(nbytes, nops)
+    emit("12b", f"contraction-bnb-{name}", joined=list(shape), stack=stack,
+         parts=len(ps), kept_row_fraction=kept, ms=ms, plain_ms=plain_ms,
+         bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+         card_vs_cpu_max_abs_err=err, library_ms=None)
+    del on_card
+
+
+def bnb_more_cells(torch, solve, generate):
+    """12c-12d: task scheduling sparse against dense at bnb on, and the
+    membound SECP budgeted at 16,384 bytes with bnb on against its
+    unbounded run."""
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.commands.generators.taskscheduling import (
+        generate as gen_tasks,
+    )
+
+    ts = gen_tasks(Namespace(**TASKS_SPEC))
+    on = {"util_device": "always", "bnb": "on"}
+    host = solve(ts, "dpop", {"util_device": "never"}, device="cpu")
+    res = {}
+    for fmt in ("dense", "sparse"):
+        p = dict(on, table_format=fmt)
+        solve(ts, "dpop", p, pad_policy="pow2")  # cold
+        res[fmt] = r = solve(ts, "dpop", p, pad_policy="pow2")
+        c = solve(ts, "dpop", p, pad_policy="pow2", device="cpu")
+        same_solution(f"bnb tasks26 {fmt}/host f64", r, host)
+        if core_counters(r) != core_counters(c):
+            raise AssertionError(f"bnb tasks26 {fmt}: card counters differ "
+                                 "from the CPU")
+    if not core_counters(res["sparse"]).get("semiring.bnb_passes"):
+        raise AssertionError("bnb tasks26 sparse: no pruned dispatch")
+    emit("12c", "bnb-tasks26", cost=res["sparse"]["cost"],
+         sparse_util_time=res["sparse"]["util_time"],
+         dense_util_time=res["dense"]["util_time"],
+         counters_sparse=core_counters(res["sparse"]),
+         counters_dense=core_counters(res["dense"]), equal=True)
+    mb = generate(Namespace(**MB_SPEC))
+    kw = dict(pad_policy="pow2")
+    solve(mb, "dpop", on, max_util_bytes=MB_BUDGET, **kw)  # cold
+    b = solve(mb, "dpop", on, max_util_bytes=MB_BUDGET, **kw)
+    free = solve(mb, "dpop", on, **kw)
+    off = solve(mb, "dpop", {"util_device": "always"},
+                max_util_bytes=MB_BUDGET, **kw)
+    same_solution("bnb membound-secp96 bounded/unbounded", b, free)
+    if b["membound"] != off["membound"]:
+        raise AssertionError("bnb membound-secp96: pruning moved the plan")
+    emit("12d", "bnb-membound-secp96", cost=b["cost"],
+         util_time=b["util_time"], unbounded_util_time=free["util_time"],
+         cut_lanes=b["membound"]["cut_lanes"], counters=core_counters(b),
+         equal=True)
+
+
+def bnb_maxsum_cell(torch, mk, run_batched, maxsum, p3t):
+    """12e: Max-Sum on phase 3's binary + ternary instance (the ternary
+    bucket outside the factor-kernel gate) with bnb on, bit-equal to off,
+    the q update launched once a round in each."""
+    from pydcop_tpu_torch.algorithms import prepare_algo_params
+
+    out = {}
+    for mode in ("on", "off"):
+        params = prepare_algo_params({"damping": 0.5, "bnb": mode},
+                                     maxsum.algo_params)
+        mk.reset_launches()
+        out[mode] = run_batched(p3t, maxsum, params, rounds=64,
+                                chunk_size=64, cost_every=8,
+                                return_state=True)
+        expect_launches(mk, f"bnb maxsum-ternary {mode}",
+                        {"q_update": 64, "factor_round_binary": 0,
+                         "factor_round_binary_shared": 0})
+    for k in ("q", "r", "values"):
+        if not same_bits(torch, out["on"].state[k], out["off"].state[k]):
+            raise AssertionError(f"bnb maxsum-ternary: on and off differ in "
+                                 f"{k}")
+    emit("12e", "bnb-maxsum-coloring10k-ternary", rounds=64,
+         best_cost=out["on"].best_cost, seconds_on=out["on"].time,
+         seconds_off=out["off"].time, bit_equal=True)
+
+
+def resume_cell(torch, mk, label, problem, algo, prm, rounds, chunk, path,
+                expect=None, n_restarts=1, resume_on=None):
+    """One run split at half its rounds by a checkpoint and resumed (on
+    ``resume_on``'s copy of the problem when given) against the
+    uninterrupted run: state, best cost, restart costs and cost trace bit
+    for bit; ``expect`` the launches per kernel in EACH half (counts set
+    to 0 just before and read just after)."""
+    import os
+
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.engine.batched import run_batched
+
+    mod = load_algorithm_module(algo)
+    params = prepare_algo_params(prm, mod.algo_params)
+    kw = dict(seed=3, chunk_size=chunk, cost_every=8, n_restarts=n_restarts,
+              return_state=True)
+    full = run_batched(problem, mod, params, rounds=rounds, **kw)
+    if os.path.exists(path):
+        os.unlink(path)
+    halves, secs = [], []
+    for i, (p, r) in enumerate(((problem, rounds // 2),
+                                (resume_on or problem, rounds))):
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        halves.append(run_batched(p, mod, params, rounds=r,
+                                  checkpoint_path=path, resume=i == 1, **kw))
+        if p.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if expect is not None and p.device.type == "cuda":
+            expect_launches(mk, f"resume {label} half {i + 1}", expect)
+    res = halves[1]
+    for k in full.state:
+        if not same_bits(torch, full.state[k].float(), res.state[k].float()):
+            raise AssertionError(f"resume {label}: {k} differs from the "
+                                 "uninterrupted run")
+    if (res.best_cost, res.cost, res.cycles, res.messages) != (
+            full.best_cost, full.cost, full.cycles, full.messages):
+        raise AssertionError(f"resume {label}: result differs")
+    np.testing.assert_array_equal(res.cost_trace, full.cost_trace)
+    if n_restarts > 1:
+        np.testing.assert_array_equal(res.restart_costs, full.restart_costs)
+    emit("12f", f"resume-{label}", rounds=rounds, saved_at=rounds // 2,
+         resumed_on=(resume_on or problem).device.type,
+         best_cost=res.best_cost, file_bytes=os.path.getsize(path),
+         first_half_seconds=secs[0], resumed_half_seconds=secs[1],
+         uninterrupted_seconds=full.time, bit_equal=True)
+
+
+def checkpoint_cells(torch, mk, dev, arrays, s5, t5, u5, path):
+    """12f: checkpoint/resume of the batched engine."""
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.algorithms import maxsum, prepare_algo_params
+    from pydcop_tpu_torch.commands.generators import meetingscheduling
+    from pydcop_tpu_torch.engine.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from pydcop_tpu_torch.ops.compile import compile_dcop, compile_from_arrays
+
+    s, t, u = arrays
+    p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
+    p3 = p3c.to(dev)
+    every = {"factor_round_binary_shared": 512, "q_update": 512,
+             "factor_round_binary": 0}
+    resume_cell(torch, mk, "coloring10k-maxsum", p3, "maxsum",
+                {"damping": 0.5}, 1024, 256, path, expect=every)
+    resume_cell(torch, mk, "coloring10k-maxsum-on-cpu", p3, "maxsum",
+                {"damping": 0.5}, 1024, 256, path, expect=every,
+                resume_on=p3c)
+    resume_cell(torch, mk, "coloring10k-dsaB-K8", p3, "dsa",
+                {"variant": "B", "probability": 0.7}, 256, 64, path,
+                n_restarts=8)
+    c5 = meetingscheduling.generate(Namespace(**CONFIG5_SPEC))
+    p5 = compile_dcop(c5, device=dev)
+    resume_cell(torch, mk, "config5-meeting10k-maxsum", p5, "maxsum",
+                {"damping": 0.5}, 512, 128, path,
+                expect={"factor_round_binary": 256, "q_update": 256,
+                        "factor_round_binary_shared": 0})
+    del p5, c5, p3
+    # one save and one load at coloring-1M: the state's bytes and seconds
+    p1 = compile_from_arrays(s5, t5, 3, unary=u5, device=dev)
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    state = maxsum.init_state(p1, 0, params)
+    state = maxsum.step(p1, state, params)
+    values = state["values"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, state, 0.0, values, 1, {"algo": "maxsum"},
+                    static_keys=getattr(maxsum, "STATIC_STATE_KEYS", ()))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, _, _, _, _ = load_checkpoint(path, maxsum.init_state(p1, 0, params))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for k in state:
+        if not same_bits(torch, got[k].float(), state[k].float()):
+            raise AssertionError(f"checkpoint coloring-1M: {k} changed")
+    import os
+
+    emit("12f", "checkpoint-coloring1M", state_bytes=sum(
+        v.numel() * v.element_size() for v in state.values()),
+         file_bytes=os.path.getsize(path), save_seconds=save_s,
+         load_seconds=load_s, equal=True)
+    del p1, state, got
+    os.unlink(path)
+    torch.cuda.empty_cache()
+
+
+def bnb_checkpoint_phase(torch, mk, dev, card, arrays, s5, t5, u5):
+    """Phase 12 (see the module docstring)."""
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.api import infer, solve
+    from pydcop_tpu_torch.commands.generators.secp import generate
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.ops import semiring as sr_mod
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+
+    CARD["card"] = card
+    t_lap = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"phase {part} seconds={now - t_lap[0]}")
+        t_lap[0] = now
+
+    bnb_secp_cell(torch, solve, generate)
+    lap("12a")
+    log = bnb_hub_cells(torch, solve, infer, sr_mod)
+    largest = {}
+    for name, shape, ps, lead in log:
+        cells = math.prod(lead + shape)
+        if name in ("min_sum", "log_sum_exp") and cells > largest.get(
+                name, (0,))[0]:
+            largest[name] = (cells, shape, ps, lead)
+    for i, name in enumerate(sorted(largest)):
+        _, shape, ps, lead = largest[name]
+        bnb_row(torch, dev, sr_mod, name, shape, ps, lead, seed=50 + i)
+    torch.cuda.empty_cache()
+    lap("12b")
+    bnb_more_cells(torch, solve, generate)
+    lap("12c-d")
+    s, t, u = arrays
+    s3, t3 = ternary_arrays(10_000, seed=5)
+    p3t = compile_from_arrays([s, s3], [t, t3], 3, unary=u, device=dev)
+    bnb_maxsum_cell(torch, mk, run_batched, maxsum, p3t)
+    del p3t
+    lap("12e")
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint_cells(torch, mk, dev, arrays, s5, t5, u5,
+                         str(Path(tmp) / "run.npz"))
+    lap("12f")
 
 
 def main() -> int:
@@ -3240,7 +3736,12 @@ def main() -> int:
     core_phase(torch, dev, card)
     print(f"phase 11 seconds={time.perf_counter() - t11}")
 
-    # -- 12. summary ------------------------------------------------------
+    # -- 12. branch-and-bound pruning and checkpoint/resume ---------------
+    t12 = time.perf_counter()
+    bnb_checkpoint_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
+    print(f"phase 12 seconds={time.perf_counter() - t12}")
+
+    # -- 13. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (

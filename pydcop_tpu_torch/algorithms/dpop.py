@@ -72,10 +72,16 @@ set (``semiring.precision_repairs``).  ``max_util_bytes > 0`` and
 (``ops/membound.py:solve_dpop_bounded``; sparse with an effectively
 unlimited budget), the same result dict plus a ``membound`` block.
 
-Not ported: ``bnb='on'`` (the two-pass branch-and-bound kernel, ROADMAP
-A5) raises ``NotImplementedError``.  ``bnb='auto'`` (the default) and
-``'off'`` run the unpruned contraction, whose results the JAX package
-documents as bit-identical to the pruned ones.
+``bnb`` prunes the UTIL joins by branch and bound (``ops/semiring.py``,
+:class:`~pydcop_tpu_torch.ops.semiring._BnbContext`): a greedy incumbent
+and the subtree rest bounds give every device row a budget, and rows
+that provably cannot enter the optimum are masked.  ``'auto'`` (the
+default) prunes the dispatches whose per-row padded table has at least
+``BNB_AUTO_MIN_CELLS`` cells, ``'on'`` every device dispatch, ``'off'``
+none.  Once the sweep has seen at least half of its rows pruned, a
+bucket whose host pass 1 (per-part own-axis minima) kills at least
+``BNB_HOST_FRAC`` of its rows contracts its survivors on the host in f64
+instead of dispatching.  Results are bit-identical whatever the mode.
 """
 
 from __future__ import annotations
@@ -95,6 +101,7 @@ from pydcop_tpu_torch.ops.padding import (
     PadPolicy,
     as_pad_policy,
     as_table_dtype,
+    bucket_util_shape,
     pad_util_parts,
     stack_bucket,
     util_level_key,
@@ -118,8 +125,10 @@ algo_params: list = [
     # cells by CONDITIONING a cut set of variables (one bounded pass per
     # cut assignment, best of them).  0 = off
     AlgoParameterDef("memory_bound", "int", None, 0),
-    # branch-and-bound pruned UTIL joins: 'auto' and 'off' run the
-    # unpruned contraction; 'on' is not ported (ROADMAP A5)
+    # branch-and-bound pruned UTIL joins: 'auto' (default) prunes the
+    # device dispatches whose per-row padded table clears
+    # BNB_AUTO_MIN_CELLS, 'on' every device dispatch, 'off' none;
+    # results are bit-identical either way
     AlgoParameterDef("bnb", "str", ["auto", "on", "off"], "auto"),
     # byte-budgeted exact mode (ops/membound.py): cap every UTIL table
     # at this many device bytes by conditioning a cut set whose
@@ -139,16 +148,6 @@ algo_params: list = [
     ),
 ]
 
-
-
-def _check_ported(params: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for the options not ported yet."""
-    if _semiring.as_bnb(params.get("bnb"), "auto") == "on":
-        raise NotImplementedError(
-            "dpop bnb='on' (the two-pass branch-and-bound contraction) "
-            "is not ported yet (ROADMAP A5); 'auto' runs the unpruned "
-            "contraction, bit-identical in results"
-        )
 
 
 def _align(table: np.ndarray, dims: Sequence[str], target: Sequence[str]):
@@ -231,7 +230,7 @@ def solve_host(
     ``device``: the CUDA device unless ``"cpu"`` is passed."""
     t0 = time.perf_counter()
     pad = as_pad_policy(pad_policy)
-    _check_ported(params)
+    bnb = _semiring.as_bnb(params.get("bnb"), "auto")
     dev = resolve_device(device)
 
     # -- byte-budgeted exact mode (max_util_bytes > 0): the planner
@@ -294,7 +293,7 @@ def solve_host(
             graph, domains_p, depth, owned_p, t0, timeout,
             device_min_cells=device_min_cells, device=dev,
             max_util_size=max_util_size, pad=pad, level_sync=level_sync,
-            table_dtype=table_dtype,
+            bnb=bnb, table_dtype=table_dtype,
         )
         if util_stats is None:
             return None
@@ -418,8 +417,6 @@ def solve_host_many(
     t0 = time.perf_counter()
     pad = as_pad_policy(pad_policy)
     dev = resolve_device(device)
-    for p in params_list:
-        _check_ported(p)
     K = len(dcops)
     results: List[Optional[Dict[str, Any]]] = [None] * K
 
@@ -452,6 +449,7 @@ def solve_host_many(
         _UtilInstance(
             *preps[i], _resolve_device_min_cells(params_list[i]),
             as_table_dtype(params_list[i].get("table_dtype")),
+            _semiring.as_bnb(params_list[i].get("bnb"), "auto"),
         )
         for i in merged
     ]
@@ -633,6 +631,9 @@ class _UtilInstance(NamedTuple):
     # table_dtype); joins the level-pack bucket key so merged sweeps
     # never mix dtypes inside one dispatch
     table_dtype: str = "f32"
+    # branch-and-bound pruning mode (algo param bnb); joins the bucket
+    # key too, so a pruned kernel never runs an unpruned instance
+    bnb: str = "off"
 
 
 def _util_phase(
@@ -647,6 +648,7 @@ def _util_phase(
     max_util_size: int = 1 << 26,
     pad: PadPolicy = NO_PADDING,
     level_sync: bool = True,
+    bnb: str = "off",
     table_dtype: str = "f32",
 ):
     """Single-instance UTIL phase: the K=1 case of
@@ -656,7 +658,7 @@ def _util_phase(
         [
             _UtilInstance(
                 graph, domains, depth, owned, device_min_cells,
-                table_dtype,
+                table_dtype, bnb,
             )
         ],
         t0, timeout, device, max_util_size=max_util_size,
@@ -672,6 +674,72 @@ def _device_parts(parts: Sequence[np.ndarray], nd: int, lead: tuple):
     if parts:
         return list(parts)
     return [np.zeros(lead + (1,) * nd, dtype=np.float32)]
+
+
+def _max_padded_util_cells(inst: _UtilInstance, pad) -> int:
+    """Dims-only upper bound on the instance's largest PADDED UTIL join,
+    the quantity ``bnb='auto'`` gates on (the sweep's twin is
+    ``ops/semiring.py:max_padded_join_cells``): a separator simulation
+    on the pad lattice, so an instance where no dispatch can clear
+    ``BNB_AUTO_MIN_CELLS`` builds no pruning context."""
+    dsize = {
+        v: bucket_util_shape((len(dom),), pad)[0]
+        for v, dom in inst.domains.items()
+    }
+    names = [
+        n for root in inst.graph.roots
+        for n in inst.graph.depth_first_order(root)
+    ]
+    util_dims: Dict[str, set] = {}
+    mx = 1
+    for name in reversed(names):  # children before parents
+        node = inst.graph.node(name)
+        sep: set = set()
+        for dims, _ in inst.owned[name]:
+            sep |= {d for d in dims if d != name}
+        for c in node.children:
+            sep |= util_dims[c] - {name}
+        util_dims[name] = sep
+        size = dsize[name]
+        for d in sep:
+            size *= dsize[d]
+        mx = max(mx, size)
+    return mx
+
+
+def _host_pass1(aligned, sep_shape, budget) -> np.ndarray:
+    """Pass 1 on the host: each row bounded by the sum of its parts'
+    own-axis minima (exact f64, no join materialized), kept unless the
+    bound exceeds ``budget`` (negated: a NaN bound is kept)."""
+    with np.errstate(invalid="ignore"):
+        rowb = np.zeros(sep_shape)
+        for a in aligned:
+            rowb = rowb + np.min(a, axis=-1)
+        return np.logical_not(rowb > budget)
+
+
+def _host_pass2(arrs, part_shapes, keep_b, w_own):
+    """Pass 2 on the host: the exact f64 min and argmin of the SURVIVING
+    rows only, gathered from the stacked parts ``arrs`` (``[rows,
+    *part_shape]``); pruned cells get ``+inf`` and arg 0.  Returns
+    ``(u, amin)`` shaped like ``keep_b``."""
+    coords = np.nonzero(keep_b)
+    n_surv = len(coords[0])
+    M = np.zeros((n_surv, 1))
+    for arr, ps in zip(arrs, part_shapes):
+        idx = [coords[0]] + [
+            coords[1 + j] if ps[j] != 1 else 0
+            for j in range(keep_b.ndim - 1)
+        ]
+        M = M + arr[tuple(idx)]
+    if M.shape[1] == 1:
+        M = np.broadcast_to(M, (n_surv, w_own))
+    u = np.full(keep_b.shape, np.inf)
+    amin = np.zeros(keep_b.shape, dtype=np.intp)
+    if n_surv:
+        u[coords] = M.min(axis=1)
+        amin[coords] = M.argmin(axis=1)
+    return u, amin
 
 
 def _util_phase_multi(
@@ -701,7 +769,11 @@ def _util_phase_multi(
     host f64 path; otherwise joins of >= that many cells run on
     ``device`` with an f32 join under the error certificate, their
     parts stored at the instance's ``table_dtype`` (module docstring;
-    the dtype joins the bucket key).
+    the dtype joins the bucket key).  An instance's ``bnb`` mode (the
+    bucket key again) prunes its device joins: the masked two-pass
+    kernel, or, once the sweep's observed pruned fraction reaches
+    ``BNB_HOST_FRAC``, a host pass 1 and, for a mostly-dead bucket, the
+    compact host f64 pass 2 of its survivors.
 
     Returns one stats tuple ``(best_choice, util_cells, device_nodes,
     host_nodes, dispatches)`` per instance, or None for the whole call
@@ -709,6 +781,7 @@ def _util_phase_multi(
     """
     K = len(insts)
     met = get_metrics()
+    tracer = get_tracer()
     utils: List[Dict[str, Tuple[List[str], np.ndarray, float]]] = [
         {} for _ in range(K)
     ]
@@ -721,21 +794,70 @@ def _util_phase_multi(
     dispatches = [0] * K
     _key_memo: Dict[tuple, tuple] = {}  # per call: pad is fixed here
 
+    # branch-and-bound context per instance, and the call's running
+    # pruned fraction: the host pass 1 costs a join-sized reduce, so it
+    # runs only once the sweep has shown that most rows die
+    obs = {"cells": 0, "pruned": 0}
+
+    def try_host_pass2() -> bool:
+        return (
+            obs["cells"] >= (1 << 15)
+            and obs["pruned"] >= _semiring.BNB_HOST_FRAC * obs["cells"]
+        )
+
+    ctxs: List[Any] = [None] * K
+    for k, inst in enumerate(insts):
+        if inst.bnb == "off" or inst.device_min_cells is None:
+            continue
+        if (
+            inst.bnb == "auto"
+            and _max_padded_util_cells(inst, pad)
+            < _semiring.BNB_AUTO_MIN_CELLS
+        ):
+            # no join of this instance can clear the auto threshold:
+            # no context, counted once
+            if met.enabled:
+                met.inc("semiring.bnb_skipped_small")
+            continue
+        names_pre = [
+            n for root in inst.graph.roots
+            for n in inst.graph.depth_first_order(root)
+        ]
+        ctxs[k] = _semiring._BnbContext(
+            _semiring.MIN_SUM, names_pre, inst.domains, inst.owned,
+            {n: list(inst.graph.node(n).children) for n in names_pre},
+            table_dtype=inst.table_dtype,
+        )
+
     def finish(k, name, node, sep, u, amin):
         # min-normalize the outgoing table (either path): argmin
         # decisions are shift-invariant, the final cost comes from
         # solution_cost(assignment), and keeping UTIL values at the
         # local cost scale keeps the per-node f32 rounding bounds small
         # up the whole tree.  Its finite abs-max is carried so the
-        # parent's certificate bound needs no re-reduction.
+        # parent's certificate bound needs no re-reduction (pruned rows
+        # and hard constraints hold exact ±inf, not a rounding scale).
         best_choice[k][name] = (sep, amin)
+        sh = 0.0
         if node.parent is not None:
             if u.size:
                 mn = u.min()
                 if np.isfinite(mn):
+                    sh = float(mn)
                     u = u - mn
             utils[k][name] = (sep, u, _semiring._finite_amax(u))
             util_cells[k] += u.size
+        if ctxs[k] is not None:
+            ctxs[k].record_shift(name, sh, node.children)
+
+    def note_pruned(keep, d_own, counted):
+        """The pruned join cells of a keep mask, added to the running
+        fraction unless pass 1 already added them."""
+        pruned = int(keep.size - keep.sum()) * d_own
+        if not counted:
+            obs["cells"] += keep.size * d_own
+            obs["pruned"] += pruned
+        return pruned
 
     # wave plan: wave index = node HEIGHT, not depth — every leaf of
     # every instance lands in wave 0 whatever its depth
@@ -827,22 +949,32 @@ def _util_phase_multi(
             # stack to f32 per part position; the per-node path casts
             # per part just before its dispatch
             aligned = [_align(t, dims, target) for dims, t in parts]
+            ctx = ctxs[k]
+            budget = None
+            if ctx is not None:
+                budget = ctx.budget(
+                    name, ctx.shift_under(node.children), len(parts),
+                    parts_max, shape[-1], size // max(shape[-1], 1),
+                )
+            # the bnb mode joins the bucket key: a pruned kernel (budget
+            # operand, keep output) never stacks with an unpruned one
+            mode = inst.bnb if ctx is not None else "off"
             raw = (
                 tuple(shape), tuple(a.shape for a in aligned),
-                inst.table_dtype,
+                mode, inst.table_dtype,
             )
             key = _key_memo.get(raw)
             if key is None:  # UTIL trees repeat shapes heavily; an int8
                 # kernel's dequant operands never stack with f32 rows
                 key = _key_memo[raw] = util_level_key(
                     raw[0], raw[1], pad
-                ) + (raw[2],)
+                ) + raw[2:]
             if key not in buckets:
                 buckets[key] = []
                 order.append(key)
             buckets[key].append(
-                ((k, name, node, sep, target, shape, parts, parts_max),
-                 aligned)
+                ((k, name, node, sep, target, shape, parts, parts_max,
+                  budget), aligned)
             )
 
         # -- device joins: one stacked dispatch per level-pack bucket,
@@ -852,12 +984,20 @@ def _util_phase_multi(
             entries = buckets[key]
             if timeout is not None and time.perf_counter() - t0 > timeout:
                 return None
-            pshape, part_shapes, bucket_dt = key
+            pshape, part_shapes, bnb_mode, bucket_dt = key
             n_rows = len(entries)
             shape0 = entries[0][0][5]
             uniform = all(it[5] == shape0 for it, _ in entries)
             kshapes = part_shapes or ((1,) * len(pshape),)
+            use_bnb = False
+            if bnb_mode != "off":
+                use_bnb = bnb_mode == "on" or (
+                    int(np.prod(pshape)) >= _semiring.BNB_AUTO_MIN_CELLS
+                )
+                if not use_bnb and met.enabled:
+                    met.inc("semiring.bnb_skipped_small")
             level_batched = False
+            obs_counted = False
             if level_sync and uniform and n_rows > 1:
                 stack_h = stack_bucket(n_rows) if pad.enabled else n_rows
                 # f64 stack buffers: exact values for the batched
@@ -874,17 +1014,54 @@ def _util_phase_multi(
                         ] = a
                     if pad.enabled:  # own-axis ghost guard (mask)
                         bufs[-1][r][..., shape0[-1]:] = np.inf
+                # f64 for the host pass 1, rounded to f32 for the kernel
+                budgets = _semiring._budgets(
+                    entries, stack_h, _semiring.MIN_SUM, np.float64
+                ) if use_bnb else None
+                if use_bnb and bufs and try_host_pass2():
+                    # pass 1 on the host; a bucket with at least
+                    # BNB_HOST_FRAC of its rows dead contracts its
+                    # survivors on the host in f64 (no dispatch, no
+                    # certificate); the others take the masked kernel
+                    keep_b = np.stack([
+                        _host_pass1(aligned, tuple(shape0[:-1]),
+                                    budgets[r])
+                        for r, (_, aligned) in enumerate(entries)
+                    ])
+                    pruned = note_pruned(keep_b, shape0[-1], False)
+                    obs_counted = True
+                    n_dead = keep_b.size - int(keep_b.sum())
+                    if n_dead >= _semiring.BNB_HOST_FRAC * keep_b.size:
+                        u_b, amin_b = _host_pass2(
+                            bufs, part_shapes, keep_b, pshape[-1]
+                        )
+                        if met.enabled:
+                            met.inc("semiring.bnb_passes")
+                        _semiring._note_bnb(
+                            met, tracer, _semiring.MIN_SUM, n_rows, pruned,
+                            int(np.prod(shape0)) * n_rows, pass2="host",
+                        )
+                        for r, (item, _) in enumerate(entries):
+                            k, name, node, sep, _t, shape = item[:6]
+                            host_nodes[k] += 1
+                            finish(
+                                k, name, node, sep, u_b[r],
+                                amin_b[r:r + 1].reshape(tuple(shape[:-1])),
+                            )
+                        continue
                 fn = _semiring.contraction_kernel(
                     _semiring.MIN_SUM, pshape, kshapes, batched=True,
-                    table_dtype=bucket_dt,
+                    bnb=use_bnb, table_dtype=bucket_dt,
                 )
                 dequant, packed = _semiring.pack_rows(
                     _device_parts(bufs, len(pshape), (stack_h,)),
                     bucket_dt, n_rows, met,
                 )
                 casts = dequant + packed
+                if use_bnb:
+                    casts = [budgets.astype(np.float32)] + casts
                 try:
-                    aminb, margb = _semiring._dispatch(fn, casts, device)
+                    outs_b = _semiring._dispatch(fn, casts, device)
                     level_batched = True
                 except torch.cuda.OutOfMemoryError:
                     # OOM degradation ladder: a level stack that does
@@ -905,8 +1082,19 @@ def _util_phase_multi(
                 region = (slice(0, n_rows),) + tuple(
                     slice(0, s) for s in shape0[:-1]
                 )
+                aminb, margb = outs_b[:2]
                 amin_b = np.array(aminb[region])  # writable (repair)
                 marg_b = np.asarray(margb[region], dtype=np.float64)
+                keep_b = None
+                if use_bnb:
+                    keep_b = np.asarray(outs_b[2][region], dtype=bool)
+                    pruned = note_pruned(keep_b, shape0[-1], obs_counted)
+                    if met.enabled:
+                        met.inc("semiring.bnb_passes")
+                    _semiring._note_bnb(
+                        met, tracer, _semiring.MIN_SUM, n_rows, pruned,
+                        int(np.prod(shape0)) * n_rows,
+                    )
                 # certificate bound at the STORAGE precision: each part
                 # arrived rounded to bucket_dt
                 errs = np.array(
@@ -929,11 +1117,6 @@ def _util_phase_multi(
                         tuple(int(c) for c in cell[1:])
                     )
                 sep_cells = int(marg_b.size // n_rows)
-                grids = (
-                    np.indices(shape0[:-1], dtype=np.intp)
-                    if len(shape0) > 1
-                    else None
-                )
                 # tie-heavy rows go to the host redo FIRST; everyone
                 # else's near-tie cells are repaired in amin_b before
                 # the batched exact-u gather reads it
@@ -943,7 +1126,7 @@ def _util_phase_multi(
                         _host_redo(met, host_nodes, finish, item)
                         redone.add(r)
                         continue
-                    (_, _, _, _, target, shape, parts, _) = item
+                    target, shape, parts = item[4:7]
                     amin_r = amin_b[r:r + 1].reshape(tuple(shape[:-1]))
                     for cell in bad_by_row.get(r, ()):
                         row = np.zeros(shape[-1], dtype=np.float64)
@@ -954,18 +1137,10 @@ def _util_phase_multi(
                 # f64 part buffer AT the certified argmin; summation
                 # order is the parts order, so values are bit-identical
                 # to the per-node _exact_u_at
-                n_raw = len(entries[0][1])
-                rows_ix = np.arange(n_rows).reshape(
-                    (n_rows,) + (1,) * (len(shape0) - 1)
+                u_b = _exact_u_stack(
+                    bufs[:len(entries[0][1])], part_shapes, shape0,
+                    amin_b, keep_b,
                 )
-                u_b = np.zeros((n_rows,) + tuple(shape0[:-1]))
-                for i in range(n_raw):
-                    ps = part_shapes[i]
-                    idx = [rows_ix]
-                    for j in range(len(shape0) - 1):
-                        idx.append(grids[j] if ps[j] != 1 else 0)
-                    idx.append(amin_b if ps[-1] != 1 else 0)
-                    u_b += bufs[i][tuple(idx)]
                 for r, (item, aligned) in enumerate(entries):
                     if r in redone:
                         continue
@@ -979,13 +1154,42 @@ def _util_phase_multi(
             # mixed real shapes under one padded key, or a level stack
             # that did not fit on the device
             fn = _semiring.contraction_kernel(
-                _semiring.MIN_SUM, pshape, kshapes, table_dtype=bucket_dt
+                _semiring.MIN_SUM, pshape, kshapes, bnb=use_bnb,
+                table_dtype=bucket_dt,
             )
             for item, aligned in entries:
                 (k, name, node, sep, target, shape, parts,
-                 sum_max_abs) = item
+                 sum_max_abs, budget) = item
                 if timeout is not None and time.perf_counter() - t0 > timeout:
                     return None
+                if budget is None:
+                    budget = _semiring._no_prune(_semiring.MIN_SUM)
+                node_counted = False
+                if use_bnb and aligned and len(shape) > 1 and (
+                    try_host_pass2()
+                ):
+                    # pass 1 on the host; a mostly-dead node contracts
+                    # its survivors on the host instead of dispatching
+                    keep_r = _host_pass1(aligned, tuple(shape[:-1]), budget)
+                    pruned = note_pruned(keep_r, shape[-1], False)
+                    node_counted = True
+                    n_dead = keep_r.size - int(keep_r.sum())
+                    if n_dead >= _semiring.BNB_HOST_FRAC * keep_r.size:
+                        u, amin = _host_pass2(
+                            [np.asarray(a, dtype=np.float64)[None]
+                             for a in aligned],
+                            [a.shape for a in aligned], keep_r[None],
+                            shape[-1],
+                        )
+                        if met.enabled:
+                            met.inc("semiring.bnb_passes")
+                        _semiring._note_bnb(
+                            met, tracer, _semiring.MIN_SUM, 1, pruned,
+                            int(np.prod(shape)), pass2="host",
+                        )
+                        host_nodes[k] += 1
+                        finish(k, name, node, sep, u[0], amin[0])
+                        continue
                 if pad.enabled:
                     aligned = pad_util_parts(aligned, shape, pshape)
                 else:
@@ -994,8 +1198,10 @@ def _util_phase_multi(
                 packed = _semiring._pack_parts(
                     _device_parts(aligned, len(pshape), ()), bucket_dt, met
                 )
+                if use_bnb:
+                    packed = [np.float32(budget)] + packed
                 try:
-                    amin, margins = _semiring._dispatch(fn, packed, device)
+                    outs_n = _semiring._dispatch(fn, packed, device)
                 except torch.cuda.OutOfMemoryError:
                     # bottom of the OOM ladder: this single join does
                     # not fit on the device even alone — redo it
@@ -1004,12 +1210,20 @@ def _util_phase_multi(
                     continue
                 if met.enabled:  # per executed dispatch, as in the JAX
                     met.inc("dpop.level_dispatches")  # package
+                    if use_bnb:
+                        met.inc("semiring.bnb_passes")
                 dispatches[k] += 1
                 # slice the level-pack ghost cells away before
                 # certification: only the real region is decided here
                 region = tuple(slice(0, s) for s in shape[:-1])
-                amin = np.array(amin[region])  # writable (repair)
-                margins = np.asarray(margins[region], dtype=np.float64)
+                amin = np.array(outs_n[0][region])  # writable (repair)
+                margins = np.asarray(outs_n[1][region], dtype=np.float64)
+                keep_r = None
+                if use_bnb:
+                    keep_r = np.asarray(outs_n[2][region], dtype=bool)
+                    pruned = note_pruned(keep_r, shape[-1], node_counted)
+                    if pruned and met.enabled:
+                        met.inc("semiring.bnb_pruned_cells", pruned)
                 try:
                     n_bad = _certify_and_repair(
                         name, parts, target, shape, amin, margins,
@@ -1019,7 +1233,7 @@ def _util_phase_multi(
                     _host_redo(met, host_nodes, finish, item)
                     continue
                 _semiring.note_precision_repairs(met, bucket_dt, n_bad)
-                u = _exact_u_at(parts, target, shape, amin)
+                u = _exact_u_at(parts, target, shape, amin, keep_r)
                 device_nodes[k] += 1
                 finish(k, name, node, sep, u, amin)
     return [
@@ -1029,6 +1243,41 @@ def _util_phase_multi(
         )
         for k in range(K)
     ]
+
+
+def _exact_u_stack(bufs, part_shapes, shape0, amin_b, keep_b):
+    """Exact f64 u of a whole stack: each f64 part buffer gathered AT the
+    certified argmin, in parts order (the per-node :func:`_exact_u_at`'s
+    bits).  ``keep_b`` (bnb) marks the surviving rows: pruned cells read
+    ``+inf``, and with a quarter or more pruned only the survivors are
+    gathered."""
+    n_rows = amin_b.shape[0]
+    nsep = len(shape0) - 1
+    if keep_b is not None and 4 * int(keep_b.sum()) < 3 * keep_b.size:
+        coords = np.nonzero(keep_b)
+        a_sel = amin_b[coords]
+        acc = np.zeros(len(coords[0]))
+        for buf, ps in zip(bufs, part_shapes):
+            idx = [coords[0]] + [
+                coords[1 + j] if ps[j] != 1 else 0 for j in range(nsep)
+            ]
+            idx.append(a_sel if ps[-1] != 1 else 0)
+            acc += buf[tuple(idx)]
+        u_b = np.full((n_rows,) + tuple(shape0[:-1]), np.inf)
+        u_b[coords] = acc
+        return u_b
+    grids = np.indices(shape0[:-1], dtype=np.intp) if nsep else None
+    rows_ix = np.arange(n_rows).reshape((n_rows,) + (1,) * nsep)
+    u_b = np.zeros((n_rows,) + tuple(shape0[:-1]))
+    for buf, ps in zip(bufs, part_shapes):
+        idx = [rows_ix] + [
+            grids[j] if ps[j] != 1 else 0 for j in range(nsep)
+        ]
+        idx.append(amin_b if ps[-1] != 1 else 0)
+        u_b += buf[tuple(idx)]
+    if keep_b is not None:
+        u_b = np.where(keep_b, u_b, np.inf)
+    return u_b
 
 
 def _certify_and_repair(name, parts, target, shape, amin, margins,
@@ -1070,7 +1319,7 @@ def _host_redo(met, host_nodes, finish, item):
     path runs, and keep the sweep going (a tie-heavy table, or a join
     that does not fit on the device); counted as
     ``dpop.cert_fallbacks``, as in the JAX package."""
-    k, name, node, sep, target, shape, parts, _ = item
+    k, name, node, sep, target, shape, parts = item[:7]
     if met.enabled:
         met.inc("dpop.cert_fallbacks")
     j = np.zeros(shape, dtype=np.float64)
@@ -1082,12 +1331,27 @@ def _host_redo(met, host_nodes, finish, item):
     finish(k, name, node, sep, u, amin)
 
 
-def _exact_u_at(parts, target, shape, amin):
+def _exact_u_at(parts, target, shape, amin, keep=None):
     """Exact f64 u: evaluate the join only AT the chosen argmin,
     ``u[cell] = Σ_parts part[cell, amin[cell]]`` — O(cells·parts)
     instead of the full O(cells·d·parts) join, and exact because every
-    part (child utils included) is exact f64."""
+    part (child utils included) is exact f64.  ``keep`` (bnb) marks the
+    surviving rows: pruned cells read ``+inf`` (the ⊕-identity), and
+    with a quarter or more pruned only the survivors are gathered."""
     own = target[-1]
+    if keep is not None and len(shape) > 1 and (
+        4 * int(keep.sum()) < 3 * keep.size
+    ):
+        coords = np.nonzero(keep)
+        a_sel = amin[coords]
+        acc = np.zeros(len(coords[0]), dtype=np.float64)
+        for dims, table in parts:
+            idx = [a_sel if d == own else coords[target.index(d)]
+                   for d in dims]
+            acc += np.asarray(table, dtype=np.float64)[tuple(idx)]
+        u = np.full(shape[:-1], np.inf)
+        u[coords] = acc
+        return u
     grids = np.indices(shape[:-1], dtype=np.intp)
     u = np.zeros(shape[:-1], dtype=np.float64)
     for dims, table in parts:
@@ -1098,6 +1362,8 @@ def _exact_u_at(parts, target, shape, amin):
             else:
                 idx.append(grids[target.index(d)])
         u += np.asarray(table, dtype=np.float64)[tuple(idx)]
+    if keep is not None:
+        u = np.where(keep, u, np.inf)
     return u
 
 

@@ -71,8 +71,11 @@ algo_params = [
     AlgoParameterDef("belief", "str", ["auto", "blockdiag"], "auto"),
     # message storage dtype; arithmetic stays f32
     AlgoParameterDef("msg_dtype", "str", ["f32", "bf16"], "f32"),
-    # branch-and-bound pruning of the generic factor path: messages are
-    # bit-identical either way, so the port computes the unpruned form
+    # branch-and-bound pruning of the generic factor path
+    # (ops/semiring.py:bp_factor_messages): 'auto' prunes the arity
+    # buckets whose per-factor config space d^k clears
+    # BNB_AUTO_MIN_CELLS, 'on' every bucket outside the factor-kernel
+    # gate, 'off' none; messages are bit-identical either way
     AlgoParameterDef("bnb", "str", ["auto", "on", "off"], "auto"),
     # host-runtime island scheduling (not used by the batched engine)
     AlgoParameterDef("island_rounds", "int", None, 4),
@@ -227,8 +230,16 @@ def step(
                 tab = tab.reshape(
                     tab.shape[:1] + (1,) * (lead - 1) + tab.shape[1:]
                 )
+            # 'auto' gates on the raw per-factor config space d^k (BP
+            # tables are never level-pack padded)
+            bnb_mode = params.get("bnb", "auto")
+            use_bnb = bnb_mode == "on" or (
+                bnb_mode == "auto"
+                and tmpl.d_max ** k >= _semiring.BNB_AUTO_MIN_CELLS
+            )
             outs = _semiring.bp_factor_messages(
-                _semiring.MIN_SUM, tab, [cols(q, p) for p in range(k)], mdt
+                _semiring.MIN_SUM, tab, [cols(q, p) for p in range(k)], mdt,
+                bnb=use_bnb,
             )
             for p, src in enumerate(outs):
                 cols(r_new, p).copy_(src)

@@ -44,8 +44,13 @@ The run goes to the CUDA device unless ``device="cpu"`` is passed
 JAX package's meaning, the offload policy); without a CUDA device it
 raises.
 
-Not ported yet: the other execution modes, checkpoints, the supervisor
-knobs and the branch-and-bound pruned contraction (ROADMAP.md).
+On the batched engine ``checkpoint_path``/``checkpoint_every``/``resume``
+save the run state to an ``.npz`` file and continue from it
+(``engine/checkpoint.py``); DPOP and ``infer`` prune their device
+contractions by branch and bound (``bnb``, ``"auto"`` by default).
+
+Not ported yet: the other execution modes and the supervisor knobs
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ def solve(
     convergence_chunks: int = 0,
     chunk_size: int = 64,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
     resume: bool = False,
     mode: str = "batched",
     n_restarts: int = 1,
@@ -93,8 +99,14 @@ def solve(
     (DPOP) caps every UTIL table at that many device bytes through the
     memory-bounded planner (``ops/membound.py``): results stay exact,
     a device OOM re-plans at half the budget, and the result carries a
-    ``membound`` block.  ``bnb="on"`` raises ``NotImplementedError``
-    (ROADMAP A5).
+    ``membound`` block.  ``bnb`` (DPOP, Max-Sum; ``"auto"``, ``"on"``,
+    ``"off"``) prunes the device contractions by branch and bound, with
+    results bit-identical to ``"off"``.
+
+    On the batched engine ``checkpoint_path`` saves the run state every
+    ``checkpoint_every`` chunks (and at the end) to that ``.npz`` file,
+    and ``resume=True`` continues from it when it exists
+    (``engine/batched.py:run_batched``).
 
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
@@ -107,7 +119,8 @@ def solve(
             dcop, algo, algo_params, rounds=rounds, timeout=timeout,
             seed=seed, convergence_chunks=convergence_chunks,
             chunk_size=chunk_size, checkpoint_path=checkpoint_path,
-            resume=resume, mode=mode, n_restarts=n_restarts,
+            checkpoint_every=checkpoint_every, resume=resume, mode=mode,
+            n_restarts=n_restarts,
             pad_policy=pad_policy, device=device,
             max_util_bytes=max_util_bytes, bnb=bnb,
             table_dtype=table_dtype, table_format=table_format,
@@ -174,9 +187,9 @@ def _contraction_knobs(
 
 def _solve(
     dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
-    chunk_size, checkpoint_path, resume, mode, n_restarts, pad_policy,
-    device, max_util_bytes=None, bnb=None, table_dtype=None,
-    table_format=None,
+    chunk_size, checkpoint_path, checkpoint_every, resume, mode,
+    n_restarts, pad_policy, device, max_util_bytes=None, bnb=None,
+    table_dtype=None, table_format=None,
 ) -> Dict[str, Any]:
     if mode != "batched":
         raise NotImplementedError(
@@ -220,7 +233,8 @@ def _solve(
         problem, module, params, rounds=rounds, seed=seed,
         timeout=timeout, chunk_size=chunk_size,
         convergence_chunks=convergence_chunks,
-        checkpoint_path=checkpoint_path, resume=resume,
+        checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, resume=resume,
         n_restarts=n_restarts,
     )
 
@@ -432,6 +446,7 @@ def solve_compiled(
     convergence_chunks: int = 0,
     chunk_size: int = 64,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
     resume: bool = False,
     n_restarts: int = 1,
     cost_every: int = 1,
@@ -451,7 +466,8 @@ def solve_compiled(
         problem, module, params, rounds=rounds, seed=seed,
         timeout=timeout, chunk_size=chunk_size,
         convergence_chunks=convergence_chunks,
-        checkpoint_path=checkpoint_path, resume=resume,
+        checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, resume=resume,
         n_restarts=n_restarts, cost_every=cost_every,
     )
 
@@ -537,9 +553,12 @@ def infer(
     (``dense``/``sparse``) pick the storage of the device tables;
     ``max_util_bytes`` runs the sweep memory-bounded
     (``ops/membound.py``; the result carries a ``membound`` block).
+    ``bnb`` (``"auto"``: dispatches whose padded row has at least
+    ``BNB_AUTO_MIN_CELLS`` cells; ``"on"``; ``"off"``) prunes the device
+    contractions by branch and bound: ``map`` and ``kbest`` stay exact,
+    the mass queries add the pruned mass to ``error_bound``.
     ``compile_cache`` has no counterpart (None only); ``retry_budget``
-    (ROADMAP A3) and ``bnb="on"`` (A5) raise ``NotImplementedError``;
-    ``bnb="auto"`` runs the unpruned contraction.
+    (ROADMAP A3) raises ``NotImplementedError``.
 
     Returns the result dict: ``query``, ``semiring``, ``order``,
     ``status``, ``cells``, ``dispatches``, ``device_nodes``,

@@ -104,8 +104,11 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--bnb", choices=["auto", "on", "off"], default="auto",
-        help="branch-and-bound pruned contraction: 'auto' and 'off' run "
-        "the unpruned contraction; 'on' is not ported yet",
+        help="branch-and-bound pruned contraction kernels: rows a cheap "
+        "bound proves irrelevant are masked — map/kbest stay "
+        "bit-identical, the mass queries add the discarded mass to "
+        "error_bound.  'auto' (default) prunes only dispatches whose "
+        "per-row table clears a size threshold",
     )
     p.add_argument(
         "--table_dtype", choices=["f32", "bf16", "int8"], default="f32",

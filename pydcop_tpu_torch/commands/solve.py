@@ -8,7 +8,9 @@ on the exact path (``-p util_device:always``, ``-p util_batch:node``,
 result as JSON in the shape
 ``python -m pydcop_tpu solve`` prints, ``telemetry`` block included;
 ``--trace FILE`` writes the run's trace.  ``--restarts K`` runs K
-restarts and reports the best; ``--many`` solves each file as its own
+restarts and reports the best; ``--checkpoint FILE`` saves the batched
+engine's run state every ``--checkpoint_every`` chunks and ``--resume``
+continues from it; ``--many`` solves each file as its own
 instance through ``api.solve_many`` and prints a JSON array (without
 the ``telemetry`` blocks, as the JAX package prints it).
 """
@@ -72,6 +74,18 @@ def set_parser(subparsers) -> None:
         help="wall-clock timeout (seconds)",
     )
     p.add_argument(
+        "--checkpoint", default=None,
+        help="write the run state to this .npz file as the run proceeds",
+    )
+    p.add_argument(
+        "--checkpoint_every", type=int, default=1,
+        help="chunks between checkpoint writes",
+    )
+    p.add_argument(
+        "--resume", action="store_true",
+        help="restore --checkpoint (if present) and continue the run",
+    )
+    p.add_argument(
         "--pad_policy", default="none", metavar="POLICY",
         help="bucket the compiled problem's shapes on the pow-2 lattice "
         "('pow2' or 'pow2:<floor>'), so similarly-sized problems share "
@@ -93,9 +107,9 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--bnb", choices=["auto", "on", "off"], default=None,
-        help="branch-and-bound pruned contraction (dpop, maxsum): "
-        "'auto' and 'off' run the unpruned contraction; 'on' is not "
-        "ported yet",
+        help="branch-and-bound pruned contraction kernels (dpop, maxsum): "
+        "'auto' (the algorithm's default) prunes dispatches large enough "
+        "to pay, 'on' every one, 'off' none — results bit-identical",
     )
     p.add_argument(
         "--table_dtype", choices=["f32", "bf16", "int8"], default=None,
@@ -162,6 +176,9 @@ def run_cmd(args) -> int:
         seed=args.seed,
         n_restarts=args.restarts,
         convergence_chunks=args.convergence_chunks,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
         pad_policy=args.pad_policy,
         device=args.device,
         trace=args.trace,

@@ -34,13 +34,24 @@ the group's disjoint union (``ops/compile.py:union_problem``), state
 ``[R, n·I]``.  Either way a round makes no per-instance Python loop and
 the anytime costs are split per instance.
 
+Checkpoints.  ``checkpoint_path`` saves the run state every
+``checkpoint_every`` chunks (and once more at the end when chunks remain
+unsaved) to an ``.npz`` file in the JAX package's layout
+(``engine/checkpoint.py``); ``resume=True`` continues from it.  Beyond
+the JAX package's keys the file holds the rounds' generator state
+(``rng/round``) and the cost trace so far, so a resumed run equals an
+uninterrupted one on the same device type in every result but its
+time.  A generator state is device-specific: a checkpoint of a run that
+drew random numbers resumes only on the device type it was written on.
+
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``mesh``, checkpoint/resume and chunk callbacks.
+``mesh`` and chunk callbacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 from typing import Union
@@ -90,6 +101,116 @@ def round_generator(seed: int, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.SeedSequence(seed).generate_state(1)[0]))
     return gen
+
+
+class _Checkpointer:
+    """The checkpoint side of one :func:`run_batched` call: the JAX
+    package's meta record and checks, plus the rounds' generator state
+    (``rng/round``, with the device type it belongs to and whether the
+    run has drawn from it) and the cost trace so far (``cost_trace``)."""
+
+    def __init__(self, path, algo_module, problem, seed, chunk_size,
+                 n_restarts, gen, gen0):
+        from pydcop_tpu_torch.ops.compile import problem_fingerprint
+
+        self.path = path
+        self.static = getattr(algo_module, "STATIC_STATE_KEYS", ())
+        self.gen, self.gen0 = gen, gen0
+        self.meta = {
+            "algo": algo_module.__name__,
+            "seed": seed,
+            "chunk_size": chunk_size,
+            "problem": problem_fingerprint(problem),
+            "n_restarts": n_restarts,
+        }
+        self.device_type = problem.device.type
+        self.unsaved = 0
+
+    def load(self, template, best_cost, best_values):
+        """Check the file against this run (the JAX package's five
+        checks, in its order and words, then the generator's device), and
+        return ``(state, best_cost, best_values, rounds_done, trace)``."""
+        from pydcop_tpu_torch.engine.checkpoint import (
+            checkpoint_arrays,
+            checkpoint_meta,
+            load_checkpoint,
+        )
+
+        path, want = self.path, self.meta
+        meta = checkpoint_meta(path)
+        if meta.get("algo") != want["algo"]:
+            raise ValueError(
+                f"Checkpoint {path} was written by {meta.get('algo')}, "
+                f"not {want['algo']}"
+            )
+        if meta.get("seed") != want["seed"]:
+            raise ValueError(
+                f"Checkpoint {path} was written with seed "
+                f"{meta.get('seed')}, not {want['seed']} — the RNG stream "
+                "would diverge"
+            )
+        if meta.get("chunk_size") not in (None, want["chunk_size"]):
+            raise ValueError(
+                f"Checkpoint {path} was written with chunk_size "
+                f"{meta.get('chunk_size')}, not {want['chunk_size']} — "
+                "per-round keys are derived from chunk boundaries, so the "
+                "RNG stream would diverge"
+            )
+        if meta.get("problem") not in (None, want["problem"]):
+            raise ValueError(
+                f"Checkpoint {path} was written for a different problem "
+                f"instance (fingerprint {meta.get('problem')} != "
+                f"{want['problem']}) — resuming would silently produce "
+                "wrong results"
+            )
+        if meta.get("n_restarts", 1) != want["n_restarts"]:
+            raise ValueError(
+                f"Checkpoint {path} was written with n_restarts="
+                f"{meta.get('n_restarts', 1)}, not {want['n_restarts']} — "
+                "the restart stack and RNG streams would not line up"
+            )
+        arrays = checkpoint_arrays(path, ("rng/round", "cost_trace"))
+        if meta.get("rng_drawn"):
+            if meta.get("rng_device") != self.device_type:
+                raise ValueError(
+                    f"Checkpoint {path} holds the rounds' random generator "
+                    f"of a {meta.get('rng_device')} run; a "
+                    f"{self.device_type} generator cannot continue its "
+                    "stream, so the resumed run would diverge — resume on "
+                    f"a {meta.get('rng_device')} device"
+                )
+            self.gen.set_state(torch.from_numpy(arrays["rng/round"]))
+        state, bc, bv, done, _ = load_checkpoint(path, template, self.static)
+        dev = best_values.device
+        best_cost = torch.tensor(bc, dtype=best_cost.dtype, device=dev)
+        best_values = torch.from_numpy(np.asarray(bv)).to(
+            dtype=best_values.dtype, device=dev)
+        trace = arrays.get("cost_trace", np.zeros(0, dtype=np.float32))
+        return state, best_cost, best_values, done, trace
+
+    def chunk_done(self, every, state, best_cost, best_values, done,
+                   traces):
+        self.unsaved += 1
+        if self.unsaved >= every:
+            tr, met = get_tracer(), get_metrics()
+            with tr.span("checkpoint", cat="checkpoint", round=done):
+                self.save(state, best_cost, best_values, done, traces)
+            if met.enabled:
+                met.inc("engine.checkpoints")
+
+    def save(self, state, best_cost, best_values, done, traces):
+        from pydcop_tpu_torch.engine.checkpoint import save_checkpoint
+
+        rng = self.gen.get_state()
+        meta = dict(self.meta, rng_device=self.device_type,
+                    rng_drawn=not torch.equal(rng, self.gen0))
+        save_checkpoint(
+            self.path, state, best_cost, best_values, done, meta,
+            static_keys=self.static,
+            arrays={"rng/round": rng.numpy(),
+                    "cost_trace": np.concatenate(traces)},
+        )
+        self.unsaved = 0
 
 
 def _run_chunk(problem, algo_module, params, state, gen, n_rounds,
@@ -159,6 +280,7 @@ def run_batched(
     convergence_chunks: int = 0,
     mesh=None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
     resume: bool = False,
     chunk_callback: Optional[Callable[[int, float], Optional[str]]] = None,
     cost_every: int = 1,
@@ -183,13 +305,19 @@ def run_batched(
     (tensors or numpy arrays; ``values`` ``[K, n]`` under restarts)
     instead of ``init_state``; ``return_state=True`` puts the final state
     (CPU tensors) on ``RunResult.state``.
+
+    ``checkpoint_path`` writes the run state there every
+    ``checkpoint_every`` chunks, inside a ``checkpoint`` span
+    (``engine.checkpoints`` counts the saves), and at the end when chunks
+    remain unsaved; with ``resume=True`` an existing file is checked
+    against this run (algorithm, seed, chunk size, problem fingerprint,
+    restarts, as the JAX package checks them) and loaded before the
+    first chunk.  ``rounds`` counts the restored rounds too.
     """
     if n_restarts < 1:
         raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
     if mesh is not None:
         raise _not_ported("mesh (sharded runs)", "n_shards > 1")
-    if checkpoint_path is not None or resume:
-        raise _not_ported("checkpoint/resume", "checkpoint/resume")
     if chunk_callback is not None:
         raise _not_ported("chunk callbacks", "the supervisor seam")
     if cost_every < 1 or chunk_size < 1:
@@ -205,11 +333,20 @@ def run_batched(
     else:
         state = algo_module.init_state(problem, seed, params, batch)
     gen = round_generator(seed, problem.device)
+    gen0 = gen.get_state()
     best_values = state["values"]
     best_cost = total_cost(problem, best_values)  # [] or [K]
 
     traces = []
     done = 0
+    ck = None
+    if checkpoint_path is not None:
+        ck = _Checkpointer(checkpoint_path, algo_module, problem, seed,
+                           chunk_size, n_restarts, gen, gen0)
+        if resume and os.path.exists(checkpoint_path):
+            state, best_cost, best_values, done, trace = ck.load(
+                state, best_cost, best_values)
+            traces.append(trace)
     status = "finished"
     stall = 0
     if convergence_chunks:
@@ -232,6 +369,9 @@ def run_batched(
             met.inc("engine.rounds", this_chunk)
         traces.append(costs.min(axis=-1) if batch else costs)
         done += this_chunk
+        if ck is not None:
+            ck.chunk_done(max(1, checkpoint_every), state, best_cost,
+                          best_values, done, traces)
         if timeout is not None and time.perf_counter() - t0 > timeout:
             status = "timeout"
             break
@@ -250,6 +390,8 @@ def run_batched(
                 stall = 0
             prev_best = best_now
             prev_values = cur_values
+    if ck is not None and ck.unsaved:
+        ck.save(state, best_cost, best_values, done, traces)
 
     final_values = state["values"]
     final_costs = total_cost(problem, final_values)

@@ -1056,6 +1056,31 @@ def decode_assignment(
     }
 
 
+def problem_fingerprint(problem: CompiledProblem) -> str:
+    """Stable hash of the problem *instance* (names, domains, scopes and
+    cost tables), the JAX package's: a checkpoint written for a
+    structurally identical problem with other costs is rejected.  It
+    hashes host bytes (bf16 tables as their raw 2-byte words), so the
+    same problem gives the same fingerprint on every device and in both
+    packages."""
+    import hashlib
+
+    def raw(t: torch.Tensor) -> bytes:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy().tobytes()
+
+    h = hashlib.sha256()
+    h.update(repr(problem.var_names).encode())
+    h.update(repr(problem.domain_labels).encode())
+    h.update(repr(problem.con_names).encode())
+    h.update(raw(problem.con_scopes))
+    h.update(raw(problem.unary))
+    h.update(raw(problem.tables_flat))
+    return h.hexdigest()[:16]
+
+
 # -- several instances: grouping, stacking, the disjoint union ------------
 
 

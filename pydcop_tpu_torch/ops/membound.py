@@ -601,6 +601,7 @@ def run_bounded(
     max_cut_lanes: int = MAX_CUT_LANES,
     t0: Optional[float] = None,
     timeout: Optional[float] = None,
+    bnb: str = "off",
     table_dtype: str = "f32",
     table_format: str = "dense",
     torch_device: Optional[torch.device] = None,
@@ -615,7 +616,15 @@ def run_bounded(
     budget, and the original plan still bounds host memory).  The
     device contractions run on ``torch_device``; after a device OOM the
     caching allocator's free blocks are released
-    (``torch.cuda.empty_cache``) before the re-planned attempt."""
+    (``torch.cuda.empty_cache``) before the re-planned attempt.
+
+    ``bnb`` threads the branch-and-bound pruned kernels through the
+    budgeted sweep: each cut LANE is an instance of the merged sweep, so
+    its pruning context (greedy incumbent, rest bounds, shift ledger) is
+    built from the lane's own conditioned plan — exact per lane, and the
+    cross-lane ⊕-combine is untouched.  ``plan_cut``'s byte sizing does
+    not change: pruning changes which rows are worked, never what the
+    device allocates."""
     from pydcop_tpu_torch.telemetry import get_metrics, get_tracer
 
     met = get_metrics()
@@ -674,8 +683,8 @@ def run_bounded(
                 tol=tol, max_table_size=max_table_size,
                 want_args=want_args, t0=t0, timeout=timeout,
                 on_oom="raise" if dmc is not None else "host",
-                table_dtype=table_dtype, table_format=table_format,
-                torch_device=torch_device,
+                bnb=bnb, table_dtype=table_dtype,
+                table_format=table_format, torch_device=torch_device,
             )
         except torch.cuda.OutOfMemoryError:
             # the replan rung of the OOM ladder: level->node already
@@ -811,6 +820,7 @@ def solve_dpop_bounded(
     from pydcop_tpu_torch.ops.semiring import (
         MIN_SUM,
         _value_phase,
+        as_bnb,
         build_plan,
     )
     from pydcop_tpu_torch.telemetry import get_tracer
@@ -827,6 +837,7 @@ def solve_dpop_bounded(
         max_util_bytes=max_util_bytes,
         device_min_cells=dmc, pad=pad, want_args=True,
         max_table_size=max_table_size, t0=t0, timeout=timeout,
+        bnb=as_bnb(params.get("bnb"), "auto"),
         table_dtype=as_table_dtype(params.get("table_dtype")),
         table_format=as_table_format(params.get("table_format")),
         torch_device=device,

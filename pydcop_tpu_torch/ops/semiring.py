@@ -46,9 +46,11 @@ precision, and sparse COO tables joined over candidate lists
 in ``ops/membound.py`` and runs :func:`contract_sweep` with
 ``on_oom="raise"``.
 
-Not ported: the branch-and-bound kernels (``bnb='on'`` raises
-``NotImplementedError`` naming ROADMAP A5; ``'auto'`` runs the unpruned
-contraction).
+Branch-and-bound pruning (``bnb``): :class:`_BnbContext` (a greedy
+incumbent and subtree rest bounds, host f64) gives each device row a
+budget, and the two-pass form of :func:`contraction_kernel` masks the
+rows that provably cannot matter, the results bit-identical for min,
+max and kbest and the discarded mass accounted for the mass kinds.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from pydcop_tpu_torch.ops.padding import (
     PadPolicy,
     as_pad_policy,
     as_table_dtype,
+    bucket_util_shape,
     int8_quant_bound,
     pad_util_parts,
     quantize_table_int8,
@@ -89,12 +92,6 @@ from pydcop_tpu_torch.ops.sparse import (
 
 _EPS32 = float(np.finfo(np.float32).eps)
 _EPS64 = float(np.finfo(np.float64).eps)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (see ROADMAP {item})"
-    )
 
 
 # -- the semiring registry ---------------------------------------------
@@ -507,9 +504,58 @@ def parse_query(query: str) -> Tuple[str, Semiring]:
     )
 
 
-# -- branch-and-bound mode vocabulary ----------------------------------
+# -- branch-and-bound pruning (the two-pass ⊕-bounded kernels) ----------
+#
+# arXiv:1906.06863 accelerates BP-based DCOP algorithms generically by
+# branch-and-bound INSIDE the marginalization: most rows of a
+# high-arity join can be skipped because a cheap per-row ⊕-bound
+# already proves they cannot matter.  Here that becomes a TWO-PASS
+# kernel behind :func:`contraction_kernel` (``bnb=True``):
+#
+# - **pass 1** computes a per-row (= per kept-configuration) bound —
+#   in-kernel it is the joined row's own ⊕-extremum (free: the
+#   value-carrying kinds' outputs bound their rows, and the arg-only
+#   idempotent kernels reduce the join to it anyway); the DPOP sweep's
+#   host-side pass 1 uses per-part own-axis extrema instead (O(Σ part
+#   sizes), no join materialized) — compared against a per-row
+#   ``budget`` derived from the incumbent (a greedy full assignment
+#   evaluated exactly on the host, :class:`_BnbContext`);
+# - **pass 2** runs the dense join+project with the pruned rows
+#   masked to the ⊕-identity (``torch.where``: the shapes do not
+#   change, so the level-pack lattice and the stacked/membound-lane
+#   machinery are untouched).
+#
+# Exactness, per ⊕ (the JAX package's docs/semirings.md,
+# "Branch-and-bound pruning"):
+# idempotent ⊕ (min/max) prunes a row only when its bound plus the
+# rest-of-problem bound provably exceeds the incumbent — no optimal
+# assignment passes through a pruned row, so results stay
+# BIT-IDENTICAL to the unpruned kernel (f32 slack folded into the
+# budget keeps the comparison conservative); kbest prunes against the
+# k-th incumbent (k distinct greedy variants), so the whole k-list
+# survives; logsumexp/marginals/expectation prune rows whose mass
+# contribution is provably negligible and ACCOUNT the discarded mass
+# (the kernel returns its logsumexp) into the existing ``error_bound``
+# ledger under the same ``tol`` gate.
 
 BNB_MODES = ("auto", "on", "off")
+
+#: ``bnb='auto'`` threshold: a dispatch whose per-row joined table
+#: (level-pack padded cells × cell width) is below this keeps the
+#: single-pass kernel — for small factors the bound pass, the masked
+#: ``where`` and the keep-mask transfer cost more than they prune;
+#: only genuinely compute-bound dispatches (~0.5 MiB of f32 per row
+#: and up) can repay the two-pass overhead
+#: (``semiring.bnb_skipped_small`` counts the skips).
+BNB_AUTO_MIN_CELLS = 1 << 17
+
+#: pruned-row fraction at or above which pass 2 abandons the device
+#: for a COMPACT host contraction of the survivors (exact f64, no
+#: certificate needed): with most of the join dead, gathering the
+#: surviving rows beats a dense f32 dispatch plus the dense host
+#: re-evaluation glue.  Below it the masked device kernel runs and
+#: the glue still compacts on the keep mask.
+BNB_HOST_FRAC = 0.5
 
 
 def as_bnb(value, default: str = "auto") -> str:
@@ -526,6 +572,429 @@ def as_bnb(value, default: str = "auto") -> str:
             f"bnb must be one of {BNB_MODES}, got {value!r}"
         )
     return v
+
+
+def greedy_assignment(
+    order_rev: Sequence[str],
+    domains: Mapping[str, Sequence],
+    owned: Mapping[str, Sequence[Tuple[Sequence[str], np.ndarray]]],
+    maximize: bool,
+):
+    """One cheap full assignment for the incumbent: walk ``order_rev``
+    (reversed elimination order, or the pseudo-tree pre-order) and
+    score each candidate value of ``v`` against EVERY part whose
+    scope contains ``v`` — assigned variables fixed, unassigned ones
+    ⊕-marginalized out (a one-step lookahead, so a hard-capped part
+    owned further down the order steers the walk away from values
+    that would doom it to ``+inf``); keep the ⊕-best (first index on
+    ties — deterministic).  Returns ``(value-index assignment, exact
+    f64 total over ALL parts)``.  Tables are in KERNEL domain."""
+    by_var: Dict[str, list] = {}
+    for parts in owned.values():
+        for scope, table in parts:
+            for u in scope:
+                by_var.setdefault(u, []).append((scope, table))
+    red = np.max if maximize else np.min
+    worst = -np.inf if maximize else np.inf
+    assigned: Dict[str, int] = {}
+    for v in order_rev:
+        d = len(domains[v])
+        score = np.zeros(d, dtype=np.float64)
+        for scope, table in by_var.get(v, ()):
+            t = np.asarray(table, dtype=np.float64)
+            idx = tuple(
+                assigned[u] if u in assigned and u != v
+                else slice(None)
+                for u in scope
+            )
+            sub = t[idx]
+            rem = [u for u in scope if u == v or u not in assigned]
+            vax = rem.index(v)
+            axes = tuple(a for a in range(sub.ndim) if a != vax)
+            with np.errstate(invalid="ignore"):
+                vec = red(sub, axis=axes) if axes else sub
+            score = score + vec.reshape(d)
+        # a NaN score (±inf parts cancelling) is "unknown" — rank it
+        # worst so the walk prefers provably-finite values
+        score = np.where(np.isnan(score), worst, score)
+        assigned[v] = int(
+            np.argmax(score) if maximize else np.argmin(score)
+        )
+    # coordinate-descent polish: re-pick each variable's ⊕-best value
+    # with every other variable FIXED (exact part evaluations, no
+    # marginalizing) — two sweeps close most of the greedy-vs-optimum
+    # gap, and the incumbent's tightness is the pruning budget's
+    # tightness
+    for _ in range(2):
+        changed = False
+        for v in order_rev:
+            d = len(domains[v])
+            if d < 2:
+                continue
+            score = np.zeros(d, dtype=np.float64)
+            for scope, table in by_var.get(v, ()):
+                idx = tuple(
+                    slice(None) if u == v else assigned[u]
+                    for u in scope
+                )
+                score = score + np.asarray(
+                    table, dtype=np.float64
+                )[idx].reshape(d)
+            score = np.where(np.isnan(score), worst, score)
+            pick = int(
+                np.argmax(score) if maximize else np.argmin(score)
+            )
+            if pick != assigned[v]:
+                assigned[v] = pick
+                changed = True
+        if not changed:
+            break
+    return assigned, _eval_assignment(owned, assigned)
+
+
+def _eval_assignment(owned, assigned) -> float:
+    total = 0.0
+    for parts in owned.values():
+        for scope, table in parts:
+            total += float(
+                np.asarray(table, dtype=np.float64)[
+                    tuple(assigned[u] for u in scope)
+                ]
+            )
+    return total
+
+
+class _BnbContext:
+    """Per-instance branch-and-bound state for one sweep.
+
+    Built from the instance's KERNEL-domain parts (energies for
+    ``min_sum``/kbest, log-weights ``-β·E`` (+ log-prob parts)
+    otherwise), keyed by owner node:
+
+    - ``inc`` — the incumbent: exact f64 total of a greedy full
+      assignment (an upper bound on the optimum for min, a lower
+      bound for max / on ``log Z`` for the mass semirings);
+      ``inc_k`` (kbest) is the k-th smallest total over k DISTINCT
+      greedy variants — a valid upper bound on the k-th best cost —
+      or None when the instance has fewer than k assignments;
+    - ``rest[v]`` — Σ of per-part extrema over every part OUTSIDE
+      ``v``'s subtree (total minus the subtree prefix sums);
+    - ``rest_logdom[v]`` — Σ log|domain| over variables outside the
+      subtree (the completion-count term of the mass bound);
+    - ``cumshift[v]`` — shifts applied inside ``v``'s subtree so far
+      (filled by the sweep as messages normalize), bridging stored
+      (shifted) message values back to true subtree aggregates.
+
+    ``budget(v, n_children_shift, n_parts, parts_max, d_own,
+    n_rows)`` returns the f32-safe per-row threshold pass 1 compares
+    against (conservative under f32 rounding: questionable rows are
+    KEPT), or the no-prune sentinel when any input is non-finite."""
+
+    __slots__ = (
+        "sr", "tol_node", "inc", "inc_k", "rest", "rest_logdom",
+        "cumshift", "table_dtype",
+    )
+
+    def __init__(
+        self,
+        sr: Semiring,
+        order_rev: Sequence[str],
+        domains: Mapping[str, Sequence],
+        owned: Mapping[str, list],
+        children: Mapping[str, Sequence[str]],
+        tol: float = 1e-6,
+        table_dtype: str = "f32",
+    ):
+        self.sr = sr
+        # pass-1 row bounds are computed at the STORAGE dtype — the
+        # budget slack widens to that dtype's roundoff (plus the int8
+        # quantization term) so pruning stays conservative below f32
+        self.table_dtype = as_table_dtype(table_dtype)
+        self.cumshift: Dict[str, float] = {}
+        n_nodes = max(len(order_rev), 1)
+        self.tol_node = (
+            tol / (2.0 * n_nodes) if sr.error_bounded or
+            sr.kind == "expectation" else 0.0
+        )
+        maximize = sr.maximize or not sr.idempotent
+        if sr.kind == "kbest":
+            maximize = False
+        assigned, inc = greedy_assignment(
+            order_rev, domains, owned, maximize
+        )
+        self.inc = inc
+        self.inc_k: Optional[float] = None
+        if sr.kind == "kbest":
+            self.inc_k = self._kth_incumbent(
+                assigned, domains, owned, order_rev, sr.cell_width
+            )
+        # per-node extremum of the OWNED parts, then subtree prefix
+        # sums bottom-up (order_rev reversed = children before
+        # parents); rest = total - subtree
+        ext: Dict[str, float] = {}
+        logdom: Dict[str, float] = {}
+        red = np.max if maximize else np.min
+        for v in order_rev:
+            e = 0.0
+            for _, table in owned.get(v, ()):
+                e += float(red(np.asarray(table, dtype=np.float64)))
+            ext[v] = e
+            logdom[v] = float(np.log(max(len(domains[v]), 1)))
+        sub_ext: Dict[str, float] = {}
+        sub_logdom: Dict[str, float] = {}
+        for v in reversed(order_rev):  # children first
+            sub_ext[v] = ext[v] + sum(
+                sub_ext[c] for c in children.get(v, ())
+            )
+            sub_logdom[v] = logdom[v] + sum(
+                sub_logdom[c] for c in children.get(v, ())
+            )
+        total_ext = sum(ext.values())
+        total_logdom = sum(logdom.values())
+        self.rest = {v: total_ext - sub_ext[v] for v in order_rev}
+        self.rest_logdom = {
+            v: total_logdom - sub_logdom[v] for v in order_rev
+        }
+
+    @staticmethod
+    def _kth_incumbent(assigned, domains, owned, order_rev, k):
+        """k DISTINCT assignments around the greedy one (vary the
+        widest-domain variables combinatorially); the k-th smallest
+        exact total upper-bounds the k-th best cost.  None when the
+        assignment space itself has fewer than k points."""
+        space = 1.0
+        for v in order_rev:
+            space *= max(len(domains[v]), 1)
+            if space >= k:
+                break
+        if space < k:
+            return None
+        variants = [dict(assigned)]
+        by_width = sorted(
+            order_rev,
+            key=lambda v: (-len(domains[v]), v),
+        )
+        for v in by_width:
+            if len(variants) >= k:
+                break
+            d = len(domains[v])
+            if d < 2:
+                continue
+            variants = [
+                {**a, v: i} for a in variants for i in range(d)
+            ]
+        totals = sorted(
+            _eval_assignment(owned, a) for a in variants[: 4 * k]
+        )
+        return totals[k - 1] if len(totals) >= k else None
+
+    def seed_incumbent(self, owned, assigned) -> bool:
+        """Adopt a caller-provided full assignment (``{var: value
+        index}`` — e.g. the previous solution of a memoized serving
+        session, re-evaluated under the CURRENT tables) as the
+        incumbent when its exact total beats the greedy one.  Any
+        full assignment's total is a valid bound, so this only ever
+        tightens the budgets.  kbest keeps its own ``inc_k``
+        (k-th-best bounds don't follow from one assignment)."""
+        try:
+            tot = _eval_assignment(owned, assigned)
+        except (KeyError, IndexError):
+            return False
+        if not np.isfinite(tot):
+            return False
+        sr = self.sr
+        maximize = sr.maximize or not sr.idempotent
+        if sr.kind == "kbest":
+            maximize = False
+        if maximize:
+            better = tot > self.inc
+        else:
+            better = tot < self.inc
+        if better:
+            self.inc = tot
+        return better
+
+    def no_prune(self) -> float:
+        """Budget sentinel without a usable incumbent
+        (:func:`_no_prune`)."""
+        return _no_prune(self.sr)
+
+    def shift_under(self, children: Sequence[str]) -> float:
+        return sum(self.cumshift.get(c, 0.0) for c in children)
+
+    def record_shift(
+        self, name: str, shift: float, children: Sequence[str]
+    ) -> None:
+        self.cumshift[name] = shift + self.shift_under(children)
+
+    def budget(
+        self,
+        name: str,
+        shift_children: float,
+        n_parts: int,
+        parts_max: float,
+        d_own: int,
+        n_rows: int,
+    ) -> float:
+        """The per-row pass-1 threshold for node ``name`` (module
+        comment above; f32 slack keeps pruning conservative)."""
+        sr = self.sr
+        inc = self.inc_k if sr.kind == "kbest" else self.inc
+        if inc is None:
+            return self.no_prune()
+        rest = self.rest.get(name, 0.0)
+        eps_dt = table_dtype_eps(self.table_dtype)
+        slack = (
+            2.0
+            * (n_parts + 2)
+            * eps_dt
+            * (
+                max(parts_max, 1.0)
+                + abs(inc)
+                + abs(rest)
+                + abs(shift_children)
+            )
+        )
+        if self.table_dtype == "int8":
+            slack += 2.0 * int8_quant_bound(parts_max)
+        if sr.idempotent or sr.kind == "kbest":
+            if sr.maximize:
+                b = inc - rest - shift_children - slack
+            else:
+                b = inc - rest - shift_children + slack
+            return b if np.isfinite(b) else self.no_prune()
+        # mass semirings: keep rows whose mass upper bound could
+        # contribute more than tol_node relative to the incumbent's
+        # exact mass (itself a lower bound on Z); log-domain terms —
+        # the own-axis count, the completion count, and the row count
+        # — make the per-dispatch worst case <= tol_node even before
+        # the kernel measures the true discard
+        b = (
+            self.inc
+            - shift_children
+            - (rest + self.rest_logdom.get(name, 0.0))
+            - float(np.log(max(d_own, 1)))
+            - float(np.log(max(n_rows, 1)))
+            + float(np.log(max(self.tol_node, 1e-300)))
+            - slack
+        )
+        return b if np.isfinite(b) else self.no_prune()
+
+    def account(
+        self,
+        name: str,
+        disc: float,
+        shift_children: float,
+        d_own: int,
+    ) -> float:
+        """Error-ledger term for a mass dispatch's measured discard
+        ``disc`` (kernel pass-1 logsumexp over pruned row bounds):
+        relative discarded mass vs the incumbent's exact mass, with a
+        2x inflation covering the f32 bound arithmetic."""
+        if not np.isfinite(disc):  # nothing pruned
+            return 0.0
+        rest = self.rest.get(name, 0.0) + self.rest_logdom.get(
+            name, 0.0
+        )
+        ln = (
+            disc
+            + float(np.log(max(d_own, 1)))
+            + shift_children
+            + rest
+            - self.inc
+        )
+        return 2.0 * float(np.exp(min(ln, 50.0)))
+
+
+def _no_prune(sr: Semiring) -> float:
+    """The budget sentinel that keeps every FINITE row (±f32max/2): rows
+    whose bound is already the ⊕-annihilator (``+inf`` joint
+    infeasibility under min/kbest, ``-inf`` zero mass) still prune,
+    exactly (their value IS the ⊕-identity; masking them only skips the
+    dead work).  Pad rows of a stack carry it too."""
+    big = float(np.finfo(np.float32).max) / 2
+    if sr.kind == "kbest" or (sr.idempotent and not sr.maximize):
+        return big
+    return -big
+
+
+def _note_bnb(met, tracer, sr, rows, pruned, table_cells, **extra) -> None:
+    """Count one pruned dispatch's pruned cells and record its
+    ``semiring-bnb`` trace event (``semiring.bnb_passes`` is counted with
+    the dispatch)."""
+    if pruned and met.enabled:
+        met.inc("semiring.bnb_pruned_cells", pruned)
+    if tracer is not None and tracer.enabled:
+        tracer.event(
+            "semiring-bnb", cat="supervisor", semiring=sr.name, rows=rows,
+            pruned_cells=int(pruned), table_cells=int(table_cells), **extra,
+        )
+
+
+def _budgets(entries, stack_h, sr, dtype=np.float32) -> np.ndarray:
+    """The ``[stack_h]`` budget vector of a stacked pruned dispatch: each
+    entry's budget (item 8), the no-prune sentinel for entries without
+    one and for pad rows."""
+    out = np.full(stack_h, _no_prune(sr), dtype=dtype)
+    for r, (item, _) in enumerate(entries):
+        if item[8] is not None:
+            out[r] = item[8]
+    return out
+
+
+def max_padded_join_cells(plan: "ContractionPlan", pad) -> int:
+    """Dims-only upper bound on the plan's largest PADDED join (the
+    quantity ``bnb='auto'`` gates on): the O(nodes·width) separator
+    simulation `plan.width()` runs, sized on the pad lattice.  Lets
+    callers skip the (greedy incumbent + per-part extrema) context
+    build entirely on instances where no dispatch can ever clear
+    ``BNB_AUTO_MIN_CELLS`` — small solves must not pay for pruning
+    that cannot happen."""
+    dsize = {
+        v: bucket_util_shape((len(plan.domains[v]),), pad)[0]
+        for v in plan.domains
+    }
+    seps: Dict[str, List[str]] = {}
+    mx = 1
+    for v in plan.order:
+        seps[v] = plan.sep_of(v, seps)
+        size = dsize[v]
+        for d in seps[v]:
+            size *= dsize[d]
+        mx = max(mx, size)
+    return mx
+
+
+def plan_bnb_context(
+    plan: "ContractionPlan", sr: Semiring, beta: float, tol: float,
+    table_dtype: str = "f32",
+) -> Optional[_BnbContext]:
+    """Build the BnB context for one plan, or None when the sweep
+    shape does not support pruning (mixed-⊕ marginal-MAP plans: a
+    max node's subtree contains sums, so neither bound family
+    applies cleanly)."""
+    if plan.node_semiring is not None:
+        return None
+    sign_mass = not (
+        sr.kind == "kbest" or (sr.idempotent and not sr.maximize)
+    )
+    owned: Dict[str, list] = {}
+    for v in plan.order:
+        parts = []
+        for scope, table in plan.buckets[v]:
+            t = np.asarray(table, dtype=np.float64)
+            parts.append(
+                (list(scope), (-beta) * t if sign_mass else t)
+            )
+        for scope, table in plan.wbuckets[v]:
+            # log-prob parts are already kernel-domain log-weights
+            parts.append((list(scope), np.asarray(table, np.float64)))
+        if parts:
+            owned[v] = parts
+    return _BnbContext(
+        sr, list(reversed(plan.order)), plan.domains, owned,
+        plan.children, tol=tol, table_dtype=table_dtype,
+    )
 
 
 # -- device kernels -----------------------------------------------------
@@ -576,14 +1045,20 @@ def contraction_kernel(
     and add, as XLA computes it, never a fused multiply-add), the
     reserved codes restoring ``±inf`` exactly.
 
-    ``bnb=True`` (the two-pass branch-and-bound kernel, ROADMAP A5)
-    raises.
+    ``bnb=True`` builds the two-pass branch-and-bound form (the module
+    comment above :data:`BNB_MODES`): the callable takes a per-row
+    ``budget`` f32 FIRST (0-d, or ``[B]`` when ``batched``; before
+    int8's dequant params), bounds each row by its own ⊕-extremum (the
+    join's own-axis min/max for min/max, the best candidate for kbest,
+    the row's exact log-mass for the mass kinds), keeps the rows that
+    can matter (``~(bound > budget)`` for min and kbest, ``~(bound <
+    budget)`` otherwise: negated, so a NaN bound is kept) and masks the
+    others' outputs to the ⊕-identity (``+inf`` margins).  The keep mask
+    is appended to the outputs; the mass kinds also append the
+    logsumexp of the pruned rows' bounds (``-inf`` when none was
+    pruned; one per stack row), summed in ``fixed_order_sum``'s order.
     """
     sr = get_semiring(sr)
-    if bnb:
-        raise _not_ported(
-            "the branch-and-bound contraction (bnb=True)", "A5"
-        )
     dt = as_table_dtype(table_dtype)
     store = storage_dtype(dt)
     shape = tuple(shape)
@@ -602,6 +1077,8 @@ def contraction_kernel(
             body = _lse_body
 
     def contract(*args: torch.Tensor):
+        if bnb:
+            budget, *args = args
         if dt == "int8":
             scales, offsets, *tabs = args
         else:
@@ -624,9 +1101,70 @@ def contraction_kernel(
             ]
         elif dt == "bf16":
             tabs = [t.float() for t in tabs]
-        return body(sr, tabs, lead + shape, d)
+        outs = body(sr, tabs, lead + shape, d)
+        if sr.idempotent and sr.kind == "scalar":
+            arg, margins, u = outs
+            outs = (arg, margins)
+        if not bnb:
+            return outs
+        # the budget broadcasts over each stack row's separator cells
+        budget = budget.reshape(budget.shape + (1,) * (len(shape) - 1))
+        return _bnb_mask(sr, outs, u if sr.idempotent else None, budget,
+                         batched)
 
     return contract
+
+
+def _bnb_mask(sr, outs, u, budget, batched):
+    """Pass 2's masking of :func:`contraction_kernel`'s outputs under a
+    per-row ``budget`` (its ``bnb=True`` form): ``u`` is the idempotent
+    kinds' row extremum.  The comparisons are negated so that a NaN
+    bound (cancelling ``±inf`` parts) keeps its row."""
+    inf = float("inf")
+    if sr.kind == "kbest":
+        vals, margins, own, *slots = outs
+        keep = ~(vals[..., 0] > budget)  # the row's best candidate
+        k3 = keep.unsqueeze(-1)
+        return (
+            torch.where(k3, vals, inf), torch.where(k3, margins, inf),
+            own, *slots, keep,
+        )
+    if sr.idempotent:
+        arg, margins = outs
+        keep = ~(u > budget) if not sr.maximize else ~(u < budget)
+        return arg, torch.where(keep, margins, inf), keep
+    if sr.kind == "expectation":
+        (pair,) = outs
+        rowb = pair[..., 0]  # the row's exact log-mass
+        keep = ~(rowb < budget)
+        masked = torch.stack(
+            [torch.where(keep, rowb, -inf),
+             torch.where(keep, pair[..., 1], 0.0)], dim=-1,
+        )
+    else:
+        (rowb,) = outs  # the row's exact logsumexp mass
+        keep = ~(rowb < budget)
+        masked = torch.where(keep, rowb, -inf)
+    return masked, keep, _discard(rowb, keep, batched)
+
+
+def _discard(rowb, keep, batched):
+    """logsumexp of the pruned rows' mass bounds (``-inf`` when nothing
+    was pruned), one per stack row: the measured discard the host
+    accounts.  The sum runs in ``fixed_order_sum``'s order, so the card
+    and the CPU give the same bits."""
+    inf = float("inf")
+    lead = 1 if batched else 0
+    pr = torch.where(keep, -inf, rowb).reshape(rowb.shape[:lead] + (-1,))
+    m = pr.amax(dim=-1)
+    fin = torch.isfinite(m)
+    safe = torch.where(fin, m, torch.zeros_like(m))
+    e = torch.where(
+        torch.isfinite(pr), torch.exp(pr - safe.unsqueeze(-1)),
+        torch.zeros_like(pr),
+    )
+    s = fixed_order_sum(e)
+    return torch.where((s > 0) & fin, safe + torch.log(s), -inf)
 
 
 def dequantize_int8(
@@ -667,7 +1205,7 @@ def _min_body(sr, tabs, full, d):
         one_hot = torch.arange(d, device=j.device) == amin.unsqueeze(-1)
         second = torch.where(one_hot, float("inf"), j).amin(dim=-1)
         margins = second - u
-    return amin, margins
+    return amin, margins, u
 
 
 def _max_body(sr, tabs, full, d):
@@ -682,7 +1220,7 @@ def _max_body(sr, tabs, full, d):
         one_hot = torch.arange(d, device=j.device) == arg.unsqueeze(-1)
         second = torch.where(one_hot, float("-inf"), j).amax(dim=-1)
         margins = u - second
-    return arg, margins
+    return arg, margins, u
 
 
 # The mass kernels sum the own axis with ``ops/costs.py:fixed_order_sum``
@@ -811,14 +1349,19 @@ def bp_factor_messages(
     restarts and instances, with ``tab`` broadcastable over them);
     returns the ``k`` outgoing messages in ``mdt``.
 
-    ``bnb`` is accepted for parameter parity.  The JAX package's
-    branch-and-bound pruning returns messages bit-identical to the
-    unpruned form (pruned configurations are strictly worse than every
-    output's optimum), so this port computes the unpruned form for
-    either value; the pruned kernel is a later port item.
+    ``bnb=True`` (idempotent ⊕ only; ignored otherwise) runs the
+    two-pass ⊕-bounded marginalization of arXiv:1906.06863 per output
+    position, as the JAX package does: pass 1 bounds every configuration
+    by the table plus the other positions' q extrema, and takes, per
+    output cell, an incumbent (the table at the q-extrema configuration
+    of the other axes: one exact candidate); pass 2 masks the
+    configurations whose bound cannot beat the incumbent to the
+    ⊕-identity before each reduce.  A slack of ``4·(k+2)·eps32·scale``
+    keeps the test conservative, so pruned entries are strictly worse
+    than each output's optimum and the messages are bit-identical to
+    ``bnb=False``.
     """
     sr = get_semiring(sr)
-    del bnb  # bit-identical messages either way (see docstring)
     k = len(q_pos)
     lead = tuple(q_pos[0].shape[:-2])
     d, m = q_pos[0].shape[-2:]
@@ -827,10 +1370,64 @@ def bp_factor_messages(
         shape = lead + (1,) * p + (d,) + (1,) * (k - 1 - p) + (m,)
         s = s + q_pos[p].to(tab.dtype).reshape(shape)
     low = sr.idempotent and not sr.maximize
+    use_bnb = bool(bnb) and sr.idempotent
+    if use_bnb:
+        guard = float("inf") if low else float("-inf")
+        qf = [q.to(tab.dtype) for q in q_pos]
+        if low:
+            qv = [q.amin(dim=-2) for q in qf]  # [*lead, m] per position
+            qa = [q.argmin(dim=-2) for q in qf]
+        else:
+            qv = [q.amax(dim=-2) for q in qf]
+            qa = [q.argmax(dim=-2) for q in qf]
+
+        def fin_max(a):
+            f = torch.where(torch.isfinite(a), a.abs(), 0.0)
+            return f.amax() if f.numel() else f.new_zeros(())
+
+        scale = fin_max(tab)
+        for q in qf:
+            scale = scale + fin_max(q)
+        # covers three independently rounded f32 sums (the joint s, the
+        # bound lb, the incumbent ub), each within (k+1)·eps32·scale of
+        # its exact value
+        slack = 4.0 * (k + 2) * _EPS32 * torch.clamp(scale, min=1.0)
+        full = tuple(s.shape)
+        tab_f = tab.expand(lead + full[len(lead):-1] + (tab.shape[-1],))
+
+        def at(x):  # [*lead, m] -> broadcast over the bucket's axes
+            return x.reshape(lead + (1,) * k + (m,))
     outs = []
     for p in range(k):  # position a's axis is a - k - 1
         axes = tuple(a - k - 1 for a in range(k) if a != p)
-        mp = s.amin(dim=axes) if low else sr.torch_reduce(s, axes)
+        sp = s
+        if use_bnb:
+            # incumbent per output cell (p, v): the table at the
+            # q-extrema configuration of the other axes
+            t = tab_f.expand(full)
+            for a in range(k):
+                if a == p:
+                    continue
+                idx_shape = list(t.shape)
+                idx_shape[len(lead) + a] = 1
+                idx = at(qa[a]).expand(idx_shape)
+                t = torch.gather(t, len(lead) + a, idx)
+            ub = t
+            lb = tab
+            for a in range(k):
+                if a == p:
+                    continue
+                ub = ub + at(qv[a])
+                lb = lb + at(qv[a])
+            qp = qf[p].reshape(
+                lead + (1,) * p + (d,) + (1,) * (k - 1 - p) + (m,)
+            )
+            lb = lb + qp
+            ub = ub + qp  # the incumbent includes this output's own q
+            # negated test: NaN bounds (cancelling ±inf) are kept
+            worse = (lb < ub - slack) if sr.maximize else (lb > ub + slack)
+            sp = torch.where(~worse, s, guard)
+        mp = sp.amin(dim=axes) if low else sr.torch_reduce(sp, axes)
         rp = mp - q_pos[p].to(tab.dtype)
         if low:
             rp = rp - rp.amin(dim=-2, keepdim=True)
@@ -1325,6 +1922,7 @@ def contract_sweep(
     t0: Optional[float] = None,
     timeout: Optional[float] = None,
     on_oom: str = "host",
+    bnb: str = "off",
     table_dtype: str = "f32",
     table_format: str = "dense",
     torch_device: Optional[torch.device] = None,
@@ -1373,6 +1971,17 @@ def contract_sweep(
     idempotent results stay bit-identical, and mass queries fold any
     truncated-mass term into the error ledger.
 
+    ``bnb`` enables the two-pass branch-and-bound pruned kernels (the
+    module comment above :data:`BNB_MODES`): ``"on"`` prunes every
+    device dispatch, ``"auto"`` only those whose per-row padded table
+    clears :data:`BNB_AUTO_MIN_CELLS` (``semiring.bnb_skipped_small``
+    counts the instances and dispatches that stay unpruned), ``"off"``
+    never.  Each pruning instance gets its own :class:`_BnbContext`;
+    pad rows carry the no-prune sentinel; a mass dispatch's measured
+    discard goes into the error ledger.  ``semiring.bnb_passes`` and
+    ``semiring.bnb_pruned_cells`` count the pruned dispatches and cells,
+    and each pruned dispatch records a ``semiring-bnb`` trace event.
+
     Counters: ``semiring.contractions`` per node,
     ``semiring.kbest_merges`` per kbest node, ``semiring.dispatches``
     per device dispatch, ``semiring.cert_fallbacks`` per node redone on
@@ -1398,6 +2007,22 @@ def contract_sweep(
         as_table_format(table_format) == "sparse"
         and device_min_cells is not None
     )
+    bnb = as_bnb(bnb, "off")
+    ctxs: List[Optional[_BnbContext]] = [None] * K
+    if bnb != "off" and device_min_cells is not None:
+        for k, p in enumerate(plans):
+            if (
+                bnb == "auto"
+                and max_padded_join_cells(p, pad) * sr.cell_width
+                < BNB_AUTO_MIN_CELLS
+            ):
+                # no dispatch of this instance can clear the auto
+                # threshold: skip the context build, counted once
+                if met.enabled:
+                    met.inc("semiring.bnb_skipped_small")
+                continue
+            ctxs[k] = plan_bnb_context(p, sr, beta, tol, table_dtype=call_dt)
+    bnb_call = any(c is not None for c in ctxs)
 
     def table_in(tbl: np.ndarray) -> np.ndarray:
         if sr.kind == "kbest" or (sr.idempotent and not sr.maximize):
@@ -1418,12 +2043,18 @@ def contract_sweep(
                 # root: the reduce is a scalar — fold it into the
                 # instance aggregate
                 sw.root_total[k] += float(u)
+            if ctxs[k] is not None:
+                ctxs[k].record_shift(name, 0.0, plan.children[name])
         else:
             shift = sr_n.shift_of(u)
             if not np.isfinite(shift):
                 shift = 0.0  # an all--inf message normalizes to itself
             u = sr_n.apply_shift(u, shift)
             sw.total_shift[k] += shift
+            if ctxs[k] is not None:
+                ctxs[k].record_shift(name, shift, plan.children[name])
+            # finite-masked: pruned rows carry the ⊕-identity and hard
+            # constraints ±inf, exact values rather than rounding scales
             mag = _finite_amax(u)
             if (
                 fmt_sparse
@@ -1609,6 +2240,7 @@ def contract_sweep(
             dmc = device_min_cells
             use_device = dmc is not None and size * cw >= dmc
             node_dt = call_dt
+            local = 0.0
             if use_device and sr_n.error_bounded:
                 # error-budget gate: a device pass whose accumulated
                 # bound would exceed tol first DEMOTES to f32 storage,
@@ -1637,6 +2269,21 @@ def contract_sweep(
                     err_in,
                 )
                 continue
+            # the per-row pruning budget (host f64, f32 slack folded in);
+            # a mass node whose worst-case pruned mass (tol_node) would
+            # push the ledger past tol dispatches unpruned
+            ctx = ctxs[k]
+            shiftc = 0.0
+            budget = None
+            if ctx is not None:
+                shiftc = ctx.shift_under(plan.children[name])
+                if not sr_n.error_bounded or (
+                    err_in + local + ctx.tol_node <= tol
+                ):
+                    budget = ctx.budget(
+                        name, shiftc, len(parts), parts_max, shape[-1],
+                        size // max(shape[-1], 1),
+                    )
             if fmt_sparse and sr_n.kind == "scalar":
                 sprep = sparse_node_prep(
                     parts, target, shape, sr_n.plus_identity
@@ -1646,13 +2293,19 @@ def contract_sweep(
                     # geometry, never mixed with the dense buckets
                     if met.enabled:
                         met.inc("semiring.sparse_nodes")
-                    key = ("sparse", sr_n.name, node_dt, sprep.key)
+                    sp_bnb = (
+                        bnb_call
+                        and budget is not None
+                        and (bnb == "on" or size * cw >= BNB_AUTO_MIN_CELLS)
+                    )
+                    key = ("sparse", sr_n.name, node_dt, sprep.key, sp_bnb)
                     if key not in buckets:
                         buckets[key] = []
                         order.append(key)
                     buckets[key].append(
                         ((k, name, sep, target, shape, parts, parts_max,
-                          err_in + sprep.trunc, node_dt), sprep)
+                          err_in + sprep.trunc, budget, shiftc, node_dt),
+                         sprep)
                     )
                     continue
                 if met.enabled and any(
@@ -1680,7 +2333,7 @@ def contract_sweep(
                 order.append(key)
             buckets[key].append(
                 ((k, name, sep, target, shape, parts, parts_max, err_in,
-                  node_dt), aligned)
+                  budget, shiftc, node_dt), aligned)
             )
 
         if mixed and len(wave_srs) > 1 and met.enabled:
@@ -1694,7 +2347,8 @@ def contract_sweep(
                 sr_b = get_semiring(key[1])
                 if not _dispatch_sparse(
                     sw, sr_b, entries, pad, want_args, finish, met,
-                    plans, torch_device, key[2], on_oom,
+                    plans, torch_device, key[2], on_oom, key[4], ctxs,
+                    tracer,
                 ):
                     # device OOM on the candidate dispatch: redo the
                     # bucket's nodes on host f64 (``_align`` densifies
@@ -1715,11 +2369,20 @@ def contract_sweep(
             n_rows = len(entries)
             shape0 = entries[0][0][4]
             uniform = all(it[4] == shape0 for it, _ in entries)
+            # "on" prunes every device bucket, "auto" the buckets whose
+            # per-row padded table clears the threshold (a function of
+            # the bucket key, so every entry agrees)
+            use_bnb = False
+            if bnb_call and any(it[8] is not None for it, _ in entries):
+                per_row = int(np.prod(pshape)) * sr_b.cell_width
+                use_bnb = bnb == "on" or per_row >= BNB_AUTO_MIN_CELLS
+                if not use_bnb and met.enabled:
+                    met.inc("semiring.bnb_skipped_small")
             if uniform and n_rows > 1:
                 if _dispatch_stacked(
                     sw, sr_b, entries, pshape, part_shapes, shape0, pad,
                     guard, want_args, finish, met, plans, torch_device,
-                    bucket_dt,
+                    bucket_dt, use_bnb, ctxs, tracer,
                 ):
                     continue
                 # OOM on the stacked dispatch: degrade to the per-node
@@ -1727,10 +2390,12 @@ def contract_sweep(
                 if met.enabled:
                     met.inc("engine.oom_splits")
             fn = contraction_kernel(
-                sr_b, pshape, part_shapes, table_dtype=bucket_dt
+                sr_b, pshape, part_shapes, bnb=use_bnb,
+                table_dtype=bucket_dt,
             )
             for item, aligned in entries:
-                k, name, sep, target, shape, parts, _pm, err_in = item[:8]
+                (k, name, sep, target, shape, parts, _pm, err_in,
+                 budget) = item[:9]
                 if timeout is not None and time.perf_counter() - t0 > timeout:
                     return None
                 padded = pad_util_parts(
@@ -1738,6 +2403,10 @@ def contract_sweep(
                     with_mask=pad.enabled,
                 )
                 packed = _pack_parts(padded, bucket_dt, met)
+                if use_bnb:
+                    packed = [np.float32(
+                        _no_prune(sr_b) if budget is None else budget
+                    )] + list(packed)
                 try:
                     outs = _dispatch(fn, packed, torch_device)
                 except torch.cuda.OutOfMemoryError:
@@ -1750,12 +2419,17 @@ def contract_sweep(
                     continue
                 if met.enabled:
                     met.inc("semiring.dispatches")
+                    if use_bnb:
+                        met.inc("semiring.bnb_passes")
                 sw.dispatches[k] += 1
                 region = tuple(slice(0, s) for s in shape[:-1])
-                _finish_device_row(
+                pruned = _finish_device_row(
                     sw, sr_b, plans[k], item, outs, region, want_args,
-                    finish, met,
+                    finish, met, use_bnb, ctxs[k],
                 )
+                if use_bnb:
+                    _note_bnb(met, tracer, sr_b, 1, pruned,
+                              int(np.prod(shape)) * sr_b.cell_width)
     if tracer.enabled:
         tracer.add_span(
             "semiring.contract", "phase", t_sweep,
@@ -1767,14 +2441,17 @@ def contract_sweep(
 
 def _dispatch_stacked(
     sw, sr, entries, pshape, part_shapes, shape0, pad, guard, want_args,
-    finish, met, plans, torch_device, table_dtype,
+    finish, met, plans, torch_device, table_dtype, use_bnb=False,
+    ctxs=(), tracer=None,
 ) -> bool:
     """One stacked dispatch for a uniform level-pack bucket: f64 stack
     buffers (ghost rows all zero, the mask row at the guard), packed at
     the bucket's storage dtype — int8 quantizes per (row, part), so
     every row carries its own scale/offset pair — in one host-to-device
-    copy per storage type.  Returns False on device OOM (the caller
-    degrades to per-node dispatches)."""
+    copy per storage type.  ``use_bnb`` prepends the per-row budget
+    vector (pad rows at the no-prune sentinel, so ghost rows never reach
+    the counters or the discard).  Returns False on device OOM (the
+    caller degrades to per-node dispatches)."""
     n_rows = len(entries)
     stack_h = stack_bucket(n_rows) if pad.enabled else n_rows
     n_parts = len(part_shapes)
@@ -1789,23 +2466,32 @@ def _dispatch_stacked(
         if has_mask:
             bufs[-1][r][..., shape0[-1]:] = guard
     fn = contraction_kernel(
-        sr, pshape, part_shapes, batched=True, table_dtype=table_dtype
+        sr, pshape, part_shapes, batched=True, bnb=use_bnb,
+        table_dtype=table_dtype,
     )
     dequant, packed = pack_rows(bufs, table_dtype, n_rows, met)
+    budgets = [_budgets(entries, stack_h, sr)] if use_bnb else []
     try:
-        outs = _dispatch(fn, dequant + packed, torch_device)
+        outs = _dispatch(fn, budgets + dequant + packed, torch_device)
     except torch.cuda.OutOfMemoryError:
         return False
     if met.enabled:
         met.inc("semiring.dispatches")
+        if use_bnb:
+            met.inc("semiring.bnb_passes")
     for k in sorted({item[0] for item, _ in entries}):
         sw.dispatches[k] += 1
     region_rows = tuple(slice(0, s) for s in shape0[:-1])
+    pruned = 0
     for r, (item, _) in enumerate(entries):
-        _finish_device_row(
+        pruned += _finish_device_row(
             sw, sr, plans[item[0]], item, tuple(o[r] for o in outs),
-            region_rows, want_args, finish, met,
+            region_rows, want_args, finish, met, use_bnb,
+            ctxs[item[0]] if use_bnb else None,
         )
+    if use_bnb:
+        _note_bnb(met, tracer, sr, n_rows, pruned,
+                  int(np.prod(shape0)) * sr.cell_width * n_rows)
     return True
 
 
@@ -1831,14 +2517,15 @@ def _quantize_rows(bufs, n_rows, met):
 
 def _dispatch_sparse(
     sw, sr, entries, pad, want_args, finish, met, plans, torch_device,
-    table_dtype, on_oom,
+    table_dtype, on_oom, use_bnb=False, ctxs=(), tracer=None,
 ) -> bool:
     """One stacked candidate-list dispatch for a sparse bucket
     (``ops/sparse.py``): every entry shares the pow-2 candidate
     geometry, so the rows stack under one
     :func:`~pydcop_tpu_torch.ops.sparse.sparse_contraction_kernel` as
     the dense level packs do.  Ghost candidates land in the ghost
-    segment.  The i32 index buffers go over in one copy, the packed
+    segment, and pad rows carry the no-prune sentinel under
+    ``use_bnb``.  The i32 index buffers go over in one copy, the packed
     values in one more (int8: its scales/offsets too).  Returns False
     on device OOM (the caller redoes the bucket on host f64) unless
     ``on_oom="raise"``."""
@@ -1861,10 +2548,13 @@ def _dispatch_sparse(
             val_bufs[i][r, : sp.part_flats[i].size] = sp.part_flats[i]
             gid_bufs[i][r, :nc] = sp.gidx[i]
     fn = sparse_contraction_kernel(
-        sr, n_cand_b, n_seg_b, part_lens_b, table_dtype=table_dtype
+        sr, n_cand_b, n_seg_b, part_lens_b, bnb=use_bnb,
+        table_dtype=table_dtype,
     )
     dequant, packed = pack_rows(val_bufs, table_dtype, n_rows, met)
     args = dequant + [sep_b, own_b] + packed + gid_bufs
+    if use_bnb:
+        args = [_budgets(entries, stack_h, sr)] + args
     try:
         outs = _dispatch(fn, args, torch_device)
     except torch.cuda.OutOfMemoryError:
@@ -1873,26 +2563,37 @@ def _dispatch_sparse(
         return False
     if met.enabled:
         met.inc("semiring.dispatches")
+        if use_bnb:
+            met.inc("semiring.bnb_passes")
     for k in sorted({item[0] for item, _ in entries}):
         sw.dispatches[k] += 1
+    pruned = 0
+    dense_cells = 0
     for r, (item, _sp) in enumerate(entries):
         shape = item[4]
         sshape = tuple(shape[:-1])
         n_seg = 1
         for s in sshape:
             n_seg *= s
-        row_outs = tuple(o[r][:n_seg].reshape(sshape) for o in outs)
-        region = tuple(slice(0, s) for s in sshape)
-        _finish_device_row(
-            sw, sr, plans[item[0]], item, row_outs, region, want_args,
-            finish, met,
+        dense_cells += n_seg * shape[-1]
+        row_outs = tuple(
+            o[r] if o.ndim == 1 else o[r][:n_seg].reshape(sshape)
+            for o in outs  # the mass discard is one scalar a row
         )
+        region = tuple(slice(0, s) for s in sshape)
+        pruned += _finish_device_row(
+            sw, sr, plans[item[0]], item, row_outs, region, want_args,
+            finish, met, use_bnb, ctxs[item[0]] if use_bnb else None,
+        )
+    if use_bnb:
+        _note_bnb(met, tracer, sr, n_rows, pruned, dense_cells)
     return True
 
 
 def _finish_device_row(
-    sw, sr, plan, item, outs, region, want_args, finish, met,
-):
+    sw, sr, plan, item, outs, region, want_args, finish, met, bnb=False,
+    ctx=None,
+) -> int:
     """Certify / account one device contraction and finish the node.
 
     The certificates and ledgers re-scale to the STORAGE dtype the
@@ -1906,11 +2607,30 @@ def _finish_device_row(
     host).  logsumexp ⊕ and expectation: accept the f32 values and
     extend the accumulated error bound (the ``tol`` gate already ran
     before dispatch).  A low-precision node whose certificate sent
-    cells to the host counts ``semiring.precision_repairs``."""
+    cells to the host counts ``semiring.precision_repairs``.
+
+    ``bnb``: the trailing outputs are the keep mask (and, for the mass
+    kinds, the measured discard, accounted into the ledger through
+    ``ctx``).  Pruned rows hold the ⊕-identity and ``+inf`` margins, so
+    they skip certification and repair; when at least a quarter of the
+    cells are pruned the exact f64 re-evaluation gathers the survivors
+    only.  Returns the pruned join-cell count (0 without pruning)."""
     (k, name, sep, target, shape, parts, parts_max, err_in,
-     node_dt) = item
+     _budget, shiftc, node_dt) = item
     eps_dt = table_dtype_eps(node_dt)
     quant = int8_quant_bound(parts_max) if node_dt == "int8" else 0.0
+    keep_r = None
+    disc = None
+    pruned_cells = 0
+    if bnb:
+        if sr.idempotent or sr.kind == "kbest":
+            *outs, keep = outs
+        else:
+            *outs, keep, disc = outs
+        keep_r = np.asarray(keep[region], dtype=bool)
+        pruned_cells = int(keep_r.size - keep_r.sum()) * shape[
+            -1
+        ] * sr.cell_width
     if sr.kind == "kbest":
         vals, margins, own_idx, *slots = outs
         margins = np.asarray(margins[region], dtype=np.float64)
@@ -1929,12 +2649,13 @@ def _finish_device_row(
                 sr, k, name, plan, sep, u,
                 (own, dict(zip(plan.children[name], provs))),
             )
-            return
+            return pruned_cells
         own = np.asarray(own_idx[region], dtype=np.intp)
         slot_arrs = [np.asarray(s[region], dtype=np.intp) for s in slots]
         u = _kbest_reeval(parts, target, shape, own, slot_arrs)
         # slots past the candidate count are +inf in the kernel's
-        # values; their backpointers are clamped padding
+        # values; their backpointers are clamped padding (a pruned
+        # row's slots are all +inf, so it stays the ⊕-identity too)
         u = np.where(np.isfinite(np.asarray(vals[region])), u, np.inf)
         sw.device_nodes[k] += 1
         finish(
@@ -1961,7 +2682,7 @@ def _finish_device_row(
             if err_in:
                 sw.err[k][name] = err_in
             finish(sr, k, name, plan, sep, u, arg)
-            return
+            return pruned_cells
         for cell in map(tuple, bad):
             row = np.zeros(shape[-1], dtype=np.float64)
             for dims, table in parts:
@@ -1970,17 +2691,38 @@ def _finish_device_row(
         # exact f64 values AT the certified arg: children contribute
         # zero error to their parents, whatever the tree depth
         own = target[-1]
-        grids = (
-            np.indices(tuple(shape[:-1]), dtype=np.intp)
-            if len(shape) > 1
-            else None
-        )
-        u = np.zeros(tuple(shape[:-1]), dtype=np.float64)
-        for dims, table in parts:
-            idx = [
-                arg if d == own else grids[target.index(d)] for d in dims
-            ]
-            u += _part_gather(table, tuple(idx))
+        if (
+            keep_r is not None
+            and len(shape) > 1
+            and 4 * int(keep_r.sum()) < 3 * keep_r.size
+        ):
+            # a quarter or more pruned: gather the survivors only
+            coords = np.nonzero(keep_r)
+            a_sel = arg[coords]
+            u = np.full(tuple(shape[:-1]), sr.plus_identity)
+            acc = np.zeros(len(coords[0]), dtype=np.float64)
+            for dims, table in parts:
+                idx = [
+                    a_sel if d == own else coords[target.index(d)]
+                    for d in dims
+                ]
+                acc += _part_gather(table, tuple(idx))
+            u[coords] = acc
+        else:
+            grids = (
+                np.indices(tuple(shape[:-1]), dtype=np.intp)
+                if len(shape) > 1
+                else None
+            )
+            u = np.zeros(tuple(shape[:-1]), dtype=np.float64)
+            for dims, table in parts:
+                idx = [
+                    arg if d == own else grids[target.index(d)]
+                    for d in dims
+                ]
+                u += _part_gather(table, tuple(idx))
+            if keep_r is not None:
+                u = np.where(keep_r, u, sr.plus_identity)
         sw.device_nodes[k] += 1
         if err_in:
             sw.err[k][name] = err_in
@@ -1988,11 +2730,17 @@ def _finish_device_row(
     else:  # logsumexp and expectation: the values are the answer
         (vals,) = outs
         u = np.asarray(vals[region], dtype=np.float64)
+        extra = (
+            ctx.account(name, float(disc), shiftc, shape[-1])
+            if ctx is not None and disc is not None
+            else 0.0
+        )
         sw.err[k][name] = err_in + eps_dt * (
             (len(parts) + 1) * max(parts_max, 1.0) + shape[-1] + 2
-        ) + quant
+        ) + quant + extra
         sw.device_nodes[k] += 1
         finish(sr, k, name, plan, sep, u, None)
+    return pruned_cells
 
 
 def _part_gather(table, idx):
@@ -2297,13 +3045,14 @@ def run_infer_many(
     the level-pack stack as extra lanes, and the result carries a
     ``membound`` block; an unplannable budget raises
     :class:`~pydcop_tpu_torch.ops.membound.MemboundError`.
-    ``bnb="on"`` (ROADMAP A5) raises ``NotImplementedError``;
-    ``bnb="auto"`` runs the unpruned contraction.
+    ``bnb`` (``"auto"``, ``"on"``, ``"off"``) prunes the device
+    contractions by branch and bound (:func:`contract_sweep`): map and
+    kbest stay exact; the mass queries account the pruned mass into
+    ``error_bound``.
     """
     t0 = time.perf_counter()
     qkind, sr = parse_query(query)
-    if as_bnb(bnb, "auto") == "on":
-        raise _not_ported("infer bnb='on' (the pruned contraction)", "A5")
+    bnb = as_bnb(bnb, "auto")
     table_dtype = as_table_dtype(table_dtype)
     table_format = as_table_format(table_format)
     if device not in ("auto", "never", "always"):
@@ -2374,14 +3123,14 @@ def run_infer_many(
             max_util_bytes=int(max_util_bytes), beta=beta, dmc=dmc,
             pad=pad, tol=tol, max_table_size=max_table_size,
             want_args=want_args, t0=t0, timeout=timeout, K=K,
-            query=query, table_dtype=table_dtype,
+            query=query, bnb=bnb, table_dtype=table_dtype,
             table_format=table_format, torch_device=torch_device,
         )
 
     sw = contract_sweep(
         plans, sr, beta=beta, device_min_cells=dmc, pad=pad, tol=tol,
         max_table_size=max_table_size, want_args=want_args, t0=t0,
-        timeout=timeout, table_dtype=table_dtype,
+        timeout=timeout, bnb=bnb, table_dtype=table_dtype,
         table_format=table_format, torch_device=torch_device,
     )
     if sw is None:
@@ -2484,7 +3233,7 @@ def _timeout_result(query: str, t0: float) -> Dict[str, Any]:
 def _run_bounded_infer(
     dcops, plans, qkind, sr, *, max_util_bytes, beta, dmc, pad,
     tol, max_table_size, want_args, t0, timeout, K,
-    query: Optional[str] = None,
+    query: Optional[str] = None, bnb: str = "off",
     table_dtype: str = "f32", table_format: str = "dense",
     torch_device: Optional[torch.device] = None,
 ) -> List[Dict[str, Any]]:
@@ -2507,7 +3256,7 @@ def _run_bounded_infer(
         plans, sr, max_util_bytes=max_util_bytes, beta=beta,
         device_min_cells=dmc, pad=pad, tol=tol,
         max_table_size=max_table_size, want_args=want_args,
-        t0=t0, timeout=timeout, table_dtype=table_dtype,
+        t0=t0, timeout=timeout, bnb=bnb, table_dtype=table_dtype,
         table_format=table_format, torch_device=torch_device,
     )
     if bs is None:

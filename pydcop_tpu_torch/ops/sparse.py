@@ -581,10 +581,22 @@ def sparse_contraction_kernel(
     the minima; a segment with no candidate reports the ⊕-identity with
     ``arg = 0`` and a NaN margin, as an all-identity dense row does),
     mass ⊕ returns ``(values,)``.  Structured cells (kbest,
-    expectation) raise ``ValueError``; ``bnb=True`` (ROADMAP A5)
-    raises ``NotImplementedError``.
+    expectation) raise ``ValueError``.
+
+    ``bnb=True`` takes a ``[B]`` f32 budget FIRST (before int8's
+    dequant params) and prunes as the dense two-pass kernel does: the
+    segment reduce is the row's pass-1 bound, min keeps ``~(u >
+    budget)`` and max and the mass kinds ``~(u < budget)`` (negated, so
+    NaN is kept); the pruned rows' outputs are masked to the
+    ⊕-identity (``+inf`` margins) and the keep mask is appended, plus,
+    for the mass kinds, the logsumexp of the pruned rows' values with
+    the ghost segment sliced off.
     """
-    from pydcop_tpu_torch.ops.semiring import dequantize_int8, get_semiring
+    from pydcop_tpu_torch.ops.semiring import (
+        _discard,
+        dequantize_int8,
+        get_semiring,
+    )
 
     sr = get_semiring(sr)
     dt = as_table_dtype(table_dtype)
@@ -592,11 +604,6 @@ def sparse_contraction_kernel(
         raise ValueError(
             f"sparse contraction supports scalar ⊕ only, not "
             f"{sr.name!r} (structured cells keep the dense kernels)"
-        )
-    if bnb:
-        raise NotImplementedError(
-            "the branch-and-bound sparse contraction (bnb=True) is not "
-            "ported yet (see ROADMAP A5)"
         )
     P = len(part_lens_b)
     n_cand_b = int(n_cand_b)
@@ -606,6 +613,9 @@ def sparse_contraction_kernel(
     store = storage_dtype(dt)
 
     def contract(*args: torch.Tensor):
+        if bnb:
+            budget, *args = args
+            budget = budget.unsqueeze(-1)  # [B, 1] over the segments
         if dt == "int8":
             scales, offsets, sep, own, *tg = args
         else:
@@ -667,7 +677,11 @@ def sparse_contraction_kernel(
             v2 = torch.where(excl, ident, v)
             second = seg(v2, op, ident)
             margins = second - u if lo else u - second
-            return arg, margins
+            if not bnb:
+                return arg, margins
+            # the segment reduce IS the row's ⊕-extremum: pass 1 is free
+            keep = ~(u > budget) if lo else ~(u < budget)
+            return arg, torch.where(keep, margins, float("inf")), keep
         m = seg(v, torch.maximum, float("-inf"))
         safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         e = torch.where(
@@ -679,6 +693,15 @@ def sparse_contraction_kernel(
         # dense kernel's isfinite(m) guard keeps them
         e = torch.where(torch.isposinf(v), float("inf"), e)
         s = seg(e, torch.add, 0.0)
-        return (torch.where(torch.isfinite(m), safe + torch.log(s), m),)
+        u = torch.where(torch.isfinite(m), safe + torch.log(s), m)
+        if not bnb:
+            return (u,)
+        keep = ~(u < budget)
+        # the ghost segment (-inf, never above a budget) stays out of
+        # the measured discard
+        return (
+            torch.where(keep, u, float("-inf")), keep,
+            _discard(u[:, :-1], keep[:, :-1], True),
+        )
 
     return contract

@@ -1,15 +1,15 @@
 """The port's exact DPOP against the JAX package's.
 
 The same instances, built from numpy seeds once with each package's model
-objects, go through ``pydcop_tpu.api.solve(…, "dpop")`` (``bnb='off'``:
-the port runs the unpruned contraction) and
+objects, go through ``pydcop_tpu.api.solve(…, "dpop")`` (both
+packages at the same ``bnb``, ``'auto'`` unless a test sets it) and
 ``pydcop_tpu_torch.api.solve(…, "dpop", device="cpu")``.  The
 assignment, the cost and every non-time statistic must be equal: DPOP is
 exact and the device path is certificate-guarded, so level batching,
 pow-2 padding and the device (the port's contraction in eager PyTorch,
 the JAX package's in XLA) change no decided value.  Also here: the
-port's pseudo-tree against the JAX one, the options (only ``bnb='on'``
-still raises) and the CLI.
+port's pseudo-tree against the JAX one, the options (``bnb='on'``
+included) and the CLI.
 """
 
 import json
@@ -180,8 +180,8 @@ def assert_same_result(want, got):
 
 
 def run_both(jd, td, params, pad="none", **kw):
-    want = jax_solve(jd, "dpop", dict(params, bnb="off"), pad_policy=pad,
-                     **kw)
+    want = jax_solve(jd, "dpop", params,
+                     pad_policy=pad, **kw)
     got = port_solve(td, "dpop", params, pad_policy=pad, device="cpu", **kw)
     assert_same_result(want, got)
     return got
@@ -242,7 +242,7 @@ def test_instances_equal_jax(case, params, pad):
         assert got["util_host_nodes"] > 0  # tie-heavy joins fell back
         assert got["util_device_nodes"] > 0  # the root's did not
     if case == "memory-bound":
-        want = jax_solve(jd, "dpop", dict(params, bnb="off"))
+        want = jax_solve(jd, "dpop", params)
         assert got["conditioned_vars"] == want["conditioned_vars"]
         assert got["conditioning_passes"] == want["conditioning_passes"] > 1
 
@@ -256,7 +256,7 @@ def test_forest_level_batches_constraint_free_variables():
     td.add_variable(tdcop.Variable("w", tdcop.Domain("d", "", [0, 1])))
     jd.add_variable(jdcop.Variable("w", jdcop.Domain("d", "", [0, 1])))
     got = port_solve(td, "dpop", ALWAYS, device="cpu")
-    want = jax_solve(jd, "dpop", dict(ALWAYS, bnb="off", util_batch="node"))
+    want = jax_solve(jd, "dpop", dict(ALWAYS, util_batch="node"))
     for k in ("assignment", "cost", "util_device_nodes", "util_host_nodes"):
         assert got[k] == want[k]
     assert got["util_dispatches"] < want["util_dispatches"]
@@ -283,7 +283,7 @@ def test_pseudotree_equals_jax(build):
         assert tg.separator(jn.name) == jg.separator(jn.name)
 
 
-# -- options: the A10 knobs run and equal the JAX package; bnb='on' ----
+# -- options: the A10 knobs and bnb='on' run and equal the JAX package --
 
 
 @pytest.mark.parametrize(
@@ -293,13 +293,13 @@ def test_pseudotree_equals_jax(build):
         ({"table_format": "sparse"}, None),
         ({"table_dtype": "bf16"}, None),
         ({"table_dtype": "int8"}, None),
-        ({"bnb": "on"}, "ROADMAP A5"),
+        ({"bnb": "on"}, None),
     ],
 )
 def test_unported_options_raise(params, item):
-    """Only the pruned contraction (ROADMAP A5) still raises; the
-    memory-bounded sweep, sparse tables and the bf16/int8 packs
-    (ROADMAP A10, ported) run and equal the JAX package's result."""
+    """Every option is ported now: the memory-bounded sweep, sparse
+    tables, the bf16/int8 packs (ROADMAP A10) and the pruned contraction
+    (``bnb='on'``, A5) run and equal the JAX package's result."""
     td = tdcop.load_dcop_from_file(RING)
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
@@ -339,7 +339,7 @@ def test_cli_matches_jax_solve():
     """``python -m pydcop_tpu_torch solve -a dpop --device cpu`` prints
     what ``pydcop_tpu.api.solve`` returns, minus the time fields' values
     and the JAX package's ``cost_trace``."""
-    want = jax_solve(RING, "dpop", {"util_device": "always", "bnb": "off"},
+    want = jax_solve(RING, "dpop", {"util_device": "always"},
                      pad_policy="pow2")
     proc = subprocess.run(
         [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", "dpop",

@@ -3,7 +3,8 @@
 ``tests/conftest.py`` imports jax into every test process, so the
 runtime check (an array-built maxsum solve and CPU maxsum and dsa solves
 of a YAML file, an inference query on the device path, a budgeted
-sparse int8 DPOP solve and a SyncBB solve) runs in a
+sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve and a
+checkpointed, resumed Max-Sum solve) runs in a
 fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
@@ -48,6 +49,16 @@ r = solve(sys.argv[1], "dpop", {"util_device": "always"}, device="cpu",
 assert r["cost"] == 0.0 and r["membound"]["cut_width"] > 0, r
 r = solve(sys.argv[1], "syncbb", device="cpu")
 assert r["cost"] == 0.0, r
+r = solve(sys.argv[1], "dpop", {"util_device": "always"}, bnb="on",
+          device="cpu")
+assert r["telemetry"]["counters"]["semiring.bnb_passes"] > 0, r
+import os, tempfile
+ck = os.path.join(tempfile.mkdtemp(), "ck.npz")
+solve(sys.argv[1], "maxsum", rounds=8, chunk_size=4, checkpoint_path=ck,
+      device="cpu")
+r = solve(sys.argv[1], "maxsum", rounds=16, chunk_size=4,
+          checkpoint_path=ck, resume=True, device="cpu")
+assert r["cycle"] == 16 and os.path.exists(ck), r
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
@@ -99,6 +110,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     scanned = {os.path.relpath(f, PORT) for f in files}
     for module in ("ops/sparse.py", "ops/membound.py",
                    "algorithms/syncbb.py", "graphs/ordered_graph.py",
+                   "engine/checkpoint.py",
                    "commands/generators/taskscheduling.py"):
         assert module in scanned, module
     for path in files:

@@ -146,7 +146,7 @@ def run_both(name, query, jax_kw=None, **kw):
     kw = dict(FIXTURES[name][1], **kw)
     if query == "marginal_map":
         kw["map_vars"] = first_vars(instance(name, "jax"))
-    want = japi.infer(instance(name, "jax"), query, bnb="off",
+    want = japi.infer(instance(name, "jax"), query,
                       **dict(kw, **(jax_kw or {})))
     got = tapi.infer(instance(name, "port"), query, torch_device=CPU, **kw)
     return want, got
@@ -402,7 +402,7 @@ def test_typo_query_suggests_the_nearest(capsys):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"bnb": "on"}, "ROADMAP A5"),
+    ({"bnb": "on"}, None),
     ({"table_dtype": "bf16"}, None),
     ({"table_dtype": "int8"}, None),
     ({"table_format": "sparse"}, None),
@@ -411,8 +411,8 @@ def test_typo_query_suggests_the_nearest(capsys):
     ({"compile_cache": "cache"}, "compile_cache"),
 ])
 def test_unported_knobs_raise(kw, item):
-    """The knobs of ROADMAP A5 and A3 raise; the A10 ones (ported) run
-    and the map result equals the JAX package's key for key."""
+    """The knobs of ROADMAP A3 raise; the A10 and A5 ones (ported)
+    run and the map result equals the JAX package's key for key."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             tapi.infer(RING, "map", torch_device=CPU, **kw)

@@ -200,7 +200,7 @@ def test_run_batched_matches_jax_per_table_d10(jax_gather_lowering):
     assert rt.best_cost == pytest.approx(rj.best_cost, rel=1e-6)
 
 
-def test_run_batched_returns_state_and_rejects_unported_options():
+def test_run_batched_returns_state_and_rejects_unported_options(tmp_path):
     ref, port = _problems("shared", n=100)
     mod = load_algorithm_module("maxsum")
     params = prepare_algo_params({}, mod.algo_params)
@@ -215,10 +215,17 @@ def test_run_batched_returns_state_and_rejects_unported_options():
     r15 = run_batched(port, mod, params, rounds=15, return_state=True)
     for k in ("q", "r", "values"):
         assert torch.equal(r2.state[k], r15.state[k])
-    for kw in ({"checkpoint_path": "x.npz"},
-               {"mesh": object()}, {"chunk_callback": print}):
+    for kw in ({"mesh": object()}, {"chunk_callback": print}):
         with pytest.raises(NotImplementedError):
             run_batched(port, mod, params, rounds=1, **kw)
+    # checkpoints are ported (tests/test_torch_checkpoint.py): a run
+    # resumed from round 10 ends where the 15-round run ends
+    ck = str(tmp_path / "x.npz")
+    run_batched(port, mod, params, rounds=10, checkpoint_path=ck)
+    r15c = run_batched(port, mod, params, rounds=15, checkpoint_path=ck,
+                       resume=True, return_state=True)
+    for k in ("q", "r", "values"):
+        assert torch.equal(r15c.state[k], r15.state[k])
     # restarts are ported: the state takes the [K] axis
     rk = run_batched(port, mod, params, rounds=2, n_restarts=2,
                      return_state=True)

@@ -136,7 +136,7 @@ def test_bench_fixture_f32_cuts_and_bf16_does_not():
 def test_dpop_budget_dtype_format_equal_jax(budget, dt, fmt):
     params = {"util_device": "always", "table_dtype": dt,
               "table_format": fmt}
-    want = japi.solve(overlap(jsecp), "dpop", dict(params, bnb="off"),
+    want = japi.solve(overlap(jsecp), "dpop", params,
                       max_util_bytes=budget, pad_policy="pow2")
     got = tapi.solve(overlap(tsecp), "dpop", params, max_util_bytes=budget,
                      pad_policy="pow2", device=CPU)
@@ -166,7 +166,7 @@ def test_dpop_bounded_equals_unbounded_and_host():
 def test_infer_bounded(query):
     kw = dict(device="always", pad_policy="pow2", max_util_bytes=512,
               tol=float("inf"))
-    want = japi.infer(overlap(jsecp), query, bnb="off", **kw)
+    want = japi.infer(overlap(jsecp), query, **kw)
     got = tapi.infer(overlap(tsecp), query, torch_device=CPU, **kw)
     assert got["membound"] == want["membound"]
     assert got["membound"]["cut_width"] > 0

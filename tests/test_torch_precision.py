@@ -225,7 +225,7 @@ def _secp(package):
 def test_dpop_secp_at_every_dtype_equals_jax(dt, util_batch):
     params = {"util_device": "always", "util_batch": util_batch,
               "table_dtype": dt}
-    want = japi.solve(_secp("jax"), "dpop", dict(params, bnb="off"),
+    want = japi.solve(_secp("jax"), "dpop", params,
                       pad_policy="pow2")
     got = tapi.solve(_secp("port"), "dpop", params, pad_policy="pow2",
                      device=CPU)
@@ -244,7 +244,7 @@ def test_dpop_hard_constraints_at_low_precision_equal_jax(dt):
     jd = random_binary(jdcop, 9, 3, 0.5, 4, hard=True)
     td = random_binary(tdcop, 9, 3, 0.5, 4, hard=True)
     params = {"util_device": "always", "table_dtype": dt}
-    want = japi.solve(jd, "dpop", dict(params, bnb="off"))
+    want = japi.solve(jd, "dpop", params)
     got = tapi.solve(td, "dpop", params, device=CPU)
     assert (got["assignment"], got["cost"]) == (
         want["assignment"], want["cost"])
@@ -258,7 +258,7 @@ def test_infer_at_low_precision(dt):
     equal JAX's."""
     kw = dict(device="always", device_min_cells=256, pad_policy="pow2",
               table_dtype=dt)
-    jm = japi.infer(_secp("jax"), "map", bnb="off", **kw)
+    jm = japi.infer(_secp("jax"), "map", **kw)
     tm = tapi.infer(_secp("port"), "map", torch_device=CPU, **kw)
     t32 = tapi.infer(_secp("port"), "map", torch_device=CPU,
                      **dict(kw, table_dtype="f32"))
@@ -266,7 +266,7 @@ def test_infer_at_low_precision(dt):
     assert tm["assignment"] == t32["assignment"]
     assert counters(tm) == counters(jm)
     kw["tol"] = float("inf")  # keep every logsumexp node on the device
-    jz = japi.infer(_secp("jax"), "log_z", bnb="off", **kw)
+    jz = japi.infer(_secp("jax"), "log_z", **kw)
     tz = tapi.infer(_secp("port"), "log_z", torch_device=CPU, **kw)
     host = tapi.infer(_secp("port"), "log_z", device="never",
                       torch_device=CPU)
@@ -281,7 +281,7 @@ def test_default_tol_demotes_mass_nodes_like_jax():
     """At the default tol a bf16 logsumexp node whose widened bound
     would pass it demotes to f32 (``semiring.precision_repairs``)."""
     kw = dict(device="always", device_min_cells=256, table_dtype="bf16")
-    jz = japi.infer(_secp("jax"), "log_z", bnb="off", **kw)
+    jz = japi.infer(_secp("jax"), "log_z", **kw)
     tz = tapi.infer(_secp("port"), "log_z", torch_device=CPU, **kw)
     assert counters(tz) == counters(jz)
     assert counters(tz).get("semiring.precision_repairs", 0) > 0

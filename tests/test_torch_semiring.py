@@ -96,17 +96,22 @@ def test_contraction_kernel_equals_jax(shape, part_shapes, case, batched):
 
 def test_contraction_kernel_rejects_other_semirings_and_bad_parts():
     """Unknown and malformed semirings raise with the JAX package's
-    messages; the pruned kernel (ROADMAP A5) is not ported; parts must
-    be of the bucket's shapes and storage type (a bf16 pack takes bf16
-    parts, ``tests/test_torch_precision.py`` holds it against JAX)."""
+    messages; the pruned kernel takes its budget first and masks a row
+    below it (``tests/test_torch_bnb.py`` holds it against JAX); parts
+    must be of the bucket's shapes and storage type (a bf16 pack takes
+    bf16 parts, ``tests/test_torch_precision.py`` holds it against
+    JAX)."""
     with pytest.raises(ValueError, match="did you mean 'max_sum'"):
         tsr.get_semiring("max_summ")
     with pytest.raises(ValueError, match="2 <= k"):
         tsr.get_semiring("kbest:1")
     with pytest.raises(ValueError):
         tsr.get_semiring("min_plus")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tsr.contraction_kernel("max_sum", (3,), ((3,),), bnb=True)
+    pruned = tsr.contraction_kernel("max_sum", (3,), ((3,),), bnb=True)
+    with pytest.raises(ValueError):
+        pruned(torch.zeros(3))  # the budget comes first
+    arg, margins, keep = pruned(torch.tensor(4.0), torch.tensor([1., 3., 2.]))
+    assert (arg.item(), keep.item(), margins.item()) == (1, False, np.inf)
     bf16 = tsr.contraction_kernel("min_sum", (3,), ((3,),),
                                   table_dtype="bf16")
     with pytest.raises(ValueError):

@@ -13,8 +13,8 @@ against the port's own sequential solves (CPU).
 - A stochastic one (DSA, A-Max-Sum) is held through ``apply``: one
   round of the group on the group's draws equals each instance's round
   on its slice of them, bit for bit.
-- DPOP (``bnb="off"`` in the JAX package) gives the JAX ``solve_many``'s
-  results, ``util_dispatches`` included.
+- DPOP gives the JAX ``solve_many``'s results, ``util_dispatches``
+  included.
 - Numeric params may differ inside a group; str/bool params split it.
 """
 
@@ -207,7 +207,7 @@ def test_dpop_solve_many_matches_jax(pad):
     params = {"util_device": "always"}
     want = jax_solve_many(
         [random_tree(jdcop, 9, 3, s, extra_edges=2) for s in (0, 1, 2)],
-        "dpop", dict(params, bnb="off"), pad_policy=pad,
+        "dpop", params, pad_policy=pad,
     )
     got = solve_many(
         [random_tree(tdcop, 9, 3, s, extra_edges=2) for s in (0, 1, 2)],

@@ -219,6 +219,58 @@ def test_sparse_kernel_matches_jax(sr, dt):
         np.testing.assert_allclose(g, w, rtol=1e-6)
 
 
+@pytest.mark.parametrize("sr", ["min_sum", "max_sum", "log_sum_exp"])
+def test_sparse_kernel_bnb_matches_jax(sr):
+    """The pruned sparse kernel (``bnb=True``): a per-row budget between
+    two of the row's segment values keeps the JAX kernel's segments
+    (NaN bounds kept), with bit-equal args and margins (min/max) and
+    values and discard to rtol 1e-6 (logsumexp)."""
+    semiring = tsr.get_semiring(sr)
+    identity = semiring.plus_identity
+    parts, target, shape = _node(tsp, 5, identity)
+    if semiring.idempotent:
+        d = parts[2][1].copy()
+        d[0, :3] = -identity
+        parts[2] = (parts[2][0], d)
+    prep = tsp.sparse_node_prep(parts, target, shape, identity)
+    n_cand_b, n_seg_b, lens = prep.key
+    sep, own, vals, gid = _buffers([prep, prep], len(lens))
+    vals = [v.astype(np.float32) for v in vals]
+    vals[0][1] = vals[0][1][::-1]  # a second row with other values
+    budgets = []
+    for r in range(2):
+        cand = sum(v[r][g[r]] for v, g in zip(vals, gid))
+        seg = np.full(n_seg_b + 1, identity, dtype=np.float32)
+        with np.errstate(invalid="ignore"):
+            (np.maximum if semiring.maximize or not semiring.idempotent
+             else np.minimum).at(seg, sep[r], cand)
+        f = np.unique(seg[np.isfinite(seg)])
+        budgets.append((f[len(f) // 2 - 1] + f[len(f) // 2]) / 2)
+    budgets = np.asarray(budgets, dtype=np.float32)
+    got = [x.numpy() for x in tsp.sparse_contraction_kernel(
+        sr, n_cand_b, n_seg_b, lens, bnb=True)(
+            torch.from_numpy(budgets), torch.from_numpy(sep),
+            torch.from_numpy(own), *(torch.from_numpy(v) for v in vals),
+            *(torch.from_numpy(g) for g in gid))]
+    want = [np.asarray(x) for x in jsp.sparse_contraction_kernel(
+        sr, n_cand_b, n_seg_b, lens, bnb=True)(
+            budgets, sep, own, *vals, *gid)]
+    assert len(got) == len(want)
+    n_seg = prep.n_seg
+    keep_at = 2 if semiring.idempotent else 1
+    keep = got[keep_at][:, :n_seg]
+    assert np.array_equal(keep, want[keep_at][:, :n_seg])
+    assert keep.any() and not keep.all()
+    if semiring.idempotent:
+        for g, w in zip(got[:2], want[:2]):
+            assert _same_or_nan(g[:, :n_seg], w[:, :n_seg].astype(g.dtype))
+        return
+    g, w = got[0][:, :n_seg], want[0][:, :n_seg]
+    assert np.array_equal(np.isinf(g), np.isinf(w))
+    np.testing.assert_allclose(g, w, rtol=1e-6)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
+
+
 def jpad_deq(q, s, o):
     from pydcop_tpu.ops.padding import dequantize_table_int8
 
@@ -323,8 +375,8 @@ def test_sparse_kernel_refuses_structured_cells():
         tsp.sparse_contraction_kernel("kbest:3", 8, 8, (8,))
     with pytest.raises(ValueError, match="scalar"):
         tsp.sparse_contraction_kernel("expectation", 8, 8, (8,))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tsp.sparse_contraction_kernel("min_sum", 8, 8, (8,), bnb=True)
+    with pytest.raises(ValueError, match="scalar"):
+        tsp.sparse_contraction_kernel("kbest:3", 8, 8, (8,), bnb=True)
 
 
 # -- the workload and whole runs ----------------------------------------
@@ -339,7 +391,7 @@ def test_task_scheduling_generator_writes_the_jax_yaml():
 def test_dpop_sparse_equals_jax_and_dense(dt, pad):
     params = {"util_device": "always", "table_dtype": dt,
               "table_format": "sparse"}
-    want = japi.solve(tasks(jts), "dpop", dict(params, bnb="off"),
+    want = japi.solve(tasks(jts), "dpop", params,
                       pad_policy=pad)
     got = tapi.solve(tasks(tts), "dpop", params, pad_policy=pad, device=CPU)
     for k in ("assignment", "cost", "util_cells", "util_dispatches",
@@ -361,7 +413,7 @@ def test_infer_sparse(query):
     the reported bound of host f64."""
     kw = dict(device="always", device_min_cells=256, pad_policy="pow2",
               table_format="sparse", tol=1e-3)
-    want = japi.infer(tasks(jts), query, bnb="off", **kw)
+    want = japi.infer(tasks(jts), query, **kw)
     got = tapi.infer(tasks(tts), query, torch_device=CPU, **kw)
     assert counters(got) == counters(want)
     if query in ("map", "kbest:3"):

@@ -5,10 +5,10 @@ to ``solve``, ``solve_many``, ``infer`` and ``infer_many`` results.  On
 the same runs the counters and span names must be the JAX package's,
 but for the ones that time XLA or its jitted-runner cache, which have no
 counterpart in the port (``jit.*``, ``engine.runner_cache_*``, the
-``jit-compile`` span and ``backend-compile`` event), and the
-branch-and-bound counters (``semiring.bnb_*``), which come with the
-pruned kernel.  The port's trace files are read by the JAX package's
-trace reader.
+``jit-compile`` span and ``backend-compile`` event).  The
+branch-and-bound counters (``semiring.bnb_*``) are compared with the
+rest.  The port's trace files are read by the JAX package's trace
+reader.
 """
 
 import os
@@ -30,7 +30,7 @@ from pydcop_tpu_torch.telemetry.metrics import (  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RING = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
 BLOCK = {"phases", "events", "counters", "gauges", "histograms"}
-NO_COUNTERPART = ("jit.", "engine.runner_cache_", "semiring.bnb_")
+NO_COUNTERPART = ("jit.", "engine.runner_cache_")
 NO_COUNTERPART_SPANS = {"jit-compile"}
 
 
@@ -62,14 +62,13 @@ RUNS = {
                            chunk_size=16, device="cpu"),
     ),
     "solve-dpop": (
-        lambda: japi.solve(RING, "dpop", {"util_device": "always",
-                                          "bnb": "off"}),
+        lambda: japi.solve(RING, "dpop", {"util_device": "always"}),
         lambda: tapi.solve(RING, "dpop", {"util_device": "always"},
                            device="cpu"),
     ),
     "solve_many-dpop": (
         lambda: japi.solve_many([RING, RING], "dpop",
-                                {"util_device": "always", "bnb": "off"}),
+                                {"util_device": "always"}),
         lambda: tapi.solve_many([RING, RING], "dpop",
                                 {"util_device": "always"}, device="cpu"),
     ),
@@ -159,7 +158,7 @@ def test_session_nesting_and_restore(tmp_path):
 RAISING = {
     # name: a call that raises once its session is installed
     "solve-dpop-bnb-on": lambda: tapi.solve(
-        RING, "dpop", {"bnb": "on"}, device="cpu"),
+        RING, "dpop", {"bnb": "on"}, resume=True, device="cpu"),
     "solve_many-compile_cache": lambda: tapi.solve_many(
         [RING, RING], "mgm", rounds=4, compile_cache=object(),
         device="cpu"),
