@@ -262,11 +262,51 @@ caught and passed over):
    uninterrupted run, each kernel launched once a round in each half
    (counts set to 0 just before each half); one save and one load of
    the coloring-1M Max-Sum state, its bytes and seconds.
-13. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+13. The supervised device dispatch (``engine/supervisor.py``) and
+   Max-Sum's ``belief="blockdiag"``, one JSON line a cell; any gate
+   below fails the script.  13a: phase 3's coloring-10k Max-Sum (1024
+   rounds, chunk 256, cost every 8) under ``device_transient=0.2``,
+   chaos seed 6 (seed 1 draws no fault in 4 chunks), ``retry_budget=4``: q, r, values, best cost and cost
+   trace bit-equal to the run without injection, ``engine.retries`` and
+   ``fault.device_transient`` equal to the port's CPU run of the same
+   spec (its 4 dispatches at 8 rounds each); the supervision overhead
+   at coloring-10k and coloring-1M: engine seconds with the default
+   supervisor against ``UNSUPERVISED``, 10 interleaved pairs, and the
+   wrapper's own host microseconds per chunk (dispatch, the generator's
+   get/set, the NaN screen) over the chunk's time.  13b: the same run under
+   ``device_oom=-:64``: two chunk halvings (256, 128, 64), bit-equal; at
+   ``chunk_floor=128`` it raises ``UnrecoverableDeviceError`` and its
+   final checkpoint resumes to the uninterrupted run.  13c: phase 9e's 8
+   graphs through ``solve_many`` (pow2, 1024 rounds) under
+   ``device_oom=2``: 3 splits (8, 4+4, 2+2+2+2), each kernel launched
+   once a round in each of the 4 final groups, every instance equal to
+   the uninjected group's, the counters equal to the CPU run's (8
+   rounds: the splits fire on the first dispatch); then, in a child
+   process, the 8 graphs with 8 restarts each (B 64, 64 rounds) under a
+   caching allocator capped between a half's peak and the whole group's:
+   a real ``torch.cuda.OutOfMemoryError`` answered by a split, every
+   instance equal to the uncapped run.  13d: the group under
+   ``nan_inject=1:3``: lane 3 ``degraded`` with its last finite best,
+   the other 7 equal to the uninjected group, ``on_numeric_fault=
+   "raise"`` raising; one coloring-10k run under ``nan_inject=1``
+   degraded, with no final checkpoint.  13e: phase 8's hub tree under
+   ``device_oom=8`` (its leaf stack goes per node) equal to the
+   uninjected run, its counts and counters equal to the CPU run's; the
+   membound SECP (11b) under ``device_oom_bytes`` at half its planned
+   table: re-planned, equal to the CPU run in result and ``membound``
+   block.  13f: ``belief="blockdiag"`` at coloring-10k: 1024 rounds, each
+   one step on the card and on the CPU from the card's state, q within
+   1e-5; the 1024-round best cost equal card and CPU; the kernels once a
+   round; at coloring-1M the belief alone (5 calls in one CUDA graph)
+   blockdiag against the slot gathers with the one-hot's bytes, a
+   profiled stretch of 16 rounds in each mode, 256 rounds through the
+   engine.
+14. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
-   batched instances with the launches of phase 9's paths), the card
-   line, and last the ``{"ok": true, ...}`` line.
+   batched instances with the launches of phase 9's paths; phase 13's
+   launches are added to the entries its runs launch), the card line,
+   and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
 """
@@ -2359,7 +2399,7 @@ CARD = {"card": None}  # the card's name and power limit, set by core_phase
 
 
 def emit(phase, cell, **fields):
-    """One phase-11 or phase-12 cell as one JSON line, with the card it
+    """One phase-11, 12 or 13 cell as one JSON line, with the card it
     ran on."""
     print(json.dumps({"phase": phase, "cell": cell, **fields,
                       "card": CARD["card"]}))
@@ -3519,6 +3559,630 @@ def bnb_checkpoint_phase(torch, mk, dev, card, arrays, s5, t5, u5):
     lap("12f")
 
 
+# -- phase 13: the supervised dispatch and belief="blockdiag" ---------------
+
+SUP_KNOBS = ("engine.retries", "engine.oom_chunk_halvings",
+             "engine.oom_splits", "engine.quarantined_instances",
+             "engine.numeric_faults", "fault.device_oom",
+             "fault.device_transient", "fault.nan_inject")
+MANY_SEEDS = tuple(range(1, 9))  # phase 9e's 8 graphs
+BD_TOL = 1e-5  # per-round |q card - q CPU| bound for belief="blockdiag"
+
+
+def same_instance(label, got, want):
+    """A ``solve_many`` instance equal to the uninjected group's, key for
+    key (times, the call's telemetry block and its chaos record aside)."""
+    skip = {"time", "instances_batched", "telemetry", "chaos"}
+    for k in set(want) - skip:
+        if got[k] != want[k]:
+            raise AssertionError(f"{label}: {k} differs from the "
+                                 "uninjected group")
+
+
+def sup_counts(summary):
+    c = summary["counters"]
+    return {k: c[k] for k in SUP_KNOBS if c.get(k)}
+
+
+def supervised(run_batched, problem, module, params, spec=None,
+               chaos_seed=1, knobs=None, **kw):
+    """``run_batched`` under a supervisor of its own (the device chaos
+    plan ``spec``) inside a telemetry session: (RunResult, the
+    supervision counters, the session summary)."""
+    from pydcop_tpu_torch.engine.supervisor import (
+        make_supervisor,
+        supervision,
+    )
+    from pydcop_tpu_torch.faults import FaultPlan
+    from pydcop_tpu_torch.telemetry import session
+
+    plan = FaultPlan.from_spec(spec, chaos_seed) if spec else None
+    with session() as tel, supervision(
+            make_supervisor(plan=plan, **(knobs or {}))):
+        r = run_batched(problem, module, params, **kw)
+        summary = tel.summary()
+    return r, sup_counts(summary), summary
+
+
+def same_run(torch, label, got, want):
+    """Two ``return_state`` runs bit-equal: q, r, values, best cost,
+    cost trace."""
+    import numpy as np
+
+    for k in ("q", "r", "values"):
+        if not same_bits(torch, got.state[k].float(), want.state[k].float()):
+            raise AssertionError(f"{label}: {k} differs from the run "
+                                 "without injection")
+    if (got.best_cost, got.cost, got.cycles) != (want.best_cost, want.cost,
+                                                 want.cycles):
+        raise AssertionError(f"{label}: result differs")
+    np.testing.assert_array_equal(got.cost_trace, want.cost_trace)
+
+
+def wrapper_host_us(torch, device, samples):
+    """Microseconds of host time that supervision adds to one chunk of
+    ``run_batched``, each piece timed alone (mean of 2,000 calls): the
+    default supervisor's ``dispatch`` around a no-op closure less the
+    bare call, the chunk-start ``get_state``/``set_state`` of the rounds'
+    generator on ``device``, and the NaN screen (``nan_lanes`` and an
+    ``isnan`` over ``samples`` host cost samples)."""
+    import numpy as np
+
+    from pydcop_tpu_torch.engine.batched import round_generator
+    from pydcop_tpu_torch.engine.supervisor import make_supervisor
+
+    n = 2000
+    sup = make_supervisor()
+    gen = round_generator(0, device)
+    costs = np.zeros(samples, np.float32)
+
+    def noop():
+        return None
+
+    def per_call(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    def dispatch():
+        sup.dispatch(noop, scope="engine.chunk", width=1, rounds=256)
+
+    def generator():
+        gen.set_state(gen.get_state())
+
+    def screen():
+        sup.nan_lanes(1, scope="engine.chunk")
+        bool(np.isnan(costs).any())
+
+    torch.cuda.synchronize()
+    parts = {"dispatch_us": per_call(dispatch) - per_call(noop),
+             "generator_us": per_call(generator),
+             "nan_screen_us": per_call(screen)}
+    return parts, sum(parts.values())
+
+
+def overhead_row(torch, run_batched, maxsum, params, problem, rounds,
+                 label):
+    """The supervision overhead two ways.  End to end: engine seconds
+    with the default supervisor against UNSUPERVISED (the JAX bench's
+    supervised_overhead), 10 pairs interleaved with the order
+    alternating, the median of each side and of the pairs' ratios.  By
+    its parts: the wrapper's host microseconds per chunk
+    (``wrapper_host_us``) times the run's chunks, over the supervised
+    median: the share the end-to-end pairs, spread by the shared
+    host's noise, cannot resolve."""
+    from pydcop_tpu_torch.engine.supervisor import UNSUPERVISED, supervision
+
+    chunk, every = 256, 8
+    kw = dict(rounds=rounds, chunk_size=chunk, cost_every=every)
+    run_batched(problem, maxsum, params, **kw)  # warm
+    sup_s, bare_s = [], []
+    for i in range(10):  # each order in turn, against drift
+        for bare in ((False, True) if i % 2 == 0 else (True, False)):
+            if bare:
+                with supervision(UNSUPERVISED):
+                    bare_s.append(
+                        run_batched(problem, maxsum, params, **kw).time)
+            else:
+                sup_s.append(run_batched(problem, maxsum, params, **kw).time)
+    s, b = statistics.median(sup_s), statistics.median(bare_s)
+    pair = statistics.median(x / y for x, y in zip(sup_s, bare_s))
+    chunks = -(-rounds // chunk)
+    parts, per_chunk = wrapper_host_us(torch, problem.device, chunk // every)
+    emit("13a", f"supervised-overhead-{label}", rounds=rounds,
+         pairs=len(sup_s), supervised_seconds=s, unsupervised_seconds=b,
+         overhead=s / b - 1, pair_ratio_median=pair,
+         supervised_all=sup_s, unsupervised_all=bare_s,
+         chunks=chunks, wrapper_us_per_chunk=per_chunk,
+         wrapper_parts_us=parts,
+         wrapper_share=per_chunk * chunks * 1e-6 / s)
+
+
+def group_graphs(s, u):
+    """Phase 9e's 8 coloring-10k graphs (phase 3's and 7 rewirings)."""
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    return [(s, u)] + [
+        (rewired(s, sd), coloring_arrays(len(u), colors=3, degree=3,
+                                         seed=sd)[2])
+        for sd in MANY_SEEDS[1:]
+    ]
+
+
+def transient_and_halving_cells(torch, mk, dev, s, t, u, p1):
+    """13a-b on the main path: coloring-10k Max-Sum (phase 3's run);
+    ``p1`` is the coloring-1M problem on the card."""
+    import os
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import maxsum, prepare_algo_params
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.engine.checkpoint import checkpoint_meta
+    from pydcop_tpu_torch.engine.supervisor import UnrecoverableDeviceError
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
+    p3 = p3c.to(dev)
+    kw = dict(rounds=1024, chunk_size=256, cost_every=8, return_state=True)
+    base, _, _ = supervised(run_batched, p3, maxsum, params, **kw)
+    launches = {}
+
+    # -- 13a. transient retries.  Chaos seed 6, not 1: under seed 1 no
+    # chunk of the 4 draws a fault (the schedule is a pure hash, so the
+    # CPU shows it); seed 6 fails chunks 1 and 3 once each, far inside
+    # the budget
+    spec, knobs, seed = "device_transient=0.2", {"retry_budget": 4}, 6
+    mk.reset_launches()
+    got, cnt, _ = supervised(run_batched, p3, maxsum, params, spec, seed,
+                             knobs=knobs, **kw)
+    torch.cuda.synchronize()
+    for k, v in mk.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    same_run(torch, "13a transient-coloring10k", got, base)
+    # the CPU run of the same spec: the same 4 dispatches of the scope
+    # (the decisions are a pure hash of the sequence), 8 rounds each
+    _, cnt_cpu, _ = supervised(run_batched, p3c, maxsum, params, spec,
+                               seed, knobs=knobs, rounds=32, chunk_size=8,
+                               cost_every=8)
+    if cnt != cnt_cpu or cnt.get("engine.retries") != 2:
+        raise AssertionError(f"13a: card counters {cnt}, CPU {cnt_cpu}")
+    emit("13a", "transient-coloring10k", spec=spec, chaos_seed=seed,
+         retry_budget=4, counters=cnt, cpu_counters=cnt_cpu,
+         cpu_rounds=32, cpu_chunk=8,
+         engine_seconds=got.time, base_engine_seconds=base.time,
+         bit_equal=True)
+    overhead_row(torch, run_batched, maxsum, params, p3, 1024,
+                 "coloring-10k")
+    overhead_row(torch, run_batched, maxsum, params, p1, 256, "coloring-1M")
+
+    # -- 13b. OOM chunk halving 256 -> 128 -> 64
+    spec = "device_oom=-:64"
+    mk.reset_launches()
+    got, cnt, _ = supervised(run_batched, p3, maxsum, params, spec, **kw)
+    torch.cuda.synchronize()
+    for k, v in mk.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    same_run(torch, "13b oom-halve-coloring10k", got, base)
+    if cnt.get("engine.oom_chunk_halvings") != 2:
+        raise AssertionError(f"13b: {cnt}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "floor.npz")
+        try:
+            supervised(run_batched, p3, maxsum, params, spec,
+                       knobs={"chunk_floor": 128}, checkpoint_path=ck,
+                       checkpoint_every=999, **kw)
+        except UnrecoverableDeviceError as e:
+            kind = e.kind
+        else:
+            raise AssertionError("13b: chunk_floor=128 did not raise")
+        meta = checkpoint_meta(ck)
+        # the file holds the last healthy state: resumed without the
+        # fault it ends as the uninterrupted run
+        resumed, _, _ = supervised(run_batched, p3, maxsum, params,
+                                   checkpoint_path=ck, resume=True, **kw)
+        same_run(torch, "13b resume from the floor's checkpoint", resumed,
+                 base)
+    emit("13b", "oom-halve-coloring10k", spec=spec, counters=cnt,
+         floor_128_raised=kind, floor_checkpoint_round=meta.get("rounds_done"),
+         resumed_bit_equal=True, engine_seconds=got.time, bit_equal=True)
+    return launches
+
+
+def group_cells(torch, mk, dev, s, t, u):
+    """13c-d: phase 9e's group under device_oom=2 and nan_inject=1:3."""
+    from pydcop_tpu_torch.api import solve_many
+    from pydcop_tpu_torch.engine.supervisor import UnrecoverableDeviceError
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+
+    graphs = group_graphs(s, u)
+    pes = [compile_from_arrays(sk, t, 3, unary=uk, pad_policy="pow2",
+                               device=dev) for sk, uk in graphs]
+    mkw = dict(rounds=1024, chunk_size=256, seed=list(MANY_SEEDS))
+    prm = {"damping": 0.5}
+    base = solve_many(pes, "maxsum", prm, **mkw)
+    launches = {}
+
+    # -- 13c. the group split: 8 -> 4+4 -> 2+2+2+2
+    mk.reset_launches()
+    split = solve_many(pes, "maxsum", prm, chaos="device_oom=2",
+                       chaos_seed=1, **mkw)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "13c many-coloring10k-maxsum-I8 split",
+                          {"factor_round_binary": 4 * 1024,
+                           "q_update": 4 * 1024})
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    for i, (g, b) in enumerate(zip(split, base)):
+        same_instance(f"13c split instance {i}", g, b)
+    cnt = sup_counts(split[0]["telemetry"])
+    cpu = solve_many(
+        [compile_from_arrays(sk, t, 3, unary=uk, pad_policy="pow2",
+                             device="cpu") for sk, uk in graphs],
+        "maxsum", prm, rounds=8, chunk_size=256, seed=list(MANY_SEEDS),
+        chaos="device_oom=2", chaos_seed=1, device="cpu")
+    cnt_cpu = sup_counts(cpu[0]["telemetry"])
+    if cnt.get("engine.oom_splits") != 3 or cnt != cnt_cpu:
+        raise AssertionError(f"13c: card {cnt}, CPU {cnt_cpu}")
+    emit("13c", "split-many-coloring10k-maxsum-I8", spec="device_oom=2",
+         width=8, counters=cnt, cpu_counters=cnt_cpu, cpu_rounds=8,
+         launches=got, group_seconds=split[0]["time"] * 8,
+         base_group_seconds=base[0]["time"] * 8, bit_equal=True)
+    run_real_oom_split()
+
+    # -- 13d. NaN quarantine of lane 3
+    mk.reset_launches()
+    nan = solve_many(pes, "maxsum", prm, chaos="nan_inject=1:3",
+                     chaos_seed=1, **mkw)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "13d many-coloring10k-maxsum-I8 quarantine",
+                          {"factor_round_binary": 1024, "q_update": 1024})
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    statuses = [r["status"] for r in nan]
+    if statuses != ["finished"] * 3 + ["degraded"] + ["finished"] * 4:
+        raise AssertionError(f"13d: statuses {statuses}")
+    for i, (g, b) in enumerate(zip(nan, base)):
+        if i != 3:
+            same_instance(f"13d instance {i}", g, b)
+    lane = nan[3]
+    if not (math.isfinite(lane["cost"]) and lane["final_cost"] == lane["cost"]
+            and lane["cost"] >= base[3]["cost"]):
+        raise AssertionError(f"13d: lane 3 reports {lane['cost']}")
+    try:
+        solve_many(pes, "maxsum", prm, chaos="nan_inject=1:3", chaos_seed=1,
+                   on_numeric_fault="raise", rounds=256, chunk_size=256,
+                   seed=list(MANY_SEEDS))
+    except UnrecoverableDeviceError as e:
+        raised = e.kind
+    else:
+        raise AssertionError("13d: on_numeric_fault='raise' did not raise")
+    emit("13d", "quarantine-many-coloring10k-maxsum-I8",
+         spec="nan_inject=1:3", statuses=statuses, lane3_cost=lane["cost"],
+         lane3_uninjected_cost=base[3]["cost"],
+         counters=sup_counts(nan[0]["telemetry"]), raise_mode=raised,
+         others_bit_equal=True)
+    return launches
+
+
+def single_nan_cell(torch, dev, s, t, u):
+    """13d: one coloring-10k run under nan_inject=1 degrades and writes
+    no final checkpoint."""
+    import os
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import maxsum, prepare_algo_params
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    p3 = compile_from_arrays(s, t, 3, unary=u, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "nan.npz")
+        r, cnt, _ = supervised(run_batched, p3, maxsum, params,
+                               "nan_inject=1", rounds=1024, chunk_size=256,
+                               cost_every=8, checkpoint_path=ck,
+                               checkpoint_every=999)
+        written = os.path.exists(ck)
+    if r.status != "degraded" or written or not math.isfinite(r.best_cost):
+        raise AssertionError(f"13d single: {r.status}, checkpoint {written}")
+    emit("13d", "quarantine-coloring10k", status=r.status, cycles=r.cycles,
+         best_cost=r.best_cost, counters=cnt, final_checkpoint=written)
+
+
+def exact_cells(torch):
+    """13e: DPOP's level ladder and the planner's re-plan rung."""
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.commands.generators.secp import generate
+
+    hub = hubtree_dcop()
+    auto = {"util_device": "auto"}
+    free = solve(hub, "dpop", auto)
+    kw = dict(chaos="device_oom=8", chaos_seed=1)
+    card = solve(hub, "dpop", auto, **kw)
+    cpu = solve(hub, "dpop", auto, device="cpu", **kw)
+    same_solution("13e dpop-hubtree-d24 device_oom=8", card, free)
+    cc, cp = sup_counts(card["telemetry"]), sup_counts(cpu["telemetry"])
+    if (cc != cp or any(card[k] != cpu[k] for k in DPOP_STATS)
+            or not cc.get("engine.oom_splits")):
+        raise AssertionError(f"13e hub: card {cc}, CPU {cp}")
+    emit("13e", "dpop-hubtree-d24-oom", spec="device_oom=8", counters=cc,
+         util_dispatches=card["util_dispatches"],
+         free_util_dispatches=free["util_dispatches"],
+         util_time=card["util_time"], free_util_time=free["util_time"],
+         equal=True)
+    mb = generate(Namespace(**MB_SPEC))
+    always = {"util_device": "always"}
+    mkw = dict(max_util_bytes=MB_BUDGET, pad_policy="pow2")
+    free = solve(mb, "dpop", always, **mkw)
+    cap = free["membound"]["peak_table_bytes"] // 2
+    spec = f"device_oom_bytes={cap}"
+    card = solve(mb, "dpop", always, chaos=spec, chaos_seed=1, **mkw)
+    cpu = solve(mb, "dpop", always, chaos=spec, chaos_seed=1, device="cpu",
+                **mkw)
+    same_solution("13e membound-secp96 device_oom_bytes", card, free)
+    same_solution("13e membound-secp96 card/cpu", card, cpu)
+    if (card["membound"] != {**cpu["membound"]}
+            or card["membound"]["replans"] < 1):
+        raise AssertionError(f"13e membound: card {card['membound']}, CPU "
+                             f"{cpu['membound']}")
+    emit("13e", "membound-secp96-oom-bytes", spec=spec,
+         planned_peak_table_bytes=free["membound"]["peak_table_bytes"],
+         replans=card["membound"]["replans"],
+         budget_bytes=card["membound"]["budget_bytes"],
+         on_device=card["membound"]["on_device"],
+         counters=sup_counts(card["telemetry"]),
+         util_time=card["util_time"], free_util_time=free["util_time"],
+         equal=True)
+
+
+def blockdiag_cells(torch, mk, dev, s, t, u, p1):
+    """13f: Max-Sum's belief="blockdiag" on the card; ``p1`` is the
+    coloring-1M problem on the card."""
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import maxsum, prepare_algo_params
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("13f: TF32 products are on")
+    pb = prepare_algo_params({"damping": 0.5, "belief": "blockdiag"},
+                             maxsum.algo_params)
+    pa = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
+    p3 = p3c.to(dev)
+    # per round: one step on the card and one on the CPU from the card's
+    # state (the one-hot products add in another order on each)
+    st = maxsum.init_state(p3, 0, pb)
+    cpu_static = {k: v.cpu() for k, v in st.items() if k.startswith("bd_")}
+    worst = 0.0
+    for _ in range(1024):
+        nxt = maxsum.step(p3, st, pb)
+        ref = maxsum.step(p3c, {**{k: v.cpu() for k, v in st.items()
+                                   if not k.startswith("bd_")},
+                                **cpu_static}, pb)
+        worst = max(worst, float((nxt["q"].cpu() - ref["q"]).abs().max()))
+        st = nxt
+    if worst > BD_TOL:
+        raise AssertionError(f"13f: per-round q differs by {worst}")
+    kw = dict(rounds=1024, chunk_size=256, cost_every=8)
+    mk.reset_launches()
+    card = run_batched(p3, maxsum, pb, **kw)
+    torch.cuda.synchronize()
+    got = expect_launches(mk, "13f blockdiag-coloring10k",
+                          {"factor_round_binary_shared": 1024,
+                           "q_update": 1024})
+    cpu = run_batched(p3c, maxsum, pb, **kw)
+    auto = run_batched(p3, maxsum, pa, **kw)
+    if card.best_cost != cpu.best_cost:
+        raise AssertionError(f"13f: best cost {card.best_cost} on the card, "
+                             f"{cpu.best_cost} on the CPU")
+    n_real = p3.n_real_edges
+    emit("13f", "blockdiag-coloring10k", rounds=1024,
+         per_round_q_max_abs_diff=worst, tolerance=BD_TOL,
+         best_cost=card.best_cost, cpu_best_cost=cpu.best_cost,
+         auto_best_cost=auto.best_cost,
+         onehot_bytes=int(st["bd_onehot"].numel() * 4),
+         onehot_shape=list(st["bd_onehot"].shape),
+         msgs_per_s=2 * n_real * 1024 / card.time,
+         auto_msgs_per_s=2 * n_real * 1024 / auto.time, launches=got)
+    del st, nxt, ref, cpu_static
+
+    # coloring-1M: the belief alone, the engine, a profiled stretch of
+    # rounds in each mode
+    t0 = time.perf_counter()
+    st1 = maxsum.init_state(p1, 0, pb)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    perm, onehot = st1["bd_perm"], st1["bd_onehot"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    r = torch.rand((3, p1.n_edges), generator=gen, device=dev)
+    unary_t = p1.unary_t.clone()
+    bd = maxsum._belief_blockdiag(p1, perm, onehot, r, unary_t)
+    slots = maxsum.belief_from_r(p1, r, unary_t)
+    diff = float((bd - slots).abs().max())
+    if not diff <= BD_TOL * float(slots.abs().max()):
+        raise AssertionError(f"13f 1M: blockdiag belief off by {diff}")
+    del bd, slots
+    bd_ms = device_ms(torch, lambda: maxsum._belief_blockdiag(
+        p1, perm, onehot, r, unary_t), batch=5)
+    slots_ms = device_ms(torch, lambda: maxsum.belief_from_r(
+        p1, r, unary_t), batch=5)
+    del r
+    onehot_bytes = onehot.numel() * 4
+    onehot_shape = list(onehot.shape)
+    # the bytes the product must move: the one-hot once, the permuted r
+    # (d·B·Lmax f32) and the belief (d·n f32)
+    bd_bytes = onehot_bytes + 4 * 3 * (perm.numel() + p1.n_vars)
+
+    def steps(state, params, n=16):
+        t1 = time.perf_counter()
+        for _ in range(n):
+            state = maxsum.step(p1, state, params)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    profile_call(torch, "blockdiag-coloring-1M", lambda: steps(st1, pb), 16)
+    st_a = maxsum.init_state(p1, 0, pa)
+    profile_call(torch, "slot-gathers-coloring-1M",
+                 lambda: steps(st_a, pa), 16)
+    del st1, st_a, perm, onehot
+    torch.cuda.empty_cache()
+    mk.reset_launches()
+    res = run_batched(p1, maxsum, pb, rounds=256, chunk_size=256,
+                      cost_every=8)
+    torch.cuda.synchronize()
+    got1 = expect_launches(mk, "13f blockdiag-coloring1M",
+                           {"factor_round_binary_shared": 256,
+                            "q_update": 256})
+    for k, v in got1.items():
+        got[k] = got.get(k, 0) + v
+    emit("13f", "blockdiag-coloring1M", rounds=256,
+         onehot_shape=onehot_shape,
+         onehot_bytes=onehot_bytes, index_build_seconds=build_s,
+         belief_device_ms_blockdiag=bd_ms,
+         belief_device_ms_slot_gathers=slots_ms,
+         belief_blockdiag_bound_ms=bd_bytes / HBM_BYTES_PER_S * 1e3,
+         belief_max_abs_diff=diff,
+         engine_seconds_with_index_build=res.time,
+         best_cost=res.best_cost, launches=got1)
+    torch.cuda.empty_cache()
+    return got
+
+
+def real_oom_split(card):
+    """13c's real OOM (a child process: the allocator cap is process
+    wide).  The 8 graphs with 8 restarts each (B = 64) under a cap that
+    the whole group exceeds and a half fits: the first dispatch raises
+    torch.cuda.OutOfMemoryError, the group splits, and every instance
+    equals the uncapped run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from pydcop_tpu_torch.api import solve_many
+    from pydcop_tpu_torch.ops.compile import (
+        compile_from_arrays,
+        stack_problems,
+    )
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    CARD["card"] = card
+    dev = torch.device("cuda", 0)
+    s, t, u = coloring_arrays(10_000, colors=3, degree=3, seed=1)
+    pes = [compile_from_arrays(sk, t, 3, unary=uk, pad_policy="pow2",
+                               device=dev) for sk, uk in group_graphs(s, u)]
+    kw = dict(rounds=64, chunk_size=64, seed=list(MANY_SEEDS), n_restarts=8)
+    prm = {"damping": 0.5}
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_reserved() - base
+
+    free, whole = peak(lambda: solve_many(pes, "maxsum", prm, **kw))
+    _, half = peak(lambda: solve_many(pes[:4], "maxsum", prm,
+                                      **dict(kw, seed=list(MANY_SEEDS[:4]))))
+    before = torch.cuda.memory_allocated()
+    grp = stack_problems(pes)
+    stack_bytes = torch.cuda.memory_allocated() - before
+    del grp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the cap sits halfway between a half (beside the whole group's
+    # stacked problem, which stays alive while its halves run) and the
+    # whole group
+    room = (stack_bytes + half + whole) // 2
+    if whole - (stack_bytes + half) < (16 << 20):
+        raise AssertionError(f"13c real OOM: whole {whole} B, half {half} B "
+                             f"+ stack {stack_bytes} B leave no room")
+    cap = torch.cuda.memory_reserved() + room
+    total = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "oom.jsonl")
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            capped = solve_many(pes, "maxsum", prm, trace=trace, **kw)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            torch.cuda.empty_cache()
+        with open(trace) as f:
+            events = [json.loads(line) for line in f]
+    splits = [e for e in events if e.get("kind") == "event"
+              and e.get("name") == "oom-split"]
+    real = [e for e in splits if "out of memory" in e["args"]["error"]]
+    cnt = sup_counts(capped[0]["telemetry"])
+    if not real or cnt.get("fault.device_oom"):
+        raise AssertionError(f"13c real OOM: no real OOM split ({cnt})")
+    for i, (g, b) in enumerate(zip(capped, free)):
+        same_instance(f"13c real OOM instance {i}", g, b)
+    emit("13c", "real-oom-many-coloring10k-maxsum-I8-K8", width=64,
+         rounds=64, whole_group_peak_bytes=whole, half_group_peak_bytes=half,
+         stacked_group_bytes=stack_bytes, cap_room_bytes=room,
+         oom_splits=cnt.get("engine.oom_splits"),
+         real_oom_splits=len(real),
+         first_error=real[0]["args"]["error"][:120], bit_equal=True)
+
+
+def run_real_oom_split():
+    """:func:`real_oom_split` in a child process on the same card."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.real_oom_split(sys.argv[2])")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(HERE), CARD["card"]], cwd=HERE,
+        capture_output=True, text=True, timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError("13c real OOM (its own process) failed:\n"
+                             + proc.stderr[-4000:])
+
+
+def supervisor_phase(torch, mk, dev, card, arrays, s5, t5, u5):
+    """Phase 13 (see the module docstring).  Returns the launches of its
+    main-path runs by kernel entry."""
+    CARD["card"] = card
+    t_lap = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"phase {part} seconds={now - t_lap[0]}")
+        t_lap[0] = now
+
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+
+    s, t, u = arrays
+    p1 = compile_from_arrays(s5, t5, 3, unary=u5, device=dev)
+    single = transient_and_halving_cells(torch, mk, dev, s, t, u, p1)
+    lap("13a-b")
+    group = group_cells(torch, mk, dev, s, t, u)
+    single_nan_cell(torch, dev, s, t, u)
+    lap("13c-d")
+    exact_cells(torch)
+    lap("13e")
+    bd = blockdiag_cells(torch, mk, dev, s, t, u, p1)
+    del p1
+    torch.cuda.empty_cache()
+    lap("13f")
+    counts = {}
+    for k in ("factor_round_binary_shared", "q_update"):
+        counts[k] = single.get(k, 0) + bd.get(k, 0)
+    counts["factor_round_binary.batched_instances"] = group.get(
+        "factor_round_binary", 0)
+    counts["q_update.batched_instances_pow2"] = group.get("q_update", 0)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3741,7 +4405,12 @@ def main() -> int:
     bnb_checkpoint_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
     print(f"phase 12 seconds={time.perf_counter() - t12}")
 
-    # -- 13. summary ------------------------------------------------------
+    # -- 13. the supervised dispatch and belief="blockdiag" ---------------
+    t13 = time.perf_counter()
+    scounts = supervisor_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
+    print(f"phase 13 seconds={time.perf_counter() - t13}")
+
+    # -- 14. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -3772,7 +4441,8 @@ def main() -> int:
         )
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
-            replaces=KERNELS[name], launches=launched,
+            replaces=KERNELS[name],
+            launches=launched + scounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),
@@ -3784,7 +4454,8 @@ def main() -> int:
     for entry, row in brows.items():
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
-            replaces=KERNELS[row["kernel"]], launches=bcounts[entry],
+            replaces=KERNELS[row["kernel"]],
+            launches=bcounts[entry] + scounts.get(entry, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,

@@ -94,6 +94,7 @@ import torch
 
 from pydcop_tpu_torch.algorithms import AlgoParameterDef
 from pydcop_tpu_torch.device import DeviceLike, resolve_device
+from pydcop_tpu_torch.engine.supervisor import DeviceOOMError, get_supervisor
 from pydcop_tpu_torch.graphs import pseudotree as _pt
 from pydcop_tpu_torch.ops import semiring as _semiring
 from pydcop_tpu_torch.ops.padding import (
@@ -104,6 +105,7 @@ from pydcop_tpu_torch.ops.padding import (
     bucket_util_shape,
     pad_util_parts,
     stack_bucket,
+    table_dtype_bytes,
     util_level_key,
 )
 from pydcop_tpu_torch.ops.sparse import as_table_format
@@ -782,6 +784,7 @@ def _util_phase_multi(
     K = len(insts)
     met = get_metrics()
     tracer = get_tracer()
+    sup = get_supervisor()
     utils: List[Dict[str, Tuple[List[str], np.ndarray, float]]] = [
         {} for _ in range(K)
     ]
@@ -1061,9 +1064,16 @@ def _util_phase_multi(
                 if use_bnb:
                     casts = [budgets.astype(np.float32)] + casts
                 try:
-                    outs_b = _semiring._dispatch(fn, casts, device)
+                    # the outputs come back to the host inside the
+                    # supervised call: a device failure surfaces there
+                    outs_b = sup.dispatch(
+                        lambda: _semiring._dispatch(fn, casts, device),
+                        scope="dpop.level", width=stack_h,
+                        table_bytes=table_dtype_bytes(bucket_dt)
+                        * int(np.prod(pshape)),
+                    )
                     level_batched = True
-                except torch.cuda.OutOfMemoryError:
+                except DeviceOOMError:
                     # OOM degradation ladder: a level stack that does
                     # not fit splits into one dispatch per node (the
                     # per-node path below); a node whose single join
@@ -1201,8 +1211,13 @@ def _util_phase_multi(
                 if use_bnb:
                     packed = [np.float32(budget)] + packed
                 try:
-                    outs_n = _semiring._dispatch(fn, packed, device)
-                except torch.cuda.OutOfMemoryError:
+                    outs_n = sup.dispatch(
+                        lambda p=packed: _semiring._dispatch(fn, p, device),
+                        scope="dpop.node", width=1,
+                        table_bytes=table_dtype_bytes(bucket_dt)
+                        * int(np.prod(pshape)),
+                    )
+                except DeviceOOMError:
                     # bottom of the OOM ladder: this single join does
                     # not fit on the device even alone — redo it
                     # wholesale on host f64 (exact) and keep sweeping

@@ -44,8 +44,10 @@ restart alone computes.
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pydcop_tpu_torch.algorithms import AlgoParameterDef
@@ -67,7 +69,9 @@ algo_params = [
     # the message math only — breaks ties; reported costs stay exact
     AlgoParameterDef("noise", "float", None, 0.001),
     AlgoParameterDef("initial", "str", ["declared", "random", "zero"], "zero"),
-    # belief-aggregation lowering: 'blockdiag' is not ported yet
+    # belief-aggregation lowering: 'auto' = the per-slot gather sum;
+    # 'blockdiag' = one static variable-major permutation gather and
+    # block-diagonal one-hot products (single problem only)
     AlgoParameterDef("belief", "str", ["auto", "blockdiag"], "auto"),
     # message storage dtype; arithmetic stays f32
     AlgoParameterDef("msg_dtype", "str", ["f32", "bf16"], "f32"),
@@ -89,12 +93,77 @@ def _msg_dtype(problem: CompiledProblem, params: Dict[str, Any]):
     return problem.unary.dtype
 
 
-def _check_params(params: Dict[str, Any]) -> None:
-    if params.get("belief", "auto") == "blockdiag":
-        raise NotImplementedError(
-            "maxsum belief='blockdiag' is not ported yet — see "
-            "ROADMAP.md, 'belief=blockdiag'"
+_BLOCKDIAG_BLK = 128  # variables per one-hot block
+
+# state keys that are pure problem-derived index data (rebuilt
+# identically by init_state): shared by restarts, not checkpointed
+STATIC_STATE_KEYS = frozenset({"bd_perm", "bd_onehot"})
+
+
+def _blockdiag_index(problem: CompiledProblem):
+    """``(perm i32[B·Lmax], onehot f32[B, Lmax, BLK])``, the JAX
+    package's index: a variable-major padded edge order and the
+    block-diagonal incidence such that ``einsum('dbl,blv->dbv',
+    r_pad[:, perm].reshape(d, B, Lmax), onehot)`` is the per-variable
+    sum of incoming r.  Host numpy, O(n_edges), built once by
+    ``init_state`` and carried as state leaves."""
+    BLK = _BLOCKDIAG_BLK
+    ev = problem.edge_var.cpu().numpy()[: problem.n_edges]
+    n = problem.n_vars
+    n_blocks = (n + BLK - 1) // BLK
+    counts = np.bincount(ev, minlength=n_blocks * BLK)
+    block_counts = counts.reshape(n_blocks, BLK).sum(axis=1)
+    lmax = max(int(block_counts.max()), 1)
+    lmax = ((lmax + 127) // 128) * 128  # lane-align the block length
+    cells = n_blocks * lmax * BLK
+    if cells > (1 << 28):  # 1 GB of f32 incidence
+        logging.getLogger(__name__).warning(
+            "belief='blockdiag' incidence needs %d cells (~%.1f GB of "
+            "f32: %d blocks x lmax=%d x %d) — a dense one-hot this "
+            "size likely exceeds the win; high-degree hubs inflate "
+            "lmax for EVERY block, prefer belief='auto' there",
+            cells, cells * 4 / 1e9, n_blocks, lmax, BLK,
         )
+    # edges by target variable; within its block, an edge's slot is its
+    # rank after the block's first edge (the JAX package's loop, in one
+    # vectorized pass)
+    order = np.argsort(ev, kind="stable")
+    var = ev[order]
+    block = var // BLK
+    block_start = np.zeros(n_blocks, dtype=np.int64)
+    block_start[1:] = np.cumsum(block_counts)[:-1]
+    pos = np.arange(len(order)) - block_start[block]
+    perm = np.full(n_blocks * lmax, problem.n_edges, dtype=np.int32)
+    perm[block * lmax + pos] = order
+    onehot = np.zeros((n_blocks, lmax, BLK), dtype=np.float32)
+    onehot[block, pos, var - block * BLK] = 1.0
+    dev = problem.device
+    return torch.from_numpy(perm).to(dev), torch.from_numpy(onehot).to(dev)
+
+
+def _belief_blockdiag(problem, perm, onehot, r, unary_t) -> torch.Tensor:
+    """Belief through ONE static permutation gather and one batched
+    product per block: ``[*batch, d, E]`` r → ``[*batch, d, n_vars]``.
+
+    The product ``dbl,blv->dbv`` is a dense f32 matmul (``torch.bmm``)
+    that the JAX package computes outside any Pallas kernel.  It sums
+    one-hot terms, so it is exact in f32 but for the order of the adds;
+    TF32 would round r to 10 mantissa bits, so the product refuses to
+    run with ``torch.backends.cuda.matmul.allow_tf32`` on."""
+    if r.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "belief='blockdiag' needs f32 products: turn "
+            "torch.backends.cuda.matmul.allow_tf32 off"
+        )
+    n_blocks, lmax, blk = onehot.shape
+    lead = r.shape[:-1]  # (*batch, d)
+    pad = r.new_zeros(lead + (1,))
+    r_vm = torch.cat([r, pad], dim=-1).index_select(-1, perm)
+    # [rows, B, L] -> [B, rows, L] @ [B, L, BLK] -> [B, rows, BLK]
+    r_vm = r_vm.to(onehot.dtype).reshape(-1, n_blocks, lmax).transpose(0, 1)
+    acc = torch.bmm(r_vm, onehot).transpose(0, 1)
+    acc = acc.reshape(lead + (n_blocks * blk,))[..., : problem.n_vars]
+    return acc + unary_t
 
 
 def init_state(
@@ -112,7 +181,6 @@ def init_state(
     and a CPU run start from the same state.  (They are not the JAX
     package's draws: tests hand both packages the same numpy state.)
     """
-    _check_params(params)
     dev = problem.device
     E, d, n = problem.n_edges, problem.d_max, problem.n_vars
     gen = torch.Generator().manual_seed(int(seed))
@@ -131,12 +199,16 @@ def init_state(
             batch + (n,)
         ).clone()
     mdt = _msg_dtype(problem, params)
-    return {
+    state = {
         "q": torch.zeros(batch + (d, E), dtype=mdt, device=dev),
         "r": torch.zeros(batch + (d, E), dtype=mdt, device=dev),
         "values": values,
         "noise": noise.to(device=dev, dtype=problem.unary.dtype),
     }
+    if params.get("belief", "auto") == "blockdiag":
+        # problem structure, shared by every restart
+        state["bd_perm"], state["bd_onehot"] = _blockdiag_index(problem)
+    return state
 
 
 def _template(problem) -> CompiledProblem:
@@ -170,10 +242,19 @@ def belief_from_r(
     variable, accumulated in ``unary_t``'s dtype (f32) whatever r's
     dtype.
 
-    One lowering on every device: the per-slot prefix gather sum of
-    ``ops/costs.py:gather_sum_slots`` (deterministic, so card and CPU
-    runs agree bit for bit)."""
-    _check_params({"belief": mode})
+    ``mode="auto"``: the per-slot prefix gather sum of
+    ``ops/costs.py:gather_sum_slots`` on every device (deterministic, so
+    card and CPU runs agree bit for bit).  ``"blockdiag"``: the one-hot
+    block products of :func:`_belief_blockdiag`, with the index built on
+    the spot (``step`` carries it in the state instead)."""
+    if mode == "blockdiag":
+        if isinstance(problem, StackedProblem):
+            raise ValueError(
+                "maxsum belief='blockdiag' indexes one problem's edges; a "
+                "stacked group holds several graphs — use belief='auto'"
+            )
+        perm, onehot = _blockdiag_index(problem)
+        return _belief_blockdiag(problem, perm, onehot, r, unary_t)
     return _costs.gather_sum_slots(problem, r, unary_t)
 
 
@@ -246,7 +327,12 @@ def step(
         off += m * k
 
     # -- 2. variable -> factor + value selection ----------------------
-    belief = belief_from_r(problem, r_new, unary_t, params.get("belief", "auto"))
+    if "bd_perm" in state:
+        belief = _belief_blockdiag(
+            problem, state["bd_perm"], state["bd_onehot"], r_new, unary_t
+        )
+    else:
+        belief = belief_from_r(problem, r_new, unary_t)
     # outside the gate the JAX package computes in the belief's dtype
     per_op = belief.dtype == torch.bfloat16 and not in_kernel_gate(problem)
     # the q update reads belief[:, edge_var] (in the message dtype) itself

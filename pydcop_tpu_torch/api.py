@@ -49,8 +49,12 @@ save the run state to an ``.npz`` file and continue from it
 (``engine/checkpoint.py``); DPOP and ``infer`` prune their device
 contractions by branch and bound (``bnb``, ``"auto"`` by default).
 
-Not ported yet: the other execution modes and the supervisor knobs
-(ROADMAP.md).
+Every call runs under a supervisor of its own
+(``engine/supervisor.py``): ``retry_budget``, ``chunk_floor``,
+``on_numeric_fault`` and the device-layer ``chaos`` kinds on ``solve``
+and ``solve_many``, ``retry_budget`` on ``infer`` and ``infer_many``.
+
+Not ported yet: the other execution modes (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -86,6 +90,11 @@ def solve(
     bnb: Optional[str] = None,
     table_dtype: Optional[str] = None,
     table_format: Optional[str] = None,
+    chaos: Optional[str] = None,
+    chaos_seed: int = 0,
+    retry_budget: Optional[int] = None,
+    chunk_floor: Optional[int] = None,
+    on_numeric_fault: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Solve a DCOP (object or yaml path) and return the result dict,
     with the run's ``telemetry`` block; ``trace`` also writes the
@@ -108,6 +117,16 @@ def solve(
     and ``resume=True`` continues from it when it exists
     (``engine/batched.py:run_batched``).
 
+    The call runs under its own supervisor (``engine/supervisor.py``):
+    ``retry_budget`` bounds the transient retries of each device
+    dispatch, ``chunk_floor`` is the smallest chunk a device OOM may
+    halve the run to, ``on_numeric_fault`` (``"quarantine"``: a NaN cost
+    ends the run ``status="degraded"`` with its last finite best;
+    ``"raise"``) picks the answer to a NaN cost.  ``chaos``/``chaos_seed``
+    take the device-layer fault kinds (``device_oom``,
+    ``device_transient``, ``nan_inject``) and inject them at that
+    supervisor, and the result records the plan as ``result["chaos"]``.
+
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
     >>> result["assignment"], result["cost"]
@@ -124,9 +143,56 @@ def solve(
             pad_policy=pad_policy, device=device,
             max_util_bytes=max_util_bytes, bnb=bnb,
             table_dtype=table_dtype, table_format=table_format,
+            chaos=chaos, chaos_seed=chaos_seed, retry_budget=retry_budget,
+            chunk_floor=chunk_floor, on_numeric_fault=on_numeric_fault,
         )
         result["telemetry"] = tel.summary()
     return result
+
+
+def _device_chaos(chaos, chaos_seed, caller: str):
+    """The :class:`~pydcop_tpu_torch.faults.plan.FaultPlan` of ``chaos``
+    (None without one), with the JAX package's rejections of the kinds
+    a batched ``solve``/``solve_many`` cannot inject."""
+    if not chaos:
+        return None
+    from pydcop_tpu_torch.faults import FaultPlan
+
+    plan = FaultPlan.from_spec(chaos, chaos_seed)
+    one = "a one-shot solve" if caller == "solve" else "solve_many"
+    if plan.message_faults_configured or plan.crashes:
+        if caller == "solve":
+            raise ValueError(
+                "chaos message-plane faults and crash schedules "
+                "target the message-driven runtimes — use "
+                "mode='thread' or 'process' (crash schedules against "
+                "the batched dynamic engine go through the `run` "
+                "command's --chaos, which scripts them as scenario "
+                "events).  The batched engine accepts the "
+                "DEVICE-layer kinds only: device_oom, "
+                "device_transient, nan_inject (docs/faults.md)"
+            )
+        raise ValueError(
+            "solve_many runs on the batched engine, which has no "
+            "message plane — chaos accepts the DEVICE-layer "
+            "kinds only: device_oom, device_transient, "
+            "nan_inject (docs/faults.md)"
+        )
+    if plan.wire_faults_configured:
+        raise ValueError(
+            "wire-level chaos kinds (conn_drop/slow_client/"
+            "frame_corrupt) inject at the solver service's frame "
+            "loop — use `pydcop_tpu serve --chaos` "
+            f"(docs/serving.md); {one} has no serving wire"
+        )
+    if plan.fleet_faults_configured:
+        raise ValueError(
+            "fleet-level chaos kinds (replica_kill) act on a "
+            "replicated serving fleet's processes — use "
+            "`pydcop_tpu fleet --chaos` (docs/faults.md); "
+            f"{one} has no fleet"
+        )
+    return plan
 
 
 def _contraction_knobs(
@@ -189,12 +255,46 @@ def _solve(
     dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
     chunk_size, checkpoint_path, checkpoint_every, resume, mode,
     n_restarts, pad_policy, device, max_util_bytes=None, bnb=None,
-    table_dtype=None, table_format=None,
+    table_dtype=None, table_format=None, chaos=None, chaos_seed=0,
+    retry_budget=None, chunk_floor=None, on_numeric_fault=None,
 ) -> Dict[str, Any]:
+    from pydcop_tpu_torch.engine.supervisor import (
+        make_supervisor,
+        supervision,
+    )
+
     if mode != "batched":
         raise NotImplementedError(
             f"mode={mode!r}: only the batched engine is ported"
         )
+    plan = _device_chaos(chaos, chaos_seed, "solve")
+    # every call runs under a supervisor of its own: the knobs, the
+    # device chaos plan and per-call dispatch sequence numbers (what
+    # makes the injected schedule replayable)
+    sup = make_supervisor(
+        retry_budget=retry_budget, chunk_floor=chunk_floor,
+        on_numeric_fault=on_numeric_fault, plan=plan,
+    )
+    with supervision(sup):
+        result = _solve_supervised(
+            dcop, algo, algo_params, rounds=rounds, timeout=timeout,
+            seed=seed, convergence_chunks=convergence_chunks,
+            chunk_size=chunk_size, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, resume=resume,
+            n_restarts=n_restarts, pad_policy=pad_policy, device=device,
+            max_util_bytes=max_util_bytes, bnb=bnb,
+            table_dtype=table_dtype, table_format=table_format,
+        )
+    if plan is not None:
+        result["chaos"] = plan.to_meta()  # the replay record
+    return result
+
+
+def _solve_supervised(
+    dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
+    chunk_size, checkpoint_path, checkpoint_every, resume, n_restarts,
+    pad_policy, device, max_util_bytes, bnb, table_dtype, table_format,
+) -> Dict[str, Any]:
     dev = resolve_device(device)
     if isinstance(dcop, (str, list, tuple)):
         from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
@@ -290,25 +390,30 @@ def solve_many(
     the call's one ``telemetry`` block (``trace`` as in :func:`solve`).
 
     ``compile_cache`` (the JAX package's persistent XLA cache) has no
-    counterpart and takes only None.  Not ported yet (each raises
-    ``NotImplementedError``): ``chaos`` and the supervisor knobs
-    ``retry_budget``, ``chunk_floor``, ``on_numeric_fault`` (A3).
+    counterpart and takes only None.
+
+    The whole call runs under one supervisor (knobs as in
+    :func:`solve`): a group that runs out of device memory splits in
+    half and each half runs from round 0 (``engine.oom_splits``), and an
+    instance whose costs go NaN is quarantined alone
+    (``status="degraded"`` with its last finite best) while the others
+    finish as they would have.  ``chaos``/``chaos_seed`` take the
+    device-layer fault kinds; every result records the plan as
+    ``result["chaos"]``.
     """
+    from pydcop_tpu_torch.engine.supervisor import (
+        make_supervisor,
+        supervision,
+    )
     from pydcop_tpu_torch.telemetry import session
 
     _no_compile_cache(compile_cache)
-    for value, name in (
-        (chaos, "chaos"), (retry_budget, "retry_budget"),
-        (chunk_floor, "chunk_floor"),
-        (on_numeric_fault, "on_numeric_fault"),
-    ):
-        if value is not None:
-            raise NotImplementedError(
-                f"solve_many {name}= is not ported yet — see ROADMAP.md, "
-                "A3"
-            )
-    del chaos_seed  # only read with chaos=
-    with session(trace, trace_format) as tel:
+    plan = _device_chaos(chaos, chaos_seed, "solve_many")
+    sup = make_supervisor(
+        retry_budget=retry_budget, chunk_floor=chunk_floor,
+        on_numeric_fault=on_numeric_fault, plan=plan,
+    )
+    with session(trace, trace_format) as tel, supervision(sup):
         results = _solve_many(
             dcops, algo, algo_params, rounds=rounds, timeout=timeout,
             seed=seed, chunk_size=chunk_size,
@@ -318,6 +423,8 @@ def solve_many(
         summary = tel.summary()
     for r in results:
         r["telemetry"] = summary
+        if plan is not None:
+            r["chaos"] = plan.to_meta()
     return results
 
 
@@ -557,8 +664,9 @@ def infer(
     ``BNB_AUTO_MIN_CELLS`` cells; ``"on"``; ``"off"``) prunes the device
     contractions by branch and bound: ``map`` and ``kbest`` stay exact,
     the mass queries add the pruned mass to ``error_bound``.
-    ``compile_cache`` has no counterpart (None only); ``retry_budget``
-    (ROADMAP A3) raises ``NotImplementedError``.
+    ``compile_cache`` has no counterpart (None only).  ``retry_budget``
+    bounds the transient retries of each device contraction (the call
+    runs under a supervisor of its own, ``engine/supervisor.py``).
 
     Returns the result dict: ``query``, ``semiring``, ``order``,
     ``status``, ``cells``, ``dispatches``, ``device_nodes``,
@@ -613,6 +721,10 @@ def infer_many(
     block.  Keywords as in :func:`infer`."""
     import time as _time
 
+    from pydcop_tpu_torch.engine.supervisor import (
+        make_supervisor,
+        supervision,
+    )
     from pydcop_tpu_torch.ops.semiring import run_infer_many
     from pydcop_tpu_torch.telemetry import session
 
@@ -620,11 +732,7 @@ def infer_many(
     if not dcops:
         return []
     _no_compile_cache(compile_cache)
-    if retry_budget is not None:
-        raise NotImplementedError(
-            "infer retry_budget= (the supervised dispatch) is not ported "
-            "yet — see ROADMAP.md, A3"
-        )
+    sup = make_supervisor(retry_budget=retry_budget)
     dev = resolve_device(torch_device)
     deadline = None if timeout is None else _time.perf_counter() + timeout
     loaded = []
@@ -634,7 +742,7 @@ def infer_many(
 
             d = load_dcop_from_file(d)
         loaded.append(d)
-    with session(trace, trace_format) as tel:
+    with session(trace, trace_format) as tel, supervision(sup):
         results = run_infer_many(
             loaded, query, order=order, beta=beta, tol=tol, device=device,
             device_min_cells=device_min_cells, pad_policy=pad_policy,

@@ -125,6 +125,11 @@ def set_parser(subparsers) -> None:
         "error_bound",
     )
     p.add_argument(
+        "--retry_budget", type=int, default=None, metavar="N",
+        help="transient device failures retry up to N times per "
+        "dispatch (engine/supervisor.py; default 2)",
+    )
+    p.add_argument(
         "--output", type=str, default=None,
         help="write the result JSON to this file as well as stdout",
     )
@@ -170,6 +175,7 @@ def run_cmd(args) -> int:
         table_dtype=args.table_dtype,
         table_format=args.table_format,
         torch_device=args.torch_device,
+        retry_budget=args.retry_budget,
     )
     try:
         if len(args.dcop_files) == 1:

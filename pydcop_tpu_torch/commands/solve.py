@@ -10,7 +10,10 @@ result as JSON in the shape
 ``--trace FILE`` writes the run's trace.  ``--restarts K`` runs K
 restarts and reports the best; ``--checkpoint FILE`` saves the batched
 engine's run state every ``--checkpoint_every`` chunks and ``--resume``
-continues from it; ``--many`` solves each file as its own
+continues from it; ``--chaos SPEC --chaos_seed N`` injects the
+device-layer fault kinds at the supervised dispatch, with the
+``--retry_budget``/``--chunk_floor``/``--on_numeric_fault`` knobs;
+``--many`` solves each file as its own
 instance through ``api.solve_many`` and prints a JSON array (without
 the ``telemetry`` blocks, as the JAX package prints it).
 """
@@ -126,6 +129,36 @@ def set_parser(subparsers) -> None:
         "bit-identical to dense",
     )
     p.add_argument(
+        "--chaos", default=None, metavar="SPEC",
+        help="inject deterministic device-layer faults at the supervised "
+        "device dispatch (engine/supervisor.py): device_oom=W[:R], "
+        "device_transient=P[:AFTER], nan_inject=P[:I]; same "
+        "--chaos_seed => identical fault sequence",
+    )
+    p.add_argument(
+        "--chaos_seed", type=int, default=0,
+        help="seed for the --chaos fault plan (determinism/replay)",
+    )
+    p.add_argument(
+        "--retry_budget", type=int, default=None, metavar="N",
+        help="transient device failures retry up to N times per "
+        "dispatch (seeded deterministic backoff; default 2, 0 turns "
+        "retries off)",
+    )
+    p.add_argument(
+        "--chunk_floor", type=int, default=None, metavar="ROUNDS",
+        help="smallest chunk size the device-OOM ladder may halve down "
+        "to before the run is declared over capacity (default 8)",
+    )
+    p.add_argument(
+        "--on_numeric_fault", choices=["quarantine", "raise"],
+        default=None,
+        help="NaN-poisoned run/instance handling: quarantine (report "
+        "the last finite anytime best with status=degraded — for solve "
+        "--many only the poisoned instance degrades; default) or raise "
+        "(fail the call)",
+    )
+    p.add_argument(
         "--output", type=str, default=None,
         help="write the result JSON to this file as well as stdout",
     )
@@ -145,6 +178,11 @@ def run_cmd(args) -> int:
         params = {**params, "table_dtype": args.table_dtype}
     if args.table_format is not None:
         params = {**params, "table_format": args.table_format}
+    sup_kw = dict(
+        chaos=args.chaos, chaos_seed=args.chaos_seed,
+        retry_budget=args.retry_budget, chunk_floor=args.chunk_floor,
+        on_numeric_fault=args.on_numeric_fault,
+    )
     if args.many:
         if args.max_util_bytes is not None:
             # solve_many takes it through the per-algorithm params
@@ -162,6 +200,7 @@ def run_cmd(args) -> int:
             device=args.device,
             trace=args.trace,
             trace_format=args.trace_format,
+            **sup_kw,
         )
         for r in results:
             r.pop("cost_trace", None)  # keep the printed JSON compact
@@ -184,6 +223,7 @@ def run_cmd(args) -> int:
         trace=args.trace,
         trace_format=args.trace_format,
         max_util_bytes=args.max_util_bytes,
+        **sup_kw,
     )
     result.pop("cost_trace", None)  # keep the printed JSON compact
     return write_result(args, result)

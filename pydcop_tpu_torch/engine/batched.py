@@ -44,8 +44,13 @@ uninterrupted one on the same device type in every result but its
 time.  A generator state is device-specific: a checkpoint of a run that
 drew random numbers resumes only on the device type it was written on.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-``mesh`` and chunk callbacks.
+Supervision.  Every chunk goes through the ambient supervisor's
+dispatch (``engine/supervisor.py``): retries, OOM chunk halving and
+group splits, the NaN quarantine and the device chaos kinds, as in the
+JAX package (see :func:`run_batched` and :func:`run_many_batched`).
+
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
+``mesh``.
 """
 
 from __future__ import annotations
@@ -59,10 +64,17 @@ from typing import Union
 import numpy as np
 import torch
 
+from pydcop_tpu_torch.engine.supervisor import (
+    DeviceOOMError,
+    DeviceTransientError,
+    UnrecoverableDeviceError,
+    get_supervisor,
+)
 from pydcop_tpu_torch.ops.compile import (
     CompiledProblem,
     StackedProblem,
     decode_assignment,
+    stack_problems,
     union_problem,
 )
 from pydcop_tpu_torch.ops.costs import instance_costs, total_cost
@@ -208,7 +220,8 @@ class _Checkpointer:
             self.path, state, best_cost, best_values, done, meta,
             static_keys=self.static,
             arrays={"rng/round": rng.numpy(),
-                    "cost_trace": np.concatenate(traces)},
+                    "cost_trace": np.concatenate(traces) if traces
+                    else np.zeros(0, dtype=np.float32)},
         )
         self.unsaved = 0
 
@@ -313,15 +326,33 @@ def run_batched(
     against this run (algorithm, seed, chunk size, problem fingerprint,
     restarts, as the JAX package checks them) and loaded before the
     first chunk.  ``rounds`` counts the restored rounds too.
+
+    Every chunk is one supervised dispatch (``engine/supervisor.py``,
+    scope ``engine.chunk``): a transient failure retries the chunk in
+    place, a device OOM halves ``chunk_size`` down to the supervisor's
+    ``chunk_floor`` (``engine.oom_chunk_halvings``), and an
+    unrecoverable failure writes a final checkpoint first.  Each attempt
+    starts from the chunk's generator state, so a retried or halved run
+    draws what the undisturbed run draws.  A NaN cost at a chunk
+    boundary ends the run ``status="degraded"`` with its last finite
+    best (or raises under ``on_numeric_fault='raise'``); a degraded
+    state is never checkpointed.  ``chunk_callback(rounds_done,
+    best_cost)`` runs after every chunk but the last (the best cost in
+    the minimizing sign; with a ``wants_values`` attribute it also gets
+    the current values); a status it returns ends the run with it.
     """
     if n_restarts < 1:
         raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
     if mesh is not None:
         raise _not_ported("mesh (sharded runs)", "n_shards > 1")
-    if chunk_callback is not None:
-        raise _not_ported("chunk callbacks", "the supervisor seam")
     if cost_every < 1 or chunk_size < 1:
         raise ValueError("cost_every and chunk_size must be >= 1")
+    if n_restarts > 1 and getattr(chunk_callback, "wants_values", False):
+        raise ValueError(
+            "n_restarts > 1 cannot feed a wants_values chunk_callback "
+            "(the elastic runtime expects per-variable [n] values, not "
+            "the [K, n] restart stack)"
+        )
 
     t0 = time.perf_counter()
     sign = -1.0 if problem.maximize else 1.0
@@ -353,25 +384,121 @@ def run_batched(
         prev_best = float(best_cost.min())
         prev_values = None if batch else best_values.cpu()
     tr, met = get_tracer(), get_metrics()
+    sup = get_supervisor()
+
+    def save_final():
+        """The final checkpoint before an unrecoverable error surfaces:
+        the last healthy state, and the rounds' generator at its
+        chunk boundary (best effort: the error is the report)."""
+        if ck is None:
+            return
+        try:
+            ck.save(state, best_cost, best_values, done, traces)
+        except Exception:  # noqa: BLE001 — the original failure wins
+            return
+        if met.enabled:
+            met.inc("engine.checkpoints")
+
     while done < rounds:
         this_chunk = min(chunk_size, rounds - done)
-        # the cycle span covers the chunk's dispatch AND its one host
-        # sync (on the cost trace): what a chunk of rounds costs
-        with tr.span("cycle", cat="cycle", first=done, rounds=this_chunk):
-            state, best_cost, best_values, costs = _run_chunk(
-                problem, algo_module, params, state, gen, this_chunk,
-                cost_every, best_cost, best_values,
+        # a chunk that fails part-way has advanced the generator; every
+        # attempt and every halved re-dispatch starts from this state
+        # (the steps never write into the carried tensors, so the
+        # chunk-start carry is intact)
+        gen_start = gen.get_state()
+
+        def chunk(n=this_chunk):
+            gen.set_state(gen_start)
+            out = _run_chunk(
+                problem, algo_module, params, state, gen, n, cost_every,
+                best_cost, best_values,
                 lambda v: (total_cost(problem, v), v),
             )
-            costs = costs.float().cpu().numpy()
+            # the chunk's one host sync, inside the dispatch: a kernel's
+            # failure surfaces here, where the supervisor classifies it
+            return out[:3] + (out[3].float().cpu().numpy(),)
+
+        # the cycle span covers the chunk's dispatch AND its host sync
+        try:
+            with tr.span("cycle", cat="cycle", first=done,
+                         rounds=this_chunk):
+                state, best_cost, best_values, costs = sup.dispatch(
+                    chunk, scope="engine.chunk", width=n_restarts,
+                    rounds=this_chunk,
+                )
+        except DeviceOOMError as e:
+            # halve the chunk down to the floor: fewer rounds in flight
+            # between syncs.  The same generator state continues, so a
+            # halved run draws what the unhalved run draws.
+            gen.set_state(gen_start)
+            new_chunk = max(sup.chunk_floor, this_chunk // 2)
+            if new_chunk >= this_chunk:
+                save_final()
+                raise UnrecoverableDeviceError(
+                    f"device OOM with the chunk already at the floor "
+                    f"({this_chunk} rounds, chunk_floor="
+                    f"{sup.chunk_floor}): {e}",
+                    scope="engine.chunk", kind="oom",
+                ) from e
+            chunk_size = new_chunk
+            if met.enabled:
+                met.inc("engine.oom_chunk_halvings")
+            if tr.enabled:
+                tr.event("oom-halve", cat="supervisor", chunk=new_chunk,
+                         round=done)
+            continue
+        except UnrecoverableDeviceError:
+            gen.set_state(gen_start)
+            save_final()
+            raise
         if met.enabled:
             met.inc("engine.chunks")
             met.inc("engine.rounds", this_chunk)
-        traces.append(costs.min(axis=-1) if batch else costs)
+        if batch:
+            costs = costs.min(axis=-1)
+        # the NaN screen at the chunk boundary (and the nan_inject
+        # seam), over the samples already on the host.  The anytime
+        # best is immune (cost < best is False for NaN), so a degraded
+        # result carries the last finite best.
+        poisoned = False
+        if sup.active:
+            if sup.nan_lanes(1, scope="engine.chunk"):
+                costs[-1] = np.nan
+            poisoned = bool(np.isnan(costs).any())
+        traces.append(costs)
         done += this_chunk
+        if poisoned:
+            if met.enabled:
+                met.inc("engine.numeric_faults")
+            if sup.on_numeric_fault == "raise":
+                save_final()
+                raise UnrecoverableDeviceError(
+                    "NaN cost at a chunk boundary "
+                    f"(round {done}) under on_numeric_fault='raise'",
+                    scope="engine.chunk", kind="numeric",
+                )
+            if met.enabled:
+                met.inc("engine.quarantined_instances")
+            if tr.enabled:
+                tr.event("quarantine", cat="supervisor",
+                         scope="engine.chunk", round=done)
+            status = "degraded"
+            break
         if ck is not None:
             ck.chunk_done(max(1, checkpoint_every), state, best_cost,
                           best_values, done, traces)
+        if chunk_callback is not None and done < rounds:
+            # a wants_values callback also receives the current values
+            best_now = float(best_cost.min())
+            if getattr(chunk_callback, "wants_values", False):
+                cb_status = chunk_callback(
+                    done, best_now, state["values"].cpu().numpy()
+                )
+            else:
+                cb_status = chunk_callback(done, best_now)
+            if cb_status is not None:
+                status = cb_status
+                break
         if timeout is not None and time.perf_counter() - t0 > timeout:
             status = "timeout"
             break
@@ -390,7 +517,9 @@ def run_batched(
                 stall = 0
             prev_best = best_now
             prev_values = cur_values
-    if ck is not None and ck.unsaved:
+    # a degraded (NaN-poisoned) state never lands in a checkpoint:
+    # resuming from it would continue the poisoned trajectory
+    if ck is not None and ck.unsaved and status != "degraded":
         ck.save(state, best_cost, best_values, done, traces)
 
     final_values = state["values"]
@@ -408,6 +537,10 @@ def run_batched(
         best_cost = best_cost[i_best]
     final_cost = float(final_costs)
     best_cost_f = float(best_cost)
+    if status == "degraded":
+        # the post-poison final values are not trusted: report the
+        # anytime best for both, as the JAX package does
+        final_values, final_cost = best_values, best_cost_f
     elapsed = time.perf_counter() - t0
     msgs = algo_module.messages_per_round(problem, params) * done * n_restarts
     trace = np.concatenate(traces) if traces else np.zeros(0)
@@ -485,6 +618,7 @@ def run_many_batched(
     cost_every: int = 1,
     n_restarts: int = 1,
     mesh=None,
+    _attempt: int = 0,
 ) -> List[RunResult]:
     """Solve the I instances of ``stacked`` (``ops/compile.py:
     stack_problems``) together: one chunk loop for the group, one host
@@ -508,6 +642,20 @@ def run_many_batched(
     :class:`RunResult` per instance in stack order (``stacked.indices``
     maps back to the caller's order); each ``time`` is the group's wall
     time.
+
+    Every chunk is one supervised dispatch (scope ``engine.group``,
+    width ``I·n_restarts``).  A device OOM splits the group in half and
+    runs each half from round 0 as a call of its own (recursively;
+    ``engine.oom_splits``); a one-instance group halves its chunk
+    instead.  A real transient restarts the whole group from round 0
+    (``group-restart``, within the supervisor's ``retry_budget``;
+    ``_attempt`` counts the restarts).  A lane whose costs go NaN is
+    quarantined: it reports ``status="degraded"`` with its last finite
+    best, and the other lanes finish as they would have.  A half draws
+    from a generator seeded with its own first seed, so a split half of
+    a stochastic group on the union equals that half run alone, not the
+    unsplit group (ROADMAP.md, C); a group that draws nothing is
+    unchanged by a split.
     """
     t0 = time.perf_counter()
     I = stacked.n_instances
@@ -540,6 +688,15 @@ def run_many_batched(
     ]
     if instance_axis:  # the stacked problem itself, state [I, R, ...]
         problem = stacked
+        static = sorted(set(inits[0]) & set(
+            getattr(algo_module, "STATIC_STATE_KEYS", ())))
+        if static:
+            raise ValueError(
+                f"{algo_module.__name__}: the state leaves {static} index "
+                "one problem's structure, which a stacked group does not "
+                "share (maxsum belief='blockdiag' runs one problem at a "
+                "time; use belief='auto' in a group)"
+            )
         state = {k: torch.stack([s[k] for s in inits]) for k in inits[0]}
 
         def to_inst(values):
@@ -554,6 +711,7 @@ def run_many_batched(
 
         def to_inst(values):  # [R, n·I] -> [I, R, n]
             return values.view(R, n, I).permute(2, 0, 1)
+    del inits  # the per-instance copies: the group holds its own
     run_params = _group_params(algo_module, params_list, problem, I,
                                instance_axis)
 
@@ -565,32 +723,167 @@ def run_many_batched(
     best_cost, best_values = observe(state["values"])  # [I, R], [I, R, n]
     best_values = best_values.clone()
 
+    sup = get_supervisor()
+
+    def rerun(lo, hi, new_chunk=None, attempt=0):
+        """Instances ``lo:hi`` as a ``run_many_batched`` call of their
+        own, from round 0 (the rest of the call's timeout)."""
+        part = (stacked if (lo, hi) == (0, I)
+                else stack_problems(stacked.host_problems[lo:hi])[0])
+        return run_many_batched(
+            part, algo_module, params_list[lo:hi], rounds=rounds,
+            seeds=seeds[lo:hi],
+            timeout=None if timeout is None
+            else max(timeout - (time.perf_counter() - t0), 0.01),
+            chunk_size=new_chunk or chunk_size,
+            convergence_chunks=convergence_chunks, cost_every=cost_every,
+            n_restarts=R, _attempt=attempt,
+        )
+
     traces = []
     done = 0
     status = "finished"
     stall = 0
+    # lane -> (best cost [R], best values [R, n]) at the boundary where
+    # the lane went NaN: the other lanes run on, the quarantined one
+    # reports this last finite best with status 'degraded'
+    quarantined: Dict[int, Any] = {}
     prev_best = best_cost.amin(dim=1).cpu().numpy()
     prev_values = None if R > 1 else to_inst(state["values"]).cpu()
     tr, met = get_tracer(), get_metrics()
     while done < rounds:
         this_chunk = min(chunk_size, rounds - done)
-        with tr.span(
-            "cycle", cat="cycle", first=done, rounds=this_chunk,
-            instances=I,
-        ):
-            state, best_cost, best_values, costs = _run_chunk(
-                problem, algo_module, run_params, state, gen, this_chunk,
+
+        def chunk(n=this_chunk):
+            out = _run_chunk(
+                problem, algo_module, run_params, state, gen, n,
                 cost_every, best_cost, best_values, observe,
             )
             # the one host sync of the chunk: [samples, I, R] -> [I, samples]
-            traces.append(costs.float().amin(dim=-1).t().cpu().numpy())
+            return out[:3] + (out[3].float().amin(dim=-1).t().cpu().numpy(),)
+
+        # a recovery that re-runs the group runs after the except
+        # clause: the failed chunk's tensors, which the exception's
+        # frames hold, are free by then
+        restart = split = halve = None
+        try:
+            with tr.span(
+                "cycle", cat="cycle", first=done, rounds=this_chunk,
+                instances=I,
+            ):
+                state, best_cost, best_values, costs = sup.dispatch(
+                    chunk, scope="engine.group", width=I * R,
+                    rounds=this_chunk,
+                    # a real failure is never replayed in place: the
+                    # group restarts from round 0 (below), as the JAX
+                    # package's donated group does
+                    retryable=False,
+                )
+        except DeviceTransientError as e:
+            # a real transient: the retry is a whole-group restart from
+            # round 0, with its own keyed backoff and the call's budget
+            if _attempt >= sup.config.retry_budget:
+                raise UnrecoverableDeviceError(
+                    "engine.group: transient device failure persisted "
+                    f"through the retry budget ({sup.config.retry_budget})"
+                    f" across group restarts: {e}",
+                    scope="engine.group", kind="transient",
+                    attempts=_attempt,
+                ) from e
+            restart = str(e)[:200]
+        except DeviceOOMError as e:
+            if I > 1:
+                split = str(e)[:200]
+            else:
+                # one instance: run_batched's chunk-halving ladder
+                new_chunk = max(sup.chunk_floor, this_chunk // 2)
+                if new_chunk >= this_chunk:
+                    raise UnrecoverableDeviceError(
+                        f"device OOM on a single-instance group with the "
+                        f"chunk already at the floor ({this_chunk} "
+                        f"rounds, chunk_floor={sup.chunk_floor}): {e}",
+                        scope="engine.group", kind="oom",
+                    ) from e
+                halve = (new_chunk, e.injected)
+        if restart is not None or split is not None or (
+                halve is not None and not halve[1]):
+            # this group's device state goes before its rerun(s) start
+            state = best_cost = best_values = problem = None
+        if restart is not None:
+            cfg = sup.config
+            if met.enabled:
+                met.inc("engine.retries")
+            if tr.enabled:
+                tr.event("group-restart", cat="supervisor",
+                         scope="engine.group", attempt=_attempt + 1,
+                         error=restart)
+            delays = cfg.delays("supervisor:engine.group.restart")
+            for _ in range(_attempt):  # this restart's place in the stream
+                next(delays)
+            cfg.sleep(next(delays))
+            return rerun(0, I, attempt=_attempt + 1)
+        if split is not None:
+            # split the instance stack in half and run each half from
+            # round 0 (recursively, down to single instances)
+            if met.enabled:
+                met.inc("engine.oom_splits")
+            if tr.enabled:
+                tr.event("oom-split", cat="supervisor",
+                         scope="engine.group", instances=I, error=split)
+            mid = (I + 1) // 2
+            return rerun(0, mid) + rerun(mid, I)
+        if halve is not None:
+            new_chunk, injected = halve
+            if met.enabled:
+                met.inc("engine.oom_chunk_halvings")
+            if tr.enabled:
+                tr.event("oom-halve", cat="supervisor", chunk=new_chunk,
+                         round=done)
+            if not injected:
+                # a real OOM fired inside the chunk: restart from round
+                # 0 at the halved chunk (an injected one fired before)
+                return rerun(0, I, new_chunk=new_chunk, attempt=_attempt)
+            chunk_size = new_chunk
+            continue
         if met.enabled:
             if done == 0:
                 met.inc("engine.batch_groups")
                 met.inc("engine.instances_batched", I)
             met.inc("engine.chunks")
             met.inc("engine.rounds", this_chunk)
+        # the per-lane NaN screen (and the nan_inject seam) over the
+        # samples on the host: a poisoned lane is quarantined while the
+        # others run on bit for bit (lanes never exchange data)
+        if sup.active:
+            for lane in sup.nan_lanes(I, scope="engine.group"):
+                costs[lane, -1] = np.nan
+            new_bad = [int(i) for i in np.nonzero(np.isnan(costs).any(1))[0]
+                       if int(i) not in quarantined]
+            if new_bad:
+                if met.enabled:
+                    met.inc("engine.numeric_faults", len(new_bad))
+                if sup.on_numeric_fault == "raise":
+                    raise UnrecoverableDeviceError(
+                        f"NaN cost in instance lane(s) {new_bad} at "
+                        f"round {done + this_chunk} under "
+                        "on_numeric_fault='raise'",
+                        scope="engine.group", kind="numeric",
+                    )
+                bc_np = best_cost.cpu().numpy()
+                bv_np = best_values.cpu().numpy()
+                for i in new_bad:
+                    quarantined[i] = (bc_np[i].copy(), bv_np[i].copy())
+                    if met.enabled:
+                        met.inc("engine.quarantined_instances")
+                    if tr.enabled:
+                        tr.event("quarantine", cat="supervisor",
+                                 scope="engine.group", lane=i,
+                                 round=done + this_chunk)
+        traces.append(costs)
         done += this_chunk
+        if len(quarantined) == I:  # nothing healthy left to run
+            status = "degraded"
+            break
         if timeout is not None and time.perf_counter() - t0 > timeout:
             status = "timeout"
             break
@@ -617,6 +910,16 @@ def run_many_batched(
     bv = best_values[rows, i_best].cpu().numpy()
     bc = best_cost[rows, i_best].double().cpu().numpy()
     restart_costs = sign * best_cost.cpu().numpy() if R > 1 else None
+    statuses = [status] * I
+    for i, (q_bc, q_bv) in quarantined.items():
+        # the lane's post-poison values are not trusted: its snapshot
+        # (last finite anytime best) is both its final and its best
+        statuses[i] = "degraded"
+        j = int(np.argmin(q_bc))
+        if restart_costs is not None:
+            restart_costs[i] = sign * q_bc
+        fv[i] = bv[i] = q_bv[j]
+        fc[i] = bc[i] = float(q_bc[j])
     elapsed = time.perf_counter() - t0
     trace = np.concatenate(traces, axis=1) if traces else np.zeros((I, 0))
     return [
@@ -629,7 +932,7 @@ def run_many_batched(
             messages=algo_module.messages_per_round(hp, params_list[i])
             * done * R,
             time=elapsed,
-            status=status,
+            status=statuses[i],
             cost_trace=sign * trace[i],
             restart_costs=None if restart_costs is None
             else restart_costs[i],

@@ -37,8 +37,9 @@ WORST lane bound plus the f64 combine rounding (multiplicative
 errors: ``Σ ẑ_l ∈ Σ z_l · [e^-max(e_l), e^max(e_l)]``).
 
 OOM ladder position: a budgeted sweep turns a device out-of-memory
-error (``torch.cuda.OutOfMemoryError``) into a REPLAN instead of a host
-retreat.  Level-stack OOM still degrades to per-node dispatches; a
+error (the supervisor's ``DeviceOOMError``, raised for a real
+``torch.cuda.OutOfMemoryError`` or an injected ``device_oom``) into a
+REPLAN instead of a host retreat.  Level-stack OOM still degrades to per-node dispatches; a
 per-node OOM then re-plans the whole sweep at HALF the budget
 (``membound.replans`` — deterministic: the plan is a pure function of
 (graph, budget)), and only when the budget bottoms out does the sweep
@@ -66,6 +67,7 @@ import numpy as np
 
 import torch
 
+from pydcop_tpu_torch.engine.supervisor import DeviceOOMError
 from pydcop_tpu_torch.ops.padding import (
     NO_PADDING,
     as_table_dtype,
@@ -686,7 +688,7 @@ def run_bounded(
                 bnb=bnb, table_dtype=table_dtype,
                 table_format=table_format, torch_device=torch_device,
             )
-        except torch.cuda.OutOfMemoryError:
+        except DeviceOOMError:
             # the replan rung of the OOM ladder: level->node already
             # degraded inside the sweep; a per-node OOM means the
             # TABLES are too big, and only a tighter plan changes that

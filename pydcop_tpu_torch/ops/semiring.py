@@ -65,6 +65,7 @@ from typing import (
 import numpy as np
 import torch
 
+from pydcop_tpu_torch.engine.supervisor import DeviceOOMError, get_supervisor
 from pydcop_tpu_torch.ops.costs import fixed_order_sum
 from pydcop_tpu_torch.ops.padding import (
     INT8_NEG_INF,
@@ -78,6 +79,7 @@ from pydcop_tpu_torch.ops.padding import (
     pad_util_parts,
     quantize_table_int8,
     stack_bucket,
+    table_dtype_bytes,
     table_dtype_eps,
     util_level_key,
 )
@@ -1945,9 +1947,13 @@ def contract_sweep(
     A stacked dispatch that runs out of device memory degrades to one
     dispatch per node (``engine.oom_splits``); ``on_oom`` picks the
     bottom rung: a node that still does not fit is redone on host f64
-    (``"host"``, the default) or the ``torch.cuda.OutOfMemoryError``
+    (``"host"``, the default) or the supervisor's ``DeviceOOMError``
     propagates (``"raise"``: the budgeted sweeps of ``ops/membound.py``
-    answer it by re-planning at a tighter ``max_util_bytes``).
+    answer it by re-planning at a tighter ``max_util_bytes``).  Every
+    device dispatch goes through the ambient supervisor
+    (``engine/supervisor.py``; scopes ``semiring.level`` and
+    ``semiring.node``), so transient failures retry and the device chaos
+    kinds inject here as in the JAX package.
 
     ``table_dtype`` packs every device part at the requested storage
     precision with the join kept f32.  Correctness rides the same
@@ -2408,8 +2414,13 @@ def contract_sweep(
                         _no_prune(sr_b) if budget is None else budget
                     )] + list(packed)
                 try:
-                    outs = _dispatch(fn, packed, torch_device)
-                except torch.cuda.OutOfMemoryError:
+                    outs = get_supervisor().dispatch(
+                        lambda p=packed: _dispatch(fn, p, torch_device),
+                        scope="semiring.node", width=1,
+                        table_bytes=table_dtype_bytes(bucket_dt)
+                        * int(np.prod(pshape)) * sr_b.cell_width,
+                    )
+                except DeviceOOMError:
                     if on_oom == "raise":
                         raise
                     host_contract(
@@ -2472,8 +2483,13 @@ def _dispatch_stacked(
     dequant, packed = pack_rows(bufs, table_dtype, n_rows, met)
     budgets = [_budgets(entries, stack_h, sr)] if use_bnb else []
     try:
-        outs = _dispatch(fn, budgets + dequant + packed, torch_device)
-    except torch.cuda.OutOfMemoryError:
+        outs = get_supervisor().dispatch(
+            lambda: _dispatch(fn, budgets + dequant + packed, torch_device),
+            scope="semiring.level", width=stack_h,
+            table_bytes=table_dtype_bytes(table_dtype)
+            * int(np.prod(pshape)) * sr.cell_width,
+        )
+    except DeviceOOMError:
         return False
     if met.enabled:
         met.inc("semiring.dispatches")
@@ -2556,8 +2572,15 @@ def _dispatch_sparse(
     if use_bnb:
         args = [_budgets(entries, stack_h, sr)] + args
     try:
-        outs = _dispatch(fn, args, torch_device)
-    except torch.cuda.OutOfMemoryError:
+        outs = get_supervisor().dispatch(
+            lambda: _dispatch(fn, args, torch_device),
+            scope="semiring.level", width=stack_h,
+            # the real packed bytes: candidate index buffers plus the
+            # value packs at the storage dtype, not the dense box
+            table_bytes=n_cand_b * (8 + 4 * P)
+            + table_dtype_bytes(table_dtype) * sum(part_lens_b),
+        )
+    except DeviceOOMError:
         if on_oom == "raise":
             raise
         return False

@@ -59,6 +59,9 @@ solve(sys.argv[1], "maxsum", rounds=8, chunk_size=4, checkpoint_path=ck,
 r = solve(sys.argv[1], "maxsum", rounds=16, chunk_size=4,
           checkpoint_path=ck, resume=True, device="cpu")
 assert r["cycle"] == 16 and os.path.exists(ck), r
+r = solve(sys.argv[1], "maxsum", {"belief": "blockdiag"}, rounds=8,
+          chunk_size=8, chunk_floor=2, chaos="device_oom=-:2", device="cpu")
+assert r["telemetry"]["counters"]["engine.oom_chunk_halvings"] == 2, r
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")

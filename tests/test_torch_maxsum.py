@@ -215,9 +215,18 @@ def test_run_batched_returns_state_and_rejects_unported_options(tmp_path):
     r15 = run_batched(port, mod, params, rounds=15, return_state=True)
     for k in ("q", "r", "values"):
         assert torch.equal(r2.state[k], r15.state[k])
-    for kw in ({"mesh": object()}, {"chunk_callback": print}):
-        with pytest.raises(NotImplementedError):
-            run_batched(port, mod, params, rounds=1, **kw)
+    with pytest.raises(NotImplementedError):
+        run_batched(port, mod, params, rounds=1, mesh=object())
+    # chunk callbacks are ported: called at every boundary but the last,
+    # with the best cost so far, and the run is the same
+    seen = []
+    rcb = run_batched(port, mod, params, rounds=15, chunk_size=5,
+                      chunk_callback=lambda n, b: seen.append((n, b)),
+                      return_state=True)
+    assert [n for n, _ in seen] == [5, 10]
+    assert all(b >= rcb.best_cost for _, b in seen)
+    for k in ("q", "r", "values"):
+        assert torch.equal(rcb.state[k], r15.state[k])
     # checkpoints are ported (tests/test_torch_checkpoint.py): a run
     # resumed from round 10 ends where the 15-round run ends
     ck = str(tmp_path / "x.npz")
@@ -231,11 +240,15 @@ def test_run_batched_returns_state_and_rejects_unported_options(tmp_path):
                      return_state=True)
     assert len(rk.restart_costs) == 2
     assert rk.state["q"].shape == (2,) + r.state["q"].shape
-    with pytest.raises(NotImplementedError, match="blockdiag"):
-        run_batched(
-            port, mod, prepare_algo_params({"belief": "blockdiag"},
-                                           mod.algo_params), rounds=1,
-        )
+    # belief='blockdiag' is ported: its index rides the state (shared
+    # by the restarts) and the run finds the same best assignment
+    bd = prepare_algo_params({"belief": "blockdiag"}, mod.algo_params)
+    rb = run_batched(port, mod, bd, rounds=15, n_restarts=2,
+                     return_state=True)
+    assert rb.state["bd_onehot"].dim() == 3
+    assert rb.state["q"].shape == (2,) + r.state["q"].shape
+    rb1 = run_batched(port, mod, bd, rounds=15)
+    assert rb1.best_assignment == r15.best_assignment
 
 
 def test_cli_matches_jax_solve():
@@ -302,3 +315,85 @@ def test_bf16_tables_generic_path_matches_jax_round_by_round(
                 np.testing.assert_array_equal(
                     _np(ts[k]), _np(js[k]), err_msg=f"{k} d{damping} r{i}"
                 )
+
+
+def test_blockdiag_index_and_step_match_jax():
+    """``_blockdiag_index`` is the JAX package's bit for bit; the
+    belief and one step agree within 1e-6 (the one-hot products add in
+    another order than JAX's einsum; ROADMAP.md, C)."""
+    from pydcop_tpu.algorithms import maxsum as jms
+
+    from pydcop_tpu_torch.algorithms import maxsum as tms
+
+    ref, port = _problems("per_table", n=300)
+    pj, oj = jms._blockdiag_index(ref)
+    pt, ot = tms._blockdiag_index(port)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    st = _state(ref, "f32", random_q=True)
+    params = {"damping": 0.5, "belief": "blockdiag"}
+    jp = jax_params(params, jax_algo("maxsum").algo_params)
+    tp = prepare_algo_params(params, tms.algo_params)
+    js = {k: jnp.asarray(v) for k, v in st.items()}
+    js["bd_perm"], js["bd_onehot"] = pj, oj
+    ts = interop.state_from_arrays(st, "cpu")
+    ts["bd_perm"], ts["bd_onehot"] = pt, ot
+    out_j = jms.step(ref, js, jax.random.PRNGKey(0), jp)
+    out_t = tms.step(port, ts, tp)
+    np.testing.assert_array_equal(_np(out_t["r"]), _np(out_j["r"]))
+    np.testing.assert_allclose(
+        _np(out_t["q"]), _np(out_j["q"]), rtol=1e-6, atol=1e-6
+    )
+    np.testing.assert_array_equal(_np(out_t["values"]), _np(out_j["values"]))
+    unary_t = np.asarray(ref.unary).T + st["noise"]
+    b_j = jms.belief_from_r(ref, out_j["r"], jnp.asarray(unary_t),
+                            mode="blockdiag")
+    b_t = tms.belief_from_r(port, out_t["r"], torch.from_numpy(unary_t),
+                            mode="blockdiag")
+    np.testing.assert_allclose(_np(b_t), _np(b_j), rtol=1e-6, atol=1e-6)
+
+
+def test_blockdiag_run_matches_jax_and_skips_checkpoint(tmp_path):
+    """32 rounds from a shared state: the JAX run's best assignment, best
+    cost within 1e-6; a checkpoint leaves the index out, and a run
+    resumed from it rebuilds the index and ends as the whole run."""
+    from pydcop_tpu.algorithms import maxsum as jms
+
+    ref, port = _problems("shared", n=300)
+    st = _state(ref, "f32")
+    params = {"damping": 0.5, "belief": "blockdiag"}
+    kw = dict(rounds=32, chunk_size=16, cost_every=8)
+    pj, oj = jms._blockdiag_index(ref)
+    rj = jax_run(
+        ref, jax_algo("maxsum"),
+        jax_params(params, jax_algo("maxsum").algo_params),
+        initial_state=dict(st, bd_perm=np.asarray(pj),
+                           bd_onehot=np.asarray(oj)), **kw,
+    )
+    mod = load_algorithm_module("maxsum")
+    tp = prepare_algo_params(params, mod.algo_params)
+    rt = run_batched(port, mod, tp, initial_state=st, return_state=True,
+                     **kw)
+    assert rt.best_assignment == rj.best_assignment
+    assert rt.best_cost == pytest.approx(rj.best_cost, rel=1e-6)
+    ck = str(tmp_path / "bd.npz")
+    run_batched(port, mod, tp, rounds=16, chunk_size=16, cost_every=8,
+                checkpoint_path=ck)
+    with np.load(ck) as f:
+        assert f.files and not any("bd_" in k for k in f.files)
+    whole = run_batched(port, mod, tp, return_state=True, **kw)
+    res = run_batched(port, mod, tp, checkpoint_path=ck, resume=True,
+                      return_state=True, **kw)
+    for k in ("q", "r", "values"):
+        assert torch.equal(res.state[k], whole.state[k])
+
+
+def test_blockdiag_rejects_a_stacked_group():
+    ref, port = _problems("shared", n=100)
+    mod = load_algorithm_module("maxsum")
+    [grp] = tcompile.stack_problems([port, port])
+    from pydcop_tpu_torch.engine.batched import run_many_batched
+
+    with pytest.raises(ValueError, match="blockdiag"):
+        run_many_batched(grp, mod, prepare_algo_params(
+            {"belief": "blockdiag"}, mod.algo_params), rounds=2)

@@ -223,8 +223,16 @@ def test_unported_options_raise():
     dcops = [ring(tdcop, 5)]
     with pytest.raises(NotImplementedError, match="compile_cache"):
         solve_many(dcops, "mgm", compile_cache="cache", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        solve_many(dcops, "mgm", chaos="device_oom=1", device="cpu")
+    # device chaos is ported: a width cap of 1 splits the pair into
+    # single instances, each equal to the fault-free group's
+    pair = [ring(tdcop, 5), ring(tdcop, 6)]
+    split = solve_many(pair, "mgm", pad_policy=PAD, chaos="device_oom=1",
+                       device="cpu")
+    for g, w in zip(split, solve_many(pair, "mgm", pad_policy=PAD,
+                                      device="cpu")):
+        _same_result(g, w)
+        assert g["chaos"] == {"spec": "device_oom=1", "seed": 0}
+    assert split[0]["telemetry"]["counters"]["engine.oom_splits"] == 1
     with pytest.raises(ValueError, match="syncbb"):
         solve_many(dcops, "syncbb", n_restarts=2, device="cpu")
     # SyncBB has no merged sweep: its instances solve one by one
