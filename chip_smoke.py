@@ -283,9 +283,11 @@ caught and passed over):
    the uninjected group's, the counters equal to the CPU run's (8
    rounds: the splits fire on the first dispatch); then, in a child
    process, the 8 graphs with 8 restarts each (B 64, 64 rounds) under a
-   caching allocator capped between a half's peak and the whole group's:
-   a real ``torch.cuda.OutOfMemoryError`` answered by a split, every
-   instance equal to the uncapped run.  13d: the group under
+   caching allocator capped at a half's peak plus half the group's
+   stacked problem (below the whole group's peak): a real
+   ``torch.cuda.OutOfMemoryError`` answered by a split, which frees the
+   group's stacked tensors before its halves run, every instance equal
+   to the uncapped run.  13d: the group under
    ``nan_inject=1:3``: lane 3 ``degraded`` with its last finite best,
    the other 7 equal to the uninjected group, ``on_numeric_fault=
    "raise"`` raising; one coloring-10k run under ``nan_inject=1``
@@ -301,12 +303,39 @@ caught and passed over):
    blockdiag against the slot gathers with the one-hot's bytes, a
    profiled stretch of 16 rounds in each mode, 256 rounds through the
    engine.
-14. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+14. The dynamic path (``engine/dynamic.py:run_dynamic``), one JSON line
+   a cell, on the dynamic-coloring10k-sensors cell: phase 9's coloring
+   (10,000 variables, seed 1) with 200 external sensors, 100 ``track_k``
+   constraints (unary after slicing) and 100 ternary ``pair_k``
+   constraints (per-factor binary rows after slicing), Max-Sum (damping
+   0.5) over 100 agents ``a00…a99`` placed by ``adhoc`` (each agent's
+   capacity 2.03 shares of the factor graph's footprint; ``a13`` and
+   ``a14`` share a cheap route, so each holds the other's replicas),
+   ``final_rounds=256``, ``rounds_per_second=320``, chunk 64.  The
+   scenario: settle; one event setting 50 sensors; a delay of 0.8 s;
+   ``a07`` leaves; a delay of 0.4 s; ``a13`` and ``a14`` leave in one
+   event; ``a100`` joins; a delay of 0.4 s; the final settle.  14a, at
+   ``k_target=1``: the card run equals the port's CPU run of the same
+   call in assignment, cost, cost trace, events, carry count, lost
+   computations, replicas and ``compile.*`` counters (at least one full,
+   one incremental and one reused compile); every segment launches the
+   per-factor factor kernel and the q update once a round (counts set
+   to 0 before the call); ``a07``'s orphans all migrate and the rack's
+   loss freezes variables; after the ``set_value`` event the patched
+   tensors equal a fresh ``compile_dcop`` of the active problem, bit for
+   bit.  It prints each compile's kind, seconds and patch bytes, each
+   segment's engine seconds and msgs/s beside phase 3's, and the
+   distribution, replica and repair host seconds.  14b, at
+   ``k_target=2`` on ``a07``'s departure and a delay: a reparation DCOP
+   solved on the card; every migrated computation lands on one of its
+   live replica holders within capacity, and the card run equals the
+   CPU run.
+15. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; phase 13's
-   launches are added to the entries its runs launch), the card line,
-   and last the ``{"ok": true, ...}`` line.
+   and phase 14's launches are added to the entries their runs launch),
+   the card line, and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
 """
@@ -4099,13 +4128,14 @@ def real_oom_split(card):
     del grp
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    # the cap sits halfway between a half (beside the whole group's
-    # stacked problem, which stays alive while its halves run) and the
-    # whole group
-    room = (stack_bytes + half + whole) // 2
-    if whole - (stack_bytes + half) < (16 << 20):
+    # the cap: a half's peak plus half the group's stacked problem.  A
+    # split frees the group's stacked tensors before its halves run, so
+    # a half fits; had the group stayed alive beside its halves, they
+    # would not
+    room = half + stack_bytes // 2
+    if whole - room < (16 << 20):
         raise AssertionError(f"13c real OOM: whole {whole} B, half {half} B "
-                             f"+ stack {stack_bytes} B leave no room")
+                             f"+ stack {stack_bytes} B / 2 leave no room")
     cap = torch.cuda.memory_reserved() + room
     total = torch.cuda.get_device_properties(0).total_memory
     with tempfile.TemporaryDirectory() as tmp:
@@ -4181,6 +4211,358 @@ def supervisor_phase(torch, mk, dev, card, arrays, s5, t5, u5):
         "factor_round_binary", 0)
     counts["q_update.batched_instances_pow2"] = group.get("q_update", 0)
     return counts
+
+
+# -- phase 14: the dynamic path ------------------------------------------------
+
+# the dynamic-coloring10k-sensors cell (module docstring, phase 14)
+DYN_FINAL_ROUNDS = 256
+DYN_ROUNDS_PER_S = 320.0
+DYN_CHUNK = 64
+DYN_SIZE = {"n_vars": 10_000, "n_sensors": 200, "n_agents": 100}
+DYN_CAPACITY = 2.03  # each agent's capacity, in shares of the footprint
+
+
+def sensor_coloring_dcop(n_vars, n_sensors, n_agents):
+    """Phase 9's coloring (:func:`coloring_dcop`, seed 1) with
+    ``n_sensors`` external sensors ``s0…`` (3 colours, value 0): the
+    first half tracked by ``track_k`` (``v`` at every ``n_vars /
+    (n_sensors / 2)``-th variable equals its sensor, cost 1 otherwise:
+    a unary row after slicing), the second half read by ternary
+    ``pair_k`` constraints on evenly spread coloring edges (cost 1 on
+    equal endpoints plus 0.5 when the first equals the sensor: a
+    per-factor binary row after slicing).  ``n_agents`` agents
+    ``a00…`` with a capacity of ``DYN_CAPACITY`` shares of the Max-Sum
+    factor graph's footprint (their own share, one replica share and 3%
+    to spare); ``a13`` and ``a14`` share a cheap route (0.1) and every
+    other agent reaches them at 10, so each holds the other's replicas,
+    as co-located agents do.  Returns the DCOP and the capacity."""
+    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.dcop import (
+        AgentDef,
+        ExternalVariable,
+        constraint_from_str,
+    )
+    from pydcop_tpu_torch.graphs import factor_graph
+
+    dcop = coloring_dcop(n_vars, colors=3, degree=3, seed=1)
+    dom = dcop.variables["v0"].domain
+    sensors = [ExternalVariable(f"s{k}", dom, value=0)
+               for k in range(n_sensors)]
+    for s in sensors:
+        dcop.add_variable(s)
+    half = n_sensors // 2
+    edges = [c for c in dcop.constraints.values()]
+    for k in range(half):
+        i = k * (n_vars // half)
+        v = dcop.variables[f"v{i}"]
+        dcop.add_constraint(constraint_from_str(
+            f"track_{k}", f"0 if v{i} == s{k} else 1", [v, sensors[k]]))
+    for k in range(half):
+        a, b = edges[k * (len(edges) // half)].scope_names
+        dcop.add_constraint(constraint_from_str(
+            f"pair_{k}",
+            f"(1 if {a} == {b} else 0) + (0.5 if {a} == s{half + k} else 0)",
+            [dcop.variables[a], dcop.variables[b], sensors[half + k]]))
+    graph = factor_graph.build_computation_graph(dcop)
+    share = sum(maxsum.computation_memory(n) for n in graph.nodes) / n_agents
+    names = [f"a{i:02d}" for i in range(n_agents)]
+    rack = {"a13": "a14", "a14": "a13"}
+    dcop.add_agents([
+        AgentDef(name, capacity=DYN_CAPACITY * share,
+                 routes=({rack[name]: 0.1} if name in rack
+                         else {"a13": 10.0, "a14": 10.0}))
+        for name in names
+    ])
+    return dcop, DYN_CAPACITY * share
+
+
+def sensor_scenario(capacity, n_set=50):
+    """Phase 14's scenario: one event setting ``n_set`` sensors to 1
+    (the incremental path), a delay of 0.8 s, ``a07`` leaves (each
+    orphan migrates to its one replica: no reparation solve, the problem
+    and its fingerprint unchanged, the full state carries), a delay,
+    ``a13`` and ``a14`` leave in one event (``a13``'s orphans move onto
+    their replicas on ``a14``; the survivors' capacity then falls 1%
+    short of a replica for every computation, so the last ones placed,
+    variables, have none when ``a14`` leaves: they are lost, freeze, and
+    the problem recompiles in full), ``a100`` joins with ``capacity``,
+    a delay."""
+    from pydcop_tpu_torch.dcop import EventAction, Scenario, ScenarioEvent
+
+    n_sensors = DYN_SIZE["n_sensors"]
+    sets = [EventAction("set_value", variable=f"s{k}", value=1)
+            for k in range(0, n_sensors, max(1, n_sensors // n_set))][:n_set]
+    return Scenario([
+        ScenarioEvent("sense", actions=sets),
+        ScenarioEvent(delay=0.8),
+        ScenarioEvent("lose_a07", actions=[
+            EventAction("remove_agent", agent="a07")]),
+        ScenarioEvent(delay=0.4),
+        ScenarioEvent("lose_rack", actions=[
+            EventAction("remove_agent", agent="a13"),
+            EventAction("remove_agent", agent="a14")]),
+        ScenarioEvent("join", actions=[
+            EventAction("add_agent", agent="a100", capacity=capacity)]),
+        ScenarioEvent(delay=0.4),
+    ])
+
+
+class _Patched:
+    """Wrap ``getattr(owner, name)`` for the length of a ``with``:
+    ``hook(real, *args, **kw)`` runs in its place."""
+
+    def __init__(self, owner, name, hook):
+        self.owner, self.name, self.hook = owner, name, hook
+
+    def __enter__(self):
+        self.real = getattr(self.owner, self.name)
+        real, hook = self.real, self.hook
+        setattr(self.owner, self.name,
+                lambda *a, **kw: hook(real, *a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def dynamic_run(torch, mk, dev, dcop, scenario, k_target, final_rounds,
+                fresh_check=False):
+    """One ``run_dynamic`` of Max-Sum on ``dev`` with every seam the
+    phase reads recorded: each segment's compile (kind, seconds, patch
+    bytes) and engine run (rounds, seconds, messages, kernel launches),
+    the distribution, replica, repair and reparation-solve host
+    seconds, the ``compile.*`` counters.  With ``fresh_check`` the first incremental update's
+    tensors are held against a fresh ``compile_dcop`` of the active
+    problem, bit for bit.  Returns (result, record)."""
+    import contextlib
+
+    import pydcop_tpu_torch.api as api
+    import pydcop_tpu_torch.distribution as dist_pkg
+    import pydcop_tpu_torch.replication as rep_pkg
+    from pydcop_tpu_torch.engine import batched, incremental
+    from pydcop_tpu_torch.engine.dynamic import run_dynamic
+    from pydcop_tpu_torch.ops.compile import ARRAY_FIELDS, compile_dcop
+    from pydcop_tpu_torch.telemetry import session
+
+    rec = {"compiles": [], "segments": [], "host": {}, "fresh": None}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    class Recording(incremental.IncrementalCompiler):
+        def compile(self, frozen, ext_overrides):
+            self.kind = "reused"
+            sync()
+            t0 = time.perf_counter()
+            out = super().compile(frozen, ext_overrides)
+            sync()
+            kind = self.kind
+            row = {"kind": kind, "seconds": time.perf_counter() - t0}
+            if kind == "incremental":
+                row.update(self.last_update)
+                if fresh_check and rec["fresh"] is None:
+                    rec["fresh"] = self._fresh_equal(frozen)
+            rec["compiles"].append(row)
+            return out
+
+        def _apply_updates(self, *a):
+            self.kind = "incremental"
+            return super()._apply_updates(*a)
+
+        def _full_compile(self, *a):
+            self.kind = "full"
+            return super()._full_compile(*a)
+
+        def _fresh_equal(self, frozen):
+            p = self._problem
+            fresh = compile_dcop(self._active_dcop(frozen, self._ext_state),
+                                 pad_policy=self.pad_policy,
+                                 device=self.device)
+            leaves = [(f, getattr(p, f), getattr(fresh, f))
+                      for f in ARRAY_FIELDS]
+            for k, b in fresh.buckets.items():
+                leaves += [(f"buckets.{k}.{f}", getattr(p.buckets[k], f),
+                            getattr(b, f)) for f in ("tables", "tables_t")]
+            bad = [n for n, a, b in leaves
+                   if not (same_bits(torch, a, b) if a.is_floating_point()
+                           else torch.equal(a, b))]
+            return {"leaves": len(leaves), "unequal": bad}
+
+    def engine(real, problem, module, params, **kw):
+        if module.__name__.rsplit(".", 1)[-1] != "maxsum":
+            return real(problem, module, params, **kw)
+        before = dict(mk.launches)
+        res = real(problem, module, params, **kw)
+        rec["segments"].append({
+            "rounds": res.cycles, "seconds": res.time,
+            "messages": res.messages,
+            "launches": {k: mk.launches[k] - before[k] for k in before},
+        })
+        return res
+
+    def timed(key):
+        def hook(real, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            rec["host"].setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return hook
+
+    with contextlib.ExitStack() as st:
+        st.enter_context(_Patched(incremental, "IncrementalCompiler",
+                                  lambda real, *a, **kw: Recording(*a, **kw)))
+        st.enter_context(_Patched(batched, "run_batched", engine))
+        st.enter_context(_Patched(dist_pkg, "compute_distribution",
+                                  timed("distribution")))
+        st.enter_context(_Patched(rep_pkg, "replica_distribution",
+                                  timed("replicas")))
+        st.enter_context(_Patched(rep_pkg, "repair_placement",
+                                  timed("repair")))
+        st.enter_context(_Patched(api, "solve", timed("reparation_solve")))
+        tel = st.enter_context(session())
+        t0 = time.perf_counter()
+        res = run_dynamic(
+            dcop, "maxsum", {"damping": 0.5}, scenario=scenario,
+            distribution="adhoc", k_target=k_target,
+            rounds_per_second=DYN_ROUNDS_PER_S, final_rounds=final_rounds,
+            seed=1, chunk_size=DYN_CHUNK, device=dev,
+        )
+        rec["seconds"] = time.perf_counter() - t0
+        rec["counters"] = {k: v for k, v in tel.summary()["counters"].items()
+                           if k.startswith("compile.")}
+    return res, rec
+
+
+DYN_EXACT = ("assignment", "cost", "cost_trace", "cycle", "msg_count",
+             "status", "events", "state_transfers", "lost_computations",
+             "replicas", "agents_final")
+
+
+def dynamic_phase(torch, mk, dev, card, single_msgs_per_s):
+    """Phase 14 (see the module docstring).  Returns the launches of its
+    card run by kernel entry."""
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dcop, cap = sensor_coloring_dcop(**DYN_SIZE)
+    build_s = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+
+    # 14a: k = 1 on the card (counts set to 0 just before) and the CPU
+    mk.reset_launches()
+    card_r, card_rec = dynamic_run(torch, mk, dev, dcop,
+                                   sensor_scenario(capacity=cap), 1,
+                                   DYN_FINAL_ROUNDS, fresh_check=True)
+    launches = dict(mk.launches)
+    cpu_r, cpu_rec = dynamic_run(torch, mk, cpu, dcop,
+                                 sensor_scenario(capacity=cap), 1,
+                                 DYN_FINAL_ROUNDS)
+    for k in DYN_EXACT:
+        if card_r[k] != cpu_r[k]:
+            raise AssertionError(f"14a: card and CPU differ in {k}")
+    if card_rec["counters"] != cpu_rec["counters"]:
+        raise AssertionError(f"14a: compile counters differ: "
+                             f"{card_rec['counters']} {cpu_rec['counters']}")
+    kinds = [c["kind"] for c in card_rec["compiles"]]
+    for kind in ("full", "incremental", "reused"):
+        if card_rec["counters"].get(f"compile.{kind}", 0) < 1:
+            raise AssertionError(f"14a: no {kind} compile ({kinds})")
+    fresh = card_rec["fresh"]
+    if fresh is None or fresh["unequal"]:
+        raise AssertionError(f"14a: patched tensors differ from a fresh "
+                             f"compile: {fresh}")
+    rounds = [s["rounds"] for s in card_rec["segments"]]
+    if sum(rounds) != card_r["cycle"] or len(rounds) != len(kinds):
+        raise AssertionError(f"14a: segments {rounds} vs cycle "
+                             f"{card_r['cycle']}, compiles {kinds}")
+    for i, seg in enumerate(card_rec["segments"]):
+        got = seg["launches"]
+        if (got["factor_round_binary"], got["q_update"],
+                got["factor_round_binary_shared"]) != (seg["rounds"],
+                                                       seg["rounds"], 0):
+            raise AssertionError(f"14a: segment {i} ran {seg['rounds']} "
+                                 f"rounds, launches {got}")
+    removal = [e for e in card_r["events"] if e.get("action") == "remove_agent"]
+    migrated_only = removal[0]["migrated"] and not removal[0]["lost"]
+    if not migrated_only or not card_r["lost_computations"]:
+        raise AssertionError(f"14a: the scenario missed a branch: a07 "
+                             f"lost {removal[0]['lost'][:5]}, frozen "
+                             f"{card_r['lost_computations'][:5]}")
+    if not all(math.isfinite(c) for c in card_r["cost_trace"]):
+        raise AssertionError("14a: non-finite cost")
+    segs = [dict(rounds=s["rounds"], engine_seconds=s["seconds"],
+                 msgs_per_s=s["messages"] / s["seconds"])
+            for s in card_rec["segments"]]
+    emit("14a", "dynamic-coloring10k-sensors", k_target=1,
+         n_vars=len(dcop.variables), n_sensors=len(dcop.external_variables),
+         n_constraints=len(dcop.constraints), agents=len(dcop.agents),
+         capacity=cap, build_seconds=build_s,
+         compiles=card_rec["compiles"], segments=segs,
+         phase3_coloring10k_msgs_per_s=single_msgs_per_s,
+         distribution_seconds=card_rec["host"].get("distribution"),
+         replica_seconds=card_rec["host"].get("replicas"),
+         repair_seconds=card_rec["host"].get("repair"),
+         run_seconds=card_rec["seconds"], cpu_run_seconds=cpu_rec["seconds"],
+         cycle=card_r["cycle"], cost=card_r["cost"],
+         state_transfers=card_r["state_transfers"],
+         migrated_a07=len(removal[0]["migrated"]),
+         lost=[len(e["lost"]) for e in removal],
+         frozen_variables=len(card_r["lost_computations"]),
+         compile_counters=card_rec["counters"], fresh_compile=fresh,
+         launches=launches, card_equals_cpu=True)
+
+    # 14b: k = 2: a07's orphans have two live candidates each, so a
+    # reparation DCOP is solved (MGM, on the run's device)
+    from pydcop_tpu_torch.algorithms import maxsum
+    from pydcop_tpu_torch.dcop import Scenario
+    from pydcop_tpu_torch.distribution import compute_distribution
+    from pydcop_tpu_torch.graphs import factor_graph
+    from pydcop_tpu_torch.replication import replica_distribution
+
+    short = Scenario(sensor_scenario(capacity=cap).events[2:4])  # a07, delay
+
+    graph = factor_graph.build_computation_graph(dcop)
+    nodes = {n.name: n for n in graph.nodes}
+
+    def foot(c):
+        return float(maxsum.computation_memory(nodes[c]))
+
+    dist0 = compute_distribution("adhoc", graph, dcop.agents.values(),
+                                 algo_module=maxsum)
+    reps0 = replica_distribution(dist0, dcop.agents.values(), 2,
+                                 footprint=foot)
+    k2 = {}
+    for label, device in (("card", dev), ("cpu", cpu)):
+        k2[label] = dynamic_run(torch, mk, device, dcop, short, 2, 64)
+    (c2, r2), (h2, _) = k2["card"], k2["cpu"]
+    moved = c2["events"][0]["migrated"]
+    hosted = {a: sum(foot(c) for c in cs)
+              for a, cs in dist0.mapping.items() if a != "a07"}
+    for comp, agent in moved.items():
+        if agent == "a07" or agent not in reps0.replicas(comp):
+            raise AssertionError(f"14b: {comp} moved to {agent}, not a live "
+                                 f"replica holder {reps0.replicas(comp)}")
+        hosted[agent] += foot(comp)
+    over = {a: h for a, h in hosted.items() if h > cap + 1e-6}
+    if over or not moved or not r2["host"].get("reparation_solve"):
+        raise AssertionError(f"14b: repair invalid: over capacity {over}, "
+                             f"moved {len(moved)}")
+    same = all(c2[k] == h2[k] for k in DYN_EXACT)
+    if not same:
+        raise AssertionError("14b: card and CPU differ")
+    emit("14b", "dynamic-coloring10k-sensors-k2", k_target=2,
+         orphans=len(c2["events"][0]["orphaned"]), migrated=len(moved),
+         lost=len(c2["events"][0]["lost"]),
+         repair_seconds=r2["host"].get("repair"),
+         reparation_solve_seconds=r2["host"].get("reparation_solve"),
+         replica_seconds=r2["host"].get("replicas"),
+         run_seconds=r2["seconds"], within_capacity=True,
+         card_equals_cpu=same)
+    emit("14", "phase", seconds=time.perf_counter() - t_phase)
+    return {"factor_round_binary": launches["factor_round_binary"],
+            "q_update": launches["q_update"]}
 
 
 def main() -> int:
@@ -4410,7 +4792,13 @@ def main() -> int:
     scounts = supervisor_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
     print(f"phase 13 seconds={time.perf_counter() - t13}")
 
-    # -- 14. summary ------------------------------------------------------
+    # -- 14. the dynamic path ---------------------------------------------
+    t14 = time.perf_counter()
+    dcounts = dynamic_phase(torch, mk, dev, card,
+                            MAIN_PATH_RATES.get("coloring-10k"))
+    print(f"phase 14 seconds={time.perf_counter() - t14}")
+
+    # -- 15. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -4442,7 +4830,8 @@ def main() -> int:
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
             replaces=KERNELS[name],
-            launches=launched + scounts.get(entry, 0),
+            launches=launched + scounts.get(entry, 0)
+            + dcounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),

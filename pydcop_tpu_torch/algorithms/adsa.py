@@ -26,6 +26,7 @@ from pydcop_tpu_torch.algorithms._common import (
     uniform,
     values_state,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import local_cost_sweep
 
@@ -93,3 +94,18 @@ def messages_per_round(
         (params or {}).get("activation", _DEFAULT_ACTIVATION)
     )
     return max(1, round(activation * total))
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    return len(node.neighbors) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    return UNIT_SIZE

@@ -33,6 +33,7 @@ from pydcop_tpu_torch.algorithms._common import (
     lexic_prio,
     strict_winner,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import (
     con_cells,
@@ -130,3 +131,19 @@ def messages_per_round(
 ) -> int:
     """One ok + one improve message per directed link = 2·Σ degree."""
     return 2 * int(problem.neighbor_mask.sum())
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    """Neighbor values + improves, plus a weight per incident constraint."""
+    return (2 * len(node.neighbors) + len(node.constraints)) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    return 2 * UNIT_SIZE

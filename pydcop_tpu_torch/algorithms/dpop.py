@@ -1419,3 +1419,25 @@ def _timeout_result(dcop, t0: float) -> Dict[str, Any]:
         "time": time.perf_counter() - t0,
         "cost_trace": [],
     }
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+UNIT_SIZE = 1
+HEADER_SIZE = 0
+
+
+def computation_memory(node: _pt.PseudoTreeNode) -> float:
+    """UTIL table cells: d^(|separator| + 1) for the node's join."""
+    d = max(len(node.variable.domain), 1)
+    sep = ([node.parent] if node.parent else []) + list(node.pseudo_parents)
+    return float(d ** (len(sep) + 1)) * UNIT_SIZE
+
+
+def communication_load(node: _pt.PseudoTreeNode, neighbor_name: str) -> float:
+    """UTIL message to the parent dominates: d^|separator| cells."""
+    d = max(len(node.variable.domain), 1)
+    sep = ([node.parent] if node.parent else []) + list(node.pseudo_parents)
+    if neighbor_name == node.parent:
+        return HEADER_SIZE + float(d ** len(sep))
+    return HEADER_SIZE + UNIT_SIZE

@@ -33,6 +33,7 @@ from pydcop_tpu_torch.algorithms._common import (
     uniform,
     values_state,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import local_cost_sweep
 
@@ -87,3 +88,21 @@ def messages_per_round(
 ) -> int:
     """Directed value messages per round = Σ_v degree(v)."""
     return int(problem.neighbor_mask.sum())
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+HEADER_SIZE = 0
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    """One value per neighbor (the last received value message)."""
+    return len(node.neighbors) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    """One value message per round on each link."""
+    return HEADER_SIZE + UNIT_SIZE

@@ -29,6 +29,7 @@ from pydcop_tpu_torch.algorithms._common import (
     init_values,
     uniform,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import local_cost_sweep
 
@@ -84,3 +85,18 @@ def messages_per_round(
 ) -> int:
     """One value message to each primal neighbor per round."""
     return int(problem.neighbor_mask.sum())
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    return len(node.neighbors) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    return UNIT_SIZE

@@ -42,6 +42,7 @@ from pydcop_tpu_torch.algorithms._common import (
     lexic_prio,
     strict_winner,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import neighbor_gather, segment_sum_edges
 
@@ -199,3 +200,25 @@ def messages_per_round(
 ) -> int:
     """One ok + one improve message per directed link = 2·Σ degree."""
     return 2 * int(problem.neighbor_mask.sum())
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    """Neighbor values/improves plus a weight matrix per constraint."""
+    cells = 0
+    for c in node.constraints:
+        sz = 1
+        for v in c.dimensions:
+            sz *= len(v.domain)
+        cells += sz
+    return (2 * len(node.neighbors) + cells) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    return 2 * UNIT_SIZE

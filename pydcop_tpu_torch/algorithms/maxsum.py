@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from pydcop_tpu_torch.algorithms import AlgoParameterDef
+from pydcop_tpu_torch.graphs import factor_graph as _graph
 from pydcop_tpu_torch.ops import costs as _costs
 from pydcop_tpu_torch.ops import maxsum_kernels
 from pydcop_tpu_torch.ops import semiring as _semiring
@@ -349,3 +350,33 @@ def messages_per_round(
     """q and r per REAL directed edge per round (one restart; ghost
     edges are not counted)."""
     return 2 * problem.n_real_edges
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+UNIT_SIZE = 1
+HEADER_SIZE = 0
+
+
+def computation_memory(node) -> float:
+    """Factor nodes store the table + one message per edge; variable
+    nodes one message per neighbor."""
+    if isinstance(node, _graph.FactorComputationNode):
+        cells = 1
+        for v in node.factor.dimensions:
+            cells *= len(v.domain)
+        return cells + sum(
+            len(v.domain) for v in node.factor.dimensions
+        )
+    return sum(1 for _ in node.neighbors) * UNIT_SIZE
+
+
+def communication_load(node, neighbor_name: str) -> float:
+    """One cost vector (domain-sized message) per round per direction."""
+    if isinstance(node, _graph.FactorComputationNode):
+        for v in node.factor.dimensions:
+            if v.name == neighbor_name:
+                return HEADER_SIZE + len(v.domain)
+    if hasattr(node, "variable"):
+        return HEADER_SIZE + len(node.variable.domain)
+    return HEADER_SIZE + UNIT_SIZE

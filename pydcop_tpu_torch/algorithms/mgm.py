@@ -30,6 +30,7 @@ from pydcop_tpu_torch.algorithms._common import (
     uniform,
     values_state,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import local_cost_sweep
 
@@ -83,3 +84,21 @@ def messages_per_round(
 ) -> int:
     """One value + one gain message per directed link = 2·Σ degree."""
     return 2 * int(problem.neighbor_mask.sum())
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+HEADER_SIZE = 0
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    """Stores each neighbor's last value and last gain."""
+    return 2 * len(node.neighbors) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    """One value + one gain message per round on each link."""
+    return HEADER_SIZE + 2 * UNIT_SIZE

@@ -54,6 +54,7 @@ from pydcop_tpu_torch.algorithms._common import (
     strict_winner,
     uniform,
 )
+from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
 from pydcop_tpu_torch.ops.costs import at_neighbors, local_cost_sweep
 
@@ -338,3 +339,21 @@ def messages_per_round(
 ) -> int:
     """Value + gain per directed link, plus offer/accept/go per var."""
     return 2 * int(problem.neighbor_mask.sum()) + 3 * problem.n_vars
+
+
+# -- distribution-layer footprint callbacks ------------------------------
+
+HEADER_SIZE = 0
+UNIT_SIZE = 1
+
+
+def computation_memory(node: _graph.VariableComputationNode) -> float:
+    """Neighbor values, gains, and one pending offer matrix."""
+    return 3 * len(node.neighbors) * UNIT_SIZE
+
+
+def communication_load(
+    node: _graph.VariableComputationNode, neighbor_name: str
+) -> float:
+    """Value + gain + (amortized) offer/accept/go per round."""
+    return HEADER_SIZE + 5 * UNIT_SIZE

@@ -95,6 +95,7 @@ def solve(
     retry_budget: Optional[int] = None,
     chunk_floor: Optional[int] = None,
     on_numeric_fault: Optional[str] = None,
+    compile_cache: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Solve a DCOP (object or yaml path) and return the result dict,
     with the run's ``telemetry`` block; ``trace`` also writes the
@@ -127,12 +128,16 @@ def solve(
     ``device_transient``, ``nan_inject``) and inject them at that
     supervisor, and the result records the plan as ``result["chaos"]``.
 
+    ``compile_cache`` (the JAX package's persistent XLA cache) has no
+    counterpart and takes only None, as in :func:`solve_many`.
+
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
     >>> result["assignment"], result["cost"]
     """
     from pydcop_tpu_torch.telemetry import session
 
+    _no_compile_cache(compile_cache)
     with session(trace, trace_format) as tel:
         result = _solve(
             dcop, algo, algo_params, rounds=rounds, timeout=timeout,
@@ -507,6 +512,7 @@ def _solve_many(
     from pydcop_tpu_torch.ops.compile import (
         CompiledProblem,
         compile_dcop,
+        problem_group_key,
         stack_problems,
     )
 
@@ -526,10 +532,18 @@ def _solve_many(
         partitions.setdefault(statics_signature(p), []).append(i)
     results: list = [None] * n
     for part in partitions.values():
-        for stacked in stack_problems([problems[i] for i in part]):
-            group = [part[j] for j in stacked.indices]
+        # stack one group at a time and hand it over (a one-element
+        # list run_many_batched empties): the call holds the only
+        # reference, so an OOM split frees the group's stacked tensors
+        # before its halves run
+        by_key: Dict[Any, list] = {}
+        for i in part:
+            by_key.setdefault(problem_group_key(problems[i]), []).append(i)
+        for members in by_key.values():
+            hand = stack_problems([problems[i] for i in members])
+            group = [members[j] for j in hand[0].indices]
             runs = run_many_batched(
-                stacked, module, [prepared[i] for i in group],
+                hand, module, [prepared[i] for i in group],
                 rounds=rounds, seeds=[seeds[i] for i in group],
                 timeout=_remaining(), chunk_size=chunk_size,
                 convergence_chunks=convergence_chunks,

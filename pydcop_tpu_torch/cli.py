@@ -1,8 +1,8 @@
 """Command-line interface: ``python -m pydcop_tpu_torch <command> ...``.
 
 The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
-under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer`` and
-``generate``.
+under ``pydcop_tpu_torch/commands/``: ``solve``, ``run``, ``infer``
+and ``generate``.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import importlib
 import logging
 import sys
 
-COMMANDS = ["solve", "infer", "generate"]
+COMMANDS = ["solve", "run", "infer", "generate"]
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -13,32 +13,23 @@ engine's run state every ``--checkpoint_every`` chunks and ``--resume``
 continues from it; ``--chaos SPEC --chaos_seed N`` injects the
 device-layer fault kinds at the supervised dispatch, with the
 ``--retry_budget``/``--chunk_floor``/``--on_numeric_fault`` knobs;
-``--many`` solves each file as its own
-instance through ``api.solve_many`` and prints a JSON array (without
-the ``telemetry`` blocks, as the JAX package prints it).
+``--collect_on``/``--period``/``--run_metrics``/``--end_metrics`` write
+the JAX package's metric CSVs from the run's cost trace; ``--many``
+solves each file as its own instance through ``api.solve_many`` and
+prints a JSON array (without the ``telemetry`` blocks, as the JAX
+package prints it).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
-
 from pydcop_tpu_torch.commands._common import (
+    add_collect_arguments,
+    add_supervisor_arguments,
     add_trace_arguments,
+    parse_algo_params,
+    write_metrics,
     write_result,
 )
-
-
-def parse_algo_params(items: List[str]) -> Dict[str, str]:
-    """Parse repeated ``name:value`` CLI parameters."""
-    out: Dict[str, str] = {}
-    for item in items:
-        if ":" not in item:
-            raise SystemExit(
-                f"--algo_params expects name:value, got {item!r}"
-            )
-        name, value = item.split(":", 1)
-        out[name.strip()] = value.strip()
-    return out
 
 
 def set_parser(subparsers) -> None:
@@ -139,29 +130,12 @@ def set_parser(subparsers) -> None:
         "--chaos_seed", type=int, default=0,
         help="seed for the --chaos fault plan (determinism/replay)",
     )
-    p.add_argument(
-        "--retry_budget", type=int, default=None, metavar="N",
-        help="transient device failures retry up to N times per "
-        "dispatch (seeded deterministic backoff; default 2, 0 turns "
-        "retries off)",
-    )
-    p.add_argument(
-        "--chunk_floor", type=int, default=None, metavar="ROUNDS",
-        help="smallest chunk size the device-OOM ladder may halve down "
-        "to before the run is declared over capacity (default 8)",
-    )
-    p.add_argument(
-        "--on_numeric_fault", choices=["quarantine", "raise"],
-        default=None,
-        help="NaN-poisoned run/instance handling: quarantine (report "
-        "the last finite anytime best with status=degraded — for solve "
-        "--many only the poisoned instance degrades; default) or raise "
-        "(fail the call)",
-    )
+    add_supervisor_arguments(p)
     p.add_argument(
         "--output", type=str, default=None,
         help="write the result JSON to this file as well as stdout",
     )
+    add_collect_arguments(p)
     add_trace_arguments(p)
     p.set_defaults(func=run_cmd)
 
@@ -225,5 +199,6 @@ def run_cmd(args) -> int:
         max_util_bytes=args.max_util_bytes,
         **sup_kw,
     )
+    write_metrics(args, result)
     result.pop("cost_trace", None)  # keep the printed JSON compact
     return write_result(args, result)

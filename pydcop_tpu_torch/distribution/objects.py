@@ -1,15 +1,21 @@
-"""Placement hints read from a problem yaml.
+"""Distribution (computation → agent placement) data objects.
 
-The port solves on one device and places no computations; it keeps
-this one class so that ``dcop/yamldcop.py`` loads every yaml the JAX
-package loads (``distribution_hints`` sections included).
+Role-equivalent to ``pydcop/distribution/objects.py``: ``Distribution``
+(the mapping), ``DistributionHints`` (yaml ``distribution_hints``), and
+the exception raised when no valid placement exists.  A copy of
+``pydcop_tpu/distribution/objects.py``; ``dcop/yamldcop.py`` reads
+``distribution_hints`` sections into ``DistributionHints``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, Iterable, List, Mapping, Optional
 
 from pydcop_tpu_torch.utils.simple_repr import SimpleRepr
+
+
+class ImpossibleDistributionException(Exception):
+    pass
 
 
 class DistributionHints(SimpleRepr):
@@ -69,3 +75,91 @@ class DistributionHints(SimpleRepr):
             from_repr(r.get("must_host", {})) or {},
             from_repr(r.get("host_with", {})) or {},
         )
+
+
+class Distribution(SimpleRepr):
+    """A mapping computation name → agent name.
+
+    >>> d = Distribution({'a1': ['v1', 'v2'], 'a2': ['v3']})
+    >>> d.agent_for('v3')
+    'a2'
+    """
+
+    def __init__(self, mapping: Mapping[str, Iterable[str]]):
+        self._mapping: Dict[str, List[str]] = {
+            a: list(comps) for a, comps in mapping.items()
+        }
+        self._agent_for: Dict[str, str] = {}
+        for agent, comps in self._mapping.items():
+            for c in comps:
+                if c in self._agent_for:
+                    raise ValueError(
+                        f"Computation {c} assigned to both "
+                        f"{self._agent_for[c]} and {agent}"
+                    )
+                self._agent_for[c] = agent
+
+    @property
+    def agents(self) -> List[str]:
+        return list(self._mapping)
+
+    @property
+    def computations(self) -> List[str]:
+        return list(self._agent_for)
+
+    def agent_for(self, computation: str) -> str:
+        try:
+            return self._agent_for[computation]
+        except KeyError:
+            raise KeyError(f"No agent hosts computation {computation}")
+
+    def computations_hosted(self, agent: str) -> List[str]:
+        return list(self._mapping.get(agent, []))
+
+    def has_computation(self, computation: str) -> bool:
+        return computation in self._agent_for
+
+    @property
+    def mapping(self) -> Dict[str, List[str]]:
+        return {a: list(cs) for a, cs in self._mapping.items()}
+
+    def host_on_agent(self, agent: str, computations: List[str]) -> None:
+        already = [c for c in computations if c in self._agent_for]
+        if already:
+            raise ValueError(f"Computation(s) {already} already hosted")
+        for c in computations:
+            self._agent_for[c] = agent
+        self._mapping.setdefault(agent, []).extend(computations)
+
+    def remove_computation(self, computation: str) -> None:
+        agent = self._agent_for.pop(computation)
+        self._mapping[agent].remove(computation)
+
+    def is_hosted(
+        self, computations: Iterable[str]
+    ) -> bool:
+        return all(c in self._agent_for for c in computations)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Distribution)
+            and other._agent_for == self._agent_for
+        )
+
+    def __repr__(self) -> str:
+        return f"Distribution({self._mapping})"
+
+    def _simple_repr(self) -> dict:
+        from pydcop_tpu_torch.utils.simple_repr import _CLASS_KEY, _MODULE_KEY, simple_repr
+
+        return {
+            _CLASS_KEY: type(self).__qualname__,
+            _MODULE_KEY: type(self).__module__,
+            "mapping": simple_repr(self._mapping),
+        }
+
+    @classmethod
+    def _from_repr(cls, r: dict):
+        from pydcop_tpu_torch.utils.simple_repr import from_repr
+
+        return cls(from_repr(r["mapping"]))

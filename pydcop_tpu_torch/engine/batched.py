@@ -606,7 +606,7 @@ def _group_params(algo_module, params_list, run_problem, n_inst: int,
 
 
 def run_many_batched(
-    stacked: StackedProblem,
+    stacked: Union[StackedProblem, List[StackedProblem]],
     algo_module,
     params: Union[Mapping[str, Any], Sequence[Mapping[str, Any]]],
     *,
@@ -618,7 +618,6 @@ def run_many_batched(
     cost_every: int = 1,
     n_restarts: int = 1,
     mesh=None,
-    _attempt: int = 0,
 ) -> List[RunResult]:
     """Solve the I instances of ``stacked`` (``ops/compile.py:
     stack_problems``) together: one chunk loop for the group, one host
@@ -640,25 +639,38 @@ def run_many_batched(
     instance's best improved (and, without restarts, no instance's
     values changed) for that many chunks.  Returns one
     :class:`RunResult` per instance in stack order (``stacked.indices``
-    maps back to the caller's order); each ``time`` is the group's wall
-    time.
+    maps back to the caller's order); each ``time`` is the wall time of
+    the group (or split half) that produced it.
 
     Every chunk is one supervised dispatch (scope ``engine.group``,
     width ``I·n_restarts``).  A device OOM splits the group in half and
-    runs each half from round 0 as a call of its own (recursively;
-    ``engine.oom_splits``); a one-instance group halves its chunk
-    instead.  A real transient restarts the whole group from round 0
-    (``group-restart``, within the supervisor's ``retry_budget``;
-    ``_attempt`` counts the restarts).  A lane whose costs go NaN is
-    quarantined: it reports ``status="degraded"`` with its last finite
-    best, and the other lanes finish as they would have.  A half draws
-    from a generator seeded with its own first seed, so a split half of
-    a stochastic group on the union equals that half run alone, not the
-    unsplit group (ROADMAP.md, C); a group that draws nothing is
-    unchanged by a split.
+    runs each half from round 0 as a group of its own (down to single
+    instances; ``engine.oom_splits``); a one-instance group halves its
+    chunk instead.  A real transient restarts the whole group from round
+    0 (``group-restart``, within the supervisor's ``retry_budget``).  A
+    lane whose costs go NaN is quarantined: it reports
+    ``status="degraded"`` with its last finite best, and the other lanes
+    finish as they would have.  A half draws from a generator seeded
+    with its own first seed, so a split half of a stochastic group on
+    the union equals that half run alone, not the unsplit group
+    (ROADMAP.md, C); a group that draws nothing is unchanged by a split.
+
+    Recoveries run from a work list, not by recursion: a split group's
+    stacked tensors are released before its halves are stacked and run.
+    ``stacked`` may be handed over in a one-element list, which the call
+    empties: the call then holds the only reference to the group, so
+    a split frees the group's stacked problem on the device before the
+    halves start (``api.solve_many`` hands its groups over this way).
     """
+    if isinstance(stacked, list):
+        if len(stacked) != 1:
+            raise ValueError("hand the group over as a one-element list")
+        first = stacked.pop()
+    else:
+        first = stacked
+    del stacked
     t0 = time.perf_counter()
-    I = stacked.n_instances
+    I = first.n_instances
     R = n_restarts
     if R < 1:
         raise ValueError(f"n_restarts must be >= 1, got {R}")
@@ -677,7 +689,52 @@ def run_many_batched(
     ]
     if len(seeds) != I:
         raise ValueError(f"seeds: got {len(seeds)} for {I} instances")
+    hosts = list(first.host_problems)
+    deadline = None if timeout is None else t0 + timeout
+    results: List[Optional[RunResult]] = [None] * I
+    # the work list, last in first out, so that halves run in order:
+    # (lo, hi, stacked group or None to stack it, chunk size, attempt)
+    work = [(0, I, first, chunk_size, 0)]
+    del first
+    while work:
+        lo, hi, part, chunk, attempt = work.pop()
+        if part is None:
+            part = stack_problems(hosts[lo:hi])[0]
+        group = [part]  # _run_group takes the only reference
+        del part
+        outcome, arg = _run_group(
+            group, algo_module, params_list[lo:hi], seeds[lo:hi],
+            rounds=rounds,
+            timeout=None if deadline is None
+            else max(deadline - time.perf_counter(), 0.01),
+            chunk_size=chunk, convergence_chunks=convergence_chunks,
+            cost_every=cost_every, n_restarts=R, attempt=attempt,
+        )
+        if outcome == "done":
+            results[lo:hi] = arg
+        elif outcome == "split":
+            mid = lo + (hi - lo + 1) // 2
+            work += [(mid, hi, None, chunk, 0), (lo, mid, None, chunk, 0)]
+        else:  # "restart": the same group from round 0
+            new_chunk, new_attempt, same = arg
+            work.append((lo, hi, same, new_chunk, new_attempt))
+        del arg
+    return results
 
+
+def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
+               chunk_size, convergence_chunks, cost_every, n_restarts,
+               attempt):
+    """One group's chunk loop (:func:`run_many_batched`).  ``holder``
+    holds the stacked group, which this call takes out.  Returns
+    ``("done", results)``, ``("split", None)`` after a device OOM (the
+    group's tensors are released when this returns), or ``("restart",
+    (chunk, attempt, group))`` to run the same group again from round
+    0."""
+    t0 = time.perf_counter()
+    stacked = holder.pop()
+    I = stacked.n_instances
+    R = n_restarts
     sign = -1.0 if stacked.maximize else 1.0
     n = stacked.n_vars
     hosts = stacked.host_problems
@@ -724,22 +781,6 @@ def run_many_batched(
     best_values = best_values.clone()
 
     sup = get_supervisor()
-
-    def rerun(lo, hi, new_chunk=None, attempt=0):
-        """Instances ``lo:hi`` as a ``run_many_batched`` call of their
-        own, from round 0 (the rest of the call's timeout)."""
-        part = (stacked if (lo, hi) == (0, I)
-                else stack_problems(stacked.host_problems[lo:hi])[0])
-        return run_many_batched(
-            part, algo_module, params_list[lo:hi], rounds=rounds,
-            seeds=seeds[lo:hi],
-            timeout=None if timeout is None
-            else max(timeout - (time.perf_counter() - t0), 0.01),
-            chunk_size=new_chunk or chunk_size,
-            convergence_chunks=convergence_chunks, cost_every=cost_every,
-            n_restarts=R, _attempt=attempt,
-        )
-
     traces = []
     done = 0
     status = "finished"
@@ -782,13 +823,13 @@ def run_many_batched(
         except DeviceTransientError as e:
             # a real transient: the retry is a whole-group restart from
             # round 0, with its own keyed backoff and the call's budget
-            if _attempt >= sup.config.retry_budget:
+            if attempt >= sup.config.retry_budget:
                 raise UnrecoverableDeviceError(
                     "engine.group: transient device failure persisted "
                     f"through the retry budget ({sup.config.retry_budget})"
                     f" across group restarts: {e}",
                     scope="engine.group", kind="transient",
-                    attempts=_attempt,
+                    attempts=attempt,
                 ) from e
             restart = str(e)[:200]
         except DeviceOOMError as e:
@@ -805,33 +846,28 @@ def run_many_batched(
                         scope="engine.group", kind="oom",
                     ) from e
                 halve = (new_chunk, e.injected)
-        if restart is not None or split is not None or (
-                halve is not None and not halve[1]):
-            # this group's device state goes before its rerun(s) start
-            state = best_cost = best_values = problem = None
         if restart is not None:
             cfg = sup.config
             if met.enabled:
                 met.inc("engine.retries")
             if tr.enabled:
                 tr.event("group-restart", cat="supervisor",
-                         scope="engine.group", attempt=_attempt + 1,
+                         scope="engine.group", attempt=attempt + 1,
                          error=restart)
             delays = cfg.delays("supervisor:engine.group.restart")
-            for _ in range(_attempt):  # this restart's place in the stream
+            for _ in range(attempt):  # this restart's place in the stream
                 next(delays)
             cfg.sleep(next(delays))
-            return rerun(0, I, attempt=_attempt + 1)
+            return "restart", (chunk_size, attempt + 1, stacked)
         if split is not None:
-            # split the instance stack in half and run each half from
-            # round 0 (recursively, down to single instances)
+            # the caller splits the instance stack in half and runs each
+            # half from round 0, once this group's tensors are gone
             if met.enabled:
                 met.inc("engine.oom_splits")
             if tr.enabled:
                 tr.event("oom-split", cat="supervisor",
                          scope="engine.group", instances=I, error=split)
-            mid = (I + 1) // 2
-            return rerun(0, mid) + rerun(mid, I)
+            return "split", None
         if halve is not None:
             new_chunk, injected = halve
             if met.enabled:
@@ -842,7 +878,7 @@ def run_many_batched(
             if not injected:
                 # a real OOM fired inside the chunk: restart from round
                 # 0 at the halved chunk (an injected one fired before)
-                return rerun(0, I, new_chunk=new_chunk, attempt=_attempt)
+                return "restart", (new_chunk, attempt, stacked)
             chunk_size = new_chunk
             continue
         if met.enabled:
@@ -922,7 +958,7 @@ def run_many_batched(
         fc[i] = bc[i] = float(q_bc[j])
     elapsed = time.perf_counter() - t0
     trace = np.concatenate(traces, axis=1) if traces else np.zeros((I, 0))
-    return [
+    return "done", [
         RunResult(
             assignment=decode_assignment(hp, fv[i]),
             cost=sign * float(fc[i]),

@@ -3,9 +3,9 @@
 ``tests/conftest.py`` imports jax into every test process, so the
 runtime check (an array-built maxsum solve and CPU maxsum and dsa solves
 of a YAML file, an inference query on the device path, a budgeted
-sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve and a
-checkpointed, resumed Max-Sum solve) runs in a
-fresh subprocess; a static AST scan covers every
+sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve, a
+checkpointed, resumed Max-Sum solve, a dynamic run with replicas, an
+ILP placement and the ``run`` CLI) runs in a fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
 of carrying on on the CPU.
@@ -62,6 +62,23 @@ assert r["cycle"] == 16 and os.path.exists(ck), r
 r = solve(sys.argv[1], "maxsum", {"belief": "blockdiag"}, rounds=8,
           chunk_size=8, chunk_floor=2, chaos="device_oom=-:2", device="cpu")
 assert r["telemetry"]["counters"]["engine.oom_chunk_halvings"] == 2, r
+from pydcop_tpu_torch.dcop import load_dcop_from_file, load_scenario_from_file
+from pydcop_tpu_torch.engine.dynamic import run_dynamic
+r = run_dynamic(load_dcop_from_file(sys.argv[1]), "maxsum", {},
+                scenario=load_scenario_from_file(sys.argv[2]),
+                distribution="ilp_compref", k_target=1, final_rounds=8,
+                device="cpu")
+assert r["agents_final"] == ["a1", "a3", "a4"] and r["replicas"], r
+import subprocess
+out = subprocess.run(
+    [sys.executable, "-m", "pydcop_tpu_torch", "run", "-a", "maxsum",
+     "-d", "adhoc", "-s", sys.argv[2], "--final_rounds", "8",
+     "--device", "cpu", sys.argv[1]],
+    capture_output=True, text=True, check=True,
+).stdout
+assert '"state_transfers"' in out, out
+import pydcop_tpu_torch.distribution.adhoc, pydcop_tpu_torch.utils.graphs
+import pydcop_tpu_torch.utils.various, pydcop_tpu_torch.commands.run
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
@@ -73,8 +90,9 @@ print("LOADED", bad)
 
 def test_import_and_cpu_solve_leave_jax_unloaded():
     ring = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
+    scenario = os.path.join(REPO, "examples", "dynamic_scenario.yaml")
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, ring],
+        [sys.executable, "-c", _PROBE, ring, scenario],
         capture_output=True, text=True, cwd=REPO, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -114,7 +132,14 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     for module in ("ops/sparse.py", "ops/membound.py",
                    "algorithms/syncbb.py", "graphs/ordered_graph.py",
                    "engine/checkpoint.py",
-                   "commands/generators/taskscheduling.py"):
+                   "commands/generators/taskscheduling.py",
+                   "engine/incremental.py", "engine/dynamic.py",
+                   "commands/run.py", "graphs/factor_graph.py",
+                   "graphs/constraints_hypergraph.py",
+                   "distribution/_ilp.py", "distribution/oilp_secp.py",
+                   "replication/repair.py",
+                   "replication/ucs_hostingcosts.py",
+                   "utils/graphs.py", "utils/various.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
@@ -139,6 +164,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     proc = subprocess.run(
         [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", "maxsum",
          "--rounds", "2", ring],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert "NoCudaDeviceError" in proc.stderr
+    scenario = os.path.join(REPO, "examples", "dynamic_scenario.yaml")
+    proc = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", "run", "-a", "maxsum",
+         "-d", "adhoc", "-s", scenario, "--final_rounds", "2", ring],
         capture_output=True, text=True, cwd=REPO, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": ""},
     )

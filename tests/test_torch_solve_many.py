@@ -219,6 +219,16 @@ def test_dpop_solve_many_matches_jax(pad):
         assert g["instances_batched"] == w["instances_batched"] == 3
 
 
+def test_solve_takes_compile_cache_none_only():
+    """``api.solve`` takes the JAX package's ``compile_cache`` keyword
+    and refuses anything but None, as ``solve_many`` does."""
+    got = solve(ring(tdcop, 5), "mgm", rounds=8, compile_cache=None,
+                device="cpu")
+    assert got["status"] == "finished"
+    with pytest.raises(NotImplementedError, match="compile_cache"):
+        solve(ring(tdcop, 5), "mgm", compile_cache="cache", device="cpu")
+
+
 def test_unported_options_raise():
     dcops = [ring(tdcop, 5)]
     with pytest.raises(NotImplementedError, match="compile_cache"):

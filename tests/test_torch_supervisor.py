@@ -447,6 +447,59 @@ def test_split_half_of_a_stochastic_group_equals_the_half_alone():
             np.testing.assert_array_equal(s_.cost_trace, a.cost_trace)
 
 
+def test_oom_split_frees_the_group_before_its_halves(monkeypatch):
+    """A split hands the failed group's stacked tensors back before its
+    halves are stacked: weak references to them are dead when the first
+    half starts (``api.solve_many`` hands each group over), and the
+    split counts stay the JAX package's."""
+    import weakref
+
+    refs, alive = [], []
+    real = tcompile.stack_problems
+
+    def first(problems):  # api.solve_many stacks the group
+        out = real(problems)
+        refs.extend(weakref.ref(t) for t in (
+            out[0].problem.tables_flat, out[0].problem.unary,
+            out[0].problem.buckets[2].tables_t))
+        return out
+
+    def halves(problems):  # run_many_batched stacks each half
+        alive.append([r() is not None for r in refs])
+        return real(problems)
+
+    monkeypatch.setattr(tcompile, "stack_problems", first)
+    monkeypatch.setattr(batched, "stack_problems", halves)
+    got = solve_many([ring_dcop(tdcop, 6)] * 4, "maxsum", {}, rounds=12,
+                     chunk_size=12, pad_policy="pow2:16",
+                     chaos="device_oom=2", device=CPU)
+    want = jsolve_many([ring_dcop(jdcop, 6)] * 4, "maxsum", {}, rounds=12,
+                       chunk_size=12, pad_policy="pow2:16",
+                       chaos="device_oom=2")
+    assert len(refs) == 3 and len(alive) == 2  # two halves
+    assert alive == [[False] * 3] * 2
+    assert counters(got[0]) == counters(want[0])
+    assert counters(got[0])["engine.oom_splits"] == 1
+
+
+def test_run_many_batched_takes_a_holder():
+    """A one-element list hands the group over: the call empties it."""
+    probs = [tcompile.compile_dcop(ring_dcop(tdcop, 6),
+                                   pad_policy="pow2:16", device=CPU)] * 2
+    mod = load_algorithm_module("mgm")
+    params = prepare_algo_params({}, mod.algo_params)
+    hand = tcompile.stack_problems(probs)
+    got = batched.run_many_batched(hand, mod, params, rounds=8, seeds=1)
+    assert hand == []
+    want = batched.run_many_batched(tcompile.stack_problems(probs)[0], mod,
+                                    params, rounds=8, seeds=1)
+    for g, w in zip(got, want):
+        assert g.best_assignment == w.best_assignment
+        np.testing.assert_array_equal(g.cost_trace, w.cost_trace)
+    with pytest.raises(ValueError, match="one-element list"):
+        batched.run_many_batched([], mod, params, rounds=8)
+
+
 # -- solve: retries, halving, floor, quarantine --------------------------
 
 SOLO = dict(rounds=48, chunk_size=12, seed=3)
