@@ -330,12 +330,47 @@ caught and passed over):
    solved on the card; every migrated computation lands on one of its
    live replica holders within capacity, and the card run equals the
    CPU run.
-15. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+15. The rest of the CLI, driven in-process through the functions the
+   commands call, one JSON line a cell; any gate below fails the script.
+   15a ``batch-coloring10k-maxsum``: ``commands/batch.py:run_sweep`` on
+   a dict spec (the card's machine has no PyYAML) whose one set names
+   four coloring-10k DCOPs built in memory (phase 9's ``coloring_dcop(
+   10_000, 3, 3, seed=s)``, seeds 1-4; ``iterations: 2``) and whose one
+   batch is Max-Sum with ``damping: [0.5, 0.7]``, 256 rounds, chunk 64,
+   ``pad_policy: pow2``: 16 runs, 8 cells.  Three passes, each into its
+   own CSV, launch counts set to 0 just before each: sequential (16
+   ``api.solve`` calls, each kernel 16 x 256 times), ``--vmap_cells``
+   (one ``api.solve_many`` call and no ``solve``: no fallback; each
+   kernel launched 256 times per group, the groups from the
+   ``engine.batch_groups`` counter and the results'
+   ``instances_batched``) and ``--vmap_iterations`` (8 ``solve`` calls
+   with ``n_restarts=2``, each kernel 8 x 256 times).  Every row
+   ``finished``, ``failed`` 0; the ``--vmap_cells`` rows equal the
+   sequential rows in every column but ``time``, and equal the port's
+   CPU run of the same ``--vmap_cells`` call; the same spec again into
+   the same CSV executes 0 runs and skips 16.  It prints each pass's
+   wall seconds, solves or groups and msgs/s (the rows' ``msg_count``
+   over the pass's wall seconds) beside phase 3's msgs/s.  15b
+   ``profile-coloring10k-maxsum``, in a child process (the profiler
+   loses events late in a long process): the seed-1 coloring, Max-Sum 64
+   rounds through ``api.solve`` inside ``commands/solve.py:profile``
+   (what ``solve --profile DIR`` runs): one Chrome trace in the
+   directory, parsed, with 64 ``factor_kernel`` and 64
+   ``q_update_kernel`` events, the result equal to the unprofiled
+   solve's; the trace's bytes, the engine seconds profiled and not, and
+   the device busy share of the trace window (kernel events' time over
+   the window).  15c ``trace-summary-coloring10k-maxsum``: the same
+   solve (chunk 16) with ``trace=`` in JSONL and Chrome format on the
+   card and in JSONL on the CPU, each read by the port's
+   ``telemetry/summary.py``: span counts, events, faults, agents and
+   counters equal card and CPU and across the two formats, and
+   ``format_summary`` renders.
+16. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
-   batched instances with the launches of phase 9's paths; phase 13's
-   and phase 14's launches are added to the entries their runs launch),
-   the card line, and last the ``{"ok": true, ...}`` line.
+   batched instances with the launches of phase 9's paths; the launches
+   of phases 13-15 are added to the entries their runs launch), the card
+   line, and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package, and needs no PyYAML.
 """
@@ -4565,6 +4600,353 @@ def dynamic_phase(torch, mk, dev, card, single_msgs_per_s):
             "q_update": launches["q_update"]}
 
 
+# -- phase 15: the rest of the CLI: batch, solve --profile, trace-summary ----
+
+# the batch-coloring10k-maxsum cell (module docstring, phase 15)
+BATCH_SEEDS = (1, 2, 3, 4)
+BATCH_ROUNDS = 256
+BATCH_SPEC = {
+    "sets": {"coloring10k": {
+        "path": [f"coloring10k-s{s}" for s in BATCH_SEEDS],
+        "iterations": 2}},
+    "batches": {"maxsum": {
+        "algo": "maxsum", "algo_params": {"damping": [0.5, 0.7]},
+        "rounds": BATCH_ROUNDS, "chunk_size": 64, "pad_policy": "pow2"}},
+}
+BATCH_RUNS = len(BATCH_SEEDS) * 2 * 2
+BATCH_CELLS = len(BATCH_SEEDS) * 2
+PROFILE_ROUNDS = 64
+NO_TIME = ("batch", "set", "problem", "iteration", "algo", "params",
+           "status", "cost", "cycle", "msg_count")
+
+
+def csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+class Recorder:
+    """Wraps an ``api`` entry point and keeps each call's keywords and
+    results, so a pass can show which path it took."""
+
+    def __init__(self, api, name):
+        self.api, self.name = api, name
+        self.fn = getattr(api, name)
+        self.calls = []
+
+    def __enter__(self):
+        def wrapped(*args, **kwargs):
+            out = self.fn(*args, **kwargs)
+            self.calls.append((kwargs, out))
+            return out
+
+        setattr(self.api, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.api, self.name, self.fn)
+
+
+def batch_pass(torch, mk, label, result_file, base, load, dev, **flags):
+    """One ``run_sweep`` of BATCH_SPEC with launch counts set to 0 just
+    before; returns (summary, rows, launches, wall seconds, the
+    ``solve``/``solve_many`` calls)."""
+    import pydcop_tpu_torch.api as api
+    from pydcop_tpu_torch.commands.batch import run_sweep
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    with Recorder(api, "solve") as one, Recorder(api, "solve_many") as many:
+        summary = run_sweep(BATCH_SPEC, base, result_file, device=dev,
+                            load=load, **flags)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = csv_rows(result_file)
+    if summary["failed"] or any(r["status"] != "finished" for r in rows):
+        raise AssertionError(f"15a {label}: failed runs {summary}, "
+                             f"{sorted({r['status'] for r in rows})}")
+    return summary, rows, dict(mk.launches), wall, one.calls, many.calls
+
+
+def trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def batch_phase(torch, mk, dev, base, dcops, single_msgs_per_s):
+    """15a (see the module docstring).  Returns launches by kernel
+    entry."""
+    cpu = torch.device("cpu")
+
+    def load(problem):
+        return dcops[Path(problem).name]
+
+    def out(name):
+        return str(Path(base) / f"{name}.csv")
+
+    def msgs_per_s(rows, wall):
+        return sum(int(r["msg_count"]) for r in rows) / wall
+
+    per = {}
+    # sequential: one solve a run, each kernel once a round
+    _, seq, got, wall, solves, _ = batch_pass(
+        torch, mk, "sequential", out("sequential"), base, load, dev)
+    want = BATCH_RUNS * BATCH_ROUNDS
+    if (got["factor_round_binary"], got["q_update"],
+            got["factor_round_binary_shared"]) != (want, want, 0) or len(
+            solves) != BATCH_RUNS:
+        raise AssertionError(f"15a sequential: launches {got}, "
+                             f"{len(solves)} solves")
+    per["sequential"] = dict(wall_seconds=wall, solves=len(solves),
+                             msgs_per_s=msgs_per_s(seq, wall),
+                             launches=got)
+    # --vmap_cells: one solve_many, each group once a round
+    _, cells, got, wall, solves, many = batch_pass(
+        torch, mk, "vmap_cells", out("vmap_cells"), base, load, dev,
+        vmap_cells=True)
+    if solves or len(many) != 1:
+        raise AssertionError(f"15a vmap_cells: {len(solves)} solves, "
+                             f"{len(many)} solve_many calls (a fallback)")
+    results = many[0][1]
+    groups = results[0]["telemetry"]["counters"]["engine.batch_groups"]
+    sizes = sorted(r["instances_batched"] for r in results)
+    if round(sum(1 / b for b in sizes)) != groups:
+        raise AssertionError(f"15a vmap_cells: {groups} groups, sizes "
+                             f"{sizes}")
+    want = groups * BATCH_ROUNDS
+    if (got["factor_round_binary"], got["q_update"],
+            got["factor_round_binary_shared"]) != (want, want, 0):
+        raise AssertionError(f"15a vmap_cells: launches {got}, expected "
+                             f"{want} of each ({groups} groups)")
+    key = {tuple(r[k] for k in NO_TIME[:6]): [r[k] for k in NO_TIME]
+           for r in cells}
+    for r in seq:
+        if key.get(tuple(r[k] for k in NO_TIME[:6])) != [
+                r[k] for k in NO_TIME]:
+            raise AssertionError(f"15a: vmap_cells row differs from the "
+                                 f"sequential row: {r}")
+    per["vmap_cells"] = dict(wall_seconds=wall, groups=groups,
+                             instances_batched=sizes[-1],
+                             msgs_per_s=msgs_per_s(cells, wall),
+                             launches=got)
+    cell_launches = got
+    # --vmap_iterations: one solve a cell with 2 restarts
+    _, its, got, wall, solves, many = batch_pass(
+        torch, mk, "vmap_iterations", out("vmap_iterations"), base, load,
+        dev, vmap_iterations=True)
+    want = BATCH_CELLS * BATCH_ROUNDS
+    if many or [kw.get("n_restarts") for kw, _ in solves] != [2] * (
+            BATCH_CELLS) or (got["factor_round_binary"], got["q_update"],
+                             got["factor_round_binary_shared"]) != (
+            want, want, 0):
+        raise AssertionError(f"15a vmap_iterations: {len(solves)} solves "
+                             f"{[kw.get('n_restarts') for kw, _ in solves]}"
+                             f", launches {got}")
+    per["vmap_iterations"] = dict(wall_seconds=wall, solves=len(solves),
+                                  msgs_per_s=msgs_per_s(its, wall),
+                                  launches=got)
+    iter_launches = got
+    # the card's --vmap_cells CSV equals the port's CPU run of the call
+    _, cpu_rows, _, cpu_wall, _, _ = batch_pass(
+        torch, mk, "vmap_cells-cpu", out("vmap_cells_cpu"), base, load,
+        cpu, vmap_cells=True)
+    if [[r[k] for k in NO_TIME] for r in cpu_rows] != [
+            [r[k] for k in NO_TIME] for r in cells]:
+        raise AssertionError("15a: the card's vmap_cells CSV differs from "
+                             "the CPU run's")
+    # the same spec again into the same CSV: nothing runs
+    again = batch_pass(torch, mk, "rerun", out("vmap_cells"), base, load,
+                       dev, vmap_cells=True)[0]
+    if (again["executed"], again["skipped"]) != (0, BATCH_RUNS):
+        raise AssertionError(f"15a rerun: {again}")
+    emit("15a", "batch-coloring10k-maxsum", runs=BATCH_RUNS,
+         cells=BATCH_CELLS, rounds=BATCH_ROUNDS, passes=per,
+         cpu_vmap_cells_seconds=cpu_wall, card_csv_equals_cpu=True,
+         vmap_cells_equal_sequential=True, rerun=again,
+         phase3_coloring10k_msgs_per_s=single_msgs_per_s,
+         best_costs=sorted(float(r["cost"]) for r in cells)[:4])
+    return {
+        "factor_round_binary": per["sequential"]["launches"][
+            "factor_round_binary"],
+        "q_update": per["sequential"]["launches"]["q_update"],
+        "factor_round_binary.batched_instances": cell_launches[
+            "factor_round_binary"],
+        "q_update.batched_instances_pow2": cell_launches["q_update"],
+        "factor_round_binary.batched_restarts": iter_launches[
+            "factor_round_binary"],
+        "q_update.batched_restarts": iter_launches["q_update"],
+    }
+
+
+def profile_phase(torch, mk, dev, base, dcop):
+    """15b (see the module docstring), run by :func:`profile_child`.
+    Returns launches by kernel entry."""
+    import glob
+
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.commands.solve import profile
+
+    kw = dict(rounds=PROFILE_ROUNDS, chunk_size=PROFILE_ROUNDS, device=dev)
+    params = {"damping": 0.5}
+    solve(dcop, "maxsum", params, **kw)  # warm: this process's first run
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    plain = solve(dcop, "maxsum", params, **kw)
+    torch.cuda.synchronize()
+    launches = expect_launches(mk, "15b unprofiled", {
+        "factor_round_binary": PROFILE_ROUNDS, "q_update": PROFILE_ROUNDS})
+    out = str(Path(base) / "profile")
+    mk.reset_launches()
+    with profile(out, dev):
+        prof = solve(dcop, "maxsum", params, **kw)
+        torch.cuda.synchronize()
+    expect_launches(mk, "15b profiled", {
+        "factor_round_binary": PROFILE_ROUNDS, "q_update": PROFILE_ROUNDS})
+    for k in set(plain) - {"time", "telemetry"}:
+        if prof[k] != plain[k]:
+            raise AssertionError(f"15b: the profiled solve differs in {k}")
+    files = glob.glob(str(Path(out) / "*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"15b: {len(files)} trace files in {out}")
+    events = trace_events(files[0])
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    factor = sum(1 for e in kern
+                 if "factor_kernel<" in e.get("name", ""))
+    qup = sum(1 for e in kern if "q_update_kernel<" in e.get("name", ""))
+    if (factor, qup) != (PROFILE_ROUNDS, PROFILE_ROUNDS):
+        raise AssertionError(f"15b: the trace holds {factor} factor and "
+                             f"{qup} q-update kernel events")
+    spans = [e for e in events if e.get("ph") == "X"]
+    t0 = min(e["ts"] for e in spans)
+    t1 = max(e["ts"] + e.get("dur", 0) for e in spans)
+    busy = sum(e.get("dur", 0) for e in kern)
+    launches = {k: 2 * launches[k] for k in ("factor_round_binary",
+                                             "q_update")}
+    emit("15b", "profile-coloring10k-maxsum", rounds=PROFILE_ROUNDS,
+         trace_bytes=Path(files[0]).stat().st_size,
+         trace_events=len(events), kernel_events=len(kern),
+         factor_kernel_events=factor, q_update_kernel_events=qup,
+         engine_seconds_profiled=prof["time"],
+         engine_seconds_unprofiled=plain["time"],
+         trace_window_ms=(t1 - t0) / 1e3, kernel_busy_ms=busy / 1e3,
+         device_busy_share=busy / (t1 - t0),
+         result_equals_unprofiled=True, launches=launches)
+    return launches
+
+
+def profile_child(card, base):
+    """15b in a process of its own: torch.profiler loses events late in
+    a long process (phase 11's note), and the gate counts every kernel
+    event of the trace.  Run by :func:`run_profile_child`."""
+    import torch
+
+    from pydcop_tpu_torch.ops import maxsum_kernels as mk
+
+    CARD["card"] = card
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mk.build()
+    profile_phase(torch, mk, dev, base,
+                  coloring_dcop(10_000, 3, 3, seed=BATCH_SEEDS[0]))
+
+
+def run_profile_child(base):
+    """:func:`profile_child` in a child process on the same card: its
+    JSON line is printed here; its failure fails the phase.  Returns the
+    launches of its solves by kernel entry."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.profile_child(sys.argv[2], "
+            "sys.argv[3])")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(HERE), CARD["card"], base],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError("15b (its own process) failed:\n"
+                             + proc.stderr[-4000:])
+    line = next(json.loads(x) for x in proc.stdout.splitlines()
+                if x.startswith('{"phase": "15b"'))
+    return line["launches"]
+
+
+def trace_summary_phase(torch, mk, dev, base, dcop):
+    """15c (see the module docstring).  Returns launches by kernel
+    entry."""
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.telemetry.summary import (
+        format_summary,
+        load_trace,
+        summarize,
+    )
+
+    def aggregates(path):
+        s = summarize(load_trace(path))
+        return ({k: v["count"] for k, v in s["phases"].items()},
+                s["events"], s["faults"], s["agents"],
+                s["metrics"].get("counters")), s
+
+    kw = dict(rounds=PROFILE_ROUNDS, chunk_size=16)
+    runs = {}
+    mk.reset_launches()
+    for label, device, fmt in (("card-jsonl", dev, "jsonl"),
+                               ("card-chrome", dev, "chrome"),
+                               ("cpu-jsonl", torch.device("cpu"), "jsonl")):
+        if label == "cpu-jsonl":  # the card runs' launches
+            launches = expect_launches(mk, "15c", {
+                "factor_round_binary": 2 * PROFILE_ROUNDS,
+                "q_update": 2 * PROFILE_ROUNDS})
+        path = str(Path(base) / f"trace-{label}.{fmt}")
+        solve(dcop, "maxsum", {"damping": 0.5}, device=device, trace=path,
+              trace_format=fmt, **kw)
+        runs[label] = (path,) + aggregates(path)
+    card, chrome, cpu = (runs[k][1] for k in ("card-jsonl", "card-chrome",
+                                              "cpu-jsonl"))
+    if card != cpu:
+        raise AssertionError(f"15c: the card trace's counts differ from "
+                             f"the CPU run's: {card} {cpu}")
+    if card != chrome:
+        raise AssertionError(f"15c: the JSONL and Chrome traces differ: "
+                             f"{card} {chrome}")
+    text = format_summary(runs["card-jsonl"][2])
+    if "cycle" not in text or "engine.rounds" not in text:
+        raise AssertionError(f"15c: format_summary rendered {text!r}")
+    emit("15c", "trace-summary-coloring10k-maxsum", rounds=PROFILE_ROUNDS,
+         spans=card[0], counters=card[4],
+         bytes={k: Path(v[0]).stat().st_size for k, v in runs.items()},
+         card_equals_cpu=True, jsonl_equals_chrome=True,
+         summary_lines=len(text.splitlines()))
+    return launches
+
+
+def cli_phase(torch, mk, dev, card, single_msgs_per_s):
+    """Phase 15 (see the module docstring).  Returns the launches of its
+    card runs by kernel entry."""
+    import tempfile
+
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dcops = {f"coloring10k-s{s}": coloring_dcop(10_000, 3, 3, seed=s)
+             for s in BATCH_SEEDS}
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=HERE) as base:
+        counts = batch_phase(torch, mk, dev, base, dcops, single_msgs_per_s)
+        for k, v in run_profile_child(base).items():
+            counts[k] += v
+        for k, v in trace_summary_phase(torch, mk, dev, base,
+                                        dcops["coloring10k-s1"]).items():
+            counts[k] = counts.get(k, 0) + v
+    emit("15", "phase", seconds=time.perf_counter() - t_phase,
+         build_seconds=build_s)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4798,7 +5180,13 @@ def main() -> int:
                             MAIN_PATH_RATES.get("coloring-10k"))
     print(f"phase 14 seconds={time.perf_counter() - t14}")
 
-    # -- 15. summary ------------------------------------------------------
+    # -- 15. the rest of the CLI ------------------------------------------
+    t15 = time.perf_counter()
+    ccounts = cli_phase(torch, mk, dev, card,
+                        MAIN_PATH_RATES.get("coloring-10k"))
+    print(f"phase 15 seconds={time.perf_counter() - t15}")
+
+    # -- 16. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -4831,7 +5219,7 @@ def main() -> int:
             name=entry, route="cuda", source=SOURCE,
             replaces=KERNELS[name],
             launches=launched + scounts.get(entry, 0)
-            + dcounts.get(entry, 0),
+            + dcounts.get(entry, 0) + ccounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),
@@ -4844,7 +5232,8 @@ def main() -> int:
         kernels.append(dict(
             name=entry, route="cuda", source=SOURCE,
             replaces=KERNELS[row["kernel"]],
-            launches=bcounts[entry] + scounts.get(entry, 0),
+            launches=bcounts[entry] + scounts.get(entry, 0)
+            + ccounts.get(entry, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,

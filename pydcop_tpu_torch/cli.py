@@ -1,8 +1,13 @@
 """Command-line interface: ``python -m pydcop_tpu_torch <command> ...``.
 
 The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
-under ``pydcop_tpu_torch/commands/``: ``solve``, ``run``, ``infer``
-and ``generate``.
+under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``, ``run``,
+``graph``, ``distribute``, ``generate``, ``batch``, ``consolidate``,
+``replica_dist`` and ``trace-summary``.  The global options (``-v``,
+``--log``, ``-t``/``--timeout``, ``--output``) are accepted before and
+after the subcommand, as in the JAX package.  The commands that touch
+the card take ``--device`` (``--torch_device`` on ``infer``, whose
+``--device`` is the JAX package's offload policy).
 """
 
 from __future__ import annotations
@@ -10,9 +15,48 @@ from __future__ import annotations
 import argparse
 import importlib
 import logging
+import logging.config
 import sys
 
-COMMANDS = ["solve", "run", "infer", "generate"]
+COMMANDS = [
+    "solve",
+    "infer",
+    "run",
+    "graph",
+    "distribute",
+    "generate",
+    "batch",
+    "consolidate",
+    "replica_dist",
+    # module trace_summary registers the subcommand as `trace-summary`
+    "trace_summary",
+]
+
+
+def _add_global_args(parser: argparse.ArgumentParser, suppress: bool) -> None:
+    """Global options accepted both before and after the subcommand.
+
+    At the sub level defaults are SUPPRESSed so a flag given before the
+    subcommand is not clobbered by the subparser's default.
+    """
+
+    def d(value):
+        return argparse.SUPPRESS if suppress else value
+
+    parser.add_argument(
+        "-v", "--verbosity", type=int, default=d(0), help="0..3"
+    )
+    parser.add_argument(
+        "--log", type=str, default=d(None), help="logging config file"
+    )
+    parser.add_argument(
+        "-t", "--timeout", type=float, default=d(None),
+        help="wall-clock timeout (seconds)",
+    )
+    parser.add_argument(
+        "--output", type=str, default=d(None),
+        help="write the result JSON to this file as well as stdout",
+    )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -21,15 +65,27 @@ def build_parser() -> argparse.ArgumentParser:
         description="DCOP solving on an NVIDIA GPU (PyTorch/CUDA port "
         "of pydcop_tpu)",
     )
-    parser.add_argument(
-        "-v", "--verbosity", type=int, default=0, help="0..3"
-    )
+    _add_global_args(parser, suppress=False)
     parser.add_argument("--version", action="version", version="0.1.0")
+    global_parent = argparse.ArgumentParser(add_help=False)
+    _add_global_args(global_parent, suppress=True)
     sub = parser.add_subparsers(dest="command", required=True)
     for name in COMMANDS:
         mod = importlib.import_module(f"pydcop_tpu_torch.commands.{name}")
-        mod.set_parser(sub)
+        mod.set_parser(_SubparsersProxy(sub, [global_parent]))
     return parser
+
+
+class _SubparsersProxy:
+    """Injects the global-options parent into every add_parser call."""
+
+    def __init__(self, sub, parents):
+        self._sub = sub
+        self._parents = parents
+
+    def add_parser(self, *args, **kwargs):
+        parents = list(kwargs.pop("parents", [])) + self._parents
+        return self._sub.add_parser(*args, parents=parents, **kwargs)
 
 
 def main(argv=None) -> int:
@@ -40,6 +96,8 @@ def main(argv=None) -> int:
         level=levels[min(args.verbosity, 3)],
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
+    if args.log:
+        logging.config.fileConfig(args.log, disable_existing_loggers=False)
     return args.func(args)
 
 

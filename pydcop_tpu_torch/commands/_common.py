@@ -1,5 +1,5 @@
-"""Shared CLI helpers (the parts of ``pydcop_tpu/commands/_common.py``
-the port's commands use): algo-param parsing, the trace, supervisor and
+"""Shared CLI helpers (a port of ``pydcop_tpu/commands/_common.py``):
+DCOP and graph loading, algo-param parsing, the trace, supervisor and
 metric-collection flags, metrics/result output."""
 
 from __future__ import annotations
@@ -7,6 +7,30 @@ from __future__ import annotations
 import csv
 import json
 from typing import Any, Dict, List
+
+
+def load_dcop_and_graph(args):
+    """Shared --graph/--algo resolution + dcop loading for the graph
+    and distribute commands.  Returns (dcop, graph, graph model name,
+    algo_module)."""
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+    from pydcop_tpu_torch.graphs import load_graph_module
+
+    if not args.graph and not args.algo:
+        raise SystemExit(f"{args.command}: provide --graph or --algo")
+    algo_module = None
+    graph_model = args.graph
+    if args.algo:
+        from pydcop_tpu_torch.algorithms import load_algorithm_module
+
+        algo_module = load_algorithm_module(args.algo)
+        if graph_model is None:
+            graph_model = algo_module.GRAPH_TYPE
+    dcop = load_dcop_from_file(
+        args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0]
+    )
+    graph = load_graph_module(graph_model).build_computation_graph(dcop)
+    return dcop, graph, graph_model, algo_module
 
 
 def add_trace_arguments(parser) -> None:
@@ -24,6 +48,26 @@ def add_trace_arguments(parser) -> None:
         "trace-summary input) or chrome (trace_event JSON for "
         "chrome://tracing / Perfetto)",
     )
+
+
+def add_compile_cache_argument(parser) -> None:
+    """``--compile_cache``: the JAX package's flag, accepted and refused
+    (:func:`refuse_compile_cache`)."""
+    parser.add_argument(
+        "--compile_cache", default=None, metavar="DIR",
+        help="the JAX package's persistent XLA compilation cache: the "
+        "port compiles no XLA programs, so the flag is refused",
+    )
+
+
+def refuse_compile_cache(args) -> None:
+    """Exit with the API's refusal when ``--compile_cache`` was given."""
+    from pydcop_tpu_torch.api import _no_compile_cache
+
+    try:
+        _no_compile_cache(args.compile_cache)
+    except NotImplementedError as e:
+        raise SystemExit(f"{args.command}: {e}")
 
 
 def write_result(args, result) -> int:

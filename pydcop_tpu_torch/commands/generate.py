@@ -2,10 +2,10 @@
 ``pydcop_tpu/commands/generate.py``).
 
 Benchmark-problem generators, one sub-subcommand per family:
-``graph_coloring``, ``ising``, ``meeting_scheduling``, ``secp`` and
-``task_scheduling``.
-Each writes a DCOP YAML to stdout or ``--output``; the text equals what
-``python -m pydcop_tpu generate`` writes for the same arguments.
+``graph_coloring``, ``ising``, ``meeting_scheduling``, ``secp``,
+``task_scheduling`` and ``agents``.  Each writes a DCOP (or agents) YAML
+to stdout or ``--output``; the text equals what ``python -m pydcop_tpu
+generate`` writes for the same arguments.
 """
 
 from __future__ import annotations
@@ -16,29 +16,20 @@ import importlib
 from pydcop_tpu_torch.commands.generators import GENERATORS
 
 
-class _WithOutput:
-    """Subparsers whose every parser also takes ``--output``."""
-
-    def __init__(self, sub, parent):
-        self._sub, self._parent = sub, parent
-
-    def add_parser(self, *args, **kwargs):
-        kwargs.setdefault("parents", []).append(self._parent)
-        return self._sub.add_parser(*args, **kwargs)
-
-
 def set_parser(subparsers) -> None:
     p = subparsers.add_parser(
         "generate", help="generate benchmark DCOP instances"
     )
     sub = p.add_subparsers(dest="generator", required=True)
+    # accept the global flags (--output, -t, ...) after the generator
+    # name as well, mirroring the top-level CLI wiring
+    from pydcop_tpu_torch.cli import _SubparsersProxy, _add_global_args
+
     parent = argparse.ArgumentParser(add_help=False)
-    parent.add_argument(
-        "--output", type=str, default=None,
-        help="write the YAML to this file instead of stdout",
-    )
+    _add_global_args(parent, suppress=True)
+    proxy = _SubparsersProxy(sub, [parent])
     for name in GENERATORS:
         mod = importlib.import_module(
             f"pydcop_tpu_torch.commands.generators.{name}"
         )
-        mod.set_parser(_WithOutput(sub, parent))
+        mod.set_parser(proxy)

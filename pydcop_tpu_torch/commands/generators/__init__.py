@@ -2,9 +2,9 @@
 
 Each module exports ``set_parser(subparsers)`` registering one
 ``pydcop_tpu_torch generate <kind>`` sub-subcommand whose handler builds
-a :class:`~pydcop_tpu_torch.dcop.dcop.DCOP` and writes it as YAML to
-stdout or ``--output``, and ``generate(args)`` that builds the DCOP.
-The JAX package's ``agents`` generator is not copied.
+a :class:`~pydcop_tpu_torch.dcop.dcop.DCOP` (or, for ``agents``, an
+agents section) and writes it as YAML to stdout or ``--output``; the
+DCOP generators also export ``generate(args)`` that builds the DCOP.
 """
 
 GENERATORS = [
@@ -13,4 +13,5 @@ GENERATORS = [
     "meetingscheduling",
     "secp",
     "taskscheduling",
+    "agents",
 ]

@@ -13,7 +13,9 @@ memory-bounded sweep.
 from __future__ import annotations
 
 from pydcop_tpu_torch.commands._common import (
+    add_compile_cache_argument,
     add_trace_arguments,
+    refuse_compile_cache,
     write_result,
 )
 
@@ -90,10 +92,7 @@ def set_parser(subparsers) -> None:
         "lattice ('pow2' or 'pow2:<floor>'); default: none for one "
         "file, pow2 for several",
     )
-    p.add_argument(
-        "-t", "--timeout", type=float, default=None,
-        help="wall-clock timeout (seconds)",
-    )
+    add_compile_cache_argument(p)
     p.add_argument(
         "--max_util_bytes", type=int, default=None, metavar="N",
         help="run the sweep memory-bounded (ops/membound.py): every "
@@ -129,10 +128,6 @@ def set_parser(subparsers) -> None:
         help="transient device failures retry up to N times per "
         "dispatch (engine/supervisor.py; default 2)",
     )
-    p.add_argument(
-        "--output", type=str, default=None,
-        help="write the result JSON to this file as well as stdout",
-    )
     add_trace_arguments(p)
     p.set_defaults(func=run_cmd)
 
@@ -142,6 +137,7 @@ def run_cmd(args) -> int:
 
     from pydcop_tpu_torch.api import infer, infer_many
 
+    refuse_compile_cache(args)
     external_dists = None
     if args.external_dists:
         try:

@@ -13,10 +13,12 @@ metric CSVs.
 from __future__ import annotations
 
 from pydcop_tpu_torch.commands._common import (
+    add_compile_cache_argument,
     add_collect_arguments,
     add_supervisor_arguments,
     add_trace_arguments,
     parse_algo_params,
+    refuse_compile_cache,
     write_metrics,
     write_result,
 )
@@ -74,27 +76,15 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
-        "-t", "--timeout", type=float, default=None,
-        help="wall-clock timeout (seconds)",
-    )
-    p.add_argument(
         "--pad_policy", default="none", metavar="POLICY",
         help="bucket each segment's compiled shapes ('pow2' or "
         "'pow2:<floor>'); default: none",
     )
-    p.add_argument(
-        "--compile_cache", default=None, metavar="DIR",
-        help="the JAX package's persistent XLA compilation cache: the "
-        "port compiles no XLA programs, so the flag is refused",
-    )
+    add_compile_cache_argument(p)
     p.add_argument(
         "--device", default=None,
         help="'cpu' to run on the CPU; default: the CUDA device (the "
         "command fails when there is none)",
-    )
-    p.add_argument(
-        "--output", type=str, default=None,
-        help="write the result JSON to this file as well as stdout",
     )
     add_supervisor_arguments(p)
     add_collect_arguments(p)
@@ -103,7 +93,6 @@ def set_parser(subparsers) -> None:
 
 
 def run_cmd(args) -> int:
-    from pydcop_tpu_torch.api import _no_compile_cache
     from pydcop_tpu_torch.dcop.yamldcop import (
         load_dcop_from_file,
         load_scenario_from_file,
@@ -111,10 +100,7 @@ def run_cmd(args) -> int:
     from pydcop_tpu_torch.distribution import ImpossibleDistributionException
     from pydcop_tpu_torch.engine.dynamic import run_dynamic
 
-    try:
-        _no_compile_cache(args.compile_cache)
-    except NotImplementedError as e:
-        raise SystemExit(f"run: {e}")
+    refuse_compile_cache(args)
     dcop = load_dcop_from_file(
         args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0]
     )

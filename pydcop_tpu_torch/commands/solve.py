@@ -17,16 +17,23 @@ device-layer fault kinds at the supervised dispatch, with the
 the JAX package's metric CSVs from the run's cost trace; ``--many``
 solves each file as its own instance through ``api.solve_many`` and
 prints a JSON array (without the ``telemetry`` blocks, as the JAX
-package prints it).
+package prints it).  ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace of the single solve into DIR (:func:`profile`);
+``--compile_cache`` takes only its default (the port compiles no XLA
+programs).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 from pydcop_tpu_torch.commands._common import (
+    add_compile_cache_argument,
     add_collect_arguments,
     add_supervisor_arguments,
     add_trace_arguments,
     parse_algo_params,
+    refuse_compile_cache,
     write_metrics,
     write_result,
 )
@@ -64,10 +71,6 @@ def set_parser(subparsers) -> None:
         help="stop after N unchanged chunks (0 = run all rounds)",
     )
     p.add_argument(
-        "-t", "--timeout", type=float, default=None,
-        help="wall-clock timeout (seconds)",
-    )
-    p.add_argument(
         "--checkpoint", default=None,
         help="write the run state to this .npz file as the run proceeds",
     )
@@ -79,6 +82,13 @@ def set_parser(subparsers) -> None:
         "--resume", action="store_true",
         help="restore --checkpoint (if present) and continue the run",
     )
+    p.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the solve (host and, on "
+        "the card, CUDA activity) into DIR as a Chrome trace (inspect "
+        "with Perfetto, chrome://tracing or TensorBoard)",
+    )
+    add_compile_cache_argument(p)
     p.add_argument(
         "--pad_policy", default="none", metavar="POLICY",
         help="bucket the compiled problem's shapes on the pow-2 lattice "
@@ -131,18 +141,39 @@ def set_parser(subparsers) -> None:
         help="seed for the --chaos fault plan (determinism/replay)",
     )
     add_supervisor_arguments(p)
-    p.add_argument(
-        "--output", type=str, default=None,
-        help="write the result JSON to this file as well as stdout",
-    )
     add_collect_arguments(p)
     add_trace_arguments(p)
     p.set_defaults(func=run_cmd)
 
 
+@contextlib.contextmanager
+def profile(directory: str, device):
+    """Record a ``torch.profiler`` trace of the enclosed work into
+    ``directory`` (one Chrome trace file, written through
+    ``tensorboard_trace_handler``): host activity, and CUDA activity
+    when ``device`` is a CUDA device.  The trace is written when the
+    block exits, also when it raises: a profile of a failing run is
+    exactly when you want the data."""
+    import torch
+    from torch.profiler import (
+        ProfilerActivity,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=tensorboard_trace_handler(directory),
+    ):
+        yield
+
+
 def run_cmd(args) -> int:
     from pydcop_tpu_torch.api import solve, solve_many
 
+    refuse_compile_cache(args)
     params = parse_algo_params(args.algo_params)
     if args.bnb is not None:
         # algo params (dpop declares them): the flags are the
@@ -158,6 +189,16 @@ def run_cmd(args) -> int:
         on_numeric_fault=args.on_numeric_fault,
     )
     if args.many:
+        for flag, name in (
+            (args.checkpoint, "--checkpoint"),
+            (args.resume, "--resume"),
+            (args.profile, "--profile"),
+        ):
+            if flag:
+                raise SystemExit(
+                    f"{name} is a single-run option; it does not compose "
+                    "with --many (solve the instances individually for it)"
+                )
         if args.max_util_bytes is not None:
             # solve_many takes it through the per-algorithm params
             params = {**params, "max_util_bytes": args.max_util_bytes}
@@ -180,25 +221,32 @@ def run_cmd(args) -> int:
             r.pop("cost_trace", None)  # keep the printed JSON compact
             r.pop("telemetry", None)
         return write_result(args, results)
-    result = solve(
-        args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0],
-        args.algo,
-        params,
-        rounds=args.rounds,
-        timeout=args.timeout,
-        seed=args.seed,
-        n_restarts=args.restarts,
-        convergence_chunks=args.convergence_chunks,
-        checkpoint_path=args.checkpoint,
-        checkpoint_every=args.checkpoint_every,
-        resume=args.resume,
-        pad_policy=args.pad_policy,
-        device=args.device,
-        trace=args.trace,
-        trace_format=args.trace_format,
-        max_util_bytes=args.max_util_bytes,
-        **sup_kw,
-    )
+    profiling = contextlib.nullcontext()
+    if args.profile:
+        from pydcop_tpu_torch.device import resolve_device
+
+        profiling = profile(args.profile, resolve_device(args.device))
+    with profiling:
+        result = solve(
+            args.dcop_files if len(args.dcop_files) > 1
+            else args.dcop_files[0],
+            args.algo,
+            params,
+            rounds=args.rounds,
+            timeout=args.timeout,
+            seed=args.seed,
+            n_restarts=args.restarts,
+            convergence_chunks=args.convergence_chunks,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+            pad_policy=args.pad_policy,
+            device=args.device,
+            trace=args.trace,
+            trace_format=args.trace_format,
+            max_util_bytes=args.max_util_bytes,
+            **sup_kw,
+        )
     write_metrics(args, result)
     result.pop("cost_trace", None)  # keep the printed JSON compact
     return write_result(args, result)

@@ -5,7 +5,8 @@ runtime check (an array-built maxsum solve and CPU maxsum and dsa solves
 of a YAML file, an inference query on the device path, a budgeted
 sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve, a
 checkpointed, resumed Max-Sum solve, a dynamic run with replicas, an
-ILP placement and the ``run`` CLI) runs in a fresh subprocess; a static AST scan covers every
+ILP placement, the ``run`` CLI, ``trace-summary`` and ``batch
+--simulate``) runs in a fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
 of carrying on on the CPU.
@@ -77,6 +78,12 @@ out = subprocess.run(
     capture_output=True, text=True, check=True,
 ).stdout
 assert '"state_transfers"' in out, out
+from pydcop_tpu_torch.cli import main
+tr = os.path.join(tempfile.mkdtemp(), "t.jsonl")
+solve(sys.argv[1], "maxsum", rounds=8, device="cpu", trace=tr)
+assert main(["trace-summary", tr]) == 0
+assert main(["batch", sys.argv[3], "--simulate", "--result_file",
+             os.path.join(tempfile.mkdtemp(), "r.csv")]) == 0
 import pydcop_tpu_torch.distribution.adhoc, pydcop_tpu_torch.utils.graphs
 import pydcop_tpu_torch.utils.various, pydcop_tpu_torch.commands.run
 bad = sorted(
@@ -91,8 +98,9 @@ print("LOADED", bad)
 def test_import_and_cpu_solve_leave_jax_unloaded():
     ring = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
     scenario = os.path.join(REPO, "examples", "dynamic_scenario.yaml")
+    sweep = os.path.join(REPO, "examples", "batch_sweep.yaml")
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE, ring, scenario],
+        [sys.executable, "-c", _PROBE, ring, scenario, sweep],
         capture_output=True, text=True, cwd=REPO, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO},
     )
@@ -139,7 +147,12 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "distribution/_ilp.py", "distribution/oilp_secp.py",
                    "replication/repair.py",
                    "replication/ucs_hostingcosts.py",
-                   "utils/graphs.py", "utils/various.py"):
+                   "utils/graphs.py", "utils/various.py",
+                   "commands/graph.py", "commands/distribute.py",
+                   "commands/replica_dist.py", "commands/batch.py",
+                   "commands/consolidate.py", "commands/trace_summary.py",
+                   "commands/generators/agents.py",
+                   "telemetry/summary.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
