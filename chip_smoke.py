@@ -333,7 +333,7 @@ caught and passed over):
 15. The rest of the CLI, driven in-process through the functions the
    commands call, one JSON line a cell; any gate below fails the script.
    15a ``batch-coloring10k-maxsum``: ``commands/batch.py:run_sweep`` on
-   a dict spec (the card's machine has no PyYAML) whose one set names
+   a dict spec (no YAML file to parse) whose one set names
    four coloring-10k DCOPs built in memory (phase 9's ``coloring_dcop(
    10_000, 3, 3, seed=s)``, seeds 1-4; ``iterations: 2``) and whose one
    batch is Max-Sum with ``damping: [0.5, 0.7]``, 256 rounds, chunk 64,
@@ -365,14 +365,59 @@ caught and passed over):
    ``telemetry/summary.py``: span counts, events, faults, agents and
    counters equal card and CPU and across the two formats, and
    ``format_summary`` renders.
-16. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+16. Serving (``engine/service.py``), in-process (DCOP objects, and
+   JSON text, which PyYAML reads, where a text is needed), one JSON
+   line a cell; any gate below fails the script and every wait has a
+   timeout.  16a ``serve-coloring10k-maxsum-C32``: a ``SolverService``
+   on the card (pow2 pads and instance buckets, ``max_batch`` 32,
+   ``max_wait`` 0.05 s) inside a telemetry session with a JSONL trace;
+   32 client threads behind one barrier, thread i submitting phase 15a's
+   DCOP ``i % 4`` with seed ``i // 4`` (Max-Sum, damping 0.5, 256
+   rounds, chunk 64): every result finished and equal, in every key but
+   time and phases, to a solo ``api.solve_compiled`` of the same
+   compiled problem on the card (4 compiles); ``service.requests`` 32,
+   the dispatch spans' occupancy summing to 32 and, with their pads, to
+   32 plus ``service.pad_instances``; the per-factor factor kernel and
+   the q update each launched 256 times a dispatch, the shared factor
+   kernel never; a 4-request subset (the first DCOP, seeds 0-3) equal
+   on the port's CPU service;
+   ``trace-summary``'s ``service: N requests / M dispatches`` block.  It
+   prints ticks, dispatches, occupancy, requests/s, client p50/p99
+   latency, the median of each ``phases`` segment and the sequential
+   ``solve_compiled`` loop's seconds.  16b: a Max-Sum session on phase
+   14's sensor coloring (64 rounds a segment) with 4 follow-ups of 50
+   sensors each: compile counters 1 full and 4 incremental, each
+   segment equal to a fresh ``api.solve`` of the DCOP at those values
+   on the card, card equal to CPU in results and counters; an exact
+   DPOP session (``util_device: always``) on ``tools/
+   recompile_guard.py``'s delta tree (16 hubs x 256 leaves, 4,112
+   nodes) with 6 one-delta follow-ups: equal to the memo-off session at
+   every delta, at most 5% of the nodes re-contracted a follow-up,
+   every counter equal card and CPU, the per-delta milliseconds of the
+   three arms; ``InferSession`` ``log_z`` and ``map`` on the same tree
+   within ``error_bound`` of (equal to) a fresh session.  16c: a session
+   on a JSON-text sensor coloring (2,000 variables, 20 sensors) written
+   to the session checkpoint by ``close()`` and replayed by
+   ``SolverService(resume=True)``: the next follow-up incremental-only
+   and equal to an undisturbed card service's; ``nan_inject`` on a tick
+   of 8 (the first DCOP, seeds 0-7: one group) quarantines one request,
+   its batchmates equal to 16a's fault-free results, and the flight
+   dump names its trace id; a ``MetricsExporter`` scraped once (``service.requests``
+   as the registry holds it) and ``/healthz`` reading ``draining`` and
+   then ``drained`` across ``close()``.  16d: a ``ServiceServer`` on an
+   ephemeral loopback port and a ``ServiceClient``: ping, stats,
+   ``close_session``, a JSON-text solve, a malformed frame answered with
+   the structured error on a link that survives, and ``shutdown``
+   stopping the server within its timeout.
+17. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
-   of phases 13-15 are added to the entries their runs launch), the card
+   of phases 13-16 are added to the entries their runs launch), the card
    line, and last the ``{"ok": true, ...}`` line.
 
-It imports no jax and nothing of the JAX package, and needs no PyYAML.
+It imports no jax and nothing of the JAX package; only 16c-d's JSON
+text goes through PyYAML.
 """
 
 from __future__ import annotations
@@ -4947,6 +4992,647 @@ def cli_phase(torch, mk, dev, card, single_msgs_per_s):
     return counts
 
 
+# -- phase 16: serving: the solver service, sessions, recovery, the wire -----
+
+# the serve-coloring10k-maxsum-C32 cell (module docstring, phase 16)
+SERVE_CLIENTS = 32
+SERVE_VARS = 10_000
+SERVE_SEEDS = (1, 2, 3, 4)  # phase 15a's four coloring-10k DCOPs
+SERVE_ROUNDS = 256
+SERVE_CHUNK = 64
+SERVE_PARAMS = {"damping": 0.5}
+SERVE_WAIT = 300.0  # seconds: every wait of phase 16 is bounded
+SESSION_ROUNDS = 64
+RECOVERY_VARS = 2_000  # 16c's JSON-text session (its text parses 3 times)
+# recompile_guard.py's incremental stage: 16 hubs x 256 leaves, seed 77
+DELTA_TREE = (16, 256, 77)
+DELTA_STEPS = 6
+INCR_MAX_FRACTION = 0.05
+SERVICE_ONLY = ("time", "util_time", "phases", "queue_wait",
+                "instances_batched", "trace")
+
+
+def serve_solve(svc, *args, **kwargs):
+    """``SolverService.solve`` with phase 16's bounded wait."""
+    return svc.submit(*args, **kwargs).result(SERVE_WAIT)
+
+
+def serve_strip(r):
+    return {k: v for k, v in r.items() if k not in SERVICE_ONLY}
+
+
+def service_counters(tel, prefixes=("service.", "compile.", "engine.memo",
+                                    "dpop.", "semiring.", "telemetry.")):
+    return {k: v for k, v in tel.metrics.snapshot()["counters"].items()
+            if k.startswith(prefixes)}
+
+
+def serve_requests(svc, dcops, n, timeout):
+    """``n`` client threads behind one barrier; thread i submits
+    ``dcops[i % len(dcops)]`` with seed ``i // len(dcops)``.  Returns the
+    results in thread order, the client latencies and the wall seconds
+    from the barrier to the last result."""
+    import threading
+
+    barrier = threading.Barrier(n + 1)
+    out = [None] * n
+    lat = [0.0] * n
+    errors = []
+
+    def client(i):
+        try:
+            barrier.wait(timeout)
+            t0 = time.perf_counter()
+            p = svc.submit(dcops[i % len(dcops)], "maxsum", SERVE_PARAMS,
+                           rounds=SERVE_ROUNDS, chunk_size=SERVE_CHUNK,
+                           seed=i // len(dcops))
+            out[i] = p.result(timeout)
+            lat[i] = time.perf_counter() - t0
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"16: clients failed or hung: {errors[:3]}")
+    return out, lat, wall
+
+
+def serve_c32(torch, mk, dev, dcops, base):
+    """16a (see the module docstring).  Returns the results by request,
+    the launches and the service's trace path."""
+    import statistics
+
+    from pydcop_tpu_torch import telemetry
+    from pydcop_tpu_torch.api import solve_compiled
+    from pydcop_tpu_torch.engine.service import SolverService
+    from pydcop_tpu_torch.ops.compile import _leaves, compile_dcop
+    from pydcop_tpu_torch.telemetry.summary import (
+        format_summary,
+        load_trace,
+        summarize,
+    )
+
+    t_cell = time.perf_counter()
+    trace = str(Path(base) / "serve-c32.jsonl")
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    with telemetry.session(trace) as tel:
+        with SolverService(pad_policy="pow2", instance_bucket="pow2",
+                           max_batch=SERVE_CLIENTS, max_wait=0.05,
+                           device=dev) as svc:
+            got, lat, wall = serve_requests(svc, dcops, SERVE_CLIENTS,
+                                            SERVE_WAIT)
+        torch.cuda.synchronize()
+        launches = dict(mk.launches)
+        counters = service_counters(tel)
+        stats = svc.stats()
+    dispatches = counters["service.dispatches"]
+    if counters["service.requests"] != SERVE_CLIENTS:
+        raise AssertionError(f"16a: service.requests {counters}")
+    spans = [r for r in load_trace(trace) if r.get("kind") == "span"
+             and r.get("name") == "service.dispatch"]
+    occupancy = [s["args"]["instances"] for s in spans]
+    padded = sum(s["args"]["padded"] for s in spans)
+    if (sum(occupancy), sum(occupancy) + padded) != (
+            SERVE_CLIENTS, SERVE_CLIENTS
+            + counters.get("service.pad_instances", 0)):
+        raise AssertionError(f"16a: occupancy {occupancy}, padded {padded}")
+    want = SERVE_ROUNDS * dispatches
+    if (launches["factor_round_binary"], launches["q_update"],
+            launches["factor_round_binary_shared"]) != (want, want, 0):
+        raise AssertionError(f"16a: launches {launches}, expected {want} "
+                             f"factor and q-update launches "
+                             f"({dispatches} dispatches)")
+    # every result equals a solo solve of the same compiled problem on
+    # the card (four compiles, not 32)
+    t0 = time.perf_counter()
+    problems = [compile_dcop(d, pad_policy="pow2", device=dev)
+                for d in dcops]
+    compile_s = time.perf_counter() - t0
+    # what one entry of the service's compiled-problem cache holds on
+    # the card (a full cache holds compile_cache_max = 256 of them)
+    entry_bytes = max(
+        sum(t.numel() * t.element_size() for _, t in _leaves(p)
+            if isinstance(t, torch.Tensor))
+        for p in problems)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [solve_compiled(problems[i % len(dcops)], "maxsum", SERVE_PARAMS,
+                           rounds=SERVE_ROUNDS, chunk_size=SERVE_CHUNK,
+                           seed=i // len(dcops))
+            for i in range(SERVE_CLIENTS)]
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    del problems
+    for i, (r, s) in enumerate(zip(got, solo)):
+        if r["status"] != "finished" or serve_strip(r) != serve_strip(s):
+            raise AssertionError(f"16a: request {i} differs from its solo "
+                                 f"solve_compiled")
+    # a 4-request subset (requests 0, 4, 8, 12: the first DCOP, seeds
+    # 0-3, one group of 4): the card equals the port's CPU service
+    t0 = time.perf_counter()
+    with SolverService(pad_policy="pow2", max_batch=4, max_wait=5.0,
+                       device="cpu") as cpu_svc:
+        cpu = [p.result(SERVE_WAIT) for p in [
+            cpu_svc.submit(dcops[0], "maxsum", SERVE_PARAMS,
+                           rounds=SERVE_ROUNDS, chunk_size=SERVE_CHUNK,
+                           seed=j) for j in range(4)]]
+    cpu_s = time.perf_counter() - t0
+    for j, r in enumerate(cpu):
+        if serve_strip(r) != serve_strip(got[len(dcops) * j]):
+            raise AssertionError(f"16a: request {len(dcops) * j}: card "
+                                 f"and CPU differ")
+    text = format_summary(summarize(load_trace(trace)))
+    head = f"service: {SERVE_CLIENTS} requests / {dispatches} dispatches"
+    if head not in text:
+        raise AssertionError(f"16a: trace-summary lacks {head!r}")
+    lat_sorted = sorted(lat)
+    phases = {k: statistics.median(r["phases"][k] for r in got)
+              for k in got[0]["phases"]}
+    emit("16a", "serve-coloring10k-maxsum-C32", clients=SERVE_CLIENTS,
+         rounds=SERVE_ROUNDS, ticks=stats["ticks"], dispatches=dispatches,
+         occupancy=occupancy, pad_instances=padded,
+         requests_per_s=SERVE_CLIENTS / wall, wall_seconds=wall,
+         client_latency_p50_s=lat_sorted[len(lat) // 2],
+         client_latency_p99_s=lat_sorted[min(len(lat) - 1,
+                                             round(0.99 * (len(lat) - 1)))],
+         phases_median_s=phases, launches=launches,
+         sequential_solve_compiled_seconds=seq_wall,
+         sequential_compile_seconds=compile_s,
+         cache_entry_bytes=entry_bytes,
+         full_cache_bytes=256 * entry_bytes,
+         solo_equal=True, card_equals_cpu_subset=len(cpu),
+         cpu_subset_seconds=cpu_s, seconds=time.perf_counter() - t_cell,
+         trace_summary=head, best_costs=sorted(r["cost"] for r in got)[:4])
+    return got, launches
+
+
+def sensor_values(k, n_sensors):
+    """Follow-up k's set_values: 50 sensors, a window moving by 50."""
+    lo = (50 * (k - 1)) % n_sensors
+    return {f"s{(lo + j) % n_sensors}": 1 + (k % 2) for j in range(50)}
+
+
+def maxsum_session(torch, svc_dev, dcop, n_sensors):
+    """One Max-Sum session (segment 1, then 4 follow-ups) through a
+    service on ``svc_dev``; returns the results and the counters."""
+    from pydcop_tpu_torch import telemetry
+    from pydcop_tpu_torch.engine.service import SolverService
+
+    with telemetry.session() as tel:
+        with SolverService(pad_policy="pow2", max_batch=1, max_wait=0.0,
+                           device=svc_dev) as svc:
+            outs = [serve_solve(svc, dcop, "maxsum", SERVE_PARAMS,
+                                rounds=SESSION_ROUNDS,
+                                chunk_size=SERVE_CHUNK, session="plant")]
+            for k in range(1, 5):
+                outs.append(serve_solve(
+                    svc, None, "maxsum", SERVE_PARAMS, rounds=SESSION_ROUNDS,
+                    chunk_size=SERVE_CHUNK, session="plant",
+                    set_values=sensor_values(k, n_sensors)))
+        counters = service_counters(tel)
+    return outs, counters
+
+
+def delta_tree_dcop(n_hubs, n_leaves, seed):
+    """``tools/recompile_guard.py:_build_delta_tree`` with the port's
+    model objects: a chain of ``n_hubs`` binary hubs, each with
+    ``n_leaves`` leaves, random 2x2 tables, and one external ``e0``
+    driving a tracking constraint on the last leaf."""
+    import random
+
+    import numpy as np
+
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        AgentDef,
+        Domain,
+        ExternalVariable,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    rnd = random.Random(seed)
+    dcop = DCOP(f"delta_tree_{n_hubs}x{n_leaves}_{seed}")
+    dom = Domain("b", "", [0, 1])
+    ext = ExternalVariable("e0", dom, value=0)
+    dcop.add_variable(ext)
+
+    def m22():
+        return np.array([[rnd.uniform(0.0, 1.0) for _ in range(2)]
+                         for _ in range(2)])
+
+    prev = track = None
+    for h in range(n_hubs):
+        hv = Variable(f"h{h}", dom)
+        dcop.add_variable(hv)
+        if prev is not None:
+            dcop.add_constraint(
+                NAryMatrixRelation([prev, hv], m22(), name=f"ch{h}"))
+        for leaf in range(n_leaves):
+            lv = Variable(f"x{h}_{leaf}", dom)
+            dcop.add_variable(lv)
+            dcop.add_constraint(
+                NAryMatrixRelation([hv, lv], m22(), name=f"c{h}_{leaf}"))
+            track = lv
+        prev = hv
+    dcop.add_constraint(NAryMatrixRelation([track, ext], m22(),
+                                           name="track"))
+    dcop.add_agents([AgentDef("a0")])
+    return dcop
+
+
+def dpop_session(torch, svc_dev, dcop, memo_bytes):
+    """The exact session through a service: segment 1 and DELTA_STEPS
+    one-delta follow-ups toggling ``e0``.  Returns the results, the
+    per-delta milliseconds and the counters of each segment."""
+    from pydcop_tpu_torch import telemetry
+    from pydcop_tpu_torch.engine.service import SolverService
+
+    params = {"util_device": "always"}
+    outs, ms, counters = [], [], []
+    with SolverService(pad_policy="pow2", max_batch=1, max_wait=0.0,
+                       session_memo_bytes=memo_bytes,
+                       device=svc_dev) as svc:
+        for k in range(DELTA_STEPS + 1):
+            with telemetry.session() as tel:
+                t0 = time.perf_counter()
+                outs.append(serve_solve(
+                    svc, dcop if k == 0 else None, "dpop", params,
+                    session="tree",
+                    set_values=None if k == 0 else {"e0": k % 2}))
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counters.append(service_counters(tel))
+    return outs, ms, counters
+
+
+def serve_sessions(torch, mk, dev):
+    """16b (see the module docstring).  Returns the launches of its card
+    Max-Sum session."""
+    import copy
+
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.engine.memo import InferSession
+
+    cpu = torch.device("cpu")
+    # 1. the Max-Sum session on phase 14's sensor coloring
+    t_cell = t0 = time.perf_counter()
+    dcop, _cap = sensor_coloring_dcop(**DYN_SIZE)
+    build_s = time.perf_counter() - t0
+    n_sensors = DYN_SIZE["n_sensors"]
+    torch.cuda.synchronize()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    card, card_c = maxsum_session(torch, dev, dcop, n_sensors)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(mk.launches)
+    if (card_c.get("compile.full"), card_c.get("compile.incremental")) != (
+            1, 4):
+        raise AssertionError(f"16b: compile counters {card_c}")
+    if [r["segment"] for r in card] != [1, 2, 3, 4, 5]:
+        raise AssertionError("16b: session segments out of order")
+    want = 5 * SESSION_ROUNDS
+    if (launches["factor_round_binary"], launches["q_update"],
+            launches["factor_round_binary_shared"]) != (want, want, 0):
+        raise AssertionError(f"16b: launches {launches}")
+    t0 = time.perf_counter()
+    fresh = copy.deepcopy(dcop)
+    for k, r in enumerate(card):
+        if k:
+            for name, v in sensor_values(k, n_sensors).items():
+                fresh.external_variables[name].value = v
+        f = solve(fresh, "maxsum", SERVE_PARAMS, rounds=SESSION_ROUNDS,
+                  chunk_size=SERVE_CHUNK, pad_policy="pow2", device=dev)
+        f.pop("telemetry")
+        if serve_strip(r) != {**serve_strip(f), "session": "plant",
+                              "segment": k + 1}:
+            raise AssertionError(f"16b: segment {k + 1} differs from a "
+                                 f"fresh solve")
+    fresh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_r, cpu_c = maxsum_session(torch, cpu, dcop, n_sensors)
+    cpu_s = time.perf_counter() - t0
+    if [serve_strip(r) for r in cpu_r] != [serve_strip(r) for r in card]:
+        raise AssertionError("16b: the session differs card and CPU")
+    if cpu_c != card_c:
+        raise AssertionError(f"16b: counters differ: {card_c} {cpu_c}")
+    emit("16b", "serve-sessions-maxsum-sensors10k", segments=5,
+         rounds=SESSION_ROUNDS, build_seconds=build_s,
+         card_seconds=card_s, cpu_seconds=cpu_s, fresh_seconds=fresh_s,
+         seconds=time.perf_counter() - t_cell, compile={
+             k: v for k, v in card_c.items() if k.startswith("compile.")},
+         launches=launches, fresh_equal=True, card_equals_cpu=True,
+         costs=[r["cost"] for r in card])
+
+    # 2. the exact DPOP session on the delta tree, memo on and off
+    t_cell = time.perf_counter()
+    tree = delta_tree_dcop(*DELTA_TREE)
+    nodes = len(tree.variables)
+    on, on_ms, on_c = dpop_session(torch, dev, tree, 64 << 20)
+    off, off_ms, _ = dpop_session(torch, dev, tree, 0)
+    cpu_on, cpu_ms, cpu_c = dpop_session(torch, cpu, tree, 64 << 20)
+    for k, (a, b, c) in enumerate(zip(on, off, cpu_on)):
+        if (a["assignment"], a["cost"]) != (b["assignment"], b["cost"]):
+            raise AssertionError(f"16b: delta {k}: memo on != memo off")
+        if serve_strip(a) != serve_strip(c):
+            raise AssertionError(f"16b: delta {k}: card != CPU")
+    if on_c != cpu_c:
+        raise AssertionError("16b: DPOP session counters card != CPU")
+    recon = [c.get("engine.memo_recontractions", 0) for c in on_c[1:]]
+    if max(recon) > INCR_MAX_FRACTION * nodes or min(
+            c.get("engine.memo_hits", 0) for c in on_c[1:]) < 1:
+        raise AssertionError(f"16b: re-contractions {recon} of {nodes}")
+    emit("16b", "serve-sessions-dpop-delta-tree", nodes=nodes,
+         deltas=DELTA_STEPS, memo_recontractions=recon,
+         memo_hits=[c.get("engine.memo_hits", 0) for c in on_c[1:]],
+         card_memo_ms=on_ms, card_memo_off_ms=off_ms, cpu_memo_ms=cpu_ms,
+         util_dispatches=[r["util_dispatches"] for r in on],
+         memo_equals_off=True, card_equals_cpu=True,
+         seconds=time.perf_counter() - t_cell)
+
+    # 3. InferSession (log_z, map) on the tree against fresh sessions
+    t_cell = time.perf_counter()
+    rows = {}
+    for query in ("log_z", "map"):
+        s = InferSession(tree, query, device="always", pad_policy="pow2",
+                         torch_device=dev)
+        ms = []
+        for k in range(3):
+            t0 = time.perf_counter()
+            s.set_values({"e0": k % 2})
+            r = s.solve()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            f = InferSession(tree, query, device="always",
+                             pad_policy="pow2", torch_device=dev)
+            f.set_values({"e0": k % 2})
+            w = f.solve()
+            if query == "map":
+                if (r["assignment"], r["cost"]) != (w["assignment"],
+                                                    w["cost"]):
+                    raise AssertionError(f"16b: infer map delta {k}")
+            elif abs(r["log_z"] - w["log_z"]) > (
+                    r["error_bound"] + w["error_bound"] + 1e-9):
+                raise AssertionError(f"16b: infer log_z delta {k}: "
+                                     f"{r['log_z']} {w['log_z']}")
+        rows[query] = dict(ms=ms, memo=r["memo"])
+    emit("16b", "serve-sessions-infer-delta-tree", nodes=nodes, **rows,
+         seconds=time.perf_counter() - t_cell)
+    return launches
+
+
+def sensor_json(n_vars, n_sensors):
+    """A sensor coloring as JSON text (a subset of YAML: ``load_dcop``
+    reads it through PyYAML): phase 9's coloring edges as intention
+    constraints and ``n_sensors`` tracked external sensors."""
+    base = coloring_dcop(n_vars, colors=3, degree=3, seed=1)
+    doc = {
+        "name": f"sensor_coloring_{n_vars}", "objective": "min",
+        "domains": {"colors": {"values": [0, 1, 2]}},
+        "variables": {v: {"domain": "colors"} for v in base.variables},
+        "external_variables": {
+            f"s{k}": {"domain": "colors", "initial_value": 0}
+            for k in range(n_sensors)},
+        "constraints": {},
+        "agents": ["a0"],
+    }
+    for c in base.constraints.values():
+        a, b = c.scope_names
+        doc["constraints"][c.name] = {
+            "type": "intention", "function": f"1 if {a} == {b} else 0"}
+    step = n_vars // n_sensors
+    for k in range(n_sensors):
+        doc["constraints"][f"track_{k}"] = {
+            "type": "intention",
+            "function": f"0 if v{k * step} == s{k} else 1"}
+    # indented: the service reads a string with a newline as text
+    return json.dumps(doc, indent=1)
+
+
+def serve_recovery(torch, mk, dev, base, c32):
+    """16c (see the module docstring).  Returns the launches of its card
+    runs: the one-instance runs' and the chaos tick's."""
+    import threading
+
+    from pydcop_tpu_torch import telemetry
+    from pydcop_tpu_torch.engine.service import SolverService
+    from pydcop_tpu_torch.telemetry import export, flightrec
+
+    single, batched = {}, {}
+
+    def add(into, got):
+        for k, v in got.items():
+            into[k] = into.get(k, 0) + v
+
+    # checkpoint on close(), replay under resume=True, against an
+    # undisturbed service that saw the same segments
+    t_cell = time.perf_counter()
+    text = sensor_json(RECOVERY_VARS, 20)
+    ck = str(Path(base) / "sessions.json")
+    kw = dict(rounds=SESSION_ROUNDS, chunk_size=SERVE_CHUNK,
+              session="plant")
+    deltas = [{"s1": 2}, {"s2": 1, "s3": 2}]
+    mk.reset_launches()
+    undisturbed = SolverService(max_batch=1, max_wait=0.0, device=dev)
+    try:
+        with SolverService(max_batch=1, max_wait=0.0,
+                           session_checkpoint=ck, device=dev) as svc:
+            for sv in [None] + deltas:
+                for s in (svc, undisturbed):
+                    serve_solve(s, None if sv else text, "maxsum",
+                                SERVE_PARAMS, set_values=sv, **kw)
+        want = serve_solve(undisturbed, None, "maxsum", SERVE_PARAMS,
+                           set_values={"s4": 1}, **kw)
+    finally:
+        undisturbed.close()
+    entry = json.load(open(ck))["sessions"]
+    if [e["name"] for e in entry] != ["plant"] or entry[0]["deltas"] != (
+            deltas):
+        raise AssertionError(f"16c: checkpoint {entry}")
+    with telemetry.session() as tel:
+        r = SolverService(max_batch=1, max_wait=0.0, session_checkpoint=ck,
+                          resume=True, device=dev)
+        try:
+            replay = service_counters(tel)
+            got = serve_solve(r, None, "maxsum", SERVE_PARAMS,
+                              set_values={"s4": 1}, **kw)
+        finally:
+            r.close()
+        after = service_counters(tel)
+    add(single, mk.launches)
+    follow = {k: after.get(k, 0) - replay.get(k, 0)
+              for k in ("compile.full", "compile.incremental")}
+    if (replay.get("compile.full"), replay.get("compile.incremental")) != (
+            1, len(deltas)) or follow != {"compile.full": 0,
+                                          "compile.incremental": 1}:
+        raise AssertionError(f"16c: replay {replay}, follow-up {follow}")
+    if serve_strip(got) != serve_strip(want) or got["segment"] != 4:
+        raise AssertionError("16c: the resumed follow-up differs from the "
+                             "undisturbed service's")
+    emit("16c", "serve-recovery-resume", sessions_restored=1,
+         replay_compiles={k: v for k, v in replay.items()
+                          if k.startswith("compile.")},
+         follow_up_compiles=follow, segment=got["segment"],
+         equals_undisturbed=True, seconds=time.perf_counter() - t_cell)
+
+    # nan_inject on a tick of 8 (the first DCOP, seeds 0-7: one group):
+    # the named request quarantined, its batchmates equal to 16a's
+    # fault-free results (16a's request 4j); the flight dump
+    t_cell = time.perf_counter()
+    dump = str(Path(base) / "flight.json")
+    dcops = c32["dcops"]
+    mk.reset_launches()
+    with telemetry.session():
+        with SolverService(pad_policy="pow2", max_batch=8, max_wait=5.0,
+                           chaos="nan_inject=1:3", chaos_seed=0,
+                           flight_dump=dump, device=dev) as svc:
+            pend = [svc.submit(dcops[0], "maxsum", SERVE_PARAMS,
+                               rounds=SERVE_ROUNDS, chunk_size=SERVE_CHUNK,
+                               seed=j) for j in range(8)]
+            res = [p.result(SERVE_WAIT) for p in pend]
+            doc = flightrec.load_dump(dump)
+    add(batched, mk.launches)
+    bad = [j for j, x in enumerate(res) if x["status"] == "degraded"]
+    if len(bad) != 1:
+        raise AssertionError(f"16c: degraded {bad}")
+    for j, x in enumerate(res):
+        if j not in bad and serve_strip(x) != serve_strip(
+                c32["got"][len(dcops) * j]):
+            raise AssertionError(f"16c: batchmate {j} differs from the "
+                                 f"fault-free run")
+    if doc["trigger"] != "quarantine" or doc["trace_id"] != res[bad[0]][
+            "trace"]:
+        raise AssertionError(f"16c: flight dump {doc['trigger']} "
+                             f"{doc['trace_id']}")
+
+    # the exporter: one scrape, then /healthz during a drain
+    mk.reset_launches()
+    with telemetry.session() as tel:
+        svc = SolverService(max_batch=1, max_wait=0.0, device=dev)
+        ex = export.MetricsExporter(tel.metrics.snapshot, svc.health)
+        try:
+            serve_solve(svc, dcops[0], "maxsum", SERVE_PARAMS, rounds=16)
+            addr = "http://%s:%d" % ex.address
+            scraped = export.parse_prometheus_text(
+                export.http_get(addr + "/metrics"))
+            if scraped["pydcop_service_requests_total"] != (
+                    tel.metrics.snapshot()["counters"]["service.requests"]):
+                raise AssertionError("16c: scraped requests differ")
+            long = svc.submit(dcops[1], "maxsum", SERVE_PARAMS,
+                              rounds=4 * SERVE_ROUNDS)
+            closer = threading.Thread(target=svc.close, daemon=True)
+            seen = set()
+            closer.start()
+            deadline = time.perf_counter() + SERVE_WAIT
+            while closer.is_alive() and time.perf_counter() < deadline:
+                seen.add(json.loads(export.http_get(
+                    addr + "/healthz"))["status"])
+                time.sleep(0.005)
+            closer.join(SERVE_WAIT)
+            long.result(SERVE_WAIT)
+            seen.add(json.loads(export.http_get(addr + "/healthz"))[
+                "status"])
+        finally:
+            svc.close()
+            ex.close()
+    add(single, mk.launches)
+    if "draining" not in seen or "drained" not in seen:
+        raise AssertionError(f"16c: /healthz read {sorted(seen)}")
+    emit("16c", "serve-recovery-chaos-exporter", quarantined=bad,
+         batchmates_equal=True, flight_trigger=doc["trigger"],
+         flight_trace=doc["trace_id"], flight_records=len(doc["records"]),
+         scraped_requests=scraped["pydcop_service_requests_total"],
+         healthz=sorted(seen), seconds=time.perf_counter() - t_cell)
+    return single, batched
+
+
+def serve_wire(torch, dev, dcops):
+    """16d (see the module docstring)."""
+    import socket
+
+    from pydcop_tpu_torch.engine.service import (
+        ServiceClient,
+        ServiceServer,
+        SolverService,
+    )
+
+    t_cell = time.perf_counter()
+    with SolverService(max_batch=1, max_wait=0.0, device=dev) as svc:
+        server = ServiceServer(svc)
+        try:
+            with ServiceClient(server.address, timeout=60) as c:
+                if not c.ping():
+                    raise AssertionError("16d: ping")
+                stats = c.stats()
+                closed = c.close_session("nope")
+                text = sensor_json(200, 4)
+                r = c.solve(text, "maxsum", SERVE_PARAMS, rounds=32)
+                if r["status"] != "finished":
+                    raise AssertionError(f"16d: wire solve {r['status']}")
+                with socket.create_connection(server.address,
+                                              timeout=60) as s:
+                    rd = s.makefile("rb")
+                    s.sendall(b"{not json\n")
+                    err = json.loads(rd.readline())
+                    s.sendall(b'{"op": "ping", "id": 1}\n')
+                    alive = json.loads(rd.readline())
+                if not err.get("frame_rejected") or not alive.get("pong"):
+                    raise AssertionError(f"16d: {err} {alive}")
+                t0 = time.perf_counter()
+                c.shutdown()
+            if not server.wait(30):
+                raise AssertionError("16d: shutdown did not stop the "
+                                     "server within 30 s")
+            shut_s = time.perf_counter() - t0
+        finally:
+            server.close()
+    emit("16d", "serve-wire", seconds=time.perf_counter() - t_cell,
+         ping=True, stats_keys=len(stats),
+         close_session=closed, json_solve_cost=r["cost"],
+         malformed_error=err["error"], link_survived=True,
+         shutdown_seconds=shut_s,
+         frames_rejected=svc.stats()["frames_rejected"])
+
+
+def serve_phase(torch, mk, dev, card):
+    """Phase 16 (see the module docstring).  Returns the launches of its
+    card runs by kernel entry."""
+    import tempfile
+
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dcops = [coloring_dcop(SERVE_VARS, 3, 3, seed=s) for s in SERVE_SEEDS]
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=HERE) as base:
+        got, c32_launches = serve_c32(torch, mk, dev, dcops, base)
+        session_launches = serve_sessions(torch, mk, dev)
+        rec_single, rec_batched = serve_recovery(
+            torch, mk, dev, base, {"dcops": dcops, "got": got})
+        serve_wire(torch, dev, dcops)
+    emit("16", "phase", seconds=time.perf_counter() - t_phase,
+         build_seconds=build_s)
+    return {
+        # group dispatches (16a, 16c's chaos tick): the batched instances
+        "factor_round_binary.batched_instances": c32_launches[
+            "factor_round_binary"] + rec_batched.get("factor_round_binary",
+                                                     0),
+        "q_update.batched_instances_pow2": c32_launches["q_update"]
+        + rec_batched.get("q_update", 0),
+        # sessions and one-request ticks, one instance a run
+        **{k: session_launches.get(k, 0) + rec_single.get(k, 0)
+           for k in ("factor_round_binary", "q_update")},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -5186,7 +5872,12 @@ def main() -> int:
                         MAIN_PATH_RATES.get("coloring-10k"))
     print(f"phase 15 seconds={time.perf_counter() - t15}")
 
-    # -- 16. summary ------------------------------------------------------
+    # -- 16. serving ------------------------------------------------------
+    t16 = time.perf_counter()
+    vcounts = serve_phase(torch, mk, dev, card)
+    print(f"phase 16 seconds={time.perf_counter() - t16}")
+
+    # -- 17. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -5219,7 +5910,8 @@ def main() -> int:
             name=entry, route="cuda", source=SOURCE,
             replaces=KERNELS[name],
             launches=launched + scounts.get(entry, 0)
-            + dcounts.get(entry, 0) + ccounts.get(entry, 0),
+            + dcounts.get(entry, 0) + ccounts.get(entry, 0)
+            + vcounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),
@@ -5233,7 +5925,7 @@ def main() -> int:
             name=entry, route="cuda", source=SOURCE,
             replaces=KERNELS[row["kernel"]],
             launches=bcounts[entry] + scounts.get(entry, 0)
-            + ccounts.get(entry, 0),
+            + ccounts.get(entry, 0) + vcounts.get(entry, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,

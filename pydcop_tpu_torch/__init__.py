@@ -13,8 +13,11 @@ MGM-2, DBA, GDBA), and parallel restarts for the local-search family.
   CUDA Max-Sum kernels (``ops/maxsum_kernels.py`` + ``csrc/``).
 - ``pydcop_tpu_torch.algorithms`` — the registry and the algorithms.
 - ``pydcop_tpu_torch.engine`` — the chunked batched round loop (with
-  the restart axis).
-- ``pydcop_tpu_torch.api`` — ``solve`` / ``solve_compiled``.
+  the restart axis), the memoized exact sessions and the solver service
+  (``engine/service.py``: ``SolverService``, ``ServiceServer``,
+  ``ServiceClient``).
+- ``pydcop_tpu_torch.api`` — ``solve`` / ``solve_compiled`` and the
+  rest of the embedding API, with the service's names.
 - ``pydcop_tpu_torch.interop`` — builds the port's objects from numpy
   leaves (how tests hand the JAX package's state across).
 

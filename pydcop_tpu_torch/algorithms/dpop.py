@@ -162,10 +162,16 @@ def _align(table: np.ndarray, dims: Sequence[str], target: Sequence[str]):
     return t.reshape(shape)
 
 
-def _prepare_instance(dcop):
+def _prepare_instance(dcop, provenance: Optional[dict] = None):
     """Host-side problem setup: the pseudo-tree, per-variable domains and
     depths, and constraint ownership (each constraint owned by the
-    deepest variable of its scope; external variables sliced out)."""
+    deepest variable of its scope; external variables sliced out).
+
+    ``provenance`` (optional out-param) records, per external-scoped
+    constraint name, the ``(owner, index)`` slot its sliced table landed
+    in inside ``owned`` — the hook
+    :class:`~pydcop_tpu_torch.engine.memo.ExactSession` uses to
+    re-tabulate only the constraints a ``set_values`` delta touched."""
     sign = -1.0 if dcop.objective == "max" else 1.0
 
     graph = _pt.build_computation_graph(dcop)
@@ -193,6 +199,7 @@ def _prepare_instance(dcop):
             )
             owned[v.name].append(([v.name], costs))
     for c in dcop.constraints.values():
+        cname = c.name
         scope_ext = [n for n in c.scope_names if n in ext_values]
         if scope_ext:
             c = c.slice({n: ext_values[n] for n in scope_ext})
@@ -202,6 +209,8 @@ def _prepare_instance(dcop):
         m = c.as_matrix()
         table = sign * np.asarray(m.matrix, dtype=np.float64)
         owner = max(scope, key=lambda n: depth[n])
+        if provenance is not None and scope_ext:
+            provenance[cname] = (owner, len(owned[owner]))
         owned[owner].append((scope, table))
     return graph, domains, depth, owned
 
@@ -636,6 +645,13 @@ class _UtilInstance(NamedTuple):
     # branch-and-bound pruning mode (algo param bnb); joins the bucket
     # key too, so a pruned kernel never runs an unpruned instance
     bnb: str = "off"
+    # subtree-fingerprint message memo (engine/memo.py SweepMemoView, or
+    # None): fingerprint-unchanged nodes reinstall their stored UTIL
+    # message instead of re-contracting — the serving delta path
+    memo: Any = None
+    # previous solution as {var: domain index}: seeds the bnb incumbent,
+    # so a warm re-solve prunes at least as hard as the cold one
+    bnb_seed: Any = None
 
 
 def _util_phase(
@@ -831,8 +847,14 @@ def _util_phase_multi(
             {n: list(inst.graph.node(n).children) for n in names_pre},
             table_dtype=inst.table_dtype,
         )
+        if inst.bnb_seed is not None:
+            # warm re-solve: the previous solution under the post-delta
+            # tables is a valid incumbent (it IS an assignment), adopted
+            # when it beats the greedy one
+            ctxs[k].seed_incumbent(inst.owned, inst.bnb_seed)
 
-    def finish(k, name, node, sep, u, amin):
+    def finish(k, name, node, sep, u, amin, exact=True, budget_used=None,
+               bmeta=None):
         # min-normalize the outgoing table (either path): argmin
         # decisions are shift-invariant, the final cost comes from
         # solution_cost(assignment), and keeping UTIL values at the
@@ -842,16 +864,39 @@ def _util_phase_multi(
         # and hard constraints hold exact ±inf, not a rounding scale).
         best_choice[k][name] = (sep, amin)
         sh = 0.0
+        mag = 0.0
         if node.parent is not None:
             if u.size:
                 mn = u.min()
                 if np.isfinite(mn):
                     sh = float(mn)
                     u = u - mn
-            utils[k][name] = (sep, u, _semiring._finite_amax(u))
+            mag = _semiring._finite_amax(u)
+            utils[k][name] = (sep, u, mag)
             util_cells[k] += u.size
         if ctxs[k] is not None:
             ctxs[k].record_shift(name, sh, node.children)
+        memo = insts[k].memo
+        if memo is not None:
+            # a budget-pruned message (exact=False) is reusable only
+            # under budget DOMINANCE next solve: store the budget used
+            # and the metadata that recomputes the comparable budget.
+            # Views into stack buffers are detached so an entry never
+            # pins a whole level stack.
+            mu = u if node.parent is not None else None
+            if mu is not None and mu.base is not None:
+                mu = mu.copy()
+            ma = amin
+            if isinstance(ma, np.ndarray) and ma.base is not None:
+                ma = ma.copy()
+            memo.store(
+                name,
+                (
+                    sep, mu, mag, ma, sh, bool(exact),
+                    None if budget_used is None else float(budget_used),
+                    bmeta,
+                ),
+            )
 
     def note_pruned(keep, d_own, counted):
         """The pruned join cells of a keep mask, added to the running
@@ -894,6 +939,37 @@ def _util_phase_multi(
             inst = insts[k]
             domains = inst.domains
             node = inst.graph.node(name)
+            if inst.memo is not None:
+                payload = inst.memo.lookup(name)
+                if payload is not None:
+                    (msep, mu, mmag, mamin, msh, mexact,
+                     mbud, mbmeta) = payload
+                    ok = mexact
+                    if (
+                        not ok
+                        and ctxs[k] is not None
+                        and mbud is not None
+                        and mbmeta is not None
+                    ):
+                        # budget dominance: rows pruned last solve had a
+                        # bound over the stored budget; under a budget
+                        # no larger they are still provably dead
+                        cur = ctxs[k].budget(
+                            name, ctxs[k].shift_under(node.children),
+                            *mbmeta,
+                        )
+                        ok = cur <= mbud
+                    if ok:
+                        # subtree fingerprint unchanged: every part of
+                        # the subtree, and so the message, is
+                        # bit-identical — reinstall it, skip the join
+                        best_choice[k][name] = (msep, mamin)
+                        if node.parent is not None:
+                            utils[k][name] = (msep, mu, mmag)
+                        if ctxs[k] is not None:
+                            ctxs[k].record_shift(name, msh, node.children)
+                        inst.memo.mark_hit()
+                        continue
             # effective separator: ancestors referenced by own relations
             # or children's separators.  Owned relations are PRE-SUMMED
             # into one exact f64 part (the same join, left-associated
@@ -1045,11 +1121,18 @@ def _util_phase_multi(
                             int(np.prod(shape0)) * n_rows, pass2="host",
                         )
                         for r, (item, _) in enumerate(entries):
-                            k, name, node, sep, _t, shape = item[:6]
+                            (k, name, node, sep, _t, shape, parts,
+                             sum_max_abs, _budget) = item
                             host_nodes[k] += 1
                             finish(
                                 k, name, node, sep, u_b[r],
                                 amin_b[r:r + 1].reshape(tuple(shape[:-1])),
+                                exact=(
+                                    _budget is None
+                                    or bool(keep_b[r].all())
+                                ),
+                                budget_used=_budget,
+                                bmeta=_bmeta(parts, sum_max_abs, shape),
                             )
                         continue
                 fn = _semiring.contraction_kernel(
@@ -1154,10 +1237,20 @@ def _util_phase_multi(
                 for r, (item, aligned) in enumerate(entries):
                     if r in redone:
                         continue
-                    k, name, node, sep, target, shape = item[:6]
+                    (k, name, node, sep, target, shape, parts,
+                     sum_max_abs, _budget) = item
                     amin_r = amin_b[r:r + 1].reshape(tuple(shape[:-1]))
                     device_nodes[k] += 1
-                    finish(k, name, node, sep, u_b[r], amin_r)
+                    finish(
+                        k, name, node, sep, u_b[r], amin_r,
+                        exact=(
+                            keep_b is None
+                            or _budget is None
+                            or bool(keep_b[r].all())
+                        ),
+                        budget_used=_budget,
+                        bmeta=_bmeta(parts, sum_max_abs, shape),
+                    )
                 continue
 
             # per-node dispatches: util_batch='node', singleton buckets,
@@ -1198,7 +1291,12 @@ def _util_phase_multi(
                             int(np.prod(shape)), pass2="host",
                         )
                         host_nodes[k] += 1
-                        finish(k, name, node, sep, u[0], amin[0])
+                        finish(
+                            k, name, node, sep, u[0], amin[0],
+                            exact=bool(keep_r.all()),
+                            budget_used=budget,
+                            bmeta=_bmeta(parts, sum_max_abs, shape),
+                        )
                         continue
                 if pad.enabled:
                     aligned = pad_util_parts(aligned, shape, pshape)
@@ -1250,7 +1348,12 @@ def _util_phase_multi(
                 _semiring.note_precision_repairs(met, bucket_dt, n_bad)
                 u = _exact_u_at(parts, target, shape, amin, keep_r)
                 device_nodes[k] += 1
-                finish(k, name, node, sep, u, amin)
+                finish(
+                    k, name, node, sep, u, amin,
+                    exact=keep_r is None or bool(keep_r.all()),
+                    budget_used=budget,
+                    bmeta=_bmeta(parts, sum_max_abs, shape),
+                )
     return [
         (
             best_choice[k], util_cells[k], device_nodes[k],
@@ -1258,6 +1361,13 @@ def _util_phase_multi(
         )
         for k in range(K)
     ]
+
+
+def _bmeta(parts, sum_max_abs, shape) -> tuple:
+    """The budget metadata a memoized pruned message stores: the
+    ``_BnbContext.budget`` arguments after the shift, so a later solve
+    recomputes the comparable budget."""
+    return (len(parts), sum_max_abs, shape[-1], int(np.prod(shape[:-1])))
 
 
 def _exact_u_stack(bufs, part_shapes, shape0, amin_b, keep_b):

@@ -54,18 +54,37 @@ Every call runs under a supervisor of its own
 ``on_numeric_fault`` and the device-layer ``chaos`` kinds on ``solve``
 and ``solve_many``, ``retry_budget`` on ``infer`` and ``infer_many``.
 
+``SolverService``, ``ServiceClient`` and ``ServiceError`` (the
+continuous-batching solver service, ``engine/service.py``) load on first
+use; importing this module loads no torch.
+
 Not ported yet: the other execution modes (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Optional, Sequence, Union
 
 from pydcop_tpu_torch.algorithms import (
     load_algorithm_module,
     prepare_algo_params,
 )
-from pydcop_tpu_torch.device import DeviceLike, resolve_device
+
+if TYPE_CHECKING:
+    from pydcop_tpu_torch.device import DeviceLike
+
+# The solver-service surface re-exports lazily, and nothing above loads
+# torch: ``api.ServiceClient`` is a pure-socket client that a process
+# without torch can use against a remote ``serve``.
+_SERVICE_EXPORTS = ("ServiceClient", "ServiceError", "SolverService")
+
+
+def __getattr__(name):
+    if name in _SERVICE_EXPORTS:
+        from pydcop_tpu_torch.engine import service as _service
+
+        return getattr(_service, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def solve(
@@ -300,6 +319,8 @@ def _solve_supervised(
     chunk_size, checkpoint_path, checkpoint_every, resume, n_restarts,
     pad_policy, device, max_util_bytes, bnb, table_dtype, table_format,
 ) -> Dict[str, Any]:
+    from pydcop_tpu_torch.device import resolve_device
+
     dev = resolve_device(device)
     if isinstance(dcop, (str, list, tuple)):
         from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
@@ -448,6 +469,7 @@ def _solve_many(
 ) -> list:
     import time as _time
 
+    from pydcop_tpu_torch.device import resolve_device
     from pydcop_tpu_torch.ops.padding import as_pad_policy
 
     dcops = list(dcops)
@@ -735,6 +757,7 @@ def infer_many(
     block.  Keywords as in :func:`infer`."""
     import time as _time
 
+    from pydcop_tpu_torch.device import resolve_device
     from pydcop_tpu_torch.engine.supervisor import (
         make_supervisor,
         supervision,

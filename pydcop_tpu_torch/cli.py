@@ -3,7 +3,8 @@
 The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
 under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``, ``run``,
 ``graph``, ``distribute``, ``generate``, ``batch``, ``consolidate``,
-``replica_dist`` and ``trace-summary``.  The global options (``-v``,
+``replica_dist``, ``serve``, ``top``, ``trace-summary`` and
+``flight-dump``.  The global options (``-v``,
 ``--log``, ``-t``/``--timeout``, ``--output``) are accepted before and
 after the subcommand, as in the JAX package.  The commands that touch
 the card take ``--device`` (``--torch_device`` on ``infer``, whose
@@ -28,8 +29,14 @@ COMMANDS = [
     "batch",
     "consolidate",
     "replica_dist",
+    # resident continuous-batching solver service
+    "serve",
+    # live terminal view of a serve --metrics_port exporter
+    "top",
     # module trace_summary registers the subcommand as `trace-summary`
     "trace_summary",
+    # module flight_dump registers the subcommand as `flight-dump`
+    "flight_dump",
 ]
 
 

@@ -1605,6 +1605,7 @@ def build_plan(
     deadline: Optional[float] = None,
     max_vars: Optional[Sequence[str]] = None,
     external_dists: Optional[Mapping[str, Mapping[Any, float]]] = None,
+    provenance: Optional[dict] = None,
 ) -> ContractionPlan:
     """Build the contraction plan for one DCOP under an elimination
     order heuristic.  Tables are extracted once as f64 energies
@@ -1615,7 +1616,14 @@ def build_plan(
     ``max_vars`` (marginal MAP) constrains both heuristics to a two-block
     order and sets ``node_semiring``; ``external_dists`` (expectation)
     maps external names to ``{value: prob}``: those externals join the
-    plan as summed variables with a log-probability part."""
+    plan as summed variables with a log-probability part.
+
+    ``provenance`` (optional out-param) records, per external-scoped
+    constraint name, where its sliced table landed: ``(owner, index)``
+    into ``plan.buckets[owner]``, or ``("const",)`` when the slice
+    folded into ``const_energy`` — the hook
+    :class:`~pydcop_tpu_torch.engine.memo.InferSession` re-tabulates
+    a ``set_values`` delta through."""
     if order not in ELIMINATION_ORDERS:
         raise ValueError(
             f"unknown elimination order {order!r} (expected one of "
@@ -1682,7 +1690,8 @@ def build_plan(
     else:
         mv = None
 
-    parts: List[Tuple[List[str], np.ndarray]] = []
+    # (scope, table, constraint name when external-scoped)
+    parts: List[Tuple[List[str], np.ndarray, Optional[str]]] = []
     const_energy = 0.0
     for v in dcop.variables.values():
         if v.has_cost:
@@ -1690,8 +1699,9 @@ def build_plan(
                 [sign * v.cost_for_val(x) for x in v.domain.values],
                 dtype=np.float64,
             )
-            parts.append(([v.name], costs))
+            parts.append(([v.name], costs, None))
     for c in dcop.constraints.values():
+        cname = c.name
         scope_ext = [n for n in c.scope_names if n in ext_values]
         if scope_ext:
             c = c.slice({n: ext_values[n] for n in scope_ext})
@@ -1700,13 +1710,15 @@ def build_plan(
         table = sign * np.asarray(m.matrix, dtype=np.float64)
         if not scope:
             const_energy += float(table)
+            if provenance is not None and scope_ext:
+                provenance[cname] = ("const",)
             continue
-        parts.append((scope, table))
+        parts.append((scope, table, cname if scope_ext else None))
 
     if order == "min_fill":
         elim = min_fill_order(
             domains,
-            [s for s, _ in parts] + [s for s, _ in wparts],
+            [s for s, _, _ in parts] + [s for s, _ in wparts],
             deadline=deadline,
             last_block=mv,
         )
@@ -1739,8 +1751,11 @@ def build_plan(
     wbuckets: Dict[str, List[Tuple[List[str], np.ndarray]]] = {
         v: [] for v in elim
     }
-    for scope, table in parts:
-        buckets[min(scope, key=pos.__getitem__)].append((scope, table))
+    for scope, table, cname in parts:
+        owner = min(scope, key=pos.__getitem__)
+        if provenance is not None and cname is not None:
+            provenance[cname] = (owner, len(buckets[owner]))
+        buckets[owner].append((scope, table))
     for scope, table in wparts:
         wbuckets[min(scope, key=pos.__getitem__)].append((scope, table))
     return ContractionPlan(
@@ -1925,6 +1940,7 @@ def contract_sweep(
     timeout: Optional[float] = None,
     on_oom: str = "host",
     bnb: str = "off",
+    memos: Optional[Sequence[Any]] = None,
     table_dtype: str = "f32",
     table_format: str = "dense",
     torch_device: Optional[torch.device] = None,
@@ -1988,6 +2004,14 @@ def contract_sweep(
     ``semiring.bnb_pruned_cells`` count the pruned dispatches and cells,
     and each pruned dispatch records a ``semiring-bnb`` trace event.
 
+    ``memos`` (one ``engine.memo.SweepMemoView`` or None per instance)
+    enables subtree-fingerprint message reuse: a node whose fingerprint
+    is unchanged reinstalls its stored message (separator, shifted
+    values, magnitude, shift, cumulative error bound, args) and is
+    skipped; re-contracted nodes re-store.  An instance that builds a
+    pruning context runs unmemoized (a budget-pruned message depends on
+    the global incumbent, not just the subtree).
+
     Counters: ``semiring.contractions`` per node,
     ``semiring.kbest_merges`` per kbest node, ``semiring.dispatches``
     per device dispatch, ``semiring.cert_fallbacks`` per node redone on
@@ -2029,6 +2053,13 @@ def contract_sweep(
                 continue
             ctxs[k] = plan_bnb_context(p, sr, beta, tol, table_dtype=call_dt)
     bnb_call = any(c is not None for c in ctxs)
+    if memos is not None:
+        # pruning and memoization are exclusive per instance: a pruned
+        # message is not a pure function of its subtree
+        memos = [
+            None if ctxs[k] is not None else m
+            for k, m in enumerate(memos)
+        ]
 
     def table_in(tbl: np.ndarray) -> np.ndarray:
         if sr.kind == "kbest" or (sr.idempotent and not sr.maximize):
@@ -2042,12 +2073,16 @@ def contract_sweep(
                 met.inc("semiring.kbest_merges")
         if want_args and arg is not None:
             sw.args[k][name] = (sep, arg)
+        rootval = None
         if plan.parent[name] is None:
             if sr_n.cell_width > 1:
-                sw.root_cells[k][name] = np.asarray(u, dtype=np.float64)
+                cell = np.asarray(u, dtype=np.float64)
+                sw.root_cells[k][name] = cell
+                rootval = ("cell", cell)
             else:
                 # root: the reduce is a scalar — fold it into the
                 # instance aggregate
+                rootval = ("total", float(u))
                 sw.root_total[k] += float(u)
             if ctxs[k] is not None:
                 ctxs[k].record_shift(name, 0.0, plan.children[name])
@@ -2076,6 +2111,33 @@ def contract_sweep(
                         met.inc("semiring.sparse_packs")
             sw.msgs[k][name] = (sep, u, mag)
             sw.cells[k] += u.size
+        memo = memos[k] if memos is not None else None
+        if memo is not None:
+            # every non-idempotent path sets sw.err[name] BEFORE finish,
+            # so the stored error is the node's CUMULATIVE subtree bound:
+            # a hit re-accounts what the cold solve accounted, and only
+            # dirty-path nodes add new error on a warm delta
+            if rootval is not None:
+                memo.store(
+                    name,
+                    (
+                        sep, None, 0.0, 0.0, sw.args[k].get(name),
+                        sw.err[k].get(name, 0.0), True, rootval,
+                    ),
+                )
+            else:
+                mu = (
+                    u.copy()
+                    if isinstance(u, np.ndarray) and u.base is not None
+                    else u  # owned arrays and immutable packs as-is
+                )
+                memo.store(
+                    name,
+                    (
+                        sep, mu, mag, shift, sw.args[k].get(name),
+                        sw.err[k].get(name, 0.0), False, None,
+                    ),
+                )
 
     def host_contract(sr_n, k, name, plan, sep, target, shape, parts,
                       err_in):
@@ -2152,6 +2214,30 @@ def contract_sweep(
             if mixed:
                 wave_srs.add(sr_n.name)
             cw = sr_n.cell_width
+            memo = memos[k] if memos is not None else None
+            if memo is not None:
+                payload = memo.lookup(name)
+                if payload is not None:
+                    (msep, mu, mmag, mshift, margp, merr, mroot,
+                     mrootval) = payload
+                    # an arg-consuming query cannot hit an entry stored
+                    # without args (an earlier solve of another query)
+                    if not (want_args and margp is None):
+                        sw.seps[k][name] = msep
+                        if margp is not None and want_args:
+                            sw.args[k][name] = margp
+                        if merr:
+                            sw.err[k][name] = merr
+                        if mroot:
+                            if mrootval[0] == "cell":
+                                sw.root_cells[k][name] = mrootval[1]
+                            else:
+                                sw.root_total[k] += mrootval[1]
+                        else:
+                            sw.msgs[k][name] = (msep, mu, mmag)
+                            sw.total_shift[k] += mshift
+                        memo.mark_hit()
+                        continue
             sep = plan.sep_of(name, sw.seps[k])
             sw.seps[k][name] = sep
             target = sep + [name]
@@ -3042,6 +3128,8 @@ def run_infer_many(
     table_dtype: str = "f32",
     table_format: str = "dense",
     torch_device: Optional[torch.device] = None,
+    _plans: Optional[Sequence["ContractionPlan"]] = None,
+    _memos: Optional[Sequence[Any]] = None,
 ) -> List[Dict[str, Any]]:
     """Run one inference query over K instances with their contraction
     sweeps MERGED (same-bucket contractions from different instances
@@ -3072,6 +3160,12 @@ def run_infer_many(
     contractions by branch and bound (:func:`contract_sweep`): map and
     kbest stay exact; the mass queries account the pruned mass into
     ``error_bound``.
+
+    ``_plans`` / ``_memos`` are the private session hooks
+    (``engine/memo.py:InferSession``): pre-built plans skip
+    :func:`build_plan` (the session re-tabulates them in place on
+    deltas) and per-instance memo views flow into
+    :func:`contract_sweep`.
     """
     t0 = time.perf_counter()
     qkind, sr = parse_query(query)
@@ -3116,20 +3210,25 @@ def run_infer_many(
     tracer = get_tracer()
     K = len(dcops)
     deadline = None if timeout is None else t0 + timeout
-    try:
-        plans = [
-            build_plan(
-                d, order=order, deadline=deadline,
-                max_vars=(map_vars if qkind == "marginal_map" else None),
-                external_dists=(
-                    external_dists if qkind == "expectation" else None
-                ),
-            )
-            for d in dcops
-        ]
-    except TimeoutError:
-        # plan construction (the min_fill search) ate the budget
-        return [_timeout_result(query, t0) for _ in range(K)]
+    if _plans is not None:
+        plans = list(_plans)
+    else:
+        try:
+            plans = [
+                build_plan(
+                    d, order=order, deadline=deadline,
+                    max_vars=(
+                        map_vars if qkind == "marginal_map" else None
+                    ),
+                    external_dists=(
+                        external_dists if qkind == "expectation" else None
+                    ),
+                )
+                for d in dcops
+            ]
+        except TimeoutError:
+            # plan construction (the min_fill search) ate the budget
+            return [_timeout_result(query, t0) for _ in range(K)]
     want_args = qkind in ("map", "marginal_map", "kbest")
 
     if max_util_bytes is not None:
@@ -3153,7 +3252,7 @@ def run_infer_many(
     sw = contract_sweep(
         plans, sr, beta=beta, device_min_cells=dmc, pad=pad, tol=tol,
         max_table_size=max_table_size, want_args=want_args, t0=t0,
-        timeout=timeout, bnb=bnb, table_dtype=table_dtype,
+        timeout=timeout, bnb=bnb, memos=_memos, table_dtype=table_dtype,
         table_format=table_format, torch_device=torch_device,
     )
     if sw is None:

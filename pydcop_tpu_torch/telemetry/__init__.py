@@ -19,7 +19,13 @@ What the JAX package records and this package does not: its ``jit.*``
 counters, ``jit-compile`` spans and ``backend-compile`` events time XLA
 compiles, and its ``engine.runner_cache_*`` counters a jitted-runner
 cache; the port compiles neither (its CUDA kernels are built once per
-checkout).  The flight recorder comes with serving.
+checkout).
+
+Every session also carries the always-on flight recorder
+(:class:`~pydcop_tpu_torch.telemetry.flightrec.FlightRecorder`, unless
+``flight=False``): a bounded ring that every span, event and counter
+delta lands on, which the solver service dumps on its failure triggers
+(:func:`get_flight_recorder`).
 """
 
 from __future__ import annotations
@@ -28,6 +34,10 @@ import contextlib
 import threading as _threading
 from typing import Iterator, Optional
 
+from pydcop_tpu_torch.telemetry.flightrec import (  # noqa: F401 (re-exports)
+    FlightRecorder,
+    NULL_FLIGHT,
+)
 from pydcop_tpu_torch.telemetry.metrics import (  # noqa: F401 (re-exports)
     DEFAULT_BUCKETS,
     Histogram,
@@ -55,12 +65,30 @@ def get_metrics():
     return _metrics
 
 
-class TelemetrySession:
-    """One run's tracer + metrics set."""
+def get_flight_recorder():
+    """The active session's flight recorder, or the no-op singleton."""
+    sess = _active
+    if sess is not None and sess.flight is not None:
+        return sess.flight
+    return NULL_FLIGHT
 
-    def __init__(self, tracer: Tracer, metrics: MetricsRegistry):
+
+def active_session() -> Optional["TelemetrySession"]:
+    return _active
+
+
+class TelemetrySession:
+    """One run's tracer + metrics (+ flight recorder) set."""
+
+    def __init__(
+        self,
+        tracer: Tracer,
+        metrics: MetricsRegistry,
+        flight: Optional[FlightRecorder] = None,
+    ):
         self.tracer = tracer
         self.metrics = metrics
+        self.flight = flight
         self.closed = False
 
     def summary(self) -> dict:
@@ -92,13 +120,17 @@ class TelemetrySession:
 def session(
     trace_path: Optional[str] = None,
     trace_format: str = "jsonl",
+    flight: bool = True,
 ) -> Iterator[TelemetrySession]:
     """Install a telemetry session for the duration of the block.
 
     With ``trace_path`` set, the tracer writes the trace file (in
     ``trace_format``: ``jsonl`` or ``chrome``) when the block exits.
     Without a path the session still collects spans and counters in
-    memory for ``result["telemetry"]``.
+    memory for ``result["telemetry"]``.  ``flight`` (default on)
+    attaches the bounded flight-recorder ring
+    (``telemetry/flightrec.py``): every span, event and counter delta
+    also lands there, dumpable on failure triggers with no trace file.
 
     Nesting: entering with no ``trace_path`` while a session is already
     active REUSES the active session (records flow to the outer run's
@@ -116,7 +148,16 @@ def session(
             reuse = None
             tracer = Tracer(path=trace_path, fmt=trace_format)
             metrics = MetricsRegistry()
-            sess = TelemetrySession(tracer, metrics)
+            rec = None
+            if flight:
+                # shares the tracer's timebase, so a dump sorts on one
+                # timeline
+                rec = FlightRecorder(
+                    epoch=tracer._epoch, unix_t0=tracer._unix_t0
+                )
+                tracer.flight = rec
+                metrics.flight = rec
+            sess = TelemetrySession(tracer, metrics, flight=rec)
             prev = (_tracer, _metrics, _active)
             _tracer, _metrics, _active = tracer, metrics, sess
     if reuse is not None:

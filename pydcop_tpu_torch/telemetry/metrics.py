@@ -91,7 +91,11 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Live registry installed by a telemetry session."""
+    """Live registry installed by a telemetry session.
+
+    ``flight`` (attached by the session) mirrors counter and gauge
+    deltas onto the flight-recorder ring (``telemetry/flightrec.py``);
+    histogram observations are not mirrored."""
 
     enabled = True
 
@@ -99,13 +103,20 @@ class MetricsRegistry:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, Histogram] = {}
+        self.flight = None
 
     def inc(self, name: str, n: float = 1) -> None:
         c = self._counters
         c[name] = c.get(name, 0) + n
+        flight = self.flight
+        if flight is not None:
+            flight.counter(name, n)
 
     def gauge(self, name: str, value: float) -> None:
         self._gauges[name] = value
+        flight = self.flight
+        if flight is not None:
+            flight.gauge(name, value)
 
     def observe(
         self, name: str, value: float,

@@ -20,8 +20,11 @@ JAX package's record schema, so its trace reader
 The disabled path is :data:`NULL_TRACER` (``enabled`` False): ``span``
 returns a shared no-op context manager and ``event`` returns at once.
 
-The ``flight`` attribute is the JAX package's flight-recorder hook; the
-recorder comes with serving, so here it stays ``None``.
+A session with a flight recorder (``telemetry/flightrec.py``) attaches it
+as ``flight``: every span, event and raw record also lands on its bounded
+ring, past the ``max_records`` cap.  Spans and events recorded inside a
+:func:`~pydcop_tpu_torch.telemetry.context.trace_scope` carry the scope's
+request trace id(s) as ``args["trace"]``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from pydcop_tpu_torch.telemetry.context import current_trace_ids
 
 
 class _Span:
@@ -98,6 +103,23 @@ class Tracer:
     # -- recording ------------------------------------------------------
 
     def _append(self, rec: Dict[str, Any]) -> None:
+        # ambient request trace ids: spans and events recorded inside a
+        # service dispatch's trace_scope get tagged without every
+        # producer threading the id through
+        if rec.get("kind") in ("span", "event"):
+            ids = current_trace_ids()
+            if ids is not None:
+                args = rec.get("args")
+                if args is None:
+                    args = rec["args"] = {}
+                args.setdefault(
+                    "trace", ids[0] if len(ids) == 1 else list(ids)
+                )
+        # the flight ring overwrites instead of dropping: it stays live
+        # past the max_records cap
+        flight = self.flight
+        if flight is not None:
+            flight.record(rec)
         # list.append is GIL-atomic; the cap check may overshoot by a
         # few records under heavy concurrency, which is harmless
         if len(self._records) >= self.max_records:

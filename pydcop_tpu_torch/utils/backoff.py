@@ -1,6 +1,7 @@
-"""Deterministic keyed-jitter backoff (port of the part of
-``pydcop_tpu/utils/backoff.py`` that the supervised device dispatch
-uses).
+"""Deterministic keyed-jitter backoff (port of the keyed half of
+``pydcop_tpu/utils/backoff.py``): the supervised device dispatch's retry
+sleeps and the service client's reconnect loop
+(:func:`call_with_backoff`).
 
 The jitter of attempt ``k`` is a pure blake2b hash of ``(seed, key,
 k)`` — the determinism contract of
@@ -12,7 +13,10 @@ bit whatever else runs beside it.
 from __future__ import annotations
 
 import hashlib
-from typing import Iterator, Optional
+import time
+from typing import Callable, Iterator, Optional, TypeVar
+
+T = TypeVar("T")
 
 
 def _hashed_unit(seed: int, key: str, attempt: int) -> float:
@@ -48,3 +52,53 @@ def backoff_delays(
         attempt += 1
         yield delay * (1.0 + jitter * _hashed_unit(s, key, attempt))
         delay = min(delay * factor, max_delay)
+
+
+#: the service client's reconnect schedule: 50 ms doubling to 1 s,
+#: each sleep stretched by up to 25%, retried on transport failures
+#: (``OSError``) and torn or malformed frames (``ValueError``)
+RETRY_BASE = 0.05
+RETRY_FACTOR = 2.0
+RETRY_MAX_DELAY = 1.0
+RETRY_JITTER = 0.25
+RETRY_EXCEPTIONS = (OSError, ValueError)
+
+
+def call_with_backoff(
+    fn: Callable[[], T],
+    retry_for: float,
+    *,
+    key: str,
+    seed: Optional[int] = None,
+    giving_up: Optional[Callable[[], bool]] = None,
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+) -> T:
+    """Call ``fn`` until it succeeds or ``retry_for`` seconds elapse,
+    sleeping the keyed schedule of the ``RETRY_*`` constants between
+    attempts.
+
+    The LAST failure is re-raised once the deadline passes.
+    ``giving_up`` is polled before each sleep: a closing transport
+    aborts the loop early by returning True.  Sleeps never overshoot
+    the deadline (the final attempt happens AT it).  ``on_retry(attempt,
+    error)`` fires once per retry, before the sleep — the seam the
+    service client counts ``service.client_retries`` through.
+    """
+    deadline = time.monotonic() + retry_for
+    for attempt, delay in enumerate(
+        backoff_delays(
+            key, base=RETRY_BASE, factor=RETRY_FACTOR,
+            max_delay=RETRY_MAX_DELAY, jitter=RETRY_JITTER, seed=seed,
+        ),
+        start=1,
+    ):
+        try:
+            return fn()
+        except RETRY_EXCEPTIONS as e:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0 or (giving_up is not None and giving_up()):
+                raise
+            if on_retry is not None:
+                on_retry(attempt, e)
+            time.sleep(min(delay, remaining))
+    raise AssertionError("unreachable")  # pragma: no cover

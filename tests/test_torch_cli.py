@@ -42,7 +42,8 @@ A15_SOLVE_FLAGS = {"-d", "--distribution", "-m", "--mode", "--nb_agents",
 #: the port's own flags: the card or the CPU, on the commands that run on
 #: a device (infer's --device is the JAX offload policy)
 DEVICE_FLAGS = {"solve": {"--device"}, "run": {"--device"},
-                "batch": {"--device"}, "infer": {"--torch_device"}}
+                "batch": {"--device"}, "serve": {"--device"},
+                "infer": {"--torch_device"}}
 
 
 def _subparsers(parser):
@@ -66,7 +67,7 @@ def test_registry_is_the_jax_order_of_the_ported_commands():
     names = set(_subparsers(port_parser()).choices)
     assert names == {"solve", "infer", "run", "graph", "distribute",
                      "generate", "batch", "consolidate", "replica_dist",
-                     "trace-summary"}
+                     "serve", "top", "trace-summary", "flight-dump"}
 
 
 def test_flag_sets_equal_but_the_named_exclusions():

@@ -5,8 +5,9 @@ runtime check (an array-built maxsum solve and CPU maxsum and dsa solves
 of a YAML file, an inference query on the device path, a budgeted
 sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve, a
 checkpointed, resumed Max-Sum solve, a dynamic run with replicas, an
-ILP placement, the ``run`` CLI, ``trace-summary`` and ``batch
---simulate``) runs in a fresh subprocess; a static AST scan covers every
+ILP placement, the ``run`` CLI, ``trace-summary``, ``batch
+--simulate`` and a solver-service solve, after checking that
+``api.ServiceClient`` imports without torch) runs in a fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
 of carrying on on the CPU.
@@ -27,6 +28,9 @@ FORBIDDEN = ("jax", "jaxlib", "pydcop_tpu")
 
 _PROBE = r"""
 import sys
+# the wire client imports without torch (a client process needs none)
+from pydcop_tpu_torch.api import ServiceClient
+assert "torch" not in sys.modules and "jax" not in sys.modules
 import pydcop_tpu_torch
 from pydcop_tpu_torch.api import solve, solve_compiled
 from pydcop_tpu_torch.ops.compile import compile_from_arrays
@@ -84,6 +88,12 @@ solve(sys.argv[1], "maxsum", rounds=8, device="cpu", trace=tr)
 assert main(["trace-summary", tr]) == 0
 assert main(["batch", sys.argv[3], "--simulate", "--result_file",
              os.path.join(tempfile.mkdtemp(), "r.csv")]) == 0
+from pydcop_tpu_torch.api import SolverService
+with SolverService(device="cpu", max_batch=1) as svc:
+    assert svc.solve(sys.argv[1], "maxsum", rounds=4)["status"] == "finished"
+import pydcop_tpu_torch.engine.memo, pydcop_tpu_torch.commands.serve
+import pydcop_tpu_torch.commands.top, pydcop_tpu_torch.commands.flight_dump
+import pydcop_tpu_torch.telemetry.export
 import pydcop_tpu_torch.distribution.adhoc, pydcop_tpu_torch.utils.graphs
 import pydcop_tpu_torch.utils.various, pydcop_tpu_torch.commands.run
 bad = sorted(
@@ -152,7 +162,11 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "commands/replica_dist.py", "commands/batch.py",
                    "commands/consolidate.py", "commands/trace_summary.py",
                    "commands/generators/agents.py",
-                   "telemetry/summary.py"):
+                   "telemetry/summary.py", "telemetry/context.py",
+                   "telemetry/flightrec.py", "telemetry/export.py",
+                   "engine/memo.py", "engine/service.py",
+                   "commands/serve.py", "commands/top.py",
+                   "commands/flight_dump.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
