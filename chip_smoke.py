@@ -271,7 +271,7 @@ caught and passed over):
    ``fault.device_transient`` equal to the port's CPU run of the same
    spec (its 4 dispatches at 8 rounds each); the supervision overhead
    at coloring-10k and coloring-1M: engine seconds with the default
-   supervisor against ``UNSUPERVISED``, 10 interleaved pairs, and the
+   supervisor against ``UNSUPERVISED``, 4 interleaved pairs, and the
    wrapper's own host microseconds per chunk (dispatch, the generator's
    get/set, the NaN screen) over the chunk's time.  13b: the same run under
    ``device_oom=-:64``: two chunk halvings (256, 128, 64), bit-equal; at
@@ -336,15 +336,15 @@ caught and passed over):
    a dict spec (no YAML file to parse) whose one set names
    four coloring-10k DCOPs built in memory (phase 9's ``coloring_dcop(
    10_000, 3, 3, seed=s)``, seeds 1-4; ``iterations: 2``) and whose one
-   batch is Max-Sum with ``damping: [0.5, 0.7]``, 256 rounds, chunk 64,
+   batch is Max-Sum with ``damping: [0.5, 0.7]``, 64 rounds, chunk 64,
    ``pad_policy: pow2``: 16 runs, 8 cells.  Three passes, each into its
    own CSV, launch counts set to 0 just before each: sequential (16
-   ``api.solve`` calls, each kernel 16 x 256 times), ``--vmap_cells``
+   ``api.solve`` calls, each kernel 16 x 64 times), ``--vmap_cells``
    (one ``api.solve_many`` call and no ``solve``: no fallback; each
-   kernel launched 256 times per group, the groups from the
+   kernel launched 64 times per group, the groups from the
    ``engine.batch_groups`` counter and the results'
    ``instances_batched``) and ``--vmap_iterations`` (8 ``solve`` calls
-   with ``n_restarts=2``, each kernel 8 x 256 times).  Every row
+   with ``n_restarts=2``, each kernel 8 x 64 times).  Every row
    ``finished``, ``failed`` 0; the ``--vmap_cells`` rows equal the
    sequential rows in every column but ``time``, and equal the port's
    CPU run of the same ``--vmap_cells`` call; the same spec again into
@@ -409,15 +409,55 @@ caught and passed over):
    ``close_session``, a JSON-text solve, a malformed frame answered with
    the structured error on a link that survives, and ``shutdown``
    stopping the server within its timeout.
-17. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+17. The host runtimes with compiled islands, and the serving fleet, on
+   ``grid10k`` (``generate graph_coloring --graph grid -n 10000 -c 3
+   --soft --noise 0.02 --seed 1`` built in memory: 19,800 binary
+   constraints, d 3) with the three-agent split (rows 0-48 on the island
+   ``a0``, rows 49-50 on the host agent ``a2``, rows 51-99 on the
+   island ``a1``; each factor on the agent of its first variable).
+   17a: Max-Sum (damping 0.5) in ``mode="sim"``, 60 rounds, seed 1, on
+   the card and, at the same time in a child process, on the CPU (the
+   child sees no card; its result comes back as JSON, whose floats
+   round-trip exactly): equal in assignment, cost, final cost,
+   message count and size and cost trace; the islands' factor-kernel
+   and q-update launches (> 0), seconds, flushes and boundary messages.
+   Then the boundary messages each island received in the card run are
+   replayed into a fresh ``MaxSumIsland`` of ``a0`` (q pins on its
+   shadow edges) and of ``a1`` (r folds into its unary rows), each built
+   on the card and on the CPU (the noise is drawn on a CPU generator, so
+   both hold the same): after the start burst and each of 4 flushes fed
+   by those messages, ``r``, ``q``, ``values`` and the posted messages
+   are bit-equal card and CPU; then a strong r message folded into one
+   of ``a1``'s boundary variables must move its value, on both.
+   17b: the same in ``mode="thread"`` on the card, stopped after 8 s,
+   then under the seeded chaos plan ``drop=0.02,dup=0.02,reorder=0.02``
+   (seed 7): a complete assignment whose cost is ``solution_cost``'s,
+   and every ``(kind, link, seq)`` the chaos layers recorded is the
+   plan's decision for that link and sequence number, none missing.
+   17c: DSA-B (p 0.7) islands on the split's variables in ``mode="sim"``,
+   the card and the CPU fed the same CPU-made draws: every result key
+   equal.  17d: ``python -m pydcop_tpu_torch fleet --replicas 2 --device
+   cuda`` (``--max_batch 8 --max_wait 0.05``, ``replica_kill`` pinned on
+   the owner of the first session, 60 s after the fleet is up); a
+   ``ServiceClient`` runs 4 sessions (4 follow-ups each) of 16c's
+   2,000-variable sensor coloring, each session's segments 1-3 before
+   the kill and 4-5 after it, then 16 stateless Max-Sum solves: no
+   request or session lost, each result equal to the same request on an
+   undisturbed in-process card service, the standby's takeover
+   ``compile.incremental``-only (its exporter's counters), a retry of an
+   answered frame sent to the standby answered from its replicated reply
+   cache without admitting a solve, and the router's ``/healthz``
+   showing the victim dead; requests/s, p50, p99 and the seconds from
+   the kill to the first failed-over answer.
+18. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
-   of phases 13-16 are added to the entries their runs launch), the card
+   of phases 13-17 are added to the entries their runs launch), the card
    line, and last the ``{"ok": true, ...}`` line.
 
-It imports no jax and nothing of the JAX package; only 16c-d's JSON
-text goes through PyYAML.
+It imports no jax and nothing of the JAX package; only 16c-d's and
+17d's JSON text goes through PyYAML.
 """
 
 from __future__ import annotations
@@ -3772,11 +3812,14 @@ def wrapper_host_us(torch, device, samples):
     return parts, sum(parts.values())
 
 
+OVERHEAD_PAIRS = 4  # few: the whole script has one time limit
+
+
 def overhead_row(torch, run_batched, maxsum, params, problem, rounds,
                  label):
     """The supervision overhead two ways.  End to end: engine seconds
     with the default supervisor against UNSUPERVISED (the JAX bench's
-    supervised_overhead), 10 pairs interleaved with the order
+    supervised_overhead), OVERHEAD_PAIRS pairs interleaved with the order
     alternating, the median of each side and of the pairs' ratios.  By
     its parts: the wrapper's host microseconds per chunk
     (``wrapper_host_us``) times the run's chunks, over the supervised
@@ -3788,7 +3831,7 @@ def overhead_row(torch, run_batched, maxsum, params, problem, rounds,
     kw = dict(rounds=rounds, chunk_size=chunk, cost_every=every)
     run_batched(problem, maxsum, params, **kw)  # warm
     sup_s, bare_s = [], []
-    for i in range(10):  # each order in turn, against drift
+    for i in range(OVERHEAD_PAIRS):  # each order in turn, against drift
         for bare in ((False, True) if i % 2 == 0 else (True, False)):
             if bare:
                 with supervision(UNSUPERVISED):
@@ -4649,7 +4692,7 @@ def dynamic_phase(torch, mk, dev, card, single_msgs_per_s):
 
 # the batch-coloring10k-maxsum cell (module docstring, phase 15)
 BATCH_SEEDS = (1, 2, 3, 4)
-BATCH_ROUNDS = 256
+BATCH_ROUNDS = 64  # short: the whole script has one time limit
 BATCH_SPEC = {
     "sets": {"coloring10k": {
         "path": [f"coloring10k-s{s}" for s in BATCH_SEEDS],
@@ -5633,6 +5676,716 @@ def serve_phase(torch, mk, dev, card):
     }
 
 
+# -- phase 17: the host runtimes with compiled islands, and the fleet --------
+
+ISLAND_SIDE = 100  # grid10k: a 100x100 grid, 19,800 binary constraints
+ISLAND_ROWS = (49, 51)  # a0: rows [0, 49); a2 (host): [49, 51); a1: the rest
+ISLAND_ROUNDS = 60
+ISLAND_PARAMS = {"damping": 0.5}
+CPU_RUN_SLACK = 300.0  # seconds 17a's CPU child may run past the card run
+THREAD_TIMEOUT = 8.0  # seconds: the thread runs' wall-clock stop
+CHAOS_SPEC = "drop=0.02,dup=0.02,reorder=0.02"
+CHAOS_SEED = 7
+SIM_KEYS = ("assignment", "cost", "final_cost", "msg_count", "msg_size",
+            "cost_trace")
+REPLAY_FLUSHES = 4  # 17a's replay: flushes fed by recorded messages
+DSA_ROUNDS = 10  # 17c's run: 100,000 deliveries
+DSA_TICKS = 8  # 17c's island bursts after the boundary wave
+FLEET_SESSIONS = ("plant0", "plant1", "plant2", "plant3")
+FLEET_STATELESS = 16
+FLEET_FOLLOW_UPS = 4
+# seconds after the fleet's head line: the four sessions' first three
+# segments (each replica parses, compiles and replicates them) took
+# 24.9-33.9 s on the H100 machine's host
+FLEET_KILL_AFTER = 60.0
+FLEET_WAIT = 120.0  # seconds: every wait of 17d is bounded
+
+
+def grid10k_dcop():
+    """``generate graph_coloring --graph grid -n 10000 -c 3 --soft
+    --noise 0.02 --seed 1``, built in memory with the port's generator."""
+    import argparse
+
+    from pydcop_tpu_torch.commands.generators.graphcoloring import generate
+
+    return generate(argparse.Namespace(
+        graph="grid", variables_count=ISLAND_SIDE ** 2, colors_count=3,
+        soft=True, noise=0.02, seed=1, intentional=False,
+        agents_count=None, capacity=100.0, p_edge=0.5, m_edge=2,
+    ))
+
+
+def three_agent_split(dcop, factors=True):
+    """The island deployment's locality layout: rows 0-48 on ``a0`` (an
+    island), rows 49-50 on ``a2`` (host computations), rows 51-99 on
+    ``a1`` (an island); each factor on the agent of its first
+    variable."""
+    from pydcop_tpu_torch.distribution import Distribution
+
+    lo, hi = ISLAND_ROWS
+
+    def agent(vname):
+        row = int(vname[1:]) // ISLAND_SIDE
+        return "a0" if row < lo else ("a2" if row < hi else "a1")
+
+    mapping = {"a0": [], "a1": [], "a2": []}
+    for v in dcop.variables:
+        mapping[agent(v)].append(v)
+    if factors:
+        for c in dcop.constraints.values():
+            mapping[agent(c.dimensions[0].name)].append(c.name)
+    return Distribution(mapping)
+
+
+class _IslandInbox:
+    """Every boundary message the Max-Sum islands of one run receive, as
+    ``(dest, sender, costs)`` in arrival order, by the islands' agent."""
+
+    def __init__(self, dist):
+        from pydcop_tpu_torch.algorithms import _island_maxsum
+
+        cls = self._cls = _island_maxsum.MaxSumIsland
+        own = self._own = cls.receive
+        got = self.got = {}
+
+        def receive(island, dest, sender, costs):
+            agent = dist.agent_for(dest)
+            got.setdefault(agent, []).append((dest, sender, dict(costs)))
+            own(island, dest, sender, costs)
+
+        cls.receive = receive
+
+    def close(self):
+        self._cls.receive = self._own
+
+
+def _sim_kw(dist):
+    return dict(mode="sim", rounds=ISLAND_ROUNDS, seed=1, distribution=dist,
+                accel_agents=["a0", "a1"])
+
+
+def islands_sim_cpu():
+    """17a's CPU run, in a child process that :func:`islands_sim` starts
+    beside the card run (each run is a core's worth of host Python):
+    prints the compared keys and its seconds as one JSON line."""
+    from pydcop_tpu_torch.api import solve
+
+    dcop = grid10k_dcop()
+    t0 = time.perf_counter()
+    r = solve(dcop, "maxsum", ISLAND_PARAMS, device="cpu",
+              **_sim_kw(three_agent_split(dcop)))
+    print(json.dumps({"seconds": time.perf_counter() - t0,
+                      **{k: r[k] for k in SIM_KEYS}}))
+
+
+def islands_sim(torch, mk, dev, dcop, dist):
+    """17a (see the module docstring).  Returns the card run's launches
+    and result."""
+    import os
+
+    from pydcop_tpu_torch.api import solve
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.islands_sim_cpu()")
+    child = subprocess.Popen(
+        [sys.executable, "-c", code, str(HERE)], cwd=HERE,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        mk.reset_launches()
+        inbox = _IslandInbox(dist)
+        t0 = time.perf_counter()
+        try:
+            card = solve(dcop, "maxsum", ISLAND_PARAMS, device=dev,
+                         **_sim_kw(dist))
+        finally:
+            inbox.close()
+        card_s = time.perf_counter() - t0
+        launches = dict(mk.launches)
+        out, err = child.communicate(timeout=card_s + CPU_RUN_SLACK)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=10)
+    if child.returncode != 0:
+        raise AssertionError("17a: the CPU run failed:\n" + err[-4000:])
+    cpu = json.loads(out.splitlines()[-1])
+    cpu_s = cpu.pop("seconds")
+    # both sides as JSON carries them (floats round-trip exactly)
+    card_keys = json.loads(json.dumps({k: card[k] for k in SIM_KEYS}))
+    differ = [k for k in SIM_KEYS if card_keys[k] != cpu[k]]
+    if differ:
+        raise AssertionError(f"17a: card != CPU in {differ}")
+    if launches["factor_round_binary"] == 0 or launches["q_update"] == 0:
+        raise AssertionError(f"17a: the islands launched {launches}")
+    if len(card["assignment"]) != len(dcop.variables):
+        raise AssertionError("17a: incomplete assignment")
+    c = card["telemetry"]["counters"]
+    emit("17a", "grid10k-islands-sim", rounds=ISLAND_ROUNDS,
+         status=card["status"], cost=card["cost"],
+         final_cost=card["final_cost"], msg_count=card["msg_count"],
+         msg_size=card["msg_size"], flushes=c["island.flushes"],
+         boundary_msgs=c["island.boundary_msgs"], seconds=card_s,
+         cpu_seconds=cpu_s, msgs_per_s=card["msg_count"] / card_s,
+         launches=launches, card_equals_cpu=True)
+    island_replay(torch, dev, dcop, dist, inbox.got)
+    return launches, card
+
+
+def _island_state(island):
+    return {k: island._state[k].cpu() for k in ("r", "q", "values")}
+
+
+def island_replay(torch, dev, dcop, dist, got):
+    """17a's replay (see the module docstring): ``got`` is what each
+    island received in the card run."""
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import (
+        AlgorithmDef,
+        ComputationDef,
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.graphs import load_graph_module
+
+    t0 = time.perf_counter()
+    module = load_algorithm_module("maxsum")
+    graph = load_graph_module(module.GRAPH_TYPE).build_computation_graph(
+        dcop)
+    algo_def = AlgorithmDef(
+        "maxsum", prepare_algo_params(ISLAND_PARAMS, module.algo_params),
+        dcop.objective)
+    fields = {}
+    for agent in ("a0", "a1"):
+        msgs = got.get(agent, [])
+        if len(msgs) < REPLAY_FLUSHES:
+            raise AssertionError(f"17a: {agent} received {len(msgs)} "
+                                 "boundary messages")
+        owned = set(dist.computations_hosted(agent))
+        defs = [ComputationDef(n, algo_def)
+                for n in sorted(graph.nodes, key=lambda n: n.name)
+                if n.name in owned]
+        runs = []
+        for where in (dev, torch.device("cpu")):
+            pending = [0]
+            proxies = module.build_island(
+                defs, dcop, seed=1, pending_fn=lambda: pending[0],
+                device=where)
+            sent = []
+            for p in proxies:
+                p.message_sender = (lambda src, dest, msg, *_:
+                                    sent.append((src, dest,
+                                                 dict(msg.costs))))
+                p.start()
+            island = proxies[0].island
+            states = [_island_state(island)]
+            for batch in np.array_split(np.arange(len(msgs)),
+                                        REPLAY_FLUSHES):
+                for j, i in enumerate(batch):
+                    pending[0] = len(batch) - 1 - j  # the last one flushes
+                    island.receive(*msgs[i])
+                states.append(_island_state(island))
+            moved = None
+            if island._remote_factors_of:
+                # the fold gate: a strong r message on one boundary
+                # variable decides its value at the next flush
+                v = sorted(island._remote_factors_of)[0]
+                slot, labels = island._slot[v], island._labels[v]
+                want = (int(island._state["values"][slot]) + 1) % len(labels)
+                island.receive(v, island._remote_factors_of[v][0], {
+                    lab: 0.0 if k == want else 50.0
+                    for k, lab in enumerate(labels)})
+                states.append(_island_state(island))
+                moved = int(island._state["values"][slot]) == want
+            runs.append((island, states, sent, moved))
+        (card, card_states, card_sent, moved), (cpu, cpu_states, cpu_sent,
+                                                cpu_moved) = runs
+        q_pins = sum(d in card.owned_factor_names for d, _, _ in msgs)
+        r_folds = sum(d in card.owned_var_names for d, _, _ in msgs)
+        if q_pins + r_folds != len(msgs):
+            raise AssertionError(f"17a: {agent} received messages that "
+                                 "are not boundary messages")
+        if not torch.equal(card._state["noise"].cpu(),
+                           cpu._state["noise"]):
+            raise AssertionError(f"17a: {agent}'s noise differs")
+        flushes = 1 + REPLAY_FLUSHES + (moved is not None)
+        if card.flushes != flushes or cpu.flushes != flushes:
+            raise AssertionError(f"17a: {agent} flushed {card.flushes} / "
+                                 f"{cpu.flushes} times, not {flushes}")
+        for n, (x, y) in enumerate(zip(card_states, cpu_states)):
+            differ = [k for k in x if not torch.equal(x[k], y[k])]
+            if differ:
+                raise AssertionError(f"17a: {agent}'s {differ} differ card "
+                                     f"and CPU after flush {n + 1}")
+        if card_sent != cpu_sent or not card_sent:
+            raise AssertionError(f"17a: {agent}'s posted messages differ "
+                                 "card and CPU")
+        if moved is not None and not (moved and cpu_moved):
+            raise AssertionError(f"17a: the r fold did not move {agent}'s "
+                                 f"value (card {moved}, CPU {cpu_moved})")
+        fields[agent] = dict(received=len(msgs), q_pins=q_pins,
+                             r_folds=r_folds, flushes=flushes,
+                             posted=len(card_sent), fold_moved=moved)
+    if not (sum(f["q_pins"] for f in fields.values())
+            and sum(f["r_folds"] for f in fields.values())):
+        raise AssertionError(f"17a: the replay lacks q pins or r folds "
+                             f"{fields}")
+    emit("17a", "grid10k-island-replay", islands=fields,
+         seconds=time.perf_counter() - t0, card_equals_cpu=True)
+
+
+class _ChaosRecorder:
+    """Every ``ChaosCommunicationLayer`` a thread run makes, kept so its
+    recorded events can be held against the plan."""
+
+    def __init__(self, faults):
+        base = faults.ChaosCommunicationLayer
+        made = self.made = []
+
+        class Recording(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        self._faults, self._base = faults, base
+        faults.ChaosCommunicationLayer = Recording
+
+    def close(self):
+        self._faults.ChaosCommunicationLayer = self._base
+
+
+def check_chaos_events(layers, plan):
+    """Every recorded ``(kind, link, seq)`` is the plan's decision for
+    that link and sequence number, and every faulted sequence number a
+    layer sent is recorded.  Returns the event count by kind."""
+    def kind_of(d):
+        for k in ("drop", "dup", "reorder"):
+            if getattr(d, k):
+                return k
+        return "delay" if d.delay else None
+
+    counts = {}
+    for layer in layers:
+        got = sorted(layer.events, key=lambda e: (e[1], e[2]))
+        want = []
+        for dest, n in layer._seq.items():
+            for seq in range(1, n + 1):
+                k = kind_of(plan.decide(layer.src_agent, dest, seq))
+                if k is not None:
+                    want.append((k, f"{layer.src_agent}>{dest}", seq))
+        if got != sorted(want, key=lambda e: (e[1], e[2])):
+            raise AssertionError(f"17b: {layer.src_agent}'s events differ "
+                                 "from the plan's decisions")
+        for k, _, _ in got:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
+
+
+def islands_thread(torch, mk, dev, dcop, dist, sim_card):
+    """17b (see the module docstring).  Returns the launches."""
+    from pydcop_tpu_torch import faults
+    from pydcop_tpu_torch.api import solve
+
+    kw = dict(mode="thread", rounds=ISLAND_ROUNDS, seed=1,
+              timeout=THREAD_TIMEOUT, distribution=dist,
+              accel_agents=["a0", "a1"], device=dev)
+    launches = {}
+    for label, extra in (("grid10k-islands-thread", {}),
+                         ("grid10k-islands-thread-chaos",
+                          dict(chaos=CHAOS_SPEC, chaos_seed=CHAOS_SEED))):
+        rec = _ChaosRecorder(faults) if extra else None
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            r = solve(dcop, "maxsum", ISLAND_PARAMS, **kw, **extra)
+        finally:
+            if rec is not None:
+                rec.close()
+        secs = time.perf_counter() - t0
+        for k, v in mk.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        a = r["assignment"]
+        if len(a) != len(dcop.variables) or any(
+                v is None for v in a.values()):
+            raise AssertionError(f"17b: {label}: incomplete assignment")
+        if r["cost"] != dcop.solution_cost(a):
+            raise AssertionError(f"17b: {label}: cost {r['cost']} is not "
+                                 "the assignment's")
+        fields = {}
+        if rec is not None:
+            events = check_chaos_events(
+                rec.made, faults.FaultPlan.from_spec(CHAOS_SPEC, CHAOS_SEED))
+            if not rec.made or events != r["chaos"]["events"]:
+                raise AssertionError(f"17b: events {events} "
+                                     f"{r['chaos']['events']}")
+            fields = dict(chaos=CHAOS_SPEC, chaos_seed=CHAOS_SEED,
+                          events=events, layers=len(rec.made),
+                          events_equal_plan=True)
+        c = r["telemetry"]["counters"]
+        emit("17b", label, status=r["status"], cost=r["cost"],
+             sim_cost=sim_card["cost"], msg_count=r["msg_count"],
+             flushes=c.get("island.flushes", 0), seconds=secs,
+             launches=dict(mk.launches), **fields)
+    if launches["factor_round_binary"] == 0 or launches["q_update"] == 0:
+        raise AssertionError(f"17b: the islands launched {launches}")
+    return launches
+
+
+def _cpu_draws(torch):
+    """A ``DsaIsland.draws`` that makes each flush's draws on a CPU
+    generator (seeded by the island's stream and flush count) and moves
+    them to the island's device: card and CPU islands apply the same
+    numbers."""
+    def draws(island, problem, n_rounds):
+        gen = torch.Generator().manual_seed(
+            (island.seed + island.flushes) & ((1 << 63) - 1))
+        out = []
+        for _ in range(n_rounds):
+            # draws() sizes its tensors from the problem and makes them
+            # on the generator's device
+            drawn = island._module.draws(problem, island._params, gen)
+            out.append({k: v.to(problem.device) for k, v in drawn.items()})
+        return out
+
+    return draws
+
+
+def islands_dsa(torch, dev, dcop):
+    """17c (see the module docstring)."""
+    from pydcop_tpu_torch.algorithms import (
+        AlgorithmDef,
+        ComputationDef,
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.algorithms._island_dsa import DsaIsland
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.graphs import load_graph_module
+
+    dist = three_agent_split(dcop, factors=False)
+    params = {"variant": "B", "probability": 0.7}
+    t0 = time.perf_counter()
+    r = solve(dcop, "dsa", params, mode="sim", rounds=DSA_ROUNDS, seed=1,
+              distribution=dist, accel_agents=["a0", "a1"], device=dev)
+    run_s = time.perf_counter() - t0
+    a = r["final_assignment"]
+    if len(a) != len(dcop.variables) or any(v is None for v in a.values()):
+        raise AssertionError("17c: incomplete assignment")
+    if r["final_cost"] != dcop.solution_cost(a):
+        raise AssertionError("17c: the final cost is not the assignment's")
+
+    # a0's island on the card and on the CPU, its boundary pinned at the
+    # run's final values, then FLUSHES bursts fed the same draws
+    module = load_algorithm_module("dsa")
+    graph = load_graph_module(module.GRAPH_TYPE).build_computation_graph(
+        dcop)
+    algo_def = AlgorithmDef(
+        "dsa", prepare_algo_params(params, module.algo_params),
+        dcop.objective)
+    owned = set(dist.computations_hosted("a0"))
+    defs = [ComputationDef(n, algo_def) for n in graph.nodes
+            if n.name in owned]
+    own = DsaIsland.draws
+    DsaIsland.draws = _cpu_draws(torch)
+    try:
+        trails = []
+        for where in (dev, torch.device("cpu")):
+            proxies = module.build_island(defs, dcop, seed=1, device=where)
+            for p in proxies:
+                p.message_sender = lambda *args: None
+                p.start()
+            island = proxies[0].island
+            first = island._state["values"].cpu().clone()
+            dest = {}  # each remote neighbor once, to one owned variable
+            for v, remotes in sorted(island._remote_neighbors_of.items()):
+                for u in remotes:
+                    dest.setdefault(u, v)
+            for u, v in sorted(dest.items()):
+                island.receive(v, u, a[u])
+            trail = [island._state["values"].cpu().clone()]
+            for _ in range(DSA_TICKS):
+                island.tick()
+                trail.append(island._state["values"].cpu().clone())
+            trails.append((island.flushes, first, trail))
+    finally:
+        DsaIsland.draws = own
+    (flushes, first, card), (cpu_flushes, _, cpu) = trails
+    if flushes != 1 + DSA_TICKS or cpu_flushes != flushes:
+        raise AssertionError(f"17c: flushes {flushes} / {cpu_flushes}")
+    if any(not torch.equal(x, y) for x, y in zip(card, cpu)):
+        raise AssertionError("17c: the island's apply differs card and CPU")
+    if torch.equal(card[-1], first):
+        raise AssertionError("17c: the island's bursts moved nothing")
+    emit("17c", "grid10k-dsa-islands", rounds=DSA_ROUNDS,
+         status=r["status"], cost=r["cost"], final_cost=r["final_cost"],
+         msg_count=r["msg_count"],
+         run_flushes=r["telemetry"]["counters"].get("island.flushes", 0),
+         seconds=run_s, island_flushes=flushes,
+         island_vars=len(owned),
+         moved=int((card[-1] != first).sum()),
+         apply_card_equals_cpu=True)
+
+
+def _read_line(proc, timeout):
+    """The process's next stdout line, or "" after ``timeout`` s."""
+    import queue
+    import threading
+
+    box = queue.Queue()
+    threading.Thread(target=lambda: box.put(proc.stdout.readline()),
+                     daemon=True).start()
+    try:
+        return box.get(timeout=timeout)
+    except queue.Empty:
+        return ""
+
+
+def _wire(x):
+    """An in-process service result as the wire carries it (the JSON
+    round trip, without the keys the wire drops:
+    ``engine/service.py:_WIRE_DROP``), less the service-only keys."""
+    from pydcop_tpu_torch.engine.service import _WIRE_DROP
+
+    return serve_strip(json.loads(json.dumps(
+        {k: v for k, v in x.items() if k not in _WIRE_DROP}, default=str)))
+
+
+def serving_fleet(torch, mk, dev):
+    """17d (see the module docstring).  Returns the reference service's
+    launches (the fleet's replicas are processes of their own)."""
+    import os
+    import socket
+    import threading
+
+    from pydcop_tpu_torch.engine.fleet import HashRing
+    from pydcop_tpu_torch.engine.service import ServiceClient, SolverService
+    from pydcop_tpu_torch.telemetry import export
+
+    text = sensor_json(RECOVERY_VARS, 20)
+    owners = {s: HashRing(["r0", "r1"]).lookup(f"s:{s}")
+              for s in FLEET_SESSIONS}
+    first = FLEET_SESSIONS[0]
+    victim = owners[first]
+    standby = "r1" if victim == "r0" else "r0"
+    seg_kw = dict(rounds=SESSION_ROUNDS, chunk_size=SERVE_CHUNK)
+    deltas = [{f"s{j + 1}": (j + 1) % 3, f"s{j + 5}": 2}
+              for j in range(FLEET_FOLLOW_UPS)]
+    lat = []
+    got = {"stateless": [None] * FLEET_STATELESS,
+           "sessions": {s: [] for s in FLEET_SESSIONS}}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pydcop_tpu_torch", "fleet",
+         "--replicas", "2", "--device", dev.type, "--port", "0",
+         "--metrics_port", "0", "--max_batch", "8", "--max_wait", "0.05",
+         "--health_interval", "0.1",
+         "--chaos", f"replica_kill={FLEET_KILL_AFTER}:{victim[1:]}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(HERE), env={**os.environ, "PYTHONPATH": str(HERE)},
+    )
+    try:
+        line = _read_line(proc, FLEET_WAIT)
+        if not line:
+            raise AssertionError("17d: the fleet printed no head line")
+        head = json.loads(line)
+        kill_at = time.monotonic() + FLEET_KILL_AFTER
+        addr = head["fleet"]
+
+        def client(a=None):
+            return ServiceClient(a or addr, timeout=FLEET_WAIT,
+                                 retry_window=FLEET_WAIT)
+
+        def timed(fn, *a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            lat.append(time.perf_counter() - t0)
+            return r
+
+        def session(name, upto):
+            with client() as c:
+                for j in range(len(got["sessions"][name]), upto):
+                    got["sessions"][name].append(timed(
+                        c.solve, None if j else text, "maxsum",
+                        SERVE_PARAMS, session=name,
+                        set_values=deltas[j - 1] if j else None, **seg_kw))
+
+        def stateless(i):
+            with client() as c:
+                got["stateless"][i] = timed(
+                    c.solve, text, "maxsum", SERVE_PARAMS, seed=i, **seg_kw)
+
+        def run_all(target, args):
+            threads = [threading.Thread(target=target, args=a) for a in args]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(FLEET_WAIT)
+            if any(th.is_alive() for th in threads):
+                raise AssertionError("17d: a client did not finish")
+
+        def raw(address, frame):
+            host, _, port = address.rpartition(":")
+            with socket.create_connection((host, int(port)),
+                                          timeout=FLEET_WAIT) as s:
+                s.sendall((json.dumps(frame) + "\n").encode())
+                return json.loads(s.makefile("rb").readline())
+
+        def std_counters():
+            with client(std_addr) as c:
+                requests = c.stats()["requests"]
+            doc = export.parse_prometheus_text(export.http_get(
+                f"http://{std_metrics}/metrics", timeout=10))
+            return requests, {k: doc.get(f"pydcop_compile_{k}_total", 0)
+                              for k in ("full", "incremental")}
+
+        def healthz():
+            return json.loads(export.http_get(
+                f"http://{head['metrics']}/healthz", timeout=10))
+
+        # before the kill: each session's first segment and two
+        # follow-ups; the victim's second follow-up (its segment 3) goes
+        # as a raw frame with a known idempotency key
+        t0 = time.perf_counter()
+        run_all(session, [(s, 2 if s == first else 3)
+                          for s in FLEET_SESSIONS])
+        frame = {"op": "solve", "id": 1, "cid": "smoke",
+                 "ikey": "smoke:fleet:retry", "algo": "maxsum",
+                 "params": SERVE_PARAMS, "session": first,
+                 "set_values": deltas[1], **seg_kw}
+        t1 = time.perf_counter()
+        reply = raw(addr, frame)
+        lat.append(time.perf_counter() - t1)
+        if not reply.get("ok"):
+            raise AssertionError(f"17d: {reply}")
+        got["sessions"][first].append(reply["result"])
+        before_kill_s = time.perf_counter() - t0
+        seg_s = [round(x, 3) for x in lat]
+        if time.monotonic() > kill_at - 0.5:
+            raise AssertionError(f"17d: the sessions took {before_kill_s} "
+                                 f"s, past the kill (segments {seg_s})")
+        std_addr = head["replicas"][standby]
+        std_metrics = healthz()["replicas"][standby]["metrics"]
+        req0, comp0 = std_counters()
+
+        # the kill, then at once the victim's session's next follow-up
+        time.sleep(max(0.0, kill_at - time.monotonic()) + 0.05)
+        sent_after_kill = time.monotonic() - kill_at
+        session(first, 4)
+        failover_s = time.monotonic() - kill_at
+        # the answered raw frame again, straight to the standby: its
+        # replicated reply cache answers, no solve admitted
+        again = raw(std_addr, frame)
+        if {k: v for k, v in again.items() if k != "id"} != {
+                k: v for k, v in reply.items() if k != "id"}:
+            raise AssertionError("17d: the retry was not the replicated "
+                                 "reply")
+        run_all(session, [(s, 1 + FLEET_FOLLOW_UPS) for s in FLEET_SESSIONS])
+        req1, comp1 = std_counters()
+        # every session's last two segments ran on the standby, one
+        # incremental compile each; the retry was admitted nowhere
+        after_kill = 2 * len(FLEET_SESSIONS)
+        if comp1["full"] != comp0["full"] or (
+                comp1["incremental"] - comp0["incremental"] < after_kill):
+            raise AssertionError(f"17d: standby compiles {comp0} -> "
+                                 f"{comp1}")
+        if req1 - req0 != after_kill:
+            raise AssertionError(f"17d: standby admitted {req1 - req0}")
+
+        # 16 stateless solves on the surviving replica: one, then 15
+        # at once (the first puts the text in its compiled cache)
+        t2 = time.perf_counter()
+        stateless(0)
+        run_all(stateless, [(i,) for i in range(1, FLEET_STATELESS)])
+        stateless_s = time.perf_counter() - t2
+        health = healthz()
+        if health["replicas"][victim]["alive"] is not False:
+            raise AssertionError(f"17d: /healthz {health['replicas']}")
+        with client(std_addr) as c:
+            std_stats = c.stats()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    lost = [i for i, r in enumerate(got["stateless"]) if r is None]
+    for name, segs in got["sessions"].items():
+        if [r["segment"] for r in segs] != list(
+                range(1, 2 + FLEET_FOLLOW_UPS)):
+            lost.append(name)
+    if lost:
+        raise AssertionError(f"17d: lost {lost}")
+
+    # the same requests on one undisturbed in-process service on the card
+    mk.reset_launches()
+    with SolverService(pad_policy="pow2", max_batch=1, max_wait=0.0,
+                       device=dev) as ref:
+        for name, segs in got["sessions"].items():
+            for j, r in enumerate(segs):
+                want = serve_solve(ref, None if j else text, "maxsum",
+                                   SERVE_PARAMS, session=name,
+                                   set_values=deltas[j - 1] if j else None,
+                                   **seg_kw)
+                if _wire(want) != serve_strip(r):
+                    raise AssertionError(f"17d: session {name} segment "
+                                         f"{j + 1} differs")
+        for i in range(FLEET_STATELESS):
+            want = serve_solve(ref, text, "maxsum", SERVE_PARAMS, seed=i,
+                               **seg_kw)
+            if _wire(want) != serve_strip(got["stateless"][i]):
+                raise AssertionError(f"17d: stateless request {i} differs")
+    launches = dict(mk.launches)
+    lat_s = sorted(lat)
+    emit("17d", "fleet-sensors2k-R2", replicas=2, victim=victim,
+         moved_sessions=[s for s in FLEET_SESSIONS if owners[s] == victim],
+         requests=len(lat), lost=0,
+         stateless_requests_per_s=FLEET_STATELESS / stateless_s,
+         p50_s=lat_s[len(lat_s) // 2],
+         p99_s=lat_s[min(len(lat_s) - 1, int(0.99 * len(lat_s)))],
+         before_kill_seconds=before_kill_s,
+         sent_after_kill_s=sent_after_kill, failover_seconds=failover_s,
+         standby_compiles={k: comp1[k] - comp0[k] for k in comp0},
+         standby_admitted_after_kill=req1 - req0,
+         segments_before_kill_s=seg_s,
+         standby_stats={k: std_stats.get(k) for k in (
+             "replica_updates", "replicated_segments",
+             "replication_errors", "sessions_promoted", "replayed_replies")},
+         replicated_reply_replay=True, victim_dead=True,
+         equals_undisturbed=True)
+    return launches
+
+
+def host_runtime_phase(torch, mk, dev, card):
+    """Phase 17 (see the module docstring).  Returns the launches of its
+    card runs by kernel entry (every run launches one instance)."""
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dcop = grid10k_dcop()
+    dist = three_agent_split(dcop)
+    build_s = time.perf_counter() - t0
+    side = ISLAND_SIDE
+    if (len(dcop.variables), len(dcop.constraints)) != (
+            side * side, 2 * side * (side - 1)):
+        raise AssertionError("17: unexpected grid10k size")
+    total = {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    launches, sim_card = islands_sim(torch, mk, dev, dcop, dist)
+    add(launches)
+    add(islands_thread(torch, mk, dev, dcop, dist, sim_card))
+    islands_dsa(torch, dev, dcop)
+    add(serving_fleet(torch, mk, dev))
+    emit("17", "phase", seconds=time.perf_counter() - t_phase,
+         build_seconds=build_s)
+    return {k: total.get(k, 0) for k in ("factor_round_binary", "q_update")}
+
+
 def main() -> int:
     import torch
 
@@ -5877,7 +6630,12 @@ def main() -> int:
     vcounts = serve_phase(torch, mk, dev, card)
     print(f"phase 16 seconds={time.perf_counter() - t16}")
 
-    # -- 17. summary ------------------------------------------------------
+    # -- 17. the host runtimes with islands, and the fleet ---------------
+    t17 = time.perf_counter()
+    hcounts = host_runtime_phase(torch, mk, dev, card)
+    print(f"phase 17 seconds={time.perf_counter() - t17}")
+
+    # -- 18. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -5911,7 +6669,7 @@ def main() -> int:
             replaces=KERNELS[name],
             launches=launched + scounts.get(entry, 0)
             + dcounts.get(entry, 0) + ccounts.get(entry, 0)
-            + vcounts.get(entry, 0),
+            + vcounts.get(entry, 0) + hcounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),

@@ -46,6 +46,15 @@ params, timeout=None, max_util_size=..., pad_policy=None, device=None)
 -> result dict``, which ``api.solve`` calls instead of the batched
 engine.
 
+Host-runtime contract (``mode="sim"``/``"thread"``,
+``infrastructure/runtime.py``): ``build_computation(comp_def, seed=0)``
+returns the message-driven computation of one graph node, and
+``build_island(comp_defs, dcop, seed=0, pending_fn=None, device=None)``
+one agent's placed nodes as a compiled island on ``device`` behind
+per-node proxies.  Max-Sum, A-Max-Sum, DSA, A-DSA and DSA-tuto have
+both; the other algorithms' host computations and islands are ROADMAP
+A15b (:data:`HOST_RUNTIME_LATER`, :data:`ISLANDS_LATER`).
+
 Ported algorithms: :data:`AVAILABLE`.
 """
 
@@ -55,6 +64,8 @@ import dataclasses
 import importlib
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
+from pydcop_tpu_torch.utils.simple_repr import SimpleRepr
+
 _ALGO_PACKAGE = "pydcop_tpu_torch.algorithms"
 
 #: algorithms this package implements
@@ -62,6 +73,15 @@ AVAILABLE = (
     "adsa", "amaxsum", "dba", "dpop", "dsa", "dsatuto", "gdba", "maxsum",
     "mgm", "mgm2", "syncbb",
 )
+
+
+#: algorithms whose JAX counterparts have host computations
+#: (``build_computation``) that the port has not yet (ROADMAP A15b)
+HOST_RUNTIME_LATER = ("dba", "dpop", "gdba", "mgm", "mgm2", "syncbb")
+
+#: algorithms whose JAX counterparts deploy compiled islands
+#: (``build_island``) that the port has not yet (ROADMAP A15b)
+ISLANDS_LATER = ("dba", "gdba", "mgm")
 
 
 class AlgorithmDefError(ValueError):
@@ -142,3 +162,170 @@ def load_algorithm_module(name: str):
             f"available: {list(AVAILABLE)}"
         )
     return importlib.import_module(f"{_ALGO_PACKAGE}.{name}")
+
+
+class AlgorithmDef(SimpleRepr):
+    """Serializable algorithm selection: name + validated params + mode
+    (a copy of the JAX package's).
+
+    ``mode`` is 'min' or 'max' (the optimization direction the algorithm
+    should apply — normally taken from the DCOP objective).
+    """
+
+    def __init__(
+        self,
+        algo: str,
+        params: Optional[Mapping[str, Any]] = None,
+        mode: str = "min",
+    ):
+        self._algo = algo
+        self._params = dict(params or {})
+        self._mode = mode
+
+    @classmethod
+    def build_with_default_param(
+        cls,
+        algo: str,
+        params: Optional[Mapping[str, Any]] = None,
+        mode: str = "min",
+    ) -> "AlgorithmDef":
+        module = load_algorithm_module(algo)
+        validated = prepare_algo_params(params, module.algo_params)
+        return cls(algo, validated, mode)
+
+    @property
+    def algo(self) -> str:
+        return self._algo
+
+    @property
+    def name(self) -> str:
+        return self._algo
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return dict(self._params)
+
+    @property
+    def mode(self) -> str:
+        return self._mode
+
+    def param_value(self, name: str) -> Any:
+        return self._params[name]
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, AlgorithmDef)
+            and other._algo == self._algo
+            and other._params == self._params
+            and other._mode == self._mode
+        )
+
+    def __repr__(self) -> str:
+        return f"AlgorithmDef({self._algo!r}, {self._params}, {self._mode!r})"
+
+    def _simple_repr(self) -> dict:
+        from pydcop_tpu_torch.utils.simple_repr import (
+            _CLASS_KEY,
+            _MODULE_KEY,
+            simple_repr,
+        )
+
+        return {
+            _CLASS_KEY: type(self).__qualname__,
+            _MODULE_KEY: type(self).__module__,
+            "algo": self._algo,
+            "params": simple_repr(self._params),
+            "mode": self._mode,
+        }
+
+    @classmethod
+    def _from_repr(cls, r: dict):
+        from pydcop_tpu_torch.utils.simple_repr import from_repr
+
+        return cls(r["algo"], from_repr(r["params"]) or {}, r.get("mode", "min"))
+
+
+class ComputationDef(SimpleRepr):
+    """Deployment unit: one computation-graph node + the algorithm that
+    runs it (reference: ``ComputationDef``).  Used by the host runtime;
+    the batched engine deploys whole problems instead."""
+
+    def __init__(self, node, algo: AlgorithmDef):
+        self._node = node
+        self._algo = algo
+
+    @property
+    def node(self):
+        return self._node
+
+    @property
+    def algo(self) -> AlgorithmDef:
+        return self._algo
+
+    @property
+    def name(self) -> str:
+        return self._node.name
+
+    def __repr__(self) -> str:
+        return f"ComputationDef({self.name!r}, {self._algo.name})"
+
+    def _simple_repr(self) -> dict:
+        from pydcop_tpu_torch.utils.simple_repr import (
+            _CLASS_KEY,
+            _MODULE_KEY,
+            simple_repr,
+        )
+
+        return {
+            _CLASS_KEY: type(self).__qualname__,
+            _MODULE_KEY: type(self).__module__,
+            "node": simple_repr(self._node)
+            if isinstance(self._node, SimpleRepr)
+            else {"name": self._node.name},
+            "algo": simple_repr(self._algo),
+        }
+
+    @classmethod
+    def _from_repr(cls, r: dict):
+        from pydcop_tpu_torch.utils.simple_repr import from_repr
+
+        return cls(from_repr(r["node"]), from_repr(r["algo"]))
+
+
+def resolve_algo(algo, algo_params=None):
+    """Normalize (algo, algo_params) into ``(name, params_dict)``.
+
+    ``algo`` is a name or an :class:`AlgorithmDef`; explicit
+    ``algo_params`` override the def's params."""
+    if isinstance(algo, AlgorithmDef):
+        name, params = algo.algo, dict(algo.params)
+        if algo_params:
+            params.update(algo_params)
+        return name, params
+    return algo, dict(algo_params or {})
+
+
+def require_island_support(module, algo_name: str) -> None:
+    """Raise unless ``module`` can deploy compiled islands
+    (``build_island``, the ``accel_agents`` path of the host runtimes):
+    ``NotImplementedError`` for the islands ROADMAP A15b still has to
+    port, the JAX package's ``ValueError`` for the others."""
+    if hasattr(module, "build_island"):
+        return
+    if algo_name in ISLANDS_LATER:
+        raise NotImplementedError(
+            f"{algo_name}: its compiled island (the lockstep islands) is "
+            "not ported yet — see ROADMAP.md, A15b"
+        )
+    # the JAX package's list: the ported islands and those of A15b
+    have = sorted(
+        {
+            a for a in AVAILABLE
+            if hasattr(load_algorithm_module(a), "build_island")
+        }
+        | set(ISLANDS_LATER)
+    )
+    raise ValueError(
+        f"{algo_name}: no compiled-island support (build_island) "
+        f"— accel agents are available for: {', '.join(have)}"
+    )

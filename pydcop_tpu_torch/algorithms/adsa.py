@@ -109,3 +109,25 @@ def communication_load(
     node: _graph.VariableComputationNode, neighbor_name: str
 ) -> float:
     return UNIT_SIZE
+
+
+# -- host-runtime hooks (mode="sim"/"thread") ----------------------------
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (async semantics parity path —
+    see ``pydcop_tpu_torch.infrastructure``); solving runs on the batched
+    engine via ``draws``/``apply``."""
+    from pydcop_tpu_torch.algorithms import _host_dsa
+
+    return _host_dsa.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """Compiled-island deployment (``_island_dsa.py``): internal rounds
+    step THIS module's batched activation schedule."""
+    from pydcop_tpu_torch.algorithms import _island_dsa
+
+    return _island_dsa.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

@@ -96,3 +96,26 @@ def messages_per_round(
         (params or {}).get("activation", _DEFAULT_ACTIVATION)
     )
     return max(1, round(activation * 2 * problem.n_real_edges))
+
+
+# -- host-runtime hooks (mode="sim"/"thread") ----------------------------
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (async semantics parity path —
+    see ``pydcop_tpu_torch.infrastructure``); solving runs on the batched
+    engine via ``init_state``/``step``."""
+    from pydcop_tpu_torch.algorithms import _host_maxsum
+
+    return _host_maxsum.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """Compiled-island deployment (shared with ``maxsum``): the island
+    steps its subgraph synchronously per boundary wave — one more legal
+    schedule for the same fixed point (``_island_maxsum.py``)."""
+    from pydcop_tpu_torch.algorithms import _island_maxsum
+
+    return _island_maxsum.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

@@ -106,3 +106,26 @@ def communication_load(
 ) -> float:
     """One value message per round on each link."""
     return HEADER_SIZE + UNIT_SIZE
+
+
+# -- host-runtime hooks (mode="sim"/"thread") ----------------------------
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (async semantics parity path —
+    see ``pydcop_tpu_torch.infrastructure``); solving runs on the batched
+    engine via ``init_state``/``step``."""
+    from pydcop_tpu_torch.algorithms import _host_dsa
+
+    return _host_dsa.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """Compiled-island deployment: one agent's placed variables as a
+    single island on ``device`` behind per-variable proxies
+    (``accel_agents`` on the host runtimes; ``_island_dsa.py``)."""
+    from pydcop_tpu_torch.algorithms import _island_dsa
+
+    return _island_dsa.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

@@ -100,3 +100,29 @@ def communication_load(
     node: _graph.VariableComputationNode, neighbor_name: str
 ) -> float:
     return UNIT_SIZE
+
+
+# -- host-runtime hooks (mode="sim"/"thread") ----------------------------
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (async semantics parity path).
+
+    dsatuto is parameter-free: strict-improvement moves at p = 0.5,
+    matching the batched ``step`` above — NOT _host_dsa's B/0.7
+    defaults."""
+    from pydcop_tpu_torch.algorithms import _host_dsa
+
+    return _host_dsa.build_computation(
+        comp_def, seed=seed, variant="A", probability=0.5
+    )
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """Compiled-island deployment (``_island_dsa.py``): internal rounds
+    step this module's fixed A/0.5 rule."""
+    from pydcop_tpu_torch.algorithms import _island_dsa
+
+    return _island_dsa.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

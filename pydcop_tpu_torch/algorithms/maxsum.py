@@ -380,3 +380,26 @@ def communication_load(node, neighbor_name: str) -> float:
     if hasattr(node, "variable"):
         return HEADER_SIZE + len(node.variable.domain)
     return HEADER_SIZE + UNIT_SIZE
+
+
+# -- host-runtime hooks (mode="sim"/"thread") ----------------------------
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (async semantics parity path —
+    see ``pydcop_tpu_torch.infrastructure``); solving runs on the batched
+    engine via ``init_state``/``step``."""
+    from pydcop_tpu_torch.algorithms import _host_maxsum
+
+    return _host_maxsum.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """Compiled-island deployment: one agent's placed factor-graph nodes
+    as a single island on ``device`` behind per-node proxies
+    (``accel_agents`` on the host runtimes; ``_island_maxsum.py``)."""
+    from pydcop_tpu_torch.algorithms import _island_maxsum
+
+    return _island_maxsum.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

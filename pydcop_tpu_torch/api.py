@@ -54,11 +54,21 @@ Every call runs under a supervisor of its own
 ``on_numeric_fault`` and the device-layer ``chaos`` kinds on ``solve``
 and ``solve_many``, ``retry_budget`` on ``infer`` and ``infer_many``.
 
-``SolverService``, ``ServiceClient`` and ``ServiceError`` (the
-continuous-batching solver service, ``engine/service.py``) load on first
-use; importing this module loads no torch.
+``mode="sim"`` and ``mode="thread"`` run the host message-driven
+runtime (``infrastructure/runtime.py:solve_host``): one computation per
+graph node, on a seeded event loop or on one thread per agent, with
+``distribution`` shaping the placement, ``msg_log`` logging every
+delivered message, message-plane ``chaos`` in thread mode, and the
+agents named in ``accel_agents`` hosting their subgraph as one compiled
+island on ``device`` (Max-Sum and A-Max-Sum islands launch the factor
+and q-update kernels on the card).  ``mode="process"`` and ``ui_port``
+are ROADMAP A15b and raise ``NotImplementedError``.
 
-Not ported yet: the other execution modes (ROADMAP.md).
+``SolverService``, ``ServiceClient`` and ``ServiceError`` (the
+continuous-batching solver service, ``engine/service.py``) and
+``FleetRouter``, ``FleetError``, ``HashRing``, ``Replica`` and
+``standby_map`` (the replicated fleet, ``engine/fleet.py``) load on
+first use; importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -77,6 +87,9 @@ if TYPE_CHECKING:
 # torch: ``api.ServiceClient`` is a pure-socket client that a process
 # without torch can use against a remote ``serve``.
 _SERVICE_EXPORTS = ("ServiceClient", "ServiceError", "SolverService")
+_FLEET_EXPORTS = (
+    "FleetError", "FleetRouter", "HashRing", "Replica", "standby_map",
+)
 
 
 def __getattr__(name):
@@ -84,12 +97,16 @@ def __getattr__(name):
         from pydcop_tpu_torch.engine import service as _service
 
         return getattr(_service, name)
+    if name in _FLEET_EXPORTS:
+        from pydcop_tpu_torch.engine import fleet as _fleet
+
+        return getattr(_fleet, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def solve(
     dcop,
-    algo: str,
+    algo,
     algo_params: Optional[Mapping[str, Any]] = None,
     rounds: int = 200,
     timeout: Optional[float] = None,
@@ -115,6 +132,12 @@ def solve(
     chunk_floor: Optional[int] = None,
     on_numeric_fault: Optional[str] = None,
     compile_cache: Optional[str] = None,
+    ui_port: Optional[int] = None,
+    nb_agents: Optional[int] = None,
+    msg_log: Optional[str] = None,
+    accel_agents: Optional[Sequence[str]] = None,
+    distribution: Optional[Any] = None,
+    k_target: int = 0,
 ) -> Dict[str, Any]:
     """Solve a DCOP (object or yaml path) and return the result dict,
     with the run's ``telemetry`` block; ``trace`` also writes the
@@ -150,6 +173,20 @@ def solve(
     ``compile_cache`` (the JAX package's persistent XLA cache) has no
     counterpart and takes only None, as in :func:`solve_many`.
 
+    ``algo`` is a name or an ``AlgorithmDef`` (explicit ``algo_params``
+    override its params).  ``mode`` is ``"batched"`` (the default),
+    ``"sim"`` (the deterministic seeded event loop of the host runtime)
+    or ``"thread"`` (one thread per agent): the JAX package's modes,
+    with its checks and messages.  In the host modes ``distribution``
+    (a strategy name, a ``distribute --output`` file or a
+    ``Distribution``) places the computations on agents, ``accel_agents``
+    names the agents that host their subgraph as one compiled island on
+    ``device``, ``msg_log`` writes every delivered message as a JSON
+    line, and thread mode takes the message-plane ``chaos`` kinds.  The
+    batched engine accepts and ignores ``distribution``.
+    ``mode="process"`` and ``ui_port`` raise ``NotImplementedError``
+    (ROADMAP A15b).
+
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
     >>> result["assignment"], result["cost"]
@@ -169,6 +206,9 @@ def solve(
             table_dtype=table_dtype, table_format=table_format,
             chaos=chaos, chaos_seed=chaos_seed, retry_budget=retry_budget,
             chunk_floor=chunk_floor, on_numeric_fault=on_numeric_fault,
+            ui_port=ui_port, nb_agents=nb_agents, msg_log=msg_log,
+            accel_agents=accel_agents, distribution=distribution,
+            k_target=k_target,
         )
         result["telemetry"] = tel.summary()
     return result
@@ -275,23 +315,267 @@ def _contraction_knobs(
     return params_in
 
 
+_A15B = "see ROADMAP.md, A15b"
+
+
+def _host_mode_checks(
+    mode, pad_policy, retry_budget, chunk_floor, on_numeric_fault,
+    max_util_bytes, chaos, chaos_seed,
+) -> None:
+    """The JAX package's refusals of the batched engine's knobs and of
+    the foreign chaos kinds on a message-driven mode."""
+    from pydcop_tpu_torch.ops.padding import as_pad_policy
+
+    if as_pad_policy(pad_policy).enabled:
+        raise ValueError(
+            "pad_policy shapes the batched engine's compiled arrays; "
+            f"mode={mode!r} does not compile the whole problem"
+        )
+    if (
+        retry_budget is not None
+        or chunk_floor is not None
+        or on_numeric_fault is not None
+    ):
+        raise ValueError(
+            "retry_budget/chunk_floor/on_numeric_fault configure the "
+            "batched engine's supervised device dispatch "
+            f"(engine/supervisor.py); mode={mode!r} has no device "
+            "dispatch to supervise"
+        )
+    if max_util_bytes is not None:
+        raise ValueError(
+            "max_util_bytes bounds the batched engine's exact "
+            "contraction sweeps (ops/membound.py); the "
+            f"message-driven mode={mode!r} never builds whole UTIL "
+            "tables to bound"
+        )
+    if chaos:
+        # a device-layer clause on a host runtime would no-op silently
+        # (the chaos layer only reads message-plane fields)
+        from pydcop_tpu_torch.faults import FaultPlan
+
+        plan_probe = FaultPlan.from_spec(chaos, chaos_seed)
+        if plan_probe.device_faults_configured:
+            raise ValueError(
+                "device-layer chaos kinds (device_oom/"
+                "device_transient/nan_inject) inject at the batched "
+                "engine's supervised device dispatch "
+                f"(engine/supervisor.py); mode={mode!r} has no device "
+                "dispatch — use mode='batched' (docs/faults.md)"
+            )
+        if plan_probe.wire_faults_configured:
+            raise ValueError(
+                "wire-level chaos kinds (conn_drop/slow_client/"
+                "frame_corrupt) inject at the solver service's frame "
+                f"loop (engine/service.py); mode={mode!r} has no "
+                "serving wire — use `pydcop_tpu serve --chaos` "
+                "(docs/serving.md)"
+            )
+        if plan_probe.fleet_faults_configured:
+            raise ValueError(
+                "fleet-level chaos kinds (replica_kill) act on a "
+                "replicated serving fleet's processes "
+                f"(engine/fleet.py); mode={mode!r} has no fleet — "
+                "use `pydcop_tpu fleet --chaos` (docs/faults.md)"
+            )
+
+
+def _solve_host_mode(
+    dcop, algo, algo_params, *, mode, rounds, timeout, seed,
+    checkpoint_path, resume, ui_port, n_restarts, nb_agents, msg_log,
+    accel_agents, distribution, k_target, chaos, chaos_seed, device,
+) -> Dict[str, Any]:
+    """``mode="sim"``/``"thread"``: the JAX package's checks, then the
+    host runtime; ``"process"`` is ROADMAP A15b."""
+    if mode == "process":
+        if checkpoint_path is not None or resume or n_restarts != 1:
+            raise ValueError(
+                "checkpoint/resume and n_restarts are only supported "
+                "on the batched engine, not mode='process'"
+            )
+        raise NotImplementedError(
+            "mode='process' (one OS process per agent over the TCP host "
+            f"runtime) is not ported yet — {_A15B}"
+        )
+    if mode not in ("thread", "sim"):
+        raise ValueError(f"solve: unknown mode {mode!r}")
+    if checkpoint_path is not None or resume:
+        raise ValueError(
+            "checkpoint/resume is only supported on the batched "
+            f"engine, not mode={mode!r}"
+        )
+    if ui_port is not None:
+        raise ValueError(
+            "ui_port (live observability) is only supported on "
+            f"the batched engine, not mode={mode!r}"
+        )
+    if n_restarts != 1:
+        raise ValueError(
+            "n_restarts (batched parallel restarts) is only "
+            f"supported on the batched engine, not mode={mode!r}"
+        )
+    if nb_agents is not None:
+        raise ValueError(
+            "nb_agents is the process count of mode='process'; "
+            f"mode={mode!r} decides its own parallelism"
+        )
+    if k_target:
+        raise ValueError(
+            "k_target (replica-based migration) needs killable "
+            "agent OS processes — mode='process' only"
+        )
+    from pydcop_tpu_torch.device import resolve_device
+    from pydcop_tpu_torch.infrastructure import solve_host
+
+    dev = resolve_device(device)
+    # sim consults placement only for island grouping — don't resolve a
+    # distribution whose result would be discarded.  Strategy NAMES pass
+    # through as-is (the runtime computes them over the graph it builds
+    # anyway); files/objects resolve here.
+    dist_obj = None
+    if distribution is not None and (mode == "thread" or accel_agents):
+        if _is_strategy_name(distribution):
+            _validate_strategy_name(distribution)
+            dist_obj = distribution
+        else:
+            dist_obj = _resolve_distribution(dcop, distribution)
+    return solve_host(
+        dcop, algo, algo_params, mode=mode, timeout=timeout,
+        seed=seed, rounds=rounds, msg_log=msg_log,
+        accel_agents=accel_agents, distribution=dist_obj,
+        chaos=chaos, chaos_seed=chaos_seed, device=dev,
+    )
+
+
+def _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents, ui_port):
+    """The JAX package's refusals of the host-runtime keywords on the
+    batched engine; ``ui_port`` is ROADMAP A15b."""
+    if k_target:
+        raise ValueError(
+            "k_target (replica-based migration) is a host-runtime "
+            "mode — use mode='process' (the batched engine's "
+            "resilience is engine-level: engine/dynamic.py)"
+        )
+    if accel_agents:
+        raise ValueError(
+            "accel_agents (compiled islands) deploys through the host "
+            "runtimes' agents — use mode='sim', 'thread' or 'process' "
+            "(or the orchestrator/agent CLI with --accel_agents); the "
+            "batched engine is all-accelerator already"
+        )
+    if msg_log is not None:
+        raise ValueError(
+            "msg_log records individual message contents — only the "
+            "message-driven modes (thread/sim/process) deliver them; "
+            "the batched engine fuses a round into one device step "
+            "and the exact host-path solvers (dpop/syncbb) are "
+            "vectorized.  Run the algorithm with mode='thread'/'sim'/"
+            "'process' to log its messages."
+        )
+    if nb_agents is not None:
+        raise ValueError(
+            "nb_agents is the process count of mode='process'; other "
+            "modes decide their own parallelism"
+        )
+    if ui_port is not None:
+        raise NotImplementedError(
+            "ui_port (the live observability feed, the JAX package's "
+            f"infrastructure/ui.py) is not ported yet — {_A15B}"
+        )
+
+
+def _is_strategy_name(distribution) -> bool:
+    """A string that is not an existing file is a strategy name."""
+    import os
+
+    return isinstance(distribution, str) and not os.path.isfile(
+        distribution
+    )
+
+
+def _validate_strategy_name(name: str) -> None:
+    """Fail fast on an unloadable strategy (also catches mistyped
+    placement-file paths, indistinguishable from names here)."""
+    from pydcop_tpu_torch.distribution import load_distribution_module
+
+    try:
+        load_distribution_module(name)
+    except Exception as e:
+        raise ValueError(
+            f"distribution {name!r} is neither an existing placement "
+            f"file nor a loadable strategy: {e}"
+        )
+
+
+def _resolve_distribution(dcop, distribution):
+    """Normalize a non-strategy ``solve(distribution=...)``: pass
+    through a ``Distribution``, or load a ``distribute --output`` yaml
+    path.  Strategy names are resolved by the runtime that owns the
+    computation graph (``runtime.solve_host``)."""
+    if distribution is None:
+        return None
+    from pydcop_tpu_torch.distribution import Distribution
+
+    if isinstance(distribution, Distribution):
+        return distribution
+    import os
+
+    if not os.path.isfile(str(distribution)):
+        raise ValueError(
+            f"{distribution!r}: not a placement file (expected a yaml "
+            "`distribution:` mapping of agent -> computation names, "
+            "the `distribute --output` format)"
+        )
+    import yaml
+
+    with open(distribution) as f:
+        spec = yaml.safe_load(f)
+    mapping = spec.get("distribution") if isinstance(spec, dict) else None
+    if not isinstance(mapping, dict):
+        raise ValueError(
+            f"{distribution}: not a placement file (expected a "
+            "yaml `distribution:` mapping of agent -> computation "
+            "names, the `distribute --output` format)"
+        )
+    return Distribution(mapping)
+
+
 def _solve(
     dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
     chunk_size, checkpoint_path, checkpoint_every, resume, mode,
     n_restarts, pad_policy, device, max_util_bytes=None, bnb=None,
     table_dtype=None, table_format=None, chaos=None, chaos_seed=0,
     retry_budget=None, chunk_floor=None, on_numeric_fault=None,
+    ui_port=None, nb_agents=None, msg_log=None, accel_agents=None,
+    distribution=None, k_target=0,
 ) -> Dict[str, Any]:
+    from pydcop_tpu_torch.algorithms import resolve_algo
     from pydcop_tpu_torch.engine.supervisor import (
         make_supervisor,
         supervision,
     )
 
+    if isinstance(dcop, (str, list, tuple)):
+        from pydcop_tpu_torch.dcop.yamldcop import load_dcop_from_file
+
+        dcop = load_dcop_from_file(dcop)
     if mode != "batched":
-        raise NotImplementedError(
-            f"mode={mode!r}: only the batched engine is ported"
+        _host_mode_checks(
+            mode, pad_policy, retry_budget, chunk_floor, on_numeric_fault,
+            max_util_bytes, chaos, chaos_seed,
+        )
+        return _solve_host_mode(
+            dcop, algo, algo_params, mode=mode, rounds=rounds,
+            timeout=timeout, seed=seed, checkpoint_path=checkpoint_path,
+            resume=resume, ui_port=ui_port, n_restarts=n_restarts,
+            nb_agents=nb_agents, msg_log=msg_log,
+            accel_agents=accel_agents, distribution=distribution,
+            k_target=k_target, chaos=chaos, chaos_seed=chaos_seed,
+            device=device,
         )
     plan = _device_chaos(chaos, chaos_seed, "solve")
+    _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents, ui_port)
+    algo, algo_params = resolve_algo(algo, algo_params)
     # every call runs under a supervisor of its own: the knobs, the
     # device chaos plan and per-call dispatch sequence numbers (what
     # makes the injected schedule replayable)

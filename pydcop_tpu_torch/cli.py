@@ -3,7 +3,7 @@
 The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
 under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``, ``run``,
 ``graph``, ``distribute``, ``generate``, ``batch``, ``consolidate``,
-``replica_dist``, ``serve``, ``top``, ``trace-summary`` and
+``replica_dist``, ``serve``, ``fleet``, ``top``, ``trace-summary`` and
 ``flight-dump``.  The global options (``-v``,
 ``--log``, ``-t``/``--timeout``, ``--output``) are accepted before and
 after the subcommand, as in the JAX package.  The commands that touch
@@ -31,6 +31,8 @@ COMMANDS = [
     "replica_dist",
     # resident continuous-batching solver service
     "serve",
+    # replicated serving fleet: consistent-hash router + N serve replicas
+    "fleet",
     # live terminal view of a serve --metrics_port exporter
     "top",
     # module trace_summary registers the subcommand as `trace-summary`

@@ -1,5 +1,6 @@
-"""``pydcop_tpu_torch solve`` — the batched-mode subset of
-``pydcop_tpu/commands/solve.py``, with DPOP's exact host path.
+"""``pydcop_tpu_torch solve`` — port of ``pydcop_tpu/commands/solve.py``
+(``--mode process`` and ``--uiport`` are ROADMAP A15b and exit with the
+API's refusal).
 
 One-shot solve of a DCOP yaml on the batched engine, or with ``-a dpop``
 on the exact path (``-p util_device:always``, ``-p util_batch:node``,
@@ -20,7 +21,11 @@ prints a JSON array (without the ``telemetry`` blocks, as the JAX
 package prints it).  ``--profile DIR`` writes a ``torch.profiler``
 Chrome trace of the single solve into DIR (:func:`profile`);
 ``--compile_cache`` takes only its default (the port compiles no XLA
-programs).
+programs).  ``-m sim|thread`` runs the host message-driven runtime
+(``-m tpu``, the default, is the batched engine), with ``-d`` placing the
+computations, ``--accel_agents A ...`` hosting those agents' subgraphs
+as compiled islands on ``--device``, ``--msg_log FILE`` logging every
+delivered message and, in thread mode, message-plane ``--chaos``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,41 @@ def set_parser(subparsers) -> None:
     p.add_argument(
         "-p", "--algo_params", action="append", default=[],
         metavar="NAME:VALUE", help="algorithm parameter (repeatable)",
+    )
+    p.add_argument(
+        "-d", "--distribution", default=None,
+        help="distribution strategy name or `distribute --output` yaml "
+        "file: shapes the host modes' placement (thread agent grouping, "
+        "island subgraphs); the batched engine solves regardless of "
+        "placement",
+    )
+    p.add_argument(
+        "-m", "--mode", choices=["thread", "sim", "process", "tpu"],
+        default="tpu",
+        help="execution mode: tpu = batched engine (default, on the "
+        "card); thread = host thread-per-agent runtime; sim = "
+        "deterministic async event loop; process = one OS process per "
+        "agent (not ported yet: ROADMAP A15b)",
+    )
+    p.add_argument(
+        "--nb_agents", type=int, default=None,
+        help="process count for --mode process (not ported yet)",
+    )
+    p.add_argument(
+        "--accel_agents", nargs="+", default=None, metavar="NAME",
+        help="(thread/sim modes) agents whose placed subgraph runs as ONE "
+        "compiled island on --device instead of per-computation host "
+        "code (maxsum/amaxsum and the dsa family)",
+    )
+    p.add_argument(
+        "--msg_log", default=None, metavar="FILE",
+        help="(thread/sim modes) dump every delivered message's full "
+        "content to FILE as JSON lines",
+    )
+    p.add_argument(
+        "--uiport", type=int, default=None,
+        help="the JAX package's live observability feed (not ported "
+        "yet: ROADMAP A15b)",
     )
     p.add_argument("--rounds", type=int, default=200, help="round budget")
     p.add_argument("--seed", type=int, default=0)
@@ -131,10 +171,12 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--chaos", default=None, metavar="SPEC",
-        help="inject deterministic device-layer faults at the supervised "
-        "device dispatch (engine/supervisor.py): device_oom=W[:R], "
-        "device_transient=P[:AFTER], nan_inject=P[:I]; same "
-        "--chaos_seed => identical fault sequence",
+        help="inject deterministic faults (same --chaos_seed => "
+        "identical fault sequence).  thread mode: message-plane kinds — "
+        "drop/dup/reorder/delay probabilities, timed partitions.  tpu "
+        "mode (incl. --many): device-layer kinds — device_oom=W[:R], "
+        "device_transient=P[:AFTER], nan_inject=P[:I] — injected at the "
+        "supervised device dispatch (engine/supervisor.py)",
     )
     p.add_argument(
         "--chaos_seed", type=int, default=0,
@@ -189,9 +231,19 @@ def run_cmd(args) -> int:
         on_numeric_fault=args.on_numeric_fault,
     )
     if args.many:
+        if args.mode != "tpu":
+            raise SystemExit(
+                "--many batches instances on the batched engine; "
+                f"--mode {args.mode} does not apply"
+            )
         for flag, name in (
             (args.checkpoint, "--checkpoint"),
             (args.resume, "--resume"),
+            (args.uiport, "--uiport"),
+            (args.msg_log, "--msg_log"),
+            (args.accel_agents, "--accel_agents"),
+            (args.distribution, "--distribution"),
+            (args.nb_agents, "--nb_agents"),
             (args.profile, "--profile"),
         ):
             if flag:
@@ -240,6 +292,12 @@ def run_cmd(args) -> int:
             checkpoint_path=args.checkpoint,
             checkpoint_every=args.checkpoint_every,
             resume=args.resume,
+            mode="batched" if args.mode == "tpu" else args.mode,
+            ui_port=args.uiport,
+            nb_agents=args.nb_agents,
+            msg_log=args.msg_log,
+            accel_agents=args.accel_agents,
+            distribution=args.distribution,
             pad_policy=args.pad_policy,
             device=args.device,
             trace=args.trace,
@@ -249,4 +307,6 @@ def run_cmd(args) -> int:
         )
     write_metrics(args, result)
     result.pop("cost_trace", None)  # keep the printed JSON compact
+    result.pop("trace_subsampled", None)
+    result.pop("trace_msgs", None)
     return write_result(args, result)

@@ -5,9 +5,10 @@ behind ``--chaos SPEC --chaos_seed N``: every decision is a pure hash
 of ``(seed, scope, sequence number, kind)``.  The port injects its
 device-layer kinds (``device_oom``, ``device_transient``,
 ``nan_inject``) at the supervised dispatch
-(:mod:`pydcop_tpu_torch.engine.supervisor`).  The message-plane chaos
-layer (the JAX package's ``ChaosCommunicationLayer``) belongs to the
-host runtime, which the port does not have yet.
+(:mod:`pydcop_tpu_torch.engine.supervisor`).
+:class:`~pydcop_tpu_torch.faults.chaos.ChaosCommunicationLayer` applies
+the message-plane kinds to every outbound message of a thread-mode agent
+(``infrastructure/runtime.py``); it loads on first use.
 """
 
 from pydcop_tpu_torch.faults.plan import (
@@ -21,6 +22,7 @@ from pydcop_tpu_torch.faults.plan import (
 )
 
 __all__ = [
+    "ChaosCommunicationLayer",
     "DeviceFaults",
     "FaultPlan",
     "FaultSpecError",
@@ -29,3 +31,11 @@ __all__ = [
     "Partition",
     "WireFaults",
 ]
+
+
+def __getattr__(name):
+    if name == "ChaosCommunicationLayer":
+        from pydcop_tpu_torch.faults.chaos import ChaosCommunicationLayer
+
+        return ChaosCommunicationLayer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

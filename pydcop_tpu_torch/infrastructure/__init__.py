@@ -1,0 +1,32 @@
+"""Host message-driven runtime (port of ``pydcop_tpu/infrastructure``;
+reference: ``pydcop/infrastructure/``).
+
+The batched engine (``pydcop_tpu_torch.engine``) is the production solve
+path; this package is the reference-shaped *host* runtime that the
+asynchronous algorithms' semantics are anchored to:
+
+- ``computations``: ``Message`` / ``MessagePassingComputation`` base
+  classes with ``@register`` handler dispatch;
+- ``communication``: the in-process communication layer and the
+  per-agent ``Messaging`` router with priority classes and message
+  metrics;
+- ``agents``: the thread-per-agent execution container;
+- ``runtime``: ``solve_host()`` — run a DCOP on this runtime, either
+  with real agent threads (``mode='thread'``) or on a deterministic
+  seeded single-thread event loop (``mode='sim'``), with
+  ``accel_agents`` hosting their subgraph as a compiled island on the
+  device.
+
+The cross-process runtime (``mode='process'``: the JAX package's
+``hostnet``, ``orchestrator``, ``elastic`` and ``ui``) is ROADMAP A15b.
+"""
+
+from pydcop_tpu_torch.infrastructure.computations import (  # noqa: F401
+    DcopComputation,
+    Message,
+    MessagePassingComputation,
+    VariableComputation,
+    message_type,
+    register,
+)
+from pydcop_tpu_torch.infrastructure.runtime import solve_host  # noqa: F401

@@ -92,6 +92,9 @@ class Tracer:
             )
         self.path = path
         self.fmt = fmt
+        # per-message events (the host runtime's deliveries) are high
+        # volume: recorded only when the run writes a trace file
+        self.detailed = path is not None
         self.max_records = max_records
         self.dropped = 0
         self._epoch = time.perf_counter()
@@ -285,9 +288,10 @@ class Tracer:
 
 
 class _NullTracer:
-    """Disabled tracer: ``enabled`` is the guard."""
+    """Disabled tracer: ``enabled``/``detailed`` are the guards."""
 
     enabled = False
+    detailed = False
 
     def span(self, name: str, cat: str = "", **args) -> _NullSpan:
         return _NULL_SPAN

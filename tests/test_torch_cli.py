@@ -35,15 +35,16 @@ SECP = ["generate", "secp", "--nb_lights", "4", "--nb_models", "3",
         "--nb_rules", "2", "--light_levels", "3", "--model_arity", "2",
         "--seed", "4"]
 
-#: flags of the JAX commands that stay with the host runtime and islands
-#: (ROADMAP A15): solve's placement, mode and host-runtime options
-A15_SOLVE_FLAGS = {"-d", "--distribution", "-m", "--mode", "--nb_agents",
-                   "--accel_agents", "--msg_log", "--uiport"}
+#: flags of the JAX commands the port does not have: none since the host
+#: runtime's solve flags (-d, -m, --nb_agents, --accel_agents, --msg_log,
+#: --uiport) arrived with ROADMAP A15a
+A15_SOLVE_FLAGS = set()
 #: the port's own flags: the card or the CPU, on the commands that run on
-#: a device (infer's --device is the JAX offload policy)
+#: a device (infer's --device is the JAX offload policy; fleet passes
+#: --device to its serve replicas)
 DEVICE_FLAGS = {"solve": {"--device"}, "run": {"--device"},
                 "batch": {"--device"}, "serve": {"--device"},
-                "infer": {"--torch_device"}}
+                "fleet": {"--device"}, "infer": {"--torch_device"}}
 
 
 def _subparsers(parser):
@@ -67,7 +68,8 @@ def test_registry_is_the_jax_order_of_the_ported_commands():
     names = set(_subparsers(port_parser()).choices)
     assert names == {"solve", "infer", "run", "graph", "distribute",
                      "generate", "batch", "consolidate", "replica_dist",
-                     "serve", "top", "trace-summary", "flight-dump"}
+                     "serve", "fleet", "top", "trace-summary",
+                     "flight-dump"}
 
 
 def test_flag_sets_equal_but_the_named_exclusions():

@@ -1,0 +1,382 @@
+"""The port's host message-driven runtime against the JAX package's, on
+the CPU.
+
+All-host ``sim`` runs use no jax randomness: the event loop's channel
+choice is ``random.Random(seed)``, each computation's stream is
+``stable_seed`` (crc32) and every cost is Python arithmetic on the model
+objects.  So they must equal the JAX package's ``solve_host(mode="sim")``
+bit for bit, every result key but ``time``; the ``msg_log`` lines differ
+only by the package prefix of the ``simple_repr`` module names, which is
+mapped before comparing (ROADMAP C, 'Message log module names').  Thread
+mode is timing-dependent, so it is held to the known optimum instead.
+The chaos layer's decisions are a pure hash, so its event sequence on the
+same traffic equals the JAX layer's.  Every refusal of a host mode has
+the JAX package's exception type and message.
+"""
+
+import json
+import os
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from pydcop_tpu.dcop.yamldcop import load_dcop as jax_load  # noqa: E402
+from pydcop_tpu.infrastructure import solve_host as jax_solve_host  # noqa: E402
+
+from pydcop_tpu_torch.dcop.yamldcop import load_dcop as port_load  # noqa: E402
+from pydcop_tpu_torch.infrastructure import solve_host  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COLORING = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
+HOST_ALGOS = ["maxsum", "amaxsum", "dsa", "adsa", "dsatuto"]
+
+
+def _yaml(kind: str, agents=()) -> str:
+    """Small instances of the JAX package's host-runtime tests
+    (``tests/test_infrastructure.py``): a 6-ring and a 7-node binary tree
+    of 3-colorings, a 4-chain 'max' agreement problem, and a 5-variable
+    problem with unary costs and a ternary constraint."""
+    lines = ["name: " + kind]
+    if kind == "maxchain":
+        lines.append("objective: max")
+    else:
+        lines.append("objective: min")
+    lines += ["domains:", "  colors: {values: [0, 1, 2]}", "variables:"]
+    if kind == "ring":
+        n, edges = 6, [(i, (i + 1) % 6) for i in range(6)]
+    elif kind == "tree":
+        n, edges = 7, [(i, (i - 1) // 2) for i in range(1, 7)]
+    elif kind == "maxchain":
+        n, edges = 4, [(i, i + 1) for i in range(3)]
+    else:  # mixed
+        n, edges = 5, [(0, 1), (1, 2), (3, 4), (2, 3)]
+    for i in range(n):
+        if kind == "mixed" and i in (0, 3):
+            lines.append(
+                f"  v{i}: {{domain: colors, cost_function: 0.5 * v{i}}}"
+            )
+        else:
+            lines.append(f"  v{i}: {{domain: colors}}")
+    lines.append("constraints:")
+    for k, (i, j) in enumerate(edges):
+        fn = (
+            f"5 if v{i} == v{j} else 0" if kind == "maxchain"
+            else f"1 if v{i} == v{j} else 0"
+        )
+        lines += [f"  c{k}:", "    type: intention", f"    function: {fn}"]
+    if kind == "mixed":
+        lines += [
+            "  t0:", "    type: intention",
+            "    function: 0.3 * abs(v0 + v2 - v4)",
+        ]
+    if agents:
+        lines.append(f"agents: [{', '.join(agents)}]")
+    return "\n".join(lines) + "\n"
+
+
+def _both(kind: str, agents=()):
+    if kind == "coloring3":
+        text = open(COLORING).read()
+    else:
+        text = _yaml(kind, agents)
+    return jax_load(text), port_load(text)
+
+
+def _mapped(obj):
+    """``simple_repr`` output with the port's module names mapped to the
+    JAX package's."""
+    if isinstance(obj, dict):
+        return {k: _mapped(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_mapped(v) for v in obj]
+    if isinstance(obj, str) and obj.startswith("pydcop_tpu_torch."):
+        return "pydcop_tpu." + obj[len("pydcop_tpu_torch."):]
+    return obj
+
+
+def _log_lines(path):
+    out = []
+    for ln in open(path).read().splitlines():
+        rec = json.loads(ln)
+        rec.pop("t")
+        out.append(rec)
+    return out
+
+
+def _same_result(rj, rt, skip=("time",)):
+    assert set(rj) == set(rt)
+    for k in rj:
+        if k in skip:
+            continue
+        assert rt[k] == rj[k], k
+
+
+INSTANCES = ["ring", "tree", "maxchain", "mixed", "coloring3"]
+
+
+@pytest.mark.parametrize("kind", INSTANCES)
+@pytest.mark.parametrize("algo", HOST_ALGOS)
+def test_all_host_sim_equals_jax_bit_for_bit(algo, kind, tmp_path):
+    dj, dt = _both(kind)
+    params = {"damping": 0.5} if "maxsum" in algo else {}
+    seed = 3
+    pj, pt = str(tmp_path / "jax.jsonl"), str(tmp_path / "port.jsonl")
+    rj = jax_solve_host(dj, algo, params, mode="sim", seed=seed, msg_log=pj)
+    rt = solve_host(
+        dt, algo, params, mode="sim", seed=seed, msg_log=pt, device="cpu"
+    )
+    _same_result(rj, rt)
+    lj, lt = _log_lines(pj), _log_lines(pt)
+    assert len(lj) == rj["msg_count"] > 0
+    assert [_mapped(x) for x in lt] == lj
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_sim_budget_and_rounds_equal_jax(seed):
+    dj, dt = _both("ring")
+    for kw in ({"max_msgs": 7}, {"rounds": 2}):
+        rj = jax_solve_host(dj, "amaxsum", {}, mode="sim", seed=seed, **kw)
+        rt = solve_host(dt, "amaxsum", {}, mode="sim", seed=seed,
+                        device="cpu", **kw)
+        _same_result(rj, rt)
+        assert rt["status"] == "msg_budget"
+
+
+def test_api_sim_equals_jax_api_and_cli(tmp_path, capsys):
+    from pydcop_tpu.api import solve as jax_solve
+    from pydcop_tpu.cli import main as jax_main
+
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.cli import main as port_main
+
+    rj = jax_solve(COLORING, "amaxsum", {"damping": 0.5}, mode="sim", seed=2)
+    rt = solve(COLORING, "amaxsum", {"damping": 0.5}, mode="sim", seed=2,
+               device="cpu")
+    _same_result(rj, rt, skip=("time", "telemetry"))
+    argv = ["solve", "-a", "dsa", "-m", "sim", "--seed", "4", COLORING]
+    assert jax_main(argv) == 0
+    out_j = json.loads(capsys.readouterr().out)
+    assert port_main(argv + ["--device", "cpu"]) == 0
+    out_t = json.loads(capsys.readouterr().out)
+    _same_result(out_j, out_t, skip=("time", "telemetry"))
+
+
+def test_sim_message_counters_equal_jax():
+    from pydcop_tpu.api import solve as jax_solve
+
+    from pydcop_tpu_torch.api import solve
+
+    rj = jax_solve(COLORING, "maxsum", {}, mode="sim", seed=5)
+    rt = solve(COLORING, "maxsum", {}, mode="sim", seed=5, device="cpu")
+    cj, ct = rj["telemetry"]["counters"], rt["telemetry"]["counters"]
+    msg = sorted(k for k in cj if k.startswith("msg."))
+    assert msg == ["msg.delivered", "msg.size"]
+    assert {k: ct[k] for k in msg} == {k: cj[k] for k in msg}
+    assert ct["msg.delivered"] == rt["msg_count"]
+
+
+def test_algorithm_def_and_params_resolve_as_jax():
+    from pydcop_tpu.algorithms import AlgorithmDef as JDef
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+
+    dj, dt = _both("tree")
+    rj = jax_solve_host(dj, JDef("dsa", {"variant": "A"}), {"probability": 0.9},
+                        mode="sim", seed=1)
+    rt = solve_host(dt, AlgorithmDef("dsa", {"variant": "A"}),
+                    {"probability": 0.9}, mode="sim", seed=1, device="cpu")
+    _same_result(rj, rt)
+
+
+# -- thread mode -------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["ring", "tree"])
+@pytest.mark.parametrize("placement", ["declared", "file", "strategy"])
+def test_thread_mode_reaches_the_optimum(kind, placement, tmp_path):
+    from pydcop_tpu_torch.api import solve
+
+    agents = ("a1", "a2", "a3")
+    _, dt = _both(kind, agents)
+    dist = None
+    algo = "adsa" if kind == "ring" else "amaxsum"
+    if placement == "file":
+        n = len(dt.variables)
+        mapping = {a: [] for a in agents}
+        for i in range(n):
+            mapping[agents[i % 3]].append(f"v{i}")
+        # dsa family: one computation per variable
+        algo = "adsa"
+        path = tmp_path / "dist.yaml"
+        path.write_text(json.dumps({"distribution": mapping}))
+        dist = str(path)
+    elif placement == "strategy":
+        dist = "adhoc"
+    r = solve(dt, algo, {}, mode="thread", timeout=20, seed=1,
+              distribution=dist, device="cpu")
+    assert r["status"] == "finished"
+    assert r["cost"] == 0
+    assert r["msg_count"] > 0
+
+
+def test_thread_mode_msg_log_counts_every_delivery(tmp_path):
+    _, dt = _both("ring")
+    path = str(tmp_path / "thread.jsonl")
+    r = solve_host(dt, "maxsum", mode="thread", seed=1, timeout=20,
+                   msg_log=path, device="cpu")
+    lines = _log_lines(path)
+    assert len(lines) == r["msg_count"] > 0
+    from pydcop_tpu_torch.utils.simple_repr import from_repr
+
+    for rec in lines[:20]:
+        assert from_repr(rec["content"]).type == rec["type"]
+
+
+# -- the chaos layer ---------------------------------------------------
+
+
+def _chaos_events(pkg: str):
+    import importlib
+
+    faults = importlib.import_module(f"{pkg}.faults")
+    comm = importlib.import_module(f"{pkg}.infrastructure.communication")
+    comps = importlib.import_module(f"{pkg}.infrastructure.computations")
+    inner = comm.InProcessCommunicationLayer()
+    inbox = comm.Messaging("a2")
+    inner.register("a2", inbox)
+    layer = faults.ChaosCommunicationLayer(
+        inner,
+        faults.FaultPlan.from_spec("drop=0.25,dup=0.15,reorder=0.2", 9),
+        "a1",
+    )
+    try:
+        for i in range(120):
+            layer.send_msg("a2", "c1", "c2", comps.Message("m", i))
+        time.sleep(0.35)  # a trailing reorder hold releases by timer
+        delivered = []
+        while True:
+            item = inbox.next_msg(timeout=0.01)
+            if item is None:
+                break
+            delivered.append(item[2].content)
+            inbox.task_done()
+        return list(layer.events), delivered, layer.event_summary()
+    finally:
+        layer.close()
+
+
+def test_chaos_layer_event_sequence_equals_jax():
+    ej, dj, sj = _chaos_events("pydcop_tpu")
+    et, dt, st = _chaos_events("pydcop_tpu_torch")
+    assert et == ej and len(et) > 10
+    assert dt == dj
+    assert st == sj
+    assert {k for k, _, _ in et} >= {"drop", "dup", "reorder"}
+
+
+def test_chaos_smoke_thread_mode():
+    """A ring solved to its optimum THROUGH injected drops, duplicates
+    and delays in thread mode, twice; the recorded plan rebuilds the
+    identical decision sequence, and every recorded event is the plan's
+    decision for its link and sequence number."""
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.faults import FaultPlan
+
+    _, dt = _both("ring", ("a1", "a2", "a3", "a4"))
+    spec = "drop=0.05,dup=0.05,delay=0.1:0.02"
+    runs = [
+        solve(dt, "maxsum", {"damping": 0.5}, mode="thread", rounds=400,
+              timeout=60, seed=1, chaos=spec, chaos_seed=7, device="cpu")
+        for _ in range(2)
+    ]
+    for r in runs:
+        assert r["cost"] == 0.0
+        assert r["status"] == "finished"
+        assert r["chaos"]["spec"] == spec and r["chaos"]["seed"] == 7
+        assert sum(r["chaos"]["events"].values()) > 0
+    plans = [FaultPlan.from_spec(r["chaos"]["spec"], r["chaos"]["seed"])
+             for r in runs]
+    assert plans[0].decisions("a1", "a2", 300) == plans[1].decisions(
+        "a1", "a2", 300)
+
+
+# -- refusals ----------------------------------------------------------
+
+REFUSALS = [
+    ("sim", {"checkpoint_path": "x.npz"}),
+    ("thread", {"resume": True}),
+    ("sim", {"n_restarts": 2}),
+    ("thread", {"nb_agents": 2}),
+    ("sim", {"k_target": 1}),
+    ("sim", {"ui_port": 8080}),
+    ("thread", {"pad_policy": "pow2"}),
+    ("sim", {"retry_budget": 1}),
+    ("thread", {"on_numeric_fault": "raise"}),
+    ("sim", {"max_util_bytes": 1024}),
+    ("thread", {"chaos": "device_oom=1"}),
+    ("thread", {"chaos": "conn_drop=0.1"}),
+    ("thread", {"chaos": "replica_kill=1"}),
+    ("thread", {"chaos": "crash=a1@1"}),
+    ("sim", {"chaos": "drop=0.1"}),
+    ("thread", {"chaos": "drop=0.1,a9>a1:drop=0.5"}),
+    ("sim", {"accel_agents": ["nobody"], "algo": "maxsum"}),
+    ("sim", {"accel_agents": ["a1"], "algo": "syncbb"}),
+    ("sim", {"distribution": "no_such_strategy", "accel_agents": ["a1"]}),
+    ("bogus", {}),
+    ("batched", {"k_target": 1}),
+    ("batched", {"accel_agents": ["a1"]}),
+    ("batched", {"msg_log": "m.jsonl"}),
+    ("batched", {"nb_agents": 3}),
+    ("batched", {"chaos": "drop=0.1"}),
+]
+
+
+@pytest.mark.parametrize("mode,kw", REFUSALS)
+def test_refusals_equal_jax(mode, kw):
+    from pydcop_tpu.api import solve as jax_solve
+
+    from pydcop_tpu_torch.api import solve
+
+    kw = dict(kw)
+    algo = kw.pop("algo", "dsa")
+    errs = []
+    for fn, extra in ((jax_solve, {}), (solve, {"device": "cpu"})):
+        with pytest.raises(Exception) as info:
+            fn(COLORING, algo, {}, mode=mode, rounds=5, timeout=10, **kw,
+               **extra)
+        errs.append(info.value)
+    assert type(errs[1]) is type(errs[0])
+    # a message that names a module names the port's package
+    port_msg = str(errs[1]).replace("pydcop_tpu_torch.", "pydcop_tpu.")
+    assert port_msg == str(errs[0])
+
+
+@pytest.mark.parametrize("kw,where", [
+    ({"mode": "process"}, "mode='process'"),
+    ({"mode": "batched", "ui_port": 8080}, "ui_port"),
+    ({"mode": "sim", "algo": "mgm"}, "mgm"),
+    ({"mode": "thread", "algo": "dpop"}, "dpop"),
+    ({"mode": "sim", "algo": "mgm", "accel_agents": ["a1"]}, "mgm"),
+    ({"mode": "sim", "algo": "gdba", "accel_agents": ["a1"]}, "gdba"),
+])
+def test_unported_parts_name_a15b(kw, where):
+    from pydcop_tpu_torch.api import solve
+
+    kw = dict(kw)
+    algo = kw.pop("algo", "maxsum")
+    with pytest.raises(NotImplementedError, match="A15b") as info:
+        solve(COLORING, algo, {}, rounds=5, device="cpu", **kw)
+    assert where in str(info.value)
+
+
+def test_host_mode_needs_a_card_or_the_cpu():
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.device import NoCudaDeviceError
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    with pytest.raises(NoCudaDeviceError):
+        solve(COLORING, "maxsum", {}, mode="sim")

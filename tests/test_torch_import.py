@@ -7,7 +7,9 @@ sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve, a
 checkpointed, resumed Max-Sum solve, a dynamic run with replicas, an
 ILP placement, the ``run`` CLI, ``trace-summary``, ``batch
 --simulate`` and a solver-service solve, after checking that
-``api.ServiceClient`` imports without torch) runs in a fresh subprocess; a static AST scan covers every
+``api.ServiceClient`` imports without torch; and, in a second probe, a
+``sim`` solve with a compiled island, a thread-mode solve and ``fleet
+--help``) runs in a fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
 of carrying on on the CPU.
@@ -118,6 +120,48 @@ def test_import_and_cpu_solve_leave_jax_unloaded():
     assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
+_HOST_PROBE = r"""
+import subprocess, sys
+from pydcop_tpu_torch.api import FleetRouter, solve
+from pydcop_tpu_torch.distribution import Distribution
+d = {"a1": ["v1", "diff_1_2", "diff_1_3"], "a2": ["v2", "v3", "diff_2_3"]}
+r = solve(sys.argv[1], "maxsum", {"damping": 0.5}, mode="sim", rounds=20,
+          distribution=Distribution(d), accel_agents=["a1"], device="cpu")
+assert r["cost"] == 0.0 and r["telemetry"]["counters"]["island.flushes"], r
+r = solve(sys.argv[1], "dsa", mode="thread", timeout=20,
+          accel_agents=["a2"], device="cpu")
+assert r["cost"] == 0.0, r
+out = subprocess.run(
+    [sys.executable, "-c",
+     "import sys; sys.argv[0] = 'pydcop_tpu_torch'; "
+     "from pydcop_tpu_torch.cli import main\n"
+     "try:\n main(['fleet', '--help'])\n"
+     "except SystemExit:\n pass\n"
+     "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+     "('jax', 'jaxlib', 'pydcop_tpu')))"],
+    capture_output=True, text=True, check=True,
+).stdout
+assert "--replicas" in out and out.strip().splitlines()[-1] == "[]", out
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
+    or m == "pydcop_tpu"
+)
+print("LOADED", bad)
+"""
+
+
+def test_host_runtime_island_and_fleet_leave_jax_unloaded():
+    ring = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
+    proc = subprocess.run(
+        [sys.executable, "-c", _HOST_PROBE, ring],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
 def _sources():
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -166,7 +210,15 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "telemetry/flightrec.py", "telemetry/export.py",
                    "engine/memo.py", "engine/service.py",
                    "commands/serve.py", "commands/top.py",
-                   "commands/flight_dump.py"):
+                   "commands/flight_dump.py",
+                   "infrastructure/runtime.py", "infrastructure/agents.py",
+                   "infrastructure/communication.py",
+                   "infrastructure/discovery.py", "faults/chaos.py",
+                   "algorithms/_host_maxsum.py", "algorithms/_host_dsa.py",
+                   "algorithms/_island_common.py",
+                   "algorithms/_island_maxsum.py",
+                   "algorithms/_island_dsa.py", "engine/fleet.py",
+                   "commands/fleet.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
@@ -182,6 +234,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ring = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
     with pytest.raises(device.NoCudaDeviceError):
         api.solve(ring, "maxsum", rounds=2)
+    for mode in ("sim", "thread"):
+        with pytest.raises(device.NoCudaDeviceError):
+            api.solve(ring, "maxsum", rounds=2, mode=mode)
     s, t, u = coloring_arrays(50, seed=1)
     with pytest.raises(device.NoCudaDeviceError):
         compile_from_arrays(s, t, 3, unary=u)

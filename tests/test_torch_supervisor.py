@@ -602,10 +602,16 @@ def test_membound_replans_under_device_oom_bytes():
     dict(mode="sim", max_util_bytes=64),
 ])
 def test_knobs_on_an_unported_mode_raise_not_ported(kw):
-    """The message-driven modes are not ported: any knob on them meets
-    the port's NotImplementedError, as a bare call does."""
-    with pytest.raises(NotImplementedError, match="only the batched"):
+    """The message-driven modes are ported since ROADMAP A15a: a
+    batched-engine knob or a foreign chaos kind on them meets the JAX
+    package's ValueError and message, before the algorithm is looked at
+    (MGM's host computations are A15b).  The name is kept from before
+    A15a, when these modes raised the port's NotImplementedError."""
+    with pytest.raises(ValueError) as want:
+        jsolve(ring_dcop(jdcop, 3), "mgm", **kw)
+    with pytest.raises(ValueError) as got:
         solve(ring_dcop(tdcop, 3), "mgm", device=CPU, **kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("call,kw", [
