@@ -6,7 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits nonzero; nothing is
-caught and passed over):
+caught and passed over).  Phases 1-9 run one after another.  Then two
+child processes on the same card, one running phases 14-16 and one
+phases 17-18, start beside phases 10-13 (host Python, most of all nine):
+their lines follow phase 13's, and a child's failure fails the script.
 
 1. Device and build: the card's name and power limit, then the port's
    CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc, and one
@@ -30,7 +33,7 @@ caught and passed over):
    line per kernel and shape: the instance (unrolled, or the lane tile
    with its warps, row groups or lanes), kernel and plain device times
    (20 calls captured in one CUDA graph, the replay timed with CUDA
-   events, median of 25 replays, divided by 20: no host launch cost in
+   events, median of 10 replays, divided by 20: no host launch cost in
    it), the host launch interval (CUDA events around 10 eager calls),
    the bound (bytes over 3.35 TB/s, or f32 operations over 67 TFLOP/s,
    whichever is larger), the share of it reached and the launches made;
@@ -52,13 +55,13 @@ caught and passed over):
    for 64 rounds with bf16 tables and a ternary bucket added (outside
    the factor-kernel gate: the q update kernel, launched once per round,
    rounds every operation to bf16, as the JAX package computes there).
-   A torch.profiler pass over 64 rounds gives device time by kernel and
+   A torch.profiler pass over 32 rounds gives device time by kernel and
    the device's idle share; a ``cost-sum`` line times one cost
    evaluation (``total_cost``'s fixed-order sum) against ``torch.sum``
    of the same cells.
 4. The same with per-factor 5x5 tables at 100k variables (the
    per-factor factor kernel; card vs CPU also with bf16 tables), with a
-   profiler pass over 32 rounds.
+   profiler pass over 16 rounds.
 5. Max-Sum at d = 10, the lane-tile instance on the main path: the
    100k-variable 10-colour instance (phase 4's scopes) with one random
    10x10 table per constraint (per-factor-100k-d10) and with the shared
@@ -66,9 +69,9 @@ caught and passed over):
    ``api.solve_compiled`` (64 launches of its factor kernel, 64 q
    updates, none of the other factor kernel), msgs/s and peak device
    memory; 32 rounds card vs CPU (per-factor also with bf16 tables, 16
-   rounds); a profiler pass over 32 rounds.
+   rounds); a profiler pass over 16 rounds.
 6. The 1M-variable coloring: 256 rounds, msgs/s and peak device
-   memory; 8 rounds card vs CPU; a profiler pass over 32 rounds; a
+   memory; 4 rounds card vs CPU; a profiler pass over 16 rounds; a
    ``cost-sum`` line as in phase 3.
 7. The local-search family and A-Max-Sum.  Full width: each of the eight
    algorithms through ``api.solve_compiled`` on the 1M coloring (DSA-B
@@ -77,7 +80,7 @@ caught and passed over):
    must launch the shared factor kernel and the q update once per round,
    the others no kernel), msgs/s under each algorithm's own
    ``messages_per_round``, engine and wall time, peak device memory, the
-   size of MGM-2's pair accumulator, and a profiler pass over 32 rounds
+   size of MGM-2's pair accumulator, and a profiler pass over 16 rounds
    for DSA-B and MGM-2.  Card vs CPU: 32 rounds of each algorithm's
    ``apply`` on both devices from one state with the same CPU-made draws,
    on the 10k coloring (and, for MGM-2 and A-Max-Sum, the 100x100 Ising
@@ -88,7 +91,7 @@ caught and passed over):
    the JAX package builds them, with the port's copies of the
    generators): DSA-B on a 50-variable coloring with K=64 and MGM-2 on
    the 32x32 Ising torus with K=8, 1024 rounds, chunk 256: msgs/s over all restarts' messages, the
-   best cost and the K restart costs, and a profiler pass over 64 rounds
+   best cost and the K restart costs, and a profiler pass over 32 rounds
    each.
 8. Exact DPOP (``api.solve(dcop, "dpop", …)``, the pseudo-tree on the
    host, the UTIL joins on the card; no hand kernel on this path: the
@@ -129,7 +132,8 @@ caught and passed over):
    chunk 128, the kernel instances it runs, card = CPU over 64 rounds, a
    profiler pass.  9d ``many-coloring-dsaB-K{1,8,32}``:
    ``bench.py:82-94``'s stage (4 colorings of 26-32 variables, seeds
-   100-103, DSA-B p 0.7, 256 rounds, chunk 64, pow2, seeds 0..K-1):
+   100-103, DSA-B p 0.7, 64 rounds (256 there), chunk 64, pow2, seeds
+   0..K-1):
    instances/s of ``api.solve_many`` against sequential solves.  9e
    ``many-coloring10k-maxsum-I8``: 8 different coloring-10k graphs in
    one group: phase 3's and seven rewirings of it by degree-preserving
@@ -148,8 +152,8 @@ caught and passed over):
    against sequential solves: equal results and ``util_dispatches``.
 10. Exact inference (``api.infer``/``infer_many``: the plan and the
    certificates on the host, the stacked contractions on the card, eager
-   PyTorch as the JAX package's are XLA).  Each query runs three times on
-   the card (median seconds, cells/s, dispatches, device nodes, peak
+   PyTorch as the JAX package's are XLA).  Each query runs twice on
+   the card (the warm run's seconds, cells/s, dispatches, device nodes, peak
    device memory, the telemetry counters), once with the port on the CPU
    (skipped where the card run dispatched nothing: the same host
    computation) and once in host f64 (``device="never"``).  Gates: map
@@ -254,9 +258,9 @@ caught and passed over):
    Max-Sum on phase 3's binary + ternary instance (outside the
    factor-kernel gate) with bnb on, bit-equal to off over 64 rounds,
    the q update launched once a round.  12f: checkpoint/resume: the
-   coloring-10k Max-Sum (1024 rounds, chunk 256) saved at 512 and
-   resumed, on the card and on the CPU, config5-meeting10k-maxsum (512
-   rounds, chunk 128) saved at 256, and DSA-B with 8 restarts on the
+   coloring-10k Max-Sum (512 rounds, chunk 256) saved at 256 and
+   resumed, on the card and on the CPU, config5-meeting10k-maxsum (256
+   rounds, chunk 128) saved at 128, and DSA-B with 8 restarts on the
    coloring-10k (256 rounds, chunk 64) saved at 128: q, r, values,
    best cost, restart costs and cost trace bit-equal to the
    uninterrupted run, each kernel launched once a round in each half
@@ -270,8 +274,9 @@ caught and passed over):
    trace bit-equal to the run without injection, ``engine.retries`` and
    ``fault.device_transient`` equal to the port's CPU run of the same
    spec (its 4 dispatches at 8 rounds each); the supervision overhead
-   at coloring-10k and coloring-1M: engine seconds with the default
-   supervisor against ``UNSUPERVISED``, 4 interleaved pairs, and the
+   at coloring-10k (512 rounds) and coloring-1M (256): engine seconds
+   with the default supervisor against ``UNSUPERVISED``, 2 interleaved
+   pairs, and the
    wrapper's own host microseconds per chunk (dispatch, the generator's
    get/set, the NaN screen) over the chunk's time.  13b: the same run under
    ``device_oom=-:64``: two chunk halvings (256, 128, 64), bit-equal; at
@@ -296,9 +301,9 @@ caught and passed over):
    uninjected run, its counts and counters equal to the CPU run's; the
    membound SECP (11b) under ``device_oom_bytes`` at half its planned
    table: re-planned, equal to the CPU run in result and ``membound``
-   block.  13f: ``belief="blockdiag"`` at coloring-10k: 1024 rounds, each
+   block.  13f: ``belief="blockdiag"`` at coloring-10k: 256 rounds, each
    one step on the card and on the CPU from the card's state, q within
-   1e-5; the 1024-round best cost equal card and CPU; the kernels once a
+   1e-5; the 256-round best cost equal card and CPU; the kernels once a
    round; at coloring-1M the belief alone (5 calls in one CUDA graph)
    blockdiag against the slot gathers with the one-hot's bytes, a
    profiled stretch of 16 rounds in each mode, 256 rounds through the
@@ -415,7 +420,7 @@ caught and passed over):
    constraints, d 3) with the three-agent split (rows 0-48 on the island
    ``a0``, rows 49-50 on the host agent ``a2``, rows 51-99 on the
    island ``a1``; each factor on the agent of its first variable).
-   17a: Max-Sum (damping 0.5) in ``mode="sim"``, 60 rounds, seed 1, on
+   17a: Max-Sum (damping 0.5) in ``mode="sim"``, 10 rounds, seed 1, on
    the card and, at the same time in a child process, on the CPU (the
    child sees no card; its result comes back as JSON, whose floats
    round-trip exactly): equal in assignment, cost, final cost,
@@ -429,7 +434,7 @@ caught and passed over):
    by those messages, ``r``, ``q``, ``values`` and the posted messages
    are bit-equal card and CPU; then a strong r message folded into one
    of ``a1``'s boundary variables must move its value, on both.
-   17b: the same in ``mode="thread"`` on the card, stopped after 8 s,
+   17b: the same in ``mode="thread"`` on the card, stopped after 5 s,
    then under the seeded chaos plan ``drop=0.02,dup=0.02,reorder=0.02``
    (seed 7): a complete assignment whose cost is ``solution_cost``'s,
    and every ``(kind, link, seq)`` the chaos layers recorded is the
@@ -438,7 +443,7 @@ caught and passed over):
    the card and the CPU fed the same CPU-made draws: every result key
    equal.  17d: ``python -m pydcop_tpu_torch fleet --replicas 2 --device
    cuda`` (``--max_batch 8 --max_wait 0.05``, ``replica_kill`` pinned on
-   the owner of the first session, 60 s after the fleet is up); a
+   the owner of the first session, 90 s after the fleet is up); a
    ``ServiceClient`` runs 4 sessions (4 follow-ups each) of 16c's
    2,000-variable sensor coloring, each session's segments 1-3 before
    the kill and 4-5 after it, then 16 stateless Max-Sum solves: no
@@ -449,7 +454,32 @@ caught and passed over):
    cache without admitting a solve, and the router's ``/healthz``
    showing the victim dead; requests/s, p50, p99 and the seconds from
    the kill to the first failed-over answer.
-18. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+18. Every algorithm on the host runtimes, and the lockstep islands of
+   MGM, DBA and GDBA (``increase_mode`` E) on the card; no kernel is
+   launched (the islands' sweeps are eager PyTorch).  18a: the three on
+   grid10k with 17's split of the variables (islands ``a0`` and ``a1``
+   of 4,900 variables each, the host strip ``a2``) in ``mode="sim"``, 9
+   rounds (90,000 deliveries, ~44 cycles), seed 1, on the card and, at
+   the same time in a child process, on the CPU: equal in assignment,
+   cost, final assignment and cost, message count and size, cost trace,
+   the cycles every computation completed and every variable's value
+   history (each change stamped with the cycle that decided it; a
+   SHA-256 of the whole log); cycles, deliveries, seconds, the islands'
+   phase dispatches (``island.flushes``, one a lockstep phase) and
+   boundary messages.  18b: a 30x30 grid (``generate graph_coloring
+   --graph grid -n 900 -c 3 --soft --noise 0.02 --seed 1``) cut the
+   same way (rows 0-13 ``a0``, 14-15 ``a2``, 16-29 ``a1``): each mixed
+   run on the card (30 rounds) against the all-host run (200 rounds,
+   in the child process): every stamped value change of the cycles both
+   completed equal (at least 10), hence the assignment and cost after
+   them; the mixed run's deliveries a cycle below the all-host run's.
+   18c: an MGM island run in ``mode="thread"`` on 18a's deployment,
+   stopped after 5 s: a complete assignment whose cost is
+   ``solution_cost``'s; the host DPOP and SyncBB in ``mode="sim"`` on
+   11e's SECP, finished at the batched ``solve(dcop, "dpop")``'s cost on
+   the card; an all-host MGM-2 ``sim`` run on 18b's grid (100 rounds)
+   with its deliveries a second.
+19. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
@@ -473,7 +503,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores
-REPS = 25
+REPS = 10  # few: the whole script has one time limit
 COLD_BYTES = 1 << 28  # a working set five times the H100's 50 MB L2
 
 PALLAS = "pydcop_tpu/ops/pallas_maxsum.py"
@@ -1109,7 +1139,7 @@ def restart_config(torch, mk, solve_compiled, run_batched, problem, algo,
                    user, k, label, card):
     """One of the repo's benchmark configurations with restarts: 1024
     rounds, chunk 256, cost every 8, best of ``k``; then a profiler pass
-    over 64 rounds."""
+    over 32 rounds."""
     import math
 
     from pydcop_tpu_torch.algorithms import (
@@ -1140,7 +1170,7 @@ def restart_config(torch, mk, solve_compiled, run_batched, problem, algo,
           f"card={card}")
     mod = load_algorithm_module(algo)
     profile_rounds(torch, run_batched, mod,
-                   prepare_algo_params(user, mod.algo_params), problem, 64,
+                   prepare_algo_params(user, mod.algo_params), problem, 32,
                    label, n_restarts=k)
 
 
@@ -1158,7 +1188,7 @@ def local_search_phase(torch, mk, solve_compiled, run_batched, p3, p3c, p5,
     for algo, user, _ in LOCAL_SEARCH[:2]:  # DSA-B and MGM-2
         mod = load_algorithm_module(algo)
         profile_rounds(torch, run_batched, mod,
-                       prepare_algo_params(user, mod.algo_params), p5, 32,
+                       prepare_algo_params(user, mod.algo_params), p5, 16,
                        f"{algo}-coloring-1M")
 
     si, ti, ui = ising_arrays(100, 100, seed=1)
@@ -1265,21 +1295,15 @@ def record_dispatches(sr_mod):
 def profile_solve(torch, solve, dcop, params, pad, label):
     """Device time by operation over one warm solve on the card
     (torch.profiler) and the device's idle share of its wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
+    def run():
         t0 = time.perf_counter()
         res = solve(dcop, "dpop", params, pad_policy=pad)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return res, (time.perf_counter() - t0) * 1e3
+
+    (res, wall_ms), prof, kern = profiled(torch, run, label)
     ops = prof.key_averages()
-    kern = [e for e in ops if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    if not kern or busy_ms <= 0:
-        raise AssertionError(f"profile {label}: no device time recorded")
     print(f"profile {label}: wall_ms={wall_ms} util_time_ms="
           f"{res['util_time'] * 1e3} device_busy_ms={busy_ms} "
           f"idle_share={1 - busy_ms / wall_ms} "
@@ -1500,6 +1524,7 @@ CONFIG5_SPEC = dict(  # bench_configs.py:109-118, _gen_meeting_10k
     value_range=1.0, capacity=1000.0, seed=1,
 )
 MANY_KS = (1, 8, 32)  # bench.py:82-94, the solve_many stage
+MANY_ROUNDS = 64  # its rounds (256 there): the script has one time limit
 
 
 def coloring_dcop(n_vars, colors=3, degree=3, seed=0):
@@ -1936,7 +1961,7 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
     base = [coloring_dcop(32 - 2 * i, degree=3, seed=100 + i)
             for i in range(4)]
     dsa = {"variant": "B", "probability": 0.7}
-    dkw = dict(rounds=256, chunk_size=64, pad_policy="pow2")
+    dkw = dict(rounds=MANY_ROUNDS, chunk_size=64, pad_policy="pow2")
     warm = dict(dkw, rounds=8)
     solve(base[0], "dsa", dsa, seed=0, **warm)  # warm both paths
     solve_many(base[:1], "dsa", dsa, seed=0, **warm)
@@ -1955,7 +1980,7 @@ def many_phase(torch, mk, dev, card, arrays, single_msgs_per_s):
         torch.cuda.synchronize()
         dt_seq = time.perf_counter() - t0
         for r in many + seq:
-            if r["cycle"] != 256 or not math.isfinite(r["cost"]):
+            if r["cycle"] != MANY_ROUNDS or not math.isfinite(r["cost"]):
                 raise AssertionError(f"many-coloring-dsaB-K{K}: bad result")
         print(f"solve many-coloring-dsaB-K{K}: instances={K} "
               f"instances_batched={[r['instances_batched'] for r in many]} "
@@ -2112,7 +2137,7 @@ SEM_SECP_SPEC = dict(  # bench.py:1046-1056, the semiring_infer stage's SECP
     capacity=100.0, seed=7,
 )
 INFER_COUNTS = ("cells", "dispatches", "device_nodes", "host_nodes", "width")
-INFER_REPS = 3
+INFER_REPS = 2  # few: the whole script has one time limit
 INFER_DISPATCHES = {}  # semiring: dispatches of one warm card run per query
 
 
@@ -2291,9 +2316,10 @@ def check_infer_pair(label, query, card_r, cpu_r, host_r):
 
 
 def infer_cell(torch, infer, label, dcop, query, card, **kw):
-    """One query of one cell: INFER_REPS card runs (the median time; the
-    first is the cold one), peak device memory, the port's CPU run and
-    the host f64 run (``device="never"``), checked against each other;
+    """One query of one cell: INFER_REPS card runs (the first is the cold
+    one; the median time of the others), peak device memory, the port's
+    CPU run and the host f64 run (``device="never"``), checked against
+    each other;
     one line of numbers.  A card run that dispatched nothing ran on the
     host only, the same computation as the CPU run, which is then not
     repeated."""
@@ -2318,7 +2344,7 @@ def infer_cell(torch, infer, label, dcop, query, card, **kw):
     dev = check_infer_pair(label, query, r, cpu_r, host_r)
     INFER_DISPATCHES[r["semiring"]] = (
         INFER_DISPATCHES.get(r["semiring"], 0) + r["dispatches"])
-    sec = statistics.median(secs)
+    sec = statistics.median(secs[1:])  # the warm runs
     value = {k: r[k] for k in ("log_z", "cost", "e_cost") if k in r}
     print(f"infer {label} {query}: device={kw.get('device', 'auto')} "
           f"seconds={sec} cold_seconds={secs[0]} cells={r['cells']} "
@@ -2650,19 +2676,37 @@ def record_core_dispatches(sr_mod):
     return log, unwrap
 
 
-def h2d_profile(torch, fn):
+PROFILE_TRIES = 3  # profiler sessions a call may take to record events
+
+
+def profiled(torch, fn, label):
+    """One call of ``fn`` under torch.profiler (CPU and CUDA): its output,
+    the profile and the profile's device entries (``key_averages``).  The
+    profiler has lost every CUDA event of a session now and then late in
+    a long process; such a session is printed and the call profiled
+    again in a new one, PROFILE_TRIES sessions at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern and sum(e.self_device_time_total for e in kern) > 0:
+            return out, prof, kern
+        print(f"profile {label}: session {attempt} recorded no device time")
+    raise AssertionError(f"profile {label}: no device time recorded in "
+                         f"{PROFILE_TRIES} sessions")
+
+
+def h2d_profile(torch, fn, label):
     """Host-to-device copy time and count of one call (torch.profiler's
     device events whose name says HtoD), beside the call's device busy
     time and its eager kernel launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    out, prof, kern = profiled(torch, fn, label)
     h2d = [e for e in kern if "htod" in e.key.lower()]
     h2d_each = [e.device_time_total for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2670,8 +2714,6 @@ def h2d_profile(torch, fn):
     copies = [e for e in kern if "memcpy" in e.key.lower()
               or "memset" in e.key.lower()]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    if not kern or busy <= 0:
-        raise AssertionError("profile: no device time recorded")
     return out, {
         "h2d_ms": sum(e.self_device_time_total for e in h2d) / 1e3,
         "h2d_largest_ms": max(h2d_each, default=0.0) / 1e3,
@@ -2816,7 +2858,8 @@ def hub_copy_rows(torch, solve, log):
         p = {"util_device": "auto", "table_dtype": dt}
         solve(hub, "dpop", p)  # warm
         start = len(log["dense"])
-        r, prof = h2d_profile(torch, lambda: solve(hub, "dpop", p))
+        r, prof = h2d_profile(torch, lambda: solve(hub, "dpop", p),
+                              f"copies-dpop-hubtree-d24-{dt}")
         stacks = [e for e in log["dense"][start:] if e[4]]
         _, _, shape, ps, lead = max(
             stacks, key=lambda e: math.prod(e[4] + e[2]))
@@ -3071,7 +3114,8 @@ def dense_pack_row(torch, dev, sr_mod, name, dt, shape, ps, lead, seed):
         raise AssertionError(f"contraction {name}-{dt}: card differs from "
                              "the CPU")
     ms = eager_ms(torch, lambda: fn(*on_card))
-    _, prof = h2d_profile(torch, lambda: fn(*on_card))
+    _, prof = h2d_profile(torch, lambda: fn(*on_card),
+                          f"contraction-{name}-{dt}")
     cells = math.prod(lead + tuple(shape))
     rows = cells // shape[-1]
     nbytes = (STORAGE_BYTES[dt] * sum(math.prod(lead + tuple(p)) for p in ps)
@@ -3130,7 +3174,8 @@ def sparse_row(torch, dev, sp_mod, key, entry):
             raise AssertionError(f"contraction sparse-{name}: card differs "
                                  "from the CPU")
     ms = eager_ms(torch, lambda: fn(*on_card))
-    _, prof = h2d_profile(torch, lambda: fn(*on_card))
+    _, prof = h2d_profile(torch, lambda: fn(*on_card),
+                          f"contraction-sparse-{name}")
     P = len(lens)
     n_cand = sum(r[0] for r in real_rows)
     n_seg = sum(r[1] for r in real_rows)
@@ -3615,12 +3660,12 @@ def checkpoint_cells(torch, mk, dev, arrays, s5, t5, u5, path):
     s, t, u = arrays
     p3c = compile_from_arrays(s, t, 3, unary=u, device="cpu")
     p3 = p3c.to(dev)
-    every = {"factor_round_binary_shared": 512, "q_update": 512,
+    every = {"factor_round_binary_shared": 256, "q_update": 256,
              "factor_round_binary": 0}
     resume_cell(torch, mk, "coloring10k-maxsum", p3, "maxsum",
-                {"damping": 0.5}, 1024, 256, path, expect=every)
+                {"damping": 0.5}, 512, 256, path, expect=every)
     resume_cell(torch, mk, "coloring10k-maxsum-on-cpu", p3, "maxsum",
-                {"damping": 0.5}, 1024, 256, path, expect=every,
+                {"damping": 0.5}, 512, 256, path, expect=every,
                 resume_on=p3c)
     resume_cell(torch, mk, "coloring10k-dsaB-K8", p3, "dsa",
                 {"variant": "B", "probability": 0.7}, 256, 64, path,
@@ -3628,8 +3673,8 @@ def checkpoint_cells(torch, mk, dev, arrays, s5, t5, u5, path):
     c5 = meetingscheduling.generate(Namespace(**CONFIG5_SPEC))
     p5 = compile_dcop(c5, device=dev)
     resume_cell(torch, mk, "config5-meeting10k-maxsum", p5, "maxsum",
-                {"damping": 0.5}, 512, 128, path,
-                expect={"factor_round_binary": 256, "q_update": 256,
+                {"damping": 0.5}, 256, 128, path,
+                expect={"factor_round_binary": 128, "q_update": 128,
                         "factor_round_binary_shared": 0})
     del p5, c5, p3
     # one save and one load at coloring-1M: the state's bytes and seconds
@@ -3716,6 +3761,7 @@ SUP_KNOBS = ("engine.retries", "engine.oom_chunk_halvings",
              "fault.device_transient", "fault.nan_inject")
 MANY_SEEDS = tuple(range(1, 9))  # phase 9e's 8 graphs
 BD_TOL = 1e-5  # per-round |q card - q CPU| bound for belief="blockdiag"
+BD_ROUNDS = 256  # 13f's coloring-10k rounds (few: one time limit)
 
 
 def same_instance(label, got, want):
@@ -3812,7 +3858,7 @@ def wrapper_host_us(torch, device, samples):
     return parts, sum(parts.values())
 
 
-OVERHEAD_PAIRS = 4  # few: the whole script has one time limit
+OVERHEAD_PAIRS = 2  # few: the whole script has one time limit
 
 
 def overhead_row(torch, run_batched, maxsum, params, problem, rounds,
@@ -3906,7 +3952,7 @@ def transient_and_halving_cells(torch, mk, dev, s, t, u, p1):
          cpu_rounds=32, cpu_chunk=8,
          engine_seconds=got.time, base_engine_seconds=base.time,
          bit_equal=True)
-    overhead_row(torch, run_batched, maxsum, params, p3, 1024,
+    overhead_row(torch, run_batched, maxsum, params, p3, 512,
                  "coloring-10k")
     overhead_row(torch, run_batched, maxsum, params, p1, 256, "coloring-1M")
 
@@ -4113,7 +4159,7 @@ def blockdiag_cells(torch, mk, dev, s, t, u, p1):
     st = maxsum.init_state(p3, 0, pb)
     cpu_static = {k: v.cpu() for k, v in st.items() if k.startswith("bd_")}
     worst = 0.0
-    for _ in range(1024):
+    for _ in range(BD_ROUNDS):
         nxt = maxsum.step(p3, st, pb)
         ref = maxsum.step(p3c, {**{k: v.cpu() for k, v in st.items()
                                    if not k.startswith("bd_")},
@@ -4122,27 +4168,27 @@ def blockdiag_cells(torch, mk, dev, s, t, u, p1):
         st = nxt
     if worst > BD_TOL:
         raise AssertionError(f"13f: per-round q differs by {worst}")
-    kw = dict(rounds=1024, chunk_size=256, cost_every=8)
+    kw = dict(rounds=BD_ROUNDS, chunk_size=256, cost_every=8)
     mk.reset_launches()
     card = run_batched(p3, maxsum, pb, **kw)
     torch.cuda.synchronize()
     got = expect_launches(mk, "13f blockdiag-coloring10k",
-                          {"factor_round_binary_shared": 1024,
-                           "q_update": 1024})
+                          {"factor_round_binary_shared": BD_ROUNDS,
+                           "q_update": BD_ROUNDS})
     cpu = run_batched(p3c, maxsum, pb, **kw)
     auto = run_batched(p3, maxsum, pa, **kw)
     if card.best_cost != cpu.best_cost:
         raise AssertionError(f"13f: best cost {card.best_cost} on the card, "
                              f"{cpu.best_cost} on the CPU")
     n_real = p3.n_real_edges
-    emit("13f", "blockdiag-coloring10k", rounds=1024,
+    emit("13f", "blockdiag-coloring10k", rounds=BD_ROUNDS,
          per_round_q_max_abs_diff=worst, tolerance=BD_TOL,
          best_cost=card.best_cost, cpu_best_cost=cpu.best_cost,
          auto_best_cost=auto.best_cost,
          onehot_bytes=int(st["bd_onehot"].numel() * 4),
          onehot_shape=list(st["bd_onehot"].shape),
-         msgs_per_s=2 * n_real * 1024 / card.time,
-         auto_msgs_per_s=2 * n_real * 1024 / auto.time, launches=got)
+         msgs_per_s=2 * n_real * BD_ROUNDS / card.time,
+         auto_msgs_per_s=2 * n_real * BD_ROUNDS / auto.time, launches=got)
     del st, nxt, ref, cpu_static
 
     # coloring-1M: the belief alone, the engine, a profiled stretch of
@@ -5680,10 +5726,10 @@ def serve_phase(torch, mk, dev, card):
 
 ISLAND_SIDE = 100  # grid10k: a 100x100 grid, 19,800 binary constraints
 ISLAND_ROWS = (49, 51)  # a0: rows [0, 49); a2 (host): [49, 51); a1: the rest
-ISLAND_ROUNDS = 60
+ISLAND_ROUNDS = 10  # 298,000 deliveries (10 x 29,800 computations)
 ISLAND_PARAMS = {"damping": 0.5}
 CPU_RUN_SLACK = 300.0  # seconds 17a's CPU child may run past the card run
-THREAD_TIMEOUT = 8.0  # seconds: the thread runs' wall-clock stop
+THREAD_TIMEOUT = 5.0  # seconds: the thread runs' wall-clock stop
 CHAOS_SPEC = "drop=0.02,dup=0.02,reorder=0.02"
 CHAOS_SEED = 7
 SIM_KEYS = ("assignment", "cost", "final_cost", "msg_count", "msg_size",
@@ -5696,8 +5742,9 @@ FLEET_STATELESS = 16
 FLEET_FOLLOW_UPS = 4
 # seconds after the fleet's head line: the four sessions' first three
 # segments (each replica parses, compiles and replicates them) took
-# 24.9-33.9 s on the H100 machine's host
-FLEET_KILL_AFTER = 60.0
+# 24.9-33.9 s on the H100 machine's host alone, 38.5 s beside other
+# phases
+FLEET_KILL_AFTER = 90.0
 FLEET_WAIT = 120.0  # seconds: every wait of 17d is bounded
 
 
@@ -5805,9 +5852,7 @@ def islands_sim(torch, mk, dev, dcop, dist):
         launches = dict(mk.launches)
         out, err = child.communicate(timeout=card_s + CPU_RUN_SLACK)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait(timeout=10)
+        stop(child)
     if child.returncode != 0:
         raise AssertionError("17a: the CPU run failed:\n" + err[-4000:])
     cpu = json.loads(out.splitlines()[-1])
@@ -6386,6 +6431,427 @@ def host_runtime_phase(torch, mk, dev, card):
     return {k: total.get(k, 0) for k in ("factor_round_binary", "q_update")}
 
 
+# -- phase 18: every algorithm on the host runtimes; the lockstep islands ---
+
+LOCKSTEP = (("mgm", {}), ("dba", {}), ("gdba", {"increase_mode": "E"}))
+LOCKSTEP_ROUNDS = 9  # 18a: 90,000 deliveries on grid10k (~42 cycles)
+GRID30_SIDE = 30  # 18b: a 30x30 grid cut as grid10k is
+GRID30_ROWS = (14, 16)  # a0: rows [0, 14); a2 (host): [14, 16); a1: the rest
+# 18b's budgets in rounds of 900 deliveries: the mixed run covers ~45
+# cycles with it, the all-host run ~25 (~7,000 deliveries a cycle)
+GRID30_ROUNDS = {"mixed": 30, "host": 200}
+MGM2_ROUNDS = 100  # 18c's all-host MGM-2 run on the 30x30 grid
+LOCKSTEP_THREAD_TIMEOUT = 5.0  # seconds: 18c's thread run's stop
+
+
+def grid30_dcop():
+    """``generate graph_coloring --graph grid -n 900 -c 3 --soft --noise
+    0.02 --seed 1``, built in memory with the port's generator."""
+    import argparse
+
+    from pydcop_tpu_torch.commands.generators.graphcoloring import generate
+
+    return generate(argparse.Namespace(
+        graph="grid", variables_count=GRID30_SIDE ** 2, colors_count=3,
+        soft=True, noise=0.02, seed=1, intentional=False,
+        agents_count=None, capacity=100.0, p_edge=0.5, m_edge=2,
+    ))
+
+
+def grid30_split(dcop):
+    """18b's three-agent split of the 30x30 grid's variables."""
+    from pydcop_tpu_torch.distribution import Distribution
+
+    lo, hi = GRID30_ROWS
+    mapping = {"a0": [], "a1": [], "a2": []}
+    for v in dcop.variables:
+        row = int(v[1:]) // GRID30_SIDE
+        mapping["a0" if row < lo else ("a2" if row < hi else "a1")].append(v)
+    return Distribution(mapping)
+
+
+class _Stamps:
+    """Every value change of one run's variable computations, stamped with
+    the lockstep cycle that decided it (the initial value and cycle 0's
+    decision both stamp 0), and the computations the run built."""
+
+    def __init__(self):
+        from pydcop_tpu_torch.infrastructure import computations, runtime
+
+        self._cls, self._runtime = computations.VariableComputation, runtime
+        own_sel = self._own_sel = self._cls.value_selection
+        own_build = self._own_build = runtime._build_computations
+        log = self.log = {}
+        made = self.made = []
+
+        def value_selection(comp, value):
+            if value != comp.current_value:
+                island = getattr(comp, "island", None)
+                cycle = (comp if island is None else island)._cycle
+                log.setdefault(comp.name, []).append((cycle, value))
+            own_sel(comp, value)
+
+        def build(*args, **kwargs):
+            comps, placement = own_build(*args, **kwargs)
+            made.extend(comps)
+            return comps, placement
+
+        self._cls.value_selection = value_selection
+        runtime._build_computations = build
+
+    def close(self):
+        self._cls.value_selection = self._own_sel
+        self._runtime._build_computations = self._own_build
+
+    def islands(self):
+        out = []
+        for c in self.made:
+            island = getattr(c, "island", None)
+            if island is not None and island not in out:
+                out.append(island)
+        return out
+
+    def cycles(self):
+        """``(fewest, most)`` cycles completed by a computation."""
+        done = [getattr(c, "island", c)._cycle for c in self.made]
+        return min(done), max(done)
+
+    def upto(self, cycles):
+        """The stamped changes decided in the first ``cycles`` cycles."""
+        return {v: [[c, x] for c, x in h if c < cycles]
+                for v, h in sorted(self.log.items())}
+
+
+def stamped_solve(solve, dcop, algo, params, **kw):
+    """``api.solve`` with its value changes stamped: ``(result, stamps,
+    seconds)``."""
+    stamps = _Stamps()
+    t0 = time.perf_counter()
+    try:
+        r = solve(dcop, algo, params, **kw)
+    finally:
+        stamps.close()
+    return r, stamps, time.perf_counter() - t0
+
+
+def _digest(log):
+    import hashlib
+
+    return hashlib.sha256(json.dumps(log).encode()).hexdigest()
+
+
+LOCKSTEP_KEYS = ("assignment", "cost", "final_assignment", "final_cost",
+                 "msg_count", "msg_size", "cost_trace")
+
+
+def _grid10k_kw(dist):
+    return dict(mode="sim", rounds=LOCKSTEP_ROUNDS, seed=1, distribution=dist,
+                accel_agents=["a0", "a1"])
+
+
+def lockstep_cpu():
+    """18a's CPU runs and 18b's all-host runs, in a child process that
+    :func:`lockstep_phase` starts beside its card runs: one JSON line."""
+    from pydcop_tpu_torch.api import solve
+
+    dcop = grid10k_dcop()
+    dist = three_agent_split(dcop, factors=False)
+    out = {"18a": {}, "18b": {}}
+    for algo, params in LOCKSTEP:
+        r, stamps, secs = stamped_solve(solve, dcop, algo, params,
+                                        device="cpu", **_grid10k_kw(dist))
+        out["18a"][algo] = dict(
+            {k: r[k] for k in LOCKSTEP_KEYS}, seconds=secs,
+            changes=sum(len(h) for h in stamps.log.values()),
+            history=_digest(stamps.upto(1 << 30)), cycles=stamps.cycles())
+    g30 = grid30_dcop()
+    for algo, params in LOCKSTEP:
+        r, stamps, secs = stamped_solve(
+            solve, g30, algo, params, device="cpu", mode="sim",
+            rounds=GRID30_ROUNDS["host"], seed=1)
+        out["18b"][algo] = dict(
+            msg_count=r["msg_count"], seconds=secs, cycles=stamps.cycles(),
+            log=stamps.upto(1 << 30))
+    print(json.dumps(out))
+
+
+def lockstep_grid10k(dev, dcop, dist):
+    """18a's card runs: ``{algo: (result, stamps, seconds)}``."""
+    from pydcop_tpu_torch.api import solve
+
+    runs = {}
+    for algo, params in LOCKSTEP:
+        runs[algo] = stamped_solve(solve, dcop, algo, params, device=dev,
+                                   **_grid10k_kw(dist))
+    return runs
+
+
+def check_grid10k(dev, dcop, runs, cpu):
+    """18a (see the module docstring): the card runs against the CPU's."""
+    for algo, params in LOCKSTEP:
+        r, stamps, secs = runs[algo]
+        islands = stamps.islands()
+        if [i.device.type for i in islands] != [dev.type] * 2:
+            raise AssertionError(f"18a {algo}: the islands are not on the "
+                                 "card")
+        want = cpu[algo]
+        got = json.loads(json.dumps({k: r[k] for k in LOCKSTEP_KEYS}))
+        differ = [k for k in LOCKSTEP_KEYS if got[k] != want[k]]
+        if _digest(stamps.upto(1 << 30)) != want["history"]:
+            differ.append("value histories")
+        if list(stamps.cycles()) != want["cycles"]:
+            differ.append("cycles")
+        if differ:
+            raise AssertionError(f"18a {algo}: card != CPU in {differ}")
+        if len(r["final_assignment"]) != len(dcop.variables):
+            raise AssertionError(f"18a {algo}: incomplete assignment")
+        c = r["telemetry"]["counters"]
+        dispatched = sum(i.flushes for i in islands)
+        if c["island.flushes"] != dispatched or not dispatched:
+            raise AssertionError(f"18a {algo}: {c['island.flushes']} "
+                                 f"flushes counted, {dispatched} dispatched")
+        emit("18a", f"grid10k-{algo}-islands-sim", rounds=LOCKSTEP_ROUNDS,
+             params=params, status=r["status"], cycles=stamps.cycles(),
+             cost=r["cost"], final_cost=r["final_cost"],
+             msg_count=r["msg_count"], msg_size=r["msg_size"],
+             changes=sum(len(h) for h in stamps.log.values()),
+             phase_dispatches=dispatched,
+             boundary_msgs=c["island.boundary_msgs"], seconds=secs,
+             cpu_seconds=want["seconds"],
+             deliveries_per_s=r["msg_count"] / secs, card_equals_cpu=True)
+
+
+def lockstep_grid30(dev):
+    """18b's mixed runs on the card: ``{algo: (result, stamps,
+    seconds)}``."""
+    from pydcop_tpu_torch.api import solve
+
+    dcop = grid30_dcop()
+    if (len(dcop.variables), len(dcop.constraints)) != (900, 1740):
+        raise AssertionError("18b: unexpected 30x30 grid size")
+    dist = grid30_split(dcop)
+    return {algo: stamped_solve(
+        solve, dcop, algo, params, device=dev, mode="sim",
+        rounds=GRID30_ROUNDS["mixed"], seed=1, distribution=dist,
+        accel_agents=["a0", "a1"]) for algo, params in LOCKSTEP}
+
+
+def check_grid30(dev, runs, host):
+    """18b (see the module docstring): the mixed runs against the
+    all-host runs, over the cycles both completed."""
+    n_vars = GRID30_SIDE ** 2
+    for algo, params in LOCKSTEP:
+        r, stamps, secs = runs[algo]
+        h = host[algo]
+        common = min(stamps.cycles()[0], h["cycles"][0])
+        mixed_log = stamps.upto(common)
+        host_log = {v: [[c, x] for c, x in hist if c < common]
+                    for v, hist in h["log"].items()}
+        if mixed_log != host_log:
+            raise AssertionError(f"18b {algo}: the mixed run's values "
+                                 "differ from the all-host run's")
+        if len(mixed_log) != n_vars:
+            raise AssertionError(f"18b {algo}: incomplete assignment")
+        if common < 10:
+            raise AssertionError(f"18b {algo}: only {common} cycles in "
+                                 "common")
+        per_cycle = r["msg_count"] / stamps.cycles()[0]
+        host_per_cycle = h["msg_count"] / h["cycles"][0]
+        if not per_cycle < host_per_cycle:
+            raise AssertionError(f"18b {algo}: the mixed run delivers "
+                                 f"{per_cycle} a cycle, the all-host run "
+                                 f"{host_per_cycle}")
+        if [i.device.type for i in stamps.islands()] != [dev.type] * 2:
+            raise AssertionError(f"18b {algo}: the islands are not on the "
+                                 "card")
+        emit("18b", f"grid30-{algo}-mixed-vs-host", params=params,
+             cycles_compared=common, mixed_cycles=stamps.cycles(),
+             host_cycles=h["cycles"], mixed_msgs=r["msg_count"],
+             host_msgs=h["msg_count"], mixed_msgs_per_cycle=per_cycle,
+             host_msgs_per_cycle=host_per_cycle,
+             changes=sum(len(x) for x in mixed_log.values()),
+             mixed_seconds=secs, host_seconds=h["seconds"],
+             mixed_equals_host=True)
+
+
+def lockstep_thread_and_exact(dev, dcop, dist):
+    """18c (see the module docstring)."""
+    from argparse import Namespace
+
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.commands.generators.secp import generate
+
+    t0 = time.perf_counter()
+    r = solve(dcop, "mgm", {}, mode="thread", seed=1,
+              timeout=LOCKSTEP_THREAD_TIMEOUT, distribution=dist,
+              accel_agents=["a0", "a1"], device=dev)
+    secs = time.perf_counter() - t0
+    a = r["assignment"]
+    if len(a) != len(dcop.variables) or any(v is None for v in a.values()):
+        raise AssertionError("18c: the thread run's assignment is "
+                             "incomplete")
+    if r["cost"] != dcop.solution_cost(a):
+        raise AssertionError("18c: the thread run's cost is not the "
+                             "assignment's")
+    c = r["telemetry"]["counters"]
+    emit("18c", "grid10k-mgm-islands-thread", status=r["status"],
+         cost=r["cost"], msg_count=r["msg_count"],
+         phase_dispatches=c.get("island.flushes", 0), seconds=secs)
+
+    secp = generate(Namespace(**SYNCBB_SPEC))
+    batched = solve(secp, "dpop", device=dev)
+    costs = {}
+    for algo in ("dpop", "syncbb"):
+        t0 = time.perf_counter()
+        h = solve(secp, algo, mode="sim", seed=1, device=dev,
+                  rounds=100_000)
+        if h["status"] != "finished" or h["final_cost"] != batched["cost"]:
+            raise AssertionError(f"18c: host {algo} {h['status']} cost "
+                                 f"{h['final_cost']} against the batched "
+                                 f"DPOP's {batched['cost']}")
+        costs[algo] = dict(cost=h["final_cost"], msg_count=h["msg_count"],
+                           seconds=time.perf_counter() - t0)
+    emit("18c", "syncbb-secp10-host-exact", batched_dpop_cost=batched["cost"],
+         host=costs, equal=True)
+
+    g30 = grid30_dcop()
+    t0 = time.perf_counter()
+    r = solve(g30, "mgm2", {}, mode="sim", rounds=MGM2_ROUNDS, seed=1,
+              device=dev)
+    secs = time.perf_counter() - t0
+    a = r["final_assignment"]
+    if len(a) != len(g30.variables) or r["final_cost"] != g30.solution_cost(a):
+        raise AssertionError("18c: the MGM-2 run's result is not whole")
+    emit("18c", "grid30-mgm2-host-sim", status=r["status"],
+         cost=r["cost"], final_cost=r["final_cost"],
+         msg_count=r["msg_count"], seconds=secs,
+         deliveries_per_s=r["msg_count"] / secs)
+
+
+def lockstep_phase(torch, dev, card):
+    """Phase 18 (see the module docstring).  The CPU runs go on in a
+    child process while the card runs go on here."""
+    import os
+
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.lockstep_cpu()")
+    child = subprocess.Popen(
+        [sys.executable, "-c", code, str(HERE)], cwd=HERE,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        dcop = grid10k_dcop()
+        dist = three_agent_split(dcop, factors=False)
+        grid10k = lockstep_grid10k(dev, dcop, dist)
+        grid30 = lockstep_grid30(dev)
+        lockstep_thread_and_exact(dev, dcop, dist)
+        card_s = time.perf_counter() - t_phase
+        out, err = child.communicate(timeout=CPU_RUN_SLACK)
+    finally:
+        stop(child)
+    if child.returncode != 0:
+        raise AssertionError("18: the CPU runs failed:\n" + err[-4000:])
+    cpu = json.loads(out.splitlines()[-1])
+    check_grid10k(dev, dcop, grid10k, cpu["18a"])
+    check_grid30(dev, grid30, cpu["18b"])
+    emit("18", "phase", seconds=time.perf_counter() - t_phase,
+         card_seconds=card_s)
+
+
+# -- the lanes: phases 14-16 and 17-18 beside phases 10-13 -----------------
+
+LANE_WAIT = 900.0  # seconds a lane may run past the end of phase 13
+
+
+def _lane_device():
+    import torch
+
+    from pydcop_tpu_torch.ops import maxsum_kernels as mk
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mk.build()  # the parent's build: loaded, not rebuilt
+    return torch, mk, dev
+
+
+def lane_14_16(card, rate):
+    """Phases 14-16 in a child process (see :func:`start_lane`);
+    ``rate``: phase 3's coloring-10k msgs/s, or ``"None"``."""
+    torch, mk, dev = _lane_device()
+    rate = None if rate == "None" else float(rate)
+    t14 = time.perf_counter()
+    dcounts = dynamic_phase(torch, mk, dev, card, rate)
+    print(f"phase 14 seconds={time.perf_counter() - t14}")
+    t15 = time.perf_counter()
+    ccounts = cli_phase(torch, mk, dev, card, rate)
+    print(f"phase 15 seconds={time.perf_counter() - t15}")
+    t16 = time.perf_counter()
+    vcounts = serve_phase(torch, mk, dev, card)
+    print(f"phase 16 seconds={time.perf_counter() - t16}")
+    print(json.dumps({"lane_launches": [dcounts, ccounts, vcounts]}),
+          flush=True)
+
+
+def lane_17_18(card):
+    """Phases 17 and 18 in a child process (see :func:`start_lane`)."""
+    torch, mk, dev = _lane_device()
+    t17 = time.perf_counter()
+    hcounts = host_runtime_phase(torch, mk, dev, card)
+    print(f"phase 17 seconds={time.perf_counter() - t17}")
+    t18 = time.perf_counter()
+    lockstep_phase(torch, dev, card)
+    print(f"phase 18 seconds={time.perf_counter() - t18}")
+    print(json.dumps({"lane_launches": [hcounts]}), flush=True)
+
+
+def start_lane(func, *args):
+    """``chip_smoke.<func>(*args)`` in a child process on the same card,
+    so that phases of host Python (most of 10-18) run side by side and
+    the script stays well inside its time limit.  Returns what
+    :func:`join_lane` takes."""
+    import threading
+
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            f"import chip_smoke; chip_smoke.{func}(*sys.argv[2:])")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, str(HERE), *args], cwd=HERE,
+        stdout=subprocess.PIPE, text=True,
+    )
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    return func, proc, reader, lines, time.perf_counter()
+
+
+def join_lane(lane):
+    """Waits for :func:`start_lane`'s child, prints its lines and returns
+    the launches its phases counted (a list of dicts by kernel entry);
+    the child's failure fails the script."""
+    func, proc, reader, lines, t0 = lane
+    try:
+        proc.wait(timeout=LANE_WAIT)
+    finally:
+        stop(proc)
+    reader.join(timeout=60)
+    sys.stdout.write("".join(lines))
+    print(f"{func} (a child process) seconds={time.perf_counter() - t0}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"{func} (its own process) exited "
+                             f"{proc.returncode}")
+    return json.loads(lines[-1])["lane_launches"]
+
+
+def stop(proc):
+    """Ends ``proc`` if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
 def main() -> int:
     import torch
 
@@ -6494,7 +6960,7 @@ def main() -> int:
                 64, 64, "coloring-10k-ternary-bf16-tables",
                 {"factor_round_binary_shared": 0, "factor_round_binary": 0,
                  "q_update": 64})
-    profile_rounds(torch, run_batched, maxsum, params, p3, 64,
+    profile_rounds(torch, run_batched, maxsum, params, p3, 32,
                    "coloring-10k")
     cost_sum_row(torch, p3, "coloring-10k")
 
@@ -6513,7 +6979,7 @@ def main() -> int:
     card_vs_cpu(torch, mk, run_batched, maxsum, params, p4hc.to(dev), p4hc,
                 16, 16, "per-factor-100k-d5-bf16-tables",
                 {"factor_round_binary": 16, "q_update": 16})
-    profile_rounds(torch, run_batched, maxsum, params, p4, 32,
+    profile_rounds(torch, run_batched, maxsum, params, p4, 16,
                    "per-factor-100k-d5")
 
     # -- 5. d = 10: the factor kernels' lane-tile instance ---------------
@@ -6534,7 +7000,7 @@ def main() -> int:
                 16, 16, "per-factor-100k-d10-bf16-tables",
                 {k: v // 4 for k, v in per_factor.items()})
     del p10hc
-    profile_rounds(torch, run_batched, maxsum, params, p10, 32,
+    profile_rounds(torch, run_batched, maxsum, params, p10, 16,
                    "per-factor-100k-d10")
     del p10, p10c
     p10sc = compile_from_arrays(s10, t10, 10, unary=u10, device="cpu")
@@ -6547,7 +7013,7 @@ def main() -> int:
                           "coloring-100k-d10", card)
     card_vs_cpu(torch, mk, run_batched, maxsum, params, p10s, p10sc, 32, 32,
                 "coloring-100k-d10", {k: v // 2 for k, v in shared.items()})
-    profile_rounds(torch, run_batched, maxsum, params, p10s, 32,
+    profile_rounds(torch, run_batched, maxsum, params, p10s, 16,
                    "coloring-100k-d10")
     del p10s, p10sc
     torch.cuda.empty_cache()
@@ -6566,9 +7032,9 @@ def main() -> int:
     )
     print(f"coloring-1M max_memory_allocated_bytes="
           f"{torch.cuda.max_memory_allocated()}")
-    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 8, 8,
+    card_vs_cpu(torch, mk, run_batched, maxsum, params, p5, p5c, 4, 4,
                 "coloring-1M")
-    profile_rounds(torch, run_batched, maxsum, params, p5, 32,
+    profile_rounds(torch, run_batched, maxsum, params, p5, 16,
                    "coloring-1M")
     cost_sum_row(torch, p5, "coloring-1M")
 
@@ -6593,49 +7059,40 @@ def main() -> int:
     )
     print(f"phase 9 seconds={time.perf_counter() - t9}")
 
-    # -- 10. exact inference ----------------------------------------------
-    t10 = time.perf_counter()
-    infer_phase(torch, dev, card)
-    print(f"phase 10 seconds={time.perf_counter() - t10}")
+    # -- 14-16 and 17-18: two child processes on the card, beside 10-13 --
+    rate = MAIN_PATH_RATES.get("coloring-10k")
+    lanes = [start_lane("lane_14_16", card, str(rate)),
+             start_lane("lane_17_18", card)]
+    try:
+        # -- 10. exact inference ------------------------------------------
+        t10 = time.perf_counter()
+        infer_phase(torch, dev, card)
+        print(f"phase 10 seconds={time.perf_counter() - t10}")
 
-    # -- 11. the rest of the semiring core --------------------------------
-    t11 = time.perf_counter()
-    core_phase(torch, dev, card)
-    print(f"phase 11 seconds={time.perf_counter() - t11}")
+        # -- 11. the rest of the semiring core ----------------------------
+        t11 = time.perf_counter()
+        core_phase(torch, dev, card)
+        print(f"phase 11 seconds={time.perf_counter() - t11}")
 
-    # -- 12. branch-and-bound pruning and checkpoint/resume ---------------
-    t12 = time.perf_counter()
-    bnb_checkpoint_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
-    print(f"phase 12 seconds={time.perf_counter() - t12}")
+        # -- 12. branch-and-bound pruning and checkpoint/resume -----------
+        t12 = time.perf_counter()
+        bnb_checkpoint_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
+        print(f"phase 12 seconds={time.perf_counter() - t12}")
 
-    # -- 13. the supervised dispatch and belief="blockdiag" ---------------
-    t13 = time.perf_counter()
-    scounts = supervisor_phase(torch, mk, dev, card, (s, t, u), s5, t5, u5)
-    print(f"phase 13 seconds={time.perf_counter() - t13}")
+        # -- 13. the supervised dispatch and belief="blockdiag" -----------
+        t13 = time.perf_counter()
+        scounts = supervisor_phase(torch, mk, dev, card, (s, t, u), s5, t5,
+                                   u5)
+        print(f"phase 13 seconds={time.perf_counter() - t13}")
 
-    # -- 14. the dynamic path ---------------------------------------------
-    t14 = time.perf_counter()
-    dcounts = dynamic_phase(torch, mk, dev, card,
-                            MAIN_PATH_RATES.get("coloring-10k"))
-    print(f"phase 14 seconds={time.perf_counter() - t14}")
+        # -- 14-18: the lanes' lines, in phase order ----------------------
+        dcounts, ccounts, vcounts = join_lane(lanes[0])
+        hcounts, = join_lane(lanes[1])
+    finally:
+        for lane in lanes:
+            stop(lane[1])
 
-    # -- 15. the rest of the CLI ------------------------------------------
-    t15 = time.perf_counter()
-    ccounts = cli_phase(torch, mk, dev, card,
-                        MAIN_PATH_RATES.get("coloring-10k"))
-    print(f"phase 15 seconds={time.perf_counter() - t15}")
-
-    # -- 16. serving ------------------------------------------------------
-    t16 = time.perf_counter()
-    vcounts = serve_phase(torch, mk, dev, card)
-    print(f"phase 16 seconds={time.perf_counter() - t16}")
-
-    # -- 17. the host runtimes with islands, and the fleet ---------------
-    t17 = time.perf_counter()
-    hcounts = host_runtime_phase(torch, mk, dev, card)
-    print(f"phase 17 seconds={time.perf_counter() - t17}")
-
-    # -- 18. summary ------------------------------------------------------
+    # -- 19. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (

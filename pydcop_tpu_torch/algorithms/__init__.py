@@ -51,9 +51,8 @@ Host-runtime contract (``mode="sim"``/``"thread"``,
 returns the message-driven computation of one graph node, and
 ``build_island(comp_defs, dcop, seed=0, pending_fn=None, device=None)``
 one agent's placed nodes as a compiled island on ``device`` behind
-per-node proxies.  Max-Sum, A-Max-Sum, DSA, A-DSA and DSA-tuto have
-both; the other algorithms' host computations and islands are ROADMAP
-A15b (:data:`HOST_RUNTIME_LATER`, :data:`ISLANDS_LATER`).
+per-node proxies.  Every algorithm has host computations; Max-Sum,
+A-Max-Sum, the DSA family, MGM, DBA and GDBA also have islands.
 
 Ported algorithms: :data:`AVAILABLE`.
 """
@@ -73,15 +72,6 @@ AVAILABLE = (
     "adsa", "amaxsum", "dba", "dpop", "dsa", "dsatuto", "gdba", "maxsum",
     "mgm", "mgm2", "syncbb",
 )
-
-
-#: algorithms whose JAX counterparts have host computations
-#: (``build_computation``) that the port has not yet (ROADMAP A15b)
-HOST_RUNTIME_LATER = ("dba", "dpop", "gdba", "mgm", "mgm2", "syncbb")
-
-#: algorithms whose JAX counterparts deploy compiled islands
-#: (``build_island``) that the port has not yet (ROADMAP A15b)
-ISLANDS_LATER = ("dba", "gdba", "mgm")
 
 
 class AlgorithmDefError(ValueError):
@@ -307,25 +297,13 @@ def resolve_algo(algo, algo_params=None):
 
 def require_island_support(module, algo_name: str) -> None:
     """Raise unless ``module`` can deploy compiled islands
-    (``build_island``, the ``accel_agents`` path of the host runtimes):
-    ``NotImplementedError`` for the islands ROADMAP A15b still has to
-    port, the JAX package's ``ValueError`` for the others."""
-    if hasattr(module, "build_island"):
-        return
-    if algo_name in ISLANDS_LATER:
-        raise NotImplementedError(
-            f"{algo_name}: its compiled island (the lockstep islands) is "
-            "not ported yet — see ROADMAP.md, A15b"
-        )
-    # the JAX package's list: the ported islands and those of A15b
-    have = sorted(
-        {
+    (``build_island``, the ``accel_agents`` path of the host runtimes)."""
+    if not hasattr(module, "build_island"):
+        have = [
             a for a in AVAILABLE
             if hasattr(load_algorithm_module(a), "build_island")
-        }
-        | set(ISLANDS_LATER)
-    )
-    raise ValueError(
-        f"{algo_name}: no compiled-island support (build_island) "
-        f"— accel agents are available for: {', '.join(have)}"
-    )
+        ]
+        raise ValueError(
+            f"{algo_name}: no compiled-island support (build_island) "
+            f"— accel agents are available for: {', '.join(have)}"
+        )

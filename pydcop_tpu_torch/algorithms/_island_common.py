@@ -1,8 +1,8 @@
 """Shared sub-problem construction for compiled islands (port of
 ``pydcop_tpu/algorithms/_island_common.py``).
 
-Every island (the DSA family's here; MGM's, DBA's and GDBA's in
-ROADMAP A15b) hosts one agent's
+Every island (Max-Sum's, the DSA family's, MGM's, DBA's, GDBA's) hosts
+one agent's
 placed variables as a compiled sub-DCOP in which each REMOTE scope
 variable is represented by one **shadow variable** ``__shadow__<name>``
 (shared across all boundary constraints that reference it).  This

@@ -79,6 +79,44 @@ def draws(
     return {}
 
 
+def candidate_metrics(
+    problem: CompiledProblem,
+    values: torch.Tensor,
+    weights: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(improve, candidate, violated)`` for one DBA round: the
+    weighted best-move sweep plus the raw per-constraint violation mask
+    under the CURRENT assignment.  Shared by :func:`apply` and the
+    lockstep island (``_island_dba.py``) so the formulas cannot drift
+    between them."""
+    edge_con = problem.index64("edge_con")
+    # candidate-value costs with per-constraint weights
+    local = local_cost_sweep(problem, values, weights[..., edge_con])
+    current, best = current_best(local, values)
+    candidate = torch.argmin(local, dim=-1).to(values.dtype)
+    improve = current - best  # >= 0
+    violated = problem.tables_flat[con_cells(problem, values)] > EPS
+    return improve, candidate, violated
+
+
+def qlm_mask(
+    problem: CompiledProblem,
+    improve: torch.Tensor,
+    violated: torch.Tensor,
+) -> torch.Tensor:
+    """bool[..., n_vars]: at a quasi-local minimum — a violated incident
+    constraint, and nobody in the CLOSED neighborhood improves.  Shared
+    by :func:`apply` and the lockstep island."""
+    edge_con = problem.index64("edge_con")
+    edge_viol = violated[..., edge_con].to(problem.unary.dtype)
+    has_violation = segment_sum_edges(problem, edge_viol, dim=-1) > 0.5
+    nbr_improve = neighbor_gather(
+        problem, improve, fill=-float("inf"), dim=-1
+    ).amax(dim=-1)
+    stuck = torch.maximum(improve, nbr_improve) <= EPS
+    return has_violation & stuck
+
+
 def apply(
     problem: CompiledProblem,
     state: Dict[str, torch.Tensor],
@@ -86,30 +124,14 @@ def apply(
     drawn: Dict[str, torch.Tensor],
 ) -> Dict[str, torch.Tensor]:
     values, weights = state["values"], state["weights"]
-    edge_con = problem.index64("edge_con")
-    # candidate-value costs with per-constraint weights
-    local = local_cost_sweep(problem, values, weights[..., edge_con])
-    current, best = current_best(local, values)
-    candidate = torch.argmin(local, dim=-1).to(values.dtype)
-    improve = current - best  # >= 0
-    # raw per-constraint violation under the CURRENT assignment
-    violated = problem.tables_flat[con_cells(problem, values)] > EPS
+    improve, candidate, violated = candidate_metrics(problem, values, weights)
 
     win = strict_winner(problem, improve, lexic_prio(problem)) & (
         improve > EPS
     )
     new_values = torch.where(win, candidate, values)
 
-    # quasi-local minimum: a violated incident constraint, and nobody in
-    # the closed neighborhood improves
-    edge_viol = violated[..., edge_con].to(problem.unary.dtype)
-    has_violation = segment_sum_edges(problem, edge_viol, dim=-1) > 0.5
-    nbr_improve = neighbor_gather(
-        problem, improve, fill=-float("inf"), dim=-1
-    ).amax(dim=-1)
-    stuck = torch.maximum(improve, nbr_improve) <= EPS
-    qlm = has_violation & stuck  # [..., n]
-
+    qlm = qlm_mask(problem, improve, violated)
     # weight += increase on violated constraints touching a QLM variable
     # (read through con_scopes; stride 0 marks padded scope slots, which
     # point at variable 0 and are masked out)
@@ -147,3 +169,25 @@ def communication_load(
     node: _graph.VariableComputationNode, neighbor_name: str
 ) -> float:
     return 2 * UNIT_SIZE
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (round-synchronized ok?/improve
+    phases with per-computation breakout weights — the reference's DBA
+    deployment shape); batched solving uses ``init_state``/``step``."""
+    from pydcop_tpu_torch.algorithms import _host_dba
+
+    return _host_dba.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """LOCKSTEP compiled island on ``device`` (one batched step per
+    global two-phase round — ``_island_dba.py``): preserves the
+    no-two-adjacent-movers invariant while interior ok?/improve messages
+    become tensor ops; flags ride the boundary payloads so endpoint
+    weight copies stay equal across the seam."""
+    from pydcop_tpu_torch.algorithms import _island_dba
+
+    return _island_dba.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

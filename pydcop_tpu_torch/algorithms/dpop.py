@@ -152,14 +152,18 @@ algo_params: list = [
 
 
 
-def _align(table: np.ndarray, dims: Sequence[str], target: Sequence[str]):
-    """Transpose + reshape ``table`` (axes named ``dims``) so it
-    broadcasts over ``target`` (a superset of ``dims``) — the UTIL join
-    primitive: aligned parts simply add."""
-    order = [d for d in target if d in dims]
-    t = np.transpose(table, [list(dims).index(d) for d in order])
-    shape = [t.shape[order.index(d)] if d in dims else 1 for d in target]
-    return t.reshape(shape)
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven DPOP (thread/sim runtimes) — UTIL/VALUE
+    messages over the pseudo-tree; the device UTIL path below remains
+    the production engine."""
+    from pydcop_tpu_torch.algorithms._host_dpop import (
+        build_computation as _build,
+    )
+
+    return _build(comp_def, seed=seed)
+
+
+from pydcop_tpu_torch.algorithms._tables import align_table as _align  # noqa: E402
 
 
 def _prepare_instance(dcop, provenance: Optional[dict] = None):

@@ -35,7 +35,6 @@ import torch
 from pydcop_tpu_torch.algorithms import AlgoParameterDef
 from pydcop_tpu_torch.algorithms._common import (
     EPS,
-    batch_shape,
     draw_apply_step,
     current_best,
     init_values,
@@ -96,14 +95,19 @@ def _violated(base_flat, cc_raw, vmode: str) -> torch.Tensor:
     return (cc_raw >= tmax - EPS) & (tmax > tmin + EPS)
 
 
-def apply(
+def effective_metrics(
     problem: CompiledProblem,
-    state: Dict[str, torch.Tensor],
+    values: torch.Tensor,
+    weights: Dict[int, torch.Tensor],
     params: Dict[str, Any],
-    drawn: Dict[str, torch.Tensor],
-) -> Dict[str, torch.Tensor]:
-    values = state["values"]
-    batch = batch_shape(state)
+):
+    """``(improve, candidate, per_bucket, edge_violated)`` for one GDBA
+    round under per-cell ``weights`` (``{arity: f32[..., m, d^k]}``):
+    the weighted candidate sweep, per bucket ``(cur_cell, violated,
+    vals)`` and the edge-projected violation flags.  Shared by
+    :func:`apply` and the lockstep island (``_island_gdba.py``) so the
+    three generalization axes cannot drift between them."""
+    batch = tuple(values.shape[:-1])
     d = problem.d_max
     dt = problem.unary.dtype
     additive = params["modifier"] == "A"
@@ -116,7 +120,7 @@ def apply(
         # a shared-table bucket broadcasts its one base row over all m
         base_flat = bucket.tables.reshape(bucket.tables.shape[0], d**k)
         base_flat = base_flat.expand(batch + (m, d**k))
-        w = state[f"w{k}"]
+        w = weights[k]
         eff_flat = base_flat + w if additive else base_flat * w
         vals = values[..., bucket.scopes64].long()  # [..., m, k]
         strides = _bucket_strides(k, d)
@@ -148,6 +152,36 @@ def apply(
     current, best = current_best(local, values)
     candidate = torch.argmin(local, dim=-1).to(values.dtype)
     improve = current - best
+    return improve, candidate, per_bucket, edge_violated
+
+
+def qlm_mask(
+    problem: CompiledProblem,
+    improve: torch.Tensor,
+    edge_violated: torch.Tensor,
+) -> torch.Tensor:
+    """bool[..., n_vars]: quasi-local minimum under the GDBA violation
+    flags (edge-projected).  Shared by :func:`apply` and the lockstep
+    island."""
+    has_violation = segment_sum_edges(problem, edge_violated, dim=-1) > 0.5
+    nbr_improve = neighbor_gather(
+        problem, improve, fill=-float("inf"), dim=-1
+    ).amax(dim=-1)
+    return has_violation & (torch.maximum(improve, nbr_improve) <= EPS)
+
+
+def apply(
+    problem: CompiledProblem,
+    state: Dict[str, torch.Tensor],
+    params: Dict[str, Any],
+    drawn: Dict[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    values = state["values"]
+    d = problem.d_max
+    weights = {k: state[f"w{k}"] for k in sorted(problem.buckets)}
+    improve, candidate, per_bucket, edge_violated = effective_metrics(
+        problem, values, weights, params
+    )
 
     win = strict_winner(problem, improve, lexic_prio(problem)) & (
         improve > EPS
@@ -155,11 +189,7 @@ def apply(
     new_state = {"values": torch.where(win, candidate, values)}
 
     # -- quasi-local minimum and the weight increase ---------------------
-    has_violation = segment_sum_edges(problem, edge_violated, dim=-1) > 0.5
-    nbr_improve = neighbor_gather(
-        problem, improve, fill=-float("inf"), dim=-1
-    ).amax(dim=-1)
-    qlm = has_violation & (torch.maximum(improve, nbr_improve) <= EPS)
+    qlm = qlm_mask(problem, improve, edge_violated)
 
     imode = params["increase_mode"]
     for k, bucket in sorted(problem.buckets.items()):
@@ -222,3 +252,26 @@ def communication_load(
     node: _graph.VariableComputationNode, neighbor_name: str
 ) -> float:
     return 2 * UNIT_SIZE
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (round-synchronized ok?/improve
+    phases with synchronized per-cell weight increases — the
+    reference's GDBA deployment shape); batched solving uses
+    ``init_state``/``step``."""
+    from pydcop_tpu_torch.algorithms import _host_gdba
+
+    return _host_gdba.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """LOCKSTEP compiled island on ``device`` (one batched step per
+    global two-phase round — ``_island_gdba.py``): per-cell weight
+    matrices live on the island, and ``(constraint, cells)`` flag lists
+    cross the boundary payloads so endpoint weight copies stay equal
+    under every modifier/violation/increase-mode combination."""
+    from pydcop_tpu_torch.algorithms import _island_gdba
+
+    return _island_gdba.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

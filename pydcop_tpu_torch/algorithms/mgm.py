@@ -102,3 +102,26 @@ def communication_load(
 ) -> float:
     """One value + one gain message per round on each link."""
     return HEADER_SIZE + 2 * UNIT_SIZE
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven computation (round-synchronized value/gain
+    phases over real messages — the reference's MGM deployment shape);
+    batched solving uses ``init_state``/``step``."""
+    from pydcop_tpu_torch.algorithms import _host_mgm
+
+    return _host_mgm.build_computation(comp_def, seed=seed)
+
+
+def build_island(comp_defs, dcop, seed: int = 0, pending_fn=None, device=None):
+    """LOCKSTEP compiled island on ``device``: one agent's placed
+    variables step as one batched sub-problem, once per GLOBAL two-phase
+    round — the only island schedule that preserves MGM's
+    no-two-adjacent-movers guarantee (``_island_mgm.py``; interior
+    value/gain messages become tensor ops, the per-round trajectory
+    replays the all-host run)."""
+    from pydcop_tpu_torch.algorithms import _island_mgm
+
+    return _island_mgm.build_island(
+        comp_defs, dcop, seed=seed, pending_fn=pending_fn, device=device
+    )

@@ -357,3 +357,12 @@ def communication_load(
 ) -> float:
     """Value + gain + (amortized) offer/accept/go per round."""
     return HEADER_SIZE + 5 * UNIT_SIZE
+
+
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven MGM-2 (thread/sim runtimes)."""
+    from pydcop_tpu_torch.algorithms._host_mgm2 import (
+        build_computation as _build,
+    )
+
+    return _build(comp_def, seed=seed)

@@ -34,6 +34,17 @@ GRAPH_TYPE = "ordered_graph"
 algo_params: list = []
 
 
+def build_computation(comp_def, seed: int = 0):
+    """Host message-driven SyncBB (thread/sim runtimes) — the
+    bound-token walk as real messages; the vectorized solver below
+    remains the production engine."""
+    from pydcop_tpu_torch.algorithms._host_syncbb import (
+        build_computation as _build,
+    )
+
+    return _build(comp_def, seed=seed)
+
+
 def solve_host(
     dcop: DCOP,
     params: Dict[str, Any],

@@ -31,7 +31,6 @@ import time
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 from pydcop_tpu_torch.algorithms import (
-    HOST_RUNTIME_LATER,
     AlgorithmDef,
     ComputationDef,
     load_algorithm_module,
@@ -106,11 +105,6 @@ def _build_computations(
     structure exists.  Islands compile onto ``device``."""
     module = load_algorithm_module(algo_name)
     if not hasattr(module, "build_computation"):
-        if algo_name in HOST_RUNTIME_LATER:
-            raise NotImplementedError(
-                f"{algo_name}: its host computations are not ported yet "
-                "— see ROADMAP.md, A15b"
-            )
         raise ValueError(
             f"{algo_name}: no host build_computation — only the batched "
             "engine supports this algorithm"

@@ -321,3 +321,21 @@ def test_single_run_options_refused_with_many(tmp_path):
                      + flags + extra)
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("algo", ["mgm", "gdba"])
+def test_solve_sim_with_a_lockstep_island_equals_jax(algo, capsys):
+    """``solve -a mgm|gdba -m sim --accel_agents a1``: the island runs on
+    the CPU with ``--device cpu`` and the result equals the JAX CLI's
+    (all but ``time`` and the telemetry block, whose island counters the
+    JAX package names after its jitted programs)."""
+    argv = ["solve", "-a", algo, "-m", "sim", "--rounds", "40",
+            "--accel_agents", "a1", "--seed", "2", COLORING]
+    assert jax_main(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert port_main(argv + ["--device", CPU]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got.pop("telemetry")["counters"]["island.flushes"] > 0
+    want.pop("telemetry")
+    got.pop("time"), want.pop("time")
+    assert got == want and got["cost"] == 0.0

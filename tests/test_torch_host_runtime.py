@@ -31,7 +31,11 @@ from pydcop_tpu_torch.infrastructure import solve_host  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COLORING = os.path.join(REPO, "examples", "graph_coloring_3.yaml")
-HOST_ALGOS = ["maxsum", "amaxsum", "dsa", "adsa", "dsatuto"]
+HOST_ALGOS = ["maxsum", "amaxsum", "dsa", "adsa", "dsatuto", "mgm", "mgm2",
+              "dba", "gdba", "syncbb", "dpop"]
+#: round-synchronized algorithms re-send every round and never quiesce:
+#: their runs stop at a budget of this many rounds
+PHASED = {"mgm": 30, "mgm2": 12, "dba": 30, "gdba": 30}
 
 
 def _yaml(kind: str, agents=()) -> str:
@@ -124,9 +128,12 @@ def test_all_host_sim_equals_jax_bit_for_bit(algo, kind, tmp_path):
     params = {"damping": 0.5} if "maxsum" in algo else {}
     seed = 3
     pj, pt = str(tmp_path / "jax.jsonl"), str(tmp_path / "port.jsonl")
-    rj = jax_solve_host(dj, algo, params, mode="sim", seed=seed, msg_log=pj)
+    rounds = PHASED.get(algo)
+    rj = jax_solve_host(dj, algo, params, mode="sim", seed=seed, msg_log=pj,
+                        rounds=rounds)
     rt = solve_host(
-        dt, algo, params, mode="sim", seed=seed, msg_log=pt, device="cpu"
+        dt, algo, params, mode="sim", seed=seed, msg_log=pt, device="cpu",
+        rounds=rounds,
     )
     _same_result(rj, rt)
     lj, lt = _log_lines(pj), _log_lines(pt)
@@ -189,6 +196,175 @@ def test_algorithm_def_and_params_resolve_as_jax():
     rt = solve_host(dt, AlgorithmDef("dsa", {"variant": "A"}),
                     {"probability": 0.9}, mode="sim", seed=1, device="cpu")
     _same_result(rj, rt)
+
+
+# -- the phased and exact host computations ----------------------------
+
+
+def _coloring(pkg: str, n_vars: int, degree: int = 2, seed: int = 3):
+    """``__graft_entry__._make_coloring_dcop`` built with ``pkg``'s model
+    classes: noisy unary costs (deterministic per name) and random
+    equality penalties; at ``(24, 2, 3)`` MGM stays stuck above cost 1."""
+    import importlib
+    import random
+
+    import numpy as np
+
+    dcop_mod = importlib.import_module(f"{pkg}.dcop.dcop")
+    objects = importlib.import_module(f"{pkg}.dcop.objects")
+    relations = importlib.import_module(f"{pkg}.dcop.relations")
+    expr = importlib.import_module(f"{pkg}.utils.expressionfunction")
+    rnd = random.Random(seed)
+    d = objects.Domain("colors", "", [0, 1, 2])
+    dcop = dcop_mod.DCOP(f"coloring_{n_vars}")
+    vs = [
+        objects.VariableNoisyCostFunc(
+            f"v{i}", d, expr.ExpressionFunction(f"v{i} * 0"),
+            noise_level=0.02,
+        )
+        for i in range(n_vars)
+    ]
+    for v in vs:
+        dcop.add_variable(v)
+    seen, cid = set(), 0
+    for i in range(n_vars):
+        for _ in range(degree):
+            j = rnd.randrange(n_vars)
+            if i == j or (min(i, j), max(i, j)) in seen:
+                continue
+            seen.add((min(i, j), max(i, j)))
+            dcop.add_constraint(relations.NAryMatrixRelation(
+                [vs[i], vs[j]], np.eye(3), name=f"c{cid}"))
+            cid += 1
+    return dcop
+
+
+def _one_opt(dcop, assignment):
+    base = dcop.solution_cost(assignment)
+    for name, var in dcop.variables.items():
+        for val in var.domain.values:
+            if val != assignment[name]:
+                assert dcop.solution_cost(
+                    {**assignment, name: val}) >= base - 1e-6, (name, val)
+
+
+def test_host_mgm_sim_equals_jax_and_is_one_opt_in_both_modes():
+    """MGM's host computations end 1-opt (its convergence guarantee);
+    the sim run equals the JAX package's bit for bit."""
+    dj, dt = _coloring("pydcop_tpu", 24), _coloring("pydcop_tpu_torch", 24)
+    rj = jax_solve_host(dj, "mgm", {}, mode="sim", rounds=400, timeout=30)
+    rt = solve_host(dt, "mgm", {}, mode="sim", rounds=400, timeout=30,
+                    device="cpu")
+    _same_result(rj, rt)
+    assert rt["cost"] > 1.0  # the instance MGM stays stuck on
+    _one_opt(dt, rt["final_assignment"])
+    rt = solve_host(dt, "mgm", {}, mode="thread", rounds=400, timeout=30,
+                    device="cpu")
+    _one_opt(dt, rt["final_assignment"])
+
+
+def test_host_mgm_isolated_variable_settles_unary_best():
+    from pydcop_tpu_torch.dcop.dcop import DCOP
+    from pydcop_tpu_torch.dcop.objects import Domain, VariableWithCostDict
+
+    dcop = DCOP("iso")
+    dcop.add_variable(VariableWithCostDict(
+        "x", Domain("d", "", [0, 1, 2]), {0: 0.0, 1: 5.0, 2: 5.0}))
+    r = solve_host(dcop, "mgm", {}, mode="sim", rounds=20, timeout=10,
+                   device="cpu")
+    assert r["final_assignment"] == {"x": 0} and r["final_cost"] == 0.0
+
+
+@pytest.mark.parametrize("algo,params", [
+    ("dba", {}),
+    ("gdba", {"increase_mode": "E"}),
+    ("gdba", {"increase_mode": "R"}),
+    ("gdba", {"increase_mode": "C"}),
+])
+def test_host_breakout_escapes_the_mgm_minimum_as_jax(algo, params):
+    dj, dt = _coloring("pydcop_tpu", 24), _coloring("pydcop_tpu_torch", 24)
+    rj = jax_solve_host(dj, algo, params, mode="sim", rounds=400, timeout=30)
+    rt = solve_host(dt, algo, params, mode="sim", rounds=400, timeout=30,
+                    device="cpu")
+    _same_result(rj, rt)
+    assert rt["cost"] < 0.5  # conflict-free: noise only
+
+
+def test_host_gdba_endpoint_weight_copies_stay_equal():
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.infrastructure.runtime import (
+        _build_computations,
+        _run_sim,
+    )
+
+    dcop = _coloring("pydcop_tpu_torch", 24)
+    params = prepare_algo_params({}, load_algorithm_module("gdba").algo_params)
+    comps, _ = _build_computations(dcop, "gdba", params, seed=0)
+    _run_sim(comps, 30.0, 40_000, 0, time.perf_counter(), lambda *a: None)
+    assert dcop.solution_cost(
+        {c.name: c.current_value for c in comps}) < 0.5
+    tables = {}
+    for comp in comps:
+        for cname, wt in comp._weights.items():
+            tables.setdefault(cname, set()).add(tuple(sorted(wt.items())))
+    assert all(len(v) == 1 for v in tables.values())
+    assert any(wt for comp in comps for wt in comp._weights.values())
+
+
+@pytest.mark.parametrize("mode", ["sim", "thread"])
+def test_host_mgm2_pair_move_escapes_the_mgm_minimum(mode):
+    """(1, 1) is reachable from (0, 0) only by a coordinated pair move:
+    MGM stays at 0.5, MGM-2 reaches 0; in sim both equal the JAX runs."""
+    import numpy as np
+
+    def pair(pkg):
+        import importlib
+
+        dcop_mod = importlib.import_module(f"{pkg}.dcop.dcop")
+        objects = importlib.import_module(f"{pkg}.dcop.objects")
+        relations = importlib.import_module(f"{pkg}.dcop.relations")
+        b = objects.Domain("b", "", [0, 1])
+        dcop = dcop_mod.DCOP("pair")
+        x = objects.Variable("x", b, initial_value=0)
+        y = objects.Variable("y", b, initial_value=0)
+        dcop.add_variable(x)
+        dcop.add_variable(y)
+        dcop.add_constraint(relations.NAryMatrixRelation(
+            [x, y], np.array([[0.5, 2.0], [2.0, 0.0]]), name="c"))
+        return dcop
+
+    declared = {"initial": "declared"}
+    for algo, rounds, want in (("mgm", 60, 0.5), ("mgm2", 200, 0.0)):
+        rt = solve_host(pair("pydcop_tpu_torch"), algo, declared, mode=mode,
+                        rounds=rounds, timeout=30, device="cpu")
+        assert rt["final_cost"] == want, (algo, rt)
+        if mode == "sim":
+            rj = jax_solve_host(pair("pydcop_tpu"), algo, declared,
+                                mode=mode, rounds=rounds, timeout=30)
+            _same_result(rj, rt)
+    assert rt["final_assignment"] == {"x": 1, "y": 1}
+
+
+@pytest.mark.parametrize("mode", ["sim", "thread"])
+def test_host_dpop_and_syncbb_reach_the_batched_optimum(mode):
+    from pydcop_tpu_torch.api import solve
+
+    for seed in range(3):
+        dt = _coloring("pydcop_tpu_torch", 12, seed=seed)
+        exact = solve(dt, "dpop", device="cpu")["cost"]
+        for algo in ("dpop", "syncbb"):
+            r = solve_host(dt, algo, {}, mode=mode, timeout=60,
+                           max_msgs=500_000, device="cpu")
+            assert r["status"] == "finished", (algo, r)
+            assert r["final_cost"] == pytest.approx(exact, abs=1e-9)
+            if mode == "sim":
+                rj = jax_solve_host(
+                    _coloring("pydcop_tpu", 12, seed=seed), algo, {},
+                    mode=mode, timeout=60, max_msgs=500_000)
+                _same_result(rj, r)
 
 
 # -- thread mode -------------------------------------------------------
@@ -357,10 +533,6 @@ def test_refusals_equal_jax(mode, kw):
 @pytest.mark.parametrize("kw,where", [
     ({"mode": "process"}, "mode='process'"),
     ({"mode": "batched", "ui_port": 8080}, "ui_port"),
-    ({"mode": "sim", "algo": "mgm"}, "mgm"),
-    ({"mode": "thread", "algo": "dpop"}, "dpop"),
-    ({"mode": "sim", "algo": "mgm", "accel_agents": ["a1"]}, "mgm"),
-    ({"mode": "sim", "algo": "gdba", "accel_agents": ["a1"]}, "gdba"),
 ])
 def test_unported_parts_name_a15b(kw, where):
     from pydcop_tpu_torch.api import solve

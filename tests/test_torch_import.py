@@ -8,8 +8,8 @@ checkpointed, resumed Max-Sum solve, a dynamic run with replicas, an
 ILP placement, the ``run`` CLI, ``trace-summary``, ``batch
 --simulate`` and a solver-service solve, after checking that
 ``api.ServiceClient`` imports without torch; and, in a second probe, a
-``sim`` solve with a compiled island, a thread-mode solve and ``fleet
---help``) runs in a fresh subprocess; a static AST scan covers every
+``sim`` solve with a compiled island, a ``sim`` solve with an MGM
+lockstep island, a thread-mode solve and ``fleet --help``) runs in a fresh subprocess; a static AST scan covers every
 module of the port and ``chip_smoke.py``.  Also pinned here: an entry
 point asked for no device raises when there is no CUDA device, instead
 of carrying on on the CPU.
@@ -128,6 +128,10 @@ d = {"a1": ["v1", "diff_1_2", "diff_1_3"], "a2": ["v2", "v3", "diff_2_3"]}
 r = solve(sys.argv[1], "maxsum", {"damping": 0.5}, mode="sim", rounds=20,
           distribution=Distribution(d), accel_agents=["a1"], device="cpu")
 assert r["cost"] == 0.0 and r["telemetry"]["counters"]["island.flushes"], r
+r = solve(sys.argv[1], "mgm", mode="sim", rounds=20,
+          distribution=Distribution({"a1": ["v1"], "a2": ["v2", "v3"]}),
+          accel_agents=["a2"], device="cpu")
+assert r["final_cost"] == 0.0 and r["telemetry"]["counters"]["island.flushes"], r
 r = solve(sys.argv[1], "dsa", mode="thread", timeout=20,
           accel_agents=["a2"], device="cpu")
 assert r["cost"] == 0.0, r
@@ -218,7 +222,16 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "algorithms/_island_common.py",
                    "algorithms/_island_maxsum.py",
                    "algorithms/_island_dsa.py", "engine/fleet.py",
-                   "commands/fleet.py"):
+                   "commands/fleet.py", "algorithms/_tables.py",
+                   "algorithms/_host_phased.py",
+                   "algorithms/_host_twophase.py",
+                   "algorithms/_host_mgm.py", "algorithms/_host_mgm2.py",
+                   "algorithms/_host_dba.py", "algorithms/_host_gdba.py",
+                   "algorithms/_host_syncbb.py", "algorithms/_host_dpop.py",
+                   "algorithms/_island_lockstep.py",
+                   "algorithms/_island_mgm.py",
+                   "algorithms/_island_dba.py",
+                   "algorithms/_island_gdba.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]

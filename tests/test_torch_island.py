@@ -394,3 +394,342 @@ def test_island_counters_in_the_telemetry_block():
     counters = r["telemetry"]["counters"]
     assert counters["island.flushes"] >= 2
     assert counters["island.boundary_msgs"] > 0
+
+
+# -- the lockstep islands (MGM, DBA, GDBA) -------------------------------
+#
+# MGM, DBA and GDBA break ties by name and draw their initial values from
+# ``random.Random(stable_seed(seed, name))``: no jax randomness reaches a
+# lockstep island, so a mixed run must equal the JAX package's mixed run
+# and the port's all-host run bit for bit, value histories included
+# (tolerance: none).  The JAX sweep sums with the per-slot gather the port
+# uses (``sweep_pin``).
+
+
+@pytest.fixture
+def sweep_pin(monkeypatch):
+    from pydcop_tpu.ops import costs
+
+    monkeypatch.setattr(costs, "CPU_SEGMENT_MIN_EDGES", 1 << 62)
+    yield
+
+
+def _model(pkg):
+    import importlib
+
+    return (importlib.import_module(f"{pkg}.dcop.dcop").DCOP,
+            importlib.import_module(f"{pkg}.dcop.objects"),
+            importlib.import_module(
+                f"{pkg}.dcop.relations").NAryMatrixRelation)
+
+
+def _cycle_dcop(pkg, n, colors, closed):
+    """A path v0-...-v{n-1} of equality penalties, closed into a ring
+    when ``closed``."""
+    DCOP, objects, Rel = _model(pkg)
+    d = objects.Domain("colors", "", list(range(colors)))
+    dcop = DCOP("cycle" if closed else "chain", objective="min")
+    vs = [objects.Variable(f"v{i}", d) for i in range(n)]
+    for v in vs:
+        dcop.add_variable(v)
+    for i in range(n if closed else n - 1):
+        dcop.add_constraint(Rel([vs[i], vs[(i + 1) % n]], np.eye(colors),
+                                name=f"c{i}"))
+    return dcop
+
+
+def _stuck_coloring(pkg):
+    """The 24-variable noisy coloring MGM stays stuck on
+    (``tests/test_torch_host_runtime.py:_coloring``)."""
+    from tests.test_torch_host_runtime import _coloring
+
+    return _coloring(pkg, 24)
+
+
+def _lockstep_run(pkg, dcop, algo, params, island, seed, sim_seed, budget):
+    """``island``'s variables on one lockstep island (the CPU for the
+    port), the others as host computations, run by the ``sim`` loop."""
+    import importlib
+
+    module, defs = _defs(pkg, dcop, algo, params)
+    kw = {"device": "cpu"} if pkg == "pydcop_tpu_torch" else {}
+    comps = (module.build_island([defs[n] for n in sorted(island)], dcop,
+                                 seed=seed, **kw) if island else [])
+    comps += [module.build_computation(defs[n], seed=seed)
+              for n in sorted(set(defs) - set(island))]
+    runtime = importlib.import_module(f"{pkg}.infrastructure.runtime")
+    vc = importlib.import_module(
+        f"{pkg}.infrastructure.computations").VariableComputation
+    _, delivered, _ = runtime._run_sim(
+        comps, 60, budget, sim_seed, time.perf_counter(), lambda *a: None)
+    var = [c for c in comps if isinstance(c, vc)]
+    assignment = {c.name: c.current_value for c in var}
+    return dict(
+        assignment=assignment, cost=dcop.solution_cost(assignment),
+        histories={c.name: list(c.value_history) for c in var},
+        delivered=delivered, comps=comps,
+    )
+
+
+def _three_ways(make, algo, params, island, seed, sim_seed, budget):
+    """The port's mixed and all-host runs and the JAX mixed run."""
+    mixed = _lockstep_run("pydcop_tpu_torch", make("pydcop_tpu_torch"),
+                          algo, params, island, seed, sim_seed, budget)
+    host = _lockstep_run("pydcop_tpu_torch", make("pydcop_tpu_torch"),
+                         algo, params, (), seed, sim_seed, 2 * budget)
+    jax_mixed = _lockstep_run("pydcop_tpu", make("pydcop_tpu"), algo,
+                              params, island, seed, sim_seed, budget)
+    for k in ("assignment", "cost", "histories", "delivered"):
+        assert mixed[k] == jax_mixed[k], k
+    return mixed, host
+
+
+LOCKSTEP_CASES = [("mgm", {}), ("dba", {})] + [
+    ("gdba", {"increase_mode": m}) for m in ("E", "R", "C", "T")]
+
+
+@pytest.mark.parametrize("algo,params", LOCKSTEP_CASES)
+def test_lockstep_island_equals_jax_and_the_all_host_run(algo, params,
+                                                         sweep_pin):
+    """Half a chain on the island: the mixed run replays the all-host
+    run exactly while the interior messages become tensor ops."""
+    mixed, host = _three_ways(
+        lambda pkg: _cycle_dcop(pkg, 10, 3, closed=False), algo, params,
+        {f"v{i}" for i in range(5)}, seed=3, sim_seed=5, budget=4_000)
+    assert mixed["cost"] == host["cost"] == 0.0
+    assert mixed["assignment"] == host["assignment"]
+    assert mixed["histories"] == host["histories"]
+    island = mixed["comps"][0].island
+    assert island.flushes > 0 and island.boundary_msgs > 0
+    assert mixed["delivered"] > 0
+
+
+@pytest.mark.parametrize("algo", ["dba", "gdba"])
+def test_lockstep_island_multi_neighbor_boundary(algo, sweep_pin):
+    """A frustrated odd ring (2 colors) with every even variable but
+    the last islanded: each remote borders TWO island variables, so its
+    payload reaches the island through two proxies, and breakout flags
+    do cross the seam.  The run never settles, and the budgets cut the
+    mixed and all-host runs at different rounds: each history is a
+    prefix-equal of the other, and the mixed run equals the JAX one."""
+    params = {"increase_mode": "R"} if algo == "gdba" else {}
+    mixed, host = _three_ways(
+        lambda pkg: _cycle_dcop(pkg, 9, 2, closed=True), algo, params,
+        {f"v{i}" for i in range(0, 8, 2)}, seed=4, sim_seed=9,
+        budget=6_000)
+    for v, h in host["histories"].items():
+        m = mixed["histories"][v]
+        k = min(len(m), len(h))
+        assert k >= 6, (v, m, h)
+        assert m[:k] == h[:k], (v, m, h)
+
+
+@pytest.mark.parametrize("algo,params", [
+    ("dba", {}), ("gdba", {"increase_mode": "R"})])
+def test_lockstep_island_breaks_out_of_the_mgm_minimum(algo, params,
+                                                      sweep_pin):
+    """Every second variable islanded (many boundary constraints): the
+    weight increases crossing the seam take the mixed run out of the
+    minimum MGM stays in, exactly as the JAX mixed run does."""
+    mixed = _lockstep_run(
+        "pydcop_tpu_torch", _stuck_coloring("pydcop_tpu_torch"), algo,
+        params, {f"v{i}" for i in range(0, 24, 2)}, 0, 0, 40_000)
+    jax_mixed = _lockstep_run(
+        "pydcop_tpu", _stuck_coloring("pydcop_tpu"), algo, params,
+        {f"v{i}" for i in range(0, 24, 2)}, 0, 0, 40_000)
+    assert mixed["cost"] < 0.5
+    for k in ("assignment", "cost", "histories", "delivered"):
+        assert mixed[k] == jax_mixed[k], k
+
+
+def test_gdba_island_applies_each_senders_flags_once():
+    """Remote ``u`` borders island variables ``v0`` and ``v2``: its
+    (value, flags) payload arrives through both proxies, and its cell
+    increase must apply once, as at every host endpoint."""
+    DCOP, objects, Rel = _model("pydcop_tpu_torch")
+    d2 = objects.Domain("colors", "", [0, 1])
+    dcop = DCOP("tri", objective="min")
+    v0, u, v2 = (objects.Variable(nm, d2) for nm in ("v0", "u", "v2"))
+    for v in (v0, u, v2):
+        dcop.add_variable(v)
+    for name, pair in (("c0", [v0, u]), ("c1", [u, v2]), ("c2", [v0, v2])):
+        dcop.add_constraint(Rel(pair, np.eye(2), name=name))
+    module, defs = _defs("pydcop_tpu_torch", dcop, "gdba")
+    comps = module.build_island([defs["v0"], defs["v2"]], dcop, seed=1,
+                                device="cpu")
+    island = comps[0].island
+    for c in comps:
+        c.message_sender = lambda s, d, m: None
+    for c in comps:
+        c.start()
+    k, row, _ = island._con_meta["c0"]
+    before = island._weights[k][row].copy()
+    got = {("v0", "u"): (0, [("c0", [(0, 0)])]),
+           ("v2", "u"): (0, [("c0", [(0, 0)])])}
+    island._pin_values(got)
+    island.phase0_complete(got)
+    assert island._weights[k][row][0] - before[0] == 1.0
+
+
+def test_mgm_island_pure_reaches_a_proper_coloring(sweep_pin):
+    """The whole chain on one island: the no-boundary rounds alone reach
+    a conflict-free coloring, with no wire message, in the values the
+    JAX pure island reaches."""
+    runs = []
+    for pkg in ("pydcop_tpu_torch", "pydcop_tpu"):
+        dcop = _cycle_dcop(pkg, 8, 3, closed=False)
+        module, defs = _defs(pkg, dcop, "mgm")
+        kw = {"device": "cpu"} if pkg == "pydcop_tpu_torch" else {}
+        comps = module.build_island(list(defs.values()), dcop, seed=1, **kw)
+        assert {c.name for c in comps} == set(defs)
+        sent = []
+        for c in comps:
+            c.message_sender = lambda s, d, m: sent.append((s, d))
+        for c in comps:
+            c.start()
+        assignment = {c.name: c.current_value for c in comps}
+        assert dcop.solution_cost(assignment) == 0.0 and sent == []
+        runs.append(assignment)
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("algo,params", LOCKSTEP_CASES[:3])
+def test_lockstep_islands_grid_sim_equals_jax(algo, params, sweep_pin):
+    """``solve_host`` on a 6x6 noisy grid with rows 0-1 and 3-5 as
+    islands and row 2 on the host: the JAX package's result keys, and
+    the all-host run's assignment."""
+    side = 6
+    text = _grid_yaml(side)
+    mapping = three_agent_split(port_load(text), side, 2, 3, factors=False)
+    rj, rt = _run_both(text, algo, params, mapping, ["a0", "a1"],
+                       rounds=200)
+    _same(rj, rt)
+    # both runs reach their fixed point inside the budget
+    host = solve_host(port_load(text), algo, params, mode="sim",
+                      rounds=200, seed=1, device="cpu")
+    assert rt["final_assignment"] == host["final_assignment"]
+    assert rt["msg_count"] == rj["msg_count"] > 0
+
+
+def test_lockstep_island_thread_mode_reaches_a_proper_coloring():
+    from pydcop_tpu_torch.api import solve
+
+    text = _chain_text(8)
+    mapping = {"a0": [f"v{i}" for i in range(4)],
+               "a1": [f"v{i}" for i in range(4, 8)]}
+    r = solve(port_load(text), "mgm", {}, mode="thread", timeout=3,
+              distribution=Distribution(mapping), accel_agents=["a0"],
+              device="cpu")
+    assert len(r["final_assignment"]) == 8
+    assert r["final_cost"] == 0.0
+    assert r["cost"] == port_load(text).solution_cost(r["assignment"])
+
+
+def test_lockstep_island_counters_in_the_telemetry_block():
+    """One ``island.flushes`` per phase dispatched, one
+    ``island.boundary_msgs`` per boundary message posted."""
+    from pydcop_tpu_torch.api import solve
+
+    text = _grid_yaml(4)
+    mapping = three_agent_split(port_load(text), 4, 2, 2, factors=False)
+    islands = []
+    from pydcop_tpu_torch.algorithms import _island_lockstep
+
+    attach = _island_lockstep.LockstepIsland.attach
+
+    def record(island, proxy):
+        if island not in islands:
+            islands.append(island)
+        attach(island, proxy)
+
+    _island_lockstep.LockstepIsland.attach = record
+    try:
+        r = solve(port_load(text), "dba", {}, mode="sim", rounds=10,
+                  seed=1, distribution=Distribution(mapping),
+                  accel_agents=["a0", "a1"], device="cpu")
+    finally:
+        _island_lockstep.LockstepIsland.attach = attach
+    counters = r["telemetry"]["counters"]
+    assert len(islands) == 2
+    assert counters["island.flushes"] == sum(i.flushes for i in islands) > 2
+    assert counters["island.boundary_msgs"] == sum(
+        i.boundary_msgs for i in islands) > 0
+
+
+# -- the formulas the batched rounds and the islands share ---------------
+
+
+def _formula_inputs(seed=7):
+    """A 5x5 noisy grid plus two ternary constraints, compiled by both
+    packages, with numpy-made values, weights and improves."""
+    text = _grid_yaml(5).replace("constraints:\n", (
+        "constraints:\n"
+        "  t0: {type: intention, function: "
+        "0.5 * abs(v00000 + v00006 - v00012)}\n"
+        "  t1: {type: intention, function: "
+        "2 if v00003 == v00009 == v00024 else 0}\n"
+    ), 1)
+    from pydcop_tpu.ops.compile import compile_dcop as jcompile
+
+    from pydcop_tpu_torch.ops.compile import compile_dcop as tcompile
+
+    pj, pt = jcompile(jax_load(text)), tcompile(port_load(text),
+                                                device="cpu")
+    assert pt.buckets.keys() == pj.buckets.keys() == {2, 3}
+    rng = np.random.default_rng(seed)
+    values = rng.integers(0, 3, pt.n_vars).astype(np.int32)
+    return pj, pt, rng, values
+
+
+def _eq(jax_array, tensor):
+    np.testing.assert_array_equal(tensor.numpy(), np.asarray(jax_array))
+
+
+def test_dba_formulas_equal_jax(sweep_pin):
+    from pydcop_tpu.algorithms import dba as jdba
+
+    from pydcop_tpu_torch.algorithms import dba as tdba
+
+    pj, pt, rng, values = _formula_inputs()
+    weights = (1 + rng.integers(0, 4, pt.n_cons)).astype(np.float32)
+    got = tdba.candidate_metrics(pt, torch.from_numpy(values),
+                                 torch.from_numpy(weights))
+    want = jdba.candidate_metrics(pj, jnp.asarray(values),
+                                  jnp.asarray(weights), pj.edge_con, None)
+    for w, g in zip(want, got):
+        _eq(w, g)
+    improve = rng.integers(0, 2, pt.n_vars).astype(np.float32)
+    violated = rng.random(pt.n_cons) < 0.4
+    _eq(jdba.qlm_mask(pj, jnp.asarray(improve), jnp.asarray(violated),
+                      pj.edge_con, None),
+        tdba.qlm_mask(pt, torch.from_numpy(improve),
+                      torch.from_numpy(violated)))
+
+
+@pytest.mark.parametrize("modifier", ["A", "M"])
+@pytest.mark.parametrize("violation", ["NZ", "NM", "MX"])
+def test_gdba_formulas_equal_jax(modifier, violation, sweep_pin):
+    from pydcop_tpu.algorithms import gdba as jgdba
+
+    from pydcop_tpu_torch.algorithms import gdba as tgdba
+
+    pj, pt, rng, values = _formula_inputs()
+    params = {"modifier": modifier, "violation": violation,
+              "increase_mode": "E"}
+    weights = {k: rng.integers(0, 3, (b.n_cons, pt.d_max ** k)).astype(
+        np.float32) for k, b in pt.buckets.items()}
+    got = tgdba.effective_metrics(
+        pt, torch.from_numpy(values),
+        {k: torch.from_numpy(w) for k, w in weights.items()}, params)
+    want = jgdba.effective_metrics(
+        pj, jnp.asarray(values),
+        {k: jnp.asarray(w) for k, w in weights.items()}, params)
+    for i in (0, 1, 3):  # improve, candidate, edge_violated
+        _eq(want[i], got[i])
+    for k in weights:
+        _, cur_cell, violated, vals = want[2][k]
+        for w, g in zip((cur_cell, violated, vals), got[2][k]):
+            _eq(w, g)
+    improve = np.array(want[0])
+    _eq(jgdba.qlm_mask(pj, jnp.asarray(improve), want[3]),
+        tgdba.qlm_mask(pt, torch.from_numpy(improve), got[3]))

@@ -605,7 +605,8 @@ def test_knobs_on_an_unported_mode_raise_not_ported(kw):
     """The message-driven modes are ported since ROADMAP A15a: a
     batched-engine knob or a foreign chaos kind on them meets the JAX
     package's ValueError and message, before the algorithm is looked at
-    (MGM's host computations are A15b).  The name is kept from before
+    (MGM has host computations since A15b's first half, so nothing but
+    the knob could raise here).  The name is kept from before
     A15a, when these modes raised the port's NotImplementedError."""
     with pytest.raises(ValueError) as want:
         jsolve(ring_dcop(jdcop, 3), "mgm", **kw)
