@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits nonzero; nothing is
-caught and passed over).  Phases 1-9 run one after another.  Then two
-child processes on the same card, one running phases 14-16 and one
-phases 17-18, start beside phases 10-13 (host Python, most of all nine):
+caught and passed over).  Phases 1-9 run one after another.  Then three
+child processes on the same card, running phases 14-16, phases 17-18 and
+phase 19, start beside phases 10-13 (host Python, most of all ten):
 their lines follow phase 13's, and a child's failure fails the script.
 
 1. Device and build: the card's name and power limit, then the port's
@@ -479,12 +479,43 @@ their lines follow phase 13's, and a child's failure fails the script.
    11e's SECP, finished at the batched ``solve(dcop, "dpop")``'s cost on
    the card; an all-host MGM-2 ``sim`` run on 18b's grid (100 rounds)
    with its deliveries a second.
-19. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+19. Process mode over TCP (``infrastructure/hostnet.py``): agent OS
+   processes (``python -m pydcop_tpu_torch agent --runtime host --device
+   cuda``) under ``run_host_orchestrator``.  19a: grid10k Max-Sum
+   (damping 0.5) with 17's split, the islands ``a0`` and ``a1`` in their
+   own agent processes on the card and the host strip ``a2`` in a third,
+   a budget of 2 rounds (59,600 deliveries) or 120 s: a complete
+   assignment and final assignment whose costs are the port's
+   ``solution_cost`` of them; each island agent's own telemetry (its
+   ``--trace``) shows flushes and factor-kernel and q-update launches
+   (> 0), the host agent's none; every Max-Sum message each island agent
+   delivered (its ``--msg_log``) replayed into fresh islands on the card
+   and on the CPU as 17a replays the sim record, equal flush by flush;
+   deliveries/s over the deliver loop, seconds and the TCP frames the
+   agents received.  19b: MGM with lockstep islands on 18b's 30x30 grid
+   and split, three agent processes (each stamps its value changes with
+   the cycle that decided them), the islands on the card, 15 rounds:
+   every stamped change of the cycles both completed (at least 10) equal
+   to the all-host ``sim`` run's on the CPU (200 rounds).  19c: the
+   tests' SIGKILL case, a 300-variable DSA ring (p 0.06) on ``a1``
+   (an island on the card), ``a2`` and ``a3``, ``k_target`` 1: ``a2`` is
+   SIGKILLed once the UI feed shows a first sample, and the run finishes
+   at cost 0 with ``a2``'s computations migrated.  19d: coloring-10k
+   Max-Sum (512 rounds, chunk 64) on the card with ``ui_port`` and an SSE
+   client on ``/state`` and ``/events``: one event a chunk (the final one
+   with the assignment) published, the client's events the tail of
+   them, its final event the result; engine seconds with the feed and
+   without it (after a warm-up run; the same result).  19e:
+   ``examples/greedy_plugin_torch.py`` loaded by the dotted name ``extlab.greedy`` on ``bench.py``'s
+   coloring-10k model (``coloring_dcop(10_000, 3, 3, seed=1)``, 15a's
+   first coloring), 64 rounds on the card and on the CPU: equal in
+   every result key.
+20. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
-   of phases 13-17 are added to the entries their runs launch), the card
-   line, and last the ``{"ok": true, ...}`` line.
+   of phases 13-17 and 19a are added to the entries their runs launch),
+   the card line, and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package; only 16c-d's and
 17d's JSON text goes through PyYAML.
@@ -5882,9 +5913,9 @@ def _island_state(island):
     return {k: island._state[k].cpu() for k in ("r", "q", "values")}
 
 
-def island_replay(torch, dev, dcop, dist, got):
+def island_replay(torch, dev, dcop, dist, got, phase="17a"):
     """17a's replay (see the module docstring): ``got`` is what each
-    island received in the card run."""
+    island received in the card run (19a: in its agent process)."""
     import numpy as np
 
     from pydcop_tpu_torch.algorithms import (
@@ -5906,7 +5937,7 @@ def island_replay(torch, dev, dcop, dist, got):
     for agent in ("a0", "a1"):
         msgs = got.get(agent, [])
         if len(msgs) < REPLAY_FLUSHES:
-            raise AssertionError(f"17a: {agent} received {len(msgs)} "
+            raise AssertionError(f"{phase}: {agent} received {len(msgs)} "
                                  "boundary messages")
         owned = set(dist.computations_hosted(agent))
         defs = [ComputationDef(n, algo_def)
@@ -5950,34 +5981,34 @@ def island_replay(torch, dev, dcop, dist, got):
         q_pins = sum(d in card.owned_factor_names for d, _, _ in msgs)
         r_folds = sum(d in card.owned_var_names for d, _, _ in msgs)
         if q_pins + r_folds != len(msgs):
-            raise AssertionError(f"17a: {agent} received messages that "
+            raise AssertionError(f"{phase}: {agent} received messages that "
                                  "are not boundary messages")
         if not torch.equal(card._state["noise"].cpu(),
                            cpu._state["noise"]):
-            raise AssertionError(f"17a: {agent}'s noise differs")
+            raise AssertionError(f"{phase}: {agent}'s noise differs")
         flushes = 1 + REPLAY_FLUSHES + (moved is not None)
         if card.flushes != flushes or cpu.flushes != flushes:
-            raise AssertionError(f"17a: {agent} flushed {card.flushes} / "
+            raise AssertionError(f"{phase}: {agent} flushed {card.flushes} / "
                                  f"{cpu.flushes} times, not {flushes}")
         for n, (x, y) in enumerate(zip(card_states, cpu_states)):
             differ = [k for k in x if not torch.equal(x[k], y[k])]
             if differ:
-                raise AssertionError(f"17a: {agent}'s {differ} differ card "
-                                     f"and CPU after flush {n + 1}")
+                raise AssertionError(f"{phase}: {agent}'s {differ} differ "
+                                     f"card and CPU after flush {n + 1}")
         if card_sent != cpu_sent or not card_sent:
-            raise AssertionError(f"17a: {agent}'s posted messages differ "
+            raise AssertionError(f"{phase}: {agent}'s posted messages differ "
                                  "card and CPU")
         if moved is not None and not (moved and cpu_moved):
-            raise AssertionError(f"17a: the r fold did not move {agent}'s "
+            raise AssertionError(f"{phase}: the r fold did not move {agent}'s "
                                  f"value (card {moved}, CPU {cpu_moved})")
         fields[agent] = dict(received=len(msgs), q_pins=q_pins,
                              r_folds=r_folds, flushes=flushes,
                              posted=len(card_sent), fold_moved=moved)
     if not (sum(f["q_pins"] for f in fields.values())
             and sum(f["r_folds"] for f in fields.values())):
-        raise AssertionError(f"17a: the replay lacks q pins or r folds "
+        raise AssertionError(f"{phase}: the replay lacks q pins or r folds "
                              f"{fields}")
-    emit("17a", "grid10k-island-replay", islands=fields,
+    emit(phase, "grid10k-island-replay", islands=fields,
          seconds=time.perf_counter() - t0, card_equals_cpu=True)
 
 
@@ -6761,7 +6792,463 @@ def lockstep_phase(torch, dev, card):
          card_seconds=card_s)
 
 
-# -- the lanes: phases 14-16 and 17-18 beside phases 10-13 -----------------
+# -- phase 19: process mode over TCP ----------------------------------------
+
+PROC_ROUNDS = 2  # 19a's budget: 59,600 deliveries (2 x 29,800 computations)
+# seconds: 19a's run stops here whatever its budget; the deploy alone
+# took ~44 s on the card's machine (each agent parses grid10k's YAML)
+PROC_TIMEOUT = 120.0
+PROC_LOCKSTEP_ROUNDS = 15  # 19b's budget: 13,500 deliveries on the 30x30 grid
+KILL_RING = 300  # 19c: the tests' 300-variable DSA ring
+KILL_TIMEOUT = 90.0  # seconds 19c's run may take
+UI_ROUNDS = 512  # 19d: coloring-10k Max-Sum with the feed, chunk UI_CHUNK
+UI_CHUNK = 64
+PLUGIN_ROUNDS = 64  # 19e: the plugin on coloring-10k
+AGENT_WAIT = 240.0  # seconds: every wait on an agent process of phase 19
+
+
+def _agent_proc(names, port, dev, workdir=None):
+    """``python -m pydcop_tpu_torch agent --runtime host --device
+    <dev's type>`` for ``names`` (one OS process each) against the
+    orchestrator on ``port``; with ``workdir``, each agent's
+    ``--msg_log`` and ``--trace`` go to ``workdir/log.<name>`` and
+    ``workdir/trace.<name>``."""
+    cmd = [sys.executable, "-m", "pydcop_tpu_torch", "agent", "--names",
+           *names, "--runtime", "host", "--orchestrator",
+           f"127.0.0.1:{port}", "--device", dev.type]
+    if workdir is not None:
+        cmd += ["--msg_log", str(workdir / "log"),
+                "--trace", str(workdir / "trace")]
+    return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _control_server():
+    import socket
+
+    server = socket.create_server(("127.0.0.1", 0))
+    return server, server.getsockname()[1]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _agents_done(label, procs):
+    """Waits for the agent processes; any nonzero exit fails ``label``."""
+    for proc in procs:
+        _, err = proc.communicate(timeout=AGENT_WAIT)
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: an agent process exited "
+                                 f"{proc.returncode}:\n{err[-4000:]}")
+
+
+def _trace_counters(path):
+    """The counters an agent's ``--trace`` file ends with."""
+    counters = {}
+    for line in open(path):
+        rec = json.loads(line)
+        if rec.get("kind") == "metrics":
+            counters = rec.get("counters", {})
+    return counters
+
+
+def _island_inbox(path, owned):
+    """The Max-Sum messages an agent's ``--msg_log`` delivered to its
+    computations ``owned``, as ``(dest, sender, costs)`` in delivery
+    order (what 17a's replay feeds an island)."""
+    from pydcop_tpu_torch.utils.simple_repr import from_repr
+
+    got = []
+    for line in open(path):
+        rec = json.loads(line)
+        costs = getattr(from_repr(rec["content"]), "costs", None)
+        if costs is not None and rec["dest"] in owned:
+            got.append((rec["dest"], rec["src"], dict(costs)))
+    return got
+
+
+def process_maxsum(torch, mk, dev, workdir):
+    """19a (see the module docstring).  Returns the islands' launches by
+    kernel entry, read from the island agents' own telemetry."""
+    from pydcop_tpu_torch.infrastructure.hostnet import run_host_orchestrator
+    from pydcop_tpu_torch.telemetry import session
+
+    dcop = grid10k_dcop()
+    dist = three_agent_split(dcop)
+    server, port = _control_server()
+    agents = _agent_proc(["a0", "a1", "a2"], port, dev, workdir)
+    try:
+        t0 = time.perf_counter()
+        with session() as tel:
+            r = run_host_orchestrator(
+                dcop, "maxsum", ISLAND_PARAMS, nb_agents=3, port=port,
+                server=server, rounds=PROC_ROUNDS, timeout=PROC_TIMEOUT,
+                seed=1, placement=dist.mapping, accel_agents=["a0", "a1"],
+                register_timeout=AGENT_WAIT, device=dev,
+            )
+            phases = tel.summary()["phases"]
+        secs = time.perf_counter() - t0
+        _agents_done("19a", [agents])
+    finally:
+        stop(agents)
+    n = len(dcop.variables)
+    if len(r["assignment"]) != n or len(r["final_assignment"]) != n:
+        raise AssertionError("19a: incomplete assignment")
+    if (dcop.solution_cost(r["assignment"]) != r["cost"]
+            or dcop.solution_cost(r["final_assignment"]) != r["final_cost"]):
+        raise AssertionError("19a: the reported cost is not the port's "
+                             "cost of the assignment")
+    counters = {a: _trace_counters(workdir / f"trace.{a}")
+                for a in ("a0", "a1", "a2")}
+    launches = dict.fromkeys(mk.launches, 0)
+    for a in ("a0", "a1"):
+        c = counters[a]
+        got = {k: c.get(f"kernel.{k}.launches", 0) for k in launches}
+        # (a CPU rehearsal launches no kernel: the plain versions run)
+        launched = dev.type != "cuda" or (got["factor_round_binary"]
+                                          and got["q_update"])
+        if not (c.get("island.flushes") and launched):
+            raise AssertionError(f"19a: {a}'s island flushed "
+                                 f"{c.get('island.flushes')} times and "
+                                 f"launched {got}")
+        for k in launches:
+            launches[k] += got[k]
+    if any(k.startswith("kernel.") for k in counters["a2"]):
+        raise AssertionError("19a: the host agent launched kernels")
+    deliver_s = phases["deliver-loop"]["total_s"]
+    emit("19a", "grid10k-maxsum-process", rounds=PROC_ROUNDS,
+         status=r["status"], cost=r["cost"], final_cost=r["final_cost"],
+         msg_count=r["msg_count"], msg_size=r["msg_size"],
+         seconds=secs, deliver_seconds=deliver_s,
+         deliveries_per_s=r["msg_count"] / deliver_s,
+         tcp_frames=sum(c.get("hostnet.recv_frames", 0)
+                        for c in counters.values()),
+         flushes={a: counters[a]["island.flushes"] for a in ("a0", "a1")},
+         boundary_msgs={a: counters[a].get("island.boundary_msgs")
+                        for a in ("a0", "a1")},
+         launches=launches)
+    got = {a: _island_inbox(workdir / f"log.{a}",
+                            set(dist.computations_hosted(a)))
+           for a in ("a0", "a1")}
+    island_replay(torch, dev, dcop, dist, got, phase="19a")
+    return launches
+
+
+def stamped_agent(name, orchestrator, device, out_path):
+    """19b's agent process: ``run_host_agent`` with every value change of
+    its computations stamped with the lockstep cycle that decided it;
+    writes ``{"log", "cycles", "devices"}`` as JSON to ``out_path``."""
+    from pydcop_tpu_torch.infrastructure import agents
+    from pydcop_tpu_torch.infrastructure.hostnet import run_host_agent
+
+    stamps = _Stamps()
+    own = agents.Agent.deploy_computation
+
+    def deploy(agent, comp):
+        stamps.made.append(comp)
+        own(agent, comp)
+
+    agents.Agent.deploy_computation = deploy
+    try:
+        run_host_agent(name, orchestrator, device=device)
+    finally:
+        stamps.close()
+        agents.Agent.deploy_computation = own
+    Path(out_path).write_text(json.dumps({
+        "log": stamps.log, "cycles": stamps.cycles()[0],
+        "devices": [i.device.type for i in stamps.islands()]}))
+
+
+def process_lockstep(dev, workdir):
+    """19b (see the module docstring)."""
+    from pydcop_tpu_torch.api import solve
+    from pydcop_tpu_torch.infrastructure.hostnet import run_host_orchestrator
+
+    dcop = grid30_dcop()
+    dist = grid30_split(dcop)
+    server, port = _control_server()
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.stamped_agent(*sys.argv[2:])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(HERE), a, f"127.0.0.1:{port}",
+         dev.type, str(workdir / f"stamps.{a}")], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a in ("a0", "a1", "a2")]
+    try:
+        t0 = time.perf_counter()
+        r = run_host_orchestrator(
+            dcop, "mgm", {}, nb_agents=3, port=port, server=server,
+            rounds=PROC_LOCKSTEP_ROUNDS, timeout=PROC_TIMEOUT, seed=1,
+            placement=dist.mapping, accel_agents=["a0", "a1"],
+            register_timeout=AGENT_WAIT, device=dev,
+        )
+        secs = time.perf_counter() - t0
+        _agents_done("19b", procs)
+    finally:
+        for proc in procs:
+            stop(proc)
+    runs = [json.loads((workdir / f"stamps.{a}").read_text())
+            for a in ("a0", "a1", "a2")]
+    if [x["devices"] for x in runs] != [[dev.type], [dev.type], []]:
+        raise AssertionError("19b: the islands are not on the card: "
+                             f"{[x['devices'] for x in runs]}")
+    log = {v: h for x in runs for v, h in x["log"].items()}
+    cycles = min(x["cycles"] for x in runs)
+    host, stamps, host_s = stamped_solve(
+        solve, dcop, "mgm", {}, device="cpu", mode="sim",
+        rounds=GRID30_ROUNDS["host"], seed=1)
+    common = min(cycles, stamps.cycles()[0])
+    process_log = {v: [c for c in h if c[0] < common]
+                   for v, h in sorted(log.items())}
+    if process_log != stamps.upto(common):
+        raise AssertionError("19b: the process run's values differ from "
+                             "the all-host sim run's")
+    if len(process_log) != len(dcop.variables) or common < 10:
+        raise AssertionError(f"19b: {len(process_log)} variables stamped, "
+                             f"{common} cycles in common")
+    emit("19b", "grid30-mgm-process-vs-host", status=r["status"],
+         cycles_compared=common, process_cycles=cycles,
+         host_cycles=stamps.cycles(), process_msgs=r["msg_count"],
+         host_msgs=host["msg_count"],
+         changes=sum(len(h) for h in process_log.values()),
+         seconds=secs, host_seconds=host_s, process_equals_host=True)
+
+
+def _ring_dcop_text(n, agents):
+    """The tests' ring: ``n`` variables of 3 colours, cost 1 on equal
+    neighbours, and the agents ``agents``."""
+    lines = ["name: ring", "objective: min", "domains:",
+             "  colors: {values: [0, 1, 2]}", "variables:"]
+    lines += [f"  v{i}: {{domain: colors}}" for i in range(n)]
+    lines.append("constraints:")
+    for i in range(n):
+        lines += [f"  c{i}:", "    type: intention",
+                  f"    function: 1 if v{i} == v{(i + 1) % n} else 0"]
+    lines.append(f"agents: [{', '.join(agents)}]")
+    return "\n".join(lines) + "\n"
+
+
+def process_sigkill(dev):
+    """19c (see the module docstring)."""
+    import threading
+    import urllib.request
+
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop
+    from pydcop_tpu_torch.infrastructure.hostnet import run_host_orchestrator
+
+    dcop = load_dcop(_ring_dcop_text(KILL_RING, ["a1", "a2", "a3"]))
+    server, port = _control_server()
+    uiport = _free_port()
+    box = {}
+
+    def orchestrate():
+        try:
+            box["result"] = run_host_orchestrator(
+                dcop, "dsa", {"probability": 0.06}, nb_agents=3, port=port,
+                server=server, rounds=100_000, timeout=KILL_TIMEOUT, seed=2,
+                k_target=1, ui_port=uiport, accel_agents=["a1"],
+                register_timeout=AGENT_WAIT, device=dev,
+            )
+        except Exception as e:  # re-raised below
+            box["error"] = e
+
+    t0 = time.perf_counter()
+    orch = threading.Thread(target=orchestrate, daemon=True)
+    orch.start()
+    procs = [_agent_proc([f"a{i}"], port, dev) for i in (1, 2, 3)]
+    try:
+        deadline = time.monotonic() + AGENT_WAIT
+        while "error" not in box and "result" not in box:
+            if time.monotonic() > deadline:
+                raise AssertionError("19c: the run never produced a "
+                                     "first sample")
+            try:
+                st = json.load(urllib.request.urlopen(
+                    f"http://127.0.0.1:{uiport}/state", timeout=2))
+                if st.get("cost") is not None:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        if "error" in box or "result" in box:
+            raise AssertionError(f"19c: the run ended before the kill: "
+                                 f"{box}")
+        t_kill = time.perf_counter()
+        procs[1].kill()  # SIGKILL a2 mid-solve
+        orch.join(AGENT_WAIT)
+        if orch.is_alive():
+            raise AssertionError("19c: the orchestrator hung after the kill")
+        if "error" in box:
+            raise box["error"]
+        _agents_done("19c", [procs[0], procs[2]])
+    finally:
+        for proc in procs:
+            stop(proc)
+    r = box["result"]
+    if (r["status"], r["cost"]) != ("finished", 0.0):
+        raise AssertionError(f"19c: status {r['status']}, cost {r['cost']}")
+    if not r["migrations"] or r["migrations"][0]["dead"] != ["a2"]:
+        raise AssertionError(f"19c: migrations {r['migrations']}")
+    if set(r["placement"]) != {"a1", "a3"}:
+        raise AssertionError(f"19c: placement {sorted(r['placement'])}")
+    emit("19c", "ring300-dsa-sigkill", status=r["status"], cost=r["cost"],
+         moved=len(r["migrations"][0]["moved"]), msg_count=r["msg_count"],
+         seconds=time.perf_counter() - t0,
+         after_kill_seconds=time.perf_counter() - t_kill,
+         recovered=True)
+
+
+def ui_feed(dev):
+    """19d (see the module docstring)."""
+    import threading
+    import urllib.request
+
+    from pydcop_tpu_torch.api import solve_compiled
+    from pydcop_tpu_torch.infrastructure import ui as ui_mod
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    s, t, u = coloring_arrays(10_000, colors=3, degree=3, seed=1)
+    problem = compile_from_arrays(s, t, 3, unary=u, device=dev)
+    kw = dict(rounds=UI_ROUNDS, chunk_size=UI_CHUNK, seed=1)
+    solve_compiled(problem, "maxsum", ISLAND_PARAMS, **kw)  # warm-up
+    base = ui_mod.UiServer
+    servers = []
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.log = []
+            servers.append(self)
+
+        def publish(self, *a, **k):
+            super().publish(*a, **k)
+            self.log.append(self._last)
+
+    port = _free_port()
+    events, states = [], []
+
+    def client():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            try:
+                req = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/events", timeout=30)
+                break
+            except OSError:
+                time.sleep(0.005)
+        else:
+            return
+        for raw in req:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                events.append(json.loads(line[6:]))
+                if not states:  # the snapshot, while the run goes on
+                    states.append(json.load(urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/state", timeout=10)))
+
+    reader = threading.Thread(target=client, daemon=True)
+    reader.start()
+    ui_mod.UiServer = Recording
+    try:
+        fed = solve_compiled(problem, "maxsum", ISLAND_PARAMS, ui_port=port,
+                             **kw)
+    finally:
+        ui_mod.UiServer = base
+    plain = solve_compiled(problem, "maxsum", ISLAND_PARAMS, **kw)
+    reader.join(30)
+    if reader.is_alive() or len(servers) != 1:
+        raise AssertionError("19d: the client did not finish")
+    log = json.loads(json.dumps(servers[0].log))
+    want = list(range(UI_CHUNK, UI_ROUNDS + 1, UI_CHUNK))
+    if [e["cycle"] for e in log] != want:
+        raise AssertionError(f"19d: published cycles "
+                             f"{[e['cycle'] for e in log]}")
+    if not events or events != log[-len(events):]:
+        raise AssertionError(f"19d: the client's {len(events)} events are "
+                             "not the published ones")
+    final = events[-1]
+    if (final.get("status"), final.get("values")) != (fed["status"],
+                                                      fed["assignment"]):
+        raise AssertionError("19d: the final event is not the result")
+    if not states or states[0].get("cycle") not in want:
+        raise AssertionError(f"19d: /state answered {states[:1]}")
+    for k in ("assignment", "cost", "cost_trace"):
+        if fed[k] != plain[k]:
+            raise AssertionError(f"19d: the fed run's {k} differs")
+    emit("19d", "coloring10k-maxsum-ui", rounds=UI_ROUNDS, chunk=UI_CHUNK,
+         events_published=len(log), events_seen=len(events),
+         first_seen_cycle=events[0]["cycle"], state_cycle=states[0]["cycle"],
+         engine_seconds_with_feed=fed["time"],
+         engine_seconds_without=plain["time"], final_equals_result=True)
+
+
+def plugin_on_card(dev, workdir):
+    """19e (see the module docstring)."""
+    import shutil
+
+    from pydcop_tpu_torch.api import solve
+
+    pkg = workdir / "extlab"
+    pkg.mkdir()
+    (pkg / "__init__.py").write_text("")
+    shutil.copy(HERE / "examples" / "greedy_plugin_torch.py",
+                pkg / "greedy.py")
+    sys.path.insert(0, str(workdir))
+    dcop = coloring_dcop(10_000, seed=1)
+    t0 = time.perf_counter()
+    card = solve(dcop, "extlab.greedy", rounds=PLUGIN_ROUNDS, seed=0,
+                 device=dev)
+    card_s = time.perf_counter() - t0
+    cpu = solve(dcop, "extlab.greedy", rounds=PLUGIN_ROUNDS, seed=0,
+                device="cpu")
+    keys = ("assignment", "cost", "final_assignment", "final_cost", "cycle",
+            "msg_count", "status", "cost_trace")
+    got, want = (json.loads(json.dumps({k: x[k] for k in keys}))
+                 for x in (card, cpu))
+    differ = [k for k in keys if got[k] != want[k]]
+    if differ:
+        raise AssertionError(f"19e: card != CPU in {differ}")
+    emit("19e", "coloring10k-greedy-plugin", rounds=PLUGIN_ROUNDS,
+         cost=card["cost"], msg_count=card["msg_count"], seconds=card_s,
+         engine_seconds=card["time"], cpu_engine_seconds=cpu["time"],
+         card_equals_cpu=True)
+
+
+def process_phase(torch, mk, dev, card):
+    """Phase 19 (see the module docstring).  Returns 19a's launches by
+    kernel entry."""
+    import tempfile
+
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, run):
+        t0 = time.perf_counter()
+        out = run()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        timed("19d", lambda: ui_feed(dev))
+        timed("19e", lambda: plugin_on_card(dev, workdir))
+        launches = timed("19a", lambda: process_maxsum(torch, mk, dev,
+                                                       workdir))
+        timed("19b", lambda: process_lockstep(dev, workdir))
+        timed("19c", lambda: process_sigkill(dev))
+    emit("19", "phase", seconds=time.perf_counter() - t_phase,
+         sub_seconds=seconds)
+    return launches
+
+
+# -- the lanes: phases 14-16, 17-18 and 19 beside phases 10-13 --------------
 
 LANE_WAIT = 900.0  # seconds a lane may run past the end of phase 13
 
@@ -6793,6 +7280,15 @@ def lane_14_16(card, rate):
     print(f"phase 16 seconds={time.perf_counter() - t16}")
     print(json.dumps({"lane_launches": [dcounts, ccounts, vcounts]}),
           flush=True)
+
+
+def lane_19(card):
+    """Phase 19 in a child process (see :func:`start_lane`)."""
+    torch, mk, dev = _lane_device()
+    t19 = time.perf_counter()
+    pcounts = process_phase(torch, mk, dev, card)
+    print(f"phase 19 seconds={time.perf_counter() - t19}")
+    print(json.dumps({"lane_launches": [pcounts]}), flush=True)
 
 
 def lane_17_18(card):
@@ -7059,10 +7555,11 @@ def main() -> int:
     )
     print(f"phase 9 seconds={time.perf_counter() - t9}")
 
-    # -- 14-16 and 17-18: two child processes on the card, beside 10-13 --
+    # -- 14-16, 17-18 and 19: three child processes on the card, beside
+    # 10-13 ---------------------------------------------------------------
     rate = MAIN_PATH_RATES.get("coloring-10k")
     lanes = [start_lane("lane_14_16", card, str(rate)),
-             start_lane("lane_17_18", card)]
+             start_lane("lane_17_18", card), start_lane("lane_19", card)]
     try:
         # -- 10. exact inference ------------------------------------------
         t10 = time.perf_counter()
@@ -7085,14 +7582,15 @@ def main() -> int:
                                    u5)
         print(f"phase 13 seconds={time.perf_counter() - t13}")
 
-        # -- 14-18: the lanes' lines, in phase order ----------------------
+        # -- 14-19: the lanes' lines, in phase order ----------------------
         dcounts, ccounts, vcounts = join_lane(lanes[0])
         hcounts, = join_lane(lanes[1])
+        pcounts, = join_lane(lanes[2])
     finally:
         for lane in lanes:
             stop(lane[1])
 
-    # -- 19. summary ------------------------------------------------------
+    # -- 20. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -7126,7 +7624,8 @@ def main() -> int:
             replaces=KERNELS[name],
             launches=launched + scounts.get(entry, 0)
             + dcounts.get(entry, 0) + ccounts.get(entry, 0)
-            + vcounts.get(entry, 0) + hcounts.get(entry, 0),
+            + vcounts.get(entry, 0) + hcounts.get(entry, 0)
+            + pcounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),

@@ -54,24 +54,23 @@ one agent's placed nodes as a compiled island on ``device`` behind
 per-node proxies.  Every algorithm has host computations; Max-Sum,
 A-Max-Sum, the DSA family, MGM, DBA and GDBA also have islands.
 
-Ported algorithms: :data:`AVAILABLE`.
+A dotted name loads an external plugin from ``sys.path``
+(:func:`load_algorithm_module`): a module with ``GRAPH_TYPE`` (the
+batched contract above, and ``build_computation`` for the host runtimes)
+or ``solve_host`` (the host-path contract), and ``algo_params`` either
+way.  :func:`list_available_algorithms` lists this package's own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import pkgutil
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 from pydcop_tpu_torch.utils.simple_repr import SimpleRepr
 
 _ALGO_PACKAGE = "pydcop_tpu_torch.algorithms"
-
-#: algorithms this package implements
-AVAILABLE = (
-    "adsa", "amaxsum", "dba", "dpop", "dsa", "dsatuto", "gdba", "maxsum",
-    "mgm", "mgm2", "syncbb",
-)
 
 
 class AlgorithmDefError(ValueError):
@@ -121,6 +120,10 @@ class AlgoParameterDef:
         return value
 
 
+def check_param_value(value: Any, param_def: AlgoParameterDef) -> Any:
+    return param_def.check_value(value)
+
+
 def prepare_algo_params(
     params: Optional[Mapping[str, Any]],
     param_defs: List[AlgoParameterDef],
@@ -142,16 +145,6 @@ def prepare_algo_params(
         else:
             out[name] = pdef.default
     return out
-
-
-def load_algorithm_module(name: str):
-    """Import a ported algorithm module by name."""
-    if name not in AVAILABLE:
-        raise AlgorithmDefError(
-            f"Could not load algorithm {name!r}: not ported yet; "
-            f"available: {list(AVAILABLE)}"
-        )
-    return importlib.import_module(f"{_ALGO_PACKAGE}.{name}")
 
 
 class AlgorithmDef(SimpleRepr):
@@ -295,15 +288,87 @@ def resolve_algo(algo, algo_params=None):
     return algo, dict(algo_params or {})
 
 
+def load_algorithm_module(name: str):
+    """Import an algorithm plugin module by name.
+
+    A plain name loads from this package; a dotted name is imported
+    as-is from ``sys.path``, so third-party algorithm modules plug in
+    without being copied into the package (module docstring).
+    """
+    target = name if "." in name else f"{_ALGO_PACKAGE}.{name}"
+    if target.startswith(".") or target.endswith("."):
+        raise AlgorithmDefError(
+            f"Could not load algorithm {name!r}: relative module names "
+            "are not supported (see docs/extending.md)"
+        )
+    try:
+        mod = importlib.import_module(target)
+    except ImportError as e:
+        if "." in name:
+            # external plugin: the internal algorithm list is never
+            # where a dotted name resolves, and a broken import INSIDE
+            # an existing module must not read as "unknown algorithm"
+            missing_target = isinstance(e, ModuleNotFoundError) and (
+                e.name == target
+                or (e.name and target.startswith(e.name + "."))
+            )
+            raise AlgorithmDefError(
+                f"Could not import external algorithm module "
+                f"{name!r}: {e}"
+                + (
+                    ""
+                    if missing_target
+                    else " (the module exists but failed to import)"
+                )
+            )
+        raise AlgorithmDefError(
+            f"Could not load algorithm {name!r}: {e}; available: "
+            f"{list_available_algorithms()}"
+        )
+    if "." in name:
+        # exact algorithms may export only solve_host; algo_params is
+        # required either way — every solve entry point dereferences it
+        # right after loading
+        if not hasattr(mod, "GRAPH_TYPE") and not hasattr(mod, "solve_host"):
+            raise AlgorithmDefError(
+                f"External module {name!r} is not an algorithm plugin "
+                "(no GRAPH_TYPE or solve_host; see docs/extending.md "
+                "for the contract)"
+            )
+        if not hasattr(mod, "algo_params"):
+            raise AlgorithmDefError(
+                f"External module {name!r} declares no algo_params "
+                "(use `algo_params = []` for a parameter-free "
+                "algorithm; see docs/extending.md)"
+            )
+    return mod
+
+
 def require_island_support(module, algo_name: str) -> None:
     """Raise unless ``module`` can deploy compiled islands
     (``build_island``, the ``accel_agents`` path of the host runtimes)."""
     if not hasattr(module, "build_island"):
         have = [
-            a for a in AVAILABLE
+            a
+            for a in list_available_algorithms()
             if hasattr(load_algorithm_module(a), "build_island")
         ]
         raise ValueError(
             f"{algo_name}: no compiled-island support (build_island) "
             f"— accel agents are available for: {', '.join(have)}"
         )
+
+
+def list_available_algorithms() -> List[str]:
+    """All algorithm plugin modules in this package (any module defining
+    GRAPH_TYPE)."""
+    import pydcop_tpu_torch.algorithms as pkg
+
+    names = []
+    for info in pkgutil.iter_modules(pkg.__path__):
+        if info.name.startswith("_"):
+            continue
+        mod = importlib.import_module(f"{_ALGO_PACKAGE}.{info.name}")
+        if hasattr(mod, "GRAPH_TYPE"):
+            names.append(info.name)
+    return sorted(names)

@@ -32,6 +32,13 @@ from pydcop_tpu_torch.ops.costs import local_cost_sweep
 
 GRAPH_TYPE = "constraints_hypergraph"
 
+# the host runtime's k_target migration rebuilds a dead agent's
+# computations: these terminate by QUIESCENCE and re-sync a migrated
+# neighbor via on_peer_restarted; phased round-barrier algorithms
+# (mgm/mgm2/dba/gdba) would deadlock at the cycle barrier instead
+# and are rejected at deploy time.
+MIGRATION_SAFE = True
+
 algo_params = [
     AlgoParameterDef("variant", "str", ["A", "B", "C"], "B"),
     AlgoParameterDef("probability", "float", None, 0.7),

@@ -32,6 +32,13 @@ from pydcop_tpu_torch.ops.compile import CompiledProblem
 
 GRAPH_TYPE = "factor_graph"
 
+# the host runtime's k_target migration rebuilds a dead agent's
+# computations: these terminate by QUIESCENCE and re-sync a migrated
+# neighbor via on_peer_restarted; phased round-barrier algorithms
+# (mgm/mgm2/dba/gdba) would deadlock at the cycle barrier instead
+# and are rejected at deploy time.
+MIGRATION_SAFE = True
+
 algo_params = [
     AlgoParameterDef("damping", "float", None, 0.5),
     AlgoParameterDef("noise", "float", None, 0.001),
@@ -44,9 +51,12 @@ algo_params = [
     AlgoParameterDef("island_start_rounds", "int", None, 64),
 ]
 
-# state layout (and its batch axes) is synchronous Max-Sum's
+# state layout (and its batch axes) and footprints are synchronous
+# Max-Sum's
 init_state = _maxsum.init_state
 INSTANCE_AXIS = _maxsum.INSTANCE_AXIS
+computation_memory = _maxsum.computation_memory
+communication_load = _maxsum.communication_load
 
 _DEFAULT_ACTIVATION = next(
     p.default for p in algo_params if p.name == "activation"

@@ -35,6 +35,13 @@ from pydcop_tpu_torch.ops.costs import local_cost_sweep
 
 GRAPH_TYPE = "constraints_hypergraph"
 
+# the host runtime's k_target migration rebuilds a dead agent's
+# computations: these terminate by QUIESCENCE and re-sync a migrated
+# neighbor via on_peer_restarted; phased round-barrier algorithms
+# (mgm/mgm2/dba/gdba) would deadlock at the cycle barrier instead
+# and are rejected at deploy time.
+MIGRATION_SAFE = True
+
 # the tutorial ALGORITHM is parameter-free (fixed variant A, p = 0.5);
 # the island knobs are host-runtime parameters (not used here)
 algo_params = [

@@ -60,6 +60,13 @@ from pydcop_tpu_torch.ops.padding import as_table_dtype
 
 GRAPH_TYPE = "factor_graph"
 
+# the host runtime's k_target migration rebuilds a dead agent's
+# computations: these terminate by QUIESCENCE and re-sync a migrated
+# neighbor via on_peer_restarted; phased round-barrier algorithms
+# (mgm/mgm2/dba/gdba) would deadlock at the cycle barrier instead
+# and are rejected at deploy time.
+MIGRATION_SAFE = True
+
 #: the engine solves several instances on the stacked problem (state
 #: ``[I, R, ...]``) rather than on their disjoint union
 INSTANCE_AXIS = True

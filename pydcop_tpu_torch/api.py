@@ -61,8 +61,11 @@ graph node, on a seeded event loop or on one thread per agent, with
 delivered message, message-plane ``chaos`` in thread mode, and the
 agents named in ``accel_agents`` hosting their subgraph as one compiled
 island on ``device`` (Max-Sum and A-Max-Sum islands launch the factor
-and q-update kernels on the card).  ``mode="process"`` and ``ui_port``
-are ROADMAP A15b and raise ``NotImplementedError``.
+and q-update kernels on the card).  ``mode="process"`` runs the same
+computations in one OS process per agent over TCP
+(``infrastructure/hostnet.py``): the agent processes take ``device``
+for their islands.  ``ui_port`` serves the live feed
+(``infrastructure/ui.py``) of a batched or process run.
 
 ``SolverService``, ``ServiceClient`` and ``ServiceError`` (the
 continuous-batching solver service, ``engine/service.py``) and
@@ -175,17 +178,22 @@ def solve(
 
     ``algo`` is a name or an ``AlgorithmDef`` (explicit ``algo_params``
     override its params).  ``mode`` is ``"batched"`` (the default),
-    ``"sim"`` (the deterministic seeded event loop of the host runtime)
-    or ``"thread"`` (one thread per agent): the JAX package's modes,
-    with its checks and messages.  In the host modes ``distribution``
-    (a strategy name, a ``distribute --output`` file or a
+    ``"sim"`` (the deterministic seeded event loop of the host runtime),
+    ``"thread"`` (one thread per agent) or ``"process"`` (one local OS
+    process per agent over TCP, ``nb_agents`` of them): the JAX
+    package's modes, with its checks and messages.  In the host modes
+    ``distribution`` (a strategy name, a ``distribute --output`` file or a
     ``Distribution``) places the computations on agents, ``accel_agents``
     names the agents that host their subgraph as one compiled island on
     ``device``, ``msg_log`` writes every delivered message as a JSON
-    line, and thread mode takes the message-plane ``chaos`` kinds.  The
-    batched engine accepts and ignores ``distribution``.
-    ``mode="process"`` and ``ui_port`` raise ``NotImplementedError``
-    (ROADMAP A15b).
+    line, and the thread and process modes take the message-plane
+    ``chaos`` kinds; process mode also takes ``k_target`` (replica-based
+    migration when an agent process dies).  The agent processes of
+    process mode compile their islands on ``device``: a default run
+    needs a card in every island agent, and fails with the agent's
+    error otherwise.  The batched engine accepts and ignores
+    ``distribution``.  ``ui_port`` serves the live feed (SSE
+    ``/events`` and ``/state``) of a batched or process run.
 
     >>> result = solve("examples/graph_coloring_3.yaml", "maxsum",
     ...                {"damping": 0.5}, rounds=100, device="cpu")
@@ -315,9 +323,6 @@ def _contraction_knobs(
     return params_in
 
 
-_A15B = "see ROADMAP.md, A15b"
-
-
 def _host_mode_checks(
     mode, pad_policy, retry_budget, chunk_floor, on_numeric_fault,
     max_util_bytes, chaos, chaos_seed,
@@ -385,17 +390,20 @@ def _solve_host_mode(
     checkpoint_path, resume, ui_port, n_restarts, nb_agents, msg_log,
     accel_agents, distribution, k_target, chaos, chaos_seed, device,
 ) -> Dict[str, Any]:
-    """``mode="sim"``/``"thread"``: the JAX package's checks, then the
-    host runtime; ``"process"`` is ROADMAP A15b."""
+    """``mode="sim"``/``"thread"``/``"process"``: the JAX package's
+    checks, then the host runtime."""
     if mode == "process":
         if checkpoint_path is not None or resume or n_restarts != 1:
             raise ValueError(
                 "checkpoint/resume and n_restarts are only supported "
                 "on the batched engine, not mode='process'"
             )
-        raise NotImplementedError(
-            "mode='process' (one OS process per agent over the TCP host "
-            f"runtime) is not ported yet — {_A15B}"
+        return _solve_process(
+            dcop, algo, algo_params, rounds=rounds, timeout=timeout,
+            seed=seed, nb_agents=nb_agents, ui_port=ui_port,
+            msg_log=msg_log, accel_agents=accel_agents,
+            distribution=distribution, k_target=k_target,
+            chaos=chaos, chaos_seed=chaos_seed, device=device,
         )
     if mode not in ("thread", "sim"):
         raise ValueError(f"solve: unknown mode {mode!r}")
@@ -447,9 +455,9 @@ def _solve_host_mode(
     )
 
 
-def _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents, ui_port):
+def _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents):
     """The JAX package's refusals of the host-runtime keywords on the
-    batched engine; ``ui_port`` is ROADMAP A15b."""
+    batched engine."""
     if k_target:
         raise ValueError(
             "k_target (replica-based migration) is a host-runtime "
@@ -476,11 +484,6 @@ def _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents, ui_port):
         raise ValueError(
             "nb_agents is the process count of mode='process'; other "
             "modes decide their own parallelism"
-        )
-    if ui_port is not None:
-        raise NotImplementedError(
-            "ui_port (the live observability feed, the JAX package's "
-            f"infrastructure/ui.py) is not ported yet — {_A15B}"
         )
 
 
@@ -540,6 +543,225 @@ def _resolve_distribution(dcop, distribution):
     return Distribution(mapping)
 
 
+def _solve_process(
+    dcop, algo, algo_params, *, rounds, timeout, seed, nb_agents, ui_port,
+    msg_log=None, accel_agents=None, distribution=None, k_target=0,
+    chaos=None, chaos_seed=0, device=None,
+) -> Dict[str, Any]:
+    """One-call multi-process solve (the JAX package's
+    ``api._solve_process``; reference:
+    ``pydcop/infrastructure/run.py:run_local_process_dcop``): spawn
+    ``nb_agents`` local agent OS processes, run the hostnet orchestrator
+    in THIS process, return its result dict.
+
+    Default process count: one per declared AgentDef, capped at the
+    machine's CPU count (and at 2 when the problem declares none).
+    ``device`` goes to every child as ``--device`` (default there: the
+    CUDA device), where only island agents touch it, and to the
+    orchestrator's reparation solve after an agent dies (``k_target``).
+    """
+    import os
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+
+    from pydcop_tpu_torch.algorithms import resolve_algo
+    from pydcop_tpu_torch.infrastructure.hostnet import (
+        AgentFailureError,
+        run_host_orchestrator,
+    )
+
+    algo_name, params_in = resolve_algo(algo, algo_params)
+
+    if chaos:
+        from pydcop_tpu_torch.faults import FaultPlan
+
+        # fail fast on a malformed spec (FaultSpecError is a
+        # ValueError), before forking nb_agents interpreters
+        FaultPlan.from_spec(chaos, chaos_seed)
+
+    # hostnet takes either a strategy NAME (computed over registered
+    # agents at deploy time) or an explicit placement map; normalize
+    # Distribution objects / placement files to the latter
+    dist_name = None
+    placement = None
+    if distribution is not None:
+        if _is_strategy_name(distribution):
+            _validate_strategy_name(distribution)
+            dist_name = distribution
+        else:
+            placement = _resolve_distribution(dcop, distribution).mapping
+
+    if nb_agents is None:
+        if placement is not None:
+            nb_agents = len(placement)
+        else:
+            nb_agents = min(len(dcop.agents) or 2, os.cpu_count() or 2)
+    if nb_agents < 1:
+        raise ValueError(f"nb_agents must be >= 1, got {nb_agents}")
+
+    if placement is not None:
+        # explicit placement: the spawned processes must carry exactly
+        # its agent names or the orchestrator can never deploy to them
+        if nb_agents != len(placement):
+            raise ValueError(
+                f"nb_agents={nb_agents} conflicts with the "
+                f"placement's {len(placement)} agents — omit "
+                "nb_agents or make them match"
+            )
+        names = sorted(placement)
+    else:
+        # prefer the dcop's own agent names so hosting/capacity data
+        # flows into the placement; pad with generated names when it
+        # has fewer (skipping declared names the generator collides
+        # with)
+        names = sorted(dcop.agents)[:nb_agents]
+        used = set(names)
+        i = 0
+        while len(names) < nb_agents:
+            candidate = f"agent_{i}"
+            i += 1
+            if candidate not in used:
+                names.append(candidate)
+                used.add(candidate)
+
+    unknown = set(accel_agents or ()) - set(names)
+    if unknown:
+        source = (
+            "the placement's agent names"
+            if placement is not None
+            else "declared AgentDefs first, then generated "
+            "agent_<i> padding"
+        )
+        raise ValueError(
+            f"accel_agents {sorted(unknown)} are not among this "
+            f"run's agent names {names} ({source})"
+        )
+    if accel_agents:
+        # fail before forking, mirroring the orchestrator-side check
+        from pydcop_tpu_torch.algorithms import require_island_support
+
+        require_island_support(load_algorithm_module(algo_name), algo_name)
+
+    # pre-bound control-plane listener: the port must be known before
+    # the agents fork, and a probe-then-rebind would race other port
+    # users — run_host_orchestrator accepts the live socket instead
+    server = socket.create_server(("", 0))
+    port = server.getsockname()[1]
+
+    # the children must find THIS package wherever the embedding process
+    # imported it from, and a dotted algo name (an external plugin)
+    # resolves on the parent's sys.path: forward both through PYTHONPATH
+    import pydcop_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(pydcop_tpu_torch.__file__))
+    path_entries = [pkg_root]
+    if "." in algo_name:
+        import importlib.util
+
+        spec = importlib.util.find_spec(algo_name.split(".")[0])
+        if spec and spec.submodule_search_locations:
+            # every location: a namespace package may be split across
+            # several sys.path entries
+            for loc in spec.submodule_search_locations:
+                parent = os.path.dirname(loc)
+                if parent not in path_entries:
+                    path_entries.append(parent)
+        elif spec and spec.origin:
+            path_entries.append(os.path.dirname(spec.origin))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        path_entries + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])
+    )
+    # children's stderr goes to tempfiles: a crashing agent must be
+    # diagnosable from the parent's failure, not vanish and surface only
+    # as a registration timeout
+    err_files = []
+    procs = []
+    try:
+        for name in names:
+            ef = tempfile.NamedTemporaryFile(
+                mode="w+", suffix=f".{name}.err", delete=False
+            )
+            err_files.append(ef)
+            procs.append(
+                subprocess.Popen(
+                    [
+                        sys.executable, "-m", "pydcop_tpu_torch", "agent",
+                        "--names", name, "--runtime", "host",
+                        "--orchestrator", f"127.0.0.1:{port}",
+                    ]
+                    + (
+                        ["--msg_log", f"{msg_log}.{name}"]
+                        if msg_log
+                        else []
+                    )
+                    + (["--device", str(device)] if device is not None
+                       else []),
+                    env=env,
+                    stdout=subprocess.DEVNULL,
+                    stderr=ef,
+                )
+            )
+        try:
+            return run_host_orchestrator(
+                dcop, algo_name, params_in, nb_agents=nb_agents,
+                port=port, rounds=rounds, timeout=timeout, seed=seed,
+                ui_port=ui_port, server=server,
+                accel_agents=list(accel_agents or ()),
+                distribution=dist_name, placement=placement,
+                k_target=k_target, device=device,
+                chaos=chaos, chaos_seed=chaos_seed,
+                # the caller's timeout also bounds registration, with a
+                # floor of 30 s: each child execs a fresh interpreter and
+                # imports torch before it can register
+                register_timeout=(
+                    min(120.0, max(timeout, 30.0))
+                    if timeout is not None
+                    else 120.0
+                ),
+            )
+        except AgentFailureError as e:
+            tails = []
+            for name, ef in zip(names, err_files):
+                try:
+                    with open(ef.name, "rb") as f:
+                        f.seek(0, os.SEEK_END)
+                        f.seek(max(0, f.tell() - 800))
+                        tail = f.read().decode("utf-8", "replace").strip()
+                except OSError:
+                    tail = ""
+                if tail:
+                    tails.append(f"--- {name} stderr ---\n{tail}")
+            if tails:
+                raise AgentFailureError(
+                    f"{e}\n" + "\n".join(tails)
+                ) from e
+            raise
+    finally:
+        # idempotent: on the success path the orchestrator already closed
+        # it; on every failure path this close EOFs lingering children
+        try:
+            server.close()
+        except OSError:
+            pass
+        for p in procs:  # the orchestrator's stop already reached them;
+            # this only reaps stragglers
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        for ef in err_files:
+            try:
+                ef.close()
+                os.unlink(ef.name)
+            except OSError:
+                pass
+
+
 def _solve(
     dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
     chunk_size, checkpoint_path, checkpoint_every, resume, mode,
@@ -574,7 +796,7 @@ def _solve(
             device=device,
         )
     plan = _device_chaos(chaos, chaos_seed, "solve")
-    _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents, ui_port)
+    _batched_mode_checks(k_target, accel_agents, msg_log, nb_agents)
     algo, algo_params = resolve_algo(algo, algo_params)
     # every call runs under a supervisor of its own: the knobs, the
     # device chaos plan and per-call dispatch sequence numbers (what
@@ -592,6 +814,7 @@ def _solve(
             n_restarts=n_restarts, pad_policy=pad_policy, device=device,
             max_util_bytes=max_util_bytes, bnb=bnb,
             table_dtype=table_dtype, table_format=table_format,
+            ui_port=ui_port,
         )
     if plan is not None:
         result["chaos"] = plan.to_meta()  # the replay record
@@ -602,6 +825,7 @@ def _solve_supervised(
     dcop, algo, algo_params, *, rounds, timeout, seed, convergence_chunks,
     chunk_size, checkpoint_path, checkpoint_every, resume, n_restarts,
     pad_policy, device, max_util_bytes, bnb, table_dtype, table_format,
+    ui_port,
 ) -> Dict[str, Any]:
     from pydcop_tpu_torch.device import resolve_device
 
@@ -645,7 +869,7 @@ def _solve_supervised(
         convergence_chunks=convergence_chunks,
         checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, resume=resume,
-        n_restarts=n_restarts,
+        n_restarts=n_restarts, ui_port=ui_port,
     )
 
 
@@ -875,13 +1099,15 @@ def solve_compiled(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 1,
     resume: bool = False,
+    ui_port: Optional[int] = None,
     n_restarts: int = 1,
     cost_every: int = 1,
 ) -> Dict[str, Any]:
     """Solve an already-compiled problem (same result dict as
     :func:`solve`) on the device the problem lives on — the entry point
     for array-built problems
-    (:func:`pydcop_tpu_torch.ops.compile.compile_from_arrays`)."""
+    (:func:`pydcop_tpu_torch.ops.compile.compile_from_arrays`).
+    ``ui_port`` serves the live feed of the run."""
     module = load_algorithm_module(algo)
     if hasattr(module, "solve_host"):
         raise ValueError(
@@ -895,14 +1121,35 @@ def solve_compiled(
         convergence_chunks=convergence_chunks,
         checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every, resume=resume,
-        n_restarts=n_restarts, cost_every=cost_every,
+        ui_port=ui_port, n_restarts=n_restarts, cost_every=cost_every,
     )
 
 
-def _run_compiled(problem, module, params, **kwargs) -> Dict[str, Any]:
+def _run_compiled(
+    problem, module, params, ui_port=None, **kwargs
+) -> Dict[str, Any]:
+    """``run_batched`` to the result dict; ``ui_port`` publishes every
+    chunk boundary on a :class:`~pydcop_tpu_torch.infrastructure.ui.
+    UiServer` and, last, the best assignment."""
     from pydcop_tpu_torch.engine.batched import run_batched
 
-    return _result_dict(run_batched(problem, module, params, **kwargs))
+    if ui_port is None:
+        return _result_dict(run_batched(problem, module, params, **kwargs))
+    from pydcop_tpu_torch.infrastructure.ui import UiServer, chunk_publisher
+
+    ui = UiServer(ui_port)
+    try:
+        result = run_batched(
+            problem, module, params, chunk_callback=chunk_publisher(ui),
+            **kwargs,
+        )
+        ui.publish(  # the final event carries the assignment
+            result.cycles, result.cost, result.best_cost,
+            values=result.best_assignment, status=result.status,
+        )
+    finally:
+        ui.close()
+    return _result_dict(result)
 
 
 def _result_dict(result) -> Dict[str, Any]:

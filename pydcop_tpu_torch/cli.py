@@ -3,12 +3,15 @@
 The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
 under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``, ``run``,
 ``graph``, ``distribute``, ``generate``, ``batch``, ``consolidate``,
-``replica_dist``, ``serve``, ``fleet``, ``top``, ``trace-summary`` and
-``flight-dump``.  The global options (``-v``,
+``replica_dist``, ``orchestrator``, ``agent`` (``--runtime host``),
+``serve``, ``fleet``, ``top``, ``trace-summary`` and ``flight-dump``.
+Not ported: ``worker`` (ROADMAP A15b.2), ``lint``, ``bench-history`` and
+``bench-compare`` (A20).  The global options (``-v``,
 ``--log``, ``-t``/``--timeout``, ``--output``) are accepted before and
 after the subcommand, as in the JAX package.  The commands that touch
 the card take ``--device`` (``--torch_device`` on ``infer``, whose
-``--device`` is the JAX package's offload policy).
+``--device`` is the JAX package's offload policy; on ``agent`` it is
+where an accel agent's island runs).
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ COMMANDS = [
     "batch",
     "consolidate",
     "replica_dist",
+    # cross-process runs over TCP (--runtime host)
+    "orchestrator",
+    "agent",
     # resident continuous-batching solver service
     "serve",
     # replicated serving fleet: consistent-hash router + N serve replicas

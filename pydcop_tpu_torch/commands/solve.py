@@ -1,6 +1,4 @@
-"""``pydcop_tpu_torch solve`` — port of ``pydcop_tpu/commands/solve.py``
-(``--mode process`` and ``--uiport`` are ROADMAP A15b and exit with the
-API's refusal).
+"""``pydcop_tpu_torch solve`` — port of ``pydcop_tpu/commands/solve.py``.
 
 One-shot solve of a DCOP yaml on the batched engine, or with ``-a dpop``
 on the exact path (``-p util_device:always``, ``-p util_batch:node``,
@@ -21,11 +19,14 @@ prints a JSON array (without the ``telemetry`` blocks, as the JAX
 package prints it).  ``--profile DIR`` writes a ``torch.profiler``
 Chrome trace of the single solve into DIR (:func:`profile`);
 ``--compile_cache`` takes only its default (the port compiles no XLA
-programs).  ``-m sim|thread`` runs the host message-driven runtime
-(``-m tpu``, the default, is the batched engine), with ``-d`` placing the
+programs).  ``-m sim|thread|process`` runs the host message-driven
+runtime (``-m tpu``, the default, is the batched engine; ``process``
+forks ``--nb_agents`` agent processes over TCP), with ``-d`` placing the
 computations, ``--accel_agents A ...`` hosting those agents' subgraphs
 as compiled islands on ``--device``, ``--msg_log FILE`` logging every
-delivered message and, in thread mode, message-plane ``--chaos``.
+delivered message and, in thread and process mode, message-plane
+``--chaos``.  ``--uiport N`` serves the live feed of a batched or
+process run.
 """
 
 from __future__ import annotations
@@ -60,36 +61,41 @@ def set_parser(subparsers) -> None:
         "-d", "--distribution", default=None,
         help="distribution strategy name or `distribute --output` yaml "
         "file: shapes the host modes' placement (thread agent grouping, "
-        "island subgraphs); the batched engine solves regardless of "
-        "placement",
+        "process-per-agent, island subgraphs); the batched engine solves "
+        "regardless of placement",
     )
     p.add_argument(
         "-m", "--mode", choices=["thread", "sim", "process", "tpu"],
         default="tpu",
         help="execution mode: tpu = batched engine (default, on the "
         "card); thread = host thread-per-agent runtime; sim = "
-        "deterministic async event loop; process = one OS process per "
-        "agent (not ported yet: ROADMAP A15b)",
+        "deterministic async event loop; process = one local OS process "
+        "per agent over the TCP host runtime (the reference's "
+        "run_local_process_dcop)",
     )
     p.add_argument(
         "--nb_agents", type=int, default=None,
-        help="process count for --mode process (not ported yet)",
+        help="process count for --mode process (default: one per "
+        "declared agent, capped at the CPU count)",
     )
     p.add_argument(
         "--accel_agents", nargs="+", default=None, metavar="NAME",
-        help="(thread/sim modes) agents whose placed subgraph runs as ONE "
-        "compiled island on --device instead of per-computation host "
-        "code (maxsum/amaxsum and the dsa family)",
+        help="(thread/sim/process modes) agents whose placed subgraph "
+        "runs as ONE compiled island on --device instead of "
+        "per-computation host code (maxsum/amaxsum, the dsa family, "
+        "mgm, dba, gdba)",
     )
     p.add_argument(
         "--msg_log", default=None, metavar="FILE",
-        help="(thread/sim modes) dump every delivered message's full "
-        "content to FILE as JSON lines",
+        help="(thread/sim/process modes) dump every delivered message's "
+        "full content to FILE as JSON lines (process mode writes "
+        "FILE.<agent> per agent)",
     )
     p.add_argument(
         "--uiport", type=int, default=None,
-        help="the JAX package's live observability feed (not ported "
-        "yet: ROADMAP A15b)",
+        help="serve a live observability feed on this port while solving "
+        "(SSE /events + /state + built-in page, see "
+        "infrastructure/ui.py)",
     )
     p.add_argument("--rounds", type=int, default=200, help="round budget")
     p.add_argument("--seed", type=int, default=0)
@@ -172,8 +178,9 @@ def set_parser(subparsers) -> None:
     p.add_argument(
         "--chaos", default=None, metavar="SPEC",
         help="inject deterministic faults (same --chaos_seed => "
-        "identical fault sequence).  thread mode: message-plane kinds — "
-        "drop/dup/reorder/delay probabilities, timed partitions.  tpu "
+        "identical fault sequence).  thread/process modes: message-plane "
+        "kinds — drop/dup/reorder/delay probabilities, timed partitions, "
+        "crash schedules.  tpu "
         "mode (incl. --many): device-layer kinds — device_oom=W[:R], "
         "device_transient=P[:AFTER], nan_inject=P[:I] — injected at the "
         "supervised device dispatch (engine/supervisor.py)",

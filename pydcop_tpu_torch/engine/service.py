@@ -3471,7 +3471,11 @@ class ServiceClient:
         as ``service.client_retries``); a transport failure raises
         :class:`ServiceTransportError` worded after ``what``."""
         from pydcop_tpu_torch.utils.backoff import (
+            RETRY_BASE,
             RETRY_EXCEPTIONS,
+            RETRY_FACTOR,
+            RETRY_JITTER,
+            RETRY_MAX_DELAY,
             call_with_backoff,
         )
 
@@ -3492,6 +3496,11 @@ class ServiceClient:
             return call_with_backoff(
                 one_attempt,
                 retry_for=self.retry_window,
+                exceptions=RETRY_EXCEPTIONS,
+                base=RETRY_BASE,
+                factor=RETRY_FACTOR,
+                max_delay=RETRY_MAX_DELAY,
+                jitter=RETRY_JITTER,
                 key=f"service-client/{self.client_id}",
                 seed=self._backoff_seed,
                 on_retry=_note_retry,

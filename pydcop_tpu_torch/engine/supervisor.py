@@ -167,14 +167,6 @@ def classify_failure(exc: BaseException) -> str:
     return "fatal"
 
 
-# The retry backoff of every supervised dispatch: 20 ms doubling to a
-# 250 ms cap, each sleep stretched by up to 25% of keyed jitter.
-_BACKOFF_BASE = 0.02
-_BACKOFF_FACTOR = 2.0
-_BACKOFF_MAX = 0.25
-_BACKOFF_JITTER = 0.25
-
-
 @dataclass
 class SupervisorConfig:
     """Knobs of one supervised call (``api.solve(retry_budget=...,
@@ -183,6 +175,8 @@ class SupervisorConfig:
     ``retry_budget`` bounds transient retries PER DISPATCH (0 turns
     retry off).  ``chunk_floor`` is the smallest chunk the OOM ladder
     may halve down to.  ``on_numeric_fault`` picks quarantine or raise.
+    ``backoff_*`` shape the retry sleeps: 20 ms doubling to a 250 ms
+    cap, each stretched by up to 25% of keyed jitter by default.
     ``plan`` is a :class:`~pydcop_tpu_torch.faults.plan.FaultPlan` whose
     device-layer kinds inject at this seam; its seed also keys the retry
     backoff's jitter, so a chaos replay sleeps the same."""
@@ -190,6 +184,10 @@ class SupervisorConfig:
     retry_budget: int = 2
     chunk_floor: int = 8
     on_numeric_fault: str = "quarantine"  # 'quarantine' | 'raise'
+    backoff_base: float = 0.02
+    backoff_factor: float = 2.0
+    backoff_max: float = 0.25
+    backoff_jitter: float = 0.25
     plan: Optional[Any] = None  # FaultPlan (device-layer kinds)
     sleep: Callable[[float], None] = field(default=time.sleep)
 
@@ -211,9 +209,10 @@ class SupervisorConfig:
     def delays(self, key: str) -> Iterator[float]:
         """The keyed backoff stream of one retry loop."""
         return backoff_delays(
-            key, base=_BACKOFF_BASE, factor=_BACKOFF_FACTOR,
-            max_delay=_BACKOFF_MAX, jitter=_BACKOFF_JITTER,
+            base=self.backoff_base, factor=self.backoff_factor,
+            max_delay=self.backoff_max, jitter=self.backoff_jitter,
             seed=self.plan.seed if self.plan is not None else 0,
+            key=key,
         )
 
 

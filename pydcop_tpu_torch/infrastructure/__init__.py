@@ -15,10 +15,17 @@ asynchronous algorithms' semantics are anchored to:
   with real agent threads (``mode='thread'``) or on a deterministic
   seeded single-thread event loop (``mode='sim'``), with
   ``accel_agents`` hosting their subgraph as a compiled island on the
-  device.
+  device;
+- ``hostnet``: the cross-process runtime (``mode='process'``, the
+  ``orchestrator``/``agent --runtime host`` commands) — agents in OS
+  processes exchanging messages over TCP, an accel agent's island on
+  its own process's device;
+- ``ui``: the live observability feed (SSE ``/events`` and ``/state``)
+  of a batched or process run.
 
-The cross-process runtime (``mode='process'``: the JAX package's
-``hostnet``, ``orchestrator``, ``elastic`` and ``ui``) is ROADMAP A15b.
+The JAX package's SPMD cross-process runtime (``orchestrator`` and
+``elastic``, the sharded batched solve over a device mesh) is ROADMAP
+A15b.2.
 """
 
 from pydcop_tpu_torch.infrastructure.computations import (  # noqa: F401

@@ -4,8 +4,8 @@
 
 The reference ships two interchangeable layers: in-process queues and
 HTTP+JSON.  Here the in-process layer backs ``--mode thread``; the
-cross-process TCP plane (the JAX package's ``hostnet``) is not ported
-yet (ROADMAP A15b).
+cross-process TCP plane is ``infrastructure/hostnet.py``
+(``TcpCommunicationLayer``).
 
 ``Messaging`` preserves the reference's observable behavior: priority
 classes (management messages preempt algorithm messages), per-message

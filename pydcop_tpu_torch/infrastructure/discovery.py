@@ -8,8 +8,9 @@ to subscribers and drive the resilience machinery.  Here the directory
 is a small thread-safe in-process service:
 
 - the host runtime registers agents/computations as it deploys them;
-- the JAX package's elastic cross-process runtime keeps one Discovery
-  on its orchestrator (not ported yet: ROADMAP A15b).
+- each ``hostnet`` agent process keeps one for its computation → agent
+  routing; the JAX package's elastic cross-process runtime keeps one on
+  its orchestrator (not ported yet: ROADMAP A15b.2).
 
 Events are delivered synchronously on the calling thread (callbacks
 must be cheap/non-blocking, like the reference's).

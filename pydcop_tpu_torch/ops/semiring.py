@@ -1933,6 +1933,7 @@ def contract_sweep(
     beta: float = 1.0,
     device_min_cells: Optional[int] = 1 << 14,
     pad: PadPolicy = NO_PADDING,
+    level_sync: bool = True,
     tol: float = 1e-6,
     max_table_size: int = 1 << 26,
     want_args: bool = False,
@@ -1951,7 +1952,8 @@ def contract_sweep(
     contractions (``device_min_cells`` cells or more; ``None`` keeps the
     whole sweep on the host in f64) bucket by level-pack key ACROSS
     instances and run as ONE stacked :func:`contraction_kernel` dispatch
-    per bucket on ``torch_device``.  Tables enter the sweep in KERNEL
+    per bucket on ``torch_device`` (``level_sync=False``: one dispatch
+    per node, the same joins).  Tables enter the sweep in KERNEL
     domain: energies for ``min_sum`` and kbest, log-weights ``-beta·E``
     otherwise.  Idempotent and kbest contractions are certified and
     host-repaired (exact; ``want_args`` keeps the arg tables for a value
@@ -2470,7 +2472,7 @@ def contract_sweep(
                 use_bnb = bnb == "on" or per_row >= BNB_AUTO_MIN_CELLS
                 if not use_bnb and met.enabled:
                     met.inc("semiring.bnb_skipped_small")
-            if uniform and n_rows > 1:
+            if level_sync and uniform and n_rows > 1:
                 if _dispatch_stacked(
                     sw, sr_b, entries, pshape, part_shapes, shape0, pad,
                     guard, want_args, finish, met, plans, torch_device,

@@ -41,10 +41,12 @@ SECP = ["generate", "secp", "--nb_lights", "4", "--nb_models", "3",
 A15_SOLVE_FLAGS = set()
 #: the port's own flags: the card or the CPU, on the commands that run on
 #: a device (infer's --device is the JAX offload policy; fleet passes
-#: --device to its serve replicas)
+#: --device to its serve replicas; an agent's island and the
+#: orchestrator's reparation solve take theirs)
 DEVICE_FLAGS = {"solve": {"--device"}, "run": {"--device"},
                 "batch": {"--device"}, "serve": {"--device"},
-                "fleet": {"--device"}, "infer": {"--torch_device"}}
+                "fleet": {"--device"}, "infer": {"--torch_device"},
+                "agent": {"--device"}, "orchestrator": {"--device"}}
 
 
 def _subparsers(parser):
@@ -68,8 +70,8 @@ def test_registry_is_the_jax_order_of_the_ported_commands():
     names = set(_subparsers(port_parser()).choices)
     assert names == {"solve", "infer", "run", "graph", "distribute",
                      "generate", "batch", "consolidate", "replica_dist",
-                     "serve", "fleet", "top", "trace-summary",
-                     "flight-dump"}
+                     "orchestrator", "agent", "serve", "fleet", "top",
+                     "trace-summary", "flight-dump"}
 
 
 def test_flag_sets_equal_but_the_named_exclusions():

@@ -31,7 +31,7 @@ EXAMPLES = os.path.join(HERE, "..", "examples")
 GRAPH_MODELS = ["factor_graph", "constraints_hypergraph", "pseudotree",
                 "ordered_graph"]
 ALGOS = ["dsa", "adsa", "dsatuto", "mgm", "mgm2", "dba", "gdba", "maxsum",
-         "dpop", "syncbb"]
+         "amaxsum", "dpop", "syncbb"]
 # an algorithm per graph model whose footprint hooks drive the placement
 HOOKS = {"factor_graph": "maxsum", "constraints_hypergraph": "mgm"}
 SECP_ARGS = dict(nb_lights=4, nb_models=3, nb_rules=2, light_levels=3,

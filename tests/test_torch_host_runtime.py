@@ -530,17 +530,19 @@ def test_refusals_equal_jax(mode, kw):
     assert port_msg == str(errs[0])
 
 
-@pytest.mark.parametrize("kw,where", [
-    ({"mode": "process"}, "mode='process'"),
-    ({"mode": "batched", "ui_port": 8080}, "ui_port"),
+@pytest.mark.parametrize("argv,where", [
+    (["agent", "--names", "a1", "--orchestrator", "localhost:1"],
+     "agent --runtime spmd"),
+    (["orchestrator", COLORING, "-a", "maxsum"],
+     "orchestrator --runtime spmd"),
 ])
-def test_unported_parts_name_a15b(kw, where):
-    from pydcop_tpu_torch.api import solve
+def test_unported_parts_name_a15b(argv, where):
+    """Process mode and the live feed run since A15b.1; the SPMD runtime
+    (the JAX package's default ``--runtime``) is A15b.2."""
+    from pydcop_tpu_torch.cli import main
 
-    kw = dict(kw)
-    algo = kw.pop("algo", "maxsum")
-    with pytest.raises(NotImplementedError, match="A15b") as info:
-        solve(COLORING, algo, {}, rounds=5, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A15b.2") as info:
+        main(argv)
     assert where in str(info.value)
 
 

@@ -9,10 +9,13 @@ ILP placement, the ``run`` CLI, ``trace-summary``, ``batch
 --simulate`` and a solver-service solve, after checking that
 ``api.ServiceClient`` imports without torch; and, in a second probe, a
 ``sim`` solve with a compiled island, a ``sim`` solve with an MGM
-lockstep island, a thread-mode solve and ``fleet --help``) runs in a fresh subprocess; a static AST scan covers every
-module of the port and ``chip_smoke.py``.  Also pinned here: an entry
-point asked for no device raises when there is no CUDA device, instead
-of carrying on on the CPU.
+lockstep island, a thread-mode solve, ``fleet --help``, a batched solve
+feeding the live UI, and a process-mode run whose spawned ``agent``
+child reports its own loaded modules) runs in a fresh subprocess; a
+static AST scan covers every module of the port, ``chip_smoke.py`` and
+the plugin example.  Also pinned here: an entry point asked for no
+device raises when there is no CUDA device, instead of carrying on on
+the CPU.
 """
 
 import ast
@@ -146,6 +149,31 @@ out = subprocess.run(
     capture_output=True, text=True, check=True,
 ).stdout
 assert "--replicas" in out and out.strip().splitlines()[-1] == "[]", out
+r = solve(sys.argv[1], "maxsum", rounds=8, device="cpu", ui_port=0)
+assert r["cost"] == 0.0, r
+# process mode: the orchestrator here, one `agent` child over TCP that
+# prints the modules it loaded when its run ends
+import socket, threading
+from pydcop_tpu_torch.dcop import load_dcop_from_file
+from pydcop_tpu_torch.infrastructure.hostnet import run_host_orchestrator
+server = socket.create_server(("127.0.0.1", 0))
+port = server.getsockname()[1]
+child = subprocess.Popen(
+    [sys.executable, "-c",
+     "import sys\nfrom pydcop_tpu_torch.cli import main\n"
+     "main(sys.argv[1:])\n"
+     "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+     "('jax', 'jaxlib', 'pydcop_tpu')))",
+     "agent", "--names", "a1", "--runtime", "host", "--orchestrator",
+     f"127.0.0.1:{port}", "--device", "cpu"],
+    stdout=subprocess.PIPE, text=True,
+)
+r = run_host_orchestrator(load_dcop_from_file(sys.argv[1]), "maxsum", {},
+                          nb_agents=1, port=port, server=server,
+                          accel_agents=["a1"], register_timeout=60)
+out, _ = child.communicate(timeout=60)
+assert r["cost"] == 0.0 and child.returncode == 0, (r, out)
+assert out.strip().splitlines()[-1] == "[]", out
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
@@ -172,6 +200,8 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the port's plugin example, which chip_smoke.py runs on the card
+    yield os.path.join(REPO, "examples", "greedy_plugin_torch.py")
 
 
 def _imported_roots(path):
@@ -231,7 +261,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "algorithms/_island_lockstep.py",
                    "algorithms/_island_mgm.py",
                    "algorithms/_island_dba.py",
-                   "algorithms/_island_gdba.py"):
+                   "algorithms/_island_gdba.py",
+                   "infrastructure/hostnet.py", "infrastructure/ui.py",
+                   "commands/agent.py", "commands/orchestrator.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]

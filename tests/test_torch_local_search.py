@@ -251,9 +251,9 @@ def test_dsa_c_moves_at_its_probability():
 def test_algo_params_equal_jax(algo):
     """Names, types, allowed values and defaults equal the JAX module's;
     the host-runtime ones (``island_*``) are kept, accepted and unused."""
-    from pydcop_tpu_torch.algorithms import AVAILABLE
+    from pydcop_tpu_torch.algorithms import list_available_algorithms
 
-    assert algo in AVAILABLE
+    assert algo in list_available_algorithms()
 
     def spec(defs):
         return [
