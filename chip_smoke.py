@@ -6,10 +6,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits nonzero; nothing is
-caught and passed over).  Phases 1-9 run one after another.  Then three
-child processes on the same card, running phases 14-16, phases 17-18 and
-phase 19, start beside phases 10-13 (host Python, most of all ten):
-their lines follow phase 13's, and a child's failure fails the script.
+caught and passed over).  Phases 1-9 run one after another.  Then four
+child processes on the same card, running phases 14-16, phases 17-18,
+phase 19 and phase 20, start beside phases 10-13 (host Python, most of
+all eleven): their lines follow phase 13's, and a child's failure fails
+the script.
 
 1. Device and build: the card's name and power limit, then the port's
    CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc, and one
@@ -510,12 +511,35 @@ their lines follow phase 13's, and a child's failure fails the script.
    coloring-10k model (``coloring_dcop(10_000, 3, 3, seed=1)``, 15a's
    first coloring), 64 rounds on the card and on the CPU: equal in
    every result key.
-20. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+20. Sharded runs (``pydcop_tpu_torch.parallel``): every mesh is 4 shards
+   on the one card (``Mesh([cuda:0] * 4)``), the counterpart of the JAX
+   tests' virtual devices; it exercises the sharded path, it does not use
+   the card better.  20a: coloring-1M compiled with ``n_shards=4``,
+   Max-Sum (damping 0.5, 256 rounds, chunk 64, cost every 8) over the
+   mesh against the unmeshed card run of the same problem: the same
+   assignments, costs within 1e-4 relative, exactly one psum a round
+   (the mesh's psums less one a cost sample), the factor kernels never
+   launched (the sharded factor phase is the generic one) and the q
+   update once a shard a round; msgs/s and engine seconds beside phase
+   6's.  Over distinct cards too where the machine has more than one (no
+   gate).  20b: the nine batched algorithms on phase 3's binary +
+   ternary coloring-10k with 4 shards, 16 rounds (32 until PR 17's run
+   2, cut for the time limit) on the card mesh and on a CPU mesh from one
+   CPU-made state and CPU-made draws, beside the unmeshed card run: every
+   state leaf and the cost samples bit-equal.
+   20c, each over the card mesh against its unmeshed run, equal: DSA-B
+   and Max-Sum with 4 restarts; a Max-Sum checkpoint saved at round 64
+   of 128 under the mesh and resumed under it (the file in the global
+   layout); a ``run_many_batched`` group of phase 3's coloring and three
+   rewirings (:func:`rewired`); a constraint-free problem (Max-Sum, DSA);
+   phase 14's sensor scenario through ``run_dynamic`` with ``n_shards=4``
+   (40 rounds a second, an eighth of phase 14's, and 16 final rounds).
+21. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
-   of phases 13-17 and 19a are added to the entries their runs launch),
-   the card line, and last the ``{"ok": true, ...}`` line.
+   of phases 13-17, 19a and 20 are added to the entries their runs
+   launch), the card line, and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package; only 16c-d's and
 17d's JSON text goes through PyYAML.
@@ -7248,7 +7272,370 @@ def process_phase(torch, mk, dev, card):
     return launches
 
 
-# -- the lanes: phases 14-16, 17-18 and 19 beside phases 10-13 --------------
+# -- phase 20: sharded runs over a shard mesh --------------------------------
+
+SHARDS = 4  # the shards of phase 20's meshes
+
+
+def same_states(torch, label, a, b):
+    """Every leaf of two state dicts bit-equal (after a move to the
+    CPU)."""
+    if set(a) != set(b):
+        raise AssertionError(f"{label}: state leaves {sorted(a)} {sorted(b)}")
+    for k in a:
+        if not same_leaf(torch, a[k].cpu(), b[k].cpu()):
+            raise AssertionError(f"{label}: the runs differ in {k}")
+
+
+def same_runs(label, a, b, rel=0.0):
+    """Two ``RunResult`` s: equal assignments and statuses, and costs
+    equal (``rel`` > 0: within that relative tolerance)."""
+    import numpy as np
+
+    if (a.assignment, a.best_assignment, a.cycles, a.messages,
+            a.status) != (b.assignment, b.best_assignment, b.cycles,
+                          b.messages, b.status):
+        raise AssertionError(f"{label}: the runs differ")
+    for x, y in ((a.cost_trace, b.cost_trace), ([a.cost], [b.cost]),
+                 ([a.best_cost], [b.best_cost])):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if x.shape != y.shape or not np.all(
+                np.abs(x - y) <= rel * np.maximum(1.0, np.abs(y))):
+            raise AssertionError(f"{label}: costs differ {x[:4]} {y[:4]}")
+
+
+def sharded_full_width(torch, mk, dev, card, rate, n_vars=1_000_000):
+    """20a: coloring-1M compiled with 4 shards, Max-Sum over the card
+    mesh against the unmeshed card run of the same problem."""
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import maxsum, prepare_algo_params
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+    from pydcop_tpu_torch.parallel import Mesh
+
+    s5, t5, u5 = coloring_arrays(n_vars, colors=3, degree=3, seed=1)
+    t0 = time.perf_counter()
+    pc = compile_from_arrays(s5, t5, 3, unary=u5, n_shards=SHARDS,
+                             device="cpu")
+    compile_s = time.perf_counter() - t0
+    per_shard = -(-len(s5) // SHARDS)  # constraints a shard, ghosts included
+    if (pc.n_real_edges, pc.n_edges, pc.n_shards) != (
+            2 * len(s5), 2 * SHARDS * per_shard, SHARDS):
+        raise AssertionError("20a: unexpected sharded coloring size")
+    p = pc.to(dev)
+    del pc
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    mesh = Mesh([dev] * SHARDS)
+    for m in (None, mesh):  # warm: 8 rounds each
+        run_batched(p, maxsum, params, rounds=8, chunk_size=8, mesh=m)
+    rounds = 256
+    kw = dict(rounds=rounds, chunk_size=64, cost_every=8)
+    runs = {}
+    for label, m in (("unmeshed", None), ("meshed", mesh)):
+        torch.cuda.synchronize()
+        mesh.psums = 0
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        r = run_batched(p, maxsum, params, mesh=m, **kw)
+        torch.cuda.synchronize()
+        runs[label] = (r, time.perf_counter() - t0, dict(mk.launches),
+                       mesh.psums)
+    (ru, wall_u, lu, _), (rm, wall_m, lm, psums) = (runs["unmeshed"],
+                                                    runs["meshed"])
+    same_runs("20a", rm, ru, rel=1e-4)
+    samples = len(rm.cost_trace)
+    if samples != rounds // 8 or not np.all(np.isfinite(rm.cost_trace)):
+        raise AssertionError(f"20a: bad cost trace ({samples} samples)")
+    if psums - samples != rounds:  # one a round, one a cost sample
+        raise AssertionError(f"20a: {psums} psums over {rounds} rounds and "
+                             f"{samples} cost samples")
+    want_u = {"factor_round_binary_shared": 0, "factor_round_binary": 0,
+              "q_update": rounds}
+    want_m = dict(want_u, q_update=rounds * SHARDS)
+    if lu != want_u or lm != want_m:
+        raise AssertionError(f"20a: launches {lu} {lm}")
+    msgs = 2 * p.n_real_edges * rounds
+    print(f"solve sharded-coloring-1M-maxsum: n_vars={p.n_vars} "
+          f"n_real_edges={p.n_real_edges} n_edges={p.n_edges} "
+          f"shards={SHARDS} mesh={mesh} rounds={rounds} "
+          f"compile_seconds={compile_s} "
+          f"meshed_engine_seconds={rm.time} meshed_msgs_per_s={msgs / rm.time} "
+          f"meshed_wall_seconds={wall_m} "
+          f"unmeshed_engine_seconds={ru.time} "
+          f"unmeshed_msgs_per_s={msgs / ru.time} "
+          f"phase6_coloring1M_msgs_per_s={rate} "
+          f"step_psums={psums - samples} cost_psums={samples} "
+          f"best_cost={rm.best_cost} bit_equal_costs="
+          f"{bool(np.array_equal(rm.cost_trace, ru.cost_trace))} "
+          f"launches_meshed={lm} launches_unmeshed={lu} card={card}")
+    count = torch.cuda.device_count()
+    if count > 1:  # distinct cards, where the machine has them
+        devs = [torch.device("cuda", i % count) for i in range(SHARDS)]
+        r = run_batched(p, maxsum, params, mesh=Mesh(devs), **kw)
+        print(f"solve sharded-coloring-1M-maxsum over {devs}: "
+              f"engine_seconds={r.time} best_cost={r.best_cost}")
+    return {"q_update": lu["q_update"] + lm["q_update"]}
+
+
+SHARDED_ALGOS = (("maxsum", {"damping": 0.5}),) + tuple(
+    (algo, user) for algo, user, _ in LOCAL_SEARCH)
+
+
+SHARDED_ROUNDS = 16  # 20b's rounds an algorithm (32 until its run 2)
+
+
+def sharded_card_vs_cpu(torch, mk, dev, card, p, pc):
+    """20b: ``SHARDED_ROUNDS`` rounds of each batched algorithm over the
+    card mesh and over a CPU mesh from one CPU-made state and CPU-made
+    draws, and the unmeshed card run of the same problem beside them."""
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.engine.batched import ShardedRounds
+    from pydcop_tpu_torch.ops.costs import total_cost
+    from pydcop_tpu_torch.parallel import Mesh, make_mesh, shard_problem
+
+    sc = shard_problem(p, Mesh([dev] * SHARDS))
+    sh = shard_problem(pc, make_mesh(SHARDS, device="cpu"))
+    launched = 0
+    for algo, user in SHARDED_ALGOS:
+        label = f"20b {algo}-coloring-10k-ternary"
+        mod = load_algorithm_module(algo)
+        params = prepare_algo_params(user, mod.algo_params)
+        lc = ShardedRounds(sc, p, mod, params, 0, total_cost)
+        lh = ShardedRounds(sh, pc, mod, params, 0, total_cost)
+        st = mod.init_state(pc, 3, params)
+        st_u = {k: v.to(dev) for k, v in st.items()}
+        parts_h, parts_c = lh.place(st), lc.place(st_u)
+        gen = torch.Generator().manual_seed(11)
+        costs = {"card": [], "cpu": [], "unmeshed": []}
+        t0 = time.perf_counter()
+        mk.reset_launches()
+        for i in range(SHARDED_ROUNDS):
+            drawn = mod.draws(pc, params, gen) if lc.seam else None
+            moved = (None if drawn is None
+                     else {k: v.to(dev) for k, v in drawn.items()})
+            parts_h = lh.apply(parts_h, drawn)
+            parts_c = lc.apply(parts_c, moved)
+            st_u = (mod.apply(p, st_u, params, moved) if lc.seam
+                    else mod.step(p, st_u, params))
+            if (i + 1) % 8 == 0:
+                costs["card"].append(lc.observe(parts_c)[0].cpu())
+                costs["cpu"].append(lh.observe(parts_h)[0])
+                costs["unmeshed"].append(total_cost(p, st_u["values"]).cpu())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(mk.launches)
+        card_state = lc.whole(parts_c, "cpu")
+        same_states(torch, f"{label} card mesh vs CPU mesh", card_state,
+                    lh.whole(parts_h, "cpu"))
+        same_states(torch, f"{label} card mesh vs unmeshed", card_state,
+                    st_u)
+        for other in ("cpu", "unmeshed"):
+            if not all(same_bits(torch, a, b) for a, b in
+                       zip(costs["card"], costs[other])):
+                raise AssertionError(f"{label}: costs differ from {other}")
+        kernel = algo in ("maxsum", "amaxsum")
+        want = {"factor_round_binary_shared": 0, "factor_round_binary": 0,
+                "q_update": SHARDED_ROUNDS * (SHARDS + 1) if kernel else 0}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want}")
+        launched += got["q_update"]
+        print(f"card-vs-cpu {label}: {SHARDS} shards, {SHARDED_ROUNDS} "
+              f"rounds, card mesh "
+              f"= CPU mesh = unmeshed card run in {sorted(card_state)} and "
+              f"costs {[float(c) for c in costs['card']]}, "
+              f"step_psums={lc.step_psums} seconds={seconds} "
+              f"launches={got} card={card}")
+    return launched
+
+
+def frozen_ring_dcop():
+    """8 variables on a ring, every other one an external variable: after
+    slicing, no constraint is left between decision variables."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        Domain,
+        ExternalVariable,
+        Variable,
+        constraint_from_str,
+    )
+
+    d = Domain("colors", "", [0, 1, 2])
+    dcop = DCOP("frozen_ring")
+    vs = [ExternalVariable(f"v{i}", d, 0) if i % 2 else Variable(f"v{i}", d)
+          for i in range(8)]
+    for v in vs:
+        dcop.add_variable(v)
+    for i in range(8):
+        dcop.add_constraint(constraint_from_str(
+            f"c{i}", f"1 if v{i} == v{(i + 1) % 8} else 0", vs))
+    return dcop
+
+
+def sharded_runs(torch, mk, dev, card, p, arrays):
+    """20c: what a multi-device dry run covers, each item over the card
+    mesh against its unmeshed run: restarts, a checkpoint resumed under
+    the mesh, a run_many_batched group, a constraint-free problem and a
+    dynamic run."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import (
+        load_algorithm_module,
+        prepare_algo_params,
+    )
+    from pydcop_tpu_torch.engine.batched import run_batched, run_many_batched
+    from pydcop_tpu_torch.engine.dynamic import run_dynamic
+    from pydcop_tpu_torch.ops.compile import (
+        compile_dcop,
+        compile_from_arrays,
+        stack_problems,
+    )
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+    from pydcop_tpu_torch.parallel import Mesh
+
+    mesh = Mesh([dev] * SHARDS)
+    maxsum = load_algorithm_module("maxsum")
+    ms_params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    launched = 0
+
+    def pair(label, problem, mod, params, **kw):
+        nonlocal launched
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        rm = run_batched(problem, mod, params, mesh=mesh, **kw)
+        ru = run_batched(problem, mod, params, **kw)
+        launched += mk.launches["q_update"]
+        same_runs(label, rm, ru)
+        return rm, time.perf_counter() - t0
+
+    # restarts: the restart axis inside every shard's step
+    for algo, user in (("dsa", {"variant": "B", "probability": 0.7}),
+                       ("maxsum", {"damping": 0.5})):
+        mod = load_algorithm_module(algo)
+        params = prepare_algo_params(user, mod.algo_params)
+        r, s = pair(f"20c {algo}-K4", p, mod, params, rounds=64,
+                    chunk_size=32, cost_every=8, n_restarts=4, seed=7)
+        print(f"solve sharded-{algo}-coloring-10k-ternary-K4: restarts=4 "
+              f"rounds=64 restart_costs={r.restart_costs.tolist()} "
+              f"seconds_meshed_and_unmeshed={s} equal=True card={card}")
+
+    # a checkpoint at the midpoint, resumed under the same mesh
+    ck = os.path.join(tempfile.mkdtemp(prefix="chip20"), "mesh.npz")
+    kw = dict(seed=3, chunk_size=32, cost_every=8, mesh=mesh)
+    full = run_batched(p, maxsum, ms_params, rounds=128, **kw)
+    run_batched(p, maxsum, ms_params, rounds=64, checkpoint_path=ck, **kw)
+    resumed = run_batched(p, maxsum, ms_params, rounds=128,
+                          checkpoint_path=ck, resume=True, **kw)
+    same_runs("20c checkpoint", resumed, full)
+    with np.load(ck) as data:
+        if data["state/q"].shape != (3, p.n_edges):
+            raise AssertionError("20c: the checkpoint is not global")
+    print(f"resume sharded-maxsum-coloring-10k-ternary: saved at 64 of 128 "
+          f"rounds under the mesh, resumed equal, file_bytes="
+          f"{os.path.getsize(ck)} card={card}")
+    os.remove(ck)
+
+    # a run_many_batched group of 4 rewired coloring-10k graphs
+    s, t, u = arrays
+    graphs = [(s, u)] + [
+        (rewired(s, sd), coloring_arrays(len(u), colors=3, degree=3,
+                                         seed=sd)[2])
+        for sd in (2, 3, 4)
+    ]
+    probs = [compile_from_arrays(sk, t, 3, unary=uk, n_shards=SHARDS,
+                                 device=dev) for sk, uk in graphs]
+    groups = stack_problems(probs)
+    if len(groups) != 1:
+        raise AssertionError("20c: the rewired graphs do not stack")
+    mk.reset_launches()
+    gkw = dict(rounds=64, seeds=[1, 2, 3, 4], chunk_size=32, cost_every=8)
+    t0 = time.perf_counter()
+    meshed = run_many_batched(groups[0], maxsum, ms_params, mesh=mesh, **gkw)
+    group_s = time.perf_counter() - t0
+    plain = run_many_batched(groups[0], maxsum, ms_params, **gkw)
+    launched += mk.launches["q_update"]
+    for i, (a, b) in enumerate(zip(meshed, plain)):
+        same_runs(f"20c group instance {i}", a, b)
+    print(f"solve sharded-many-coloring10k-maxsum-I4: instances=4 rounds=64 "
+          f"costs={[r.cost for r in meshed]} meshed_seconds={group_s} "
+          f"equal=True card={card}")
+
+    # a constraint-free problem shards and runs
+    free = compile_dcop(frozen_ring_dcop(), n_shards=SHARDS, device=dev)
+    if free.n_real_edges != 0:
+        raise AssertionError("20c: the frozen ring kept a constraint")
+    for algo in ("maxsum", "dsa"):
+        mod = load_algorithm_module(algo)
+        r, _ = pair(f"20c constraint-free {algo}", free, mod,
+                    prepare_algo_params({}, mod.algo_params), rounds=4,
+                    chunk_size=4)
+        if (r.cycles, r.cost) != (4, 0.0):
+            raise AssertionError(f"20c constraint-free {algo}: {r.cost}")
+    print(f"solve sharded-constraint-free: maxsum and dsa, 4 rounds, "
+          f"cost 0 card={card}")
+
+    # a short dynamic run of phase 14's scenario, every segment sharded
+    dcop, cap = sensor_coloring_dcop(**DYN_SIZE)
+    # an eighth of phase 14's rounds a second, 16 final rounds (a round
+    # over the mesh costs four threads' host issue: PERF.md, PR 17)
+    dkw = dict(distribution="adhoc", k_target=1,
+               rounds_per_second=DYN_ROUNDS_PER_S / 8, final_rounds=16,
+               seed=1, chunk_size=DYN_CHUNK, device=dev, n_shards=SHARDS)
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    dm = run_dynamic(dcop, "maxsum", {"damping": 0.5},
+                     scenario=sensor_scenario(capacity=cap), mesh=mesh, **dkw)
+    dyn_s = time.perf_counter() - t0
+    du = run_dynamic(dcop, "maxsum", {"damping": 0.5},
+                     scenario=sensor_scenario(capacity=cap), **dkw)
+    launched += mk.launches["q_update"]
+    for k in DYN_EXACT:
+        if dm[k] != du[k]:
+            raise AssertionError(f"20c dynamic: meshed and unmeshed differ "
+                                 f"in {k}")
+    print(f"run sharded-dynamic-coloring10k-sensors: shards={SHARDS} "
+          f"cycle={dm['cycle']} cost={dm['cost']} "
+          f"state_transfers={dm['state_transfers']} meshed_seconds={dyn_s} "
+          f"equal=True card={card}")
+    return launched
+
+
+def sharded_phase(torch, mk, dev, card, rate):
+    """Phase 20 (see the module docstring).  Returns its launches by
+    kernel entry."""
+    from pydcop_tpu_torch.ops.compile import compile_from_arrays
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    t_lap = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        print(f"phase {part} seconds={now - t_lap[0]}")
+        t_lap[0] = now
+
+    counts = sharded_full_width(torch, mk, dev, card, rate)
+    torch.cuda.empty_cache()
+    lap("20a")
+    s, t, u = coloring_arrays(10_000, colors=3, degree=3, seed=1)
+    s3, t3 = ternary_arrays(10_000, seed=5)
+    pc = compile_from_arrays([s, s3], [t, t3], 3, unary=u, n_shards=SHARDS,
+                             device="cpu")
+    p = pc.to(dev)
+    counts["q_update"] += sharded_card_vs_cpu(torch, mk, dev, card, p, pc)
+    lap("20b")
+    counts["q_update"] += sharded_runs(torch, mk, dev, card, p, (s, t, u))
+    lap("20c")
+    return counts
+
+
+# -- the lanes: phases 14-16, 17-18, 19 and 20 beside phases 10-13 ---------
 
 LANE_WAIT = 900.0  # seconds a lane may run past the end of phase 13
 
@@ -7289,6 +7676,17 @@ def lane_19(card):
     pcounts = process_phase(torch, mk, dev, card)
     print(f"phase 19 seconds={time.perf_counter() - t19}")
     print(json.dumps({"lane_launches": [pcounts]}), flush=True)
+
+
+def lane_20(card, rate):
+    """Phase 20 in a child process (see :func:`start_lane`); ``rate``:
+    phase 6's coloring-1M msgs/s, or ``"None"``."""
+    torch, mk, dev = _lane_device()
+    t20 = time.perf_counter()
+    counts = sharded_phase(torch, mk, dev, card,
+                           None if rate == "None" else float(rate))
+    print(f"phase 20 seconds={time.perf_counter() - t20}")
+    print(json.dumps({"lane_launches": [counts]}), flush=True)
 
 
 def lane_17_18(card):
@@ -7555,11 +7953,13 @@ def main() -> int:
     )
     print(f"phase 9 seconds={time.perf_counter() - t9}")
 
-    # -- 14-16, 17-18 and 19: three child processes on the card, beside
-    # 10-13 ---------------------------------------------------------------
+    # -- 14-16, 17-18, 19 and 20: four child processes on the card,
+    # beside 10-13 --------------------------------------------------------
     rate = MAIN_PATH_RATES.get("coloring-10k")
     lanes = [start_lane("lane_14_16", card, str(rate)),
-             start_lane("lane_17_18", card), start_lane("lane_19", card)]
+             start_lane("lane_17_18", card), start_lane("lane_19", card),
+             start_lane("lane_20", card,
+                        str(MAIN_PATH_RATES.get("coloring-1M")))]
     try:
         # -- 10. exact inference ------------------------------------------
         t10 = time.perf_counter()
@@ -7586,11 +7986,12 @@ def main() -> int:
         dcounts, ccounts, vcounts = join_lane(lanes[0])
         hcounts, = join_lane(lanes[1])
         pcounts, = join_lane(lanes[2])
+        mcounts, = join_lane(lanes[3])
     finally:
         for lane in lanes:
             stop(lane[1])
 
-    # -- 20. summary ------------------------------------------------------
+    # -- 21. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -7625,7 +8026,7 @@ def main() -> int:
             launches=launched + scounts.get(entry, 0)
             + dcounts.get(entry, 0) + ccounts.get(entry, 0)
             + vcounts.get(entry, 0) + hcounts.get(entry, 0)
-            + pcounts.get(entry, 0),
+            + pcounts.get(entry, 0) + mcounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),

@@ -2,9 +2,7 @@
 
 The JAX package ``pydcop_tpu`` is the reference; this package does the
 same work with PyTorch on an NVIDIA GPU and imports nothing of it (nor
-of jax).  Ported so far: the batched engine end to end, with Max-Sum,
-A-Max-Sum and the local-search family (DSA, DSA-tuto, A-DSA, MGM,
-MGM-2, DBA, GDBA), and parallel restarts for the local-search family.
+of jax).
 
 - ``pydcop_tpu_torch.dcop`` / ``utils`` — the problem model and YAML
   format (copies of the JAX package's jax-free modules).
@@ -16,6 +14,9 @@ MGM-2, DBA, GDBA), and parallel restarts for the local-search family.
   the restart axis), the memoized exact sessions and the solver service
   (``engine/service.py``: ``SolverService``, ``ServiceServer``,
   ``ServiceClient``).
+- ``pydcop_tpu_torch.parallel`` — shard meshes: an ``n_shards``-compiled
+  problem run over shards (one thread each, on one or several devices)
+  whose exchange is one ``psum`` a round (``run_batched(mesh=...)``).
 - ``pydcop_tpu_torch.api`` — ``solve`` / ``solve_compiled`` and the
   rest of the embedding API, with the service's names.
 - ``pydcop_tpu_torch.interop`` — builds the port's objects from numpy

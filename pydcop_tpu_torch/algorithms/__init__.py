@@ -19,7 +19,8 @@ JAX package's):
   ``torch.Generator`` ``gen`` on the problem's device (deterministic
   algorithms ignore it).
 - ``messages_per_round(problem, params=None) -> int`` — logical directed
-  messages one round represents (the msgs/s accounting).
+  messages one round represents (the msgs/s accounting; the ghost
+  constraints of a sharded layout are not counted).
 - ``INSTANCE_AXIS`` (optional, default False) — True when ``step``
   takes a stacked problem (``ops/compile.py:StackedProblem``) with the
   state ``[I, R, ...]``, as Max-Sum and A-Max-Sum do; the other
@@ -28,6 +29,26 @@ JAX package's):
 - ``INSTANCE_PARAM_AXES`` (optional) — for a numeric param that may
   differ per instance on the union, the axis it acts on:
   ``"variables"`` (the default) or ``"constraints"``.
+
+Sharded runs (``engine/batched.py`` with a ``parallel.Mesh``, the JAX
+step's ``axis_name``).  ``step`` and ``apply`` take a keyword ``axis``
+(``None``, or the shard's ``parallel.ShardAxis``): with it, ``problem`` is
+the shard's view (its blocks of the constraint, edge and bucket arrays,
+the per-variable arrays whole) and the state holds the shard's part;
+every per-variable sum over edges or constraints ends in ``axis.psum``
+(``ops/costs.py`` takes the axis).  An unmeshed ``n_shards > 1`` problem
+runs the same sums segment by segment.  Optional declarations:
+
+- ``state_specs(problem) -> {key: parallel.P}`` — how each state leaf
+  splits over the mesh (``P(SHARD_AXIS)`` on its constraint or edge
+  axis, ``P()`` replicated; unnamed leaves are replicated, and the
+  engine puts restart and instance axes in front);
+- ``draw_specs(problem)`` — the same for the draws, which the engine
+  makes once, in its own thread, from the run's generator, with the
+  whole problem's shapes, and splits for the shards.
+
+A module whose ``step`` draws must split into ``draws``/``apply`` to run
+over a mesh; a ``step`` without them is called with ``gen=None``.
 
 The random seam.  The JAX steps take a key and split it inside; the port
 does not replay jax's stream.  A stochastic module splits its round in

@@ -64,7 +64,8 @@ def values_state(
 
 def draw_apply_step(draws: Callable, apply: Callable) -> Callable:
     """``step(problem, state, params, gen)``: ``apply`` of the round's
-    ``draws`` from ``gen``, batched like the state."""
+    ``draws`` from ``gen``, batched like the state.  (Over a shard mesh
+    the engine draws in its own thread and calls ``apply`` per shard.)"""
 
     def step(problem, state, params, gen):
         drawn = draws(problem, params, gen, batch_shape(state))

@@ -54,6 +54,7 @@ algo_params = [
 # state layout (and its batch axes) and footprints are synchronous
 # Max-Sum's
 init_state = _maxsum.init_state
+state_specs = _maxsum.state_specs
 INSTANCE_AXIS = _maxsum.INSTANCE_AXIS
 computation_memory = _maxsum.computation_memory
 communication_load = _maxsum.communication_load
@@ -81,8 +82,9 @@ def apply(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     drawn: Dict[str, torch.Tensor],
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
-    sync = _maxsum.step(problem, state, params)
+    sync = _maxsum.step(problem, state, params, axis=axis)
     act = params["activation"]
     if isinstance(act, torch.Tensor):  # one per instance: [I, 1, .., 1]
         act = act.reshape((-1,) + (1,) * (drawn["fire_q"].dim() - 1))
@@ -90,9 +92,19 @@ def apply(
     r = torch.where(drawn["fire_r"] < act, sync["r"], state["r"])
     # re-select values from the messages actually updated
     unary_t = problem.unary_t + state["noise"]
-    belief = _maxsum.belief_from_r(problem, r, unary_t)
+    belief = _maxsum.belief_from_r(problem, r, unary_t, axis=axis)
     values = torch.argmin(belief, dim=-2).to(state["values"].dtype)
     return {"q": q, "r": r, "values": values, "noise": state["noise"]}
+
+
+def draw_specs(problem) -> Dict[str, Any]:
+    """Placement of the draws over a shard mesh: the engine draws one
+    global ``[1, E]`` fire mask of each kind and hands every shard its
+    edges' slice (the JAX step folds the shard index into its keys
+    instead; ROADMAP.md, C, 'Random streams')."""
+    from pydcop_tpu_torch.parallel.mesh import SHARD_AXIS, P
+
+    return {"fire_q": P(None, SHARD_AXIS), "fire_r": P(None, SHARD_AXIS)}
 
 
 step = draw_apply_step(draws, apply)

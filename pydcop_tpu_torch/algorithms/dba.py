@@ -79,19 +79,29 @@ def draws(
     return {}
 
 
+def _local_con(problem: CompiledProblem, axis=None) -> torch.Tensor:
+    """edge → constraint ids, localized to this shard's weight block
+    under ``axis`` (a shard view's ``edge_con`` holds global ids)."""
+    edge_con = problem.index64("edge_con")
+    if axis is None:
+        return edge_con
+    return edge_con - axis.index * problem.n_cons
+
+
 def candidate_metrics(
     problem: CompiledProblem,
     values: torch.Tensor,
     weights: torch.Tensor,
+    axis=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(improve, candidate, violated)`` for one DBA round: the
     weighted best-move sweep plus the raw per-constraint violation mask
-    under the CURRENT assignment.  Shared by :func:`apply` and the
-    lockstep island (``_island_dba.py``) so the formulas cannot drift
-    between them."""
-    edge_con = problem.index64("edge_con")
+    under the CURRENT assignment (the shard's constraints under
+    ``axis``).  Shared by :func:`apply` and the lockstep island
+    (``_island_dba.py``) so the formulas cannot drift between them."""
+    edge_con = _local_con(problem, axis)
     # candidate-value costs with per-constraint weights
-    local = local_cost_sweep(problem, values, weights[..., edge_con])
+    local = local_cost_sweep(problem, values, weights[..., edge_con], axis)
     current, best = current_best(local, values)
     candidate = torch.argmin(local, dim=-1).to(values.dtype)
     improve = current - best  # >= 0
@@ -103,13 +113,16 @@ def qlm_mask(
     problem: CompiledProblem,
     improve: torch.Tensor,
     violated: torch.Tensor,
+    axis=None,
 ) -> torch.Tensor:
     """bool[..., n_vars]: at a quasi-local minimum — a violated incident
     constraint, and nobody in the CLOSED neighborhood improves.  Shared
     by :func:`apply` and the lockstep island."""
-    edge_con = problem.index64("edge_con")
+    edge_con = _local_con(problem, axis)
     edge_viol = violated[..., edge_con].to(problem.unary.dtype)
-    has_violation = segment_sum_edges(problem, edge_viol, dim=-1) > 0.5
+    has_violation = segment_sum_edges(
+        problem, edge_viol, dim=-1, axis=axis
+    ) > 0.5
     nbr_improve = neighbor_gather(
         problem, improve, fill=-float("inf"), dim=-1
     ).amax(dim=-1)
@@ -122,16 +135,19 @@ def apply(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     drawn: Dict[str, torch.Tensor],
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     values, weights = state["values"], state["weights"]
-    improve, candidate, violated = candidate_metrics(problem, values, weights)
+    improve, candidate, violated = candidate_metrics(
+        problem, values, weights, axis
+    )
 
     win = strict_winner(problem, improve, lexic_prio(problem)) & (
         improve > EPS
     )
     new_values = torch.where(win, candidate, values)
 
-    qlm = qlm_mask(problem, improve, violated)
+    qlm = qlm_mask(problem, improve, violated, axis)
     # weight += increase on violated constraints touching a QLM variable
     # (read through con_scopes; stride 0 marks padded scope slots, which
     # point at variable 0 and are masked out)
@@ -146,6 +162,14 @@ def apply(
 
 
 step = draw_apply_step(draws, apply)
+
+
+def state_specs(problem) -> Dict[str, Any]:
+    """Placement over a shard mesh: the weights split with their
+    constraints, values replicated."""
+    from pydcop_tpu_torch.parallel.mesh import SHARD_AXIS, P
+
+    return {"values": P(), "weights": P(SHARD_AXIS)}
 
 
 def messages_per_round(

@@ -77,9 +77,10 @@ def apply(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     drawn: Dict[str, torch.Tensor],
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     values = state["values"]
-    local = local_cost_sweep(problem, values)  # [..., n, d]
+    local = local_cost_sweep(problem, values, axis=axis)  # [..., n, d]
     candidate, eligible = dsa_candidate_eligibility(
         local, values, drawn["tie"], params["variant"]
     )

@@ -75,9 +75,10 @@ def apply(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     drawn: Dict[str, torch.Tensor],
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     values = state["values"]
-    local = local_cost_sweep(problem, values)  # [..., n, d]
+    local = local_cost_sweep(problem, values, axis=axis)  # [..., n, d]
     current, best = current_best(local, values)
     candidate = torch.argmin(local, dim=-1).to(values.dtype)
     move = (current - best > EPS) & (drawn["move"] < PROBABILITY)

@@ -100,6 +100,7 @@ def effective_metrics(
     values: torch.Tensor,
     weights: Dict[int, torch.Tensor],
     params: Dict[str, Any],
+    axis=None,
 ):
     """``(improve, candidate, per_bucket, edge_violated)`` for one GDBA
     round under per-cell ``weights`` (``{arity: f32[..., m, d^k]}``):
@@ -114,7 +115,7 @@ def effective_metrics(
 
     # -- per bucket: effective sweep rows and raw violation flags -------
     per_bucket = {}  # k -> (cur_cell, violated, vals)
-    sweep_blocks, viol_blocks = [], []
+    eff = {}
     for k, bucket in sorted(problem.buckets.items()):
         m = bucket.n_cons
         # a shared-table bucket broadcasts its one base row over all m
@@ -128,12 +129,24 @@ def effective_metrics(
         cc_raw = base_flat.gather(-1, cur_cell[..., None])[..., 0]
         violated = _violated(base_flat, cc_raw, params["violation"])
         per_bucket[k] = (cur_cell, violated, vals)
-        ar = torch.arange(d, device=values.device)
-        for p in range(k):
-            base_wo_p = cur_cell - vals[..., p] * strides[p]
-            cells = base_wo_p[..., None] + ar * strides[p]  # [..., m, d]
-            sweep_blocks.append(eff_flat.gather(-1, cells))
-            viol_blocks.append(violated.to(dt))
+        eff[k] = eff_flat
+    # edge-indexed rows by concatenation: edges are position-major per
+    # (shard segment, arity) run, so the blocks in (segment, arity,
+    # position) order tile the (shard's) edge axis
+    n_segments = problem.n_shards if axis is None else 1
+    ar = torch.arange(d, device=values.device)
+    sweep_blocks, viol_blocks = [], []
+    for seg in range(n_segments):
+        for k, bucket in sorted(problem.buckets.items()):
+            cur_cell, violated, vals = per_bucket[k]
+            m = bucket.n_cons // n_segments
+            rows = slice(seg * m, (seg + 1) * m)
+            strides = _bucket_strides(k, d)
+            for p in range(k):
+                base_wo_p = cur_cell[..., rows] - vals[..., rows, p] * strides[p]
+                cells = base_wo_p[..., None] + ar * strides[p]  # [..., m, d]
+                sweep_blocks.append(eff[k][..., rows, :].gather(-1, cells))
+                viol_blocks.append(violated[..., rows].to(dt))
     E = problem.n_edges
     if sweep_blocks:
         edge_sweep = torch.cat(sweep_blocks, dim=-2)
@@ -148,7 +161,9 @@ def effective_metrics(
         edge_violated = torch.zeros(batch + (E,), dtype=dt,
                                     device=values.device)
 
-    local = segment_sum_edges(problem, edge_sweep, dim=-2) + problem.unary
+    local = segment_sum_edges(
+        problem, edge_sweep, dim=-2, axis=axis
+    ) + problem.unary
     current, best = current_best(local, values)
     candidate = torch.argmin(local, dim=-1).to(values.dtype)
     improve = current - best
@@ -159,11 +174,14 @@ def qlm_mask(
     problem: CompiledProblem,
     improve: torch.Tensor,
     edge_violated: torch.Tensor,
+    axis=None,
 ) -> torch.Tensor:
     """bool[..., n_vars]: quasi-local minimum under the GDBA violation
     flags (edge-projected).  Shared by :func:`apply` and the lockstep
     island."""
-    has_violation = segment_sum_edges(problem, edge_violated, dim=-1) > 0.5
+    has_violation = segment_sum_edges(
+        problem, edge_violated, dim=-1, axis=axis
+    ) > 0.5
     nbr_improve = neighbor_gather(
         problem, improve, fill=-float("inf"), dim=-1
     ).amax(dim=-1)
@@ -175,12 +193,13 @@ def apply(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     drawn: Dict[str, torch.Tensor],
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     values = state["values"]
     d = problem.d_max
     weights = {k: state[f"w{k}"] for k in sorted(problem.buckets)}
     improve, candidate, per_bucket, edge_violated = effective_metrics(
-        problem, values, weights, params
+        problem, values, weights, params, axis
     )
 
     win = strict_winner(problem, improve, lexic_prio(problem)) & (
@@ -189,7 +208,7 @@ def apply(
     new_state = {"values": torch.where(win, candidate, values)}
 
     # -- quasi-local minimum and the weight increase ---------------------
-    qlm = qlm_mask(problem, improve, edge_violated)
+    qlm = qlm_mask(problem, improve, edge_violated, axis)
 
     imode = params["increase_mode"]
     for k, bucket in sorted(problem.buckets.items()):
@@ -223,6 +242,17 @@ def apply(
 
 
 step = draw_apply_step(draws, apply)
+
+
+def state_specs(problem) -> Dict[str, Any]:
+    """Placement over a shard mesh: each bucket's weight rows split with
+    its constraints, values replicated."""
+    from pydcop_tpu_torch.parallel.mesh import SHARD_AXIS, P
+
+    specs: Dict[str, Any] = {"values": P()}
+    for k in problem.buckets:
+        specs[f"w{k}"] = P(SHARD_AXIS)
+    return specs
 
 
 def messages_per_round(

@@ -245,6 +245,7 @@ def belief_from_r(
     r: torch.Tensor,
     unary_t: torch.Tensor,
     mode: str = "auto",
+    axis=None,
 ) -> torch.Tensor:
     """``[*batch, d, n_vars]`` belief: ``unary_t`` + Σ incoming r per
     variable, accumulated in ``unary_t``'s dtype (f32) whatever r's
@@ -254,7 +255,16 @@ def belief_from_r(
     ``ops/costs.py:gather_sum_slots`` on every device (deterministic, so
     card and CPU runs agree bit for bit).  ``"blockdiag"``: the one-hot
     block products of :func:`_belief_blockdiag`, with the index built on
-    the spot (``step`` carries it in the state instead)."""
+    the spot (``step`` carries it in the state instead).
+
+    Sharded (``axis``, a shard's view and its local r; or an unmeshed
+    ``n_shards > 1`` problem): the shards' partial sums from zero, added
+    in shard order by one psum (``ops/costs.py:segment_sum_edges``), then
+    the unary."""
+    if axis is not None or _template(problem).n_shards > 1:
+        return _costs.segment_sum_edges(
+            problem, r, dim=-1, axis=axis, dtype=unary_t.dtype
+        ) + unary_t
     if mode == "blockdiag":
         if isinstance(problem, StackedProblem):
             raise ValueError(
@@ -277,11 +287,15 @@ def step(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     gen: Optional[torch.Generator] = None,
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     """One round on ``problem`` (a :class:`CompiledProblem`, or a
     :class:`StackedProblem` with the state ``[I, R, ...]``).  ``damping``
     is a float or, on a stacked problem, an f32 tensor of one value per
-    instance."""
+    instance.  Under a shard mesh ``problem`` is a shard's view, the
+    messages are its local edges' and ``axis`` its
+    ``parallel.ShardAxis``: the belief's psum is the round's one
+    collective."""
     q = state["q"]  # [*batch, d, E]
     mdt = q.dtype
     damping = params["damping"]
@@ -293,12 +307,21 @@ def step(
     lead = q.dim() - 2  # batch axes
 
     # -- 1. factor -> variable, per arity bucket ----------------------
+    # (edges are position-major per (shard segment, arity) run: an
+    # unmeshed n_shards > 1 problem runs its segments one after another)
     r_new = torch.empty_like(q)
     qk, rk = _flat(q), _flat(r_new)  # the kernels' [(B,) d, E]
     off = 0
-    for k, bucket in sorted(problem.buckets.items()):
-        m = tmpl.buckets[k].n_cons
+    n_segments = tmpl.n_shards if axis is None else 1
+    for seg, (k, bucket) in (
+        (seg, kb)
+        for seg in range(n_segments)
+        for kb in sorted(problem.buckets.items())
+    ):
+        m = tmpl.buckets[k].n_cons // n_segments
         tab = bucket.tables_t  # [(I,) d, ..., d, m or 1]
+        if not tmpl.buckets[k].shared_table:
+            tab = tab[..., seg * m : (seg + 1) * m]
 
         def cols(x, p):
             return x[..., off + p * m : off + (p + 1) * m]
@@ -335,12 +358,12 @@ def step(
         off += m * k
 
     # -- 2. variable -> factor + value selection ----------------------
-    if "bd_perm" in state:
+    if "bd_perm" in state and axis is None:
         belief = _belief_blockdiag(
             problem, state["bd_perm"], state["bd_onehot"], r_new, unary_t
         )
     else:
-        belief = belief_from_r(problem, r_new, unary_t)
+        belief = belief_from_r(problem, r_new, unary_t, axis=axis)
     # outside the gate the JAX package computes in the belief's dtype
     per_op = belief.dtype == torch.bfloat16 and not in_kernel_gate(problem)
     # the q update reads belief[:, edge_var] (in the message dtype) itself
@@ -351,11 +374,20 @@ def step(
     return {**state, "q": q_new, "r": r_new, "values": values}
 
 
+def state_specs(problem) -> Dict[str, Any]:
+    """Placement of the state over a shard mesh: messages shard with
+    their edges (the last axis), values and noise replicated."""
+    from pydcop_tpu_torch.parallel.mesh import SHARD_AXIS, P
+
+    sh = P(None, SHARD_AXIS)
+    return {"q": sh, "r": sh, "values": P(), "noise": P()}
+
+
 def messages_per_round(
     problem: CompiledProblem, params: Optional[Dict[str, Any]] = None
 ) -> int:
     """q and r per REAL directed edge per round (one restart; ghost
-    edges are not counted)."""
+    edges of the shard-major layout are not counted)."""
     return 2 * problem.n_real_edges
 
 

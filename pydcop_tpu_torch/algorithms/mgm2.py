@@ -56,7 +56,11 @@ from pydcop_tpu_torch.algorithms._common import (
 )
 from pydcop_tpu_torch.graphs import constraints_hypergraph as _graph
 from pydcop_tpu_torch.ops.compile import CompiledProblem
-from pydcop_tpu_torch.ops.costs import at_neighbors, local_cost_sweep
+from pydcop_tpu_torch.ops.costs import (
+    at_neighbors,
+    fold_shards,
+    local_cost_sweep,
+)
 
 GRAPH_TYPE = "constraints_hypergraph"
 
@@ -69,7 +73,7 @@ algo_params = [
 # state keys that are pure problem-derived index data (rebuilt
 # identically by init_state, shared across restarts)
 STATIC_STATE_KEYS = frozenset(
-    {"pe_edge", "pe_copos", "pe_pair", "pe_valid", "pe_inv"}
+    {"pe_edge", "pe_copos", "pe_pair", "pe_valid", "pe_inv", "pe_inv_shard"}
 )
 
 # pair-accumulator cells (n_vars * max_degree * d^2) above which MGM-2
@@ -101,7 +105,24 @@ def init_state(
         _pair_index(problem),
     ):
         state[key] = torch.from_numpy(arr).to(problem.device)
+    if problem.n_shards > 1:
+        state["pe_inv_shard"] = torch.from_numpy(
+            _shard_inverse(problem)
+        ).to(problem.device)
     return state
+
+
+def state_specs(problem) -> Dict[str, Any]:
+    """Placement over a shard mesh: the pair entries and the per-shard
+    inverse index split with the edges; values and the whole-problem
+    inverse index replicated."""
+    from pydcop_tpu_torch.parallel.mesh import SHARD_AXIS, P
+
+    sh = P(SHARD_AXIS)
+    return {
+        "values": P(), "pe_edge": sh, "pe_copos": sh, "pe_pair": sh,
+        "pe_valid": sh, "pe_inv": P(), "pe_inv_shard": sh,
+    }
 
 
 # The index is pure problem structure, so it is built once per
@@ -112,12 +133,15 @@ _PAIR_CACHE: Dict[int, Any] = {}
 
 def _pair_index(problem: CompiledProblem):
     """``(pe_edge, pe_copos, pe_pair, pe_valid, pe_inv)`` as the JAX
-    package builds them (single shard), vectorized: one entry per
-    (edge, co-position) whose co-variable is a real other variable, in
-    edge-major order, mapped to ``owner·max_deg + slot`` (the slot of the
-    co-variable in the owner's sorted neighbor row); ``pe_inv[q]`` lists
-    pair slot q's entries in ascending order, padded with the sentinel
-    ``n_pe`` (a zero row)."""
+    package builds them, vectorized: one entry per (edge, co-position)
+    whose co-variable is a real other variable, in edge-major order,
+    mapped to ``owner·max_deg + slot`` (the slot of the co-variable in
+    the owner's sorted neighbor row).  The entries are laid out
+    shard-major with equal per-shard lengths (one shard unless the
+    problem is sharded), each shard's padding pointing at its first edge
+    with ``pe_valid`` false, so the arrays split over a mesh with the
+    edges; ``pe_inv[q]`` lists pair slot q's entries in ascending order,
+    padded with the sentinel ``n_pe`` (a zero row)."""
     hit = _PAIR_CACHE.get(id(problem))
     if hit is not None and hit[0]() is problem:
         return hit[1]
@@ -141,27 +165,25 @@ def _pair_index(problem: CompiledProblem):
     row_start = np.concatenate([[0], np.cumsum(mask.sum(axis=1))])
     slot = np.searchsorted(keys, owner * n + co) - row_start[owner]
 
-    n_entries = len(e_idx)
-    n_pe = max(n_entries, 1)
-    pe_e = np.zeros(n_pe, dtype=np.int64)
+    # shard-major, equal per-shard lengths
+    S = max(problem.n_shards, 1)
+    eps = edge_var.shape[0] // S
+    shard = e_idx // eps
+    per_shard = np.bincount(shard, minlength=S)
+    pe_len = max(int(per_shard.max(initial=0)), 1)
+    start = np.concatenate([[0], np.cumsum(per_shard)[:-1]])
+    at = shard * pe_len + np.arange(len(e_idx)) - start[shard]
+    n_pe = pe_len * S
+    pe_e = np.repeat(np.arange(S, dtype=np.int64) * eps, pe_len)
     pe_p = np.zeros(n_pe, dtype=np.int64)
     pe_q = np.zeros(n_pe, dtype=np.int64)
     pe_valid = np.zeros(n_pe, dtype=bool)
-    pe_e[:n_entries] = e_idx
-    pe_p[:n_entries] = p_idx
-    pe_q[:n_entries] = owner * max_deg + slot
-    pe_valid[:n_entries] = True
+    pe_e[at] = e_idx
+    pe_p[at] = p_idx
+    pe_q[at] = owner * max_deg + slot
+    pe_valid[at] = True
 
-    n_pairs = n * max_deg
-    counts = np.bincount(pe_q[:n_entries], minlength=n_pairs)
-    s_max = max(int(counts.max(initial=0)), 1)
-    order = np.argsort(pe_q[:n_entries], kind="stable")
-    q_sorted = pe_q[order]
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    rank = np.arange(n_entries) - starts[q_sorted]
-    pe_inv = np.full((n_pairs, s_max), n_pe, dtype=np.int64)
-    pe_inv[q_sorted, rank] = order
-
+    pe_inv = _inverse(pe_q[at], at, n * max_deg, n_pe)
     out = (pe_e, pe_p, pe_q, pe_valid, pe_inv)
     key = id(problem)
     ref = weakref.ref(problem, lambda _: _PAIR_CACHE.pop(key, None))
@@ -169,15 +191,75 @@ def _pair_index(problem: CompiledProblem):
     return out
 
 
+def _inverse(q: np.ndarray, idx: np.ndarray, n_pairs: int, sentinel: int,
+             width: int = 0) -> np.ndarray:
+    """``[n_pairs, s_max]``: per pair slot, the entries ``idx`` that map
+    to it (``q``), in ascending order, padded with ``sentinel``
+    (at least ``width`` columns)."""
+    counts = np.bincount(q, minlength=n_pairs)
+    s_max = max(int(counts.max(initial=0)), 1, width)
+    order = np.argsort(q, kind="stable")
+    q_sorted = q[order]
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(len(q)) - starts[q_sorted]
+    inv = np.full((n_pairs, s_max), sentinel, dtype=np.int64)
+    inv[q_sorted, rank] = idx[order]
+    return inv
+
+
+def _shard_inverse(problem: CompiledProblem) -> np.ndarray:
+    """``pe_inv_shard [n_shards·n_pairs, s_max]``: for each shard, in
+    shard-major blocks, the inverse index over ITS entries (local entry
+    ids, sentinel ``pe_len``): the pair sums of a sharded problem run
+    shard by shard through it, with no scatter."""
+    pe_e, _, pe_q, pe_valid, _ = _pair_index(problem)
+    S = problem.n_shards
+    pe_len = len(pe_e) // S
+    n_pairs = problem.n_vars * problem.neighbors.shape[1]
+    blocks = []
+    for s in range(S):
+        sl = slice(s * pe_len, (s + 1) * pe_len)
+        local = np.nonzero(pe_valid[sl])[0]
+        blocks.append(_inverse(pe_q[sl][local], local, n_pairs, pe_len))
+    width = max(b.shape[1] for b in blocks)
+    return np.concatenate([
+        np.pad(b, ((0, 0), (0, width - b.shape[1])), constant_values=pe_len)
+        for b in blocks
+    ])
+
+
+def _inverse_sum(sweeps: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """Per pair slot, the sum from zero of its entries' ``sweeps [...,
+    P, d, d]`` in the order ``inv [n_pairs, s_max]`` lists them, one add
+    per entry (scatter-free; the sentinel ``P`` reads a zero row)."""
+    d = sweeps.shape[-1]
+    sw_pad = torch.cat(
+        [sweeps, sweeps.new_zeros(sweeps.shape[:-3] + (1, d, d))], dim=-3
+    )
+    acc = torch.zeros(
+        sweeps.shape[:-3] + (inv.shape[0], d, d),
+        dtype=sweeps.dtype, device=sweeps.device,
+    )
+    for s in range(inv.shape[1]):
+        acc = acc + sw_pad.index_select(-3, inv[:, s])
+    return acc
+
+
 def _pair_shared(
     problem: CompiledProblem,
     state: Dict[str, torch.Tensor],
     values: torch.Tensor,
+    axis=None,
 ) -> torch.Tensor:
     """f32[..., n_vars, max_deg, d, d]: summed shared-constraint tables
     per (variable, neighbor-slot), axes (own value, neighbor value),
-    other scope variables fixed at ``values``."""
+    other scope variables fixed at ``values``.  Sharded (``axis``, or an
+    unmeshed ``n_shards > 1`` problem): each shard sums its own entries
+    through its own inverse index (entry ids made shard-local), and the
+    shards' partials meet in one psum, added in shard order."""
     e = state["pe_edge"].long()
+    if axis is not None:  # global edge ids -> this shard's local ones
+        e = e - axis.index * problem.n_edges
     p = state["pe_copos"].long()
     covars = problem.index64("edge_covars")[e]  # [P, k-1]
     costr = problem.index64("edge_costrides")[e]  # [P, k-1]
@@ -197,18 +279,19 @@ def _pair_shared(
     )  # [..., P, d, d]
     sweeps = problem.tables_flat[cells]
     sweeps = torch.where(state["pe_valid"][:, None, None], sweeps, 0.0)
-    # scatter-free: each pair slot sums its (padded) entries in the
-    # order pe_inv lists them, one add per entry
-    sw_pad = torch.cat(
-        [sweeps, sweeps.new_zeros(sweeps.shape[:-3] + (1, d, d))], dim=-3
-    )
-    inv = state["pe_inv"].long()
-    acc = torch.zeros(
-        sweeps.shape[:-3] + (inv.shape[0], d, d),
-        dtype=sweeps.dtype, device=sweeps.device,
-    )
-    for s in range(inv.shape[1]):
-        acc = acc + sw_pad.index_select(-3, inv[:, s])
+    if axis is not None:
+        acc = axis.psum(_inverse_sum(sweeps, state["pe_inv_shard"].long()))
+    elif problem.n_shards == 1:
+        acc = _inverse_sum(sweeps, state["pe_inv"].long())
+    else:
+        S = problem.n_shards
+        inv = state["pe_inv_shard"].long()
+        pe_len, n_pairs = sweeps.shape[-3] // S, inv.shape[0] // S
+        acc = fold_shards(
+            _inverse_sum(sweeps.narrow(-3, s * pe_len, pe_len),
+                         inv.narrow(0, s * n_pairs, n_pairs))
+            for s in range(S)
+        )
     n, deg = problem.neighbors.shape
     return acc.unflatten(-3, (n, deg))
 
@@ -242,6 +325,7 @@ def apply(
     state: Dict[str, torch.Tensor],
     params: Dict[str, Any],
     drawn: Dict[str, torch.Tensor],
+    axis=None,
 ) -> Dict[str, torch.Tensor]:
     values = state["values"]
     n, deg = problem.neighbors.shape
@@ -250,7 +334,7 @@ def apply(
     nbr_idx = problem.neighbors  # [n, deg]
     ar_n = torch.arange(n, device=values.device)
 
-    local = local_cost_sweep(problem, values)  # [..., n, d]
+    local = local_cost_sweep(problem, values, axis=axis)  # [..., n, d]
     current, uni_best = current_best(local, values)
     uni_candidate = torch.argmin(local, dim=-1).to(values.dtype)
     uni_gain = current - uni_best
@@ -267,7 +351,7 @@ def apply(
     )  # [..., n(receiver), deg]
 
     # -- phase 3: accept — dense joint-gain scan ----------------------
-    shared = _pair_shared(problem, state, values)  # [..., n, deg, b, a]
+    shared = _pair_shared(problem, state, values, axis)  # [..., n, deg, b, a]
     cur_v = at_neighbors(problem, values, -1).long()  # [..., n, deg]
     nb_local = at_neighbors(problem, local, -2)  # [..., n, deg, d]
     own = values.long()[..., :, None, None, None].expand(

@@ -49,8 +49,18 @@ dispatch (``engine/supervisor.py``): retries, OOM chunk halving and
 group splits, the NaN quarantine and the device chaos kinds, as in the
 JAX package (see :func:`run_batched` and :func:`run_many_batched`).
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md):
-``mesh``.
+Sharded runs.  ``mesh`` (a ``pydcop_tpu_torch.parallel.Mesh``) runs an
+``n_shards``-compiled problem over the mesh, the JAX package's
+``shard_map``: one thread per shard runs each round on the shard's views
+and its slice of the state (the algorithm's ``state_specs``), the
+neighbor exchange is one ``psum`` a round, and the anytime cost is
+evaluated per shard with one psum too (``ops/costs.py``).  The rounds'
+draws are made once, in the calling thread, from the run's one
+generator on the mesh's first device, and each shard gets its slice
+(the algorithm's ``draw_specs``; replicated otherwise).  A meshed run
+equals the unmeshed run of the same problem bit for bit.  Checkpoints
+hold the state in its global layout (``n_shards`` in the meta) and
+resume under a mesh of the same size.
 """
 
 from __future__ import annotations
@@ -74,10 +84,18 @@ from pydcop_tpu_torch.ops.compile import (
     CompiledProblem,
     StackedProblem,
     decode_assignment,
+    shard_stacked,
     stack_problems,
     union_problem,
 )
 from pydcop_tpu_torch.ops.costs import instance_costs, total_cost
+from pydcop_tpu_torch.parallel.mesh import (
+    SHARD_AXIS,
+    P,
+    check_mesh,
+    shard_problem,
+    state_pspecs,
+)
 from pydcop_tpu_torch.telemetry import get_metrics, get_tracer
 
 
@@ -100,12 +118,6 @@ class RunResult:
     state: Optional[Dict[str, torch.Tensor]] = None
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet — see ROADMAP.md, '{item}'"
-    )
-
-
 def round_generator(seed: int, device: torch.device) -> torch.Generator:
     """The rounds' generator on ``device``: seeded with a word derived
     from ``seed`` (numpy's ``SeedSequence``), so its stream is not the
@@ -122,7 +134,7 @@ class _Checkpointer:
     run has drawn from it) and the cost trace so far (``cost_trace``)."""
 
     def __init__(self, path, algo_module, problem, seed, chunk_size,
-                 n_restarts, gen, gen0):
+                 n_restarts, gen, gen0, whole):
         from pydcop_tpu_torch.ops.compile import problem_fingerprint
 
         self.path = path
@@ -134,8 +146,10 @@ class _Checkpointer:
             "chunk_size": chunk_size,
             "problem": problem_fingerprint(problem),
             "n_restarts": n_restarts,
+            "n_shards": problem.n_shards,
         }
-        self.device_type = problem.device.type
+        self.device_type = gen.device.type
+        self.whole = whole  # the run's state -> its global layout
         self.unsaved = 0
 
     def load(self, template, best_cost, best_values):
@@ -181,6 +195,11 @@ class _Checkpointer:
                 f"{meta.get('n_restarts', 1)}, not {want['n_restarts']} — "
                 "the restart stack and RNG streams would not line up"
             )
+        if meta.get("n_shards", 1) != want["n_shards"]:
+            raise ValueError(
+                f"Checkpoint {path} was written for n_shards="
+                f"{meta.get('n_shards', 1)}, not {want['n_shards']}"
+            )
         arrays = checkpoint_arrays(path, ("rng/round", "cost_trace"))
         if meta.get("rng_drawn"):
             if meta.get("rng_device") != self.device_type:
@@ -217,7 +236,7 @@ class _Checkpointer:
         meta = dict(self.meta, rng_device=self.device_type,
                     rng_drawn=not torch.equal(rng, self.gen0))
         save_checkpoint(
-            self.path, state, best_cost, best_values, done, meta,
+            self.path, self.whole(state), best_cost, best_values, done, meta,
             static_keys=self.static,
             arrays={"rng/round": rng.numpy(),
                     "cost_trace": np.concatenate(traces) if traces
@@ -226,24 +245,141 @@ class _Checkpointer:
         self.unsaved = 0
 
 
-def _run_chunk(problem, algo_module, params, state, gen, n_rounds,
-               cost_every, best_cost, best_values, observe):
-    """``n_rounds`` rounds; the anytime cost is evaluated after every
+def _run_chunk(rounds, state, gen, n_rounds, cost_every, best_cost,
+               best_values):
+    """``n_rounds`` rounds of ``rounds`` (:class:`_Rounds` or
+    :class:`ShardedRounds`); the anytime cost is evaluated after every
     ``cost_every``-th round and after the last one.  Returns the new
     state, best cost/values (device tensors, per restart under
-    restarts) and the chunk's cost samples as one device tensor.
-    ``observe(values)`` gives ``(costs, values)`` in the layout the best
-    is tracked in."""
+    restarts) and the chunk's cost samples as one device tensor."""
     costs = []
     for i in range(1, n_rounds + 1):
-        state = algo_module.step(problem, state, params, gen)
+        state = rounds.step(state, gen)
         if i % cost_every == 0 or i == n_rounds:
-            cost, values = observe(state["values"])
+            cost, values = rounds.observe(state)
             better = cost < best_cost
             best_cost = torch.where(better, cost, best_cost)
             best_values = torch.where(better[..., None], values, best_values)
             costs.append(cost)
     return state, best_cost, best_values, torch.stack(costs)
+
+
+class _Rounds:
+    """The round loop's access to an unmeshed run: the state is the
+    algorithm's dict.  ``observe(state)`` gives ``(costs, values)`` in
+    the layout the best is tracked in (``costs(values)`` and
+    ``to_inst(values)``)."""
+
+    def __init__(self, problem, algo_module, params, costs, to_inst=None):
+        self.problem, self.algo, self.params = problem, algo_module, params
+        self.costs = costs
+        self.to_inst = to_inst or (lambda v: v)
+
+    def step(self, state, gen):
+        return self.algo.step(self.problem, state, self.params, gen)
+
+    def observe(self, state):
+        v = self.to_inst(state["values"])
+        return self.costs(v), v
+
+    def values(self, state):
+        return state["values"]
+
+    def whole(self, state, device=None):
+        return state if device is None else {
+            k: v.to(device) for k, v in state.items()
+        }
+
+    def place(self, state):
+        return state
+
+
+class ShardedRounds(_Rounds):
+    """The round loop over a shard mesh (``parallel/mesh.py``): the state
+    is one dict per shard (split by the algorithm's ``state_specs``, with
+    ``lead`` batch axes in front of the non-static leaves).  Each round
+    the draws are made here, from the run's generator, with the whole
+    problem's shapes (``whole``), and split by the algorithm's
+    ``draw_specs``; every shard then runs ``apply`` (or ``step``, for an
+    algorithm that draws nothing) on its view with its axis.
+    ``costs(view, values, axis)`` is evaluated on every shard, and shard
+    0's result is the sample.  ``rounds`` and ``step_psums`` count the
+    rounds run and the collectives they made."""
+
+    def __init__(self, sharded, whole, algo_module, params, lead, costs,
+                 to_inst=None, cost_views=None):
+        super().__init__(whole, algo_module, params, costs, to_inst)
+        self.sharded = sharded
+        self.mesh = sharded.mesh
+        self.views = sharded.views
+        self.cost_views = cost_views or sharded.views
+        self.lead = lead
+        self.static = frozenset(getattr(algo_module, "STATIC_STATE_KEYS", ()))
+        self.specs = dict(state_pspecs(algo_module, whole))
+        self.draw_specs = (algo_module.draw_specs(whole)
+                           if hasattr(algo_module, "draw_specs") else {})
+        self.seam = hasattr(algo_module, "draws") and hasattr(
+            algo_module, "apply")
+        # numeric params one value per constraint of the problem split
+        # with the constraints; the others go whole to every shard
+        axes = getattr(algo_module, "INSTANCE_PARAM_AXES", {})
+        pspecs = {
+            k: P(SHARD_AXIS) for k, v in params.items()
+            if isinstance(v, torch.Tensor) and axes.get(k) == "constraints"
+        }
+        self.shard_params = sharded.split(params, pspecs)
+        self.rounds = 0
+        self.step_psums = 0
+
+    def place(self, state):
+        """The whole state split over the mesh."""
+        return self.sharded.split(state, self.specs, self.lead, self.static)
+
+    def whole(self, parts, device=None):
+        """The shards' parts joined into the whole state on ``device``
+        (default: the mesh's first device)."""
+        return self.sharded.join(parts, self.specs, self.lead, device,
+                                 self.static)
+
+    def step(self, parts, gen):
+        drawn = None
+        if self.seam:
+            batch = tuple(parts[0]["values"].shape[:-1])
+            drawn = self.algo.draws(self.problem, self.params, gen, batch)
+        return self.apply(parts, drawn)
+
+    def apply(self, parts, drawn=None):
+        """One round on the shards' ``parts`` from the whole problem's
+        ``drawn`` (its ``draws``; ``None`` for a step that draws
+        nothing): each shard runs ``apply`` (or ``step``) on its view
+        with its slice of the draws.  Returns the new parts."""
+        algo, views, prm = self.algo, self.views, self.shard_params
+        if self.seam:
+            drawn = self.sharded.split(drawn or {}, self.draw_specs,
+                                       self.lead)
+
+            def fn(i, axis):
+                return algo.apply(views[i], parts[i], prm[i], drawn[i],
+                                  axis=axis)
+        else:
+            def fn(i, axis):
+                return algo.step(views[i], parts[i], prm[i], None, axis=axis)
+
+        before = self.mesh.psums
+        out = self.mesh.run(fn)
+        self.step_psums += self.mesh.psums - before
+        self.rounds += 1
+        return out
+
+    def observe(self, parts):
+        views, to_inst, costs = self.cost_views, self.to_inst, self.costs
+        out = self.mesh.run(
+            lambda i, axis: costs(views[i], to_inst(parts[i]["values"]), axis)
+        )
+        return out[0], to_inst(parts[0]["values"])
+
+    def values(self, parts):
+        return parts[0]["values"]
 
 
 def _initial_state(problem, algo_module, params, seed, initial_state,
@@ -343,10 +479,9 @@ def run_batched(
     """
     if n_restarts < 1:
         raise ValueError(f"n_restarts must be >= 1, got {n_restarts}")
-    if mesh is not None:
-        raise _not_ported("mesh (sharded runs)", "n_shards > 1")
     if cost_every < 1 or chunk_size < 1:
         raise ValueError("cost_every and chunk_size must be >= 1")
+    sharded = None if mesh is None else shard_problem(problem, mesh)
     if n_restarts > 1 and getattr(chunk_callback, "wants_values", False):
         raise ValueError(
             "n_restarts > 1 cannot feed a wants_values chunk_callback "
@@ -363,21 +498,30 @@ def run_batched(
         )
     else:
         state = algo_module.init_state(problem, seed, params, batch)
-    gen = round_generator(seed, problem.device)
+    run_dev = problem.device if sharded is None else sharded.device
+    gen = round_generator(seed, run_dev)
     gen0 = gen.get_state()
-    best_values = state["values"]
-    best_cost = total_cost(problem, best_values)  # [] or [K]
+    # the eager cost, outside the rounds, on the whole problem
+    best_values = state["values"].to(run_dev)
+    best_cost = total_cost(problem, state["values"]).to(run_dev)  # [] / [K]
+    if sharded is None:
+        loop = _Rounds(problem, algo_module, params,
+                       lambda v: total_cost(problem, v))
+    else:
+        loop = ShardedRounds(sharded, problem, algo_module, params,
+                             len(batch), total_cost)
 
     traces = []
     done = 0
     ck = None
     if checkpoint_path is not None:
         ck = _Checkpointer(checkpoint_path, algo_module, problem, seed,
-                           chunk_size, n_restarts, gen, gen0)
+                           chunk_size, n_restarts, gen, gen0, loop.whole)
         if resume and os.path.exists(checkpoint_path):
             state, best_cost, best_values, done, trace = ck.load(
                 state, best_cost, best_values)
             traces.append(trace)
+    state = loop.place(state)
     status = "finished"
     stall = 0
     if convergence_chunks:
@@ -409,11 +553,8 @@ def run_batched(
 
         def chunk(n=this_chunk):
             gen.set_state(gen_start)
-            out = _run_chunk(
-                problem, algo_module, params, state, gen, n, cost_every,
-                best_cost, best_values,
-                lambda v: (total_cost(problem, v), v),
-            )
+            out = _run_chunk(loop, state, gen, n, cost_every, best_cost,
+                             best_values)
             # the chunk's one host sync, inside the dispatch: a kernel's
             # failure surfaces here, where the supervisor classifies it
             return out[:3] + (out[3].float().cpu().numpy(),)
@@ -492,7 +633,7 @@ def run_batched(
             best_now = float(best_cost.min())
             if getattr(chunk_callback, "wants_values", False):
                 cb_status = chunk_callback(
-                    done, best_now, state["values"].cpu().numpy()
+                    done, best_now, loop.values(state).cpu().numpy()
                 )
             else:
                 cb_status = chunk_callback(done, best_now)
@@ -506,7 +647,7 @@ def run_batched(
             best_now = float(best_cost.min())
             # under restarts the [K, n] stack never crosses to the host:
             # one mover among K would block the early stop anyway
-            cur_values = None if batch else state["values"].cpu()
+            cur_values = None if batch else loop.values(state).cpu()
             frozen = bool(batch) or torch.equal(cur_values, prev_values)
             if best_now >= prev_best - 1e-9 and frozen:
                 stall += 1
@@ -522,8 +663,8 @@ def run_batched(
     if ck is not None and ck.unsaved and status != "degraded":
         ck.save(state, best_cost, best_values, done, traces)
 
-    final_values = state["values"]
-    final_costs = total_cost(problem, final_values)
+    final_values = loop.values(state)
+    final_costs = total_cost(problem, final_values.to(problem.device))
     restart_costs = None
     if batch:
         # report the best restart: final = lowest final cost, anytime
@@ -545,7 +686,7 @@ def run_batched(
     msgs = algo_module.messages_per_round(problem, params) * done * n_restarts
     trace = np.concatenate(traces) if traces else np.zeros(0)
     out_state = (
-        {k: v.cpu() for k, v in state.items()} if return_state else None
+        loop.whole(state, "cpu") if return_state else None
     )
     return RunResult(
         assignment=decode_assignment(problem, final_values),
@@ -674,8 +815,8 @@ def run_many_batched(
     R = n_restarts
     if R < 1:
         raise ValueError(f"n_restarts must be >= 1, got {R}")
-    if mesh is not None:
-        raise _not_ported("mesh (sharded runs)", "n_shards > 1")
+    if mesh is not None:  # the type and size checks, before any work
+        check_mesh(first.n_shards, mesh)
     if cost_every < 1 or chunk_size < 1:
         raise ValueError("cost_every and chunk_size must be >= 1")
     if isinstance(params, Mapping):
@@ -708,7 +849,7 @@ def run_many_batched(
             timeout=None if deadline is None
             else max(deadline - time.perf_counter(), 0.01),
             chunk_size=chunk, convergence_chunks=convergence_chunks,
-            cost_every=cost_every, n_restarts=R, attempt=attempt,
+            cost_every=cost_every, n_restarts=R, attempt=attempt, mesh=mesh,
         )
         if outcome == "done":
             results[lo:hi] = arg
@@ -724,7 +865,7 @@ def run_many_batched(
 
 def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
                chunk_size, convergence_chunks, cost_every, n_restarts,
-               attempt):
+               attempt, mesh=None):
     """One group's chunk loop (:func:`run_many_batched`).  ``holder``
     holds the stacked group, which this call takes out.  Returns
     ``("done", results)``, ``("split", None)`` after a device OOM (the
@@ -771,14 +912,28 @@ def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
     del inits  # the per-instance copies: the group holds its own
     run_params = _group_params(algo_module, params_list, problem, I,
                                instance_axis)
+    if mesh is None:
+        loop = _Rounds(problem, algo_module, run_params,
+                       lambda v: instance_costs(stacked, v), to_inst)
+        run_dev = stacked.device
+    else:
+        # the instance axis batched, the shards mesh-mapped: Max-Sum's
+        # stacked group splits per instance (stacked views), the union
+        # splits as one problem and its costs read stacked views
+        sharded = shard_problem(problem, mesh)
+        loop = ShardedRounds(
+            sharded, problem, algo_module, run_params,
+            2 if instance_axis else 1, instance_costs, to_inst,
+            None if instance_axis else shard_stacked(stacked, mesh.devices),
+        )
+        run_dev = sharded.device
 
-    def observe(values):
-        v = to_inst(values)
-        return instance_costs(stacked, v), v
-
-    gen = round_generator(seeds[0], stacked.device)
-    best_cost, best_values = observe(state["values"])  # [I, R], [I, R, n]
-    best_values = best_values.clone()
+    gen = round_generator(seeds[0], run_dev)
+    # the eager costs, outside the rounds, on the whole group
+    v0 = to_inst(state["values"])
+    best_cost = instance_costs(stacked, v0).to(run_dev)  # [I, R]
+    best_values = v0.to(run_dev).clone()  # [I, R, n]
+    state = loop.place(state)
 
     sup = get_supervisor()
     traces = []
@@ -790,16 +945,14 @@ def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
     # reports this last finite best with status 'degraded'
     quarantined: Dict[int, Any] = {}
     prev_best = best_cost.amin(dim=1).cpu().numpy()
-    prev_values = None if R > 1 else to_inst(state["values"]).cpu()
+    prev_values = None if R > 1 else to_inst(loop.values(state)).cpu()
     tr, met = get_tracer(), get_metrics()
     while done < rounds:
         this_chunk = min(chunk_size, rounds - done)
 
         def chunk(n=this_chunk):
-            out = _run_chunk(
-                problem, algo_module, run_params, state, gen, n,
-                cost_every, best_cost, best_values, observe,
-            )
+            out = _run_chunk(loop, state, gen, n, cost_every, best_cost,
+                             best_values)
             # the one host sync of the chunk: [samples, I, R] -> [I, samples]
             return out[:3] + (out[3].float().amin(dim=-1).t().cpu().numpy(),)
 
@@ -925,7 +1078,7 @@ def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
             break
         if convergence_chunks:
             best_now = best_cost.amin(dim=1).cpu().numpy()
-            cur_values = None if R > 1 else to_inst(state["values"]).cpu()
+            cur_values = None if R > 1 else to_inst(loop.values(state)).cpu()
             frozen = R > 1 or torch.equal(cur_values, prev_values)
             if np.all(best_now >= prev_best - 1e-9) and frozen:
                 stall += 1
@@ -937,7 +1090,7 @@ def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
             prev_best = best_now
             prev_values = cur_values
 
-    final_costs, final_values = observe(state["values"])  # [I, R]
+    final_costs, final_values = loop.observe(state)  # [I, R]
     rows = torch.arange(I, device=final_costs.device)
     i_fin = final_costs.argmin(dim=1)
     i_best = best_cost.argmin(dim=1)

@@ -78,10 +78,12 @@ def run_dynamic(
 
     ``device`` is where every segment, the compiled problem and the
     reparation solves run: the CUDA device by default (raising
-    ``NoCudaDeviceError`` without one), or ``"cpu"``.  ``mesh`` and
-    ``n_shards > 1`` (sharded segments) are not ported and raise
-    ``NotImplementedError``.  ``chunk_callback`` is forwarded to each
-    segment's :func:`~pydcop_tpu_torch.engine.batched.run_batched`.
+    ``NoCudaDeviceError`` without one), or ``"cpu"``.  With ``mesh``
+    and ``n_shards`` set (a ``parallel.Mesh`` of ``n_shards`` shards),
+    every segment's problem is compiled with that shard count (a full
+    recompile after every event) and runs sharded over the mesh.
+    ``chunk_callback`` is forwarded to each segment's
+    :func:`~pydcop_tpu_torch.engine.batched.run_batched`.
 
     Segment compiles go through
     :class:`~pydcop_tpu_torch.engine.incremental.IncrementalCompiler`:
@@ -103,11 +105,10 @@ def run_dynamic(
     )
 
     t0 = time.perf_counter()
-    if mesh is not None or n_shards > 1:
-        raise NotImplementedError(
-            "sharded dynamic runs (mesh / n_shards > 1) are not ported "
-            "yet — see ROADMAP.md, 'n_shards > 1'"
-        )
+    if mesh is not None:
+        from pydcop_tpu_torch.parallel.mesh import check_mesh
+
+        check_mesh(n_shards, mesh)
     dev = resolve_device(device)
     module = load_algorithm_module(algo)
     if not hasattr(module, "step"):
@@ -229,6 +230,7 @@ def run_dynamic(
             seed=seg_seed,
             timeout=remaining,
             chunk_size=chunk_size,
+            mesh=mesh,
             chunk_callback=chunk_callback,
             initial_state=carry_state if carried else None,
             return_state=True,

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict, NamedTuple
@@ -44,6 +45,7 @@ class Built(NamedTuple):
 
 
 _LOADED: Dict[str, Built] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -64,9 +66,16 @@ def _nvcc() -> str:
 
 def load(source: str) -> Built:
     """Compile ``csrc/<source>`` if needed and load it (once per
-    process)."""
+    process; the shard threads of a mesh run share one build)."""
     if source in _LOADED:
         return _LOADED[source]
+    with _LOAD_LOCK:
+        if source not in _LOADED:
+            _LOADED[source] = _load(source)
+    return _LOADED[source]
+
+
+def _load(source: str) -> Built:
     src = CSRC / source
     text = src.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
@@ -95,6 +104,4 @@ def load(source: str) -> Built:
                 os.unlink(tmp)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
-    built = Built(ctypes.CDLL(str(out)), out, seconds, log)
-    _LOADED[source] = built
-    return built
+    return Built(ctypes.CDLL(str(out)), out, seconds, log)

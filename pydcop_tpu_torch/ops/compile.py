@@ -28,8 +28,12 @@ zero-table ghost constraints, as the JAX compiler does, so that
 similarly-sized problems share one shape (:func:`problem_group_key`)
 and can be stacked (:func:`stack_problems`) for ``api.solve_many``.
 
-Supported here: ``n_shards=1``.  Sharded layouts are a later port item
-(ROADMAP.md).
+``n_shards > 1`` compiles the JAX package's shard-major layout
+(:func:`_shard_major_layout`): every arity bucket gets the same number
+of rows on every shard, padded with zero-table ghost constraints, so the
+constraint, edge and bucket arrays split into equal contiguous shard
+blocks (``parallel/mesh.py:shard_problem``).  The ghosts never count as
+messages (``n_real_edges``).
 """
 
 from __future__ import annotations
@@ -106,6 +110,15 @@ ARRAY_FIELDS = (
     "edge_covars", "edge_costrides",
     "neighbors", "neighbor_mask", "var_edges",
 )
+
+#: how the tensor fields of an ``n_shards > 1`` problem split over its
+#: shards (:func:`shard_view`): the axis of each constraint or edge array,
+#: ``None`` for a field every shard holds whole (``var_edges`` is replaced
+#: by each shard's own slot table, :func:`slot_tables`)
+SHARD_AXES = {
+    f: (0 if f.startswith(("con_", "edge_")) else None) for f in ARRAY_FIELDS
+}
+BUCKET_SHARD_AXES = {"tables": 0, "tables_t": -1, "scopes": 0, "edge_slot": 0}
 
 #: the host-side metadata fields of :class:`CompiledProblem`
 META_FIELDS = (
@@ -216,6 +229,16 @@ class CompiledProblem:
             cache[name] = getattr(self, name).long()
         return cache[name]
 
+    @functools.cached_property
+    def segments(self) -> Tuple["CompiledProblem", ...]:
+        """The ``n_shards`` shard views of the problem on its own device
+        (:func:`shard_view`): the sums of an ``n_shards > 1`` problem run
+        segment by segment, in the order a shard mesh adds them."""
+        tables = slot_tables([self])
+        return tuple(
+            shard_view(self, s, slots=tables[s]) for s in range(self.n_shards)
+        )
+
     def to(self, device: DeviceLike) -> "CompiledProblem":
         dev = torch.device(device)
         moved = {f: getattr(self, f).to(dev) for f in ARRAY_FIELDS}
@@ -227,8 +250,8 @@ class CompiledProblem:
 
 def _resolve_table_dtype(table_dtype, dtype) -> torch.dtype:
     """Map the ``table_dtype`` vocabulary onto a torch dtype; ``None``
-    keeps ``dtype``.  int8 packs belong to the contraction stack, which
-    is not ported yet."""
+    keeps ``dtype``.  int8 packs belong to the contraction stack (DPOP
+    and inference), not to the message-passing engines."""
     if table_dtype is None:
         return dtype
     dt = as_table_dtype(table_dtype)
@@ -242,11 +265,8 @@ def _resolve_table_dtype(table_dtype, dtype) -> torch.dtype:
 
 def _check_supported(n_shards: int, pad_policy, table_format) -> PadPolicy:
     """Refuse what this compiler does not take; return the pad policy."""
-    if n_shards != 1:
-        raise NotImplementedError(
-            "n_shards > 1 (the sharded layout) is not ported yet — "
-            "see ROADMAP.md, 'n_shards > 1'"
-        )
+    if int(n_shards) != n_shards or n_shards < 1:
+        raise ValueError(f"n_shards must be an integer >= 1, got {n_shards}")
     if table_format not in (None, "dense"):
         raise ValueError(
             f"table_format={table_format!r}: the message-passing "
@@ -392,33 +412,40 @@ def _compile_dcop(
             domain_labels = domain_labels + ((0,),) * n_pad_vars
             n_vars += n_pad_vars
 
-    # arity-major (stable) order: every arity bucket's constraints — and
-    # so its edges — occupy one contiguous range of the edge array
-    multi_cons = sorted(multi_cons, key=lambda it: len(it[1]))
-    if pol.enabled:
-        multi_cons = _pad_arity_groups(multi_cons, pol, d_max, ghost_vars)
+    if n_shards > 1:
+        multi_cons = _shard_major_layout(
+            multi_cons, n_shards, d_max, policy=pol, ghost_vars=ghost_vars
+        )
+    else:
+        # arity-major (stable) order: every arity bucket's constraints —
+        # and so its edges — occupy one contiguous range of the edge array
+        multi_cons = sorted(multi_cons, key=lambda it: len(it[1]))
+        if pol.enabled:
+            multi_cons = _pad_arity_groups(multi_cons, pol, d_max, ghost_vars)
     con_names = tuple(name for name, _, _ in multi_cons)
 
-    # one run per arity; the ghost constraints padded onto a run's tail
-    # are counted so packing keeps their edges out of var_edges
+    # one run per (shard segment, arity); the ghost constraints padded
+    # onto a run's tail are counted so packing keeps their edges out of
+    # var_edges under a pad policy
+    n_cons = len(multi_cons)
+    per_seg = n_cons // n_shards
     runs: List[Tuple[int, np.ndarray, np.ndarray, int]] = []
-    i = 0
-    while i < len(multi_cons):
-        k = len(multi_cons[i][1])
-        j = i
-        while j < len(multi_cons) and len(multi_cons[j][1]) == k:
-            j += 1
-        sc = np.asarray(
-            [multi_cons[ci][1] for ci in range(i, j)], dtype=np.int32
-        ).reshape(j - i, k)
-        tb = np.stack([multi_cons[ci][2] for ci in range(i, j)])
-        tail = 0
-        while tail < j - i and multi_cons[j - 1 - tail][0].startswith(
-            "__pad_c"
-        ):
-            tail += 1
-        runs.append((k, sc, tb, tail))
-        i = j
+    for seg in range(n_shards):
+        i, end = seg * per_seg, (seg + 1) * per_seg
+        while i < end:
+            k = len(multi_cons[i][1])
+            j = i
+            while j < end and len(multi_cons[j][1]) == k:
+                j += 1
+            sc = np.asarray(
+                [multi_cons[ci][1] for ci in range(i, j)], dtype=np.int32
+            ).reshape(j - i, k)
+            tb = np.stack([multi_cons[ci][2] for ci in range(i, j)])
+            tail = 0
+            while tail < j - i and _is_ghost_name(multi_cons[j - 1 - tail][0]):
+                tail += 1
+            runs.append((k, sc, tb, tail))
+            i = j
 
     packed = _pack_runs(runs, n_vars, d_max, dtype, dev, pol)
 
@@ -430,11 +457,61 @@ def _compile_dcop(
         domain_labels=domain_labels,
         con_names=con_names,
         maximize=dcop.objective == "max",
-        n_shards=1,
+        n_shards=n_shards,
         n_real_edges=n_real_edges,
         n_pad_vars=n_pad_vars,
         **packed,
     )
+
+
+def _is_ghost_name(name: str) -> bool:
+    """Ghost constraints: shard-divisibility padding (``__ghost_``) and
+    pad-policy bucketing (``__pad_c``)."""
+    return name.startswith("__ghost_") or name.startswith("__pad_c")
+
+
+def _shard_major_layout(
+    multi_cons: List[Tuple[str, List[int], np.ndarray]],
+    n_shards: int,
+    d_max: int,
+    policy: PadPolicy = NO_PADDING,
+    ghost_vars: Sequence[int] = (),
+) -> List[Tuple[str, List[int], np.ndarray]]:
+    """The constraints reordered shard-major, with equal per-shard,
+    per-arity bucket sizes (the JAX package's layout): each arity's
+    constraints are padded up to ``per_shard · n_shards`` with zero-table
+    ghosts (scoped on the pad-policy ghost variables, cycled, or on
+    variable 0) and dealt round-robin, so shard s owns rows ``[s·m_k,
+    (s+1)·m_k)`` of bucket k and every shard's list is arity-sorted.  A
+    constraint-free problem gets one ghost binary constraint per shard,
+    so that every sharded axis still splits."""
+    import math
+
+    ghost_targets = list(ghost_vars) or [0]
+    by_arity: Dict[int, List[Tuple[str, List[int], np.ndarray]]] = {}
+    for item in multi_cons:
+        by_arity.setdefault(len(item[1]), []).append(item)
+    if not by_arity:
+        by_arity[2] = []
+    shards: List[List[Tuple[str, List[int], np.ndarray]]] = [
+        [] for _ in range(n_shards)
+    ]
+    for k in sorted(by_arity):
+        items = by_arity[k]
+        per_shard = max(1, math.ceil(len(items) / n_shards))
+        if policy.enabled:
+            per_shard = policy.bucket(per_shard)
+        need = per_shard * n_shards - len(items)
+        gscopes = ghost_scopes(ghost_targets, need, k)
+        for i in range(need):
+            items.append((
+                f"__ghost_{k}_{i}",
+                list(gscopes[i]),
+                np.zeros((d_max,) * k, dtype=np.float32),
+            ))
+        for i, item in enumerate(items):
+            shards[i % n_shards].append(item)
+    return [item for shard in shards for item in shard]
 
 
 def _pad_arity_groups(
@@ -672,23 +749,36 @@ def _pack_runs(
         neighbors[pairs[:, 0], nrank] = pairs[:, 1]
         neighbor_mask[pairs[:, 0], nrank] = True
 
-    # arity buckets: one run per arity (single segment); edge slots are
-    # pure arithmetic on the run layout
+    # arity buckets: each arity's runs (one per shard segment) in run
+    # order; edge slots are pure arithmetic on the run layout
+    by_arity: Dict[int, List[int]] = {}
+    for ri, (k, _, _, _) in enumerate(runs):
+        by_arity.setdefault(k, []).append(ri)
     buckets: Dict[int, ArityBucket] = {}
-    for ri, (k, sc, tb, _) in enumerate(runs):
-        m = sc.shape[0]
-        btables = np.asarray(tb, dtype=np.float32)
-        bslots = (
+    for k, run_ids in sorted(by_arity.items()):
+        if len(run_ids) > 1 and any(
+            _is_shared(runs[ri][1], runs[ri][2]) for ri in run_ids
+        ):
+            raise ValueError(
+                "shared-table runs must be the only run of their arity "
+                "(materialize before the shard-major layout)"
+            )
+        btables = np.concatenate(
+            [runs[ri][2] for ri in run_ids]
+        ).astype(np.float32, copy=False)
+        bscopes = np.concatenate([runs[ri][1] for ri in run_ids])
+        bslots = np.concatenate([
             run_edge_base[ri]
-            + np.arange(m, dtype=np.int32)[:, None]
-            + np.arange(k, dtype=np.int32)[None, :] * m
-        )
+            + np.arange(runs[ri][1].shape[0], dtype=np.int32)[:, None]
+            + np.arange(k, dtype=np.int32)[None, :] * runs[ri][1].shape[0]
+            for ri in run_ids
+        ])
         buckets[k] = ArityBucket(
             tables=_float_tensor(btables, dtype, device),
             tables_t=_float_tensor(
                 np.moveaxis(btables, 0, -1), dtype, device
             ),
-            scopes=torch.as_tensor(sc, device=device),
+            scopes=torch.as_tensor(bscopes, device=device),
             edge_slot=torch.as_tensor(
                 bslots.astype(np.int32), device=device
             ),
@@ -937,13 +1027,16 @@ def compile_from_arrays(
 
     def _merge_arity(ss, ts):
         """One (scopes, tables) per arity.  Sharedness survives only
-        when the whole group is one shared entry that needs no ghost
-        rows; other groups materialize per-constraint tables."""
+        when the whole group is one shared entry on a single shard that
+        needs no ghost rows; other groups (and the shard-major layout,
+        whose ghosts have zero tables) materialize per-constraint
+        tables."""
         sc = np.concatenate(ss) if len(ss) > 1 else ss[0]
         if (
             len(ts) == 1
             and ts[0].shape[0] == 1
             and sc.shape[0] > 1
+            and n_shards == 1
             and pol.bucket(sc.shape[0]) == sc.shape[0]
         ):
             return sc, ts[0]
@@ -953,21 +1046,63 @@ def compile_from_arrays(
             else t
             for s, t in zip(ss, ts)
         ]
-        return sc, np.concatenate(mats)
+        return sc, np.ascontiguousarray(np.concatenate(mats))
 
     # ghost constraints scope the ghost variable slots (the tail of the
     # slot order: ghosts have degree 0), with zero tables
     ghost_slots = list(range(n_real_vars, n_vars))
     runs: List[Tuple[int, np.ndarray, np.ndarray, int]] = []
-    for k, (ss, ts) in sorted(by_k.items()):
-        sc, tb = _merge_arity(ss, ts)
-        gtail = pol.bucket(sc.shape[0]) - sc.shape[0] if pol.enabled else 0
-        if gtail:
-            sc = np.concatenate([sc, ghost_scopes(ghost_slots, gtail, k)])
-            tb = np.concatenate(
-                [tb, np.zeros((gtail,) + (d,) * k, dtype=np.float32)]
+    con_id_parts: List[np.ndarray] = []
+    cid_base = 0
+    if n_shards == 1:
+        for k, (ss, ts) in sorted(by_k.items()):
+            sc, tb = _merge_arity(ss, ts)
+            gtail = pol.bucket(sc.shape[0]) - sc.shape[0] if pol.enabled else 0
+            if gtail:
+                sc = np.concatenate([sc, ghost_scopes(ghost_slots, gtail, k)])
+                tb = np.concatenate(
+                    [tb, np.zeros((gtail,) + (d,) * k, dtype=np.float32)]
+                )
+            runs.append((k, sc, tb, gtail))
+            con_id_parts.append(
+                np.arange(cid_base, cid_base + sc.shape[0], dtype=np.int64)
             )
-        runs.append((k, sc, tb, gtail))
+            cid_base += sc.shape[0]
+    else:
+        # the shard-major layout: each arity padded to per_shard ·
+        # n_shards with zero-table ghosts (on the pad-policy ghost slots,
+        # else variable 0), dealt round-robin (row r to shard r mod
+        # n_shards); the ghosts sit at the tail of every shard's run
+        per_shard_parts: List[list] = [[] for _ in range(n_shards)]
+        for k, (ss, ts) in sorted(by_k.items()):
+            sc, tb = _merge_arity(ss, ts)
+            m = sc.shape[0]
+            per_shard = -(-m // n_shards)
+            if pol.enabled:
+                per_shard = pol.bucket(per_shard)
+            tgt = per_shard * n_shards
+            if tgt > m:
+                gs = (
+                    ghost_scopes(ghost_slots, tgt - m, k)
+                    if pol.enabled
+                    else np.zeros((tgt - m, k), dtype=np.int32)
+                )
+                sc = np.concatenate([sc, gs])
+                tb = np.concatenate(
+                    [tb, np.zeros((tgt - m,) + (d,) * k, dtype=np.float32)]
+                )
+            ids = np.arange(cid_base, cid_base + tgt, dtype=np.int64)
+            cid_base += tgt
+            ghost = np.arange(tgt) >= m
+            for sh in range(n_shards):
+                per_shard_parts[sh].append((
+                    k, sc[sh::n_shards], tb[sh::n_shards],
+                    int(ghost[sh::n_shards].sum()), ids[sh::n_shards],
+                ))
+        for parts in per_shard_parts:
+            for k, sc, tb, gcount, ids in parts:
+                runs.append((k, sc, tb, gcount))
+                con_id_parts.append(ids)
     packed = _pack_runs(runs, n_vars, d, dtype, dev, pol)
 
     if unary is None:
@@ -996,8 +1131,11 @@ def compile_from_arrays(
     labels = tuple(
         domain_values if domain_values is not None else range(d)
     )
-    con_ids = np.arange(sum(s.shape[0] for _, s, _, _ in runs),
-                        dtype=np.int64)
+    con_ids = (
+        np.concatenate(con_id_parts)
+        if con_id_parts
+        else np.zeros(0, dtype=np.int64)
+    )
     return CompiledProblem(
         domain_sizes=torch.as_tensor(domain_sizes, device=dev),
         unary=_float_tensor(unary_np, dtype, dev),
@@ -1006,7 +1144,7 @@ def compile_from_arrays(
         domain_labels=UniformLabels(labels, n_vars),
         con_names=AutoNames(con_prefix, con_ids),
         maximize=maximize,
-        n_shards=1,
+        n_shards=n_shards,
         n_real_edges=n_real_edges,
         n_pad_vars=n_pad_vars,
         **packed,
@@ -1187,6 +1325,13 @@ class StackedProblem:
     def slot_sentinels(self) -> bool:
         return any(p.slot_sentinels for p in self.host_problems)
 
+    @functools.cached_property
+    def segments(self) -> Tuple["StackedProblem", ...]:
+        """The ``n_shards`` shard views of the group on its device: each
+        instance's :func:`shard_view`, stacked (slot tables of one width
+        for all instances)."""
+        return shard_stacked(self, [self.device] * self.n_shards)
+
 
 def stack_problems(
     problems: Sequence[CompiledProblem],
@@ -1290,8 +1435,126 @@ def union_problem(stacked: StackedProblem) -> CompiledProblem:
         domain_labels=("__union_labels__", n * I, stacked.d_max),
         con_names=("__union_cons__", stacked.n_cons * I),
         maximize=stacked.maximize,
-        n_shards=1,
+        n_shards=stacked.n_shards,
         n_real_edges=sum(p.n_real_edges for p in stacked.host_problems),
         var_slot_counts=tuple(c * I for c in stacked.var_slot_counts),
         n_pad_vars=0,
     )
+
+
+# -- shard views ----------------------------------------------------------
+
+
+def slot_tables(
+    problems: Sequence[CompiledProblem],
+) -> List[Tuple[List[np.ndarray], Tuple[int, ...]]]:
+    """Per shard segment s of same-layout ``n_shards > 1`` problems:
+    ``(tables, counts)``, each problem's slot table over the segment's
+    LOCAL edges and the degree-slot prefix counts they share.
+
+    ``var_edges`` holds global edge ids, which mean nothing inside one
+    shard.  Segment s's table keeps, per variable and in ``var_edges``'
+    order, the edges of ``[s·E_s, (s+1)·E_s)`` as local ids, padded
+    with the sentinel ``E_s``.  Local degrees do not follow the global
+    degree order, so slot p's count is one past the last variable with
+    a p-th local edge (the sentinels inside that prefix read a zero
+    row); several problems share the widest table and the largest
+    counts, so that their views stack."""
+    S = problems[0].n_shards
+    E_s = problems[0].n_edges // S
+    out = []
+    ves = [p.var_edges.cpu().numpy().astype(np.int64) for p in problems]
+    for s in range(S):
+        tables, widths, counts = [], [], []
+        for ve, p in zip(ves, problems):
+            n = ve.shape[0]
+            mask = (ve >= s * E_s) & (ve < (s + 1) * E_s)
+            deg = mask.sum(axis=1)
+            w = max(int(deg.max(initial=0)), 1)
+            table = np.full((n, w), E_s, dtype=np.int32)
+            rows, cols = np.nonzero(mask)
+            rank = np.cumsum(mask, axis=1)[rows, cols] - 1
+            table[rows, rank] = ve[rows, cols] - s * E_s
+            tables.append(table)
+            widths.append(w)
+            counts.append([
+                int(np.nonzero(deg > q)[0].max(initial=-1)) + 1
+                for q in range(w)
+            ])
+        w = max(widths)
+        tables = [
+            np.pad(t, ((0, 0), (0, w - t.shape[1])), constant_values=E_s)
+            for t in tables
+        ]
+        shared = tuple(
+            max((c[q] if q < len(c) else 0) for c in counts)
+            for q in range(w)
+        )
+        out.append((tables, shared))
+    return out
+
+
+def shard_view(
+    problem: CompiledProblem,
+    index: int,
+    device: DeviceLike = None,
+    slots: Optional[Tuple[List[np.ndarray], Tuple[int, ...]]] = None,
+    member: int = 0,
+) -> CompiledProblem:
+    """Shard ``index``'s view of an ``n_shards > 1`` problem on
+    ``device`` (default: the problem's): its blocks of the constraint,
+    edge and bucket arrays (``tables_t`` splits on its last axis), the
+    per-variable arrays and ``tables_flat`` whole, and its own slot
+    table over its local edges as ``var_edges`` (``slots``: one entry of
+    :func:`slot_tables`, whose ``member``-th table is this problem's).
+    On the problem's own device the blocks are views, not copies.  The
+    edge and constraint ids inside (``edge_con``, ``edge_slot``) stay
+    global, as in a ``shard_map`` block of the JAX package."""
+    S = problem.n_shards
+    if S < 2 or not 0 <= index < S:
+        raise ValueError(
+            f"shard {index} of a problem compiled for {S} shard(s)"
+        )
+    dev = torch.device(device) if device is not None else problem.device
+    if slots is None:
+        slots = slot_tables([problem])[index]
+    table, counts = slots[0][member], slots[1]
+
+    def part(x, dim):
+        if dim is None:
+            return x.to(dev)
+        size = x.shape[dim] // S
+        return x.narrow(dim, index * size, size).contiguous().to(dev)
+
+    fields = {f: part(getattr(problem, f), SHARD_AXES[f])
+              for f in ARRAY_FIELDS}
+    fields["var_edges"] = torch.as_tensor(table, device=dev)
+    buckets = {
+        k: ArityBucket(**{f: part(getattr(b, f), dim)
+                          for f, dim in BUCKET_SHARD_AXES.items()})
+        for k, b in problem.buckets.items()
+    }
+    return dataclasses.replace(
+        problem, buckets=buckets, var_slot_counts=counts, **fields
+    )
+
+
+def shard_stacked(
+    stacked: StackedProblem, devices: Sequence[torch.device]
+) -> Tuple[StackedProblem, ...]:
+    """A stacked group of ``n_shards > 1`` problems as one stacked view
+    per shard, shard s on ``devices[s]``: the instances'
+    :func:`shard_view` over slot tables of one width, stacked again."""
+    hosts = stacked.host_problems
+    tables = slot_tables(hosts)
+    views = []
+    for s, dev in enumerate(devices):
+        members = [
+            shard_view(hp, s, dev, slots=tables[s], member=i)
+            for i, hp in enumerate(hosts)
+        ]
+        view = stack_problems(members)
+        if len(view) != 1:
+            raise AssertionError("a stacked group's shard views split")
+        views.append(dataclasses.replace(view[0], indices=stacked.indices))
+    return tuple(views)

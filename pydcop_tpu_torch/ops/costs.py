@@ -14,6 +14,13 @@
 - :func:`neighbor_gather` — gather a per-variable quantity from each
   primal-graph neighbor (:func:`at_neighbors` without the padding fill).
 
+Sharded problems (``n_shards > 1``).  Under a shard mesh each of these
+takes the shard's ``axis`` (``parallel/mesh.py:ShardAxis``): the shard
+works on its local constraints and edges and the partial sums meet in
+one ``psum``, added in shard order.  Without a mesh an ``n_shards > 1``
+problem adds its segments in that same order, so a meshed run equals
+the unmeshed run of the same problem bit for bit.
+
 The JAX package runs parallel restarts under ``vmap``; here the restart
 axis is written out: ``local_cost_sweep`` and ``total_cost`` take
 ``values`` of shape ``[..., n_vars]`` (leading batch axes, e.g.
@@ -80,16 +87,49 @@ def gather_sum_slots(
     return acc
 
 
+def fold_shards(parts) -> torch.Tensor:
+    """``((p0 + p1) + p2) + …``: the shards' partials added in the order
+    of a shard mesh's psum (``parallel/mesh.py``)."""
+    acc = None
+    for x in parts:
+        acc = x if acc is None else acc + x
+    return acc
+
+
 def segment_sum_edges(
-    problem: CompiledProblem, per_edge: torch.Tensor, dim: int = 0
+    problem,
+    per_edge: torch.Tensor,
+    dim: int = 0,
+    axis=None,
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Sum per-edge entries into per-variable entries: the edge axis
-    ``dim`` of ``per_edge`` (length n_edges) becomes a variable axis
-    (length n_vars)."""
-    shape = list(per_edge.shape)
-    shape[dim] = problem.n_vars
-    acc = torch.zeros(shape, dtype=per_edge.dtype, device=per_edge.device)
-    return gather_sum_slots(problem, per_edge, acc, dim)
+    """Sum per-edge entries into per-variable entries, from zero, in
+    ``dtype`` (default: ``per_edge``'s): the edge axis ``dim`` of
+    ``per_edge`` (length n_edges) becomes a variable axis (length
+    n_vars).
+
+    With ``axis`` (a ``parallel.ShardAxis``), ``problem`` is a shard's
+    view and ``per_edge`` holds its local edges: the shard's partial sum,
+    then ``axis.psum`` across the mesh.  An unmeshed ``n_shards > 1``
+    problem sums segment by segment (``problem.segments``) and adds the
+    segments' partials in segment order, as the mesh's psum does, so
+    the two agree bit for bit."""
+
+    def partial(p, x):
+        shape = list(x.shape)
+        shape[dim] = problem.n_vars
+        acc = torch.zeros(shape, dtype=dtype or x.dtype, device=x.device)
+        return gather_sum_slots(p, x, acc, dim)
+
+    if axis is not None:
+        return axis.psum(partial(problem, per_edge))
+    if problem.n_shards == 1:
+        return partial(problem, per_edge)
+    E_s = problem.n_edges // problem.n_shards
+    return fold_shards(
+        partial(seg, per_edge.narrow(dim, s * E_s, E_s))
+        for s, seg in enumerate(problem.segments)
+    )
 
 
 def edge_cells(
@@ -119,15 +159,17 @@ def local_cost_sweep(
     problem: CompiledProblem,
     values: torch.Tensor,
     edge_weight: Optional[torch.Tensor] = None,
+    axis=None,
 ) -> torch.Tensor:
     """[..., n_vars, d_max]: cost of each candidate value for each
     variable, holding all other variables at ``values [..., n_vars]``.
     ``edge_weight [..., E]`` scales each edge's constraint cells (DBA's
-    weighted sweep)."""
+    weighted sweep).  Under ``axis`` the shard sweeps its local edges and
+    the partial sums meet in one psum."""
     sweeps = problem.tables_flat[edge_cells(problem, values)]  # [..., E, d]
     if edge_weight is not None:
         sweeps = sweeps * edge_weight[..., None]
-    return segment_sum_edges(problem, sweeps, dim=-2) + problem.unary
+    return segment_sum_edges(problem, sweeps, dim=-2, axis=axis) + problem.unary
 
 
 def fixed_order_sum(*parts: torch.Tensor) -> torch.Tensor:
@@ -157,38 +199,48 @@ def fixed_order_sum(*parts: torch.Tensor) -> torch.Tensor:
 
 
 def total_cost(
-    problem: CompiledProblem, values: torch.Tensor
+    problem: CompiledProblem, values: torch.Tensor, axis=None
 ) -> torch.Tensor:
     """[...]: cost of full assignments ``values [..., n_vars]`` (compiled
     sign: always a minimization cost; callers re-negate for max
     problems): the constraints' costs, then the variables', summed by
-    :func:`fixed_order_sum`."""
+    :func:`fixed_order_sum`.
+
+    An ``n_shards > 1`` problem sums each shard segment's constraints
+    with :func:`fixed_order_sum`, adds the segments in segment order,
+    then the variables' sum.  Under ``axis`` (a shard's view) the
+    segments' sums meet in one psum: the same bits as the unmeshed
+    problem's cost."""
     v = values.long()
-    con_cost = (
-        problem.tables_flat[con_cells(problem, v)]
-        if problem.n_cons
-        else problem.unary.new_zeros(v.shape[:-1] + (0,))
-    )
     unary = problem.unary.expand(v.shape + (problem.d_max,))
     var_cost = unary.gather(-1, v[..., None])[..., 0]
-    return fixed_order_sum(con_cost, var_cost)
+    if axis is None and problem.n_shards == 1:
+        con_cost = (
+            problem.tables_flat[con_cells(problem, v)]
+            if problem.n_cons
+            else problem.unary.new_zeros(v.shape[:-1] + (0,))
+        )
+        return fixed_order_sum(con_cost, var_cost)
+
+    def part(p):
+        return fixed_order_sum(p.tables_flat[con_cells(p, v)])
+
+    if axis is not None:
+        con = axis.psum(part(problem))
+    else:
+        con = fold_shards(part(seg) for seg in problem.segments)
+    return con + fixed_order_sum(var_cost)
 
 
-def instance_costs(
-    stacked: StackedProblem, values: torch.Tensor
-) -> torch.Tensor:
-    """``[I, ...]``: :func:`total_cost` of each instance of a stacked
-    problem under ``values [I, ..., n_vars]`` (instance i's assignments
-    against instance i's tables): the same cells summed by the same
-    :func:`fixed_order_sum`, so each equals the instance's own
-    ``total_cost`` bit for bit."""
+def _instance_terms(stacked, v: torch.Tensor):
+    """``(con [I, B, C], var [I, B, n])``: each instance's constraint
+    and variable costs under ``v [I, B, n]`` (instance i's assignments
+    against instance i's tables)."""
     sp = stacked.problem
-    I, n = values.shape[0], values.shape[-1]
-    v = values.long().reshape(I, -1, n)  # [I, B, n]
-    B = v.shape[1]
+    I, B, n = v.shape
     scopes = sp.con_scopes.long()  # [I, C, K]
     C, K = scopes.shape[1:]
-    if stacked.n_cons:
+    if C:
         sv = v.gather(-1, scopes.reshape(I, 1, C * K).expand(I, B, C * K))
         cells = sp.con_offset.long()[:, None] + (
             sv.view(I, B, C, K) * sp.con_strides.long()[:, None]
@@ -200,7 +252,33 @@ def instance_costs(
         con_cost = sp.unary.new_zeros((I, B, 0))
     unary = sp.unary[:, None].expand(I, B, n, stacked.d_max)
     var_cost = unary.gather(-1, v[..., None])[..., 0]
-    return fixed_order_sum(con_cost, var_cost).reshape(values.shape[:-1])
+    return con_cost, var_cost
+
+
+def instance_costs(
+    stacked: StackedProblem, values: torch.Tensor, axis=None
+) -> torch.Tensor:
+    """``[I, ...]``: :func:`total_cost` of each instance of a stacked
+    problem under ``values [I, ..., n_vars]`` (instance i's assignments
+    against instance i's tables): the same cells summed by the same
+    :func:`fixed_order_sum`, so each equals the instance's own
+    ``total_cost`` bit for bit (segment by segment for ``n_shards >
+    1``; under ``axis`` ``stacked`` is a shard's stacked view)."""
+    I, n = values.shape[0], values.shape[-1]
+    v = values.long().reshape(I, -1, n)  # [I, B, n]
+    if axis is None and stacked.n_shards == 1:
+        con_cost, var_cost = _instance_terms(stacked, v)
+        out = fixed_order_sum(con_cost, var_cost)
+    else:
+        if axis is not None:
+            con = axis.psum(fixed_order_sum(_instance_terms(stacked, v)[0]))
+        else:
+            con = fold_shards(
+                fixed_order_sum(_instance_terms(seg, v)[0])
+                for seg in stacked.segments
+            )
+        out = con + fixed_order_sum(_instance_terms(stacked, v)[1])
+    return out.reshape(values.shape[:-1])
 
 
 def at_neighbors(

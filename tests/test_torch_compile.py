@@ -75,7 +75,7 @@ def assert_same_problem(port, ref):
     ]
     assert list(port.con_names) == list(ref.con_names)
     assert port.maximize == ref.maximize
-    assert port.n_shards == ref.n_shards == 1
+    assert port.n_shards == ref.n_shards
     assert set(port.buckets) == set(ref.buckets)
     for k in ref.buckets:
         assert port.buckets[k].shared_table == ref.buckets[k].shared_table
@@ -153,12 +153,20 @@ def test_interop_round_trip():
 
 
 def test_unported_layouts_raise():
-    """The sharded layout still raises; ``pad_policy`` (ported) compiles
-    the JAX package's padded problem, leaf for leaf."""
+    """Nothing is left unported here: the sharded layout (``n_shards=2``)
+    and ``pad_policy`` compile the JAX package's problems, leaf for
+    leaf; a shard count below 1 is refused."""
     scopes, table, unary = _coloring(shared=True, n=50)
-    with pytest.raises(NotImplementedError, match="n_shards"):
+    assert_same_problem(
         tcompile.compile_from_arrays(
-            scopes, table, 3, n_shards=2, device="cpu"
+            scopes, table, 3, unary=unary, n_shards=2, device="cpu"
+        ),
+        jcompile.compile_from_arrays(scopes, table, 3, unary=unary,
+                                     n_shards=2),
+    )
+    with pytest.raises(ValueError, match="n_shards"):
+        tcompile.compile_from_arrays(
+            scopes, table, 3, n_shards=0, device="cpu"
         )
     assert_same_problem(
         tcompile.compile_from_arrays(

@@ -156,9 +156,19 @@ def test_no_card_and_sharded_refused():
 
         with pytest.raises(NoCudaDeviceError):
             run_dynamic(dcop, "maxsum", MAXSUM, distribution="adhoc")
-    with pytest.raises(NotImplementedError, match="n_shards > 1"):
+    # sharded segments run (tests/test_torch_parallel.py holds them
+    # over a mesh); a mesh of another size than n_shards is refused
+    from pydcop_tpu_torch.parallel import make_mesh
+
+    got = run_dynamic(dcop, "maxsum", MAXSUM, distribution="adhoc",
+                      n_shards=2, final_rounds=20, device=CPU)
+    want = run_dynamic(dcop, "maxsum", MAXSUM, distribution="adhoc",
+                       final_rounds=20, device=CPU)
+    assert got["msg_count"] == want["msg_count"]  # ghosts not counted
+    assert got["cost"] == pytest.approx(want["cost"], abs=1e-4)
+    with pytest.raises(ValueError, match="recompile"):
         run_dynamic(dcop, "maxsum", MAXSUM, distribution="adhoc",
-                    n_shards=2, device=CPU)
+                    n_shards=2, mesh=make_mesh(3, device=CPU), device=CPU)
     with pytest.raises(ValueError, match="host-side"):
         run_dynamic(dcop, "dpop", {}, distribution="adhoc", device=CPU)
 

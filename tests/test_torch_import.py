@@ -6,7 +6,8 @@ of a YAML file, an inference query on the device path, a budgeted
 sparse int8 DPOP solve, a pruned DPOP solve, a SyncBB solve, a
 checkpointed, resumed Max-Sum solve, a dynamic run with replicas, an
 ILP placement, the ``run`` CLI, ``trace-summary``, ``batch
---simulate`` and a solver-service solve, after checking that
+--simulate``, a solver-service solve and a sharded solve over a CPU
+shard mesh, after checking that
 ``api.ServiceClient`` imports without torch; and, in a second probe, a
 ``sim`` solve with a compiled island, a ``sim`` solve with an MGM
 lockstep island, a thread-mode solve, ``fleet --help``, a batched solve
@@ -101,6 +102,16 @@ import pydcop_tpu_torch.commands.top, pydcop_tpu_torch.commands.flight_dump
 import pydcop_tpu_torch.telemetry.export
 import pydcop_tpu_torch.distribution.adhoc, pydcop_tpu_torch.utils.graphs
 import pydcop_tpu_torch.utils.various, pydcop_tpu_torch.commands.run
+# a sharded Max-Sum solve over a CPU shard mesh
+from pydcop_tpu_torch.engine.batched import run_batched
+from pydcop_tpu_torch.algorithms import load_algorithm_module
+from pydcop_tpu_torch.algorithms import prepare_algo_params
+from pydcop_tpu_torch.parallel import make_mesh
+mod = load_algorithm_module("maxsum")
+ps = compile_from_arrays(s, t, 3, unary=u, n_shards=4, device="cpu")
+rs = run_batched(ps, mod, prepare_algo_params({}, mod.algo_params),
+                 rounds=8, mesh=make_mesh(4, device="cpu"))
+assert rs.cycles == 8, rs
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pydcop_tpu.")
@@ -263,7 +274,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                    "algorithms/_island_dba.py",
                    "algorithms/_island_gdba.py",
                    "infrastructure/hostnet.py", "infrastructure/ui.py",
-                   "commands/agent.py", "commands/orchestrator.py"):
+                   "commands/agent.py", "commands/orchestrator.py",
+                   "parallel/__init__.py", "parallel/mesh.py"):
         assert module in scanned, module
     for path in files:
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
