@@ -10,7 +10,7 @@ caught and passed over).  Phases 1-9 run one after another.  Then four
 child processes on the same card, running phases 14-16, phases 17-18,
 phase 19 and phase 20, start beside phases 10-13 (host Python, most of
 all eleven): their lines follow phase 13's, and a child's failure fails
-the script.
+the script.  Phase 21 runs after them, alone, in a fifth child process.
 
 1. Device and build: the card's name and power limit, then the port's
    CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc, and one
@@ -534,11 +534,49 @@ the script.
    rewirings (:func:`rewired`); a constraint-free problem (Max-Sum, DSA);
    phase 14's sensor scenario through ``run_dynamic`` with ``n_shards=4``
    (40 rounds a second, an eighth of phase 14's, and 16 final rounds).
-21. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+21. The SPMD runtime, one OS process a shard over ``torch.distributed``
+   (``python -m pydcop_tpu_torch orchestrator``/``agent --runtime spmd``,
+   ``parallel/distributed.py:ProcessMesh``, gloo on host copies: NCCL
+   takes no two ranks on one card), one JSON line a cell, every process
+   waited for with a timeout and killed at the end.  21a: grid10k (17's
+   instance, dumped to YAML) through ``orchestrator -a maxsum -p
+   damping:0.5 --nb_agents 3 --rounds 256 --chunk_size 64 --seed 1`` and
+   ``agent --names a1 a2 a3``: 4 ranks and 4 shards on ``cuda:0``, run
+   from a copy of the package with no built library (the 4 ranks build
+   the kernels at once: one library must be left).  Gates: assignment,
+   costs, cycle, status and message count equal, bit for bit, to
+   ``run_batched(compile_dcop(dcop, n_shards=4), mesh=Mesh([cuda:0] *
+   4))`` of the same YAML, seed and chunking (which must equal the
+   unmeshed run of the same problem as in 20a), each agent's cost the
+   orchestrator's, and each rank's ``--trace``: the q update launched
+   once a round, the factor kernels never, two psums a round (the step's
+   and the cost sample's).  It prints each rank's deploy seconds (joining
+   the group, the YAML parse, the compile), engine seconds, psums and
+   psum seconds, msgs/s beside the in-process mesh's and the unmeshed
+   run's, and whether NCCL took two ranks on the card (two processes,
+   one ``all_reduce``; no gate).  While 21a's orchestrator loads and
+   dumps the YAML, 21b-e and that probe run side by side, each in a
+   thread and a directory of its own; 21a's agents start after them.  21b: DSA-B (p 0.7) on a 50x50 grid (grid10k cut to 2,500
+   variables: its YAML deploy again would take the phase past its
+   budget), 4 ranks, 64 rounds, equal to the in-process card mesh's run.
+   21c: the tests' SIGKILL case (12-ring, Max-Sum, chunk 8), the agent
+   killed once the live feed shows a chunk: the orchestrator exits
+   non-zero within 20 s, naming it.  21d: ``orchestrator --elastic
+   --nb_agents 2`` on the 12-ring (Max-Sum, chunk 8, seed 5, 800
+   rounds; 1,500 until this PR's run 1), workers on the card: ``a2``'s
+   supervisor SIGKILLed in epoch 1, then the orchestrator's own worker
+   in epoch 2: finished after 3 epochs with one ``participant_lost``
+   (``a2``, its variables frozen: ``lost_computations``) and one
+   ``worker_crash`` (nothing lost), and the cost the port's
+   ``solution_cost`` of the assignment.  21e: the
+   tests' scenario (``--scenario``, ``--ktarget 1``, the 24-agent
+   12-ring) over 2 ranks, equal to ``run_dynamic`` over ``Mesh([cuda:0]
+   * 2)`` in every key but the times.
+22. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
-   of phases 13-17, 19a and 20 are added to the entries their runs
+   of phases 13-17, 19a, 20 and 21a are added to the entries their runs
    launch), the card line, and last the ``{"ok": true, ...}`` line.
 
 It imports no jax and nothing of the JAX package; only 16c-d's and
@@ -2629,10 +2667,11 @@ CARD = {"card": None}  # the card's name and power limit, set by core_phase
 
 
 def emit(phase, cell, **fields):
-    """One phase-11, 12 or 13 cell as one JSON line, with the card it
-    ran on."""
-    print(json.dumps({"phase": phase, "cell": cell, **fields,
-                      "card": CARD["card"]}))
+    """One cell as one JSON line, with the card it ran on (one write, so
+    that cells run side by side never share a line)."""
+    sys.stdout.write(json.dumps({"phase": phase, "cell": cell, **fields,
+                                 "card": CARD["card"]}) + "\n")
+    sys.stdout.flush()
 
 
 def oom_hub_dcop():
@@ -7635,7 +7674,550 @@ def sharded_phase(torch, mk, dev, card, rate):
     return counts
 
 
-# -- the lanes: phases 14-16, 17-18, 19 and 20 beside phases 10-13 ---------
+# -- phase 21: the SPMD runtime, one process a shard --------------------------
+
+SPMD_RANKS = 4  # 21a-b: the orchestrator and 3 agents, 4 shards on the card
+SPMD_ROUNDS = 256  # 21a: Max-Sum rounds, chunk SPMD_CHUNK
+SPMD_CHUNK = 64
+SPMD_DSA_ROUNDS = 64  # 21b
+SPMD_DSA_SIDE = 50  # 21b's grid: 50x50 (grid10k's YAML deploy again: ~60 s)
+ELASTIC_ROUNDS = 800  # 21d: long enough for both kills to land mid-run
+SPMD_WAIT = 300.0  # seconds: every wait on a process of phase 21
+
+
+def grid_dcop(side):
+    """``generate graph_coloring --graph grid -n side² -c 3 --soft
+    --noise 0.02 --seed 1``, built in memory with the port's
+    generator."""
+    import argparse
+
+    from pydcop_tpu_torch.commands.generators.graphcoloring import generate
+
+    return generate(argparse.Namespace(
+        graph="grid", variables_count=side ** 2, colors_count=3,
+        soft=True, noise=0.02, seed=1, intentional=False,
+        agents_count=None, capacity=100.0, p_edge=0.5, m_edge=2,
+    ))
+
+
+class _SpmdRun:
+    """``python -m pydcop_tpu_torch orchestrator … --port 0`` and its
+    agents (``agent --names …``, one process each) under ``root`` (a
+    checkout's root: the package imported from there).  The
+    orchestrator's stderr is read as it comes, for the ports it
+    announces."""
+
+    def __init__(self, root, cwd, orch_args, names=(), agent_args=()):
+        import queue
+        import threading
+
+        self.cwd, self.names = cwd, names
+        self.env = dict(__import__("os").environ, PYTHONPATH=str(root))
+        self.t0 = time.perf_counter()
+        self.orch = subprocess.Popen(
+            [sys.executable, "-m", "pydcop_tpu_torch", "orchestrator",
+             *orch_args, "--port", "0"], cwd=cwd, env=self.env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.lines, self.err = queue.Queue(), []
+        threading.Thread(target=self._pump, daemon=True).start()
+        self.agents, self.control = [], None
+        if names:
+            self.start_agents(names, agent_args)
+
+    def start_agents(self, names, agent_args=()):
+        """``agent --names …`` (one process each) against the control
+        port the orchestrator announces."""
+        if self.control is None:
+            self.control = self.port()
+        self.agents.append(subprocess.Popen(
+            [sys.executable, "-m", "pydcop_tpu_torch", "agent", "--names",
+             *names, "--orchestrator", f"127.0.0.1:{self.control}",
+             *agent_args], cwd=self.cwd, env=self.env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    def _pump(self):
+        for line in self.orch.stderr:
+            self.err.append(line)
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def port(self, what="control plane"):
+        import queue
+
+        deadline = time.monotonic() + SPMD_WAIT
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if line is None:
+                break
+            if line.startswith(f"orchestrator: {what} on port "):
+                return int(line.split()[-1])
+        raise AssertionError(f"21: no {what} port announced:\n"
+                             + "".join(self.err)[-3000:])
+
+    def result(self, label):
+        """The orchestrator's result and each agent process's output;
+        any nonzero exit fails ``label``."""
+        out = self.orch.stdout.read()
+        self.orch.wait(timeout=SPMD_WAIT)
+        self.seconds = time.perf_counter() - self.t0
+        if self.orch.returncode != 0:
+            raise AssertionError(f"{label}: the orchestrator exited "
+                                 f"{self.orch.returncode}:\n"
+                                 + "".join(self.err)[-4000:])
+        agents = []
+        for proc in self.agents:
+            a_out, a_err = proc.communicate(timeout=SPMD_WAIT)
+            if proc.returncode != 0:
+                raise AssertionError(f"{label}: an agent process exited "
+                                     f"{proc.returncode}:\n{a_err[-4000:]}")
+            agents += _json_objects(a_out)  # the forked agents' lines
+        return json.loads(out[out.index("{"):]), agents
+
+    def stop(self):
+        for proc in [self.orch, *self.agents]:
+            stop(proc)
+
+
+def _json_objects(text):
+    """The JSON objects in ``text``, however the processes that share
+    one pipe interleaved their lines."""
+    dec, out, i = json.JSONDecoder(), [], text.find("{")
+    while i >= 0:
+        obj, end = dec.raw_decode(text, i)
+        out.append(obj)
+        i = text.find("{", end)
+    return out
+
+
+def _state(ui_port, pred, what, proc):
+    """Polls a live feed's ``/state`` until ``pred`` holds."""
+    import urllib.request
+
+    deadline = time.monotonic() + SPMD_WAIT
+    last = None
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"21: the orchestrator exited "
+                                 f"({proc.returncode}) waiting for {what}")
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ui_port}/state", timeout=5) as r:
+                last = json.loads(r.read().decode())
+            if pred(last):
+                return last
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"21: timed out waiting for {what}; last={last}")
+
+
+def _rank_telemetry(path):
+    """The counters and gauges a rank's ``--trace`` file ends with."""
+    snap = {}
+    for line in open(path):
+        rec = json.loads(line)
+        if rec.get("kind") == "metrics":
+            snap = rec
+    return snap.get("counters", {}), snap.get("gauges", {})
+
+
+def _spmd_ranks(workdir):
+    """Every rank's telemetry of 21a's run (its ``--trace``): kernel
+    launches, psums, and deploy, engine and psum seconds."""
+    ranks = {}
+    for name, path in [("orchestrator", workdir / "orch.jsonl")] + [
+            (f"a{i}", workdir / f"agents.jsonl.a{i}")
+            for i in range(1, SPMD_RANKS)]:
+        c, g = _rank_telemetry(path)
+        ranks[name] = {
+            "q_update": c.get("kernel.q_update.launches", 0),
+            "factor": c.get("kernel.factor_round_binary.launches", 0)
+            + c.get("kernel.factor_round_binary_shared.launches", 0),
+            "psums": c.get("spmd.psums"),
+            "psum_seconds": g.get("spmd.psum_seconds"),
+            "deploy_seconds": g.get("spmd.deploy_seconds"),
+            "engine_seconds": g.get("spmd.engine_seconds"),
+        }
+    return ranks
+
+
+def _same_spmd(label, got, want):
+    """A process-mesh result dict against an in-process ``RunResult``:
+    assignment, costs, cycle and status bit-equal."""
+    if (got["assignment"], got["cost"], got["final_cost"], got["cycle"],
+            got["status"], got["msg_count"]) != (
+            want.best_assignment, want.best_cost, want.cost, want.cycles,
+            want.status, want.messages):
+        raise AssertionError(
+            f"{label}: the process mesh's run differs from the in-process "
+            f"mesh's: cost {got['cost']} / {want.best_cost}, cycle "
+            f"{got['cycle']} / {want.cycles}")
+
+
+def spmd_full_width(torch, mk, dev, card, workdir):
+    """21a (see the module docstring), from a copy of the package with no
+    built library: the 4 ranks build the kernels at once.  Returns the
+    launches of its card runs by kernel entry."""
+    import shutil
+
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import maxsum, prepare_algo_params
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.ops.compile import compile_dcop
+    from pydcop_tpu_torch.parallel import Mesh
+
+    root = workdir / "fresh"
+    shutil.copytree(HERE / "pydcop_tpu_torch", root / "pydcop_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    t0 = time.perf_counter()
+    text = dcop_yaml(grid_dcop(ISLAND_SIDE))
+    (workdir / "grid10k.yaml").write_text(text)
+    dump_s = time.perf_counter() - t0
+    # the orchestrator loads and dumps the YAML while the phase's other
+    # cells run side by side (each in its own directory) and the same
+    # problem is compiled here; the agents start after them, so that
+    # the 4 ranks' deploy and rounds run alone
+    run = _SpmdRun(
+        root, workdir,
+        ["grid10k.yaml", "-a", "maxsum", "-p", "damping:0.5", "--runtime",
+         "spmd", "--nb_agents", str(SPMD_RANKS - 1), "--rounds",
+         str(SPMD_ROUNDS), "--chunk_size", str(SPMD_CHUNK), "--seed", "1",
+         "--trace", "orch.jsonl", "--heartbeat_timeout", str(SPMD_WAIT)])
+    window = _spmd_window(torch, dev, card, workdir)
+    try:
+        t0 = time.perf_counter()
+        problem = compile_dcop(load_dcop(text), n_shards=SPMD_RANKS,
+                               device=dev)
+        parse_s = time.perf_counter() - t0
+        for f in window.values():
+            f.exception()
+        run.start_agents([f"a{i}" for i in range(1, SPMD_RANKS)],
+                         ["--runtime", "spmd", "--trace", "agents.jsonl"])
+        t_agents = time.perf_counter()
+        result, agents = run.result("21a")
+        agents_s = time.perf_counter() - t_agents
+    finally:
+        run.stop()
+        for f in window.values():  # each stops its own processes
+            f.exception()
+    window = {name: f.result() for name, f in window.items()}
+    nccl = window.pop("nccl")[0]
+    ranks = _spmd_ranks(workdir)
+    libs = sorted(p.name for p in (root / "pydcop_tpu_torch" /
+                                   "_build").iterdir())
+    params = prepare_algo_params({"damping": 0.5}, maxsum.algo_params)
+    kw = dict(rounds=SPMD_ROUNDS, seed=1, chunk_size=SPMD_CHUNK)
+    mesh = Mesh([dev] * SPMD_RANKS)
+    here = {}
+    for label, m in (("mesh", mesh), ("unmeshed", None)):
+        mk.reset_launches()
+        r = run_batched(problem, maxsum, params, mesh=m, **kw)
+        torch.cuda.synchronize()
+        here[label] = (r, dict(mk.launches), m.psums if m else 0)
+    (rm, lm, psums_m), (ru, lu, _) = here["mesh"], here["unmeshed"]
+    _same_spmd("21a", result, rm)
+    same_runs("21a unmeshed", rm, ru, rel=1e-4)
+    costs = {a["agent"]: a["cost"] for a in agents}
+    if sorted(costs) != [f"a{i}" for i in range(1, SPMD_RANKS)] or any(
+            c != result["cost"] for c in costs.values()):
+        raise AssertionError(f"21a: agents' costs {costs}, orchestrator's "
+                             f"{result['cost']}")
+    if (result["n_shards"], result["num_processes"]) != (SPMD_RANKS,
+                                                         SPMD_RANKS):
+        raise AssertionError(f"21a: {result['n_shards']} shards")
+    for name, t in ranks.items():
+        if (t["q_update"], t["factor"]) != (SPMD_ROUNDS, 0):
+            raise AssertionError(f"21a: rank {name} launched {t}")
+        if t["psums"] != 2 * SPMD_ROUNDS:  # a round's and a cost sample's
+            raise AssertionError(f"21a: rank {name} made {t['psums']} psums")
+    if len([x for x in libs if x.endswith(".so")]) != 1 or any(
+            not x.startswith("maxsum_kernels-") for x in libs):
+        raise AssertionError(f"21a: the fresh build left {libs}")
+    msgs = result["msg_count"]
+    emit("21a", "grid10k-maxsum-spmd-R4", ranks=SPMD_RANKS,
+         n_vars=problem.n_vars, n_real_edges=problem.n_real_edges,
+         rounds=SPMD_ROUNDS, cost=result["cost"], cycle=result["cycle"],
+         status=result["status"], equal_to_in_process_mesh=True,
+         msg_count=msgs, engine_seconds=result["time"],
+         msgs_per_s=msgs / result["time"], wall_seconds=run.seconds,
+         agents_to_result_seconds=agents_s,
+         yaml_dump_seconds=dump_s, reference_parse_compile_seconds=parse_s,
+         per_rank=ranks, fresh_build=libs,
+         in_process_mesh={"engine_seconds": rm.time,
+                          "msgs_per_s": msgs / rm.time, "psums": psums_m,
+                          "q_update": lm["q_update"]},
+         unmeshed={"engine_seconds": ru.time, "msgs_per_s": msgs / ru.time,
+                   "q_update": lu["q_update"],
+                   "bit_equal_costs": bool(np.array_equal(rm.cost_trace,
+                                                          ru.cost_trace))},
+         backend=result["backend"], nccl_two_ranks_one_card=nccl,
+         side_cells_seconds={k: v[1] for k, v in window.items()})
+    return {"q_update": sum(t["q_update"] for t in ranks.values())
+            + lm["q_update"] + lu["q_update"]}
+
+
+def _spmd_window(torch, dev, card, workdir):
+    """21b-e and the NCCL probe, each in a thread of its own and a
+    directory of its own; returns ``{name: future}``, each future giving
+    ``(result, seconds)``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn, sub):
+        sub.mkdir()
+        t0 = time.perf_counter()
+        return fn(torch, dev, card, sub), time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(5, thread_name_prefix="phase21")
+    futures = {name: pool.submit(timed, fn, workdir / name) for name, fn in (
+        ("nccl", nccl_probe), ("21b", spmd_draws), ("21c", spmd_sigkill),
+        ("21d", spmd_elastic), ("21e", spmd_scenario))}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def spmd_draws(torch, dev, card, workdir):
+    """21b: DSA-B over the process mesh against the in-process card
+    mesh, bit for bit (every rank draws the whole problem's draws)."""
+    from pydcop_tpu_torch.algorithms import dsa, prepare_algo_params
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml, load_dcop
+    from pydcop_tpu_torch.engine.batched import run_batched
+    from pydcop_tpu_torch.ops.compile import compile_dcop
+    from pydcop_tpu_torch.parallel import Mesh
+
+    text = dcop_yaml(grid_dcop(SPMD_DSA_SIDE))
+    (workdir / "grid_dsa.yaml").write_text(text)
+    run = _SpmdRun(
+        HERE, workdir,
+        ["grid_dsa.yaml", "-a", "dsa", "-p", "variant:B", "-p",
+         "probability:0.7", "--nb_agents", str(SPMD_RANKS - 1), "--rounds",
+         str(SPMD_DSA_ROUNDS), "--chunk_size", str(SPMD_CHUNK), "--seed",
+         "1"],
+        [f"b{i}" for i in range(1, SPMD_RANKS)])
+    try:
+        problem = compile_dcop(load_dcop(text), n_shards=SPMD_RANKS,
+                               device=dev)
+        result, agents = run.result("21b")
+    finally:
+        run.stop()
+    params = prepare_algo_params({"variant": "B", "probability": 0.7},
+                                 dsa.algo_params)
+    rm = run_batched(problem, dsa, params, rounds=SPMD_DSA_ROUNDS, seed=1,
+                     chunk_size=SPMD_CHUNK, mesh=Mesh([dev] * SPMD_RANKS))
+    _same_spmd("21b", result, rm)
+    if any(a["cost"] != result["cost"] for a in agents):
+        raise AssertionError(f"21b: agents' costs {agents}")
+    emit("21b", f"grid{SPMD_DSA_SIDE ** 2}-dsaB-spmd-R4", ranks=SPMD_RANKS,
+         n_vars=problem.n_vars, rounds=SPMD_DSA_ROUNDS, cost=result["cost"],
+         equal_to_in_process_mesh=True, engine_seconds=result["time"],
+         in_process_mesh_engine_seconds=rm.time, wall_seconds=run.seconds)
+
+
+def nccl_probe(torch, dev, card, workdir):
+    """Whether NCCL takes two ranks on one card: two processes, one
+    ``all_reduce``; the outcome as a string (no gate)."""
+    import socket
+
+    code = (
+        "import sys, datetime, torch, torch.distributed as dist\n"
+        "r, port, fd = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])\n"
+        "t = datetime.timedelta(seconds=30)\n"
+        "store = dist.TCPStore('127.0.0.1', port, 2, r == 0, t,\n"
+        "    wait_for_workers=False, master_listen_fd=fd if r == 0 else None)\n"
+        "torch.cuda.set_device(0)\n"
+        "try:\n"
+        "    dist.init_process_group('nccl', store=store, rank=r,\n"
+        "        world_size=2, timeout=t, device_id=torch.device('cuda', 0))\n"
+        "    x = torch.ones(4, device='cuda')\n"
+        "    dist.all_reduce(x)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('worked', float(x[0]))\n"
+        "except Exception as e:\n"
+        "    print('refused:', str(e).splitlines()[-1][:200])\n")
+    s = socket.create_server(("127.0.0.1", 0))
+    s.set_inheritable(True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(s.getsockname()[1]),
+         str(s.fileno())], cwd=workdir, pass_fds=(s.fileno(),) if r == 0
+        else (), stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True) for r in range(2)]
+    s.close()
+    try:
+        outs = [p.communicate(timeout=90)[0].strip() for p in procs]
+    except subprocess.TimeoutExpired:
+        outs = ["hung"]
+    finally:
+        for p in procs:
+            stop(p)
+    return outs[0] or "no output"
+
+
+def spmd_sigkill(torch, dev, card, workdir):
+    """21c: the tests' SIGKILL case, ranks on the card."""
+    (workdir / "ring12.yaml").write_text(_ring_dcop_text(
+        12, [f"a{i}" for i in range(12)]))
+    run = _SpmdRun(HERE, workdir,
+                   ["ring12.yaml", "-a", "maxsum", "--nb_agents", "1",
+                    "--rounds", "200000", "--chunk_size", "8", "--seed",
+                    "5", "--heartbeat_timeout", "75", "--abort_grace", "4",
+                    "--uiport", "0"], ["a1"])
+    try:
+        _state(run.port("live feed"), lambda s: s.get("cycle", 0) > 0,
+               "21c's first chunk", run.orch)
+        run.agents[0].kill()
+        t_kill = time.perf_counter()
+        run.orch.wait(timeout=60)
+        detect = time.perf_counter() - t_kill
+        time.sleep(0.2)
+        err = "".join(run.err)
+        if run.orch.returncode == 0 or detect > 20.0 or not (
+                ("AgentFailureError" in err and "'a1'" in err)
+                or "FATAL" in err):
+            raise AssertionError(f"21c: exit {run.orch.returncode} after "
+                                 f"{detect} s:\n{err[-3000:]}")
+        alive = [p.pid for p in (run.orch, *run.agents) if p.poll() is None]
+    finally:
+        run.stop()
+    emit("21c", "ring12-maxsum-spmd-sigkill", exit=run.orch.returncode,
+         detect_seconds=detect, named_agent=True, ranks_left=alive)
+
+
+def _children(pid):
+    """The pids of ``pid``'s child processes (from /proc)."""
+    import os
+
+    kids = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                stat = open(f"/proc/{d}/stat").read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                kids.append(int(d))
+    return kids
+
+
+def spmd_elastic(torch, dev, card, workdir):
+    """21d (see the module docstring)."""
+    import os
+    import signal
+
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop
+
+    text = _ring_dcop_text(12, [f"a{i}" for i in range(12)])
+    (workdir / "ring12.yaml").write_text(text)
+    run = _SpmdRun(HERE, workdir,
+                   ["ring12.yaml", "-a", "maxsum", "--elastic",
+                    "--nb_agents", "2", "--rounds", str(ELASTIC_ROUNDS),
+                    "--chunk_size", "8", "--seed", "5", "--uiport", "0",
+                    "--heartbeat_timeout", "60"])
+    try:
+        port = run.port()
+        run.agents = [subprocess.Popen(
+            [sys.executable, "-m", "pydcop_tpu_torch", "agent", "--names",
+             name, "--orchestrator", f"127.0.0.1:{port}"], cwd=workdir,
+            env=run.env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for name in ("a1", "a2")]
+        ui = run.port("live feed")
+        _state(ui, lambda s: s.get("epoch") == 1, "21d's epoch 1", run.orch)
+        run.agents[1].kill()  # a2's supervisor: its worker is orphaned
+        _state(ui, lambda s: (s.get("epoch") or 0) >= 2, "21d's epoch 2",
+               run.orch)
+        workers = _children(run.orch.pid)  # the orchestrator's own worker
+        if len(workers) != 1:
+            raise AssertionError(f"21d: orchestrator children {workers}")
+        os.kill(workers[0], signal.SIGKILL)
+        out = run.orch.stdout.read()
+        run.orch.wait(timeout=SPMD_WAIT)
+        if run.orch.returncode != 0:
+            raise AssertionError("21d: the orchestrator exited "
+                                 f"{run.orch.returncode}:\n"
+                                 + "".join(run.err)[-4000:])
+    finally:
+        run.stop()
+    r = json.loads(out[out.index("{"):])
+    lost = [e for e in r["events"] if e["type"] == "participant_lost"]
+    crash = [e for e in r["events"] if e["type"] == "worker_crash"]
+    cost = load_dcop(text).solution_cost(r["assignment"])
+    if (r["status"], r["epochs"], len(lost), len(crash)) != (
+            "finished", 3, 1, 1) or lost[0]["participant"] != "a2" or \
+            crash[0]["participant"] != "_orchestrator" or \
+            lost[0]["frozen"] != r["lost_computations"] or \
+            r["agents_final"] != ["a1"] or len(r["assignment"]) != 12 or \
+            r["cost"] != cost:
+        raise AssertionError(f"21d: {r}")
+    emit("21d", "ring12-maxsum-elastic", epochs=r["epochs"],
+         events=r["events"], lost_computations=r["lost_computations"],
+         cost=r["cost"], solution_cost=cost, cycle=r["cycle"],
+         seconds=time.perf_counter() - run.t0)
+
+
+SCENARIO_TEXT = """
+events:
+  - id: w1
+    delay: 0.5
+  - id: e1
+    actions:
+      - type: remove_agent
+        agent: a3
+  - id: w2
+    delay: 0.5
+"""
+
+
+def spmd_scenario(torch, dev, card, workdir):
+    """21e: the tests' scenario across 2 ranks on the card against the
+    in-process ``run_dynamic`` over the card mesh."""
+    from pydcop_tpu_torch.dcop.yamldcop import load_dcop, load_scenario
+    from pydcop_tpu_torch.engine.dynamic import run_dynamic
+    from pydcop_tpu_torch.parallel import Mesh
+
+    text = _ring_dcop_text(12, [f"a{i}" for i in range(24)])
+    (workdir / "ring12x24.yaml").write_text(text)
+    (workdir / "scen.yaml").write_text(SCENARIO_TEXT)
+    run = _SpmdRun(HERE, workdir,
+                   ["ring12x24.yaml", "-a", "maxsum", "--nb_agents", "1",
+                    "--rounds", "32", "--chunk_size", "16", "--seed", "5",
+                    "--scenario", "scen.yaml", "--ktarget", "1"], ["a1"])
+    try:
+        result, agents = run.result("21e")
+    finally:
+        run.stop()
+    local = run_dynamic(load_dcop(text), "maxsum", {},
+                        load_scenario(SCENARIO_TEXT), k_target=1,
+                        final_rounds=32, seed=5, mesh=Mesh([dev] * 2),
+                        n_shards=2, chunk_size=16, device=dev)
+    keys = ("assignment", "cost", "cycle", "status", "events",
+            "lost_computations", "agents_final", "replicas")
+    diff = [k for k in keys if result[k] != local[k]]
+    if diff or result["n_shards"] != 2 or agents[0]["cost"] != result["cost"]:
+        raise AssertionError(f"21e: the process mesh differs in {diff}")
+    emit("21e", "ring12x24-maxsum-spmd-scenario", ranks=2,
+         cost=result["cost"], cycle=result["cycle"],
+         events=len(result["events"]), equal_to_in_process=True,
+         wall_seconds=run.seconds)
+
+
+def spmd_phase(torch, mk, dev, card):
+    """Phase 21 (see the module docstring).  Returns its launches by
+    kernel entry."""
+    import tempfile
+
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 21a, with 21b-e run while its ranks deploy
+        counts = spmd_full_width(torch, mk, dev, card, Path(tmp))
+    emit("21", "phase", seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+# -- the lanes: phases 14-16, 17-18, 19 and 20 beside phases 10-13; 21 after -
 
 LANE_WAIT = 900.0  # seconds a lane may run past the end of phase 13
 
@@ -7686,6 +8268,15 @@ def lane_20(card, rate):
     counts = sharded_phase(torch, mk, dev, card,
                            None if rate == "None" else float(rate))
     print(f"phase 20 seconds={time.perf_counter() - t20}")
+    print(json.dumps({"lane_launches": [counts]}), flush=True)
+
+
+def lane_21(card):
+    """Phase 21 in a child process (see :func:`start_lane`)."""
+    torch, mk, dev = _lane_device()
+    t21 = time.perf_counter()
+    counts = spmd_phase(torch, mk, dev, card)
+    print(f"phase 21 seconds={time.perf_counter() - t21}")
     print(json.dumps({"lane_launches": [counts]}), flush=True)
 
 
@@ -7987,11 +8578,16 @@ def main() -> int:
         hcounts, = join_lane(lanes[1])
         pcounts, = join_lane(lanes[2])
         mcounts, = join_lane(lanes[3])
+        # -- 21: alone after them (its rank processes time-slice the
+        # card and share the host's cores; beside 10-20 they slowed
+        # every phase) --------------------------------------------------
+        lanes.append(start_lane("lane_21", card))
+        rcounts, = join_lane(lanes[4])
     finally:
         for lane in lanes:
             stop(lane[1])
 
-    # -- 21. summary ------------------------------------------------------
+    # -- 22. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (
@@ -8026,7 +8622,8 @@ def main() -> int:
             launches=launched + scounts.get(entry, 0)
             + dcounts.get(entry, 0) + ccounts.get(entry, 0)
             + vcounts.get(entry, 0) + hcounts.get(entry, 0)
-            + pcounts.get(entry, 0) + mcounts.get(entry, 0),
+            + pcounts.get(entry, 0) + mcounts.get(entry, 0)
+            + rcounts.get(entry, 0),
             max_abs_err=max(
                 r["max_abs_err"] for r in rows if r["kernel"] == name
                 and (r["instance"] != "unrolled") == tile),

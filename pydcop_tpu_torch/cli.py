@@ -3,15 +3,15 @@
 The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
 under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``, ``run``,
 ``graph``, ``distribute``, ``generate``, ``batch``, ``consolidate``,
-``replica_dist``, ``orchestrator``, ``agent`` (``--runtime host``),
-``serve``, ``fleet``, ``top``, ``trace-summary`` and ``flight-dump``.
-Not ported: ``worker`` (ROADMAP A15b.2), ``lint``, ``bench-history`` and
-``bench-compare`` (A20).  The global options (``-v``,
+``replica_dist``, ``orchestrator``, ``agent``, ``worker``, ``serve``,
+``fleet``, ``top``, ``trace-summary`` and ``flight-dump``.  Not ported:
+``lint``, ``bench-history`` and ``bench-compare`` (ROADMAP A20).  The
+global options (``-v``,
 ``--log``, ``-t``/``--timeout``, ``--output``) are accepted before and
 after the subcommand, as in the JAX package.  The commands that touch
 the card take ``--device`` (``--torch_device`` on ``infer``, whose
 ``--device`` is the JAX package's offload policy; on ``agent`` it is
-where an accel agent's island runs).
+where an accel agent's island or the process's shard runs).
 """
 
 from __future__ import annotations
@@ -32,9 +32,11 @@ COMMANDS = [
     "batch",
     "consolidate",
     "replica_dist",
-    # cross-process runs over TCP (--runtime host)
+    # cross-process runs: the SPMD runtime (default) and --runtime host
     "orchestrator",
     "agent",
+    # internal: one elastic-runtime SPMD worker (orchestrator --elastic)
+    "worker",
     # resident continuous-batching solver service
     "serve",
     # replicated serving fleet: consistent-hash router + N serve replicas

@@ -1,13 +1,18 @@
 """``pydcop_tpu_torch agent`` (port of ``pydcop_tpu/commands/agent.py``;
 reference: ``pydcop/commands/agent.py``).
 
-Start one or more agent processes that register with an orchestrator,
-receive their deployment, and run their placed computations over TCP
-(``--runtime host``, ``infrastructure/hostnet.py``).  An accel agent
-compiles its island on ``--device`` (default: the CUDA device).  With
-several ``--names``, one OS subprocess is forked per agent (the
-reference's multi-agent form).  ``--runtime spmd``, the JAX package's
-default, is ROADMAP A15b.2 and raises ``NotImplementedError``.
+Start one or more agent processes that register with an orchestrator
+and receive their deployment.  ``--runtime spmd`` (the default): the
+process joins the orchestrator's ``torch.distributed`` process group
+and runs its shard of the sharded solve on ``--device``
+(``infrastructure/orchestrator.py:run_agent``), or, on an elastic
+deploy, supervises one worker process per epoch
+(``infrastructure/elastic.py``).  ``--runtime host``: run the agent's
+placed computations over TCP (``infrastructure/hostnet.py``); an accel
+agent compiles its island on ``--device``.  ``--device`` defaults to
+the CUDA device (the agent fails when there is none).  With several
+``--names``, one OS subprocess is forked per agent (the reference's
+multi-agent form).
 """
 
 from __future__ import annotations
@@ -51,14 +56,17 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--runtime", choices=["spmd", "host"], default="spmd",
-        help="must match the orchestrator's --runtime (host: "
-        "message-driven computations over TCP; spmd, the sharded "
-        "batched solve, is not ported yet: ROADMAP A15b.2)",
+        help="must match the orchestrator's --runtime (spmd: a shard "
+        "of the sharded batched solve; host: message-driven "
+        "computations over TCP)",
     )
     p.add_argument(
         "--device", default="cuda",
-        help="where an accel agent's island compiles and steps: 'cuda' "
-        "(default; the agent fails when there is none) or 'cpu'",
+        help="spmd: where this process's shard (or, elastic, its "
+        "workers' shards) runs — 'cuda' is the card process-id modulo "
+        "the card count; host: where an accel agent's island compiles "
+        "and steps.  'cuda' (default; the agent fails when there is "
+        "none), 'cuda:<k>' or 'cpu'",
     )
     from pydcop_tpu_torch.commands._common import add_trace_arguments
 
@@ -109,12 +117,6 @@ def run_cmd(args) -> int:
                 "on a replicated serving fleet's processes — use "
                 "`pydcop_tpu fleet --chaos` (docs/faults.md)"
             )
-    if args.runtime != "host":
-        raise NotImplementedError(
-            "agent --runtime spmd (a sharded batched solve across agent "
-            "processes) is not ported yet — see ROADMAP.md, A15b.2; use "
-            "--runtime host"
-        )
     if len(args.names) > 1:
         # one OS process per agent: fork real subprocesses
         import subprocess
@@ -160,16 +162,40 @@ def run_cmd(args) -> int:
 
     # each agent process traces into its own file (the telemetry
     # session is process-local by design)
-    from pydcop_tpu_torch.infrastructure.hostnet import run_host_agent
     from pydcop_tpu_torch.telemetry import session
 
+    if args.runtime == "host":
+        from pydcop_tpu_torch.infrastructure.hostnet import run_host_agent
+
+        with session(args.trace, args.trace_format):
+            result = run_host_agent(
+                args.names[0], args.orchestrator,
+                retry_for=args.retry_for,
+                msg_log=args.msg_log,
+                chaos=args.chaos, chaos_seed=args.chaos_seed,
+                device=args.device,
+            )
+        print(json.dumps(result))
+        return 0
+
+    from pydcop_tpu_torch.infrastructure.orchestrator import run_agent
+
     with session(args.trace, args.trace_format):
-        result = run_host_agent(
-            args.names[0], args.orchestrator,
-            retry_for=args.retry_for,
-            msg_log=args.msg_log,
-            chaos=args.chaos, chaos_seed=args.chaos_seed,
+        result = run_agent(
+            args.orchestrator, args.names[0], retry_for=args.retry_for,
             device=args.device,
         )
-    print(json.dumps(result))
+    print(
+        json.dumps(
+            {
+                "agent": args.names[0],
+                # elastic-supervisor results carry no cost/cycle (the
+                # orchestrator assembles those); static runs do
+                "cost": result.get("cost"),
+                "cycle": result.get("cycle"),
+                "status": result.get("status"),
+                "deploys": result.get("deploys"),
+            }
+        )
+    )
     return 0

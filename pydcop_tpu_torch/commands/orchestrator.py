@@ -4,19 +4,20 @@
 
 Start the management plane for a cross-process run: wait for
 ``--nb_agents`` agent processes to register on ``--port``, deploy the
-problem + algorithm to them, run the message-driven computations over
-TCP to quiescence (``--runtime host``, ``infrastructure/hostnet.py``),
-and print the assembled JSON (same shape as ``solve``).  ``--runtime
-spmd``, the JAX package's default (the sharded batched solve, with
-``--elastic`` and ``--scenario``), is ROADMAP A15b.2 and raises
-``NotImplementedError``.
+problem + algorithm to them, and print the assembled JSON (same shape
+as ``solve``).  ``--runtime spmd`` (the default): run the sharded SPMD
+solve as rank 0 of a ``torch.distributed`` process group, one process
+a shard (``infrastructure/orchestrator.py``), and cross-check every
+agent's replicated result; ``--elastic`` re-forms the group on agent
+death (``infrastructure/elastic.py``), ``--scenario`` replays a
+scenario across the processes.  ``--runtime host``: run the
+message-driven computations over TCP to quiescence
+(``infrastructure/hostnet.py``).
 
 Example (two terminals)::
 
-    pydcop_tpu_torch orchestrator coloring.yaml -a maxsum --runtime host \
-        --port 9500
-    pydcop_tpu_torch agent --names a1 --runtime host \
-        --orchestrator localhost:9500
+    pydcop_tpu_torch orchestrator coloring.yaml -a maxsum --port 9500
+    pydcop_tpu_torch agent --names a1 --orchestrator localhost:9500
 """
 
 from __future__ import annotations
@@ -50,36 +51,39 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--advertise_host", default="localhost",
-        help="--runtime spmd (not ported yet: ROADMAP A15b.2): hostname "
-        "agents should use to reach the coordinator",
+        help="hostname agents should use to reach the process group's "
+        "store (multi-host runs: this machine's address)",
     )
     p.add_argument("--rounds", type=int, default=200)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument(
-        "--chunk_size", type=int, default=64,
-        help="--runtime spmd (not ported yet: ROADMAP A15b.2)",
-    )
+    p.add_argument("--chunk_size", type=int, default=64)
     p.add_argument(
         "--scenario", default=None, metavar="FILE",
-        help="--runtime spmd (not ported yet: ROADMAP A15b.2): scenario "
-        "yaml to replay across all processes",
+        help="scenario yaml to replay across all processes (dynamic "
+        "run: remove/add agents, set external values)",
     )
     p.add_argument(
         "--ktarget", type=int, default=0,
-        help="replication level (k-resilience): --runtime host migrates "
-        "a dead agent's computations to replica holders",
+        help="replication level (k-resilience): scenario and elastic "
+        "runs; --runtime host migrates a dead agent's computations to "
+        "replica holders",
     )
     p.add_argument(
         "--heartbeat_timeout", type=float, default=120.0,
-        help="--runtime spmd (not ported yet: ROADMAP A15b.2)",
+        help="seconds an agent may miss the chunk barrier before the "
+        "run is failed; also every collective's timeout",
     )
     p.add_argument(
         "--first_barrier_min", type=float, default=None,
-        help="--runtime spmd --elastic (not ported yet: ROADMAP A15b.2)",
+        help="--elastic: minimum budget (seconds) for the FIRST chunk "
+        "barrier of an epoch, which also covers torch import, the YAML "
+        "parse and the compile on every worker (default 600, or the "
+        "PYDCOP_TPU_ELASTIC_FIRST_BARRIER_MIN env var)",
     )
     p.add_argument(
         "--abort_grace", type=float, default=5.0,
-        help="--runtime spmd (not ported yet: ROADMAP A15b.2)",
+        help="seconds to wait for a clean unwind after a peer death "
+        "before force-exiting a wedged process",
     )
     p.add_argument(
         "--uiport", type=int, default=None,
@@ -88,8 +92,10 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--elastic", action="store_true",
-        help="--runtime spmd (not ported yet: ROADMAP A15b.2): survive "
-        "agent death by re-forming the cluster on the survivors",
+        help="resilient runtime: survive agent death mid-solve by "
+        "re-forming the process group on the survivors (dead agents' "
+        "variables migrate to replicas with --ktarget, else freeze "
+        "at their last value) — see infrastructure/elastic.py",
     )
     p.add_argument(
         "--register_timeout", type=float, default=120.0,
@@ -134,18 +140,21 @@ def set_parser(subparsers) -> None:
     )
     p.add_argument(
         "--runtime", choices=["spmd", "host"], default="spmd",
-        help="host: message-driven agents over TCP — each agent runs "
-        "only its placed computations, exchanging simple_repr JSON "
-        "messages (the reference's heterogeneous deployment; only "
-        "accel agents need a device).  spmd (the default, the sharded "
-        "batched engine) is not ported yet: ROADMAP A15b.2",
+        help="spmd (default): the batched engine over a torch."
+        "distributed process group, one process a shard, every process "
+        "computing its shard of the problem in lockstep.  host: "
+        "message-driven agents over TCP — each agent runs only its "
+        "placed computations, exchanging simple_repr JSON messages "
+        "(the reference's heterogeneous deployment; only accel agents "
+        "need a device)",
     )
     p.add_argument(
         "--device", default=None,
-        help="--runtime host --ktarget: where a migration solves its "
-        "reparation DCOP; 'cpu' to run it on the CPU; default: the CUDA "
-        "device (the run fails when there is none).  The agents take "
-        "their own --device",
+        help="--runtime spmd: where this process's shard runs (--elastic:"
+        " its worker's); --runtime host --ktarget: where a migration "
+        "solves its reparation DCOP.  Default: the CUDA device (the run "
+        "fails when there is none); 'cpu' only when asked for.  The "
+        "agents take their own --device",
     )
     add_collect_arguments(p)
     add_trace_arguments(p)
@@ -206,12 +215,11 @@ def run_cmd(args) -> int:
                 "processes — use `pydcop_tpu fleet --chaos` "
                 "(docs/faults.md)"
             )
-    if args.runtime != "host":
-        raise NotImplementedError(
-            "orchestrator --runtime spmd (the sharded batched solve, "
-            "with --elastic and --scenario) is not ported yet — see "
-            "ROADMAP.md, A15b.2; use --runtime host"
-        )
+    if args.runtime == "spmd" and not args.elastic:
+        # rank 0 runs here: no card fails before the problem is parsed
+        from pydcop_tpu_torch.parallel.distributed import rank_device
+
+        rank_device(args.device, 0)
     placement = None
     dist_name = None
     if args.distribution:
@@ -256,12 +264,94 @@ def run_cmd(args) -> int:
                 raise SystemExit(f"orchestrator: {e}")
             dist_name = args.distribution
 
-    # load (merging multi-file specs); the host runtime serializes it
-    # for its deploy messages
+    # load (merging multi-file specs); the SPMD runtimes re-dump ONE
+    # self-contained yaml text for their deploy messages below — the
+    # host runtime serializes internally
     dcop = load_dcop_from_file(
         args.dcop_files if len(args.dcop_files) > 1 else args.dcop_files[0]
     )
 
+    scenario_yaml = None
+    if args.scenario:
+        with open(args.scenario) as f:
+            scenario_yaml = f.read()
+
+    if args.runtime == "host":
+        return _run_host(args, dcop, dist_name, placement)
+
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml as dump_yaml
+
+    dcop_yaml = dump_yaml(dcop)
+
+    if args.elastic:
+        from pydcop_tpu_torch.infrastructure.elastic import (
+            run_elastic_orchestrator,
+        )
+
+        if args.scenario:
+            raise SystemExit(
+                "orchestrator: --elastic and --scenario are separate "
+                "dynamics modes (reactive vs scripted); use one"
+            )
+        with telemetry_session(args.trace, args.trace_format) as tel:
+            result = run_elastic_orchestrator(
+                dcop_yaml,
+                args.algo,
+                parse_algo_params(args.algo_params),
+                port=args.port,
+                nb_agents=args.nb_agents,
+                rounds=args.rounds,
+                seed=args.seed,
+                chunk_size=args.chunk_size,
+                timeout=args.timeout,
+                advertise_host=args.advertise_host,
+                heartbeat_timeout=args.heartbeat_timeout,
+                k_target=args.ktarget,
+                ui_port=args.uiport,
+                abort_grace=args.abort_grace,
+                first_barrier_min=args.first_barrier_min,
+                device="cuda" if args.device is None else args.device,
+            )
+            result["telemetry"] = tel.summary()
+        write_result(args, result)
+        return 0
+
+    from pydcop_tpu_torch.infrastructure.orchestrator import run_orchestrator
+
+    with telemetry_session(args.trace, args.trace_format) as tel:
+        result = run_orchestrator(
+            dcop_yaml,
+            args.algo,
+            parse_algo_params(args.algo_params),
+            port=args.port,
+            nb_agents=args.nb_agents,
+            rounds=args.rounds,
+            seed=args.seed,
+            chunk_size=args.chunk_size,
+            timeout=args.timeout,
+            advertise_host=args.advertise_host,
+            heartbeat_timeout=args.heartbeat_timeout,
+            abort_grace=args.abort_grace,
+            scenario_yaml=scenario_yaml,
+            k_target=args.ktarget,
+            ui_port=args.uiport,
+            device=args.device,
+        )
+        result["telemetry"] = tel.summary()
+    _write(args, result)
+    return 0
+
+
+def _write(args, result) -> None:
+    write_metrics(args, result)
+    result.pop("cost_trace", None)  # keep the printed JSON compact
+    result.pop("trace_subsampled", None)
+    result.pop("trace_msgs", None)
+    write_result(args, result)
+
+
+def _run_host(args, dcop, dist_name, placement) -> int:
+    """``--runtime host``: the message-driven computations over TCP."""
     from pydcop_tpu_torch.infrastructure.hostnet import (
         PlacementError,
         run_host_orchestrator,
@@ -322,9 +412,5 @@ def run_cmd(args) -> int:
             result["telemetry"] = tel.summary()
     except PlacementError as e:  # usage errors: clean exit
         raise SystemExit(f"orchestrator: {e}")
-    write_metrics(args, result)
-    result.pop("cost_trace", None)  # keep the printed JSON compact
-    result.pop("trace_subsampled", None)
-    result.pop("trace_msgs", None)
-    write_result(args, result)
+    _write(args, result)
     return 0

@@ -60,7 +60,11 @@ generator on the mesh's first device, and each shard gets its slice
 (the algorithm's ``draw_specs``; replicated otherwise).  A meshed run
 equals the unmeshed run of the same problem bit for bit.  Checkpoints
 hold the state in its global layout (``n_shards`` in the meta) and
-resume under a mesh of the same size.
+resume under a mesh of the same size.  Under a ``ProcessMesh`` (one
+process a shard, ``parallel/distributed.py``) every rank runs this same
+loop on its own view: every rank draws the whole problem's draws from a
+generator seeded alike and keeps its slice, joining the state is a
+gather, and only rank 0 writes a checkpoint.
 """
 
 from __future__ import annotations
@@ -134,7 +138,7 @@ class _Checkpointer:
     run has drawn from it) and the cost trace so far (``cost_trace``)."""
 
     def __init__(self, path, algo_module, problem, seed, chunk_size,
-                 n_restarts, gen, gen0, whole):
+                 n_restarts, gen, gen0, whole, writer=True):
         from pydcop_tpu_torch.ops.compile import problem_fingerprint
 
         self.path = path
@@ -150,6 +154,7 @@ class _Checkpointer:
         }
         self.device_type = gen.device.type
         self.whole = whole  # the run's state -> its global layout
+        self.writer = writer  # False on the ranks > 0 of a process mesh
         self.unsaved = 0
 
     def load(self, template, best_cost, best_values):
@@ -235,14 +240,17 @@ class _Checkpointer:
         rng = self.gen.get_state()
         meta = dict(self.meta, rng_device=self.device_type,
                     rng_drawn=not torch.equal(rng, self.gen0))
+        whole = self.whole(state)  # a collective under a process mesh
+        self.unsaved = 0
+        if not self.writer:
+            return
         save_checkpoint(
-            self.path, self.whole(state), best_cost, best_values, done, meta,
+            self.path, whole, best_cost, best_values, done, meta,
             static_keys=self.static,
             arrays={"rng/round": rng.numpy(),
                     "cost_trace": np.concatenate(traces) if traces
                     else np.zeros(0, dtype=np.float32)},
         )
-        self.unsaved = 0
 
 
 def _run_chunk(rounds, state, gen, n_rounds, cost_every, best_cost,
@@ -516,7 +524,8 @@ def run_batched(
     ck = None
     if checkpoint_path is not None:
         ck = _Checkpointer(checkpoint_path, algo_module, problem, seed,
-                           chunk_size, n_restarts, gen, gen0, loop.whole)
+                           chunk_size, n_restarts, gen, gen0, loop.whole,
+                           writer=getattr(mesh, "rank", 0) == 0)
         if resume and os.path.exists(checkpoint_path):
             state, best_cost, best_values, done, trace = ck.load(
                 state, best_cost, best_values)
@@ -924,7 +933,9 @@ def _run_group(holder, algo_module, params_list, seeds, *, rounds, timeout,
         loop = ShardedRounds(
             sharded, problem, algo_module, run_params,
             2 if instance_axis else 1, instance_costs, to_inst,
-            None if instance_axis else shard_stacked(stacked, mesh.devices),
+            None if instance_axis else shard_stacked(
+                stacked, [d for _, d in mesh.local],
+                [s for s, _ in mesh.local]),
         )
         run_dev = sharded.device
 

@@ -79,9 +79,10 @@ def run_dynamic(
     ``device`` is where every segment, the compiled problem and the
     reparation solves run: the CUDA device by default (raising
     ``NoCudaDeviceError`` without one), or ``"cpu"``.  With ``mesh``
-    and ``n_shards`` set (a ``parallel.Mesh`` of ``n_shards`` shards),
-    every segment's problem is compiled with that shard count (a full
-    recompile after every event) and runs sharded over the mesh.
+    and ``n_shards`` set (a ``parallel.Mesh`` of ``n_shards`` shards,
+    or a ``ProcessMesh`` of as many processes, each running this same
+    call), every segment's problem is compiled with that shard count (a
+    full recompile after every event) and runs sharded over the mesh.
     ``chunk_callback`` is forwarded to each segment's
     :func:`~pydcop_tpu_torch.engine.batched.run_batched`.
 

@@ -21,11 +21,14 @@ asynchronous algorithms' semantics are anchored to:
   processes exchanging messages over TCP, an accel agent's island on
   its own process's device;
 - ``ui``: the live observability feed (SSE ``/events`` and ``/state``)
-  of a batched or process run.
-
-The JAX package's SPMD cross-process runtime (``orchestrator`` and
-``elastic``, the sharded batched solve over a device mesh) is ROADMAP
-A15b.2.
+  of a batched or process run;
+- ``orchestrator``: the SPMD cross-process runtime (the
+  ``orchestrator``/``agent --runtime spmd`` commands) — every process
+  a shard of the sharded batched solve over a ``torch.distributed``
+  process group, under a TCP control plane;
+- ``elastic``: the same, re-forming the process group on the
+  survivors when an agent dies (``orchestrator --elastic`` and the
+  ``worker`` command).
 """
 
 from pydcop_tpu_torch.infrastructure.computations import (  # noqa: F401

@@ -1540,15 +1540,20 @@ def shard_view(
 
 
 def shard_stacked(
-    stacked: StackedProblem, devices: Sequence[torch.device]
+    stacked: StackedProblem, devices: Sequence[torch.device],
+    shards: Optional[Sequence[int]] = None,
 ) -> Tuple[StackedProblem, ...]:
     """A stacked group of ``n_shards > 1`` problems as one stacked view
     per shard, shard s on ``devices[s]``: the instances'
-    :func:`shard_view` over slot tables of one width, stacked again."""
+    :func:`shard_view` over slot tables of one width, stacked again.
+    ``shards`` names the shards to build, one a device (default: all,
+    in order)."""
     hosts = stacked.host_problems
     tables = slot_tables(hosts)
     views = []
-    for s, dev in enumerate(devices):
+    if shards is None:
+        shards = range(len(devices))
+    for s, dev in zip(shards, devices):
         members = [
             shard_view(hp, s, dev, slots=tables[s], member=i)
             for i, hp in enumerate(hosts)

@@ -1,5 +1,13 @@
-"""Sharded runs over a shard mesh (port of ``pydcop_tpu/parallel``)."""
+"""Sharded runs over a shard mesh (port of ``pydcop_tpu/parallel``): a
+:class:`Mesh` of shards in one process, or a :class:`ProcessMesh`, one
+process a shard over ``torch.distributed``."""
 
+from pydcop_tpu_torch.parallel.distributed import (
+    CollectiveError,
+    ProcessMesh,
+    init_process_mesh,
+    rank_device,
+)
 from pydcop_tpu_torch.parallel.mesh import (
     SHARD_AXIS,
     Mesh,
@@ -14,12 +22,16 @@ from pydcop_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "SHARD_AXIS",
+    "CollectiveError",
     "Mesh",
     "P",
+    "ProcessMesh",
     "ShardAxis",
     "ShardedProblem",
+    "init_process_mesh",
     "make_mesh",
     "problem_pspecs",
+    "rank_device",
     "shard_problem",
     "state_pspecs",
 ]

@@ -108,13 +108,27 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def local(self):
+        """``(shard, device)`` of the shards this process runs: all of
+        them."""
+        return tuple(enumerate(self.devices))
+
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every shard's tensor in shard order: ``parts`` already holds
+        them (a :class:`~pydcop_tpu_torch.parallel.distributed.
+        ProcessMesh` gathers them from the other ranks)."""
+        return list(parts)
 
     def run(self, fn: Callable[[int, "ShardAxis"], Any]) -> List[Any]:
         """``fn(index, axis)`` in one thread per shard (the thread's
         current CUDA device is the shard's); returns the results in
-        shard order.  One call at a time per mesh.  A shard's exception
+        shard order.  ``index`` is the shard's position in
+        :attr:`local`, here its shard index too.  One call at a time
+        per mesh.  A shard's exception
         breaks the barrier and is raised here, its traceback's frames
         cleared so that no shard's tensors outlive the failure."""
         with self._lock:
@@ -275,8 +289,10 @@ def state_pspecs(algo_module, problem) -> Dict[str, Any]:
 @dataclasses.dataclass
 class ShardedProblem:
     """A problem placed on a mesh: ``problem`` is the whole problem as
-    compiled (or a stacked group of them), ``views[s]`` shard s's view on
-    ``mesh.devices[s]``."""
+    compiled (or a stacked group of them), ``views`` the views of the
+    shards this process runs (``mesh.local``: every shard of a
+    :class:`Mesh`, the rank's own of a ``ProcessMesh``), each on its
+    device."""
 
     problem: Union[CompiledProblem, StackedProblem]
     mesh: Mesh
@@ -288,15 +304,17 @@ class ShardedProblem:
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.devices[0]
+        """The device of the first local shard."""
+        return self.mesh.local[0][1]
 
     def split(self, tree: Dict[str, Any], specs: Dict[str, Any],
               lead: int = 0, unbatched=()) -> List[Dict[str, Any]]:
-        """Shard s's part of each tensor of ``tree`` on its device, by
-        ``specs`` (a missing key is replicated); ``lead`` batch axes are
-        prepended to the spec of every key not in ``unbatched``."""
+        """Each local shard's part of each tensor of ``tree`` on its
+        device, by ``specs`` (a missing key is replicated); ``lead``
+        batch axes are prepended to the spec of every key not in
+        ``unbatched``."""
         out = []
-        for s, dev in enumerate(self.mesh.devices):
+        for s, dev in self.mesh.local:
             part = {}
             for k, x in tree.items():
                 if not isinstance(x, torch.Tensor):
@@ -312,9 +330,11 @@ class ShardedProblem:
 
     def join(self, parts: List[Dict[str, Any]], specs: Dict[str, Any],
              lead: int = 0, device=None, unbatched=()) -> Dict[str, Any]:
-        """The inverse of :meth:`split` on ``device`` (default: shard
-        0's): split leaves concatenated in shard order, replicated ones
-        taken from shard 0."""
+        """The inverse of :meth:`split` on ``device`` (default: the
+        first local shard's): split leaves concatenated in shard order
+        (gathered from the other ranks under a ``ProcessMesh``: a
+        collective), replicated ones taken from the first local
+        shard."""
         dev = torch.device(device) if device is not None else self.device
         out = {}
         for k, x0 in parts[0].items():
@@ -325,7 +345,8 @@ class ShardedProblem:
             if dim is None:
                 out[k] = x0.to(dev)
             else:
-                out[k] = torch.cat([p[k].to(dev) for p in parts], dim)
+                pieces = self.mesh.gather([p[k] for p in parts])
+                out[k] = torch.cat([x.to(dev) for x in pieces], dim)
         return out
 
 
@@ -337,12 +358,14 @@ def _dim(spec, lead: int) -> Optional[int]:
 
 
 def check_mesh(n_shards: int, mesh) -> None:
-    """Refuse what is not a :class:`Mesh`, and a mesh whose size is not
-    the problem's shard count."""
-    if not isinstance(mesh, Mesh):
+    """Refuse what is not a :class:`Mesh` or a ``ProcessMesh``, and a
+    mesh whose size is not the problem's shard count."""
+    from pydcop_tpu_torch.parallel.distributed import ProcessMesh
+
+    if not isinstance(mesh, (Mesh, ProcessMesh)):
         raise TypeError(
-            f"mesh must be a pydcop_tpu_torch.parallel.Mesh, got "
-            f"{type(mesh).__name__}"
+            f"mesh must be a pydcop_tpu_torch.parallel.Mesh or "
+            f"ProcessMesh, got {type(mesh).__name__}"
         )
     if n_shards != mesh.size:
         raise ValueError(
@@ -352,19 +375,22 @@ def check_mesh(n_shards: int, mesh) -> None:
         )
 
 
-def shard_problem(problem, mesh: Mesh) -> ShardedProblem:
+def shard_problem(problem, mesh) -> ShardedProblem:
     """Place an ``n_shards``-compiled problem (or a stacked group of
-    them) on ``mesh``: one view per shard on its device."""
+    them) on ``mesh``: one view per local shard on its device (under a
+    ``ProcessMesh``, the rank's own view only)."""
     check_mesh(problem.n_shards, mesh)
+    shards = [s for s, _ in mesh.local]
+    devices = [d for _, d in mesh.local]
     if mesh.size == 1:
-        views = (problem.to(mesh.devices[0]) if isinstance(
+        views = (problem.to(devices[0]) if isinstance(
             problem, CompiledProblem) else problem,)
     elif isinstance(problem, StackedProblem):
-        views = shard_stacked(problem, mesh.devices)
+        views = shard_stacked(problem, devices, shards)
     else:
         tables = slot_tables([problem])
         views = tuple(
             shard_view(problem, s, dev, slots=tables[s])
-            for s, dev in enumerate(mesh.devices)
+            for s, dev in zip(shards, devices)
         )
     return ShardedProblem(problem=problem, mesh=mesh, views=views)

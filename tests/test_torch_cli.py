@@ -41,12 +41,15 @@ SECP = ["generate", "secp", "--nb_lights", "4", "--nb_models", "3",
 A15_SOLVE_FLAGS = set()
 #: the port's own flags: the card or the CPU, on the commands that run on
 #: a device (infer's --device is the JAX offload policy; fleet passes
-#: --device to its serve replicas; an agent's island and the
-#: orchestrator's reparation solve take theirs)
+#: --device to its serve replicas; an agent's island or shard and the
+#: orchestrator's shard or reparation solve take theirs; an elastic
+#: worker takes its supervisor's, and rank 0's the socket its store
+#: listens on)
 DEVICE_FLAGS = {"solve": {"--device"}, "run": {"--device"},
                 "batch": {"--device"}, "serve": {"--device"},
                 "fleet": {"--device"}, "infer": {"--torch_device"},
-                "agent": {"--device"}, "orchestrator": {"--device"}}
+                "agent": {"--device"}, "orchestrator": {"--device"},
+                "worker": {"--device", "--store-fd"}}
 
 
 def _subparsers(parser):
@@ -70,8 +73,8 @@ def test_registry_is_the_jax_order_of_the_ported_commands():
     names = set(_subparsers(port_parser()).choices)
     assert names == {"solve", "infer", "run", "graph", "distribute",
                      "generate", "batch", "consolidate", "replica_dist",
-                     "orchestrator", "agent", "serve", "fleet", "top",
-                     "trace-summary", "flight-dump"}
+                     "orchestrator", "agent", "worker", "serve",
+                     "fleet", "top", "trace-summary", "flight-dump"}
 
 
 def test_flag_sets_equal_but_the_named_exclusions():

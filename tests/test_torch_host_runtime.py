@@ -531,19 +531,54 @@ def test_refusals_equal_jax(mode, kw):
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["agent", "--names", "a1", "--orchestrator", "localhost:1"],
+    (["agent", "--names", "a1", "--orchestrator", "127.0.0.1:{port}"],
      "agent --runtime spmd"),
     (["orchestrator", COLORING, "-a", "maxsum"],
      "orchestrator --runtime spmd"),
 ])
 def test_unported_parts_name_a15b(argv, where):
-    """Process mode and the live feed run since A15b.1; the SPMD runtime
-    (the JAX package's default ``--runtime``) is A15b.2."""
-    from pydcop_tpu_torch.cli import main
+    """The SPMD runtime (the default ``--runtime``, ported since A15b.2)
+    with the default ``--device`` on a machine without CUDA raises
+    ``NoCudaDeviceError`` and never runs on the CPU: the orchestrator
+    before it parses the problem, the agent on its deploy, before it
+    joins the process group (a stand-in orchestrator deploys to it and
+    sees no chunk)."""
+    import socket
+    import threading
 
-    with pytest.raises(NotImplementedError, match="A15b.2") as info:
-        main(argv)
-    assert where in str(info.value)
+    from pydcop_tpu_torch.cli import main
+    from pydcop_tpu_torch.device import NoCudaDeviceError
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    assert where.split()[0] == argv[0]
+    seen = []
+    with socket.create_server(("127.0.0.1", 0)) as server:
+        server.settimeout(30)
+
+        def deploy():  # one agent: register, a static deploy, listen
+            conn, _ = server.accept()
+            with conn, conn.makefile("rb") as reader:
+                seen.append(json.loads(reader.readline()))
+                conn.sendall((json.dumps({
+                    "type": "deploy", "dcop_yaml": open(COLORING).read(),
+                    "algo": "maxsum", "params": {}, "rounds": 8, "seed": 0,
+                    "chunk_size": 4, "num_processes": 2, "process_id": 1,
+                    "coordinator": "127.0.0.1:1", "heartbeat_timeout": 5,
+                    "abort_grace": 5,
+                }) + "\n").encode())
+                seen.extend(json.loads(line) for line in reader)
+
+        stand_in = threading.Thread(target=deploy, daemon=True)
+        if argv[0] == "agent":
+            stand_in.start()
+        port = server.getsockname()[1]
+        with pytest.raises(NoCudaDeviceError):
+            main([a.format(port=port) for a in argv])
+        if argv[0] == "agent":
+            stand_in.join(30)
+            assert not stand_in.is_alive()
+            assert [m["type"] for m in seen] == ["register"]
 
 
 def test_host_mode_needs_a_card_or_the_cpu():
