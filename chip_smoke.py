@@ -6,11 +6,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits nonzero; nothing is
-caught and passed over).  Phases 1-9 run one after another.  Then four
+caught and passed over).  Phases 1-9 run one after another.  Then five
 child processes on the same card, running phases 14-16, phases 17-18,
-phase 19 and phase 20, start beside phases 10-13 (host Python, most of
-all eleven): their lines follow phase 13's, and a child's failure fails
-the script.  Phase 21 runs after them, alone, in a fifth child process.
+phase 19, phase 20 and phase 22, start beside phases 10-13 (host Python,
+most of all twelve): their lines follow phase 13's, and a child's
+failure fails the script.  Phase 21 runs after them, alone, in a sixth
+child process.
 
 1. Device and build: the card's name and power limit, then the port's
    CUDA kernels built from ``pydcop_tpu_torch/csrc`` with nvcc, and one
@@ -572,7 +573,19 @@ the script.  Phase 21 runs after them, alone, in a fifth child process.
    tests' scenario (``--scenario``, ``--ktarget 1``, the 24-agent
    12-ring) over 2 ranks, equal to ``run_dynamic`` over ``Mesh([cuda:0]
    * 2)`` in every key but the times.
-22. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
+22. The tooling commands on a machine without jax, one JSON line a
+   cell.  22a: ``python -m pydcop_tpu_torch lint --json`` in a child
+   process on the checkout: ``ok``, no finding, the port's 14 rules,
+   ``scan_seconds`` under 30 s (the lane shares the host's cores), and
+   neither torch nor jax loaded by the run.  22b: 20 interleaved A/A pairs of one sample each, the device
+   time (:func:`device_ms`) of the same q-update launch at coloring-1M
+   (the gathered form, phase 6's edge index), through ``bench-compare
+   --pairs --json``: exit 0, verdict ``noise``, the JAX command's JSON
+   keys.  22c: those 40 samples as ledger rows (one stage, 20 rounds) in
+   a temporary directory, ``bench-history --now`` on them twice: exit 0
+   and the same bytes both times.  Its launches are timings, not a main
+   path: none is counted.
+23. One ``{"kernels": [...]}`` JSON line (each kernel at its main-path
    shape, the q update in its gathered form, each kernel's lane-tile
    instance as ``<kernel>.runtime_d`` at phase 5's, and phase 9a's
    batched instances with the launches of phase 9's paths; the launches
@@ -8217,7 +8230,171 @@ def spmd_phase(torch, mk, dev, card):
     return counts
 
 
-# -- the lanes: phases 14-16, 17-18, 19 and 20 beside phases 10-13; 21 after -
+# -- phase 22: the tooling commands on the card's machine --------------------
+
+#: the port's lint rules (``pydcop_tpu_torch/lint/rules.py:RULES``)
+LINT_RULES = [
+    "chaos-clause-doc", "chaos-inert-field", "chaos-symmetry",
+    "cuda-atomics", "impure-call", "jax-import", "kernel-build-site",
+    "lazy-init-eager-import", "metric-stale-doc", "metric-undocumented",
+    "set-iteration", "span-undocumented", "torch-import-surface",
+    "unseeded-random",
+]
+#: the JSON keys of ``pydcop_tpu bench-compare --pairs F --json``
+COMPARE_KEYS = [
+    "alpha", "ci", "ci_excludes_one", "conf", "higher_is_better",
+    "max_ratio", "median_ratio", "min_ratio", "n_above", "n_below",
+    "n_boot", "n_pairs", "name", "noise_floor", "p_sign", "seed",
+    "verdict",
+]
+#: 22a's gate on the scan (about 3 s on a quiet host; this lane shares
+#: the host's cores with five other processes)
+LINT_SCAN_S = 30.0
+LINT_PROBE = r"""
+import json, sys, time
+from pydcop_tpu_torch.cli import main
+t0 = time.perf_counter()
+rc = main(["lint", "--json"])
+print(json.dumps({"rc": rc, "seconds": time.perf_counter() - t0,
+                  "torch": "torch" in sys.modules,
+                  "jax": "jax" in sys.modules}))
+"""
+
+
+def port_cli(*argv, timeout=120):
+    """``python -m pydcop_tpu_torch <argv>`` in a child process on this
+    checkout: (exit code, stdout)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pydcop_tpu_torch", *argv], cwd=HERE,
+        capture_output=True, text=True, timeout=timeout,
+    )
+    return proc.returncode, proc.stdout
+
+
+def lint_cell():
+    """22a: the port's lint in a child process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LINT_PROBE], cwd=HERE,
+                          capture_output=True, text=True, timeout=120)
+    wall = time.perf_counter() - t0
+    text = proc.stdout
+    if proc.returncode != 0 or "\n{" not in text:
+        raise AssertionError(f"22a lint exited {proc.returncode}: "
+                             f"{text[-2000:]}{proc.stderr[-2000:]}")
+    run = json.loads(text.strip().splitlines()[-1])
+    report = json.loads(text[: text.rindex("\n{")])
+    if not (run["rc"] == 0 and report["ok"] and not report["findings"]
+            and not report["stale"] and report["rules"] == LINT_RULES
+            and 0 < report["scan_seconds"] < LINT_SCAN_S
+            and not run["torch"] and not run["jax"]):
+        raise AssertionError(f"22a lint: {run} {report}")
+    emit("22a", "lint", rc=run["rc"], ok=report["ok"],
+         rules=len(report["rules"]), baselined=report["baselined"],
+         scan_seconds=report["scan_seconds"], command_seconds=run["seconds"],
+         wall_seconds=wall, torch_loaded=run["torch"],
+         jax_loaded=run["jax"])
+
+
+def q_update_pairs(torch, mk, dev, n_pairs=20):
+    """22b's samples: the device time of the q update's gathered launch
+    at coloring-1M, A and B the same launch, interleaved (B first on
+    odd pairs)."""
+    import numpy as np
+
+    from pydcop_tpu_torch.ops.generate import coloring_arrays
+
+    s5, _, _ = coloring_arrays(1_000_000, colors=3, degree=3, seed=1)
+    ev = torch.from_numpy(np.concatenate([s5[:, 0], s5[:, 1]])).to(dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    d, e = 3, ev.shape[0]
+    belief = torch.rand(d, 1_000_000, generator=g, device=dev) * 5.0
+    r = torch.rand(d, e, generator=g, device=dev)
+    q = torch.rand(d, e, generator=g, device=dev)
+
+    def launch():
+        return mk.q_update(belief, ev, r, q, 0.5, False)
+
+    a, b = [], []
+    for i in range(n_pairs):
+        for arm in ((a, b) if i % 2 == 0 else (b, a)):
+            arm.append(device_ms(torch, launch))
+    return a, b, e
+
+
+def history_rows(a, b, card):
+    """22c's ledger: each pair a round (``tools/benchkeeper`` row schema:
+    its status row and the two samples), an hour apart from
+    2026-01-01."""
+    import platform
+
+    if str(HERE / "tools") not in sys.path:
+        sys.path.insert(0, str(HERE / "tools"))
+    from benchkeeper import ledger
+
+    fp = ledger.null_fingerprint(backend="gpu", device_kind=card,
+                                 python=platform.python_version())
+    rows = []
+    for i, pair in enumerate(zip(a, b)):
+        ts = ledger.format_ts(1767225600 + 3600 * i)
+        rows.append(ledger.make_row(  # the round's status row: exit 0
+            ts=ts, source="chip_smoke", stage="bench_round", metric="rc",
+            value=0.0, unit="code", higher_is_better=False, fingerprint=fp,
+            round_name=f"r{i + 1:02d}", extra={"parsed": True},
+        ))
+        for metric, ms in zip(("device_ms_a", "device_ms_b"), pair):
+            rows.append(ledger.make_row(
+                ts=ts, source="chip_smoke", stage="q_update_coloring_1m",
+                metric=metric, value=ms, unit="ms", higher_is_better=False,
+                fingerprint=fp, round_name=f"r{i + 1:02d}",
+            ))
+    return ledger, rows, ledger.format_ts(1767225600 + 3600 * len(a))
+
+
+def tooling_phase(torch, mk, dev, card):
+    """Phase 22 (see the module docstring)."""
+    import tempfile
+
+    CARD["card"] = card
+    t_phase = time.perf_counter()
+    lint_cell()
+    t0 = time.perf_counter()
+    a, b, e = q_update_pairs(torch, mk, dev)
+    sample_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = Path(tmp) / "pairs.json"
+        pairs.write_text(json.dumps({
+            "baseline": a, "candidate": b, "higher_is_better": False,
+            "name": "q_update coloring-1M A/A",
+        }))
+        rc, out = port_cli("bench-compare", "--pairs", str(pairs), "--json")
+        doc = json.loads(out) if out.strip() else {}
+        if rc != 0 or doc.get("verdict") != "noise" or sorted(
+                doc) != COMPARE_KEYS:
+            raise AssertionError(f"22b bench-compare exited {rc}: {out}")
+        emit("22b", "bench-compare-q_update-coloring-1M-AA", rc=rc,
+             verdict=doc["verdict"], n_pairs=doc["n_pairs"],
+             median_ratio=doc["median_ratio"], ci=doc["ci"],
+             p_sign=doc["p_sign"], edges=e,
+             a_ms_median=statistics.median(a),
+             b_ms_median=statistics.median(b), a_ms=a, b_ms=b,
+             sample_seconds=sample_s)
+        ledger, rows, now = history_rows(a, b, card)
+        path = str(Path(tmp) / "ledger.jsonl")
+        ledger.write_ledger(path, rows)
+        runs = [port_cli("bench-history", "--ledger", path, "--now", now)
+                for _ in range(2)]
+        text = runs[0][1]
+        if any(rc != 0 for rc, _ in runs) or text != runs[1][1] or (
+                "q_update_coloring_1m/device_ms_a" not in text
+                or f"{len(rows)} rows, {len(a)} rounds" not in text):
+            raise AssertionError(f"22c bench-history: {runs}")
+        emit("22c", "bench-history-twice", rcs=[rc for rc, _ in runs],
+             same_bytes=True, rows=len(rows), stdout_bytes=len(text),
+             now=now)
+    emit("22", "phase", seconds=time.perf_counter() - t_phase)
+
+
+# -- the lanes: phases 14-16, 17-18, 19, 20 and 22 beside phases 10-13; 21 after
 
 LANE_WAIT = 900.0  # seconds a lane may run past the end of phase 13
 
@@ -8269,6 +8446,15 @@ def lane_20(card, rate):
                            None if rate == "None" else float(rate))
     print(f"phase 20 seconds={time.perf_counter() - t20}")
     print(json.dumps({"lane_launches": [counts]}), flush=True)
+
+
+def lane_22(card):
+    """Phase 22 in a child process (see :func:`start_lane`)."""
+    torch, mk, dev = _lane_device()
+    t22 = time.perf_counter()
+    tooling_phase(torch, mk, dev, card)
+    print(f"phase 22 seconds={time.perf_counter() - t22}")
+    print(json.dumps({"lane_launches": [{}]}), flush=True)
 
 
 def lane_21(card):
@@ -8544,13 +8730,14 @@ def main() -> int:
     )
     print(f"phase 9 seconds={time.perf_counter() - t9}")
 
-    # -- 14-16, 17-18, 19 and 20: four child processes on the card,
+    # -- 14-16, 17-18, 19, 20 and 22: five child processes on the card,
     # beside 10-13 --------------------------------------------------------
     rate = MAIN_PATH_RATES.get("coloring-10k")
     lanes = [start_lane("lane_14_16", card, str(rate)),
              start_lane("lane_17_18", card), start_lane("lane_19", card),
              start_lane("lane_20", card,
-                        str(MAIN_PATH_RATES.get("coloring-1M")))]
+                        str(MAIN_PATH_RATES.get("coloring-1M"))),
+             start_lane("lane_22", card)]
     try:
         # -- 10. exact inference ------------------------------------------
         t10 = time.perf_counter()
@@ -8578,16 +8765,17 @@ def main() -> int:
         hcounts, = join_lane(lanes[1])
         pcounts, = join_lane(lanes[2])
         mcounts, = join_lane(lanes[3])
+        join_lane(lanes[4])  # 22: timings only, no main-path launch
         # -- 21: alone after them (its rank processes time-slice the
         # card and share the host's cores; beside 10-20 they slowed
         # every phase) --------------------------------------------------
         lanes.append(start_lane("lane_21", card))
-        rcounts, = join_lane(lanes[4])
+        rcounts, = join_lane(lanes[5])
     finally:
         for lane in lanes:
             stop(lane[1])
 
-    # -- 22. summary ------------------------------------------------------
+    # -- 23. summary ------------------------------------------------------
     kernels = []
     main_shape = {  # entry: (kernel, d, width, case, main-path launches)
         "factor_round_binary_shared": (

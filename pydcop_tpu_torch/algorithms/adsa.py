@@ -93,6 +93,12 @@ def apply(
 step = draw_apply_step(draws, apply)
 
 
+def values_from_state(state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The assignment a state holds (``i32[n_vars]``, or ``[K, n_vars]``
+    under restarts): the algorithm contract's result readout."""
+    return state["values"]
+
+
 def messages_per_round(
     problem: CompiledProblem, params: Optional[Dict[str, Any]] = None
 ) -> int:

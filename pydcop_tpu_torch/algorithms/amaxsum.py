@@ -54,6 +54,7 @@ algo_params = [
 # state layout (and its batch axes) and footprints are synchronous
 # Max-Sum's
 init_state = _maxsum.init_state
+values_from_state = _maxsum.values_from_state
 state_specs = _maxsum.state_specs
 INSTANCE_AXIS = _maxsum.INSTANCE_AXIS
 computation_memory = _maxsum.computation_memory

@@ -1,17 +1,19 @@
 """Command-line interface: ``python -m pydcop_tpu_torch <command> ...``.
 
-The port's subset of ``pydcop_tpu/cli.py``: one module per subcommand
-under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``, ``run``,
-``graph``, ``distribute``, ``generate``, ``batch``, ``consolidate``,
-``replica_dist``, ``orchestrator``, ``agent``, ``worker``, ``serve``,
-``fleet``, ``top``, ``trace-summary`` and ``flight-dump``.  Not ported:
-``lint``, ``bench-history`` and ``bench-compare`` (ROADMAP A20).  The
-global options (``-v``,
-``--log``, ``-t``/``--timeout``, ``--output``) are accepted before and
-after the subcommand, as in the JAX package.  The commands that touch
-the card take ``--device`` (``--torch_device`` on ``infer``, whose
-``--device`` is the JAX package's offload policy; on ``agent`` it is
-where an accel agent's island or the process's shard runs).
+The port of ``pydcop_tpu/cli.py``, with its 20 commands: one module per
+subcommand under ``pydcop_tpu_torch/commands/``: ``solve``, ``infer``,
+``run``, ``graph``, ``distribute``, ``generate``, ``batch``,
+``consolidate``, ``replica_dist``, ``orchestrator``, ``agent``,
+``worker``, ``serve``, ``fleet``, ``top``, ``lint`` (the port's own
+contract, ``pydcop_tpu_torch/lint/``), ``trace-summary``,
+``flight-dump``, ``bench-history`` and ``bench-compare`` (``lint`` and
+the bench commands drive the stdlib tools under ``tools/``, so they run
+from a source checkout).  The global options (``-v``, ``--log``,
+``-t``/``--timeout``, ``--output``) are accepted before and after the
+subcommand, as in the JAX package.  The commands that touch the card
+take ``--device`` (``--torch_device`` on ``infer``, whose ``--device``
+is the JAX package's offload policy; on ``agent`` it is where an accel
+agent's island or the process's shard runs).
 """
 
 from __future__ import annotations
@@ -43,10 +45,16 @@ COMMANDS = [
     "fleet",
     # live terminal view of a serve --metrics_port exporter
     "top",
+    # the port's lint contract (pydcop_tpu_torch/lint, tools/graftlint)
+    "lint",
     # module trace_summary registers the subcommand as `trace-summary`
     "trace_summary",
     # module flight_dump registers the subcommand as `flight-dump`
     "flight_dump",
+    # the bench ledger tooling (tools/benchkeeper) — modules register
+    # the subcommands as `bench-history` / `bench-compare`
+    "bench_history",
+    "bench_compare",
 ]
 
 

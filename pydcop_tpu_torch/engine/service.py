@@ -3380,6 +3380,7 @@ class ServiceClient:
         # previous life's keys and replay ITS cached replies.  The
         # nonce scopes the keys to this instance; chaos scopes key on
         # client_id alone, so determinism is untouched.
+        # graftlint: allow[impure-call] — entropy is the point here
         self._ikey_nonce = os.urandom(4).hex()
         self._sock: Optional[socket.socket] = None
         self._reader = None

@@ -74,7 +74,8 @@ def test_registry_is_the_jax_order_of_the_ported_commands():
     assert names == {"solve", "infer", "run", "graph", "distribute",
                      "generate", "batch", "consolidate", "replica_dist",
                      "orchestrator", "agent", "worker", "serve",
-                     "fleet", "top", "trace-summary", "flight-dump"}
+                     "fleet", "top", "lint", "trace-summary",
+                     "flight-dump", "bench-history", "bench-compare"}
 
 
 def test_flag_sets_equal_but_the_named_exclusions():
